@@ -1,0 +1,105 @@
+"""Build and load the port's hand-written kernels, and count their launches.
+
+CUDA sources in ``sarssl_torch/csrc/`` are compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+into ``sarssl_torch/_build/`` (git-ignored), keyed by a hash of the source
+and the flags, and loaded with ``ctypes``. Triton keeps its cache in the same
+directory. Nothing is built when a module is imported.
+
+``launches`` counts kernel launches by name (the attention kernels by head
+dim, e.g. ``attention_fwd_d128``): each wrapper adds one where it launches its
+kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile ``csrc/<name>.cu`` for each name (default: every source) that
+    has no build of the same source yet, one ``nvcc`` process per source,
+    all started together. Returns each name's compiler output (empty when
+    the build was already there)."""
+    srcs = ([CSRC_DIR / f"{n}.cu" for n in names] if names is not None
+            else sorted(CSRC_DIR.glob("*.cu")))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs, procs = {}, {}
+    for src in srcs:
+        out = _target(src)
+        if out.exists():
+            logs[src.stem] = ""
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n}.cu\n{logs[n]}" for n in failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    build_all([name])
+    return ctypes.CDLL(str(_target(CSRC_DIR / f"{name}.cu")))
+
+
+def import_triton():
+    """Import Triton with its cache under the build directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    return triton, tl
+
+
+def check_cuda_status(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error; each library exports
+    ``error_string(int)`` (``cudaGetErrorString``)."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} "
+                           f"({lib.error_string(code).decode()})")

@@ -1,0 +1,11 @@
+from .common import BatchNorm, Dense, Dropout, LayerNorm
+from .conformer import (ConformerBlock, ConformerEncoder, ConvModule, FeedForwardModule,
+                        RelPosSelfAttention, sinusoid_position_encoding)
+from .decoder import EmbedDecoder
+from .encoder import CNNFrontEnd, EmbedEncoder
+from .sarssl import SARSSL, SARSSLConfig
+
+__all__ = ["BatchNorm", "Dense", "Dropout", "LayerNorm", "ConformerBlock",
+           "ConformerEncoder", "ConvModule", "FeedForwardModule", "RelPosSelfAttention",
+           "sinusoid_position_encoding", "EmbedDecoder", "CNNFrontEnd", "EmbedEncoder",
+           "SARSSL", "SARSSLConfig"]

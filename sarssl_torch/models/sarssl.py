@@ -1,0 +1,161 @@
+"""SAR-SSL pretext model (port of ``sarssl_tpu/models/sarssl.py``).
+
+Dual encoder (spec + spat, each a CNN front end and a conformer) with
+cross-channel masked spectrogram reconstruction, for ``in_ver="separate"``:
+
+  spec-encoder input = masked frames of the kept channel
+                       + unmasked frames of the masked channel;
+  spat-encoder input = both channels on unmasked frames only;
+  the MLP decoder predicts every patch of every channel; the loss reads the
+  masked channel on masked frames, over ``sum(mask) * dpatch * 2``.
+
+The other ``in_ver``s, ``frozen_encoder_pretext``, the downstream head
+(``embed``/``downstream``), ``MCConformer`` and ``SARSSLMultiCH`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.mask import PatchMask
+from ..ops.patches import patch_split
+from ..utils.device import resolve_device
+from .decoder import EmbedDecoder
+from .encoder import EmbedEncoder
+
+
+@dataclass(frozen=True)
+class SARSSLConfig:
+    """Copy of ``sarssl_tpu.models.SARSSLConfig`` (sarssl.py:36-89)."""
+
+    sig_shape: Tuple[int, int, int, int] = (256, 256, 2, 2)  # (nf, nt, nreim, nmic)
+    patch_shape: Tuple[int, int] = (256, 1)
+    nmasked_patch: int = 128
+    spec_dembed: int = 512
+    spat_dembed: int = 256
+    spec_layers: int = 1
+    spat_layers: int = 3
+    num_heads: int = 4
+    local_model: str = "cnn"
+    global_model: str = "conformer"
+    dec_model: Tuple[str, str] = ("", "fc")
+    dropout: float = 0.1
+    pretrain: bool = True
+    downstream_head: str = "mlp"
+    downstream_embed: str = "spec_spat"
+    downstream_dlabel: int = 1
+    frozen_encoder_pretext: bool = False
+    in_ver: str = "separate"
+    remat_cnn: bool = False
+    fused_attention: bool = False
+    use_cls: bool = False
+    downstream_token: str = "all"
+    dtype: str = "float32"
+
+    @property
+    def npatch(self) -> int:
+        nf, nt, _, _ = self.sig_shape
+        return (nf // self.patch_shape[0]) * (nt // self.patch_shape[1])
+
+    @property
+    def dpatch(self) -> int:
+        return self.patch_shape[0] * self.patch_shape[1]
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def effective_nmasked(self) -> int:
+        # the reference forces nmasked = npatch // 2
+        return self.npatch // 2
+
+    def tiny(self, **overrides) -> "SARSSLConfig":
+        """Small config for tests."""
+        base = dict(
+            sig_shape=(32, 16, 2, 2), patch_shape=(32, 1), nmasked_patch=8,
+            spec_dembed=32, spat_dembed=16, spec_layers=1, spat_layers=1,
+            num_heads=2,
+        )
+        base.update(overrides)
+        return SARSSLConfig(**{**self.__dict__, **base})
+
+
+def _check_ported(c: SARSSLConfig) -> None:
+    unported = {
+        "pretrain=False (downstream head)": not c.pretrain,
+        f"in_ver={c.in_ver!r}": c.in_ver != "separate",
+        "frozen_encoder_pretext": c.frozen_encoder_pretext,
+        "use_cls": c.use_cls,
+        "remat_cnn": c.remat_cnn,
+        f"local_model={c.local_model!r} / f-first patches":
+            c.local_model != "cnn" or c.patch_shape[1] != 1,
+        f"global_model={c.global_model!r}": c.global_model != "conformer",
+        f"dec_model={c.dec_model!r}": tuple(c.dec_model) != ("", "fc"),
+    }
+    missing = [name for name, hit in unported.items() if hit]
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+
+
+class SARSSL(nn.Module):
+    """Pretext SAR-SSL network. Built from ``torch.Generator().manual_seed(
+    seed)`` on the CPU, then moved to ``device`` (default ``"cuda"``)."""
+
+    def __init__(self, cfg: SARSSLConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        _check_ported(cfg)
+        dev = resolve_device(device)
+        self.cfg = c = cfg
+        gen = torch.Generator().manual_seed(seed)
+        dtype = c.compute_dtype
+        enc = lambda dembed, mode, layers: EmbedEncoder(
+            c.sig_shape, c.patch_shape, dembed, (c.local_model, c.global_model), mode,
+            layers, c.dropout, c.fused_attention, dtype, gen)
+        self.spec_encoder = enc(c.spec_dembed, "spec", c.spec_layers)
+        self.spat_encoder = enc(c.spat_dembed, "spat", c.spat_layers)
+        self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape,
+                                    c.spec_dembed + c.spat_dembed, c.dec_model, dtype, gen)
+        self.to(dev)
+
+    def _split(self, x):
+        # (nb, nmic, nf, nt, nreim) -> patches (nb, npatch, dpatch, nreim, nmic)
+        return patch_split(x.permute(0, 2, 3, 4, 1), self.cfg.patch_shape)
+
+    def forward(self, x, mask: PatchMask, train: bool = False, generator=None):
+        return self.pretext(x, mask, train, generator)
+
+    def pretext(self, x, mask: PatchMask, train: bool = False, generator=None):
+        """Masked cross-channel reconstruction. Returns ``(loss, diff, aux)``.
+
+        ``generator``: CPU ``torch.Generator`` for the dropout seeds (train)."""
+        c = self.cfg
+        nb, nmic = x.shape[0], x.shape[1]
+        vec = self._split(x)  # (nb, npatch, dpatch, nreim, nmic)
+        npatch, dpatch = vec.shape[1], vec.shape[2]
+        dtype = c.compute_dtype
+
+        masked = mask.patch.to(dtype)[:, :, None, None, None]
+        masked_ch = F.one_hot(mask.ch, nmic).to(dtype)[:, None, None, None, :]
+        kept_ch = 1.0 - masked_ch
+        vecc = vec.to(dtype)
+        spec_in = vecc * masked * kept_ch + vecc * (1.0 - masked) * masked_ch
+        spat_in = vecc * (1.0 - masked)
+        embed_spec = self.spec_encoder(spec_in.reshape(nb, npatch, -1), train, generator)
+        embed_spat = self.spat_encoder(spat_in.reshape(nb, npatch, -1), train, generator)
+        embed = torch.cat([embed_spec, embed_spat], dim=2)
+        pred = self.decoder(embed, train).reshape(nb, npatch, dpatch, 2, nmic)
+
+        pred_m = (pred.float() * masked_ch).sum(-1)
+        with torch.no_grad():
+            tar_m = (vec * masked_ch).sum(-1)
+            tar_k = (vec * kept_ch).sum(-1)
+        w = mask.patch.float()[:, :, None, None]
+        denom = mask.patch.sum() * dpatch * 2
+        loss = (((pred_m - tar_m) ** 2) * w).sum() / denom
+        diff = (((tar_m - tar_k) ** 2) * w).sum() / denom
+        return loss, diff, {"pred": pred, "tar": vec, "mask": mask}
