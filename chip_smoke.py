@@ -11,12 +11,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernels: each hand-written kernel against its plain PyTorch version at
               the shapes the pretext step gives it, with the tolerance stated,
               and timed with CUDA events beside its bound and a library call.
+              The conv part holds the four 3x3 conv launches (conv3x3 and
+              its s2d form, forward and dx) at the CNN front end's shape
+              (128, 256, 256, 64) bf16, plus one small f32 case, then drives
+              ``conv3x3`` / ``conv3x3_s2d`` forward and backward once with the
+              launch counts zeroed before and read after: the convs are on
+              no model path, so that is their path.
   4. ref    : a small pretext model on the card (kernels) against the same
               model on the CPU (plain versions), dropout on, same seeds.
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
               65792-sample 2-mic waves, fused attention, dropout 0.1): one
               warm-up and 5 timed steps through ``make_pretrain_step``, with
               the kernels' launch counts read around them, then one eval step.
+  6. downstream: the trunk that ``train`` just stepped, ``partial_load``ed
+              into the flagship downstream model (f32, batch 8, 16640-sample
+              waves, TDOA, dropout 0.1): finetune and lineareval (frozen
+              encoder) steps, one warm-up and 5 timed each, with the launch
+              counts read around them, and eval steps; then a small
+              downstream model on the card against the CPU.
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 """
 import json
@@ -49,6 +61,20 @@ TOL_BF16 = 2e-2
 TOL_F32 = 1e-4
 # small model on the card against the CPU, f32, TF32 off
 TOL_REF = 1e-3
+# conv kernels in bf16 against the f32 plain version: the K = 576 (s2d: 1152)
+# f32 sums are rounded once to bf16
+TOL_CONV_BF16 = 1e-2
+
+CONV_SHAPE = (128, 256, 256, 64)  # the CNN front end's 3x3 convs, (B, H, W, C)
+CONV_SMALL = (2, 37, 50, 64)  # f32 case: H and W not multiples of the tile
+CONV_LAUNCHES = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_s2d_fwd", "conv3x3_s2d_dx")
+CONV_REPLACES = {"conv3x3": "sarssl_tpu/kernels/conv3x3.py:51",
+                 "conv3x3_s2d": "sarssl_tpu/kernels/conv_s2d.py:88"}
+
+DS_BATCH = 8  # SIM_BS_SET's batch size (sarssl_tpu/config.py:49)
+DS_NSAMPLE = 16640  # 1.04 s at 16 kHz -> 64 STFT frames
+DS_FRAMES = 64
+DS_LR = 1e-3
 
 
 def log(*a):
@@ -185,28 +211,117 @@ def time_attention(D, seed, gen):
 
 
 def check_dropout(seed, gen):
+    """The kernel, forward and gradient, against the plain version bit for
+    bit at the pretext step's shape (bf16) and at the downstream step's
+    largest (f32: Triton builds another kernel for f32 pointers); timed at
+    the pretext shape."""
     from sarssl_torch.kernels import dropout_plain, hash_dropout
     from sarssl_torch.kernels.dropout import launch_dropout
 
+    err = 0.0
+    for shape, dtype in (((BATCH, SEQ, 2048), torch.bfloat16),
+                         ((DS_BATCH, DS_FRAMES, 4 * 512), torch.float32)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn_like(x)
+        xr = x.clone().requires_grad_()
+        out = hash_dropout(xr, seed, RATE)
+        (grad,) = torch.autograd.grad(out, xr, g)
+        ref, ref_grad = dropout_plain(x, seed, RATE), dropout_plain(g, seed, RATE)
+        what = f"dropout {shape} {str(dtype)[6:]}"
+        assert torch.equal(out, ref), f"{what}: kernel output differs from the plain version"
+        assert torch.equal(out != 0, ref != 0), f"{what}: masks differ"
+        assert torch.equal(grad, ref_grad), f"{what}: gradient differs from mask * 1/(1-rate)"
+        log(f"[kernels] hash_dropout {shape} {str(dtype)[6:]} rate={RATE}: output, mask "
+            f"and gradient identical to the plain version (tol: exact)")
+        err = max(err, max_abs(out, ref), max_abs(grad, ref_grad))
     x = torch.randn((BATCH, SEQ, 2048), generator=gen, device="cuda").to(torch.bfloat16)
-    g = torch.randn_like(x)
-    xr = x.clone().requires_grad_()
-    out = hash_dropout(xr, seed, RATE)
-    (grad,) = torch.autograd.grad(out, xr, g)
-    ref, ref_grad = dropout_plain(x, seed, RATE), dropout_plain(g, seed, RATE)
-    assert torch.equal(out, ref), "dropout: kernel output differs from the plain version"
-    assert torch.equal(out != 0, ref != 0), "dropout: masks differ"
-    assert torch.equal(grad, ref_grad), "dropout: gradient differs from mask * 1/(1-rate)"
-    log(f"[kernels] hash_dropout {tuple(x.shape)} bf16 rate={RATE}: output, mask and "
-        f"gradient identical to the plain version (tol: exact)")
     n = x.numel()
     return {
-        "max_abs_err": max(max_abs(out, ref), max_abs(grad, ref_grad)),
+        "max_abs_err": err,
         "ms": cuda_ms(lambda: launch_dropout(x, seed, RATE)),
         "plain_ms": cuda_ms(lambda: dropout_plain(x, seed, RATE)),
         "library_ms": cuda_ms(lambda: torch.nn.functional.dropout(x, RATE, True)),
         "bound": bound_ms(2 * n * 2, 10 * n, F32_FLOPS),
     }
+
+
+def _conv_cases():
+    """launch name -> (hand-written kernel, plain version), both of (x, w)."""
+    from sarssl_torch.kernels import conv3x3_plain, conv3x3_s2d_plain
+    from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io
+    from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd
+
+    return {
+        "conv3x3_fwd": (conv3x3_fwd, conv3x3_plain),
+        "conv3x3_dx": (conv3x3_dx, lambda dy, w: conv3x3_plain(dy, rot180_io(w))),
+        "conv3x3_s2d_fwd": (conv3x3_s2d_fwd, conv3x3_s2d_plain),
+        "conv3x3_s2d_dx": (conv3x3_s2d_dx,
+                           lambda dy, w: conv3x3_s2d_plain(dy, rot180_io(w))),
+    }
+
+
+def check_conv(gen):
+    """The four conv launches against their plain versions (f32 at a small
+    shape, bf16 at the front end's), timed beside their bound and cuDNN;
+    then the public functions' forward and backward once, counted."""
+    from sarssl_torch.kernels import conv3x3, conv3x3_s2d, launches, reset_launches
+
+    cases = _conv_cases()
+    C = CONV_SHAPE[-1]
+    for name, (kernel, plain) in cases.items():
+        x = torch.randn(CONV_SMALL, generator=gen, device="cuda")
+        w = torch.randn((3, 3, C, C), generator=gen, device="cuda") / np.sqrt(9 * C)
+        rel = rel_err(kernel(x, w), plain(x, w))
+        assert rel <= TOL_F32, f"{name} f32 {CONV_SMALL}: rel err {rel} > {TOL_F32}"
+        log(f"[kernels] {name} {CONV_SMALL} f32: rel err {rel:.2e} (tol {TOL_F32})")
+
+    x, dy = (torch.randn(CONV_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    w = (torch.randn((3, 3, C, C), generator=gen, device="cuda") / np.sqrt(9 * C)
+         ).to(torch.bfloat16)
+    # library yardstick (never called by the port): cuDNN on the NCHW
+    # (channels-last) views of the same NHWC tensors
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    lib = {
+        "fwd": cuda_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1),
+                       iters=5, warmup=2),
+        "dx": cuda_ms(lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
+                                                         padding=1), iters=5, warmup=2),
+    }
+    B, H, W, _ = CONV_SHAPE
+    # useful work of the SAME 3x3 conv; the s2d form executes twice the ops
+    bound = bound_ms(2 * x.numel() * 2 + w.numel() * 2, 2 * B * H * W * C * C * 9,
+                     BF16_FLOPS)
+    rows = {}
+    for name, (kernel, plain) in cases.items():
+        inp = dy if name.endswith("_dx") else x
+        out = kernel(inp, w)
+        ref = plain(inp.float(), w.float())
+        rel, err = rel_err(out, ref), max_abs(out, ref)
+        del out, ref
+        assert rel <= TOL_CONV_BF16, f"{name} bf16: rel err {rel} > {TOL_CONV_BF16}"
+        rows[name] = {"max_abs_err": err, "ms": cuda_ms(lambda: kernel(inp, w), iters=5, warmup=1),
+                      "plain_ms": cuda_ms(lambda: plain(inp, w), iters=2, warmup=1),
+                      "library_ms": lib["dx" if name.endswith("_dx") else "fwd"],
+                      "bound": bound}
+        r = rows[name]
+        log(f"[kernels] {name} {CONV_SHAPE} bf16: rel err {rel:.2e} abs {err:.2e} "
+            f"(tol {TOL_CONV_BF16}); {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN "
+            f"{r['library_ms']:.3f}, bound {bound[0]:.4f} by {bound[1]})")
+
+    # the convs' own path: the public functions, forward and backward
+    reset_launches()
+    for fn in (conv3x3, conv3x3_s2d):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        torch.autograd.grad(fn(xr, wr), (xr, wr), dy)
+    torch.cuda.synchronize()
+    counts = {n: launches.get(n, 0) for n in CONV_LAUNCHES}
+    log(f"[kernels] conv path (conv3x3 and conv3x3_s2d, forward + backward): launches {counts}")
+    for n, got in counts.items():
+        assert got == 1, f"{n}: {got} launches on the conv path, want 1"
+        rows[n]["launches"] = got
+    return rows
 
 
 def phase_kernels():
@@ -229,10 +344,11 @@ def phase_kernels():
     drop = check_dropout(seed, gen)
     log(f"[kernels] hash_dropout: {drop['ms']:.4f} ms (plain {drop['plain_ms']:.4f}, "
         f"F.dropout {drop['library_ms']:.4f}, bound {drop['bound'][0]:.4f})")
-    return rows, drop
+    conv = check_conv(gen)
+    return rows, drop, conv
 
 
-def kernels_line(rows, drop, counts):
+def kernels_line(rows, drop, conv, counts, ds_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -245,7 +361,7 @@ def kernels_line(rows, drop, counts):
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
-                "library_ms": r[f"lib_{kind}_ms"],
+                "library_ms": r[f"lib_{kind}_ms"], "path": "pretext train step",
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -254,7 +370,21 @@ def kernels_line(rows, drop, counts):
         "launches": counts.get("hash_dropout", 0), "max_abs_err": drop["max_abs_err"],
         "ms": drop["ms"], "plain_ms": drop["plain_ms"], "bound_ms": drop["bound"][0],
         "bound_by": drop["bound"][1], "library_ms": drop["library_ms"],
+        "path": "pretext train step (launches) and downstream finetune step "
+                "(launches_downstream)",
+        "launches_downstream": ds_counts.get("hash_dropout", 0),
     })
+    for name in CONV_LAUNCHES:
+        r = conv[name]
+        out.append({
+            "name": name, "route": "cuda", "source": "sarssl_torch/csrc/conv3x3.cu",
+            "replaces": CONV_REPLACES[name.rsplit("_", 1)[0]], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+            "path": "no model path launches it; launches counted over the conv path run "
+                    "of the kernels phase",
+        })
     return {"kernels": out}
 
 
@@ -332,7 +462,134 @@ def phase_train(card):
     ev = {k: float(v) for k, v in ev.items()}
     assert all(np.isfinite(list(ev.values()))), f"non-finite eval metrics {ev}"
     log(f"[train] eval step {ev}")
+    return counts, model
+
+
+def _timed_steps(fn, n=STEPS):
+    """One warm-up call of ``fn``, then ``n`` timed ones, each ending in a
+    synchronise; the launch counts and peak memory are read around the timed
+    calls. Returns (seconds per call, outputs, launch counts, peak GiB)."""
+    from sarssl_torch.kernels import launches, reset_launches
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, outs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, outs, dict(launches), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _log_steps(what, times, peak, card):
+    med = statistics.median(times)
+    log(f"[downstream] {what}: median step {1e3 * med:.2f} ms, {DS_BATCH / med:.1f} utt/s, "
+        f"peak memory {peak:.3f} GiB ({card})")
+
+
+def phase_downstream(card, pretrained):
+    """The flagship downstream model (run_downstream.py's default task, TDOA)
+    from the pretext trunk ``pretrained``: finetune, lineareval, eval."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import (create_train_state, make_downstream_eval_step,
+                                    make_downstream_step, partial_load,
+                                    trainable_mask_from_loaded)
+
+    cfg = SARSSLConfig(sig_shape=(256, 64, 2, 2), pretrain=False, downstream_embed="spec_spat",
+                       dtype="float32")
+    src = pretrained.state_dict()
+    wave, tdoa = synth_batch(np.random.default_rng(2), DS_BATCH, DS_NSAMPLE)
+    wave = torch.from_numpy(wave).cuda()
+    gt = torch.from_numpy(tdoa / 16000.0).cuda()  # seconds, as the JAX synthetic path
+
+    def fresh(seed):
+        model = SARSSL(cfg, device="cuda", seed=seed)
+        loaded = partial_load(model, src)
+        encoders = sorted(n for n, _ in model.named_parameters()
+                          if n.startswith(("spec_encoder.", "spat_encoder.")))
+        assert sorted(loaded) == encoders, "partial_load did not load exactly the encoders"
+        return model, loaded
+
+    model, loaded = fresh(1)
+    log(f"[downstream] partial_load: {len(loaded)} encoder parameters loaded, no head "
+        f"parameter, no buffer")
+    state = create_train_state(model)
+    step = make_downstream_step(model, FeatureConfig(), "TDOA", device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    times, outs, counts, peak = _timed_steps(lambda: step(state, wave, gt, DS_LR, gen))
+    losses = [float(o["loss"]) for o in outs]
+    assert all(np.isfinite(losses)), f"non-finite finetune loss {losses}"
+    assert counts.get("hash_dropout", 0) > 0, "hash_dropout never launched on the downstream step"
+    attn = {k: v for k, v in counts.items() if k.startswith("attention")}
+    assert not attn, f"the downstream step launched attention kernels: {attn}"
+    log(f"[downstream] finetune launches over {STEPS} steps: {counts}; losses {losses}")
+    _log_steps("finetune", times, peak, card)
+
+    ev_step = make_downstream_eval_step(model, FeatureConfig(), "TDOA", device="cuda")
+    times, outs, _, peak = _timed_steps(lambda: ev_step(state, wave, gt))
+    ev = outs[-1]
+    assert ev["pred"].shape == (DS_BATCH, 1), ev["pred"].shape
+    assert ev["embed"].shape == (DS_BATCH, cfg.spec_dembed + cfg.spat_dembed), ev["embed"].shape
+    metrics = {k: float(ev[k]) for k in ("loss", "mae")}
+    assert all(np.isfinite(list(metrics.values()))), f"non-finite eval metrics {metrics}"
+    log(f"[downstream] eval: {metrics}, pred {tuple(ev['pred'].shape)}, embed "
+        f"{tuple(ev['embed'].shape)}")
+    _log_steps("eval", times, peak, card)
+
+    model, loaded = fresh(2)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    state = create_train_state(model)
+    step = make_downstream_step(model, FeatureConfig(), "TDOA",
+                                trainable_mask_from_loaded(model, loaded), device="cuda")
+    times, outs, _, peak = _timed_steps(lambda: step(state, wave, gt, DS_LR, gen))
+    losses = [float(o["loss"]) for o in outs]
+    assert all(np.isfinite(losses)), f"non-finite lineareval loss {losses}"
+    params = dict(model.named_parameters())
+    frozen_same = all(torch.equal(params[n].detach(), start[n]) for n in loaded)
+    heads = [n for n in params if n.startswith("head_")]
+    heads_moved = all(not torch.equal(params[n].detach(), start[n]) for n in heads)
+    stats_moved = all(not torch.equal(b, stats0[n]) for n, b in model.named_buffers())
+    assert frozen_same, "lineareval moved a frozen encoder parameter"
+    assert heads_moved, "lineareval left a head parameter where it was"
+    assert stats_moved, "lineareval left an encoder BatchNorm running stat where it was"
+    log(f"[downstream] lineareval, {STEPS + 1} steps: {len(loaded)} frozen encoder parameters "
+        f"bit-identical, {len(heads)} head parameters moved, all "
+        f"{len(stats0)} BatchNorm running stats moved; losses {losses}")
+    _log_steps("lineareval", times, peak, card)
     return counts
+
+
+def phase_downstream_reference():
+    """Small downstream model: card (kernels) against CPU (plain versions),
+    2 finetune steps with dropout 0.1 and the same seeds."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import create_train_state, make_downstream_step
+
+    feat = FeatureConfig(win_len=128, nfft=128)
+    cfg = SARSSLConfig().tiny(sig_shape=(64, 64, 2, 2), patch_shape=(64, 1),
+                              spec_dembed=128, spat_dembed=64, spat_layers=2,
+                              dropout=RATE, pretrain=False)
+    wave, tdoa = synth_batch(np.random.default_rng(3), 8, 63 * 64 + 128)
+    gt = tdoa / 16000.0
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = SARSSL(cfg, device=dev, seed=4)
+        state = create_train_state(model)
+        step = make_downstream_step(model, feat, "TDOA", device=dev)
+        gen = torch.Generator().manual_seed(6)
+        losses[dev] = [float(step(state, wave, gt, DS_LR, gen)["loss"]) for _ in range(2)]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"[downstream] small model, 2 finetune steps, dropout {RATE}: card {losses['cuda']} "
+        f"cpu {losses['cpu']} max rel err {err:.2e} (tol {TOL_REF})")
+    assert err <= TOL_REF, f"card and CPU downstream losses differ by {err}"
 
 
 def main():
@@ -342,10 +599,12 @@ def main():
 
     card = phase_card()
     phase_build()
-    rows, drop = phase_kernels()
+    rows, drop, conv = phase_kernels()
     phase_reference()
-    counts = phase_train(card)
-    print(json.dumps(kernels_line(rows, drop, counts)), flush=True)
+    counts, pretrained = phase_train(card)
+    ds_counts = phase_downstream(card, pretrained)
+    phase_downstream_reference()
+    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -2,13 +2,19 @@
 
   attention.py : fused rel-pos attention, CUDA C++ (``csrc/attention.cu``)
   dropout.py   : counter-hash inverted dropout, Triton
+  conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++ (``csrc/conv3x3.cu``)
+  conv_s2d.py  : the same conv over the W-space-to-depth view, on the same
+                 CUDA kernel at twice the channels
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and uses the
 plain version only for CPU tensors. ``launches`` counts kernel launches.
 """
 from ._build import launches, reset_launches
 from .attention import attention_plain, fused_attention
+from .conv3x3 import conv3x3, conv3x3_plain
+from .conv_s2d import conv3x3_s2d, conv3x3_s2d_plain, expand_weights_s2d2
 from .dropout import dropout_plain, hash_dropout, hash_keep_mask
 
 __all__ = ["launches", "reset_launches", "attention_plain", "fused_attention",
-           "dropout_plain", "hash_dropout", "hash_keep_mask"]
+           "conv3x3", "conv3x3_plain", "conv3x3_s2d", "conv3x3_s2d_plain",
+           "expand_weights_s2d2", "dropout_plain", "hash_dropout", "hash_keep_mask"]

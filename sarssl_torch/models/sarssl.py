@@ -1,7 +1,9 @@
-"""SAR-SSL pretext model (port of ``sarssl_tpu/models/sarssl.py``).
+"""SAR-SSL model (port of ``sarssl_tpu/models/sarssl.py``).
 
-Dual encoder (spec + spat, each a CNN front end and a conformer) with
-cross-channel masked spectrogram reconstruction, for ``in_ver="separate"``:
+Dual encoder (spec + spat, each a CNN front end and a conformer).
+
+With ``pretrain=True``, cross-channel masked spectrogram reconstruction, for
+``in_ver="separate"``:
 
   spec-encoder input = masked frames of the kept channel
                        + unmasked frames of the masked channel;
@@ -9,14 +11,17 @@ cross-channel masked spectrogram reconstruction, for ``in_ver="separate"``:
   the MLP decoder predicts every patch of every channel; the loss reads the
   masked channel on masked frames, over ``sum(mask) * dpatch * 2``.
 
-The other ``in_ver``s, ``frozen_encoder_pretext``, the downstream head
-(``embed``/``downstream``), ``MCConformer`` and ``SARSSLMultiCH`` are not
-ported yet.
+With ``pretrain=False``, the downstream regression head: both encoders on
+the unmasked input, the chosen embedding mean-pooled over patches, then
+LayerNorm -> [Dense + ReLU when dlabel > 1] -> Dense.
+
+The other pretext ``in_ver``s, ``frozen_encoder_pretext``, the CLS token,
+``MCConformer`` and ``SARSSLMultiCH`` are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from ..ops.mask import PatchMask
 from ..ops.patches import patch_split
 from ..utils.device import resolve_device
+from .common import Dense, LayerNorm
 from .decoder import EmbedDecoder
 from .encoder import EmbedEncoder
 
@@ -85,10 +91,18 @@ class SARSSLConfig:
         return SARSSLConfig(**{**self.__dict__, **base})
 
 
+DOWNSTREAM_EMBEDS = ("spec_spat", "spec", "spat", "noinfo")
+
+
 def _check_ported(c: SARSSLConfig) -> None:
+    if not c.pretrain and c.downstream_embed not in DOWNSTREAM_EMBEDS:
+        raise ValueError(f"downstream_embed {c.downstream_embed!r} not in {DOWNSTREAM_EMBEDS}")
     unported = {
-        "pretrain=False (downstream head)": not c.pretrain,
-        f"in_ver={c.in_ver!r}": c.in_ver != "separate",
+        # the downstream path encodes the unmasked input, where 'same' and
+        # 'separate' are the same
+        f"in_ver={c.in_ver!r}": c.in_ver not in (("separate",) if c.pretrain
+                                                 else ("separate", "same")),
+        f"downstream_head={c.downstream_head!r}": not c.pretrain and c.downstream_head != "mlp",
         "frozen_encoder_pretext": c.frozen_encoder_pretext,
         "use_cls": c.use_cls,
         "remat_cnn": c.remat_cnn,
@@ -103,8 +117,9 @@ def _check_ported(c: SARSSLConfig) -> None:
 
 
 class SARSSL(nn.Module):
-    """Pretext SAR-SSL network. Built from ``torch.Generator().manual_seed(
-    seed)`` on the CPU, then moved to ``device`` (default ``"cuda"``)."""
+    """Pretext (``cfg.pretrain``) or downstream SAR-SSL network. Built from
+    ``torch.Generator().manual_seed(seed)`` on the CPU, then moved to
+    ``device`` (default ``"cuda"``)."""
 
     def __init__(self, cfg: SARSSLConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -118,16 +133,32 @@ class SARSSL(nn.Module):
             layers, c.dropout, c.fused_attention, dtype, gen)
         self.spec_encoder = enc(c.spec_dembed, "spec", c.spec_layers)
         self.spat_encoder = enc(c.spat_dembed, "spat", c.spat_layers)
-        self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape,
-                                    c.spec_dembed + c.spat_dembed, c.dec_model, dtype, gen)
+        if c.pretrain:
+            self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape,
+                                        c.spec_dembed + c.spat_dembed, c.dec_model, dtype,
+                                        gen)
+        else:  # flax's names: head_norm, head_hidden, head_proj
+            dembed = {"spec_spat": c.spec_dembed + c.spat_dembed, "spec": c.spec_dembed,
+                      "spat": c.spat_dembed, "noinfo": c.spec_dembed}[c.downstream_embed]
+            self.head_norm = LayerNorm(dembed, dtype)
+            if c.downstream_dlabel != 1:
+                self.head_hidden = Dense(dembed, dembed, dtype=dtype, generator=gen)
+            self.head_proj = Dense(dembed, c.downstream_dlabel, dtype=dtype, generator=gen)
         self.to(dev)
 
     def _split(self, x):
         # (nb, nmic, nf, nt, nreim) -> patches (nb, npatch, dpatch, nreim, nmic)
         return patch_split(x.permute(0, 2, 3, 4, 1), self.cfg.patch_shape)
 
-    def forward(self, x, mask: PatchMask, train: bool = False, generator=None):
-        return self.pretext(x, mask, train, generator)
+    def forward(self, x, mask: Optional[PatchMask] = None, train: bool = False,
+                generator=None):
+        """``pretext(x, mask, ...)`` when ``cfg.pretrain``, else
+        ``downstream(x, ...)``."""
+        if self.cfg.pretrain:
+            if mask is None:
+                raise ValueError("the pretext forward needs a PatchMask")
+            return self.pretext(x, mask, train, generator)
+        return self.downstream(x, train, generator)
 
     def pretext(self, x, mask: PatchMask, train: bool = False, generator=None):
         """Masked cross-channel reconstruction. Returns ``(loss, diff, aux)``.
@@ -159,3 +190,32 @@ class SARSSL(nn.Module):
         loss = (((pred_m - tar_m) ** 2) * w).sum() / denom
         diff = (((tar_m - tar_k) ** 2) * w).sum() / denom
         return loss, diff, {"pred": pred, "tar": vec, "mask": mask}
+
+    def embed(self, x, train: bool = False, generator=None):
+        """Unmasked dual-encoder embeddings, mean-pooled over patches:
+        ``(nb, dembed_ds)``. Both encoders always run, so in train mode both
+        update their BatchNorm stats whatever the embedding."""
+        c = self.cfg
+        nb = x.shape[0]
+        vec = self._split(x).to(c.compute_dtype)
+        flat = vec.reshape(nb, vec.shape[1], -1)
+        embed_spec = self.spec_encoder(flat, train, generator)
+        embed_spat = self.spat_encoder(flat, train, generator)
+        if c.downstream_embed == "spec_spat":
+            embed = torch.cat([embed_spec, embed_spat], dim=2)
+        elif c.downstream_embed == "spec":
+            embed = embed_spec
+        elif c.downstream_embed == "spat":
+            embed = embed_spat
+        else:  # noinfo: zeros, no gradient to the encoders
+            embed = torch.zeros_like(embed_spec.detach())
+        return embed.mean(dim=1)
+
+    def downstream(self, x, train: bool = False, generator=None):
+        """Regression head. Returns ``(pred (nb, dlabel) f32, embed (nb,
+        dembed_ds))``."""
+        pooled = self.embed(x, train, generator)
+        y = self.head_norm(pooled)
+        if self.cfg.downstream_dlabel != 1:
+            y = F.relu(self.head_hidden(y))
+        return self.head_proj(y).float(), pooled

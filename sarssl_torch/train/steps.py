@@ -1,9 +1,11 @@
-"""Pretext train and eval steps (port of ``sarssl_tpu/train/steps.py:22-90``).
+"""Train and eval steps (port of ``sarssl_tpu/train/steps.py``).
 
-One step: STFT features -> 'T' mask (the only mode ported yet) -> forward
-in train mode -> masked MSE -> backward -> Adam update; the BatchNorm running
-stats update during the forward. PyTorch runs eagerly, so a step is a plain function over a
-``TrainState``.
+Pretext step: STFT features -> 'T' mask (the only mode ported yet) ->
+forward in train mode -> masked MSE -> backward -> Adam update. Downstream
+step: STFT features -> head prediction -> MSE against the task's target ->
+backward -> Adam update of the parameters not frozen (lineareval). The
+BatchNorm running stats update during the forward. PyTorch runs eagerly, so
+a step is a plain function over a ``TrainState``.
 
 Randomness comes from an explicit CPU ``torch.Generator``: the mask (unless
 one is given, e.g. replayed from the JAX package) and one uint32 dropout
@@ -11,6 +13,8 @@ seed per dropout site. Drawing on the host keeps the step free of device
 syncs.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 
@@ -74,5 +78,92 @@ def make_pretrain_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
         state.model.eval()
         loss, diff, _ = state.model.pretext(feats, mask, False)
         return {"loss": loss, "diff": diff}
+
+    return step
+
+
+def _target_transform(task: str, gt: torch.Tensor, dlabel: int = 1) -> torch.Tensor:
+    """Targets as the reference learner reads them: TDOA in samples (x fs),
+    SUR/VOL in log10, every other task as it is; ``[:, :dlabel]``."""
+    gt = gt.reshape(gt.shape[0], -1)[:, :dlabel]
+    if task == "TDOA":
+        return gt * 16000.0
+    if task in ("SUR", "VOL"):
+        return torch.log10(gt)
+    return gt
+
+
+def _targets(gt_batch, task, dlabel, dev):
+    return _target_transform(task, torch.as_tensor(gt_batch).to(dev, torch.float32), dlabel)
+
+
+def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task: str = "TDOA",
+                         trainable_mask: Optional[Dict[str, bool]] = None, dlabel: int = 1,
+                         device="cuda"):
+    """Returns ``step(state, wave_batch, gt_batch, lr, generator) -> metrics``.
+
+    MSE of the head's prediction against the transformed target (no
+    gradient to the target); the BatchNorm running stats update in the
+    forward. ``metrics``: ``{"loss", "mae"}`` as 0-d tensors on the device.
+
+    ``trainable_mask`` (e.g. from ``trainable_mask_from_loaded``) maps
+    parameter names to False for frozen ones (lineareval). A frozen
+    parameter takes no gradient (``requires_grad`` is off during the step, so
+    the backward skips whatever only it needs), and Adam reads the missing
+    gradient as 0. Its moments, zero in a state made for the lineareval run
+    as ``run_downstream`` makes one, stay zero and its update is exactly 0:
+    it ends each step bit-identical, as the JAX step's restore makes it.
+    The BatchNorm stats of a frozen encoder still move, as in the JAX step,
+    which replaces all of ``batch_stats``."""
+    dev = resolve_device(device)
+    _check_model_device(model, dev)
+    frozen = []
+    if trainable_mask is not None:
+        params = dict(model.named_parameters())
+        if set(trainable_mask) != set(params):
+            raise ValueError("trainable_mask must name every parameter of the model")
+        frozen = [params[n] for n, trainable in trainable_mask.items() if not trainable]
+
+    def step(state: TrainState, wave_batch, gt_batch, lr: float, generator: torch.Generator):
+        feats = _features(wave_batch, feat_cfg, dev)
+        tar = _targets(gt_batch, task, dlabel, dev)
+        state.model.train()
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            pred, _ = state.model.downstream(feats, True, generator)
+            loss = ((pred - tar) ** 2).mean()
+            loss.backward()
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
+        state.apply_gradients(lr)
+        pred = pred.detach()
+        return {"loss": loss.detach(), "mae": (pred - tar).abs().mean()}
+
+    return step
+
+
+def make_downstream_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
+                              task: str = "TDOA", dlabel: int = 1, device="cuda"):
+    """Returns ``step(state, wave_batch, gt_batch) -> metrics`` (eval mode:
+    running BatchNorm stats, no dropout, no update): ``loss``, ``mae``,
+    ``pred``, ``embed``, and the per-dimension ``mae_dims`` when
+    ``dlabel > 1``."""
+    dev = resolve_device(device)
+    _check_model_device(model, dev)
+
+    @torch.no_grad()
+    def step(state: TrainState, wave_batch, gt_batch):
+        feats = _features(wave_batch, feat_cfg, dev)
+        tar = _targets(gt_batch, task, dlabel, dev)
+        state.model.eval()
+        pred, embed = state.model.downstream(feats, False)
+        err = pred - tar
+        out = {"loss": (err ** 2).mean(), "mae": err.abs().mean(), "pred": pred,
+               "embed": embed}
+        if dlabel > 1:
+            out["mae_dims"] = err.abs().mean(dim=0)
+        return out
 
     return step

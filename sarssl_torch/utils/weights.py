@@ -1,7 +1,8 @@
 """Flax variables -> the port's ``state_dict`` (the port's own converter).
 
 ``from_jax_params`` takes the ``{"params": ..., "batch_stats": ...}`` tree of
-``sarssl_tpu`` ``SARSSL.init`` as nested dicts of numpy arrays and returns the
+``sarssl_tpu`` ``SARSSL.init`` (pretext, with its decoder, or downstream,
+with its ``head_*`` modules) as nested dicts of numpy arrays and returns the
 parameters and buffers of :class:`sarssl_torch.models.SARSSL`:
 
   * Dense kernels ``(in, out)`` are transposed to ``(out, in)``;

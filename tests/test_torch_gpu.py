@@ -9,8 +9,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from sarssl_torch.kernels import (attention_plain, dropout_plain, fused_attention,  # noqa: E402
-                                  hash_dropout, launches)
+from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # noqa: E402
+                                  conv3x3_s2d, conv3x3_s2d_plain, dropout_plain,
+                                  fused_attention, hash_dropout, launches)
+from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
+from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
 from sarssl_torch.kernels.dropout import launch_dropout  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -23,6 +26,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the conv tests' dW is a cuDNN call
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -63,6 +67,88 @@ def test_dropout_kernel_equals_plain(cuda, dtype, n):
     g = torch.randn_like(x)
     (grad,) = torch.autograd.grad(hash_dropout(xr, 7, 0.2), xr, g)
     assert torch.equal(grad, dropout_plain(g, 7, 0.2))
+
+
+CONV_SHAPES = [  # (N, H, W, C, Cout): H not a multiple of the tile, W not of 8
+    (2, 19, 37, 64, 64), (2, 16, 64, 64, 64), (2, 13, 30, 128, 128), (1, 9, 21, 64, 128),
+    (1, 11, 18, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
+    N, H, W, C, Cout = shape
+    x = torch.randn((N, H, W, C), generator=cuda, device="cuda").to(dtype)
+    w = (0.1 * torch.randn((3, 3, C, Cout), generator=cuda, device="cuda")).to(dtype)
+    dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").to(dtype)
+    assert _rel(conv3x3_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
+    assert _rel(conv3x3_dx(dy, w), conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
+    # through autograd: forward and dx are kernel launches, dW the library
+    before = launches["conv3x3_fwd"], launches["conv3x3_dx"]
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    gx, gw = torch.autograd.grad(conv3x3(xr, wr), (xr, wr), dy)
+    assert (launches["conv3x3_fwd"], launches["conv3x3_dx"]) == (before[0] + 1, before[1] + 1)
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    gx_ref, gw_ref = torch.autograd.grad(conv3x3_plain(xf, wf), (xf, wf), dy.float())
+    assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", [(2, 19, 38, 64), (2, 16, 64, 32), (1, 7, 10, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_s2d_kernel_matches_plain(cuda, shape, dtype):
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    C = shape[-1]
+    w = (0.1 * torch.randn((3, 3, C, C), generator=cuda, device="cuda")).to(dtype)
+    dy = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    assert _rel(conv3x3_s2d_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
+    assert _rel(conv3x3_s2d_dx(dy, w),
+                conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
+    before = launches["conv3x3_s2d_fwd"], launches["conv3x3_s2d_dx"]
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    gx, gw = torch.autograd.grad(conv3x3_s2d(xr, wr), (xr, wr), dy)
+    assert (launches["conv3x3_s2d_fwd"], launches["conv3x3_s2d_dx"]) == (
+        before[0] + 1, before[1] + 1)
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    gx_ref, gw_ref = torch.autograd.grad(conv3x3_s2d_plain(xf, wf), (xf, wf), dy.float())
+    assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
+
+
+def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 8, 16, 64, device="cuda")
+    w = torch.randn(3, 3, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="even width"):
+        conv3x3_s2d(torch.randn(2, 8, 15, 64, device="cuda"), w)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        conv3x3(torch.randn(2, 8, 16, 32, device="cuda"), torch.randn(3, 3, 32, 32, device="cuda"))
+    with pytest.raises(ValueError, match="no kernel instance"):
+        conv3x3_s2d(torch.randn(2, 8, 16, 128, device="cuda"),
+                    torch.randn(3, 3, 128, 128, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv3x3(x.half(), w.half())
+
+
+def test_downstream_step_on_card_matches_cpu(cuda):
+    """One finetune step, dropout 0.1, same seeds: card (kernels) against CPU."""
+    import numpy as np
+
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import create_train_state, make_downstream_step
+
+    cfg = SARSSLConfig().tiny(sig_shape=(64, 16, 2, 2), patch_shape=(64, 1), spec_dembed=64,
+                              spat_dembed=32, dropout=0.1, pretrain=False)
+    wave, tdoa = synth_batch(np.random.default_rng(0), 4, 15 * 64 + 128)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = SARSSL(cfg, device=dev, seed=1)
+        step = make_downstream_step(model, FeatureConfig(win_len=128, nfft=128), device=dev)
+        out = step(create_train_state(model), wave, tdoa / 16000.0, 1e-3,
+                   torch.Generator().manual_seed(2))
+        losses[dev] = float(out["loss"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"]), losses
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
