@@ -7,10 +7,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. card   : name and power limit (nvidia-smi), torch and CUDA versions;
               TF32 is switched off for matmuls and cuDNN throughout.
   2. build  : compiles ``sarssl_torch/csrc/*.cu`` with nvcc (one process per
-              source, started together) and prints ptxas' register report.
+              source, started together), prints ptxas' register report, and
+              fails if the tensor-core attention kernels spill or their
+              library holds no tensor-core instruction.
   3. kernels: each hand-written kernel against its plain PyTorch version at
               the shapes the pretext step gives it, with the tolerance stated,
-              and timed with CUDA events beside its bound and a library call.
+              and timed with CUDA events beside its bound and a library call
+              (attention also beside the FMA kernels it replaced at these
+              shapes). Then the attention module of the conformer at both
+              flagship widths in bf16, fused against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
               (128, 256, 256, 64) bf16, plus one small f32 case, then drives
@@ -32,6 +37,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -95,7 +101,7 @@ def phase_card():
 
 
 def phase_build():
-    from sarssl_torch.kernels._build import CSRC_DIR, build_all
+    from sarssl_torch.kernels._build import CSRC_DIR, build_all, built_library, cuda_tool
 
     t0 = time.perf_counter()
     logs = build_all()
@@ -104,7 +110,46 @@ def phase_build():
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
+                if name != "attention_mma":  # reported per kernel below
+                    log(f"  {name}: {line.strip()}")
+    report_attention_mma(logs["attention_mma"])
+    cuobjdump = cuda_tool("cuobjdump")
+    if cuobjdump is None:
+        log("[build] no cuobjdump in the CUDA toolkit: SASS not inspected")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(built_library("attention_mma"))],
+                          capture_output=True, text=True, check=True).stdout
+    n_mma = sum("HMMA.16816.F32.BF16" in line for line in sass.splitlines())
+    n_ldsm, n_cp = sass.count("LDSM"), sass.count("LDGSTS")
+    log(f"[build] attention_mma SASS: {n_mma} HMMA.16816.F32.BF16 (tensor-core), {n_ldsm} LDSM "
+        f"(ldmatrix), {n_cp} LDGSTS (cp.async) instructions")
+    assert n_mma > 0, "no tensor-core instruction in the built attention_mma library"
+
+
+def report_attention_mma(ptxas_log):
+    """Per tensor-core attention kernel, from ptxas' report: registers a
+    thread, spills, dynamic shared memory a block and the blocks per SM these
+    allow. Fails if a kernel spills."""
+    from sarssl_torch.kernels.attention import mma_smem_bytes
+
+    threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128, "attn_delta": 256}
+    name = None
+    for line in ptxas_log.splitlines():
+        entry = re.search(r"Compiling entry function '.*?(attn_[a-z_]+?)ILi(\d+)E", line)
+        if entry:
+            name, D = entry.group(1), int(entry.group(2))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            assert spill.groups() == ("0", "0"), f"{name}<{D}> spills: {line.strip()}"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            regs, smem = int(used.group(1)), mma_smem_bytes(name, D)
+            # an SM has 65536 registers and 233472 bytes of shared memory, of
+            # which each resident block reserves 1024 beside its own
+            blocks = min(65536 // (regs * threads[name]), 233472 // (smem + 1024))
+            log(f"  attention_mma {name}<{D}>: {regs} registers, no spills, {smem} B shared "
+                f"memory, {threads[name]} threads -> {blocks} blocks/SM")
+            name = None
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -144,13 +189,19 @@ def _attention_inputs(D, dtype, gen):
 
 def check_attention(D, dtype, rate, seed, gen):
     """Kernel (fwd + bwd) against the plain version in f32; returns errors."""
-    from sarssl_torch.kernels import attention_plain, fused_attention, hash_keep_mask
+    from sarssl_torch.kernels import (attention_plain, fused_attention, hash_keep_mask,
+                                      launches)
 
     scale = 1.0 / np.sqrt(HEADS * D)
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    tc_names = (f"attention_fwd_tc_d{D}", f"attention_bwd_tc_d{D}")
+    before = [launches[n] for n in tc_names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
+    rose = [launches[n] - b for n, b in zip(tc_names, before)]
+    want = [1, 1] if dtype == torch.bfloat16 else [0, 0]
+    assert rose == want, f"attention D={D} {dtype}: tensor-core launches {rose}, want {want}"
     ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
@@ -173,20 +224,31 @@ def check_attention(D, dtype, rate, seed, gen):
             assert same, f"attention D={D} {dtype}: dropped positions differ from the plain mask"
     log(f"[kernels] attention D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
         f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
-        + (" ; dropped positions identical" if rate > 0 else "") + f" (tol {tol})")
+        + (" ; dropped positions identical" if rate > 0 else "")
+        + f" (tol {tol}; {'tensor-core' if want[0] else 'FMA'} kernels)")
     return max(a for _, a in errs.values()), max(a for n, (_, a) in errs.items() if n == "out")
 
 
 def time_attention(D, seed, gen):
-    """Times of fwd and bwd at the step's shape (bf16, rate 0.1)."""
+    """Times of fwd and bwd at the step's shape (bf16, rate 0.1): the
+    tensor-core kernels, and the FMA kernels they replaced there."""
     from sarssl_torch.kernels import attention_plain
-    from sarssl_torch.kernels.attention import launch_attention_bwd, launch_attention_fwd
+    from sarssl_torch.kernels.attention import (launch_attention_bwd_fma,
+                                                launch_attention_bwd_mma,
+                                                launch_attention_fwd_fma,
+                                                launch_attention_fwd_mma)
 
     scale = 1.0 / np.sqrt(HEADS * D)
     qu, k, v, bias, g = _attention_inputs(D, torch.bfloat16, gen)
+    args = (seed, scale, RATE)
+    out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
     res = {}
-    res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd(qu, k, v, bias, seed, scale, RATE))
-    res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd(qu, k, v, bias, g, seed, scale, RATE))
+    # new, old, old, new: both sets on the same card in the same run
+    res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+    res["fma_fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+    res["fma_bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
+    del out, lse
     with torch.no_grad():
         res["plain_fwd_ms"] = cuda_ms(lambda: attention_plain(qu, k, v, bias, seed, scale, RATE))
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
@@ -206,6 +268,8 @@ def time_attention(D, seed, gen):
     n_qkv, n_s, es = BATCH * HEADS * SEQ * D, BATCH * HEADS * SEQ * SEQ, 2
     res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, 4 * n_s * D, BF16_FLOPS)
     # reads qu k v g bias, writes dqu dk dv dbias; 5 products of 2*L*L*D each
+    # (the saved out and row statistics that the kernels also read are left
+    # out: the function needs no more than the nine tensors above)
     res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, 10 * n_s * D, BF16_FLOPS)
     return res
 
@@ -324,6 +388,44 @@ def check_conv(gen):
     return rows
 
 
+def check_attention_module(gen):
+    """The conformer's attention module in bf16 at both flagship widths,
+    B=8, L=256, rate 0: fused (tensor-core kernels) against unfused (plain
+    PyTorch) on the card with the same weights; output and the gradients of
+    the input, u_bias and v_bias."""
+    from sarssl_torch.kernels import launches
+    from sarssl_torch.models.conformer import RelPosSelfAttention
+
+    for d_model in (512, 256):
+        D = d_model // HEADS
+        mods = {}
+        for fused in (True, False):
+            m = RelPosSelfAttention(d_model, HEADS, dropout=0.0, fused=fused,
+                                    dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(7)).cuda()
+            mods[fused] = m
+        mods[False].load_state_dict(mods[True].state_dict())
+        x = torch.randn((8, SEQ, d_model), generator=gen, device="cuda")
+        g = torch.randn((8, SEQ, d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        res = {}
+        before = launches[f"attention_fwd_tc_d{D}"], launches[f"attention_bwd_tc_d{D}"]
+        for fused, m in mods.items():
+            xr = x.clone().requires_grad_()
+            y = m(xr, train=True)
+            res[fused] = (y, *torch.autograd.grad(y, (xr, m.u_bias, m.v_bias), g))
+        torch.cuda.synchronize()
+        rose = (launches[f"attention_fwd_tc_d{D}"] - before[0],
+                launches[f"attention_bwd_tc_d{D}"] - before[1])
+        assert rose == (1, 1), f"attention module d={d_model}: tensor-core launches {rose}"
+        errs = {n: rel_err(a, b) for n, a, b in
+                zip(("out", "dx", "du_bias", "dv_bias"), res[True], res[False])}
+        log(f"[kernels] RelPosSelfAttention d={d_model} heads={HEADS} bf16 B=8 L={SEQ}, fused "
+            f"against unfused on the card: " + ", ".join(f"{n} rel {e:.2e}" for n, e in
+                                                          errs.items()) + f" (tol {TOL_BF16})")
+        for n, e in errs.items():
+            assert e <= TOL_BF16, f"attention module d={d_model}: {n} rel err {e} > {TOL_BF16}"
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     seed = 0x9E3779B9  # a uint32 above 2**31 exercises the unsigned paths
@@ -338,9 +440,15 @@ def phase_kernels():
         t = time_attention(D, seed, gen)
         rows[D].update(t)
         log(f"[kernels] attention D={D} bf16 rate={RATE}: fwd {t['fwd_ms']:.3f} ms "
-            f"(plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.3f}, bound "
-            f"{t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.3f} ms (plain "
-            f"{t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.3f}, bound {t['bwd_bound'][0]:.4f})")
+            f"(FMA kernel {t['fma_fwd_ms']:.3f}, plain {t['plain_fwd_ms']:.3f}, sdpa "
+            f"{t['lib_fwd_ms']:.3f}, bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.3f} ms "
+            f"(FMA kernels {t['fma_bwd_ms']:.3f}, plain {t['plain_bwd_ms']:.3f}, sdpa "
+            f"{t['lib_bwd_ms']:.3f}, bound {t['bwd_bound'][0]:.4f})")
+        # the floor under the redesign: the tensor-core kernels against the
+        # FMA kernels in this same run
+        assert 4 * t["fwd_ms"] <= t["fma_fwd_ms"], f"attention fwd D={D}: under 4x the FMA kernel"
+        assert 3 * t["bwd_ms"] <= t["fma_bwd_ms"], f"attention bwd D={D}: under 3x the FMA kernels"
+    check_attention_module(gen)
     drop = check_dropout(seed, gen)
     log(f"[kernels] hash_dropout: {drop['ms']:.4f} ms (plain {drop['plain_ms']:.4f}, "
         f"F.dropout {drop['library_ms']:.4f}, bound {drop['bound'][0]:.4f})")
@@ -355,9 +463,11 @@ def kernels_line(rows, drop, conv, counts, ds_counts):
         for kind, line in (("fwd", 100), ("bwd", 128)):
             out.append({
                 "name": f"attention_{kind}_d{D}", "route": "cuda",
-                "source": "sarssl_torch/csrc/attention.cu",
+                "source": "sarssl_torch/csrc/attention_mma.cu", "variant": "mma",
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 "launches": counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_tc": counts.get(f"attention_{kind}_tc_d{D}", 0),
+                "fma_ms": r[f"fma_{kind}_ms"],
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
@@ -448,7 +558,7 @@ def phase_train(card):
     assert all(np.isfinite(losses)), f"non-finite loss {losses}"
     for D in HEAD_DIMS:
         want = LAYERS[D] * STEPS
-        for kind in ("fwd", "bwd"):
+        for kind in ("fwd", "bwd", "fwd_tc", "bwd_tc"):
             got = counts.get(f"attention_{kind}_d{D}", 0)
             assert got == want, f"attention_{kind}_d{D}: {got} launches, want {want}"
     assert counts.get("hash_dropout", 0) > 0, "hash_dropout never launched"

@@ -30,9 +30,11 @@
 //     probability tensor with the counter hash of kernels/dropout.py (murmur3
 //     finalizer of index + seed, keep where hash >= thresh), so forward and
 //     backward regenerate the same mask and it equals the plain version's.
-// This first version multiplies with scalar f32 FMAs from shared memory; the
-// tensor cores (wgmma) and TMA are left for a later version, so it runs well
-// above its bound.
+// These kernels multiply with scalar f32 FMAs from shared memory, so they run
+// well above their bound. bfloat16 at head dims 64 and 128 with L a multiple
+// of 64 runs attention_mma.cu (tensor cores) instead; these serve float32
+// (a tensor-core f32 product would be TF32 and miss the 1e-4 tolerance), head
+// dims 16 and 32, and ragged lengths.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-  attention.py : fused rel-pos attention, CUDA C++ (``csrc/attention.cu``)
+  attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
+                 (tensor cores; bfloat16, head dim 64/128, L % 64 == 0) and
+                 ``csrc/attention.cu`` (f32 FMAs; everything else)
   dropout.py   : counter-hash inverted dropout, Triton
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++ (``csrc/conv3x3.cu``)
   conv_s2d.py  : the same conv over the W-space-to-depth view, on the same

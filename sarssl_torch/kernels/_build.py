@@ -7,8 +7,9 @@ and the flags, and loaded with ``ctypes``. Triton keeps its cache in the same
 directory. Nothing is built when a module is imported.
 
 ``launches`` counts kernel launches by name (the attention kernels by head
-dim, e.g. ``attention_fwd_d128``): each wrapper adds one where it launches its
-kernel, and nowhere else.
+dim, e.g. ``attention_fwd_d128`` for every forward launch and
+``attention_fwd_tc_d128`` for those of the tensor-core kernels): each wrapper
+adds one where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -34,14 +35,20 @@ def reset_launches() -> None:
     launches.clear()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``), or None."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
+    return str(cand) if cand.exists() else None
+
+
+def _nvcc() -> str:
+    found = cuda_tool("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
 
 
 def _target(src: Path) -> Path:
@@ -82,10 +89,15 @@ def build_all(names=None) -> dict[str, str]:
     return logs
 
 
+def built_library(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` lies (after :func:`build_all`)."""
+    return _target(CSRC_DIR / f"{name}.cu")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     build_all([name])
-    return ctypes.CDLL(str(_target(CSRC_DIR / f"{name}.cu")))
+    return ctypes.CDLL(str(built_library(name)))
 
 
 def import_triton():

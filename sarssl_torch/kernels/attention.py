@@ -1,5 +1,5 @@
-"""Fused rel-pos attention: the CUDA kernels (``csrc/attention.cu``), their
-plain PyTorch version and the ``autograd.Function`` that joins them.
+"""Fused rel-pos attention: the CUDA kernels, their plain PyTorch version and
+the ``autograd.Function`` that joins them.
 
 Replaces ``sarssl_tpu/kernels/attention.py::fused_attention`` (forward
 ``_call_fwd``, backward ``_fa_bwd``):
@@ -12,6 +12,18 @@ Attention dropout hashes the flat ``(b, h, i, j)`` index of the probability
 tensor with ``kernels/dropout.py``'s counter hash, so the plain version is
 exactly the JAX unfused path (``models/conformer.py:110-119``: softmax, then
 ``fused_dropout``, then PV) and the kernel's mask equals it bit for bit.
+
+Two sets of kernels, chosen by dtype and shape (:func:`takes_tensor_cores`):
+
+* ``csrc/attention_mma.cu``: bfloat16, head dim 64 or 128, sequence length a
+  multiple of 64 (the flagship's shapes). Tensor cores (``mma.sync``),
+  ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
+  which the ``autograd.Function`` saves with ``out`` for the backward.
+* ``csrc/attention.cu``: everything else the wrapper takes (float32, head
+  dims 16 and 32, ragged lengths), as scalar f32 FMAs. A float32 product on
+  the tensor cores would be TF32 and miss the 1e-4 tolerance.
+
+For a CUDA tensor the wrapper launches the set it names here or raises.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
 HEAD_DIMS = (16, 32, 64, 128)
+MMA_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernels (bfloat16 only)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
@@ -58,6 +71,32 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _library_mma():
+    lib = load_library("attention_mma")
+    lib.attn_mma_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _U, _U, _F, _P]
+    lib.attn_mma_fwd.restype = _I
+    lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _P]
+    lib.attn_mma_bwd.restype = _I
+    lib.attn_mma_smem_bytes.argtypes = [_I, _I]
+    lib.attn_mma_smem_bytes.restype = _I
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mma_smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory a block of a tensor-core kernel takes."""
+    which = {"attn_fwd_mma": 0, "attn_bwd_mma": 1, "attn_dqu_mma": 2, "attn_delta": None}[kernel]
+    return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which)
+
+
+def takes_tensor_cores(dtype: torch.dtype, L: int, D: int) -> bool:
+    """Whether ``fused_attention`` runs ``attention_mma.cu`` for CUDA tensors
+    of this dtype, sequence length and head dim (else ``attention.cu``)."""
+    return dtype == torch.bfloat16 and D in MMA_HEAD_DIMS and L % 64 == 0
+
+
 def _check(qu, k, v, bias):
     ts = (qu, k, v, bias)
     if not all(t.is_cuda and t.device == qu.device for t in ts):
@@ -76,10 +115,13 @@ def _check(qu, k, v, bias):
         raise ValueError("fused attention takes contiguous tensors")
     if B * H * L * L >= 2 ** 32:
         raise ValueError("the dropout index of (B, H, L, L) must fit in uint32")
-    lib = _library()
-    if lib.attn_smem_bytes(L, D) > _SMEM_LIMIT:
-        raise ValueError(f"L={L} needs more shared memory than a block has")
-    return lib
+    if B * H > 65535:
+        raise ValueError("B * H must fit the launch grid's second dimension")
+
+
+def _check_like_qu(t, qu, name):
+    if t.shape != qu.shape or t.dtype != qu.dtype or t.device != qu.device:
+        raise ValueError(f"{name} must be a tensor like qu")
 
 
 def _drop_args(seed, rate):
@@ -94,9 +136,29 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_attention_fwd(qu, k, v, bias, seed: int, scale: float, rate: float):
-    lib = _check(qu, k, v, bias)
+def _rows_addressable(t) -> bool:
+    """Whether the tensor-core kernels can address a (B, H, L, D) tensor's
+    rows through its strides: contiguous, 16-byte aligned rows."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % 8 for s in t.stride()[:3]))
+
+
+def _row_strides(t):
+    """Element strides over (b, h, l), as the C entries take them."""
+    if not _rows_addressable(t):
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+# ---------------------------------------------------------------------------
+# scalar-FMA kernels (csrc/attention.cu)
+# ---------------------------------------------------------------------------
+def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: float):
+    _check(qu, k, v, bias)
+    lib = _library()
     B, H, L, D = qu.shape
+    if lib.attn_smem_bytes(L, D) > _SMEM_LIMIT:
+        raise ValueError(f"L={L} needs more shared memory than a block has")
     out = torch.empty_like(qu)
     code = lib.attn_fwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), B, H, L, D, scale,
@@ -106,11 +168,15 @@ def launch_attention_fwd(qu, k, v, bias, seed: int, scale: float, rate: float):
     return out
 
 
-def launch_attention_bwd(qu, k, v, bias, g, seed: int, scale: float, rate: float):
-    lib = _check(qu, k, v, bias)
-    if g.shape != qu.shape or g.dtype != qu.dtype or not g.is_contiguous():
-        raise ValueError("g must be a contiguous tensor like qu")
+def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: float):
+    _check(qu, k, v, bias)
+    _check_like_qu(g, qu, "g")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    lib = _library()
     B, H, L, D = qu.shape
+    if lib.attn_smem_bytes(L, D) > _SMEM_LIMIT:
+        raise ValueError(f"L={L} needs more shared memory than a block has")
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
     stats = torch.empty((B, H, L, 2), dtype=torch.float32, device=qu.device)
@@ -123,26 +189,95 @@ def launch_attention_bwd(qu, k, v, bias, g, seed: int, scale: float, rate: float
     return dqu, dk, dv, dbias
 
 
+# ---------------------------------------------------------------------------
+# tensor-core kernels (csrc/attention_mma.cu)
+# ---------------------------------------------------------------------------
+def _check_mma(qu, k, v, bias):
+    _check(qu, k, v, bias)
+    B, H, L, D = qu.shape
+    if not takes_tensor_cores(qu.dtype, L, D):
+        raise ValueError(f"the tensor-core kernels take bfloat16, head dim in "
+                         f"{MMA_HEAD_DIMS} and L a multiple of 64, got {qu.dtype}, "
+                         f"D={D}, L={L}")
+
+
+def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float):
+    """Returns ``(out, lse)``: ``out`` is a (B, H, L, D) view of a (B, L, H, D)
+    buffer, so that ``out.transpose(1, 2).reshape(B, L, H * D)`` copies
+    nothing; ``lse`` is the rows' log-sum-exp, (B, H, L) float32."""
+    _check_mma(qu, k, v, bias)
+    lib = _library_mma()
+    B, H, L, D = qu.shape
+    out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
+    code = lib.attn_mma_fwd(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), lse.data_ptr(), _row_strides(out), B, H, L, D,
+                            scale, *_drop_args(seed, rate), _stream(qu))
+    check_cuda_status(lib, code, "attn_mma_fwd")
+    launches[f"attention_fwd_d{D}"] += 1
+    launches[f"attention_fwd_tc_d{D}"] += 1
+    return out, lse
+
+
+def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: float,
+                             rate: float):
+    """``g`` and ``out`` may be strided over (b, h, l); their rows must be
+    contiguous and 16-byte aligned."""
+    _check_mma(qu, k, v, bias)
+    _check_like_qu(g, qu, "g")
+    _check_like_qu(out, qu, "out")
+    B, H, L, D = qu.shape
+    if lse.shape != (B, H, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be the forward's contiguous (B, H, L) float32")
+    lib = _library_mma()
+    dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    delta = torch.empty_like(lse)
+    code = lib.attn_mma_bwd(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                            g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                            _row_strides(g), _row_strides(out), B, H, L, D, scale,
+                            *_drop_args(seed, rate), _stream(qu))
+    check_cuda_status(lib, code, "attn_mma_bwd")
+    launches[f"attention_bwd_d{D}"] += 1
+    launches[f"attention_bwd_tc_d{D}"] += 1
+    return dqu, dk, dv, dbias
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qu, k, v, bias, seed, scale, rate):
-        ctx.save_for_backward(qu, k, v, bias)
         ctx.args = (seed, scale, rate)
-        return launch_attention_fwd(qu, k, v, bias, seed, scale, rate)
+        _check(qu, k, v, bias)
+        ctx.tensor_cores = takes_tensor_cores(qu.dtype, qu.shape[2], qu.shape[3])
+        if ctx.tensor_cores:
+            out, lse = launch_attention_fwd_mma(qu, k, v, bias, seed, scale, rate)
+            ctx.save_for_backward(qu, k, v, bias, out, lse)
+            return out
+        ctx.save_for_backward(qu, k, v, bias)
+        return launch_attention_fwd_fma(qu, k, v, bias, seed, scale, rate)
 
     @staticmethod
     def backward(ctx, g):
-        qu, k, v, bias = ctx.saved_tensors
-        grads = launch_attention_bwd(qu, k, v, bias, g.contiguous(), *ctx.args)
+        if ctx.tensor_cores:
+            qu, k, v, bias, out, lse = ctx.saved_tensors
+            if not _rows_addressable(g):
+                g = g.contiguous()
+            grads = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *ctx.args)
+        else:
+            qu, k, v, bias = ctx.saved_tensors
+            grads = launch_attention_bwd_fma(qu, k, v, bias, g.contiguous(), *ctx.args)
         return (*grads, None, None, None)
 
 
 def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0):
     """``dropout(softmax((qu k^T + bias) * scale)) v`` for (B, H, L, D) inputs.
 
-    CUDA tensors run the hand-written kernels (forward and backward); CPU
-    tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
-    rate 0.
+    CUDA tensors run the hand-written kernels, forward and backward: the
+    tensor-core set for bfloat16 at head dim 64 or 128 and L a multiple of 64
+    (its output is a (B, H, L, D) view of a (B, L, H, D) buffer), the FMA set
+    for float32, head dims 16 and 32 and any other L. CPU tensors run
+    :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0.
     """
     if qu.device.type == "cpu":
         return attention_plain(qu, k, v, bias, seed, scale, rate)

@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # noqa: E402
                                   conv3x3_s2d, conv3x3_s2d_plain, dropout_plain,
                                   fused_attention, hash_dropout, launches)
+from sarssl_torch.kernels.attention import (launch_attention_bwd_mma,  # noqa: E402
+                                            launch_attention_fwd_mma, takes_tensor_cores)
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
 from sarssl_torch.kernels.dropout import launch_dropout  # noqa: E402
@@ -35,26 +37,62 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("L", [64, 100, 256])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
-    shapes = [(2, 3, L, D)] * 3 + [(2, 3, L, L)]
-    xs = [torch.randn(s, generator=cuda, device="cuda").to(dtype).requires_grad_()
+def _attention_case(gen, shape, dtype, rate):
+    """fused_attention, forward and backward, against the plain version in
+    f32; asserts which set of kernels ran from the launch counts."""
+    B, H, L, D = shape
+    shapes = [shape] * 3 + [(B, H, L, L)]
+    xs = [torch.randn(s, generator=gen, device="cuda").to(dtype).requires_grad_()
           for s in shapes]
-    g = torch.randn(shapes[0], generator=cuda, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     seed, scale = 0xFEEDBEEF, D ** -0.5
-    before = launches[f"attention_fwd_d{D}"]
+    names = [f"attention_fwd_d{D}", f"attention_bwd_d{D}", f"attention_fwd_tc_d{D}",
+             f"attention_bwd_tc_d{D}"]
+    before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
-    assert launches[f"attention_fwd_d{D}"] == before + 1
+    tc = int(takes_tensor_cores(dtype, L, D))
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
     ys = [x.detach().float().requires_grad_() for x in xs]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
     for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
                           (ref, *ref_grads)):
         assert _rel(a, b) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("L", [64, 100, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
+    """bfloat16 at head dim 64 or 128 and L a multiple of 64 runs the
+    tensor-core kernels (their count rises); every other case the FMA kernels
+    (it does not)."""
+    assert takes_tensor_cores(dtype, L, D) == (
+        dtype == torch.bfloat16 and D in (64, 128) and L in (64, 256))
+    _attention_case(cuda, (2, 3, L, D), dtype, rate)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_attention_kernel_matches_plain_at_flagship_shape(cuda, D):
+    _attention_case(cuda, (4, 4, 256, D), torch.bfloat16, 0.1)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_attention_backward_is_bit_identical_from_run_to_run(cuda, D):
+    shape = (4, 4, 256, D)
+    qu, k, v, g = (torch.randn(shape, generator=cuda, device="cuda").bfloat16()
+                   for _ in range(4))
+    bias = torch.randn((4, 4, 256, 256), generator=cuda, device="cuda").bfloat16()
+    args = (0xFEEDBEEF, D ** -0.5, 0.1)
+    out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
+    first = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args)
+    second = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args)
+    for name, a, b in zip(("dqu", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
+    out2, lse2 = launch_attention_fwd_mma(qu, k, v, bias, *args)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -105,3 +105,121 @@ def test_plain_attention_dropout_matches_jnp_softmax_fused_dropout():
     out = attention_plain(*map(torch.from_numpy, (qu, k, v, bias)), _seed_of(key),
                           SCALE, rate)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The formulas the tensor-core kernels (csrc/attention_mma.cu) rest on, in
+# plain f32 PyTorch: saved row statistics, delta from out, a tiled forward
+# with a running max, and the backward assembled from them.
+# ---------------------------------------------------------------------------
+TILED_SHAPE = (2, 2, 192, 16)  # three key tiles of 64
+TILED_SCALE = 0.25
+
+
+def _tiled_inputs(seed):
+    rng = np.random.default_rng(seed)
+    b, h, l, d = TILED_SHAPE
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in [TILED_SHAPE] * 4 + [(b, h, l, l)]]
+
+
+def _keep_and_scale(shape, seed, rate):
+    """The dropout factor on p: 0 where dropped, 1/(1-rate) where kept."""
+    if rate == 0.0:
+        return torch.ones(shape)
+    keep = hash_keep_mask(int(np.prod(shape)), seed, rate).reshape(shape)
+    return keep.float() / (1.0 - rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_p_rebuilt_from_saved_lse_equals_softmax(rate):
+    qu, k, _, _, bias = _tiled_inputs(10)
+    s = (qu @ k.transpose(-1, -2) + bias) * TILED_SCALE
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    factor = _keep_and_scale(s.shape, 77, rate)
+    np.testing.assert_allclose((torch.exp(s - lse) * factor).numpy(),
+                               (torch.softmax(s, dim=-1) * factor).numpy(),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_delta_from_out_equals_row_sum_of_dp_times_p(rate):
+    qu, k, v, g, bias = _tiled_inputs(11)
+    p = torch.softmax((qu @ k.transpose(-1, -2) + bias) * TILED_SCALE, dim=-1)
+    factor = _keep_and_scale(p.shape, 78, rate)
+    out = (p * factor) @ v
+    dp = (g @ v.transpose(-1, -2)) * factor  # through the same mask
+    np.testing.assert_allclose((g * out).sum(-1).numpy(), (dp * p).sum(-1).numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _tiled_forward(qu, k, v, bias, seed, scale, rate, tile=64):
+    """Keys in tiles with a running row max and sum; the output accumulator
+    is rescaled when the max moves and divided by the sum at the end. Returns
+    (out, lse)."""
+    b, h, l, d = qu.shape
+    factor = _keep_and_scale((b, h, l, l), seed, rate)
+    m = torch.full((b, h, l, 1), -float("inf"))
+    total = torch.zeros((b, h, l, 1))
+    acc = torch.zeros_like(qu)
+    for j0 in range(0, l, tile):
+        js = slice(j0, j0 + tile)
+        s = (qu @ k[:, :, js].transpose(-1, -2) + bias[..., js]) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        e = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        total = total * corr + e.sum(-1, keepdim=True)
+        acc = acc * corr + (e * factor[..., js]) @ v[:, :, js]
+        m = m_new
+    return acc / total, (m + torch.log(total)).squeeze(-1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_tiled_running_max_forward_equals_plain(rate):
+    qu, k, v, _, bias = _tiled_inputs(12)
+    seed = 0xC0FFEE11
+    out, lse = _tiled_forward(qu, k, v, bias, seed, TILED_SCALE, rate)
+    ref = attention_plain(qu, k, v, bias, seed, TILED_SCALE, rate)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+    s = (qu @ k.transpose(-1, -2) + bias) * TILED_SCALE
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_backward_from_lse_and_delta_equals_autograd_of_plain(rate):
+    """Per key tile, transposed as the kernel holds them: p^T from the saved
+    lse, dv and dk summed over the queries, dbias written once; then
+    dqu = dbias k over all keys."""
+    qu, k, v, g, bias = _tiled_inputs(13)
+    seed, scale, tile = 0x0BADF00D, TILED_SCALE, 64
+    out, lse = _tiled_forward(qu, k, v, bias, seed, scale, rate)
+    delta = (g * out).sum(-1)
+    factor = _keep_and_scale(bias.shape, seed, rate)
+    dbias = torch.empty_like(bias)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for j0 in range(0, qu.shape[2], tile):
+        js = slice(j0, j0 + tile)
+        st = (k[:, :, js] @ qu.transpose(-1, -2) + bias[..., js].transpose(-1, -2)) * scale
+        pt = torch.exp(st - lse[:, :, None, :])  # (keys, queries)
+        ft = factor[..., js].transpose(-1, -2)
+        dv[:, :, js] = (pt * ft) @ g
+        dpt = (v[:, :, js] @ g.transpose(-1, -2)) * ft
+        dst = pt * (dpt - delta[:, :, None, :]) * scale
+        dbias[..., js] = dst.transpose(-1, -2)
+        dk[:, :, js] = dst @ qu
+    dqu = dbias @ k
+    xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    ref = torch.autograd.grad(attention_plain(*xs, seed, scale, rate), xs, g)
+    for name, a, b in zip(("dqu", "dk", "dv", "dbias"), (dqu, dk, dv, dbias), ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,L,D,want", [
+    (torch.bfloat16, 256, 128, True), (torch.bfloat16, 64, 64, True),
+    (torch.float32, 256, 128, False), (torch.bfloat16, 256, 32, False),
+    (torch.bfloat16, 100, 64, False), (torch.bfloat16, 256, 16, False),
+])
+def test_dispatch_names_the_tensor_core_kernels_for_flagship_shapes_only(dtype, L, D, want):
+    from sarssl_torch.kernels.attention import takes_tensor_cores
+
+    assert takes_tensor_cores(dtype, L, D) is want
