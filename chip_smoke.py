@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               TF32 is switched off for matmuls and cuDNN throughout.
   2. build  : compiles ``sarssl_torch/csrc/*.cu`` with nvcc (one process per
               source, started together), prints ptxas' register report, and
-              fails if the tensor-core attention kernels spill or their
+              fails if a tensor-core kernel (attention, conv) spills or its
               library holds no tensor-core instruction.
   3. kernels: each hand-written kernel against its plain PyTorch version at
               the shapes the pretext step gives it, with the tolerance stated,
@@ -18,10 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
               flagship widths in bf16, fused against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
-              (128, 256, 256, 64) bf16, plus one small f32 case, then drives
-              ``conv3x3`` / ``conv3x3_s2d`` forward and backward once with the
-              launch counts zeroed before and read after: the convs are on
-              no model path, so that is their path.
+              (128, 256, 256, 64) bf16 on the tensor-core kernel, timed beside
+              the FMA kernel it replaced there (5x floor) and cuDNN, plus a
+              ragged bf16 case, the dense 128-channel instance and a small f32
+              case (FMA kernel), then drives ``conv3x3`` / ``conv3x3_s2d``
+              forward and backward once with the launch counts zeroed before
+              and read after: the convs are on no model path, so that is
+              their path.
   4. ref    : a small pretext model on the card (kernels) against the same
               model on the CPU (plain versions), dropout on, same seeds.
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
@@ -67,12 +70,19 @@ TOL_BF16 = 2e-2
 TOL_F32 = 1e-4
 # small model on the card against the CPU, f32, TF32 off
 TOL_REF = 1e-3
-# conv kernels in bf16 against the f32 plain version: the K = 576 (s2d: 1152)
-# f32 sums are rounded once to bf16
+# conv kernels in bf16 against the f32 plain version: the f32 sums over
+# K = 576 are rounded once to bf16 (half an ulp is 2e-3 of the value)
 TOL_CONV_BF16 = 1e-2
+# the floor under the conv redesign: each tensor-core launch against the FMA
+# kernel on the same inputs in the same run
+CONV_FMA_FLOOR = 5.0
+# the s2d form skips the blocks that are zero by construction, so it may take
+# at most this much longer than conv3x3
+CONV_S2D_OVER = 1.15
 
 CONV_SHAPE = (128, 256, 256, 64)  # the CNN front end's 3x3 convs, (B, H, W, C)
-CONV_SMALL = (2, 37, 50, 64)  # f32 case: H and W not multiples of the tile
+CONV_SMALL = (2, 37, 50, 64)  # f32 and bf16 cases: H and W not multiples of the tile
+CONV_DENSE = (2, 37, 50, 128)  # bf16, the dense 128 -> 128 instance
 CONV_LAUNCHES = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_s2d_fwd", "conv3x3_s2d_dx")
 CONV_REPLACES = {"conv3x3": "sarssl_tpu/kernels/conv3x3.py:51",
                  "conv3x3_s2d": "sarssl_tpu/kernels/conv_s2d.py:88"}
@@ -100,6 +110,9 @@ def phase_card():
     return smi.splitlines()[0]
 
 
+TENSOR_CORE_SOURCES = ("attention_mma", "conv3x3_mma")
+
+
 def phase_build():
     from sarssl_torch.kernels._build import CSRC_DIR, build_all, built_library, cuda_tool
 
@@ -110,46 +123,71 @@ def phase_build():
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
-                if name != "attention_mma":  # reported per kernel below
+                if name not in TENSOR_CORE_SOURCES:  # reported per kernel below
                     log(f"  {name}: {line.strip()}")
-    report_attention_mma(logs["attention_mma"])
+    for name in TENSOR_CORE_SOURCES:
+        report_tensor_core_kernels(name, logs[name])
     cuobjdump = cuda_tool("cuobjdump")
-    if cuobjdump is None:
-        log("[build] no cuobjdump in the CUDA toolkit: SASS not inspected")
-        return
-    sass = subprocess.run([cuobjdump, "-sass", str(built_library("attention_mma"))],
-                          capture_output=True, text=True, check=True).stdout
-    n_mma = sum("HMMA.16816.F32.BF16" in line for line in sass.splitlines())
-    n_ldsm, n_cp = sass.count("LDSM"), sass.count("LDGSTS")
-    log(f"[build] attention_mma SASS: {n_mma} HMMA.16816.F32.BF16 (tensor-core), {n_ldsm} LDSM "
-        f"(ldmatrix), {n_cp} LDGSTS (cp.async) instructions")
-    assert n_mma > 0, "no tensor-core instruction in the built attention_mma library"
+    assert cuobjdump is not None, "no cuobjdump in the CUDA toolkit: SASS not inspected"
+    for name in TENSOR_CORE_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(built_library(name))],
+                              capture_output=True, text=True, check=True).stdout
+        lines = sass.splitlines()
+        n_mma = sum("HMMA." in line or "HGMMA." in line for line in lines)
+        n_ldsm, n_cp = sass.count("LDSM"), sass.count("LDGSTS")
+        log(f"[build] {name} SASS: {n_mma} HMMA/HGMMA (tensor-core), {n_ldsm} LDSM "
+            f"(ldmatrix), {n_cp} LDGSTS (cp.async) instructions")
+        assert n_mma > 0, f"no tensor-core instruction in the built {name} library"
 
 
-def report_attention_mma(ptxas_log):
-    """Per tensor-core attention kernel, from ptxas' report: registers a
-    thread, spills, dynamic shared memory a block and the blocks per SM these
-    allow. Fails if a kernel spills."""
-    from sarssl_torch.kernels.attention import mma_smem_bytes
+def _tensor_core_kernel(source, line):
+    """(label, threads a block, dynamic shared memory) of the kernel that a
+    ptxas 'Compiling entry function' line names, or None."""
+    if source == "attention_mma":
+        from sarssl_torch.kernels.attention import mma_smem_bytes
 
-    threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128, "attn_delta": 256}
-    name = None
-    for line in ptxas_log.splitlines():
+        threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
+                   "attn_delta": 256}
         entry = re.search(r"Compiling entry function '.*?(attn_[a-z_]+?)ILi(\d+)E", line)
         if entry:
             name, D = entry.group(1), int(entry.group(2))
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill and name:
-            assert spill.groups() == ("0", "0"), f"{name}<{D}> spills: {line.strip()}"
+            return f"{name}<{D}>", threads[name], mma_smem_bytes(name, D)
+    else:
+        from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
+
+        entry = re.search(r"Compiling entry function '.*?conv3x3_mma_kernel"
+                          r"ILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if entry:
+            args = [int(g) for g in entry.groups()]
+            return (f"conv3x3_mma_kernel<{', '.join(map(str, args))}>", 256,
+                    mma_smem_bytes(*args))
+    return None
+
+
+def report_tensor_core_kernels(source, ptxas_log):
+    """Per kernel of a tensor-core source, from ptxas' report: registers a
+    thread, spills, dynamic shared memory a block and the blocks per SM these
+    allow. Fails if a kernel spills."""
+    kernel, stack = None, 0
+    if not ptxas_log:
+        log(f"  {source}: built before this run, no ptxas report")
+    for line in ptxas_log.splitlines():
+        kernel = _tensor_core_kernel(source, line) or kernel
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if spill and kernel:
+            assert spill.groups()[1:] == ("0", "0"), f"{kernel[0]} spills: {line.strip()}"
+            stack = int(spill.group(1))
         used = re.search(r"Used (\d+) registers", line)
-        if used and name:
-            regs, smem = int(used.group(1)), mma_smem_bytes(name, D)
+        if used and kernel:
+            label, threads, smem = kernel
+            regs = int(used.group(1))
             # an SM has 65536 registers and 233472 bytes of shared memory, of
             # which each resident block reserves 1024 beside its own
-            blocks = min(65536 // (regs * threads[name]), 233472 // (smem + 1024))
-            log(f"  attention_mma {name}<{D}>: {regs} registers, no spills, {smem} B shared "
-                f"memory, {threads[name]} threads -> {blocks} blocks/SM")
-            name = None
+            blocks = min(65536 // (regs * threads), 233472 // (smem + 1024))
+            log(f"  {source} {label}: {regs} registers, no spills, {stack} B stack, {smem} B "
+                f"shared memory, {threads} threads -> {blocks} blocks/SM")
+            kernel = None
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -310,34 +348,79 @@ def check_dropout(seed, gen):
 
 
 def _conv_cases():
-    """launch name -> (hand-written kernel, plain version), both of (x, w)."""
-    from sarssl_torch.kernels import conv3x3_plain, conv3x3_s2d_plain
-    from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io
+    """launch name -> (public launch function, plain version, the bare
+    tensor-core launch on a packed weight, that packing, the FMA kernel as it
+    ran these shapes before the redesign); all but the packing of (x, w)."""
+    from sarssl_torch.kernels import conv3x3_plain, conv3x3_s2d_plain, expand_weights_s2d2
+    from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, launch_conv3x3_fma,
+                                              launch_conv3x3_mma, pack_weights, rot180_io)
     from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd
 
+    def view(x):
+        B, H, W, C = x.shape
+        return x.view(B, H, W // 2, 2 * C)
+
+    def bare(x, packed):
+        return launch_conv3x3_mma(x, packed, "bare")
+
+    def fma(x, w):
+        return launch_conv3x3_fma(x, w, "fma")
+
+    def fma_s2d(x, w):
+        return launch_conv3x3_fma(view(x), expand_weights_s2d2(w), "fma")
+
+    def flipped(f):
+        return lambda dy, w: f(dy, rot180_io(w))
+
     return {
-        "conv3x3_fwd": (conv3x3_fwd, conv3x3_plain),
-        "conv3x3_dx": (conv3x3_dx, lambda dy, w: conv3x3_plain(dy, rot180_io(w))),
-        "conv3x3_s2d_fwd": (conv3x3_s2d_fwd, conv3x3_s2d_plain),
-        "conv3x3_s2d_dx": (conv3x3_s2d_dx,
-                           lambda dy, w: conv3x3_s2d_plain(dy, rot180_io(w))),
+        "conv3x3_fwd": (conv3x3_fwd, conv3x3_plain, bare, pack_weights, fma),
+        "conv3x3_dx": (conv3x3_dx, flipped(conv3x3_plain), bare,
+                       lambda w: pack_weights(rot180_io(w)), flipped(fma)),
+        # the s2d form's bare launch is conv3x3's: the same instance walks the
+        # view's chunks (kernels/conv_s2d.py)
+        "conv3x3_s2d_fwd": (conv3x3_s2d_fwd, conv3x3_s2d_plain, bare, pack_weights, fma_s2d),
+        "conv3x3_s2d_dx": (conv3x3_s2d_dx, flipped(conv3x3_s2d_plain), bare,
+                           lambda w: pack_weights(rot180_io(w)), flipped(fma_s2d)),
     }
 
 
+def _conv_small_case(name, kernel, plain, shape, cout, dtype, gen, tensor_cores):
+    """One launch at a small shape against the plain version in f32; asserts
+    from the launch counts which kernel ran."""
+    from sarssl_torch.kernels import launches
+
+    tol = TOL_CONV_BF16 if dtype == torch.bfloat16 else TOL_F32
+    C = shape[-1]
+    x = torch.randn(shape[:3] + (cout if name.endswith("_dx") else C,), generator=gen,
+                    device="cuda").to(dtype)
+    w = (torch.randn((3, 3, C, cout), generator=gen, device="cuda") / np.sqrt(9 * C)).to(dtype)
+    before = launches[name], launches[name + "_tc"]
+    out = kernel(x, w)
+    rose = launches[name] - before[0], launches[name + "_tc"] - before[1]
+    assert rose == (1, int(tensor_cores)), f"{name} {shape} {dtype}: launches {rose}"
+    rel = rel_err(out, plain(x.float(), w.float()))
+    assert rel <= tol, f"{name} {str(dtype)[6:]} {shape}: rel err {rel} > {tol}"
+    log(f"[kernels] {name} {shape} -> {cout} {str(dtype)[6:]}: rel err {rel:.2e} (tol {tol}; "
+        f"{'tensor-core' if tensor_cores else 'FMA'} kernel)")
+
+
 def check_conv(gen):
-    """The four conv launches against their plain versions (f32 at a small
-    shape, bf16 at the front end's), timed beside their bound and cuDNN;
-    then the public functions' forward and backward once, counted."""
+    """The four conv launches against their plain versions: f32 at a small
+    ragged shape (FMA kernel), bf16 at the same shape, at the dense 128 ->
+    128 instance and at the front end's shape (tensor-core kernel), there
+    timed beside their bound, cuDNN and the FMA kernel; then the public
+    functions' forward and backward once, counted."""
     from sarssl_torch.kernels import conv3x3, conv3x3_s2d, launches, reset_launches
 
     cases = _conv_cases()
     C = CONV_SHAPE[-1]
-    for name, (kernel, plain) in cases.items():
-        x = torch.randn(CONV_SMALL, generator=gen, device="cuda")
-        w = torch.randn((3, 3, C, C), generator=gen, device="cuda") / np.sqrt(9 * C)
-        rel = rel_err(kernel(x, w), plain(x, w))
-        assert rel <= TOL_F32, f"{name} f32 {CONV_SMALL}: rel err {rel} > {TOL_F32}"
-        log(f"[kernels] {name} {CONV_SMALL} f32: rel err {rel:.2e} (tol {TOL_F32})")
+    for name, (kernel, plain, *_) in cases.items():
+        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.float32, gen, False)
+        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.bfloat16, gen, True)
+    for name in ("conv3x3_fwd", "conv3x3_dx"):
+        kernel, plain, *_ = cases[name]
+        _conv_small_case(name, kernel, plain, CONV_DENSE, CONV_DENSE[-1], torch.bfloat16, gen,
+                         True)
 
     x, dy = (torch.randn(CONV_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
              for _ in range(2))
@@ -354,25 +437,44 @@ def check_conv(gen):
                                                          padding=1), iters=5, warmup=2),
     }
     B, H, W, _ = CONV_SHAPE
-    # useful work of the SAME 3x3 conv; the s2d form executes twice the ops
-    bound = bound_ms(2 * x.numel() * 2 + w.numel() * 2, 2 * B * H * W * C * C * 9,
-                     BF16_FLOPS)
+    # the work of the SAME 3x3 conv, which is also what the s2d form executes:
+    # the blocks of its expanded weight that are zero by construction are skipped
+    nbytes, flops = 2 * x.numel() * 2 + w.numel() * 2, 2 * B * H * W * C * C * 9
+    bound = bound_ms(nbytes, flops, BF16_FLOPS)
     rows = {}
-    for name, (kernel, plain) in cases.items():
+    for name, (kernel, plain, bare, pack, fma) in cases.items():
         inp = dy if name.endswith("_dx") else x
+        before = launches[name + "_tc"]
         out = kernel(inp, w)
+        assert launches[name + "_tc"] == before + 1, f"{name}: not the tensor-core kernel"
         ref = plain(inp.float(), w.float())
         rel, err = rel_err(out, ref), max_abs(out, ref)
-        del out, ref
+        del ref
         assert rel <= TOL_CONV_BF16, f"{name} bf16: rel err {rel} > {TOL_CONV_BF16}"
-        rows[name] = {"max_abs_err": err, "ms": cuda_ms(lambda: kernel(inp, w), iters=5, warmup=1),
-                      "plain_ms": cuda_ms(lambda: plain(inp, w), iters=2, warmup=1),
-                      "library_ms": lib["dx" if name.endswith("_dx") else "fwd"],
-                      "bound": bound}
-        r = rows[name]
+        packed = pack(w)
+        assert torch.equal(bare(inp, packed), out), f"{name}: the bare launch differs"
+        del out
+        # new, old, new: the FMA kernel between two readings of the new one
+        r = rows[name] = {
+            "max_abs_err": err, "ms": cuda_ms(lambda: kernel(inp, w), iters=10, warmup=2),
+            "fma_ms": cuda_ms(lambda: fma(inp, w), iters=3, warmup=1),
+            "launch_ms": cuda_ms(lambda: bare(inp, packed), iters=10, warmup=2),
+            "plain_ms": cuda_ms(lambda: plain(inp, w), iters=2, warmup=1),
+            "library_ms": lib["dx" if name.endswith("_dx") else "fwd"], "bound": bound}
+        r["tflops"], r["tbytes"] = flops / r["ms"] * 1e-9, nbytes / r["ms"] * 1e-9
+        met = r["ms"] <= lib["fwd"] and r["ms"] <= 2 * bound[0]
         log(f"[kernels] {name} {CONV_SHAPE} bf16: rel err {rel:.2e} abs {err:.2e} "
-            f"(tol {TOL_CONV_BF16}); {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN "
-            f"{r['library_ms']:.3f}, bound {bound[0]:.4f} by {bound[1]})")
+            f"(tol {TOL_CONV_BF16}); {r['ms']:.3f} ms, the launch alone {r['launch_ms']:.3f} "
+            f"(FMA kernel {r['fma_ms']:.3f}, plain {r['plain_ms']:.3f}, cuDNN "
+            f"{r['library_ms']:.3f}, bound {bound[0]:.4f} by {bound[1]}); "
+            f"{r['tflops']:.1f} TFLOP/s, {r['tbytes']:.3f} TB/s; target (<= cuDNN's forward "
+            f"{lib['fwd']:.3f} and <= 2x the bound) {'met' if met else 'missed'}")
+        assert CONV_FMA_FLOOR * r["ms"] <= r["fma_ms"], (
+            f"{name}: under {CONV_FMA_FLOOR}x the FMA kernel")
+    for kind in ("fwd", "dx"):
+        s2d, dense = rows[f"conv3x3_s2d_{kind}"]["ms"], rows[f"conv3x3_{kind}"]["ms"]
+        assert s2d <= CONV_S2D_OVER * dense, (
+            f"conv3x3_s2d_{kind} {s2d} ms over {CONV_S2D_OVER}x conv3x3_{kind} {dense} ms")
 
     # the convs' own path: the public functions, forward and backward
     reset_launches()
@@ -381,10 +483,13 @@ def check_conv(gen):
         torch.autograd.grad(fn(xr, wr), (xr, wr), dy)
     torch.cuda.synchronize()
     counts = {n: launches.get(n, 0) for n in CONV_LAUNCHES}
-    log(f"[kernels] conv path (conv3x3 and conv3x3_s2d, forward + backward): launches {counts}")
-    for n, got in counts.items():
-        assert got == 1, f"{n}: {got} launches on the conv path, want 1"
-        rows[n]["launches"] = got
+    counts_tc = {n: launches.get(n + "_tc", 0) for n in CONV_LAUNCHES}
+    log(f"[kernels] conv path (conv3x3 and conv3x3_s2d, forward + backward): launches "
+        f"{counts}, of the tensor-core kernel {counts_tc}")
+    for n in CONV_LAUNCHES:
+        assert counts[n] == counts_tc[n] == 1, (
+            f"{n}: {counts[n]} launches, {counts_tc[n]} tensor-core, on the conv path, want 1")
+        rows[n]["launches"], rows[n]["launches_tc"] = counts[n], counts_tc[n]
     return rows
 
 
@@ -487,8 +592,10 @@ def kernels_line(rows, drop, conv, counts, ds_counts):
     for name in CONV_LAUNCHES:
         r = conv[name]
         out.append({
-            "name": name, "route": "cuda", "source": "sarssl_torch/csrc/conv3x3.cu",
-            "replaces": CONV_REPLACES[name.rsplit("_", 1)[0]], "launches": r["launches"],
+            "name": name, "route": "cuda", "source": "sarssl_torch/csrc/conv3x3_mma.cu",
+            "variant": "wgmma", "replaces": CONV_REPLACES[name.rsplit("_", 1)[0]],
+            "launches": r["launches"], "launches_tc": r["launches_tc"],
+            "fma_ms": r["fma_ms"], "launch_ms": r["launch_ms"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
@@ -523,6 +630,12 @@ def phase_reference():
     log(f"[ref] small pretext model, 2 steps, dropout {RATE}: card {losses['cuda']} "
         f"cpu {losses['cpu']} max rel err {err:.2e} (tol {TOL_REF})")
     assert err <= TOL_REF, f"card and CPU losses differ by {err}"
+
+
+def _assert_no_conv_launch(counts, step):
+    """The conv kernels are on no model path: a step that launched one moved."""
+    conv = {k: v for k, v in counts.items() if k.startswith("conv3x3")}
+    assert not conv, f"the {step} step launched conv kernels: {conv}"
 
 
 def phase_train(card):
@@ -562,6 +675,7 @@ def phase_train(card):
             got = counts.get(f"attention_{kind}_d{D}", 0)
             assert got == want, f"attention_{kind}_d{D}: {got} launches, want {want}"
     assert counts.get("hash_dropout", 0) > 0, "hash_dropout never launched"
+    _assert_no_conv_launch(counts, "pretext")
     med = statistics.median(times)
     log(f"[train] launches over {STEPS} steps: {counts}")
     log(f"[train] losses {losses} ({card})")
@@ -591,6 +705,7 @@ def _timed_steps(fn, n=STEPS):
         outs.append(fn())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    _assert_no_conv_launch(launches, "downstream")
     return times, outs, dict(launches), torch.cuda.max_memory_allocated() / 2 ** 30
 
 

@@ -4,9 +4,16 @@
                  (tensor cores; bfloat16, head dim 64/128, L % 64 == 0) and
                  ``csrc/attention.cu`` (f32 FMAs; everything else)
   dropout.py   : counter-hash inverted dropout, Triton
-  conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++ (``csrc/conv3x3.cu``)
-  conv_s2d.py  : the same conv over the W-space-to-depth view, on the same
-                 CUDA kernel at twice the channels
+  conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``
+                 (tensor cores, ``wgmma``; bfloat16 at (C, Cout) in {64, 128}^2)
+                 and ``csrc/conv3x3.cu`` (f32 FMAs; float32 at the same pairs)
+  conv_s2d.py  : the same conv over the W-space-to-depth view: bfloat16 at
+                 C = 64 on the tensor-core kernel, which multiplies only the
+                 blocks of the expanded weight that exist (it walks the view's
+                 64-channel chunks); anything else on the dense kernels at
+                 twice the channels
+  csrc/mma_common.cuh : cp.async / ldmatrix / mma primitives both tensor-core
+                 sources include
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and uses the
 plain version only for CPU tensors. ``launches`` counts kernel launches.

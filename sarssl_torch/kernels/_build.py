@@ -2,14 +2,16 @@
 
 CUDA sources in ``sarssl_torch/csrc/`` are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``sarssl_torch/_build/`` (git-ignored), keyed by a hash of the source
-and the flags, and loaded with ``ctypes``. Triton keeps its cache in the same
+into ``sarssl_torch/_build/`` (git-ignored), keyed by a hash of the source,
+the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
+``ctypes``. Triton keeps its cache in the same
 directory. Nothing is built when a module is imported.
 
 ``launches`` counts kernel launches by name (the attention kernels by head
 dim, e.g. ``attention_fwd_d128`` for every forward launch and
-``attention_fwd_tc_d128`` for those of the tensor-core kernels): each wrapper
-adds one where it launches its kernel, and nowhere else.
+``attention_fwd_tc_d128`` for those of the tensor-core kernels; the conv
+launches likewise, ``conv3x3_fwd`` and ``conv3x3_fwd_tc``): each wrapper adds
+one where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # every header counts for every source: an edited header never loads a
+    # library built from the old one
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 

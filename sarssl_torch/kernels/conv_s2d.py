@@ -1,16 +1,25 @@
 """SAME 3x3 convolution over the W-space-to-depth view: the wrappers around
-``csrc/conv3x3.cu``, the plain version and the ``autograd.Function``.
+the conv kernels, the plain version and the ``autograd.Function``.
 
 Replaces ``sarssl_tpu/kernels/conv_s2d.py::conv3x3_s2d`` (the Pallas kernel
 ``_conv_s2d``, its weights ``expand_weights_s2d2`` and its VJP). For x
 (B, H, W, C) with W even and C == Cout, ``(B, H, W, C) -> (B, H, W/2, 2C)``
 is a free row-major view, and the conv of x with w equals the SAME 3x3 conv
-of that view with ``expand_weights_s2d2(w)`` (3, 3, 2C, 2C), half of whose
-entries are zero: the view's zero padding is exactly the original's. So the
-kernel is ``csrc/conv3x3.cu`` at 2C channels, doing twice the raw FLOPs.
+of that view with ``expand_weights_s2d2(w)`` (3, 3, 2C, 2C): the view's zero
+padding is exactly the original's. Of the twelve C x C blocks of each kernel
+row of the expanded weight six are zero by construction, and the six others
+are the three blocks ``w[dh, dw]``, each used by both output parities.
 
-  * forward: the kernel on the view with the expanded weights;
-  * dx: the kernel on dy's view with ``expand_weights_s2d2(rot180_io(w))``;
+  * bfloat16 at C = 64: ``csrc/conv3x3_mma.cu`` multiplies only the blocks that
+    exist, the work of the plain conv and not twice it. :data:`S2D_SLOTS` is
+    the table of those blocks; :func:`s2d_chunk_taps` reads off it that output
+    chunk q of view pixel p takes ``w[dh, 0..2]`` on the 64-channel chunks
+    2p + q - 1 .. 2p + q + 1 of the view's row, whatever q. Chunk for chunk
+    that is the 64-channel conv over the same memory, so the launch is the
+    kernel's C = 64 instance walking the view's chunks;
+  * anything else the conv kernels take (float32; bfloat16 at C = 32): the
+    dense kernel on the view with the expanded weights;
+  * dx: the same on dy's view with ``rot180_io(w)``;
   * dW: the library filter gradient on the original layout, as in JAX.
 
 On no model path, like ``conv3x3``.
@@ -19,7 +28,56 @@ from __future__ import annotations
 
 import torch
 
-from .conv3x3 import Conv3x3Function, conv3x3_plain, launch_conv3x3, rot180_io
+from .conv3x3 import (BLOCK, Conv3x3Function, conv3x3_plain, launch_conv3x3,
+                      launch_conv3x3_mma, pack_weights, rot180_io, takes_tensor_cores)
+
+
+def s2d_slots() -> list:
+    """``[dh][j][r][q]`` -> ``dh * 3 + dw`` where block (view tap ``j``, input
+    parity ``r``, output parity ``q``) of the expanded weight is ``w[dh, dw]``,
+    -1 where it is zero by construction. The index rule of
+    :func:`expand_weights_s2d2`, not a look at any weight's values."""
+    slots = [[[[-1, -1], [-1, -1]] for _ in range(3)] for _ in range(3)]
+    for dh in range(3):
+        for q in range(2):
+            for dw in range(3):
+                s = q + dw - 1
+                slots[dh][s // 2 + 1][s % 2][q] = dh * 3 + dw
+    return slots
+
+
+S2D_SLOTS = s2d_slots()
+
+
+def s2d_chunk_taps(slots) -> list:
+    """What a table of the view's blocks means chunk by chunk: for each kernel
+    row ``dh`` the ``(shift, slot)`` pairs such that output chunk ``c = 2p +
+    q`` of a view row takes block ``slot`` on input chunk ``c + shift``.
+    Raises if the two output parities disagree, i.e. if the table is not that
+    of a conv over the chunks."""
+    rows = []
+    for dh in range(3):
+        per_q = [sorted((2 * (j - 1) + r - q, slots[dh][j][r][q]) for j in range(3)
+                        for r in range(2) if slots[dh][j][r][q] >= 0) for q in range(2)]
+        if per_q[0] != per_q[1]:
+            raise ValueError("the block table is not a conv over 64-channel chunks")
+        rows.append(per_q[0])
+    return rows
+
+
+# The bfloat16 launch below walks the view's chunks as 64-channel pixels. That
+# is right only while the view's existing blocks are the taps of the chunks'
+# own 3x3 conv with w's nine blocks in their order: held here, once.
+if s2d_chunk_taps(S2D_SLOTS) != [[(dw - 1, dh * 3 + dw) for dw in range(3)] for dh in range(3)]:
+    raise RuntimeError("S2D_SLOTS is not the table of the chunks' 3x3 conv")
+
+
+def takes_s2d_instance(dtype: torch.dtype, C: int) -> bool:
+    """Whether ``conv3x3_s2d`` multiplies the existing blocks only (the
+    tensor-core kernel's C = 64 instance over the view's chunks) for CUDA
+    tensors of this dtype with ``C`` channels. Anything else goes to
+    ``conv3x3``'s routing at 2C channels with the expanded weights."""
+    return takes_tensor_cores(dtype, 2 * C, 2 * C) and C == BLOCK
 
 
 def expand_weights_s2d2(w: torch.Tensor) -> torch.Tensor:
@@ -67,6 +125,9 @@ def _launch(x, w, name):
     _check_shape(x, w)
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous x")
+    if takes_s2d_instance(x.dtype, x.shape[3]):
+        # the view's chunks, walked as pixels: x's own memory and shape
+        return launch_conv3x3_mma(x, pack_weights(w.to(x.dtype)), name)
     return launch_conv3x3(_view(x), expand_weights_s2d2(w), name).view(x.shape)
 
 
@@ -75,8 +136,8 @@ def conv3x3_s2d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_s2d_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dx of ``conv3x3_s2d(x, w)``: the kernel on dy's view with
-    ``expand_weights_s2d2(rot180_io(w))``."""
+    """dx of ``conv3x3_s2d(x, w)``: the forward launch on dy with
+    ``rot180_io(w)``."""
     return _launch(dy, rot180_io(w), "conv3x3_s2d_dx")
 
 

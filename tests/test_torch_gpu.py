@@ -15,6 +15,7 @@ from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # no
 from sarssl_torch.kernels.attention import (launch_attention_bwd_mma,  # noqa: E402
                                             launch_attention_fwd_mma, takes_tensor_cores)
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
+from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
 from sarssl_torch.kernels.dropout import launch_dropout  # noqa: E402
 
@@ -121,11 +122,15 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").to(dtype)
     assert _rel(conv3x3_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
     assert _rel(conv3x3_dx(dy, w), conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
-    # through autograd: forward and dx are kernel launches, dW the library
-    before = launches["conv3x3_fwd"], launches["conv3x3_dx"]
+    # through autograd: forward and dx are kernel launches, dW the library;
+    # bfloat16 runs the tensor-core kernel (its count rises), float32 the FMA
+    names = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_fwd_tc", "conv3x3_dx_tc")
+    before = [launches[n] for n in names]
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     gx, gw = torch.autograd.grad(conv3x3(xr, wr), (xr, wr), dy)
-    assert (launches["conv3x3_fwd"], launches["conv3x3_dx"]) == (before[0] + 1, before[1] + 1)
+    tc = int(conv_takes_tc(dtype, C, Cout))
+    assert tc == (dtype == torch.bfloat16)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
     xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
     gx_ref, gw_ref = torch.autograd.grad(conv3x3_plain(xf, wf), (xf, wf), dy.float())
     assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
@@ -141,14 +146,60 @@ def test_conv3x3_s2d_kernel_matches_plain(cuda, shape, dtype):
     assert _rel(conv3x3_s2d_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
     assert _rel(conv3x3_s2d_dx(dy, w),
                 conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
-    before = launches["conv3x3_s2d_fwd"], launches["conv3x3_s2d_dx"]
+    names = ("conv3x3_s2d_fwd", "conv3x3_s2d_dx", "conv3x3_s2d_fwd_tc", "conv3x3_s2d_dx_tc")
+    before = [launches[n] for n in names]
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     gx, gw = torch.autograd.grad(conv3x3_s2d(xr, wr), (xr, wr), dy)
-    assert (launches["conv3x3_s2d_fwd"], launches["conv3x3_s2d_dx"]) == (
-        before[0] + 1, before[1] + 1)
+    # bfloat16: C = 64 the C = 64 instance over the view's chunks, C = 32 the
+    # same instance on the 64-channel view with the expanded weight
+    tc = int(dtype == torch.bfloat16)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
     xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
     gx_ref, gw_ref = torch.autograd.grad(conv3x3_s2d_plain(xf, wf), (xf, wf), dy.float())
     assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
+
+
+# H and W of 1, 2 and the tile's 16 rows / 32 (s2d: 16 view) columns +- 1
+CONV_EDGES = [(1, 1, 2), (1, 2, 2), (1, 1, 64), (1, 33, 2), (1, 15, 30), (1, 17, 34),
+              (2, 16, 32), (1, 31, 66)]
+
+
+@pytest.mark.parametrize("nhw", CONV_EDGES)
+def test_conv_tensor_core_kernel_at_tile_edges(cuda, nhw):
+    """bfloat16, N = 1 included: conv3x3 at all four channel pairs and the
+    s2d form, forward and dx, against the plain version."""
+    N, H, W = nhw
+    for C, Cout in ((64, 64), (128, 128), (64, 128), (128, 64)):
+        x = torch.randn((N, H, W, C), generator=cuda, device="cuda").bfloat16()
+        dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").bfloat16()
+        w = (0.1 * torch.randn((3, 3, C, Cout), generator=cuda, device="cuda")).bfloat16()
+        tol = TOL[torch.bfloat16]
+        assert _rel(conv3x3_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= tol, (C, Cout)
+        assert _rel(conv3x3_dx(dy, w),
+                    conv3x3_plain(dy.float(), rot180_io(w).float())) <= tol, (C, Cout)
+    x = torch.randn((N, H, W, 64), generator=cuda, device="cuda").bfloat16()
+    w = (0.1 * torch.randn((3, 3, 64, 64), generator=cuda, device="cuda")).bfloat16()
+    before = launches["conv3x3_s2d_fwd_tc"]
+    assert _rel(conv3x3_s2d_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= tol
+    assert _rel(conv3x3_s2d_dx(x, w), conv3x3_plain(x.float(), rot180_io(w).float())) <= tol
+    assert launches["conv3x3_s2d_fwd_tc"] == before + 1
+
+
+def test_conv_tensor_core_kernel_at_front_end_shape_is_bit_identical_from_run_to_run(cuda):
+    """(128, 256, 256, 64) bfloat16, the four launches; the kernel uses no
+    atomics, so two runs agree bit for bit."""
+    shape = (128, 256, 256, 64)
+    x = torch.randn(shape, generator=cuda, device="cuda").bfloat16()
+    w = (torch.randn((3, 3, 64, 64), generator=cuda, device="cuda") / 24).bfloat16()
+    ref = {False: conv3x3_plain(x.float(), w.float()),
+           True: conv3x3_plain(x.float(), rot180_io(w).float())}
+    for name, fn in (("conv3x3_fwd", conv3x3_fwd), ("conv3x3_dx", conv3x3_dx),
+                     ("conv3x3_s2d_fwd", conv3x3_s2d_fwd), ("conv3x3_s2d_dx", conv3x3_s2d_dx)):
+        before = launches[name + "_tc"]
+        first, second = fn(x, w), fn(x, w)
+        assert launches[name + "_tc"] == before + 2, name
+        assert torch.equal(first, second), name
+        assert _rel(first, ref[name.endswith("_dx")]) <= 1e-2, name
 
 
 def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
