@@ -31,7 +31,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
               65792-sample 2-mic waves, fused attention, dropout 0.1): one
               warm-up and 5 timed steps through ``make_pretrain_step``, with
               the kernels' launch counts read around them, then one eval step.
-  6. downstream: the trunk that ``train`` just stepped, ``partial_load``ed
+  6. pretrain_cli: the pre-training run through its CLI,
+              ``sarssl_torch.cli.run_pretrain.main``, at the flagship width
+              (bf16, batch 128, ``--synthetic --fused-attention``, 2 train +
+              1 val batches an epoch): 2 epochs, then ``--resume`` to a
+              third, with the launch counts zeroed before and read after,
+              the files and metrics it writes checked, and the host's
+              synthetic-data and checkpoint-write seconds timed. Then the
+              committed trained checkpoint (epoch 27) loaded through the
+              port's checkpoint reader into the flagship model at 64 frames,
+              batch 2: the eval step on one replayed mask, f32 and bf16 on
+              the card against f32 on the CPU.
+  7. downstream: the trunk that ``train`` just stepped, ``partial_load``ed
               into the flagship downstream model (f32, batch 8, 16640-sample
               waves, TDOA, dropout 0.1): finetune and lineareval (frozen
               encoder) steps, one warm-up and 5 timed each, with the launch
@@ -45,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,6 +98,23 @@ CONV_DENSE = (2, 37, 50, 128)  # bf16, the dense 128 -> 128 instance
 CONV_LAUNCHES = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_s2d_fwd", "conv3x3_s2d_dx")
 CONV_REPLACES = {"conv3x3": "sarssl_tpu/kernels/conv3x3.py:51",
                  "conv3x3_s2d": "sarssl_tpu/kernels/conv_s2d.py:88"}
+
+# pretrain_cli: 2 train batches and 1 val batch of 128 an epoch
+CLI_TRAIN_NUM, CLI_VAL_NUM = 256, 128
+CLI_LR = 1e-3  # run_pretrain's default --lr
+TRAINED_CKPT = "exp/pretrain_r5_ctf_s101/best_model_f16.msgpack"  # epoch 27
+# the trained model in bf16 on the card against f32 on the CPU: bf16 rounding
+# raises the loss (each element's error adds its square); bf16 against f32,
+# both on the CPU, on these weights and waves read 1.1e-2 and 2.0e-2 on two
+# masks
+TOL_TRAINED_BF16 = 5e-2
+# ... and its prediction, element by element, relative to max |f32|: bf16
+# keeps 8 bits, and through the flagship's depth the trained model's
+# prediction moves by about a tenth of its largest value (max) and 6% (mean)
+# (the JAX package's bf16 against its f32 on these weights reads 0.099 and
+# 0.059, the port's on the CPU 0.113 and 0.066). The card's bf16 must stay
+# within this factor of the CPU's bf16 reading, taken in the same run.
+TRAINED_BF16_FACTOR = 1.5
 
 DS_BATCH = 8  # SIM_BS_SET's batch size (sarssl_tpu/config.py:49)
 DS_NSAMPLE = 16640  # 1.04 s at 16 kHz -> 64 STFT frames
@@ -561,7 +590,7 @@ def phase_kernels():
     return rows, drop, conv
 
 
-def kernels_line(rows, drop, conv, counts, ds_counts):
+def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -576,7 +605,10 @@ def kernels_line(rows, drop, conv, counts, ds_counts):
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
-                "library_ms": r[f"lib_{kind}_ms"], "path": "pretext train step",
+                "library_ms": r[f"lib_{kind}_ms"],
+                "path": "pretext train step (launches) and the pre-training CLI run "
+                        "(launches_pretrain_cli)",
+                "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -585,8 +617,9 @@ def kernels_line(rows, drop, conv, counts, ds_counts):
         "launches": counts.get("hash_dropout", 0), "max_abs_err": drop["max_abs_err"],
         "ms": drop["ms"], "plain_ms": drop["plain_ms"], "bound_ms": drop["bound"][0],
         "bound_by": drop["bound"][1], "library_ms": drop["library_ms"],
-        "path": "pretext train step (launches) and downstream finetune step "
-                "(launches_downstream)",
+        "path": "pretext train step (launches), the pre-training CLI run "
+                "(launches_pretrain_cli) and downstream finetune step (launches_downstream)",
+        "launches_pretrain_cli": cli_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
     })
     for name in CONV_LAUNCHES:
@@ -686,7 +719,185 @@ def phase_train(card):
     ev = {k: float(v) for k, v in ev.items()}
     assert all(np.isfinite(list(ev.values()))), f"non-finite eval metrics {ev}"
     log(f"[train] eval step {ev}")
-    return counts, model
+    return counts, model, BATCH / med
+
+
+class _Tee:
+    """Standard output that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(argv):
+    """``run_pretrain.main(argv)``; returns its printed output."""
+    import contextlib
+
+    from sarssl_torch.cli.run_pretrain import main as run_pretrain
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = run_pretrain(argv)
+    assert rc == 0, f"run_pretrain {argv}: exit {rc}"
+    return "".join(tee.text)
+
+
+def phase_pretrain_cli(card, step_utt_s):
+    """The flagship pre-training run through its CLI: 2 epochs, then resumed
+    to a third. The host's synthetic batches and checkpoint writes are timed
+    by wrapping the two functions the run calls."""
+    import os
+    import tempfile
+
+    from sarssl_torch.data import synthetic
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train.schedules import cosine_schedule
+
+    spent = {"synth": [], "ckpt": []}
+    synth_batch, save_checkpoint = synthetic.synth_batch, ckpt.save_checkpoint
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    synthetic.synth_batch = timed(synth_batch, "synth")
+    ckpt.save_checkpoint = timed(save_checkpoint, "ckpt")
+    try:
+        with tempfile.TemporaryDirectory(prefix="pretrain_cli_") as exp:
+            common = ["--pretrain", "--synthetic", "--fused-attention", "--bs", str(BATCH),
+                      "--train-num", str(CLI_TRAIN_NUM), "--val-num", str(CLI_VAL_NUM),
+                      "--exp-dir", exp]
+            reset_launches()
+            t0 = time.perf_counter()
+            first = _cli(common + ["--epochs", "2"])
+            t1 = time.perf_counter()
+            second = _cli(common + ["--epochs", "3", "--resume"])
+            wall = (t1 - t0, time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            counts = dict(launches)
+            files = {f: os.path.getsize(os.path.join(exp, "checkpoints", f))
+                     for f in sorted(os.listdir(os.path.join(exp, "checkpoints")))}
+            with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+    finally:
+        synthetic.synth_batch, ckpt.save_checkpoint = synth_batch, save_checkpoint
+
+    # the shares below are only as good as the wrappers: both must have
+    # caught every call the run made (train and val batches, one file each epoch)
+    n_batches = 3 * (CLI_TRAIN_NUM + CLI_VAL_NUM) // BATCH
+    assert len(spent["synth"]) == n_batches, f"{len(spent['synth'])} synthetic batches timed"
+    assert len(spent["ckpt"]) == 3, f"{len(spent['ckpt'])} checkpoint writes timed"
+    assert "device cuda" in first and "TF32 off" in first, "the CLI did not report its device"
+    assert "epoch 0:" in first and "epoch 1:" in first and "epoch 2:" not in first
+    assert "resumed from epoch 1 (latest_model.msgpack)" in second, second
+    assert "epoch 2:" in second and "epoch 1:" not in second, "the resumed run ran another epoch"
+    want = {f"model{e}.msgpack" for e in range(3)} | {"latest_model.msgpack",
+                                                       "best_model.msgpack"}
+    assert want <= set(files), f"checkpoint files {sorted(files)}"
+    train = [r for r in recs if r["split"] == "train"]
+    val = [r for r in recs if r["split"] == "val"]
+    lrs = [cosine_schedule(2, CLI_LR)(0), cosine_schedule(2, CLI_LR)(1),
+           cosine_schedule(3, CLI_LR)(2)]
+    assert [r["step"] for r in train] == [0, 1, 2], train
+    assert [r["lr"] for r in train] == lrs, (train, lrs)
+    assert [r["step"] for r in val] == [0, 1, 2], val
+    assert all(np.isfinite([r["loss"] for r in recs])), recs
+
+    batches = CLI_TRAIN_NUM // BATCH
+    train_steps, val_steps = 3 * batches, 3 * (CLI_VAL_NUM // BATCH)
+    for D in HEAD_DIMS:
+        for kind, n in (("fwd", train_steps + val_steps), ("bwd", train_steps)):
+            for name in (f"attention_{kind}_d{D}", f"attention_{kind}_tc_d{D}"):
+                got = counts.get(name, 0)
+                assert got == LAYERS[D] * n, f"{name}: {got} launches, want {LAYERS[D] * n}"
+    assert counts.get("hash_dropout", 0) > 0, "hash_dropout never launched on the CLI run"
+    _assert_no_conv_launch(counts, "pre-training CLI")
+    log(f"[pretrain_cli] launches over {train_steps} train and {val_steps} val steps: {counts}")
+    log(f"[pretrain_cli] losses: train {[round(r['loss'], 5) for r in train]}, val "
+        f"{[round(r['loss'], 5) for r in val]}, val diff {[round(r['diff'], 5) for r in val]}, "
+        f"lr {lrs}")
+    log(f"[pretrain_cli] epoch utt/s {[r['utt_per_sec'] for r in train]} beside the "
+        f"train phase's step {step_utt_s:.1f} utt/s ({card})")
+    log(f"[pretrain_cli] wall {wall[0]:.2f} s (2 epochs) + {wall[1]:.2f} s (resumed epoch); "
+        f"synthetic batches on the host: {len(spent['synth'])} in {sum(spent['synth']):.2f} s "
+        f"({sum(spent['synth']) / sum(wall):.1%} of the wall time); checkpoint writes: "
+        f"{len(spent['ckpt'])} in {sum(spent['ckpt']):.2f} s "
+        f"({sum(spent['ckpt']) / sum(wall):.1%}), {spent['ckpt']} ({card})")
+    log(f"[pretrain_cli] checkpoint files (bytes): {files}")
+    return counts
+
+
+def phase_trained(card):
+    """The committed trained checkpoint, read by the port, in the flagship
+    model at 64 frames: the eval step on one replayed mask, and the
+    prediction element by element, f32 and bf16 on the card against f32 on
+    the CPU (bf16 held to the CPU's own bf16 reading)."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig, PatchMask, gen_patch_mask, stft_features
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train import create_train_state, make_pretrain_eval_step
+
+    payload = ckpt.load_checkpoint(str(Path(__file__).resolve().parent / TRAINED_CKPT))
+    assert payload["meta"]["epoch"] == 27, payload["meta"]
+    wave, _ = synth_batch(np.random.default_rng(11), 2, DS_NSAMPLE)
+    res, preds = {}, {}
+    runs = (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "float32"), ("cuda", "bfloat16"))
+    for dev, dtype in runs:
+        cfg = SARSSLConfig(sig_shape=(256, DS_FRAMES, 2, 2), dtype=dtype, fused_attention=True)
+        model = SARSSL(cfg, device=dev, seed=0)
+        state = ckpt.restore_state(create_train_state(model), payload, restore_opt=False)
+        mask = gen_patch_mask(torch.Generator().manual_seed(7), 2, cfg.npatch,
+                              cfg.effective_nmasked(), nmic=2, device="cpu")
+        mask = PatchMask(*(t.to(dev) for t in mask))
+        out = make_pretrain_eval_step(model, FeatureConfig(), device=dev)(
+            state, wave, torch.Generator(), mask=mask)
+        res[dev, dtype] = {k: float(v) for k, v in out.items()}
+        with torch.no_grad():  # the eval step's forward, for its prediction
+            feats = stft_features(torch.from_numpy(wave).to(dev, torch.float32), FeatureConfig())
+            _, _, aux = model.pretext(feats, mask, False)
+        preds[dev, dtype] = aux["pred"].float().cpu()
+    ref, pref = res["cpu", "float32"], preds["cpu", "float32"]
+
+    def pred_err(key):
+        err = (preds[key] - pref).abs()
+        return float(err.max() / pref.abs().max()), float(err.mean() / pref.abs().mean())
+
+    reading = pred_err(("cpu", "bfloat16"))
+    log(f"[trained] epoch-27 checkpoint, cpu bfloat16 prediction against cpu float32: max rel "
+        f"{reading[0]:.3e}, mean rel {reading[1]:.3e} (the bf16 reading)")
+    for dev, dtype in runs[2:]:
+        r = res[dev, dtype]
+        errs = {k: abs(r[k] - ref[k]) / abs(ref[k]) for k in ("loss", "diff")}
+        perr = pred_err((dev, dtype))
+        if dtype == "bfloat16":
+            tol = {"loss": TOL_TRAINED_BF16,
+                   "pred": tuple(TRAINED_BF16_FACTOR * e for e in reading)}
+        else:
+            tol = {"loss": TOL_REF, "pred": (TOL_REF, TOL_REF)}
+        log(f"[trained] epoch-27 checkpoint, {dev} {dtype}: loss {r['loss']:.6f} diff "
+            f"{r['diff']:.6f}; against f32 on the CPU: prediction {tuple(preds[dev, dtype].shape)} "
+            f"max rel {perr[0]:.3e} (tol {tol['pred'][0]:.3e}), mean rel {perr[1]:.3e} (tol "
+            f"{tol['pred'][1]:.3e}); loss rel {errs['loss']:.2e} (tol {tol['loss']}); features "
+            f"(diff reads only them) rel {errs['diff']:.2e} (tol {TOL_REF}) ({card})")
+        assert np.isfinite(preds[dev, dtype].numpy()).all(), f"{dev} {dtype}: non-finite prediction"
+        for e, t, what in zip(perr, tol["pred"], ("max", "mean")):
+            assert e <= t, f"trained weights {dev} {dtype}: prediction {what} rel err {e} > {t}"
+        assert errs["loss"] <= tol["loss"], f"trained weights {dev} {dtype}: loss rel err"
+        assert errs["diff"] <= TOL_REF, f"trained weights {dev} {dtype}: features differ"
+    assert ref["loss"] < ref["diff"], "the trained model predicts no better than a channel copy"
 
 
 def _timed_steps(fn, n=STEPS):
@@ -826,10 +1037,12 @@ def main():
     phase_build()
     rows, drop, conv = phase_kernels()
     phase_reference()
-    counts, pretrained = phase_train(card)
+    counts, pretrained, step_utt_s = phase_train(card)
+    cli_counts = phase_pretrain_cli(card, step_utt_s)
+    phase_trained(card)
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
-    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts)), flush=True)
+    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

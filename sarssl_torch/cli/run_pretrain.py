@@ -1,0 +1,220 @@
+"""Pretext pre-training CLI (port of ``sarssl_tpu/cli/run_pretrain.py``).
+
+Masked cross-channel reconstruction pre-training of the dual-encoder
+MC-Conformer, with a cosine lr, early stopping, per-epoch checkpoints (flax
+msgpack files both packages read) and JSONL metrics.
+
+Usage:
+  python -m sarssl_torch.cli.run_pretrain --pretrain --synthetic --fused-attention
+  python -m sarssl_torch.cli.run_pretrain --smoke            # tiny run on the card
+  python -m sarssl_torch.cli.run_pretrain --smoke --cpu      # tiny run on the CPU
+
+It runs on the card unless ``--cpu`` is given (``--smoke`` included). The
+parser holds every flag of the JAX CLI, with its default and ``dest``, so
+``config.json`` has the same keys; a flag whose path is not ported yet raises
+``NotImplementedError`` when it is set.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser("sarssl_torch pretrain")
+    p.add_argument("--pretrain", action="store_true")
+    p.add_argument("--test", action="store_true", help="not ported yet")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny synthetic end-to-end run (CI)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the file-free synthetic pair generator (host)")
+    p.add_argument("--device-synth", action="store_true", help="not ported yet")
+    p.add_argument("--data-dir", type=str, default=None, help="not ported yet")
+    p.add_argument("--val-data-dir", type=str, default=None, help="not ported yet")
+    p.add_argument("--exp-dir", type=str, default="exp/pretrain")
+    p.add_argument("--bs", type=int, default=128)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--warmup-epochs", type=int, default=0)
+    p.add_argument("--fused-attention", action="store_true",
+                   help="the hand-written fused attention kernels (CUDA)")
+    p.add_argument("--mel-bins", type=int, default=0, help="> 0: not ported yet")
+    p.add_argument("--train-num", type=int, default=512000)
+    p.add_argument("--val-num", type=int, default=4000)
+    p.add_argument("--workers", type=int, default=8,
+                   help="data loader workers (the synthetic generator takes none)")
+    p.add_argument("--seed", type=int, default=100)
+    p.add_argument("--dtype", type=str, default="bfloat16")
+    p.add_argument("--parity", action="store_true",
+                   help="reference quirks: fresh Adam each epoch")
+    p.add_argument("--pretrain-frozen-encoder", action="store_true", help="not ported yet")
+    p.add_argument("--init-ckpt", type=str, default=None,
+                   help="checkpoint dir to initialize from (best_model)")
+    p.add_argument("--real-data-dirs", type=str, nargs="+", default=None,
+                   help="not ported yet")
+    p.add_argument("--real-corpora", type=str, nargs="+", default=None, help="not ported yet")
+    p.add_argument("--real-data-probs", type=float, nargs="+", default=None,
+                   help="not ported yet")
+    p.add_argument("--remove-spkoverlap", action="store_true", help="not ported yet")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--resume-from-best", action="store_true",
+                   help="resume from best_model instead of latest")
+    p.add_argument("--extra-val-dirs", type=str, nargs="+", default=None,
+                   help="not ported yet")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    p.add_argument("--resident", action="store_true", help="not ported yet")
+    p.add_argument("--resident-dtype", type=str, default="float32",
+                   choices=["float32", "int16"], help="not ported yet")
+    p.add_argument("--resident-num", type=int, default=None, help="not ported yet")
+    return p
+
+
+# flags whose path the port lacks, and what it waits for
+_DATA_PATH = "waits for the port of the data path"
+_UNPORTED = {
+    "test": "waits for the port of pretext_eval, istft, pesq and vis",
+    "device_synth": _DATA_PATH, "data_dir": _DATA_PATH, "val_data_dir": _DATA_PATH,
+    "real_data_dirs": _DATA_PATH, "real_corpora": _DATA_PATH, "real_data_probs": _DATA_PATH,
+    "remove_spkoverlap": _DATA_PATH, "extra_val_dirs": _DATA_PATH, "resident": _DATA_PATH,
+    "resident_dtype": _DATA_PATH, "resident_num": _DATA_PATH,
+    "mel_bins": "waits for the port of the mel features",
+    "pretrain_frozen_encoder": "waits for the model's frozen_encoder_pretext option",
+    "mesh": "the port runs on one card",
+}
+
+
+def _check_ported(args, parser) -> None:
+    for dest, why in _UNPORTED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            raise NotImplementedError(f"{flag} is not ported yet: it {why}")
+    if not (args.synthetic or args.smoke):
+        raise NotImplementedError("reading data from files is not ported yet: pass --synthetic")
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _check_ported(args, parser)
+
+    from ..config import AcousticSetting
+    from ..data import SyntheticPairs, device_prefetch
+    from ..models import SARSSL, SARSSLConfig
+    from ..ops import FeatureConfig
+    from ..train import (PretrainLearner, cosine_schedule, create_train_state,
+                         make_pretrain_eval_step, make_pretrain_step)
+    from ..train import checkpoint as ckpt
+    from ..utils import (MetricLogger, count_params, epoch_generator, from_jax_params,
+                         resolve_device, save_config, set_seed)
+
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+    # every matmul and convolution in full f32 where the model computes in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device {dev}; TF32 off: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
+
+    if args.smoke:
+        args.pretrain = True
+        args.synthetic = True
+        args.epochs = min(args.epochs, 2)
+        args.bs = 4
+        args.train_num = 16
+        args.val_num = 8
+
+    ac = AcousticSetting()
+    nsample = ac.nsample if not args.smoke else 2304
+    feat_cfg = FeatureConfig(mel_bins=args.mel_bins)
+    nt = feat_cfg.num_frames(nsample)
+    nf = feat_cfg.nf_used
+
+    if args.smoke:
+        mcfg = SARSSLConfig(dtype="float32").tiny(
+            sig_shape=(nf, nt, 2, 2), patch_shape=(nf, 1),
+            spec_dembed=32, spat_dembed=16)
+    else:
+        mcfg = SARSSLConfig(
+            sig_shape=(nf, nt, 2, 2), patch_shape=(nf, 1), dtype=args.dtype,
+            fused_attention=args.fused_attention)
+
+    model = SARSSL(mcfg, device=dev, seed=args.seed)
+    set_seed(args.seed)
+    state = create_train_state(model, lr=args.lr)
+    print("# Parameters (M):", count_params(model, ["spec_encoder", "spat_encoder", "decoder"]))
+
+    ckpt_dir = os.path.join(args.exp_dir, "checkpoints")
+    log_dir = os.path.join(args.exp_dir, "logs")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_config(vars(args), os.path.join(args.exp_dir, "config.json"))
+
+    if args.init_ckpt:
+        payload = ckpt.load_checkpoint(ckpt.best_path(args.init_ckpt))
+        params, _ = from_jax_params({"params": payload["params"]})
+        loaded = ckpt.partial_load(model, params)
+        state.reset_optimizer()
+        print(f"partial_load: {len(loaded)}/{len(list(model.parameters()))} keys loaded")
+
+    train_step = make_pretrain_step(model, feat_cfg, device=dev)
+    eval_step = make_pretrain_eval_step(model, feat_cfg, device=dev)
+
+    logger = MetricLogger(log_dir)
+    learner = PretrainLearner(
+        state=state, train_step=train_step, eval_step=eval_step,
+        lr_schedule=cosine_schedule(args.epochs, args.lr, warmup_steps=args.warmup_epochs),
+        ckpt_dir=ckpt_dir, patience=100, fresh_opt_each_epoch=args.parity, logger=logger)
+
+    resume_path = (ckpt.best_path(ckpt_dir) if args.resume_from_best
+                   else ckpt.latest_path(ckpt_dir))
+    if (args.resume or args.resume_from_best) and os.path.exists(resume_path):
+        payload = ckpt.load_checkpoint(resume_path)
+        ckpt.restore_state(learner.state, payload, restore_opt=not args.resume_from_best)
+        learner.epoch = payload["meta"]["epoch"] + 1
+        # the early-stop high-water mark too, else the first resumed epoch is
+        # a "new best" whatever its loss and can overwrite best_model
+        learner.stopper.best = payload["meta"].get("max_score", learner.stopper.best)
+        print(f"resumed from epoch {payload['meta']['epoch']} "
+              f"({os.path.basename(resume_path)})")
+
+    def batches(split, epoch):
+        num = args.train_num if split == "train" else args.val_num
+        # val reads one fixed set across epochs
+        gen = SyntheticPairs(nsample=nsample, seed=args.seed + epoch if split == "train" else 1)
+        return device_prefetch(gen.batches(args.bs, max(1, num // args.bs)), size=2,
+                               device=dev)
+
+    try:
+        for epoch in range(learner.epoch, args.epochs):
+            tm = learner.train_epoch(batches("train", epoch),
+                                     epoch_generator(args.seed, "train", epoch))
+            vm = learner.eval_epoch(batches("val", epoch),
+                                    epoch_generator(args.seed, "val", epoch))
+            learner.end_epoch(vm["loss"])
+            print(f"epoch {epoch}: train loss {tm['loss']:.5f} "
+                  f"val loss {vm['loss']:.5f} diff {vm['diff']:.5f} "
+                  f"lr {tm['lr']:.2e} {tm['utt_per_sec']:.1f} utt/s", flush=True)
+            if learner.should_stop:
+                print("early stopping")
+                break
+    finally:
+        logger.close()
+
+    if args.smoke:
+        h = learner.history
+        if not h["train_loss"]:  # e.g. --resume with no epochs left to run
+            print("SMOKE PASS (no epochs left to run)")
+            return 0
+        ok = (len(h["train_loss"]) < 2
+              or h["train_loss"][-1] < h["train_loss"][0])
+        print("SMOKE", "PASS" if ok else "FAIL",
+              f"(loss {h['train_loss'][0]:.4f} -> {h['train_loss'][-1]:.4f})")
+        return 0 if ok else 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

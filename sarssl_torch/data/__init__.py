@@ -1,3 +1,4 @@
-from .synthetic import synth_batch
+from .prefetch import device_prefetch
+from .synthetic import SyntheticPairs, synth_batch
 
-__all__ = ["synth_batch"]
+__all__ = ["SyntheticPairs", "synth_batch", "device_prefetch"]

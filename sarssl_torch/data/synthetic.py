@@ -1,5 +1,6 @@
 """Synthetic 2-mic pairs (the port's own copy of
-``sarssl_tpu/data/synthetic.py:37-67``, numpy only).
+``sarssl_tpu/data/synthetic.py``, numpy only): with the same seed both
+packages draw identical waves.
 
 Each item is an AR-coloured noise source with a short exponential reverb
 tail, delayed by a random integer offset of at most ``max_tdoa`` samples
@@ -7,7 +8,30 @@ between the mics, plus white noise at a random SNR.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Iterator, Tuple
+
 import numpy as np
+
+
+@dataclass
+class SyntheticPairs:
+    nsample: int = 16640  # 1.04 s @ 16 kHz
+    fs: int = 16000
+    max_tdoa_samples: int = 10
+    snr_range: Tuple[float, float] = (15.0, 30.0)
+    seed: int = 0
+
+    def batches(self, batch_size: int, num_batches: int,
+                with_labels: bool = False) -> Iterator:
+        rng = np.random.default_rng(self.seed)
+        for _ in range(num_batches):
+            wave, tdoa = synth_batch(rng, batch_size, self.nsample,
+                                     self.max_tdoa_samples, self.snr_range)
+            if with_labels:
+                yield wave, {"TDOA": tdoa / self.fs}
+            else:
+                yield wave
 
 
 def synth_batch(rng: np.random.Generator, nb: int, nsample: int,

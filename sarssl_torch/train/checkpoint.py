@@ -1,6 +1,13 @@
-"""Moving a pretrained trunk into a downstream model (the in-memory half of
-``sarssl_tpu/train/checkpoint.py``: ``partial_load`` and
-``trainable_mask_from_loaded``). Checkpoint files are not ported yet.
+"""Checkpoints (port of ``sarssl_tpu/train/checkpoint.py``): the
+``latest_model`` / ``model{epoch}`` / ``best_model`` / ``ensemble_model``
+files, and moving a pretrained trunk into a downstream model.
+
+Files are flax msgpack of ``{"meta": {"epoch", "max_score", ...}, "params",
+"batch_stats", "opt_state"}`` with flax's names and layouts
+(``utils/weights.py``) and optax's optimizer state (``Adam.state_dict``),
+written by the port's own codec (``train/msgpack.py``): each package reads
+the other's files. Leaves stored in f16 (``scripts/export_ckpt_f16.py``) are
+cast up to f32 on restore.
 
 Like the JAX downstream run, which loads ``params`` only, ``partial_load``
 copies parameters and never buffers: the downstream model keeps its own
@@ -8,9 +15,85 @@ freshly initialised BatchNorm running stats.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import os
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+
+from ..utils.weights import from_jax_params, to_jax_params
+from .msgpack import msgpack_restore, msgpack_serialize
+
+SUFFIX = ".msgpack"
+
+
+def latest_path(d: str) -> str:
+    return os.path.join(d, "latest_model" + SUFFIX)
+
+
+def best_path(d: str) -> str:
+    return os.path.join(d, "best_model" + SUFFIX)
+
+
+def epoch_path(d: str, epoch: int) -> str:
+    return os.path.join(d, f"model{epoch}" + SUFFIX)
+
+
+def ensemble_path(d: str) -> str:
+    return os.path.join(d, "ensemble_model" + SUFFIX)
+
+
+def _blob(state, meta: Dict[str, Any], save_opt: bool) -> bytes:
+    payload = {"meta": meta, **to_jax_params(state.model)}
+    if save_opt:
+        payload["opt_state"] = state.optimizer.state_dict()
+    return msgpack_serialize(payload)
+
+
+def _write(path: str, blob: bytes) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(ckpt_dir: str, state, epoch: int, max_score: float,
+                    is_best: bool = False, keep_epoch: bool = True,
+                    save_opt: bool = True, extra: Optional[Dict[str, Any]] = None):
+    """Write latest (+ epoch, + best) checkpoint files atomically."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    blob = _blob(state, {"epoch": int(epoch), "max_score": float(max_score), **(extra or {})},
+                 save_opt)
+    _write(latest_path(ckpt_dir), blob)
+    if keep_epoch:
+        _write(epoch_path(ckpt_dir, epoch), blob)
+    if is_best:
+        _write(best_path(ckpt_dir), blob)
+
+
+def save_named(ckpt_dir: str, state, name: str, epoch: int = -1,
+               max_score: float = 0.0, save_opt: bool = False) -> str:
+    """Write a single named checkpoint file (e.g. 'ensemble_model')."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, name + SUFFIX)
+    _write(path, _blob(state, {"epoch": int(epoch), "max_score": float(max_score)}, save_opt))
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+@torch.no_grad()
+def restore_state(state, payload: Dict[str, Any], restore_opt: bool = True):
+    """Restore a TrainState in place from a checkpoint payload (every leaf
+    present, shapes equal) and return it."""
+    params, buffers = from_jax_params({"params": payload["params"],
+                                       "batch_stats": payload["batch_stats"]})
+    state.model.load_state_dict({**params, **buffers}, strict=True)
+    if restore_opt and "opt_state" in payload:
+        state.optimizer.load_state_dict(payload["opt_state"])
+    return state
 
 
 @torch.no_grad()
@@ -39,3 +122,18 @@ def trainable_mask_from_loaded(model: torch.nn.Module,
     loaded ones (lineareval freezing), True for the rest."""
     done = set(loaded)
     return {name: name not in done for name, _ in model.named_parameters()}
+
+
+def ensemble_params(param_list: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Uniform parameter average over ``{name: tensor}`` dicts, summed in
+    f64 and cast back to each tensor's dtype."""
+    n = len(param_list)
+    return {k: (sum(p[k].double() for p in param_list) / n).to(v.dtype)
+            for k, v in param_list[0].items()}
+
+
+def remove_checkpoint_epochs(ckpt_dir: str, epochs: Sequence[int]) -> None:
+    for e in epochs:
+        p = epoch_path(ckpt_dir, e)
+        if os.path.exists(p):
+            os.remove(p)

@@ -107,14 +107,14 @@ def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task:
     forward. ``metrics``: ``{"loss", "mae"}`` as 0-d tensors on the device.
 
     ``trainable_mask`` (e.g. from ``trainable_mask_from_loaded``) maps
-    parameter names to False for frozen ones (lineareval). A frozen
-    parameter takes no gradient (``requires_grad`` is off during the step, so
-    the backward skips whatever only it needs), and Adam reads the missing
-    gradient as 0. Its moments, zero in a state made for the lineareval run
-    as ``run_downstream`` makes one, stay zero and its update is exactly 0:
-    it ends each step bit-identical, as the JAX step's restore makes it.
-    The BatchNorm stats of a frozen encoder still move, as in the JAX step,
-    which replaces all of ``batch_stats``."""
+    parameter names to False for frozen ones (lineareval). As in the JAX
+    step, a frozen parameter gets a zero gradient (here: none, with
+    ``requires_grad`` off during the step, so the backward skips whatever
+    only it needs; Adam reads it as 0), the update runs over all parameters,
+    and the frozen values are then put back: moments restored from a
+    checkpoint would otherwise move them. The BatchNorm stats of a frozen
+    encoder still move, as in the JAX step, which replaces all of
+    ``batch_stats``."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     frozen = []
@@ -137,7 +137,11 @@ def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task:
         finally:
             for p in frozen:
                 p.requires_grad_(True)
-        state.apply_gradients(lr)
+        with torch.no_grad():
+            kept = torch._foreach_mul(frozen, 1.0) if frozen else []  # exact copies
+            state.apply_gradients(lr)
+            if frozen:
+                torch._foreach_copy_(frozen, kept)
         pred = pred.detach()
         return {"loss": loss.detach(), "mae": (pred - tar).abs().mean()}
 

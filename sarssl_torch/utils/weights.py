@@ -1,4 +1,4 @@
-"""Flax variables -> the port's ``state_dict`` (the port's own converter).
+"""Flax variables <-> the port's ``state_dict`` (the port's own converter).
 
 ``from_jax_params`` takes the ``{"params": ..., "batch_stats": ...}`` tree of
 ``sarssl_tpu`` ``SARSSL.init`` (pretext, with its decoder, or downstream,
@@ -16,11 +16,16 @@ Module names follow flax's, with flax's automatic names renamed
 (``LayerNorm_0`` -> ``ln``, ``Dense_0`` -> ``dense0``, ``Conv_0`` ->
 ``dwconv``, ``BatchNorm_0`` -> ``bn``, ``block<i>`` -> ``blocks.<i>``,
 ``global`` -> ``seq``).
+
+``to_jax_params`` is the inverse: the model's parameters and BatchNorm stats
+as flax's tree of float32 numpy arrays, with flax's names and layouts;
+``flax_tree`` maps any ``{parameter name: tensor}`` dict (the optimizer's
+moments) the same way.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +55,67 @@ def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     if name == "scale":
         return "weight", value
     return name, value  # bias, u_bias, v_bias
+
+
+_UNRENAME = {v: k for k, v in _RENAME.items()}
+
+
+def _flax_path(name: str) -> Tuple[List[str], str]:
+    parts = name.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "blocks":
+            path.append(f"block{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(_UNRENAME.get(parts[i], parts[i]))
+            i += 1
+    return path, parts[-1]
+
+
+def _flax_param(leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if leaf == "weight":
+        if value.ndim == 1:
+            return "scale", value
+        if value.ndim == 2:
+            return "kernel", value.T
+        if value.ndim == 3:
+            return "kernel", value.transpose(2, 1, 0)
+        if value.ndim == 4:
+            return "kernel", value.transpose(2, 3, 1, 0)
+        raise ValueError(f"weight of rank {value.ndim}")
+    return leaf, value
+
+
+def _insert(tree: Dict, path: List[str], leaf: str, value: np.ndarray) -> None:
+    for p in path:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = np.ascontiguousarray(value, dtype=np.float32)
+
+
+def flax_tree(named: Dict[str, torch.Tensor]) -> Dict:
+    """``{parameter name: tensor}`` -> flax's nested ``params`` tree of f32
+    numpy arrays (names and layouts as ``from_jax_params`` reads them)."""
+    tree: Dict = {}
+    for name, t in named.items():
+        path, leaf = _flax_path(name)
+        fleaf, value = _flax_param(leaf, t.detach().float().cpu().numpy())
+        _insert(tree, path, fleaf, value)
+    return tree
+
+
+def to_jax_params(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The model as flax's ``{"params": ..., "batch_stats": ...}`` tree of
+    f32 numpy arrays, the inverse of ``from_jax_params``."""
+    stats_name = {"running_mean": "mean", "running_var": "var"}
+    batch_stats: Dict = {}
+    for name, b in model.named_buffers():
+        path, leaf = _flax_path(name)
+        if leaf in stats_name:
+            _insert(batch_stats, path, stats_name[leaf], b.detach().float().cpu().numpy())
+    return {"params": flax_tree(dict(model.named_parameters())),
+            "batch_stats": batch_stats}
 
 
 def _walk(tree, path=()):

@@ -251,3 +251,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(torch.randn(2, 2, 64, 24, device="cuda"), x, x, bias, 0, 0.1)
     with pytest.raises(ValueError):
         launch_dropout(torch.randn(4, 4, device="cuda").t(), 0, 0.1)
+
+
+def test_cli_smoke_on_card_writes_its_files(cuda, tmp_path, capsys):
+    """``run_pretrain --smoke`` without ``--cpu`` runs on the card."""
+    import json
+    import os
+
+    from sarssl_torch.cli.run_pretrain import main
+
+    assert main(["--smoke", "--exp-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "device cuda" in out and "SMOKE PASS" in out
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "best_model.msgpack", "latest_model.msgpack", "model0.msgpack", "model1.msgpack"]
+    with open(tmp_path / "logs" / "metrics.jsonl") as f:
+        assert [json.loads(line)["split"] for line in f] == ["train", "val", "train", "val"]
+
+
+def test_checkpoint_of_card_tensors_round_trips(cuda, tmp_path):
+    """A state on the card, saved and restored into a fresh model on the
+    card: parameters, BatchNorm stats and optimizer state bit for bit."""
+    import numpy as np
+
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train import create_train_state, make_pretrain_step
+
+    cfg = SARSSLConfig().tiny(sig_shape=(64, 16, 2, 2), patch_shape=(64, 1))
+    model = SARSSL(cfg, device="cuda", seed=1)
+    state = create_train_state(model)
+    wave, _ = synth_batch(np.random.default_rng(0), 4, 15 * 64 + 128)
+    step = make_pretrain_step(model, FeatureConfig(win_len=128, nfft=128), device="cuda")
+    for _ in range(2):
+        step(state, wave, 1e-3, torch.Generator().manual_seed(3))
+    ckpt.save_checkpoint(str(tmp_path), state, 1, -0.5)
+    fresh = create_train_state(SARSSL(cfg, device="cuda", seed=2))
+    ckpt.restore_state(fresh, ckpt.load_checkpoint(ckpt.latest_path(str(tmp_path))))
+    for (n, a), b in zip(model.state_dict().items(), fresh.model.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), n
+    for mine, theirs in ((state.optimizer.mu, fresh.optimizer.mu),
+                         (state.optimizer.nu, fresh.optimizer.nu)):
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert fresh.optimizer.count == 2
+    assert fresh.optimizer.lr == float(np.float32(state.optimizer.lr))  # stored as optax's f32
