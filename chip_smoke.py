@@ -48,9 +48,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
               encoder) steps, one warm-up and 5 timed each, with the launch
               counts read around them, and eval steps; then a small
               downstream model on the card against the CPU.
+  8. downstream_cli: the downstream grid through its CLI,
+              ``sarssl_torch.cli.run_downstream.main``, at the flagship width
+              from the committed trained checkpoint, each call with the
+              launch counts zeroed before and read after: (a) finetune, TDOA,
+              batch 8, lr {1e-3, 1e-4}, 3 epochs a cell (results, ensembles,
+              pruned epoch files and hash_dropout launches checked); (b) a
+              lineareval cell (the ensemble's encoders bit-identical to the
+              checkpoint's); (c) ``--ds-test`` on a cell of (a) (its test MAE
+              again) and the no-train baseline; (d) the multi-pair model, 4
+              mics, all 6 pairs (per-pair MAEs logged). The host's synthetic
+              batches and checkpoint writes are timed, every call caught.
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 """
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -120,6 +132,27 @@ DS_BATCH = 8  # SIM_BS_SET's batch size (sarssl_tpu/config.py:49)
 DS_NSAMPLE = 16640  # 1.04 s at 16 kHz -> 64 STFT frames
 DS_FRAMES = 64
 DS_LR = 1e-3
+
+# downstream_cli: a cell epoch is 8 train and 4 val batches of 8, a cell's
+# test and final val 4 batches each; the multi-pair run 8 train batches of 2
+# examples (x 6 mic pairs = 12 pair rows) and 4 val / test batches
+DSCLI_NUMS = ("--train-num", "64", "--val-num", "32", "--test-num", "32")
+DSCLI_EPOCHS = 3
+DSCLI_LIN_EPOCHS = 2
+DSCLI_MC_NUMS = ("--train-num", "16", "--val-num", "8", "--test-num", "8")
+DSCLI_MC_EPOCHS = 2
+DSCLI_SEED = 100  # run_downstream's default --seed: the init weights
+# hash_dropout launches per train step at the flagship depth: the two
+# encoders' 4 conformer blocks hold 7 dropout sites each (2 in each feed-
+# forward module, the attention probabilities, after attention, the conv
+# module), each launched in the forward and again in the backward. Lineareval
+# freezes both encoders, so no gradient flows through them and only the
+# forward launches; the multi-pair trunk embeds with the spat encoder alone,
+# so the spec encoder's block (7 sites) has no backward.
+DS_DROPOUT_PER_STEP = {"finetune": 56, "lineareval": 28, "multipair": 49}
+# --ds-test's printed test MAE (5 decimals) against the grid's test_mae of
+# the same cell: the same weights and batches on the same card
+TOL_DS_TEST = 1e-4
 
 
 def log(*a):
@@ -590,7 +623,7 @@ def phase_kernels():
     return rows, drop, conv
 
 
-def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts):
+def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, dscli_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -607,8 +640,9 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts):
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
                 "library_ms": r[f"lib_{kind}_ms"],
                 "path": "pretext train step (launches) and the pre-training CLI run "
-                        "(launches_pretrain_cli)",
+                        "(launches_pretrain_cli); not on the downstream CLI's path",
                 "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -618,9 +652,11 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts):
         "ms": drop["ms"], "plain_ms": drop["plain_ms"], "bound_ms": drop["bound"][0],
         "bound_by": drop["bound"][1], "library_ms": drop["library_ms"],
         "path": "pretext train step (launches), the pre-training CLI run "
-                "(launches_pretrain_cli) and downstream finetune step (launches_downstream)",
+                "(launches_pretrain_cli), the downstream finetune step (launches_downstream) "
+                "and the downstream CLI's runs a, b and d (launches_downstream_cli)",
         "launches_pretrain_cli": cli_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
+        "launches_downstream_cli": dscli_counts.get("hash_dropout", 0),
     })
     for name in CONV_LAUNCHES:
         r = conv[name]
@@ -634,6 +670,7 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts):
             "library_ms": r["library_ms"],
             "path": "no model path launches it; launches counted over the conv path run "
                     "of the kernels phase",
+            "launches_downstream_cli": dscli_counts.get(name, 0),
         })
     return {"kernels": out}
 
@@ -736,24 +773,47 @@ class _Tee:
         self.out.flush()
 
 
-def _cli(argv):
-    """``run_pretrain.main(argv)``; returns its printed output."""
+def _cli(argv, cli="run_pretrain"):
+    """``sarssl_torch.cli.<cli>.main(argv)``; returns its printed output."""
     import contextlib
+    import importlib
 
-    from sarssl_torch.cli.run_pretrain import main as run_pretrain
-
+    main = importlib.import_module(f"sarssl_torch.cli.{cli}").main
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        rc = run_pretrain(argv)
-    assert rc == 0, f"run_pretrain {argv}: exit {rc}"
+        rc = main(argv)
+    assert rc == 0, f"{cli} {argv}: exit {rc}"
     return "".join(tee.text)
+
+
+class _Timed:
+    """Wraps functions that a run looks up by module attribute, so each call
+    is timed; ``undo`` puts the originals back."""
+
+    def __init__(self):
+        self.spent, self.saved = {}, []
+
+    def wrap(self, owner, name, key=None):
+        fn, key = getattr(owner, name), key or name
+        self.spent.setdefault(key, [])
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.spent[key].append(time.perf_counter() - t0)
+            return out
+        self.saved.append((owner, name, fn))
+        setattr(owner, name, run)
+
+    def undo(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
 
 
 def phase_pretrain_cli(card, step_utt_s):
     """The flagship pre-training run through its CLI: 2 epochs, then resumed
     to a third. The host's synthetic batches and checkpoint writes are timed
     by wrapping the two functions the run calls."""
-    import os
     import tempfile
 
     from sarssl_torch.data import synthetic
@@ -761,19 +821,10 @@ def phase_pretrain_cli(card, step_utt_s):
     from sarssl_torch.train import checkpoint as ckpt
     from sarssl_torch.train.schedules import cosine_schedule
 
-    spent = {"synth": [], "ckpt": []}
-    synth_batch, save_checkpoint = synthetic.synth_batch, ckpt.save_checkpoint
-
-    def timed(fn, key):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            spent[key].append(time.perf_counter() - t0)
-            return out
-        return run
-
-    synthetic.synth_batch = timed(synth_batch, "synth")
-    ckpt.save_checkpoint = timed(save_checkpoint, "ckpt")
+    timer = _Timed()
+    timer.wrap(synthetic, "synth_batch", "synth")
+    timer.wrap(ckpt, "save_checkpoint", "ckpt")
+    spent = timer.spent
     try:
         with tempfile.TemporaryDirectory(prefix="pretrain_cli_") as exp:
             common = ["--pretrain", "--synthetic", "--fused-attention", "--bs", str(BATCH),
@@ -792,7 +843,7 @@ def phase_pretrain_cli(card, step_utt_s):
             with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
     finally:
-        synthetic.synth_batch, ckpt.save_checkpoint = synth_batch, save_checkpoint
+        timer.undo()
 
     # the shares below are only as good as the wrappers: both must have
     # caught every call the run made (train and val batches, one file each epoch)
@@ -837,6 +888,280 @@ def phase_pretrain_cli(card, step_utt_s):
         f"({sum(spent['ckpt']) / sum(wall):.1%}), {spent['ckpt']} ({card})")
     log(f"[pretrain_cli] checkpoint files (bytes): {files}")
     return counts
+
+
+def _ds_cli_run(what, argv, spent, card):
+    """One ``run_downstream`` call with the launch counts zeroed before and
+    read after, and the learners it built caught; returns (printed output,
+    counts, learners, wall seconds)."""
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.train import learner as learner_mod
+
+    cls = learner_mod.DownstreamLearner
+    learners, started = [], {}
+    train_epoch, end_epoch = cls.train_epoch, cls.end_epoch
+
+    def timed_train(self, *a, **k):
+        if self not in learners:
+            learners.append(self)
+        started[id(self)] = time.perf_counter()
+        return train_epoch(self, *a, **k)
+
+    def timed_end(self, *a, **k):
+        out = end_epoch(self, *a, **k)
+        spent["cell_epoch"].append(time.perf_counter() - started.pop(id(self)))
+        return out
+
+    cls.train_epoch, cls.end_epoch = timed_train, timed_end
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = _cli(argv, "run_downstream")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        cls.train_epoch, cls.end_epoch = train_epoch, end_epoch
+    assert "device cuda" in out and "TF32 off" in out, f"{what}: the CLI did not report its device"
+    log(f"[downstream_cli] {what}: wall {wall:.2f} s, launches {counts} ({card})")
+    return out, counts, learners, wall
+
+
+def _ds_train_steps(learners, nbatch):
+    return sum(lr.epoch for lr in learners) * nbatch
+
+
+def _check_ds_launches(what, counts, steps, kind):
+    want = DS_DROPOUT_PER_STEP[kind] * steps
+    assert counts.get("hash_dropout", 0) == want, (
+        f"{what}: hash_dropout {counts.get('hash_dropout', 0)} launches, want {want} "
+        f"({DS_DROPOUT_PER_STEP[kind]} x {steps} train steps)")
+    other = {k: v for k, v in counts.items() if k.startswith(("attention", "conv3x3"))}
+    assert not other, f"{what}: attention or conv kernels launched: {other}"
+
+
+def _read_results(exp):
+    from sarssl_torch.utils.results import read_results
+    res = read_results(exp)
+    assert set(res) == {"task", "mode", "cells", "summary", "best", "best_test_mae"}, set(res)
+    for cell, r in res["cells"].items():
+        assert set(r) == {"val_mae", "test_mae", "lr", "bs", "trial", "epochs_run"}, r
+        assert np.isfinite([r["val_mae"], r["test_mae"]]).all(), (cell, r)
+    return res
+
+
+def _records(exp, cell):
+    with open(os.path.join(exp, cell, "logs", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_downstream_cli(card):
+    """The downstream grid through its CLI, ``run_downstream.main``, at the
+    flagship width (f32, TDOA, 1.04 s clips, batch 8) from the committed
+    trained checkpoint: (a) finetune over lr {1e-3, 1e-4}, 3 epochs a cell;
+    (b) one lineareval cell; (c) ``--ds-test`` on a cell of (a), and the
+    no-train baseline; (d) the multi-pair model, 4 mics, all 6 pairs. The
+    host's synthetic batches and checkpoint writes are timed by wrapping the
+    functions the runs call."""
+    import shutil
+    import tempfile
+
+    from sarssl_torch import models
+    from sarssl_torch.data import synthetic
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train import create_train_state
+    from sarssl_torch.utils.weights import from_jax_params, to_jax_params
+
+    timer = _Timed()
+    timer.spent["cell_epoch"] = []
+    timer.wrap(synthetic, "synth_batch")
+    timer.wrap(synthetic, "synth_batch_multich")
+    timer.wrap(ckpt, "save_checkpoint")
+    timer.wrap(ckpt, "save_named")
+    spent = timer.spent
+    total = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="downstream_cli_") as tmp:
+            pre = os.path.join(tmp, "pretrained")
+            os.makedirs(pre)
+            shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT,
+                            ckpt.best_path(pre))
+            common = ["--ds-train", "--synthetic", "--ds-task", "TDOA", "--bs-set", str(DS_BATCH),
+                      "--ntrial", "1", "--pretrain-ckpt", pre, *DSCLI_NUMS]
+            nbatch = int(DSCLI_NUMS[1]) // DS_BATCH
+            marks = {}
+
+            def mark(run):  # the calls caught so far, to split them by run
+                marks[run] = {k: len(v) for k, v in spent.items()}
+
+            # (a) finetune, 2 lr cells
+            exp_a = os.path.join(tmp, "a")
+            out, counts, learners, wall_a = _ds_cli_run(
+                "(a) finetune", common + ["--lr-set", "1e-3", "1e-4", "--epochs",
+                                          str(DSCLI_EPOCHS), "--exp-dir", exp_a], spent, card)
+            mark("a")
+            res = _read_results(exp_a)
+            cells = ["trial0_bs8_lr0.001", "trial0_bs8_lr0.0001"]  # the grid's order
+            assert sorted(res["cells"]) == sorted(cells) and len(learners) == 2, res["cells"]
+            n_enc = len([n for n in from_jax_params(ckpt.load_checkpoint(
+                ckpt.best_path(pre)))[0] if n.startswith(("spec_encoder.", "spat_encoder."))])
+            assert out.count(f"partial_load: {n_enc}/{n_enc + 4} parameters loaded") == 2, out
+            sizes = {}
+            for cell, lrn in zip(cells, learners):
+                assert res["cells"][cell]["epochs_run"] == lrn.epoch == DSCLI_EPOCHS
+                files = set(os.listdir(os.path.join(exp_a, cell, "ckpt")))
+                kept = {f for f in files if re.fullmatch(r"model\d+\.msgpack", f)}
+                assert "ensemble_model.msgpack" in files, (cell, files)
+                assert kept == {f"model{e}.msgpack" for e in lrn.best_epochs[-5:]}, (
+                    cell, kept, lrn.best_epochs)
+                sizes.update({f: os.path.getsize(os.path.join(exp_a, cell, "ckpt", f))
+                              for f in files})
+            steps_a = _ds_train_steps(learners, nbatch)
+            _check_ds_launches("(a)", counts, steps_a, "finetune")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            log("[downstream_cli] (a) results: " + ", ".join(
+                f"{c}: val MAE {res['cells'][c]['val_mae']:.5f} test MAE "
+                f"{res['cells'][c]['test_mae']:.5f} best epochs {lrn.best_epochs}"
+                for c, lrn in zip(cells, learners))
+                + f"; best {res['best']}; hash_dropout {counts.get('hash_dropout', 0)} = "
+                f"{DS_DROPOUT_PER_STEP['finetune']} x {steps_a} train steps; files (bytes) {sizes}")
+
+            # (b) lineareval, 1 cell
+            exp_b = os.path.join(tmp, "b")
+            _, counts, learners, wall_b = _ds_cli_run(
+                "(b) lineareval", common + ["--ds-trainmode", "lineareval", "--lr-set", "1e-3",
+                                            "--epochs", str(DSCLI_LIN_EPOCHS), "--exp-dir",
+                                            exp_b], spent, card)
+            mark("b")
+            _read_results(exp_b)
+            ens = ckpt.load_checkpoint(ckpt.ensemble_path(os.path.join(
+                exp_b, "trial0_bs8_lr0.001", "ckpt")))
+            ens_p, ens_b = from_jax_params(ens)
+            src = from_jax_params(ckpt.load_checkpoint(ckpt.best_path(pre)))[0]  # f16 -> f32
+            cfg = models.SARSSLConfig(sig_shape=(256, DS_FRAMES, 2, 2), pretrain=False,
+                                      dtype="float32")
+            init = models.SARSSL(cfg, device="cpu", seed=DSCLI_SEED)
+            enc = [n for n in ens_p if n.startswith(("spec_encoder.", "spat_encoder."))]
+            assert len(enc) == n_enc
+            assert all(torch.equal(ens_p[n], src[n].float()) for n in enc), (
+                "lineareval: an encoder parameter of the ensemble differs from the checkpoint's")
+            heads = [n for n in ens_p if n.startswith("head_")]
+            init_sd = init.state_dict()
+            assert heads and all(not torch.equal(ens_p[n], init_sd[n]) for n in heads), (
+                "lineareval: a head parameter did not move")
+            assert all(not torch.equal(v, init_sd[n]) for n, v in ens_b.items()), (
+                "lineareval: a BatchNorm running stat did not move")
+            steps_b = _ds_train_steps(learners, nbatch)
+            _check_ds_launches("(b)", counts, steps_b, "lineareval")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            log(f"[downstream_cli] (b) lineareval: {len(enc)} encoder parameters of the "
+                f"ensemble bit-identical to the checkpoint's (f16 read as f32), {len(heads)} head "
+                f"parameters and all {len(ens_b)} BatchNorm stats moved; hash_dropout "
+                f"{counts.get('hash_dropout', 0)} = {DS_DROPOUT_PER_STEP['lineareval']} x "
+                f"{steps_b} train steps")
+
+            # (c) --ds-test on run (a)'s first cell, then the no-train baseline
+            cell = cells[0]
+            cell_ckpt = os.path.join(exp_a, cell, "ckpt")
+            test_args = ["--ds-test", "--synthetic", "--bs-set", str(DS_BATCH), *DSCLI_NUMS,
+                         "--exp-dir", os.path.join(tmp, "c")]
+            t0 = time.perf_counter()
+            out = _cli(test_args + ["--ckpt", cell_ckpt], "run_downstream")
+            assert f"loaded {ckpt.ensemble_path(cell_ckpt)}" in out, out
+            got = float(re.search(r"test \[TDOA\]: loss \S+ MAE (\S+)", out).group(1))
+            want = res["cells"][cell]["test_mae"]
+            assert abs(got - want) <= TOL_DS_TEST * max(1.0, abs(want)), (got, want)
+            file = ckpt.load_checkpoint(ckpt.ensemble_path(cell_ckpt))
+            state = ckpt.restore_state(create_train_state(models.SARSSL(cfg, device="cuda")),
+                                       file, restore_opt=False)
+            back = to_jax_params(state.model)
+            same = all(np.array_equal(a, b) for part in ("params", "batch_stats")
+                       for a, b in zip(_leaves(back[part]), _leaves(file[part])))
+            assert same, "the ensemble file does not round-trip through the model"
+            out = _cli(test_args + ["--ds-test-mode", "cal_metric_wo_info"], "run_downstream")
+            wall_c = time.perf_counter() - t0
+            mark("c")
+            base = re.search(r"no-train baseline \[TDOA\]: train MAE (\S+) test MAE (\S+)", out)
+            assert base and np.isfinite([float(base.group(1)), float(base.group(2))]).all(), out
+            log(f"[downstream_cli] (c) --ds-test: test MAE {got:.5f} against the grid's "
+                f"{want:.5f} (tol {TOL_DS_TEST} relative), the ensemble file round-trips; "
+                f"no-train baseline train / test MAE {base.group(1)} / {base.group(2)} against "
+                f"the finetuned cell's {want:.5f}; wall of both calls {wall_c:.2f} s ({card})")
+
+            # (d) multi-pair: 4 mics, all 6 pairs
+            exp_d = os.path.join(tmp, "d")
+            mc = ["--ds-train", "--synthetic", "--nmic", "4", "--ch-mode", "MM", "--bs-set", "2",
+                  "--lr-set", "1e-3", "--ntrial", "1", "--epochs", str(DSCLI_MC_EPOCHS),
+                  "--pretrain-ckpt", pre, "--exp-dir", exp_d, *DSCLI_MC_NUMS]
+            out, counts, learners, wall_d = _ds_cli_run("(d) multi-pair", mc, spent, card)
+            mark("d")
+            res_d = _read_results(exp_d)
+            assert out.count(f"partial_load: {n_enc}/{n_enc + 6} parameters loaded") == 1, out
+            recs = _records(exp_d, "trial0_bs2_lr0.001")
+            pairs = {f"mae_pair{k}" for k in range(6)}
+            evals = [r for r in recs if r["split"] != "train"]
+            assert evals and all(pairs <= set(r) and "mae_pair6" not in r for r in evals), evals
+            steps_d = _ds_train_steps(learners, int(DSCLI_MC_NUMS[1]) // 2)
+            _check_ds_launches("(d)", counts, steps_d, "multipair")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            log(f"[downstream_cli] (d) multi-pair MM, 6 pairs: test MAE "
+                f"{res_d['best_test_mae']:.5f}, per pair "
+                f"{[round(evals[-2][k], 4) for k in sorted(pairs)]}; hash_dropout "
+                f"{counts.get('hash_dropout', 0)} = {DS_DROPOUT_PER_STEP['multipair']} x "
+                f"{steps_d} train steps ({card})")
+    finally:
+        timer.undo()
+
+    # the shares below are only as good as the wrappers: they must have caught
+    # every call the runs made
+    # a cell epoch draws nbatch train and 4 val batches; a cell's end 4 test
+    # and 4 final val batches
+    cell_batches = lambda epochs: epochs * (nbatch + 4) + 4 + 4  # noqa: E731
+    want = {"a": 2 * cell_batches(DSCLI_EPOCHS), "b": cell_batches(DSCLI_LIN_EPOCHS),
+            "c": 4 + nbatch + 4, "d": 0}  # (c): the test batches, then the baseline's
+    mc_batches = DSCLI_MC_EPOCHS * (8 + 4) + 4 + 4
+    runs, before = ("a", "b", "c", "d"), {k: 0 for k in spent}
+    split = {}
+    for run in runs:
+        split[run] = {k: spent[k][before[k]:marks[run][k]] for k in spent}
+        before = marks[run]
+    got = {run: len(split[run]["synth_batch"]) for run in runs}
+    assert got == want, (got, want)
+    assert len(split["d"]["synth_batch_multich"]) == len(spent["synth_batch_multich"]) == \
+        mc_batches, len(spent["synth_batch_multich"])
+    assert len(spent["save_checkpoint"]) == len(spent["cell_epoch"]) == (
+        2 * DSCLI_EPOCHS + DSCLI_LIN_EPOCHS + DSCLI_MC_EPOCHS), spent
+    assert [len(split[run]["save_named"]) for run in runs] == [2, 1, 0, 1], spent
+    walls = {"a": wall_a, "b": wall_b, "c": wall_c, "d": wall_d}
+    for run in runs:
+        part = split[run]
+        synth = sum(part["synth_batch"]) + sum(part["synth_batch_multich"])
+        saves = sum(part["save_checkpoint"]) + sum(part["save_named"])
+        log(f"[downstream_cli] ({run}) wall {walls[run]:.2f} s; cell epochs (s) "
+            f"{[round(t, 3) for t in part['cell_epoch']]}; synthetic batches on the host: "
+            f"{len(part['synth_batch']) + len(part['synth_batch_multich'])} in {synth:.2f} s "
+            f"({synth / walls[run]:.1%}); checkpoint writes: {len(part['save_checkpoint'])} "
+            f"epoch saves {[round(t, 3) for t in part['save_checkpoint']]} s + "
+            f"{len(part['save_named'])} ensemble {[round(t, 3) for t in part['save_named']]} s "
+            f"({saves / walls[run]:.1%}) ({card})")
+        if part["cell_epoch"]:  # the epoch saves run inside the cell epochs
+            epochs = sum(part["cell_epoch"])
+            log(f"[downstream_cli] ({run}) cell epochs {epochs:.2f} s in all, "
+                f"{epochs / len(part['cell_epoch']):.3f} s each; the epoch saves "
+                f"{sum(part['save_checkpoint']) / epochs:.1%} of it ({card})")
+    return total
+
+
+def _leaves(tree, path=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield np.asarray(v)
 
 
 def phase_trained(card):
@@ -1042,7 +1367,9 @@ def main():
     phase_trained(card)
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
-    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts)), flush=True)
+    dscli_counts = phase_downstream_cli(card)
+    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts,
+                                  dscli_counts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

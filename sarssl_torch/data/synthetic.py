@@ -1,4 +1,4 @@
-"""Synthetic 2-mic pairs (the port's own copy of
+"""Synthetic 2-mic pairs and their nch-mic variant (the port's own copy of
 ``sarssl_tpu/data/synthetic.py``, numpy only): with the same seed both
 packages draw identical waves.
 
@@ -57,4 +57,32 @@ def synth_batch(rng: np.random.Generator, nb: int, nsample: int,
     peak = np.abs(wave).max(axis=(1, 2), keepdims=True)
     wave = wave / np.maximum(peak, 1e-6) * 0.9
     # m1[t] = m0[t + tdoa]: mic 1 hears everything tdoa samples earlier
+    return wave.astype(np.float32), (-tdoa).astype(np.float32)
+
+
+def synth_batch_multich(rng: np.random.Generator, nb: int, nsample: int,
+                        nch: int = 4, max_tdoa: int = 10,
+                        snr_range=(15.0, 30.0)):
+    """nch-mic variant: each mic k > 0 hears the source at its own random
+    offset. Returns (wave (nb, nsample, nch) float32, tdoa_samples (nb,
+    nch-1) float32 against mic 0; positive: mic k receives later)."""
+    pad = max_tdoa + 1
+    src = rng.standard_normal((nb, nsample + 2 * pad)).astype(np.float32)
+    src[:, 1:] += 0.7 * src[:, :-1]
+    tail = np.exp(-np.arange(64, dtype=np.float32) / 12.0) * 0.3
+    tail[0] = 1.0
+    src = np.apply_along_axis(lambda s: np.convolve(s, tail)[: s.shape[0]], 1, src)
+    tdoa = rng.integers(-max_tdoa, max_tdoa + 1, size=(nb, nch - 1))
+    chans = [src[:, pad: pad + nsample]]
+    for k in range(nch - 1):
+        chans.append(np.stack([src[b, pad + tdoa[b, k]: pad + tdoa[b, k] + nsample]
+                               for b in range(nb)]))
+    wave = np.stack(chans, axis=-1)
+    snr = rng.uniform(*snr_range, size=(nb, 1, 1)).astype(np.float32)
+    sig_pow = np.mean(wave ** 2, axis=(1, 2), keepdims=True)
+    noise = rng.standard_normal(wave.shape).astype(np.float32)
+    noise *= np.sqrt(sig_pow / (10 ** (snr / 10.0)))
+    wave = wave + noise
+    peak = np.abs(wave).max(axis=(1, 2), keepdims=True)
+    wave = wave / np.maximum(peak, 1e-6) * 0.9
     return wave.astype(np.float32), (-tdoa).astype(np.float32)

@@ -3,9 +3,9 @@ from .conformer import (ConformerBlock, ConformerEncoder, ConvModule, FeedForwar
                         RelPosSelfAttention, sinusoid_position_encoding)
 from .decoder import EmbedDecoder
 from .encoder import CNNFrontEnd, EmbedEncoder
-from .sarssl import SARSSL, SARSSLConfig
+from .sarssl import SARSSL, SARSSLConfig, SARSSLMultiCH
 
 __all__ = ["BatchNorm", "Dense", "Dropout", "LayerNorm", "ConformerBlock",
            "ConformerEncoder", "ConvModule", "FeedForwardModule", "RelPosSelfAttention",
            "sinusoid_position_encoding", "EmbedDecoder", "CNNFrontEnd", "EmbedEncoder",
-           "SARSSL", "SARSSLConfig"]
+           "SARSSL", "SARSSLConfig", "SARSSLMultiCH"]

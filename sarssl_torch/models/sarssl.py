@@ -15,8 +15,11 @@ With ``pretrain=False``, the downstream regression head: both encoders on
 the unmasked input, the chosen embedding mean-pooled over patches, then
 LayerNorm -> [Dense + ReLU when dlabel > 1] -> Dense.
 
-The other pretext ``in_ver``s, ``frozen_encoder_pretext``, the CLS token,
-``MCConformer`` and ``SARSSLMultiCH`` are not ported yet.
+``SARSSLMultiCH`` is the multi-pair downstream model: one such trunk shared
+by every mic pair, its spat embeddings joined across pairs into one head.
+
+The other pretext ``in_ver``s, ``frozen_encoder_pretext``, the CLS token and
+``MCConformer`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -119,9 +122,11 @@ def _check_ported(c: SARSSLConfig) -> None:
 class SARSSL(nn.Module):
     """Pretext (``cfg.pretrain``) or downstream SAR-SSL network. Built from
     ``torch.Generator().manual_seed(seed)`` on the CPU, then moved to
-    ``device`` (default ``"cuda"``)."""
+    ``device`` (default ``"cuda"``). ``head=False`` leaves out the downstream
+    head: the encoders alone, as flax creates them for a module whose only
+    caller is ``embed`` (``SARSSLMultiCH``'s trunk)."""
 
-    def __init__(self, cfg: SARSSLConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: SARSSLConfig, device="cuda", seed: int = 0, head: bool = True):
         super().__init__()
         _check_ported(cfg)
         dev = resolve_device(device)
@@ -137,7 +142,7 @@ class SARSSL(nn.Module):
             self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape,
                                         c.spec_dembed + c.spat_dembed, c.dec_model, dtype,
                                         gen)
-        else:  # flax's names: head_norm, head_hidden, head_proj
+        elif head:  # flax's names: head_norm, head_hidden, head_proj
             dembed = {"spec_spat": c.spec_dembed + c.spat_dembed, "spec": c.spec_dembed,
                       "spat": c.spat_dembed, "noinfo": c.spec_dembed}[c.downstream_embed]
             self.head_norm = LayerNorm(dembed, dtype)
@@ -219,3 +224,41 @@ class SARSSL(nn.Module):
         if self.cfg.downstream_dlabel != 1:
             y = F.relu(self.head_hidden(y))
         return self.head_proj(y).float(), pooled
+
+
+class SARSSLMultiCH(nn.Module):
+    """Multi-pair downstream model: one ``SARSSL`` trunk (``model_sch``,
+    ``pretrain=False``, ``downstream_embed="spat"``, no head) embeds every
+    mic pair, the pairs' pooled spat embeddings are joined per example, and a
+    joint head LayerNorm -> Dense(npair * d) -> ReLU -> Dense(dlabel) reads
+    them; dlabel is ``nmic_pair`` for TDOA (one target a pair), else 1.
+
+    The input is ``(nb * nmic_pair, 2, nf, nt, nreim)``, pairs of an example
+    consecutive (``mic_pair_rebatch``). Module names follow flax's tree
+    (``model_sch``, ``LayerNorm_0`` -> ``ln``, ``Dense_0`` -> ``dense0``,
+    ``Dense_1`` -> ``dense1``)."""
+
+    def __init__(self, cfg: SARSSLConfig, nmic_pair: int, task: str = "TDOA", device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.nmic_pair = nmic_pair
+        trunk_cfg = SARSSLConfig(**{**cfg.__dict__, "pretrain": False,
+                                    "downstream_embed": "spat"})
+        self.model_sch = SARSSL(trunk_cfg, device="cpu", seed=seed, head=False)
+        gen = torch.Generator().manual_seed(seed + 1)
+        dtype = cfg.compute_dtype
+        djoint = nmic_pair * cfg.spat_dembed
+        self.ln = LayerNorm(djoint, dtype)
+        self.dense0 = Dense(djoint, djoint, dtype=dtype, generator=gen)
+        self.dense1 = Dense(djoint, nmic_pair if task == "TDOA" else 1, dtype=dtype,
+                            generator=gen)
+        self.to(dev)
+
+    def downstream(self, x, train: bool = False, generator=None):
+        """Returns ``(pred (nb, dlabel) f32, joint embedding (nb, npair * d))``."""
+        pooled = self.model_sch.embed(x, train, generator)  # (nb * npair, d)
+        joint = pooled.reshape(-1, self.nmic_pair * pooled.shape[-1])
+        y = F.relu(self.dense0(self.ln(joint)))
+        return self.dense1(y).float(), joint

@@ -1,9 +1,9 @@
 from .features import FeatureConfig, stft_features
 from .mask import PatchMask, gen_patch_mask
-from .pairs import mic_pair_rebatch, num_pairs
+from .pairs import mic_pair_rebatch, num_pairs, pair_unbatch, pairwise_tdoa
 from .patches import patch_recover, patch_split
 from .stft import frame_signal, hann_window
 
 __all__ = ["FeatureConfig", "stft_features", "PatchMask", "gen_patch_mask",
-           "mic_pair_rebatch", "num_pairs", "patch_split", "patch_recover",
-           "frame_signal", "hann_window"]
+           "mic_pair_rebatch", "num_pairs", "pair_unbatch", "pairwise_tdoa", "patch_split",
+           "patch_recover", "frame_signal", "hann_window"]

@@ -1,5 +1,6 @@
 from .checkpoint import partial_load, trainable_mask_from_loaded
-from .learner import EarlyStopping, PretrainLearner, smooth_data
+from .learner import (DownstreamLearner, EarlyStopping, PretrainLearner, mae_without_training,
+                      smooth_data)
 from .schedules import cosine_schedule, exp_decay, linear_schedule
 from .state import Adam, TrainState, create_train_state
 from .steps import (make_downstream_eval_step, make_downstream_step, make_pretrain_eval_step,
@@ -8,4 +9,5 @@ from .steps import (make_downstream_eval_step, make_downstream_step, make_pretra
 __all__ = ["Adam", "TrainState", "create_train_state", "make_pretrain_step",
            "make_pretrain_eval_step", "make_downstream_step", "make_downstream_eval_step",
            "partial_load", "trainable_mask_from_loaded", "cosine_schedule", "linear_schedule",
-           "exp_decay", "EarlyStopping", "PretrainLearner", "smooth_data"]
+           "exp_decay", "EarlyStopping", "PretrainLearner", "DownstreamLearner", "smooth_data",
+           "mae_without_training"]

@@ -2,8 +2,10 @@
 
 ``from_jax_params`` takes the ``{"params": ..., "batch_stats": ...}`` tree of
 ``sarssl_tpu`` ``SARSSL.init`` (pretext, with its decoder, or downstream,
-with its ``head_*`` modules) as nested dicts of numpy arrays and returns the
-parameters and buffers of :class:`sarssl_torch.models.SARSSL`:
+with its ``head_*`` modules) or ``SARSSLMultiCH.init`` (the trunk under
+``model_sch``, the joint head as ``LayerNorm_0``, ``Dense_0``, ``Dense_1``)
+as nested dicts of numpy arrays and returns the parameters and buffers of
+:class:`sarssl_torch.models.SARSSL` or ``SARSSLMultiCH``:
 
   * Dense kernels ``(in, out)`` are transposed to ``(out, in)``;
   * conv kernels go from HWIO to OIHW;
@@ -13,9 +15,10 @@ parameters and buffers of :class:`sarssl_torch.models.SARSSL`:
     buffers.
 
 Module names follow flax's, with flax's automatic names renamed
-(``LayerNorm_0`` -> ``ln``, ``Dense_0`` -> ``dense0``, ``Conv_0`` ->
-``dwconv``, ``BatchNorm_0`` -> ``bn``, ``block<i>`` -> ``blocks.<i>``,
-``global`` -> ``seq``).
+(``LayerNorm_0`` -> ``ln``, ``Dense_0`` -> ``dense0``, ``Dense_1`` ->
+``dense1``, ``Conv_0`` -> ``dwconv``, ``BatchNorm_0`` -> ``bn``,
+``block<i>`` -> ``blocks.<i>``, ``global`` -> ``seq``) at any depth, the
+multi-pair head's included.
 
 ``to_jax_params`` is the inverse: the model's parameters and BatchNorm stats
 as flax's tree of float32 numpy arrays, with flax's names and layouts;

@@ -297,3 +297,27 @@ def test_checkpoint_of_card_tensors_round_trips(cuda, tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     assert fresh.optimizer.count == 2
     assert fresh.optimizer.lr == float(np.float32(state.optimizer.lr))  # stored as optax's f32
+
+
+@pytest.mark.parametrize("nmic", [2, 4])
+def test_downstream_cli_smoke_on_card_writes_its_files(cuda, nmic, tmp_path, capsys):
+    """``run_downstream --smoke`` without ``--cpu`` runs the grid on the card:
+    the result files, the ensemble, and per-pair MAEs for 4 mics."""
+    import json
+    import os
+
+    from sarssl_torch.cli.run_downstream import main
+
+    argv = ["--smoke", "--exp-dir", str(tmp_path)] + (["--nmic", "4", "--ch-mode", "MM"]
+                                                      if nmic > 2 else [])
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "device cuda" in out and "SMOKE PASS" in out
+    cell = tmp_path / "trial0_bs4_lr0.001"
+    assert os.path.exists(cell / "ckpt" / "ensemble_model.msgpack")
+    with open(tmp_path / "results.json") as f:
+        assert set(json.load(f)) == {"task", "mode", "cells", "summary", "best", "best_test_mae"}
+    with open(cell / "logs" / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["split"] for r in recs][-2:] == ["test", "val_final"]
+    assert ("mae_pair5" in recs[-1]) == (nmic > 2)
