@@ -42,13 +42,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
               port's checkpoint reader into the flagship model at 64 frames,
               batch 2: the eval step on one replayed mask, f32 and bf16 on
               the card against f32 on the CPU.
-  7. downstream: the trunk that ``train`` just stepped, ``partial_load``ed
+  7. pretrain_options: the pre-training CLI's other options at the flagship
+              width, each call with the launch counts zeroed before and read
+              after: (a) ``--test`` on the committed trained checkpoint
+              (metrics.json, PESQ in range, wav / .mat dumps, config_test.json;
+              the synthetic batches, the forward, the ISTFT, PESQ and the dumps
+              timed by wrapping); (b) ``--pretrain-frozen-encoder --init-ckpt``
+              from it (encoders bit-identical with zero Adam moments, decoder
+              and BatchNorm stats moved, no attention backward); (c)
+              ``--mel-bins 30`` (the model's 30 bands, mel features card
+              against CPU). Then phase ``trained`` also holds
+              ``pretext_metrics`` (MSEs, ISTFT waveforms, PESQ) of the trained
+              model's prediction, card f32 against CPU f32.
+  8. downstream: the trunk that ``train`` just stepped, ``partial_load``ed
               into the flagship downstream model (f32, batch 8, 16640-sample
               waves, TDOA, dropout 0.1): finetune and lineareval (frozen
               encoder) steps, one warm-up and 5 timed each, with the launch
               counts read around them, and eval steps; then a small
               downstream model on the card against the CPU.
-  8. downstream_cli: the downstream grid through its CLI,
+  9. downstream_cli: the downstream grid through its CLI,
               ``sarssl_torch.cli.run_downstream.main``, at the flagship width
               from the committed trained checkpoint, each call with the
               launch counts zeroed before and read after: (a) finetune, TDOA,
@@ -57,8 +69,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               lineareval cell (the ensemble's encoders bit-identical to the
               checkpoint's); (c) ``--ds-test`` on a cell of (a) (its test MAE
               again) and the no-train baseline; (d) the multi-pair model, 4
-              mics, all 6 pairs (per-pair MAEs logged). The host's synthetic
-              batches and checkpoint writes are timed, every call caught.
+              mics, all 6 pairs (per-pair MAEs logged); (e) ``--ds-test-mode
+              vis_embed`` on a cell of (a) (the t-SNE's inputs caught). The
+              host's synthetic batches and checkpoint writes are timed, every
+              call caught.
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 """
 import json
@@ -127,6 +141,22 @@ TOL_TRAINED_BF16 = 5e-2
 # 0.059, the port's on the CPU 0.113 and 0.066). The card's bf16 must stay
 # within this factor of the CPU's bf16 reading, taken in the same run.
 TRAINED_BF16_FACTOR = 1.5
+
+# pretrain_options: --test reads 2 val batches of 128; the frozen-encoder and
+# mel runs take 1 epoch of 4 train and 1 val batches (the first step of each
+# builds its new shapes' cuDNN plans: the step time is the median of the rest)
+OPT_TEST_VAL_NUM = 256
+OPT_TRAIN_NUM, OPT_VAL_NUM = 512, 128
+MEL_BINS = 30  # the reference's n_mels (sarssl_tpu/ops/features.py:30-31)
+# hash_dropout launches per pretext train step with fused attention: the
+# encoders' 4 conformer blocks hold 6 dropout sites each outside the attention
+# kernel, which drops its probabilities itself, each launched in the forward
+# and again in the backward. With both encoders frozen no gradient flows
+# through them, so only the forward launches.
+PRETRAIN_DROPOUT_PER_STEP = {"train": 48, "frozen": 24}
+# the trained model's pretext metrics, card f32 against CPU f32: PESQ, host
+# numpy on the two reconstructions, absolute
+TOL_PESQ = 1e-3
 
 DS_BATCH = 8  # SIM_BS_SET's batch size (sarssl_tpu/config.py:49)
 DS_NSAMPLE = 16640  # 1.04 s at 16 kHz -> 64 STFT frames
@@ -623,7 +653,7 @@ def phase_kernels():
     return rows, drop, conv
 
 
-def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, dscli_counts):
+def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts, dscli_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -639,9 +669,11 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, dscli_counts):
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
                 "library_ms": r[f"lib_{kind}_ms"],
-                "path": "pretext train step (launches) and the pre-training CLI run "
-                        "(launches_pretrain_cli); not on the downstream CLI's path",
+                "path": "pretext train step (launches), the pre-training CLI run "
+                        "(launches_pretrain_cli) and its --test, frozen-encoder and mel runs "
+                        "(launches_pretrain_options); not on the downstream CLI's path",
                 "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_pretrain_options": opt_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
             })
     out.append({
@@ -652,9 +684,12 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, dscli_counts):
         "ms": drop["ms"], "plain_ms": drop["plain_ms"], "bound_ms": drop["bound"][0],
         "bound_by": drop["bound"][1], "library_ms": drop["library_ms"],
         "path": "pretext train step (launches), the pre-training CLI run "
-                "(launches_pretrain_cli), the downstream finetune step (launches_downstream) "
-                "and the downstream CLI's runs a, b and d (launches_downstream_cli)",
+                "(launches_pretrain_cli), its frozen-encoder and mel runs "
+                "(launches_pretrain_options), the downstream finetune step "
+                "(launches_downstream) and the downstream CLI's runs a, b and d "
+                "(launches_downstream_cli)",
         "launches_pretrain_cli": cli_counts.get("hash_dropout", 0),
+        "launches_pretrain_options": opt_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
         "launches_downstream_cli": dscli_counts.get("hash_dropout", 0),
     })
@@ -670,6 +705,7 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, dscli_counts):
             "library_ms": r["library_ms"],
             "path": "no model path launches it; launches counted over the conv path run "
                     "of the kernels phase",
+            "launches_pretrain_options": opt_counts.get(name, 0),
             "launches_downstream_cli": dscli_counts.get(name, 0),
         })
     return {"kernels": out}
@@ -787,23 +823,38 @@ def _cli(argv, cli="run_pretrain"):
 
 
 class _Timed:
-    """Wraps functions that a run looks up by module attribute, so each call
-    is timed; ``undo`` puts the originals back."""
+    """Wraps functions that a run looks up by module (or class) attribute, so
+    each call is timed, with the card synchronised before and after when
+    ``sync``; ``undo`` puts the originals back."""
 
     def __init__(self):
         self.spent, self.saved = {}, []
 
-    def wrap(self, owner, name, key=None):
-        fn, key = getattr(owner, name), key or name
-        self.spent.setdefault(key, [])
-
+    def _timed(self, fn, key, sync):
         def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
             self.spent[key].append(time.perf_counter() - t0)
             return out
+        return run
+
+    def wrap(self, owner, name, key=None, sync=False):
+        fn, key = getattr(owner, name), key or name
+        self.spent.setdefault(key, [])
         self.saved.append((owner, name, fn))
-        setattr(owner, name, run)
+        setattr(owner, name, self._timed(fn, key, sync))
+
+    def wrap_made(self, owner, name, key):
+        """Wraps a factory: each call of the function it returns is timed,
+        synchronised (the steps that ``make_pretrain_step`` makes)."""
+        make = getattr(owner, name)
+        self.spent.setdefault(key, [])
+        self.saved.append((owner, name, make))
+        setattr(owner, name, lambda *a, **k: self._timed(make(*a, **k), key, True))
 
     def undo(self):
         for owner, name, fn in reversed(self.saved):
@@ -890,6 +941,238 @@ def phase_pretrain_cli(card, step_utt_s):
     return counts
 
 
+def _opt_run(what, argv, card):
+    """One ``run_pretrain`` call with the launch counts zeroed before and
+    read after; returns (printed output, counts, wall seconds)."""
+    from sarssl_torch.kernels import launches, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = _cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    assert "device cuda" in out and "TF32 off" in out, f"{what}: the CLI did not report its device"
+    log(f"[pretrain_options] {what}: wall {wall:.2f} s, launches {counts} ({card})")
+    return out, counts, wall
+
+
+def _check_opt_attention(what, counts, fwd_steps, bwd_steps):
+    for D in HEAD_DIMS:
+        for kind, n in (("fwd", fwd_steps), ("bwd", bwd_steps)):
+            for name in (f"attention_{kind}_d{D}", f"attention_{kind}_tc_d{D}"):
+                got = counts.get(name, 0)
+                assert got == LAYERS[D] * n, f"{what}: {name} {got} launches, want {LAYERS[D] * n}"
+    _assert_no_conv_launch(counts, what)
+
+
+def _flat(tree, path=()):
+    """{'a/b/c': leaf} of a nested checkpoint dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, path + (k,)))
+        else:
+            out["/".join(path + (k,))] = np.asarray(v)
+    return out
+
+
+def _pretext_test_run(tmp, card):
+    """(a) ``--test`` on the committed trained checkpoint: 2 val batches."""
+    import shutil
+
+    from sarssl_torch import models
+    from sarssl_torch.cli import run_pretrain
+    from sarssl_torch.data import read_wav, synthetic
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train import pretext_eval
+    from sarssl_torch.utils import pesq, vis
+
+    exp = os.path.join(tmp, "a")
+    os.makedirs(os.path.join(exp, "checkpoints"))
+    shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT,
+                    ckpt.best_path(os.path.join(exp, "checkpoints")))
+    timer = _Timed()
+    timer.wrap(synthetic, "synth_batch", "synth")
+    timer.wrap(models.SARSSL, "pretext", "forward", sync=True)
+    timer.wrap(pretext_eval, "reconstruct_waveforms", "istft", sync=True)
+    timer.wrap(pesq, "pesq_wb", "pesq")
+    timer.wrap(run_pretrain, "_write_dumps", "dumps")
+    try:
+        out, counts, wall = _opt_run("(a) --test", [
+            "--test", "--synthetic", "--fused-attention", "--bs", str(BATCH),
+            "--val-num", str(OPT_TEST_VAL_NUM), "--exp-dir", exp], card)
+    finally:
+        timer.undo()
+    spent = timer.spent
+    nbatch = OPT_TEST_VAL_NUM // BATCH
+    # the shares below are only as good as the wrappers: each caught every call
+    want = {"synth": nbatch, "forward": nbatch, "istft": 2 * nbatch,
+            "pesq": nbatch * BATCH * 2, "dumps": 1}
+    got = {k: len(v) for k, v in spent.items()}
+    assert got == want, (got, want)
+    assert "loaded best checkpoint (epoch 27)" in out, out
+    dumps = os.path.join(exp, "test_dumps")
+    with open(os.path.join(dumps, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert set(metrics) == {"mse", "mse_mask", "pesq", "pesq_mask_ch"}, metrics
+    assert np.isfinite(list(metrics.values())).all(), metrics
+    for k in ("pesq", "pesq_mask_ch"):  # the P.862.2 mapping's open range
+        assert 0.999 < metrics[k] < 4.999, metrics
+    files = set(os.listdir(dumps))
+    assert {f for f in files if f.startswith("ins_")} == {f"ins_{i}.mat" for i in range(32)}
+    for f in ("pred0.wav", "tar0.wav"):
+        wav, fs = read_wav(os.path.join(dumps, f))
+        assert fs == 16000 and wav.shape == (NSAMPLE, 2) and np.isfinite(wav).all(), f
+        assert np.abs(wav).max() <= 1.0, f  # peak-normalised over the batch
+    assert os.path.exists(os.path.join(exp, "config_test.json"))
+    assert not os.path.exists(os.path.join(exp, "config.json")), "--test wrote config.json"
+    if vis._plt() is None:
+        assert "recon_tf.png" not in files
+        assert "recon_tf.png not written: matplotlib is not installed" in out, out
+        plot = "not written (no matplotlib)"
+    else:
+        assert "recon_tf.png" in files
+        plot = "written"
+    _check_opt_attention("(a) --test", counts, nbatch, 0)
+    assert not counts.get("hash_dropout", 0), f"(a) --test launched dropout: {counts}"
+    shares = ", ".join(f"{k} {len(v)} calls {sum(v):.2f} s ({sum(v) / wall:.1%})"
+                       for k, v in spent.items())
+    log(f"[pretrain_options] (a) --test, epoch-27 checkpoint, {nbatch} batches of {BATCH}: "
+        f"{metrics}; 32 ins_*.mat, pred0.wav, tar0.wav, config_test.json; recon_tf.png {plot}")
+    log(f"[pretrain_options] (a) wall {wall:.2f} s: {shares}; forward "
+        f"{[round(1e3 * t, 1) for t in spent['forward']]} ms ({card})")
+    return counts
+
+
+def _frozen_encoder_run(tmp, card, train_ms):
+    """(b) the decoder retrained over the trained checkpoint's frozen
+    encoders: 1 epoch of 4 train and 1 val batches."""
+    import shutil
+
+    import sarssl_torch.train as train_pkg
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.utils import from_jax_params
+
+    init = os.path.join(tmp, "init")
+    os.makedirs(init)
+    shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT, ckpt.best_path(init))
+    exp = os.path.join(tmp, "b")
+    timer = _Timed()
+    timer.wrap_made(train_pkg, "make_pretrain_step", "step")
+    try:
+        out, counts, wall = _opt_run("(b) --pretrain-frozen-encoder", [
+            "--pretrain", "--synthetic", "--fused-attention", "--bs", str(BATCH), "--epochs", "1",
+            "--train-num", str(OPT_TRAIN_NUM), "--val-num", str(OPT_VAL_NUM),
+            "--pretrain-frozen-encoder", "--init-ckpt", init, "--exp-dir", exp], card)
+    finally:
+        timer.undo()
+    steps = timer.spent["step"]
+    nsteps = OPT_TRAIN_NUM // BATCH
+    assert len(steps) == nsteps, steps
+    src = ckpt.load_checkpoint(ckpt.best_path(init))
+    n = len(from_jax_params({"params": src["params"]})[0])
+    assert f"partial_load: {n}/{n} keys loaded" in out, out
+    saved = ckpt.load_checkpoint(ckpt.latest_path(os.path.join(exp, "checkpoints")))
+    got, want = _flat(saved["params"]), _flat(src["params"])
+    adam = saved["opt_state"]["inner_state"]["0"]["0"]
+    mu, nu = _flat(adam["mu"]), _flat(adam["nu"])
+    assert set(got) == set(want) == set(mu) and len(got) == n
+    enc = [k for k in got if not k.startswith("decoder")]
+    dec = [k for k in got if k.startswith("decoder")]
+    assert enc and dec
+    for k in enc:  # f16 in the file, read as f32
+        assert np.array_equal(got[k], want[k].astype(np.float32)), f"(b): encoder {k} moved"
+        assert not mu[k].any() and not nu[k].any(), f"(b): frozen {k} has Adam moments"
+    for k in dec:
+        assert not np.array_equal(got[k], want[k].astype(np.float32)), f"(b): {k} did not move"
+    stats = _flat(saved["batch_stats"])
+    for k, v in stats.items():  # from the init (mean 0, var 1): partial_load copies no stats
+        assert not np.array_equal(v, np.zeros_like(v) if k.endswith("mean") else np.ones_like(v)), (
+            f"(b): BatchNorm stat {k} did not move")
+    _check_opt_attention("(b) frozen encoder", counts, nsteps + OPT_VAL_NUM // BATCH, 0)
+    want_drop = PRETRAIN_DROPOUT_PER_STEP["frozen"] * nsteps
+    assert counts.get("hash_dropout", 0) == want_drop, (
+        f"(b): hash_dropout {counts.get('hash_dropout', 0)} launches, want {want_drop}")
+    log(f"[pretrain_options] (b) frozen encoders: partial_load {n}/{n}; {len(enc)} encoder "
+        f"parameters bit-identical to the checkpoint's (f16 read as f32) with zero Adam moments, "
+        f"{len(dec)} decoder parameters moved, all {len(stats)} BatchNorm stats moved; attention "
+        f"backward 0 launches (no encoder backward), hash_dropout {want_drop} = "
+        f"{PRETRAIN_DROPOUT_PER_STEP['frozen']} x {nsteps} train steps")
+    log(f"[pretrain_options] (b) train steps {[round(1e3 * t, 1) for t in steps]} ms, median "
+        f"after the first {1e3 * statistics.median(steps[1:]):.1f} beside phase train's "
+        f"{train_ms:.1f} ms ({card})")
+    return counts
+
+
+def _mel_run(tmp, card, train_ms):
+    """(c) pre-training on 30 mel bands: 1 epoch of 4 train and 1 val batches."""
+    import sarssl_torch.train as train_pkg
+    from sarssl_torch import models
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.ops import FeatureConfig, stft_features
+
+    exp = os.path.join(tmp, "c")
+    timer = _Timed()
+    timer.wrap_made(train_pkg, "make_pretrain_step", "step")
+    shapes, pretext = set(), models.SARSSL.pretext
+
+    def seen(self, *a, **k):
+        shapes.add(self.cfg.sig_shape)
+        return pretext(self, *a, **k)
+    models.SARSSL.pretext = seen
+    try:
+        _, counts, wall = _opt_run(f"(c) --mel-bins {MEL_BINS}", [
+            "--pretrain", "--synthetic", "--fused-attention", "--bs", str(BATCH), "--epochs", "1",
+            "--train-num", str(OPT_TRAIN_NUM), "--val-num", str(OPT_VAL_NUM),
+            "--mel-bins", str(MEL_BINS), "--exp-dir", exp], card)
+    finally:
+        models.SARSSL.pretext = pretext
+        timer.undo()
+    steps = timer.spent["step"]
+    nsteps = OPT_TRAIN_NUM // BATCH
+    assert len(steps) == nsteps, steps
+    assert shapes == {(MEL_BINS, SEQ, 2, 2)}, shapes
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["split"] for r in recs] == ["train", "val"], recs
+    assert np.isfinite([r[k] for r in recs for k in ("loss", "diff")]).all(), recs
+    _check_opt_attention("(c) mel", counts, nsteps + OPT_VAL_NUM // BATCH, nsteps)
+    want_drop = PRETRAIN_DROPOUT_PER_STEP["train"] * nsteps
+    assert counts.get("hash_dropout", 0) == want_drop, (
+        f"(c): hash_dropout {counts.get('hash_dropout', 0)} launches, want {want_drop}")
+    wave, _ = synth_batch(np.random.default_rng(13), BATCH, NSAMPLE)
+    cfg = FeatureConfig(mel_bins=MEL_BINS)
+    feats = {dev: stft_features(torch.from_numpy(wave).to(dev), cfg).cpu() for dev in ("cuda", "cpu")}
+    err = rel_err(feats["cuda"], feats["cpu"])
+    assert feats["cpu"].shape == (BATCH, 2, MEL_BINS, SEQ, 2), feats["cpu"].shape
+    assert err <= TOL_REF, f"(c): mel features on the card against the CPU: rel err {err}"
+    log(f"[pretrain_options] (c) mel {MEL_BINS}: model sig_shape {shapes.pop()}; losses train "
+        f"{recs[0]['loss']:.5f} val {recs[1]['loss']:.5f} diff {recs[1]['diff']:.5f}; one batch's "
+        f"mel features card against CPU rel err {err:.2e} (tol {TOL_REF}); hash_dropout "
+        f"{want_drop} = {PRETRAIN_DROPOUT_PER_STEP['train']} x {nsteps}")
+    log(f"[pretrain_options] (c) train steps {[round(1e3 * t, 1) for t in steps]} ms, median "
+        f"after the first {1e3 * statistics.median(steps[1:]):.1f} beside phase train's "
+        f"{train_ms:.1f} ms ({card})")
+    return counts
+
+
+def phase_pretrain_options(card, train_ms):
+    """The pre-training CLI's remaining options at the flagship width, three
+    calls each with the launch counts zeroed before and read after: (a)
+    ``--test`` on the committed trained checkpoint (ISTFT, PESQ, dumps);
+    (b) ``--pretrain-frozen-encoder`` from it; (c) ``--mel-bins 30``."""
+    import tempfile
+
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="pretrain_options_") as tmp:
+        for counts in (_pretext_test_run(tmp, card), _frozen_encoder_run(tmp, card, train_ms),
+                       _mel_run(tmp, card, train_ms)):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def _ds_cli_run(what, argv, spent, card):
     """One ``run_downstream`` call with the launch counts zeroed before and
     read after, and the learners it built caught; returns (printed output,
@@ -960,9 +1243,11 @@ def phase_downstream_cli(card):
     flagship width (f32, TDOA, 1.04 s clips, batch 8) from the committed
     trained checkpoint: (a) finetune over lr {1e-3, 1e-4}, 3 epochs a cell;
     (b) one lineareval cell; (c) ``--ds-test`` on a cell of (a), and the
-    no-train baseline; (d) the multi-pair model, 4 mics, all 6 pairs. The
-    host's synthetic batches and checkpoint writes are timed by wrapping the
-    functions the runs call."""
+    no-train baseline; (d) the multi-pair model, 4 mics, all 6 pairs; (e)
+    ``--ds-test-mode vis_embed`` on that cell. The host's synthetic batches
+    and checkpoint writes are timed by wrapping the functions the runs
+    call."""
+    import importlib.util
     import shutil
     import tempfile
 
@@ -970,6 +1255,7 @@ def phase_downstream_cli(card):
     from sarssl_torch.data import synthetic
     from sarssl_torch.train import checkpoint as ckpt
     from sarssl_torch.train import create_train_state
+    from sarssl_torch.utils import vis
     from sarssl_torch.utils.weights import from_jax_params, to_jax_params
 
     timer = _Timed()
@@ -1112,6 +1398,35 @@ def phase_downstream_cli(card):
                 f"{[round(evals[-2][k], 4) for k in sorted(pairs)]}; hash_dropout "
                 f"{counts.get('hash_dropout', 0)} = {DS_DROPOUT_PER_STEP['multipair']} x "
                 f"{steps_d} train steps ({card})")
+
+            # (e) --ds-test-mode vis_embed on run (a)'s first cell
+            seen, plot = [], vis.plot_tsne_embeddings
+
+            def caught(embeds, labels, save_path, perplexity=30.0):
+                seen.append((np.asarray(embeds), np.asarray(labels)))
+                return plot(embeds, labels, save_path, perplexity)
+            vis.plot_tsne_embeddings = caught
+            try:
+                out, counts, _, wall_e = _ds_cli_run(
+                    "(e) vis_embed", test_args[:-1] + [os.path.join(tmp, "e"), "--ds-test-mode",
+                                                       "vis_embed", "--ckpt", cell_ckpt],
+                    spent, card)
+            finally:
+                vis.plot_tsne_embeddings = plot
+            mark("e")
+            n_test = int(DSCLI_NUMS[5])
+            assert len(seen) == 1, len(seen)
+            embeds, labels = seen[0]
+            assert embeds.shape == (n_test, cfg.spec_dembed + cfg.spat_dembed), embeds.shape
+            assert labels.shape == (n_test,) and np.isfinite(embeds).all() and \
+                np.isfinite(labels).all()
+            plots = vis._plt() is not None and importlib.util.find_spec("sklearn") is not None
+            want_path = os.path.join(tmp, "e", "tsne.png") if plots else None
+            assert f"t-SNE saved to {want_path}" in out, out
+            assert not counts, f"(e) vis_embed launched kernels: {counts}"
+            log(f"[downstream_cli] (e) vis_embed: plot_tsne_embeddings got {embeds.shape} finite "
+                f"embeddings and {labels.shape[0]} labels; t-SNE saved to {want_path}; wall "
+                f"{wall_e:.2f} s ({card})")
     finally:
         timer.undo()
 
@@ -1121,9 +1436,9 @@ def phase_downstream_cli(card):
     # and 4 final val batches
     cell_batches = lambda epochs: epochs * (nbatch + 4) + 4 + 4  # noqa: E731
     want = {"a": 2 * cell_batches(DSCLI_EPOCHS), "b": cell_batches(DSCLI_LIN_EPOCHS),
-            "c": 4 + nbatch + 4, "d": 0}  # (c): the test batches, then the baseline's
+            "c": 4 + nbatch + 4, "d": 0, "e": 4}  # (c): the test batches, then the baseline's
     mc_batches = DSCLI_MC_EPOCHS * (8 + 4) + 4 + 4
-    runs, before = ("a", "b", "c", "d"), {k: 0 for k in spent}
+    runs, before = ("a", "b", "c", "d", "e"), {k: 0 for k in spent}
     split = {}
     for run in runs:
         split[run] = {k: spent[k][before[k]:marks[run][k]] for k in spent}
@@ -1134,8 +1449,8 @@ def phase_downstream_cli(card):
         mc_batches, len(spent["synth_batch_multich"])
     assert len(spent["save_checkpoint"]) == len(spent["cell_epoch"]) == (
         2 * DSCLI_EPOCHS + DSCLI_LIN_EPOCHS + DSCLI_MC_EPOCHS), spent
-    assert [len(split[run]["save_named"]) for run in runs] == [2, 1, 0, 1], spent
-    walls = {"a": wall_a, "b": wall_b, "c": wall_c, "d": wall_d}
+    assert [len(split[run]["save_named"]) for run in runs] == [2, 1, 0, 1, 0], spent
+    walls = {"a": wall_a, "b": wall_b, "c": wall_c, "d": wall_d, "e": wall_e}
     for run in runs:
         part = split[run]
         synth = sum(part["synth_batch"]) + sum(part["synth_batch_multich"])
@@ -1174,11 +1489,12 @@ def phase_trained(card):
     from sarssl_torch.ops import FeatureConfig, PatchMask, gen_patch_mask, stft_features
     from sarssl_torch.train import checkpoint as ckpt
     from sarssl_torch.train import create_train_state, make_pretrain_eval_step
+    from sarssl_torch.train.pretext_eval import pretext_metrics
 
     payload = ckpt.load_checkpoint(str(Path(__file__).resolve().parent / TRAINED_CKPT))
     assert payload["meta"]["epoch"] == 27, payload["meta"]
     wave, _ = synth_batch(np.random.default_rng(11), 2, DS_NSAMPLE)
-    res, preds = {}, {}
+    res, preds, metrics = {}, {}, {}
     runs = (("cpu", "float32"), ("cpu", "bfloat16"), ("cuda", "float32"), ("cuda", "bfloat16"))
     for dev, dtype in runs:
         cfg = SARSSLConfig(sig_shape=(256, DS_FRAMES, 2, 2), dtype=dtype, fused_attention=True)
@@ -1194,6 +1510,11 @@ def phase_trained(card):
             feats = stft_features(torch.from_numpy(wave).to(dev, torch.float32), FeatureConfig())
             _, _, aux = model.pretext(feats, mask, False)
         preds[dev, dtype] = aux["pred"].float().cpu()
+        if (dev, dtype) != ("cpu", "bfloat16"):
+            t0 = time.perf_counter()
+            metrics[dev, dtype] = pretext_metrics(aux, cfg.sig_shape, cfg.patch_shape,
+                                                  compute_pesq=True)
+            metrics[dev, dtype]["seconds"] = time.perf_counter() - t0
     ref, pref = res["cpu", "float32"], preds["cpu", "float32"]
 
     def pred_err(key):
@@ -1223,6 +1544,31 @@ def phase_trained(card):
         assert errs["loss"] <= tol["loss"], f"trained weights {dev} {dtype}: loss rel err"
         assert errs["diff"] <= TOL_REF, f"trained weights {dev} {dtype}: features differ"
     assert ref["loss"] < ref["diff"], "the trained model predicts no better than a channel copy"
+    check_trained_metrics(metrics, card)
+
+
+def check_trained_metrics(metrics, card):
+    """``pretext_metrics`` (MSEs, ISTFT, PESQ) of the trained model's
+    prediction: card f32 against CPU f32, the MSEs and the waveforms within
+    TOL_REF of the largest value, PESQ within TOL_PESQ; the bf16 readings
+    logged."""
+    ref = metrics["cpu", "float32"]
+    for key in (("cuda", "float32"), ("cuda", "bfloat16")):
+        m = metrics[key]
+        errs = {k: abs(m[k] - ref[k]) / abs(ref[k]) for k in ("mse", "mse_mask", "mse_mask_ch")}
+        errs.update({k: rel_err(torch.from_numpy(m[k]), torch.from_numpy(ref[k]))
+                     for k in ("sig_pred", "sig_tar")})
+        pesq_err = float(np.abs(m["pesq"] - ref["pesq"]).max())
+        assert np.isfinite(m["pesq"]).all() and m["sig_pred"].shape == (2, DS_NSAMPLE, 2), key
+        log(f"[trained] pretext_metrics {key[0]} {key[1]}: mse {m['mse']:.6f} mse_mask "
+            f"{m['mse_mask']:.6f} mse_mask_ch {m['mse_mask_ch']:.6f} pesq "
+            f"{np.round(m['pesq'], 4).tolist()} pesq_mask_ch {np.round(m['pesq_mask_ch'], 4).tolist()}"
+            f"; against cpu float32: " + ", ".join(f"{k} rel {e:.2e}" for k, e in errs.items())
+            + f", pesq abs {pesq_err:.2e}; {m['seconds']:.2f} s ({card})")
+        if key[1] == "float32":
+            for k, e in errs.items():
+                assert e <= TOL_REF, f"trained pretext_metrics {key}: {k} rel err {e} > {TOL_REF}"
+            assert pesq_err <= TOL_PESQ, f"trained pretext_metrics {key}: pesq err {pesq_err}"
 
 
 def _timed_steps(fn, n=STEPS):
@@ -1364,11 +1710,12 @@ def main():
     phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts = phase_pretrain_cli(card, step_utt_s)
+    opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
     phase_trained(card)
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
     dscli_counts = phase_downstream_cli(card)
-    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts,
+    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
                                   dscli_counts)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ two-stage lr/10 drop, ensembles the last best epochs and reports its test
 and val MAE; the grid's summary goes to ``results.json`` and ``results.mat``.
 ``--nmic > 2`` trains the multi-pair model (``SARSSLMultiCH``) on per-pair
 TDOA targets. ``--ds-test`` evaluates a trained cell's checkpoint, or the
-predict-the-train-mean baseline.
+predict-the-train-mean baseline, or plots a t-SNE of its test embeddings.
 
 Usage:
   python -m sarssl_torch.cli.run_downstream --ds-train --synthetic --pretrain-ckpt DIR
@@ -44,8 +44,7 @@ def build_parser():
     p.add_argument("--ds-train", action="store_true")
     p.add_argument("--ds-test", action="store_true")
     p.add_argument("--ds-test-mode", type=str, default="cal_metric",
-                   choices=["cal_metric", "cal_metric_wo_info", "vis_embed"],
-                   help="vis_embed: not ported yet")
+                   choices=["cal_metric", "cal_metric_wo_info", "vis_embed"])
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint dir for --ds-test (ensemble/best model)")
     p.add_argument("--smoke", action="store_true",
@@ -125,9 +124,6 @@ def _check_ported(args, parser) -> None:
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: it {why}")
-    if args.ds_test_mode == "vis_embed":
-        raise NotImplementedError("--ds-test-mode vis_embed is not ported yet: it waits for "
-                                  "the port of utils/vis.py")
     if not (args.synthetic or args.smoke):
         raise NotImplementedError("reading data from files is not ported yet: pass --synthetic")
     if args.ds_task != "TDOA":
@@ -364,7 +360,9 @@ def _ds_test(args, model, feat_cfg, make_batches, bs, dlabel, dev):
     """--ds-test modes:
     cal_metric          test loss and MAE of a trained checkpoint (``--ckpt``:
                         its ensemble model, else its best one);
-    cal_metric_wo_info  the predict-the-train-mean baseline."""
+    cal_metric_wo_info  the predict-the-train-mean baseline;
+    vis_embed           a t-SNE of that checkpoint's test embeddings, coloured
+                        by the raw labels, to ``<exp-dir>/tsne.png``."""
     from ..train import DownstreamLearner, create_train_state, make_downstream_eval_step
     from ..train import checkpoint as ckpt
     from ..train.learner import mae_without_training
@@ -388,6 +386,16 @@ def _ds_test(args, model, feat_cfg, make_batches, bs, dlabel, dev):
         print(f"loaded {path}")
     eval_step = make_downstream_eval_step(model, feat_cfg, task=args.ds_task, dlabel=dlabel,
                                           device=dev)
+    if args.ds_test_mode == "vis_embed":
+        from ..utils import vis
+        embeds, labels = [], []
+        for wave, gt in make_batches("test", bs, 2):
+            embeds.append(eval_step(state, wave, gt)["embed"].float().cpu().numpy())
+            labels.append(torch.as_tensor(gt).cpu().numpy().ravel())
+        out = vis.plot_tsne_embeddings(np.concatenate(embeds), np.concatenate(labels),
+                                       os.path.join(args.exp_dir, "tsne.png"))
+        print("t-SNE saved to", out)
+        return 0
     m = DownstreamLearner(state=state, train_step=None, eval_step=eval_step,
                           lr_init=0.0).eval_epoch(make_batches("test", bs, 2), split="test")
     print(f"test [{args.ds_task}]: loss {m['loss']:.5f} MAE {m['mae']:.5f}")

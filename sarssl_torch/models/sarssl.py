@@ -18,8 +18,12 @@ LayerNorm -> [Dense + ReLU when dlabel > 1] -> Dense.
 ``SARSSLMultiCH`` is the multi-pair downstream model: one such trunk shared
 by every mic pair, its spat embeddings joined across pairs into one head.
 
-The other pretext ``in_ver``s, ``frozen_encoder_pretext``, the CLS token and
-``MCConformer`` are not ported yet.
+With ``frozen_encoder_pretext`` (the decoder retrained over frozen encoders,
+reference ``model.py:622-631``) the spec encoder sees only the masked frames
+of the kept channel.
+
+The other pretext ``in_ver``s, the CLS token and ``MCConformer`` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -106,7 +110,6 @@ def _check_ported(c: SARSSLConfig) -> None:
         f"in_ver={c.in_ver!r}": c.in_ver not in (("separate",) if c.pretrain
                                                  else ("separate", "same")),
         f"downstream_head={c.downstream_head!r}": not c.pretrain and c.downstream_head != "mlp",
-        "frozen_encoder_pretext": c.frozen_encoder_pretext,
         "use_cls": c.use_cls,
         "remat_cnn": c.remat_cnn,
         f"local_model={c.local_model!r} / f-first patches":
@@ -179,7 +182,9 @@ class SARSSL(nn.Module):
         masked_ch = F.one_hot(mask.ch, nmic).to(dtype)[:, None, None, None, :]
         kept_ch = 1.0 - masked_ch
         vecc = vec.to(dtype)
-        spec_in = vecc * masked * kept_ch + vecc * (1.0 - masked) * masked_ch
+        spec_in = vecc * masked * kept_ch
+        if not c.frozen_encoder_pretext:
+            spec_in = spec_in + vecc * (1.0 - masked) * masked_ch
         spat_in = vecc * (1.0 - masked)
         embed_spec = self.spec_encoder(spec_in.reshape(nb, npatch, -1), train, generator)
         embed_spat = self.spat_encoder(spat_in.reshape(nb, npatch, -1), train, generator)

@@ -1,11 +1,20 @@
 """Train and eval steps (port of ``sarssl_tpu/train/steps.py``).
 
 Pretext step: STFT features -> 'T' mask (the only mode ported yet) ->
-forward in train mode -> masked MSE -> backward -> Adam update. Downstream
-step: STFT features -> head prediction -> MSE against the task's target ->
+forward in train mode -> masked MSE -> backward -> Adam update of the
+parameters not frozen (the frozen-encoder pretext stage). Downstream step:
+STFT features -> head prediction -> MSE against the task's target ->
 backward -> Adam update of the parameters not frozen (lineareval). The
 BatchNorm running stats update during the forward. PyTorch runs eagerly, so
 a step is a plain function over a ``TrainState``.
+
+Freezing, as the JAX steps do it: a frozen parameter takes no gradient (here
+``requires_grad`` is off during the step, so autograd skips whatever only it
+needs, the backward of a wholly frozen encoder included; Adam reads the
+missing gradient as 0), the update runs over all parameters, and the frozen
+values are then put back: moments restored from a checkpoint would otherwise
+move them. The BatchNorm stats of a frozen encoder still move, as the JAX
+steps replace all of ``batch_stats``.
 
 Randomness comes from an explicit CPU ``torch.Generator``: the mask (unless
 one is given, e.g. replayed from the JAX package) and one uint32 dropout
@@ -14,7 +23,8 @@ syncs.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, List, Optional
 
 import torch
 
@@ -35,15 +45,47 @@ def _features(wave_batch, feat_cfg, dev):
     return stft_features(wave, feat_cfg)  # (nb', 2, nf, nt, 2)
 
 
-def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device="cuda"):
+def _frozen_params(model, trainable_mask: Optional[Dict[str, bool]]) -> List[torch.nn.Parameter]:
+    if trainable_mask is None:
+        return []
+    params = dict(model.named_parameters())
+    if set(trainable_mask) != set(params):
+        raise ValueError("trainable_mask must name every parameter of the model")
+    return [params[n] for n, trainable in trainable_mask.items() if not trainable]
+
+
+@contextlib.contextmanager
+def _without_grad(frozen: List[torch.nn.Parameter]):
+    for p in frozen:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in frozen:
+            p.requires_grad_(True)
+
+
+@torch.no_grad()
+def _update(state: TrainState, lr: float, frozen: List[torch.nn.Parameter]) -> None:
+    kept = torch._foreach_mul(frozen, 1.0) if frozen else []  # exact copies
+    state.apply_gradients(lr)
+    if frozen:
+        torch._foreach_copy_(frozen, kept)
+
+
+def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device="cuda",
+                       trainable_mask: Optional[Dict[str, bool]] = None):
     """Returns ``step(state, wave_batch, lr, generator, mask=None) -> metrics``.
 
     ``wave_batch``: ``(nb, nsample, nch)`` float waveforms (tensor or numpy).
-    ``metrics``: ``{"loss", "diff"}`` as 0-d tensors on the device."""
+    ``metrics``: ``{"loss", "diff"}`` as 0-d tensors on the device.
+    ``trainable_mask`` maps parameter names to False for frozen ones (the
+    encoders in the frozen-encoder pretext stage); see the module's note."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     cfg = model.cfg
     nmasked = cfg.effective_nmasked()
+    frozen = _frozen_params(model, trainable_mask)
 
     def step(state: TrainState, wave_batch, lr: float, generator: torch.Generator,
              mask=None):
@@ -52,9 +94,10 @@ def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device=
             mask = gen_patch_mask(generator, feats.shape[0], cfg.npatch, nmasked, nmic=2,
                                   device=dev)
         state.model.train()
-        loss, diff, _ = state.model.pretext(feats, mask, True, generator)
-        loss.backward()
-        state.apply_gradients(lr)
+        with _without_grad(frozen):
+            loss, diff, _ = state.model.pretext(feats, mask, True, generator)
+            loss.backward()
+        _update(state, lr, frozen)
         return {"loss": loss.detach(), "diff": diff.detach()}
 
     return step
@@ -107,41 +150,21 @@ def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task:
     forward. ``metrics``: ``{"loss", "mae"}`` as 0-d tensors on the device.
 
     ``trainable_mask`` (e.g. from ``trainable_mask_from_loaded``) maps
-    parameter names to False for frozen ones (lineareval). As in the JAX
-    step, a frozen parameter gets a zero gradient (here: none, with
-    ``requires_grad`` off during the step, so the backward skips whatever
-    only it needs; Adam reads it as 0), the update runs over all parameters,
-    and the frozen values are then put back: moments restored from a
-    checkpoint would otherwise move them. The BatchNorm stats of a frozen
-    encoder still move, as in the JAX step, which replaces all of
-    ``batch_stats``."""
+    parameter names to False for frozen ones (lineareval); see the module's
+    note."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
-    frozen = []
-    if trainable_mask is not None:
-        params = dict(model.named_parameters())
-        if set(trainable_mask) != set(params):
-            raise ValueError("trainable_mask must name every parameter of the model")
-        frozen = [params[n] for n, trainable in trainable_mask.items() if not trainable]
+    frozen = _frozen_params(model, trainable_mask)
 
     def step(state: TrainState, wave_batch, gt_batch, lr: float, generator: torch.Generator):
         feats = _features(wave_batch, feat_cfg, dev)
         tar = _targets(gt_batch, task, dlabel, dev)
         state.model.train()
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
+        with _without_grad(frozen):
             pred, _ = state.model.downstream(feats, True, generator)
             loss = ((pred - tar) ** 2).mean()
             loss.backward()
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
-        with torch.no_grad():
-            kept = torch._foreach_mul(frozen, 1.0) if frozen else []  # exact copies
-            state.apply_gradients(lr)
-            if frozen:
-                torch._foreach_copy_(frozen, kept)
+        _update(state, lr, frozen)
         pred = pred.detach()
         return {"loss": loss.detach(), "mae": (pred - tar).abs().mean()}
 

@@ -108,11 +108,10 @@ def test_init_ckpt_reads_a_jax_directory(tmp_path, capsys):
     assert f"partial_load: {n}/{n} keys loaded" in capsys.readouterr().out
 
 
-UNPORTED = [["--test"], ["--device-synth"], ["--data-dir", "d"], ["--val-data-dir", "d"],
+UNPORTED = [["--device-synth"], ["--data-dir", "d"], ["--val-data-dir", "d"],
             ["--real-data-dirs", "d"], ["--real-corpora", "AMI=d"], ["--real-data-probs", "1"],
             ["--remove-spkoverlap"], ["--extra-val-dirs", "d"], ["--resident"],
-            ["--resident-dtype", "int16"], ["--resident-num", "8"], ["--mel-bins", "64"],
-            ["--pretrain-frozen-encoder"], ["--mesh", "1x1"]]
+            ["--resident-dtype", "int16"], ["--resident-num", "8"], ["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])

@@ -261,8 +261,7 @@ def test_results_reader_equals_jax_on_committed_grids(capsys):
 UNPORTED = [["--data-dir", "d"], ["--val-data-dir", "d"], ["--test-data-dir", "d"],
             ["--rir-dir", "d"], ["--sim-rir-dir", "d"], ["--src-dir", "d"], ["--rir-cv"],
             ["--real-sig-dir", "d"], ["--sim-sig-dir", "d"], ["--room-trials"],
-            ["--fixed-train-subset"], ["--mp-loader"], ["--grid-vmap"], ["--mesh", "1x1"],
-            ["--ds-test-mode", "vis_embed"]]
+            ["--fixed-train-subset"], ["--mp-loader"], ["--grid-vmap"], ["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[" ".join(f) for f in UNPORTED])

@@ -321,3 +321,101 @@ def test_downstream_cli_smoke_on_card_writes_its_files(cuda, nmic, tmp_path, cap
         recs = [json.loads(line) for line in f]
     assert [r["split"] for r in recs][-2:] == ["test", "val_final"]
     assert ("mae_pair5" in recs[-1]) == (nmic > 2)
+
+
+def test_istft_and_pretext_metrics_on_card_match_cpu(cuda):
+    """The STFT -> ISTFT round trip and ``pretext_metrics`` on the card
+    against the CPU (f32, TF32 off): within 1e-5 of the largest value, PESQ
+    within 1e-3."""
+    import numpy as np
+
+    from sarssl_torch.ops import PatchMask, gen_patch_mask, istft, stft
+    from sarssl_torch.train.pretext_eval import pretext_metrics
+
+    wave = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 4352, 2)).astype(
+        np.float32))
+    for impl in ("matmul", "fft"):
+        back = istft(stft(wave.cuda(), impl=impl)).cpu()
+        assert _rel(back[:, 256:-256], wave[:, 256:-256]) <= 1e-5, impl
+    rng = np.random.default_rng(1)
+    tar = torch.from_numpy(rng.standard_normal((2, 16, 256, 2, 2)).astype(np.float32))
+    pred = tar + 0.3 * torch.from_numpy(rng.standard_normal(tar.shape).astype(np.float32))
+    mask = gen_patch_mask(torch.Generator().manual_seed(2), 2, 16, 8)
+    out = {dev: pretext_metrics({"pred": pred.to(dev), "tar": tar.to(dev),
+                                 "mask": PatchMask(*(t.to(dev) for t in mask))},
+                                (256, 16, 2, 2), (256, 1), compute_pesq=True)
+           for dev in ("cuda", "cpu")}
+    for k in ("mse", "mse_mask", "mse_mask_ch"):
+        assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-5 * abs(out["cpu"][k]), k
+    for k in ("sig_pred", "sig_tar", "pred_tf", "tar_tf"):
+        assert _rel(torch.from_numpy(out["cuda"][k]), torch.from_numpy(out["cpu"][k])) <= 1e-5, k
+    assert np.abs(out["cuda"]["pesq"] - out["cpu"]["pesq"]).max() <= 1e-3
+
+
+def test_pretext_test_cli_on_card(cuda, tmp_path, capsys):
+    """``run_pretrain --smoke --test`` without ``--cpu``: metrics and dumps."""
+    import json
+    import math
+    import os
+
+    from sarssl_torch.cli.run_pretrain import main
+
+    assert main(["--smoke", "--exp-dir", str(tmp_path)]) == 0
+    assert main(["--smoke", "--test", "--exp-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "loaded best checkpoint (epoch" in out and "pretext test: mse" in out
+    with open(tmp_path / "test_dumps" / "metrics.json") as f:
+        metrics = json.load(f)
+    assert set(metrics) == {"mse", "mse_mask", "pesq", "pesq_mask_ch"}
+    assert all(math.isfinite(v) for v in metrics.values())
+    dumps = set(os.listdir(tmp_path / "test_dumps"))
+    assert {"pred0.wav", "tar0.wav", "metrics.json"} | {f"ins_{i}.mat" for i in range(4)} <= dumps
+    assert os.path.exists(tmp_path / "config_test.json")
+
+
+@pytest.mark.parametrize("flags", [["--mel-bins", "8"], ["--pretrain-frozen-encoder"]],
+                         ids=["mel_bins", "frozen_encoder"])
+def test_pretrain_options_cli_smoke_on_card(cuda, flags, tmp_path, capsys):
+    """``--mel-bins`` and ``--pretrain-frozen-encoder`` (from a smoke run's
+    checkpoint, whose encoders stay bit-identical) on the card."""
+    import numpy as np
+
+    from sarssl_torch.cli.run_pretrain import main
+    from sarssl_torch.train import checkpoint as ckpt
+
+    extra = []
+    if "--pretrain-frozen-encoder" in flags:
+        assert main(["--smoke", "--epochs", "1", "--exp-dir", str(tmp_path / "init")]) == 0
+        extra = ["--init-ckpt", str(tmp_path / "init" / "checkpoints")]
+    assert main(["--smoke", "--epochs", "1", "--exp-dir", str(tmp_path / "run")] + flags
+                + extra) == 0
+    assert "SMOKE PASS" in capsys.readouterr().out
+    if extra:
+        init = ckpt.load_checkpoint(ckpt.best_path(extra[1]))["params"]
+        saved = ckpt.load_checkpoint(ckpt.latest_path(str(tmp_path / "run" / "checkpoints")))
+        for part in ("spec_encoder", "spat_encoder"):
+            a, b = saved["params"][part], init[part]
+            stack = [(a, b)]
+            while stack:
+                x, y = stack.pop()
+                for k in x:
+                    if isinstance(x[k], dict):
+                        stack.append((x[k], y[k]))
+                    else:
+                        np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_vis_embed_on_card(cuda, tmp_path, capsys):
+    """``run_downstream --ds-test --ds-test-mode vis_embed`` on the card."""
+    from sarssl_torch.cli.run_downstream import main
+    from sarssl_torch.utils import vis
+
+    assert main(["--smoke", "--exp-dir", str(tmp_path / "grid")]) == 0
+    assert main(["--smoke", "--ds-test", "--ds-test-mode", "vis_embed", "--ckpt",
+                 str(tmp_path / "grid" / "trial0_bs4_lr0.001" / "ckpt"),
+                 "--exp-dir", str(tmp_path / "vis")]) == 0
+    out = capsys.readouterr().out
+    import importlib.util
+    plots = vis._plt() is not None and importlib.util.find_spec("sklearn") is not None
+    want = str(tmp_path / "vis" / "tsne.png") if plots else None
+    assert f"t-SNE saved to {want}" in out

@@ -152,7 +152,7 @@ def test_sarssl_pretext_matches_with_replayed_mask(fused):
 def test_unported_options_raise():
     for kw in (dict(in_ver="same"), dict(pretrain=False, in_ver="single_ch_each_patch"),
                dict(pretrain=False, use_cls=True), dict(pretrain=False, downstream_head="x"),
-               dict(use_cls=True), dict(frozen_encoder_pretext=True),
+               dict(use_cls=True),
                dict(dec_model=("conformer", "fc")), dict(local_model="fc"),
                dict(patch_shape=(16, 2))):
         with pytest.raises(NotImplementedError):

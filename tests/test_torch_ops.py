@@ -103,9 +103,3 @@ def test_gen_patch_mask_t_mode():
     with pytest.raises(NotImplementedError):
         tops.gen_patch_mask(gen, nb, npatch, nmasked, mode="T_cluster")
 
-
-def test_feature_options_not_ported_raise():
-    wave = torch.from_numpy(_waves(1, NSAMPLE))
-    for kw in (dict(mel_bins=30), dict(stft_impl="fft")):
-        with pytest.raises(NotImplementedError):
-            tops.stft_features(wave, tops.FeatureConfig(win_len=128, nfft=128, **kw))
