@@ -14,7 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the shapes the pretext step gives it, with the tolerance stated,
               and timed with CUDA events beside its bound and a library call
               (attention also beside the FMA kernels it replaced at these
-              shapes). Then the attention module of the conformer at both
+              shapes), and the attention at the shapes the model's options
+              bring (L = 257 with the CLS token, L = 512 with one channel a
+              patch), each on the route the wrapper takes. Then the attention
+              module of the conformer at both
               flagship widths in bf16, fused against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
@@ -73,6 +76,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
               vis_embed`` on a cell of (a) (the t-SNE's inputs caught). The
               host's synthetic batches and checkpoint writes are timed, every
               call caught.
+ 10. model_options: the model's options, first each on a small model card
+              against CPU (dropout on, same seeds), then at the flagship
+              pretext width (bf16, batch 128, fused attention, dropout 0.1),
+              each variant one warm-up and 3 timed steps through
+              ``make_pretrain_step`` with its launch counts zeroed before and
+              asserted exactly after, and its peak memory: (a) the mask modes
+              (every drawn mask's count checked), (b) ``in_ver="same"``, (c)
+              ``in_ver="single_ch_each_patch"`` (L = 512: D = 64 on the tensor
+              cores, D = 32 on FMA), (d) ``use_cls`` (L = 257 on FMA) and the
+              downstream model with the token, (e) ``remat_cnn`` (its first
+              step against the plain one's), (f) the ``fc`` front end, (g)
+              f-first (16, 16) patches with 'TF' masks, (h) transformer
+              encoders, (i) the decoder's stages and CNN head, (j)
+              ``MCConformer``'s forward in f32 and bf16, (k)
+              ``ConformerEncoder(remat=True)`` against plain.
 Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 """
 import json
@@ -309,29 +327,32 @@ def bound_ms(nbytes, ops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _attention_inputs(D, dtype, gen):
-    shape = (BATCH, HEADS, SEQ, D)
+def _attention_inputs(D, dtype, gen, L=SEQ):
+    shape = (BATCH, HEADS, L, D)
     qu, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
-    bias = torch.randn((BATCH, HEADS, SEQ, SEQ), generator=gen, device="cuda").to(dtype)
+    bias = torch.randn((BATCH, HEADS, L, L), generator=gen, device="cuda").to(dtype)
     return qu, k, v, bias, g
 
 
-def check_attention(D, dtype, rate, seed, gen):
+def check_attention(D, dtype, rate, seed, gen, L=SEQ):
     """Kernel (fwd + bwd) against the plain version in f32; returns errors."""
     from sarssl_torch.kernels import (attention_plain, fused_attention, hash_keep_mask,
                                       launches)
+    from sarssl_torch.kernels.attention import takes_tensor_cores
 
     scale = 1.0 / np.sqrt(HEADS * D)
-    qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
-    tc_names = (f"attention_fwd_tc_d{D}", f"attention_bwd_tc_d{D}")
-    before = [launches[n] for n in tc_names]
+    names = (f"attention_fwd_d{D}", f"attention_bwd_d{D}", f"attention_fwd_tc_d{D}",
+             f"attention_bwd_tc_d{D}")
+    before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
-    rose = [launches[n] - b for n, b in zip(tc_names, before)]
-    want = [1, 1] if dtype == torch.bfloat16 else [0, 0]
-    assert rose == want, f"attention D={D} {dtype}: tensor-core launches {rose}, want {want}"
+    rose = [launches[n] - b for n, b in zip(names, before)]
+    tc = int(takes_tensor_cores(dtype, L, D))
+    want = [1, 1, tc, tc]
+    assert rose == want, f"attention L={L} D={D} {dtype}: launches {rose}, want {want}"
     ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
@@ -341,28 +362,29 @@ def check_attention(D, dtype, rate, seed, gen):
         errs[name] = (rel_err(a, b), max_abs(a, b))
     torch.cuda.synchronize()
     for name, (rel, _) in errs.items():
-        assert rel <= tol, f"attention D={D} {dtype} rate={rate}: {name} rel err {rel} > {tol}"
+        assert rel <= tol, (f"attention L={L} D={D} {dtype} rate={rate}: {name} rel err "
+                            f"{rel} > {tol}")
     if rate > 0:
         # the kernel's dropped positions: with v = identity columns, out = pd
-        keep = hash_keep_mask(BATCH * HEADS * SEQ * SEQ, seed, rate,
-                              "cuda").reshape(BATCH, HEADS, SEQ, SEQ)
-        eye = torch.eye(SEQ, device="cuda", dtype=dtype)
-        for c in range(SEQ // D):
-            basis = eye[:, c * D:(c + 1) * D].expand(BATCH, HEADS, SEQ, D).contiguous()
+        keep = hash_keep_mask(BATCH * HEADS * L * L, seed, rate,
+                              "cuda").reshape(BATCH, HEADS, L, L)
+        eye = torch.eye(L, device="cuda", dtype=dtype)
+        for c in range(L // D):
+            basis = eye[:, c * D:(c + 1) * D].expand(BATCH, HEADS, L, D).contiguous()
             pd = fused_attention(qu, k, basis, bias, seed, scale, rate)
             same = torch.equal(pd != 0, keep[..., c * D:(c + 1) * D])
-            assert same, f"attention D={D} {dtype}: dropped positions differ from the plain mask"
-    log(f"[kernels] attention D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
+            assert same, (f"attention L={L} D={D} {dtype}: dropped positions differ from "
+                          f"the plain mask")
+    log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
         f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
         + (" ; dropped positions identical" if rate > 0 else "")
-        + f" (tol {tol}; {'tensor-core' if want[0] else 'FMA'} kernels)")
+        + f" (tol {tol}; {'tensor-core' if tc else 'FMA'} kernels)")
     return max(a for _, a in errs.values()), max(a for n, (_, a) in errs.items() if n == "out")
 
 
 def time_attention(D, seed, gen):
     """Times of fwd and bwd at the step's shape (bf16, rate 0.1): the
     tensor-core kernels, and the FMA kernels they replaced there."""
-    from sarssl_torch.kernels import attention_plain
     from sarssl_torch.kernels.attention import (launch_attention_bwd_fma,
                                                 launch_attention_bwd_mma,
                                                 launch_attention_fwd_fma,
@@ -379,6 +401,16 @@ def time_attention(D, seed, gen):
     res["fma_bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
     res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
     del out, lse
+    res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
+    return res
+
+
+def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
+    """Times of the plain version and of SDPA (fwd, bwd) on these inputs, and
+    the bounds of the fused function at their shape and dtype."""
+    from sarssl_torch.kernels import attention_plain
+
+    res = {}
     with torch.no_grad():
         res["plain_fwd_ms"] = cuda_ms(lambda: attention_plain(qu, k, v, bias, seed, scale, RATE))
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
@@ -395,12 +427,51 @@ def time_attention(D, seed, gen):
     out = torch.nn.functional.scaled_dot_product_attention(*ys[:3], attn_mask=ys[3], scale=scale)
     res["lib_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, ys, g, retain_graph=True))
     del out
-    n_qkv, n_s, es = BATCH * HEADS * SEQ * D, BATCH * HEADS * SEQ * SEQ, 2
-    res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, 4 * n_s * D, BF16_FLOPS)
+    B, H, L, D = qu.shape
+    es = qu.element_size()
+    rate = BF16_FLOPS if qu.dtype == torch.bfloat16 else F32_FLOPS
+    n_qkv, n_s = B * H * L * D, B * H * L * L
+    res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, 4 * n_s * D, rate)
     # reads qu k v g bias, writes dqu dk dv dbias; 5 products of 2*L*L*D each
     # (the saved out and row statistics that the kernels also read are left
     # out: the function needs no more than the nine tensors above)
-    res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, 10 * n_s * D, BF16_FLOPS)
+    res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, 10 * n_s * D, rate)
+    return res
+
+
+# attention shapes the model's options bring (phase model_options), at the
+# flagship batch and heads: (L, D, dtype). L = 257: the CLS token, FMA route
+# at both widths; L = 512: in_ver="single_ch_each_patch" (the spec encoder at
+# d = 256 on the tensor cores, the spat encoder at d = 128, D = 32, on FMA),
+# and one f32 case there.
+OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
+                           (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
+                           (512, 64, torch.float32))
+
+
+def time_attention_route(L, D, dtype, seed, gen):
+    """Times of fwd and bwd on the route ``fused_attention`` takes at this
+    shape (rate 0.1), beside the plain version, SDPA and the bound."""
+    from sarssl_torch.kernels.attention import (fma_row_block, launch_attention_bwd_fma,
+                                                launch_attention_bwd_mma,
+                                                launch_attention_fwd_fma,
+                                                launch_attention_fwd_mma, takes_tensor_cores)
+
+    scale = 1.0 / np.sqrt(HEADS * D)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
+    args = (seed, scale, RATE)
+    res = {"tc": takes_tensor_cores(dtype, L, D)}
+    if res["tc"]:
+        out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
+        res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+        res["bwd_ms"] = cuda_ms(
+            lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
+        del out, lse
+    else:
+        res["row_block"] = (fma_row_block("fwd", L, D), fma_row_block("bwd", L, D))
+        res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+        res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
     return res
 
 
@@ -633,6 +704,19 @@ def phase_kernels():
             if rate == RATE:
                 rows[D] = {"max_abs_err": err, "out_err": out_err}
     check_attention(64, torch.float32, RATE, seed, gen)
+    opt_rows = {}
+    for L, D, dtype in OPTION_ATTENTION_SHAPES:
+        err, out_err = check_attention(D, dtype, RATE, seed, gen, L)
+        t = time_attention_route(L, D, dtype, seed, gen)
+        t.update(max_abs_err=err, out_err=out_err)
+        opt_rows[(L, D, dtype)] = t
+        route = "tensor-core" if t["tc"] else f"FMA, row blocks (fwd, bwd) {t['row_block']}"
+        log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} ({route}): fwd "
+            f"{t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
+            f"bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms (plain "
+            f"{t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
+            f"{t['bwd_bound'][0]:.4f})")
+        torch.cuda.empty_cache()
     for D in HEAD_DIMS:
         t = time_attention(D, seed, gen)
         rows[D].update(t)
@@ -650,10 +734,11 @@ def phase_kernels():
     log(f"[kernels] hash_dropout: {drop['ms']:.4f} ms (plain {drop['plain_ms']:.4f}, "
         f"F.dropout {drop['library_ms']:.4f}, bound {drop['bound'][0]:.4f})")
     conv = check_conv(gen)
-    return rows, drop, conv
+    return rows, opt_rows, drop, conv
 
 
-def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts, dscli_counts):
+def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
+                 dscli_counts, mo_counts, mo_shapes):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -675,6 +760,28 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts, ds
                 "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_pretrain_options": opt_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_model_options": mo_counts.get(f"attention_{kind}_tc_d{D}", 0),
+            })
+    for (L, D, dtype), r in opt_rows.items():
+        for kind, line in (("fwd", 100), ("bwd", 128)):
+            n = mo_shapes.get((L, D, str(dtype)[6:], kind), 0)
+            out.append({
+                "name": f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}", "route": "cuda",
+                "source": "sarssl_torch/csrc/" + ("attention_mma.cu" if r["tc"]
+                                                  else "attention.cu"),
+                "variant": "mma" if r["tc"] else "fma",
+                "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
+                # the model_options phase's launches at this shape: those of
+                # variant (d) (L=257) and (c) (L=512); the f32 case is no
+                # variant's (those run bf16)
+                "launches": n,
+                "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
+                "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
+                "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
+                "library_ms": r[f"lib_{kind}_ms"],
+                "path": "phase model_options (launches_model_options): use_cls (L=257) and "
+                        "in_ver=single_ch_each_patch (L=512)",
+                "launches_model_options": n,
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -692,6 +799,7 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts, ds
         "launches_pretrain_options": opt_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
         "launches_downstream_cli": dscli_counts.get("hash_dropout", 0),
+        "launches_model_options": mo_counts.get("hash_dropout", 0),
     })
     for name in CONV_LAUNCHES:
         r = conv[name]
@@ -707,6 +815,7 @@ def kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts, ds
                     "of the kernels phase",
             "launches_pretrain_options": opt_counts.get(name, 0),
             "launches_downstream_cli": dscli_counts.get(name, 0),
+            "launches_model_options": mo_counts.get(name, 0),
         })
     return {"kernels": out}
 
@@ -1699,6 +1808,447 @@ def phase_downstream_reference():
     assert err <= TOL_REF, f"card and CPU downstream losses differ by {err}"
 
 
+# model_options: each variant of the flagship pretext model takes one warm-up
+# and this many timed steps, the launch counts zeroed before the warm-up
+OPTION_STEPS = 3
+# hash_dropout launches per step (forward, and backward where a gradient
+# flows): a conformer block holds 6 sites outside the attention kernel (7 with
+# the unfused attention, whose probabilities go through the module); a
+# transformer layer 3 sites and its attention-weight mask (forward only: the
+# mask of ones takes no gradient), the transformer encoder 1 more site at its
+# input. So the flagship's 4 encoder blocks give 48; transformer encoders
+# instead (1 + 3 layers) 2 * 1 + 7 * 1 + 2 * 1 + 7 * 3 = 32; a decoder
+# conformer stage adds 14, a decoder transformer stage 9; MCConformer's
+# unfused forward without autograd 7 * 4 = 28.
+OPTION_DROPOUT = {"encoders": 48, "transformer_encoders": 32, "dec_conformer": 14,
+                  "dec_transformer": 9, "mc_forward": 28}
+# remat against the plain path on the card: the forward is the same
+# computation, so the loss, the running stats and the generator's state must
+# be equal bit for bit; the gradients too unless a library kernel of the
+# backward (cuDNN's convolution gradients) sums in an order that changes from
+# call to call, so they are held to a bf16 rounding of their largest value
+TOL_REMAT_GRAD = 2 ** -8
+
+
+def _attention_want(spec, spat):
+    """Attention launches of one pretext train step: ``spec`` / ``spat`` are
+    (head dim, layers, on the tensor cores) of each encoder's conformer."""
+    want = {}
+    for D, layers, tc in (spec, spat):
+        for kind in ("fwd", "bwd"):
+            for name in (f"attention_{kind}_d{D}",) + ((f"attention_{kind}_tc_d{D}",) if tc
+                                                       else ()):
+                want[name] = want.get(name, 0) + layers
+    return want
+
+
+FLAGSHIP_ATTENTION = _attention_want((128, 1, True), (64, 3, True))
+
+
+def _kernel_counts():
+    from sarssl_torch.kernels import launches
+
+    return {k: v for k, v in launches.items() if v}
+
+
+class _CapturedMasks:
+    """Catches the masks the pretrain step draws (``train.steps.gen_patch_mask``)."""
+
+    def __init__(self):
+        from sarssl_torch.train import steps
+
+        self.steps, self.orig, self.masks = steps, steps.gen_patch_mask, []
+
+        def capture(*a, **k):
+            self.masks.append(self.orig(*a, **k))
+            return self.masks[-1]
+
+        steps.gen_patch_mask = capture
+
+    def undo(self):
+        self.steps.gen_patch_mask = self.orig
+
+
+def _check_mask(what, m, count):
+    assert bool((m.patch.sum(1) == count).all()), f"{what}: a row does not mask {count}"
+    assert m.idx.shape[1] == count and bool((m.idx[:, 1:] > m.idx[:, :-1]).all()), what
+    assert bool(torch.gather(m.patch, 1, m.idx).all()), f"{what}: idx and patch disagree"
+
+
+def _pretext_variant(what, card, wave, want_per_step, mask_mode="T", masks=None, **kw):
+    """One warm-up and OPTION_STEPS timed pretrain steps of the flagship model
+    with the options ``kw``; launches asserted exactly (``want_per_step`` per
+    step). Returns the variant's numbers."""
+    from sarssl_torch.kernels import reset_launches
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import create_train_state, make_pretrain_step
+
+    cfg = SARSSLConfig(dtype="bfloat16", fused_attention=True, dropout=RATE, **kw)
+    model = SARSSL(cfg, device="cuda", seed=0)
+    state = create_train_state(model)
+    step = make_pretrain_step(model, FeatureConfig(), device="cuda", mask_mode=mask_mode)
+    gen = torch.Generator().manual_seed(0)
+    nsteps = 1 + OPTION_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for i in range(nsteps):
+        t0 = time.perf_counter()
+        metrics = step(state, wave, 1e-3, gen, mask=None if masks is None else masks[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert all(np.isfinite(losses)), f"{what}: non-finite loss {losses}"
+    assert len(set(losses)) == nsteps, f"{what}: the loss did not move {losses}"
+    want = {k: v * nsteps for k, v in want_per_step.items() if v}
+    assert counts == want, f"{what}: launches {counts}, want {want}"
+    med = statistics.median(times[1:])
+    log(f"[model_options] {what}: median step {1e3 * med:.1f} ms, {BATCH / med:.1f} utt/s, "
+        f"peak {peak:.2f} GiB, losses {[round(x, 5) for x in losses]}, launches over "
+        f"{nsteps} steps {counts} (exact) ({card})")
+    del state, step, model
+    torch.cuda.empty_cache()
+    return {"ms": 1e3 * med, "utt_s": BATCH / med, "peak_gib": peak, "counts": counts}
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _remat_cnn_matches_plain(wave, card):
+    """(e): the first step's loss, gradients, running stats and generator
+    state with ``remat_cnn`` against the plain model's, same weights, mask and
+    seed, on the card."""
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig, gen_patch_mask, stft_features
+
+    feats = stft_features(wave, FeatureConfig())
+    runs = {}
+    for remat in (False, True):
+        cfg = SARSSLConfig(dtype="bfloat16", fused_attention=True, dropout=RATE,
+                           remat_cnn=remat)
+        model = SARSSL(cfg, device="cuda", seed=0)
+        model.train()
+        mask = gen_patch_mask(torch.Generator().manual_seed(1), feats.shape[0], cfg.npatch,
+                              cfg.effective_nmasked(), device="cuda")
+        gen = torch.Generator().manual_seed(2)
+        loss, _, _ = model.pretext(feats, mask, True, gen)
+        loss.backward()
+        runs[remat] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                       {n: b.clone() for n, b in model.named_buffers()}, gen.get_state())
+        del model, loss
+    (pl, pg, pb, ps), (rl, rg, rb, rs) = runs[False], runs[True]
+    assert torch.equal(pl, rl), f"remat_cnn: loss {float(rl)} against {float(pl)}"
+    assert torch.equal(ps, rs), "remat_cnn: the generator moved another way"
+    assert all(torch.equal(pb[n], rb[n]) for n in pb), "remat_cnn: running stats differ"
+    same = sum(torch.equal(pg[n], rg[n]) for n in pg)
+    worst = max(rel_err(rg[n], pg[n]) for n in pg)
+    assert worst <= TOL_REMAT_GRAD, f"remat_cnn: gradient rel err {worst}"
+    log(f"[model_options] (e) remat_cnn first step against plain: loss {float(pl):.6f} "
+        f"identical, all {len(pb)} running stats identical, generator state identical, "
+        f"{same} of {len(pg)} gradients bit-identical, worst rel err {worst:.2e} (tol "
+        f"{TOL_REMAT_GRAD:.2e}) ({card})")
+    del runs, feats
+    torch.cuda.empty_cache()
+
+
+def _downstream_cls(card, total):
+    """(d), downstream: the flagship downstream model (f32, batch 8) with the
+    CLS token, one finetune step for each ``downstream_token``."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.kernels import reset_launches
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import create_train_state, make_downstream_step
+
+    wave, tdoa = synth_batch(np.random.default_rng(2), DS_BATCH, DS_NSAMPLE)
+    wave = torch.from_numpy(wave).cuda()
+    gt = torch.from_numpy(tdoa / 16000.0).cuda()
+    for token in ("cls", "all"):
+        cfg = SARSSLConfig(sig_shape=(256, DS_FRAMES, 2, 2), pretrain=False,
+                           downstream_embed="spec_spat", dtype="float32", use_cls=True,
+                           downstream_token=token)
+        model = SARSSL(cfg, device="cuda", seed=1)
+        state = create_train_state(model)
+        step = make_downstream_step(model, FeatureConfig(), "TDOA", device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(state, wave, gt, DS_LR, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = _kernel_counts()
+        loss = float(metrics["loss"])
+        assert np.isfinite(loss), f"downstream use_cls {token}: loss {loss}"
+        want = {"hash_dropout": DS_DROPOUT_PER_STEP["finetune"]}
+        assert counts == want, f"downstream use_cls {token}: launches {counts}, want {want}"
+        _add_counts(total, counts)
+        log(f"[model_options] (d) downstream use_cls, downstream_token={token!r}: one finetune "
+            f"step (the first, cuDNN plans included) {ms:.1f} ms, loss {loss:.5f}, launches "
+            f"{counts} (exact) ({card})")
+        del state, step, model
+
+
+def _mc_conformer(card, wave, total):
+    """(j): MCConformer's forward at the flagship width, f32 and bf16, train
+    mode with dropout, without autograd."""
+    from sarssl_torch.kernels import reset_launches
+    from sarssl_torch.models import MCConformer, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig, stft_features
+
+    feats = stft_features(wave, FeatureConfig())
+    for dtype in ("float32", "bfloat16"):
+        model = MCConformer(SARSSLConfig(dtype=dtype, dropout=RATE), device="cuda", seed=0)
+        gen = torch.Generator().manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        with torch.no_grad():
+            for _ in range(1 + OPTION_STEPS):
+                t0 = time.perf_counter()
+                out = model(feats, True, gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        counts = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert out.shape == (BATCH, 256, 256, 2, 2), out.shape
+        assert bool(torch.isfinite(out).all()), f"MCConformer {dtype}: non-finite output"
+        want = {"hash_dropout": OPTION_DROPOUT["mc_forward"] * (1 + OPTION_STEPS)}
+        assert counts == want, f"MCConformer {dtype}: launches {counts}, want {want}"
+        _add_counts(total, counts)
+        med = statistics.median(times[1:])
+        log(f"[model_options] (j) MCConformer {dtype} forward (train mode, no autograd): "
+            f"median {1e3 * med:.1f} ms, {BATCH / med:.1f} utt/s, peak {peak:.2f} GiB, output "
+            f"{tuple(out.shape)} finite, launches {counts} (exact) ({card})")
+        del model, out
+        torch.cuda.empty_cache()
+
+
+def _conformer_remat(card, total):
+    """(k): ConformerEncoder(remat=True) at the spat width (d = 256, 3 layers,
+    bf16, fused attention, dropout 0.1, batch 128, L = 256) against
+    remat=False from the same weights and generator state: output, input and
+    parameter gradients, running stats, generator state."""
+    from sarssl_torch.kernels import reset_launches
+    from sarssl_torch.models import ConformerEncoder
+
+    x = torch.randn((BATCH, SEQ, 256), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(torch.bfloat16)
+    g = torch.randn_like(x)
+    runs = {}
+    for remat in (False, True):
+        enc = ConformerEncoder(256, 3, num_heads=HEADS, dropout=RATE, fused_attention=True,
+                               dtype=torch.bfloat16, generator=torch.Generator().manual_seed(4),
+                               remat=remat).cuda()
+        gen = torch.Generator().manual_seed(5)
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        y = enc(xr, True, gen)
+        y.backward(g)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = _kernel_counts()
+        _add_counts(total, counts)
+        runs[remat] = (y.detach(), xr.grad, {n: p.grad for n, p in enc.named_parameters()},
+                       {n: b.clone() for n, b in enc.named_buffers()}, gen.get_state(), counts,
+                       ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+        del enc, y, xr
+    plain, rem = runs[False], runs[True]
+    fwd = {"attention_fwd_d64": 3, "attention_fwd_tc_d64": 3, "attention_bwd_d64": 3,
+           "attention_bwd_tc_d64": 3, "hash_dropout": 36}
+    # the recomputation runs each block's forward again: 3 more attention
+    # forwards and 18 more dropout launches
+    fwd_remat = {**fwd, "attention_fwd_d64": 6, "attention_fwd_tc_d64": 6, "hash_dropout": 54}
+    assert plain[5] == fwd, f"conformer plain: launches {plain[5]}, want {fwd}"
+    assert rem[5] == fwd_remat, f"conformer remat: launches {rem[5]}, want {fwd_remat}"
+    assert torch.equal(plain[0], rem[0]), "conformer remat: the output differs"
+    assert torch.equal(plain[4], rem[4]), "conformer remat: the generator moved another way"
+    assert all(torch.equal(plain[3][n], rem[3][n]) for n in plain[3]), "running stats differ"
+    grads = [(plain[1], rem[1])] + [(plain[2][n], rem[2][n]) for n in plain[2]]
+    same = sum(torch.equal(a, b) for a, b in grads)
+    worst = max(rel_err(b, a) for a, b in grads)
+    assert worst <= TOL_REMAT_GRAD, f"conformer remat: gradient rel err {worst}"
+    log(f"[model_options] (k) ConformerEncoder d=256 x 3 remat against plain, bf16 B={BATCH} "
+        f"L={SEQ}: output, running stats and generator state identical; {same} of "
+        f"{len(grads)} gradients (input and parameters) bit-identical, worst rel err "
+        f"{worst:.2e} (tol {TOL_REMAT_GRAD:.2e}); fwd+bwd {plain[6]:.1f} ms / peak "
+        f"{plain[7]:.2f} GiB plain, {rem[6]:.1f} ms / {rem[7]:.2f} GiB remat (first calls); "
+        f"launches plain {plain[5]}, remat {rem[5]} (exact) ({card})")
+
+
+def phase_model_options(card):
+    """The model's options at the flagship pretext width, variants (a)-(k);
+    each with its launch counts zeroed before and read after. Returns the
+    phase's summed counts and, for the kernels line, the launches at each of
+    the new attention shapes."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.ops import gen_patch_mask
+
+    wave, _ = synth_batch(np.random.default_rng(0), BATCH, NSAMPLE)
+    wave = torch.from_numpy(wave).cuda()
+    total, shapes, res = {}, {}, {}
+    base = {**FLAGSHIP_ATTENTION, "hash_dropout": OPTION_DROPOUT["encoders"]}
+
+    def run(what, want, **kw):
+        r = _pretext_variant(what, card, wave, want, **kw)
+        _add_counts(total, r["counts"])
+        res[what] = r
+        return r
+
+    run("plain", base)
+    cap = _CapturedMasks()
+    try:
+        for mode in ("T_1s", "T_cluster", "T_cluster_inverse", "T_cluster2"):
+            cap.masks.clear()
+            run(f"(a) mask_mode={mode}", base, mask_mode=mode)
+            count = 256 // 4 if mode == "T_1s" else 128
+            assert len(cap.masks) == 1 + OPTION_STEPS, f"{mode}: {len(cap.masks)} masks drawn"
+            for m in cap.masks:
+                _check_mask(mode, m, count)
+            log(f"[model_options] (a) {mode}: every row of the {len(cap.masks)} drawn masks "
+                f"masks exactly {count} of 256 patches, idx ascending")
+    finally:
+        cap.undo()
+    run("(b) in_ver=same", base, in_ver="same")
+    r = run("(c) in_ver=single_ch_each_patch",
+            {**_attention_want((64, 1, True), (32, 3, False)),
+             "hash_dropout": OPTION_DROPOUT["encoders"]}, in_ver="single_ch_each_patch")
+    for kind in ("fwd", "bwd"):
+        shapes[(512, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d64", 0)
+        shapes[(512, 32, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d32", 0)
+    r = run("(d) use_cls", {**_attention_want((128, 1, False), (64, 3, False)),
+                            "hash_dropout": OPTION_DROPOUT["encoders"]}, use_cls=True)
+    for kind in ("fwd", "bwd"):
+        shapes[(257, 128, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d128", 0)
+        shapes[(257, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d64", 0)
+    _downstream_cls(card, total)
+    _remat_cnn_matches_plain(wave, card)
+    r = run("(e) remat_cnn", base, remat_cnn=True)
+    log(f"[model_options] (e) remat_cnn peak {r['peak_gib']:.2f} GiB against the plain step's "
+        f"{res['plain']['peak_gib']:.2f} GiB; step {r['ms']:.1f} against {res['plain']['ms']:.1f}"
+        f" ms ({card})")
+    run("(f) local_model=fc", base, local_model="fc")
+    masks = [gen_patch_mask(torch.Generator().manual_seed(10 + i), BATCH, 256, 128, mode="TF",
+                            grid_shape=(16, 16), device="cuda") for i in range(1 + OPTION_STEPS)]
+    for m in masks:
+        _check_mask("TF", m, 128)
+    run("(g) f-first patch_shape=(16, 16), TF masks on the (16, 16) grid", base,
+        patch_shape=(16, 16), masks=masks)
+    run("(h) global_model=transformer", {"hash_dropout": OPTION_DROPOUT["transformer_encoders"]},
+        global_model="transformer")
+    run("(i) dec_model=(conformer, fc)",
+        {**base, "hash_dropout": OPTION_DROPOUT["encoders"] + OPTION_DROPOUT["dec_conformer"]},
+        dec_model=("conformer", "fc"))
+    run("(i) dec_model=(transformer, fc)",
+        {**base, "hash_dropout": OPTION_DROPOUT["encoders"] + OPTION_DROPOUT["dec_transformer"]},
+        dec_model=("transformer", "fc"))
+    run("(i) dec_model=('', cnn)", base, dec_model=("", "cnn"))
+    _mc_conformer(card, wave, total)
+    _conformer_remat(card, total)
+    log(f"[model_options] launches over the phase: {total}")
+    return total, shapes
+
+
+def phase_model_options_reference():
+    """Each variant of phase model_options on a small model: card (kernels)
+    against CPU (plain versions), f32, dropout 0.1, the same seeds (so both
+    draw the same masks and dropout seeds)."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import MCConformer, SARSSL, ConformerEncoder, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig, gen_patch_mask
+    from sarssl_torch.train import (create_train_state, make_downstream_step,
+                                    make_pretrain_step)
+
+    feat = FeatureConfig(win_len=128, nfft=128)
+    # spec and spat at d = 128: head dim 32, 16 with one channel a patch
+    base = SARSSLConfig().tiny(sig_shape=(64, 64, 2, 2), patch_shape=(64, 1),
+                               spec_dembed=128, spat_dembed=128, dropout=RATE,
+                               fused_attention=True)
+    wave, tdoa = synth_batch(np.random.default_rng(1), 2, 63 * 64 + 128)
+    tf_masks = [gen_patch_mask(torch.Generator().manual_seed(20 + i), 2, 64, 32, mode="TF",
+                               grid_shape=(8, 8)) for i in range(2)]
+    cases = [("mask modes", {}, ("T_1s", "T_cluster", "T_cluster_inverse", "T_cluster2"), None),
+             ("in_ver=same", dict(in_ver="same"), ("T", "T"), None),
+             ("in_ver=single_ch_each_patch", dict(in_ver="single_ch_each_patch"), ("T", "T"),
+              None),
+             ("use_cls", dict(use_cls=True), ("T", "T"), None),
+             ("remat_cnn", dict(remat_cnn=True), ("T", "T"), None),
+             ("local_model=fc", dict(local_model="fc"), ("T", "T"), None),
+             ("f-first (8, 8), TF", dict(patch_shape=(8, 8)), ("T", "T"), tf_masks),
+             ("global_model=transformer", dict(global_model="transformer"), ("T", "T"), None),
+             ("dec (conformer, fc)", dict(dec_model=("conformer", "fc")), ("T", "T"), None),
+             ("dec (transformer, fc)", dict(dec_model=("transformer", "fc")), ("T", "T"), None),
+             ("dec ('', cnn)", dict(dec_model=("", "cnn")), ("T", "T"), None)]
+    worst = 0.0
+    for what, kw, modes, masks in cases:
+        cfg = SARSSLConfig(**{**base.__dict__, **kw})
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            model = SARSSL(cfg, device=dev, seed=3)
+            state = create_train_state(model)
+            gen = torch.Generator().manual_seed(5)
+            losses[dev] = []
+            for i, mode in enumerate(modes):
+                step = make_pretrain_step(model, feat, device=dev, mask_mode=mode)
+                mask = None if masks is None else masks[i].to(dev)
+                losses[dev].append(float(step(state, wave, 1e-3, gen, mask=mask)["loss"]))
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        worst = max(worst, err)
+        assert err <= TOL_REF, f"model_options ref {what}: card and CPU differ by {err}"
+        log(f"[model_options] ref {what}: card {losses['cuda']} cpu {losses['cpu']} "
+            f"max rel err {err:.2e}")
+    gt = tdoa / 16000.0
+    for token in ("cls", "all"):
+        cfg = SARSSLConfig(**{**base.__dict__, "pretrain": False, "fused_attention": False,
+                              "use_cls": True, "downstream_token": token})
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            model = SARSSL(cfg, device=dev, seed=4)
+            state = create_train_state(model)
+            step = make_downstream_step(model, feat, "TDOA", device=dev)
+            gen = torch.Generator().manual_seed(6)
+            losses[dev] = [float(step(state, wave, gt, DS_LR, gen)["loss"]) for _ in range(2)]
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        worst = max(worst, err)
+        assert err <= TOL_REF, f"model_options ref downstream {token}: differ by {err}"
+        log(f"[model_options] ref downstream use_cls {token}: card {losses['cuda']} cpu "
+            f"{losses['cpu']} max rel err {err:.2e}")
+    outs = {}
+    x = torch.randn((2, 2, 64, 64, 2), generator=torch.Generator().manual_seed(7))
+    for dev in ("cuda", "cpu"):
+        mc = MCConformer(base, device=dev, seed=5)
+        with torch.no_grad():
+            outs[dev] = mc(x.to(dev), True, torch.Generator().manual_seed(8)).cpu()
+    err = rel_err(outs["cuda"], outs["cpu"])
+    worst = max(worst, err)
+    assert err <= TOL_REF, f"model_options ref MCConformer: differ by {err}"
+    log(f"[model_options] ref MCConformer train-mode forward: max rel err {err:.2e}")
+    res = {}
+    xc, gc = torch.randn((2, 2, 64, 64), generator=torch.Generator().manual_seed(9))
+    for dev in ("cuda", "cpu"):
+        enc = ConformerEncoder(64, 2, num_heads=HEADS, dropout=RATE, fused_attention=True,
+                               generator=torch.Generator().manual_seed(10), remat=True).to(dev)
+        xr = xc.to(dev).detach().clone().requires_grad_()
+        y = enc(xr, True, torch.Generator().manual_seed(11))
+        # a random cotangent: the closing LayerNorm's outputs sum to a
+        # constant, so a cotangent of ones has a zero exact gradient
+        y.backward(gc.to(dev))
+        res[dev] = (y.detach().cpu(), xr.grad.cpu())
+    err = max(rel_err(a, b) for a, b in zip(res["cuda"], res["cpu"]))
+    worst = max(worst, err)
+    assert err <= TOL_REF, f"model_options ref ConformerEncoder remat: differ by {err}"
+    log(f"[model_options] ref ConformerEncoder(remat=True) output and input gradient: max rel "
+        f"err {err:.2e}; every case within {worst:.2e} (tol {TOL_REF})")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -1706,7 +2256,7 @@ def main():
 
     card = phase_card()
     phase_build()
-    rows, drop, conv = phase_kernels()
+    rows, opt_rows, drop, conv = phase_kernels()
     phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts = phase_pretrain_cli(card, step_utt_s)
@@ -1715,8 +2265,10 @@ def main():
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
     dscli_counts = phase_downstream_cli(card)
-    print(json.dumps(kernels_line(rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
-                                  dscli_counts)), flush=True)
+    phase_model_options_reference()
+    mo_counts, mo_shapes = phase_model_options(card)
+    print(json.dumps(kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts,
+                                  opt_counts, dscli_counts, mo_counts, mo_shapes)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

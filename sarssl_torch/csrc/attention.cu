@@ -16,11 +16,15 @@
 // bias is a third of them. The TPU kernel kept a whole 256x256 f32 score tile
 // (256 KB) in VMEM per (batch, head); a Hopper block has at most 227 KB of
 // shared memory. The design re-cuts the work:
-//   * one block per (b, h, tile of BM=64 query rows) keeps that tile's full
-//     score rows (64 x L f32, 64 KB at L=256) in shared memory, so the
-//     softmax is the exact two-pass one of the reference (max, exp, sum,
+//   * one block per (b, h, tile of RB query rows) keeps that tile's full
+//     score rows (RB x L f32, 64 KB at RB=64 and L=256) in shared memory, so
+//     the softmax is the exact two-pass one of the reference (max, exp, sum,
 //     divide) and scores never reach device memory; k and v stream through
-//     shared memory in tiles of BN=64 rows;
+//     shared memory in tiles of BN=64 rows. RB is 64 where the launch's rows
+//     fit in a block's shared memory and 32 where they do not (the backward
+//     row pass holds two such row sets: at L=512, D=32 it needs 279,552 bytes
+//     at RB=64 and 144,000 at RB=32), which carries both passes to every L up
+//     to 704 at any head dim; the wrapper checks the launch's own size;
 //   * the backward runs as two kernels with no atomics, so results do not
 //     depend on block order: a row pass per (b, h, query tile) recomputes p,
 //     writes dbias and dqu and the per-row softmax max/sum; a column pass per
@@ -41,8 +45,9 @@
 
 namespace {
 
-constexpr int BM = 64;   // query rows per block
+constexpr int BM = 64;   // query rows per tile of the column pass
 constexpr int BN = 64;   // key rows per streamed tile
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one H100 block may use
 constexpr int NT = 256;  // threads per block: a 16 x 16 grid of 4 x (D/16) micro-tiles
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -81,34 +86,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// rows [row0, row0+64) of a (L, D) matrix -> shared (64, D+1) f32, zero past L
-template <typename T, int D>
+// rows [row0, row0+NR) of a (L, D) matrix -> shared (NR, D+1) f32, zero past L
+template <typename T, int D, int NR = 64>
 __device__ void load_rows(float* dst, const T* src, int row0, int L) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < NR * D; idx += NT) {
     int r = idx / D, c = idx % D, gr = row0 + r;
     dst[r * (D + 1) + c] = gr < L ? to_f(src[(size_t)gr * D + c]) : 0.f;
   }
 }
 
-// acc[r][c] = sum_d A[ty+16r][d] * B[tx+16c][d] over 64-row shared tiles with
-// stride D+1. Every kernel computes a score through this one loop, so the
-// forward and both backward passes see bit-identical scores.
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, float acc[4][4]) {
+// acc[r][c] = sum_d A[ty+16r][d] * B[tx+16c][d] over shared tiles with stride
+// D+1: A has 16R rows, B 64. Every kernel computes a score through this one
+// loop, the same fmaf chain for each element whatever R is, so the forward
+// and both backward passes see bit-identical scores.
+template <int D, int R>
+__device__ __forceinline__ void dot_tile(const float* A, const float* B, float acc[R][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[R], b[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty + 16 * r) * (D + 1) + d];
+    for (int r = 0; r < R; ++r) a[r] = A[(ty + 16 * r) * (D + 1) + d];
 #pragma unroll
     for (int c = 0; c < 4; ++c) b[c] = B[(tx + 16 * c) * (D + 1) + d];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
   }
@@ -118,20 +124,21 @@ __device__ __forceinline__ float score(float dot, float bias, float scale) {
   return (dot + bias) * scale;
 }
 
-// S[64][SP] <- scores of query rows row0.. against all keys (-inf past L).
+// S[RB][SP] <- scores of query rows row0.. against all keys (-inf past L).
 // Qs holds the query tile; KVs is scratch for streamed key tiles.
-template <typename T, int D>
+template <typename T, int D, int RB>
 __device__ void score_rows(float* S, int SP, const float* Qs, float* KVs, const T* k,
                            const T* bias, int row0, int L, float scale) {
+  constexpr int R = RB / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   for (int j0 = 0; j0 < L; j0 += BN) {
     __syncthreads();
     load_rows<T, D>(KVs, k, j0, L);
     __syncthreads();
-    float acc[4][4];
-    dot_tile<D>(Qs, KVs, acc);
+    float acc[R][4];
+    dot_tile<D, R>(Qs, KVs, acc);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int i = row0 + ty + 16 * r;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -147,9 +154,10 @@ __device__ void score_rows(float* S, int SP, const float* Qs, float* KVs, const 
 
 // Row softmax in place, one warp per row: S <- exp(s - m) / l. Writes the
 // row max m and sum l to stats[2*i] when stats is given.
+template <int RB>
 __device__ void softmax_rows(float* S, int SP, int row0, int L, float* stats) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = warp; rr < BM; rr += NT / 32) {
+  for (int rr = warp; rr < RB; rr += NT / 32) {
     const int i = row0 + rr;
     if (i >= L) continue;
     float* row = S + rr * SP;
@@ -172,16 +180,16 @@ __device__ void softmax_rows(float* S, int SP, int row0, int L, float* stats) {
   __syncthreads();
 }
 
-// out[i][c] = sum_j P[i][j] * M[j][c] for the block's 64 rows: P is shared
-// (64, SP) f32, M a (L, D) matrix in device memory streamed through KVs.
-template <typename T, int D>
+// out[i][c] = sum_j P[i][j] * M[j][c] for the block's RB rows: P is shared
+// (RB, SP) f32, M a (L, D) matrix in device memory streamed through KVs.
+template <typename T, int D, int RB>
 __device__ void rows_times(const float* P, int SP, float* KVs, const T* M, T* out,
                            int row0, int L) {
-  constexpr int CPT = D / 16;
+  constexpr int CPT = D / 16, R = RB / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float o[4][CPT];
+  float o[R][CPT];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) o[r][c] = 0.f;
   for (int j0 = 0; j0 < L; j0 += BN) {
@@ -190,19 +198,19 @@ __device__ void rows_times(const float* P, int SP, float* KVs, const T* M, T* ou
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < BN; ++jj) {
-      float a[4], b[CPT];
+      float a[R], b[CPT];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = P[(ty + 16 * r) * SP + j0 + jj];
+      for (int r = 0; r < R; ++r) a[r] = P[(ty + 16 * r) * SP + j0 + jj];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) b[c] = KVs[jj * (D + 1) + tx + 16 * c];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) o[r][c] = fmaf(a[r], b[c], o[r][c]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int i = row0 + ty + 16 * r;
     if (i >= L) continue;
 #pragma unroll
@@ -214,9 +222,9 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 __host__ __device__ inline int score_stride(int L) { return round_up(L, BN) + 1; }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(L/BM), B*H), smem S (BM x SP) + Qs + KVs
+// forward: grid (ceil(L/RB), B*H), smem S (RB x SP) + Qs (RB rows) + KVs (64 rows)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int RB>
 __global__ void __launch_bounds__(NT)
 attn_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ bias, T* __restrict__ out, int L, float scale,
@@ -224,19 +232,19 @@ attn_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k, const T* __re
   extern __shared__ float smem[];
   const int SP = score_stride(L);
   float* S = smem;
-  float* Qs = S + BM * SP;
-  float* KVs = Qs + BM * (D + 1);
+  float* Qs = S + RB * SP;
+  float* KVs = Qs + RB * (D + 1);
   const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = blockIdx.x * RB;
   const size_t off = bh * L * D, offs = bh * L * L;
 
-  load_rows<T, D>(Qs, qu + off, row0, L);
-  score_rows<T, D>(S, SP, Qs, KVs, k + off, bias + offs, row0, L, scale);
-  softmax_rows(S, SP, row0, L, nullptr);
+  load_rows<T, D, RB>(Qs, qu + off, row0, L);
+  score_rows<T, D, RB>(S, SP, Qs, KVs, k + off, bias + offs, row0, L, scale);
+  softmax_rows<RB>(S, SP, row0, L, nullptr);
   // dropout, then p.astype(T) as the reference does before the PV product;
   // zero the padding columns and rows the PV loop reads
   const int LP = SP - 1;
-  for (int idx = threadIdx.x; idx < BM * LP; idx += NT) {
+  for (int idx = threadIdx.x; idx < RB * LP; idx += NT) {
     const int rr = idx / LP, j = idx % LP, i = row0 + rr;
     float p = 0.f;
     if (i < L && j < L) {
@@ -246,45 +254,47 @@ attn_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k, const T* __re
     }
     S[rr * SP + j] = round_t<T>(p);
   }
-  rows_times<T, D>(S, SP, KVs, v + off, out + off, row0, L);
+  rows_times<T, D, RB>(S, SP, KVs, v + off, out + off, row0, L);
 }
 
 // ---------------------------------------------------------------------------
-// backward, row pass: grid (ceil(L/BM), B*H), smem S + dP (BM x SP each) + Qs + KVs
+// backward, row pass: grid (ceil(L/RB), B*H), smem S + dP (RB x SP each) + Qs
+// (RB rows) + KVs (64 rows)
 //   p recomputed; dp = dropout'(g v^T); ds = p * (dp - rowsum(dp * p));
 //   dbias = T(ds * scale); dqu = dbias @ k; stats[i] = (row max, row sum)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int RB>
 __global__ void __launch_bounds__(NT)
 attn_bwd_rows_kernel(const T* __restrict__ qu, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ bias,
                      const T* __restrict__ g, T* __restrict__ dqu, T* __restrict__ dbias,
                      float* __restrict__ stats, int L, float scale, Dropout drop) {
+  constexpr int R = RB / 16;
   extern __shared__ float smem[];
   const int SP = score_stride(L);
   float* S = smem;
-  float* dP = S + BM * SP;
-  float* Qs = dP + BM * SP;
-  float* KVs = Qs + BM * (D + 1);
+  float* dP = S + RB * SP;
+  float* Qs = dP + RB * SP;
+  float* KVs = Qs + RB * (D + 1);
   const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = blockIdx.x * RB;
   const size_t off = bh * L * D, offs = bh * L * L;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows<T, D>(Qs, qu + off, row0, L);
-  score_rows<T, D>(S, SP, Qs, KVs, k + off, bias + offs, row0, L, scale);
-  softmax_rows(S, SP, row0, L, stats + 2 * bh * L);
+  load_rows<T, D, RB>(Qs, qu + off, row0, L);
+  score_rows<T, D, RB>(S, SP, Qs, KVs, k + off, bias + offs, row0, L, scale);
+  softmax_rows<RB>(S, SP, row0, L, stats + 2 * bh * L);
 
   // dP = g v^T (the g tile replaces the query tile)
-  load_rows<T, D>(Qs, g + off, row0, L);
+  load_rows<T, D, RB>(Qs, g + off, row0, L);
   for (int j0 = 0; j0 < L; j0 += BN) {
     __syncthreads();
     load_rows<T, D>(KVs, v + off, j0, L);
     __syncthreads();
-    float acc[4][4];
-    dot_tile<D>(Qs, KVs, acc);
+    float acc[R][4];
+    dot_tile<D, R>(Qs, KVs, acc);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) dP[(ty + 16 * r) * SP + j0 + tx + 16 * c] = acc[r][c];
   }
@@ -293,7 +303,7 @@ attn_bwd_rows_kernel(const T* __restrict__ qu, const T* __restrict__ k,
   // ds per row, one warp per row; dP <- T(ds * scale) as f32, 0 past L
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int LP = SP - 1;
-  for (int rr = warp; rr < BM; rr += NT / 32) {
+  for (int rr = warp; rr < RB; rr += NT / 32) {
     const int i = row0 + rr;
     float* prow = S + rr * SP;
     float* drow = dP + rr * SP;
@@ -321,7 +331,7 @@ attn_bwd_rows_kernel(const T* __restrict__ qu, const T* __restrict__ k,
       }
     }
   }
-  rows_times<T, D>(dP, SP, KVs, k + off, dqu + off, row0, L);
+  rows_times<T, D, RB>(dP, SP, KVs, k + off, dqu + off, row0, L);
 }
 
 // ---------------------------------------------------------------------------
@@ -367,7 +377,7 @@ attn_bwd_cols_kernel(const T* __restrict__ qu, const T* __restrict__ k,
     }
     __syncthreads();
     float acc[4][4];
-    dot_tile<D>(Qs, Ks, acc);  // acc[r][c]: query ty+16r, key tx+16c
+    dot_tile<D, 4>(Qs, Ks, acc);  // acc[r][c]: query ty+16r, key tx+16c
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty + 16 * r;
@@ -420,40 +430,69 @@ attn_bwd_cols_kernel(const T* __restrict__ qu, const T* __restrict__ k,
   }
 }
 
-size_t fwd_smem(int L, int D) { return sizeof(float) * (BM * score_stride(L) + 2 * 64 * (D + 1)); }
-size_t bwd_rows_smem(int L, int D) {
-  return sizeof(float) * (2 * BM * score_stride(L) + 2 * 64 * (D + 1));
+size_t fwd_smem(int L, int D, int rb) {
+  return sizeof(float) * (rb * score_stride(L) + (rb + 64) * (D + 1));
+}
+size_t bwd_rows_smem(int L, int D, int rb) {
+  return sizeof(float) * (2 * rb * score_stride(L) + (rb + 64) * (D + 1));
 }
 size_t bwd_cols_smem(int D) { return sizeof(float) * (3 * 64 * (D + 1) + 2 * BM * (BN + 1)); }
+
+// Row block of a launch (which: 0 forward, 1 backward row pass): 64 where its
+// score rows fit in a block's shared memory, else 32.
+int row_block(int L, int D, int which) {
+  const size_t s64 = which == 0 ? fwd_smem(L, D, 64) : bwd_rows_smem(L, D, 64);
+  return s64 <= (size_t)SMEM_LIMIT ? 64 : 32;
+}
+
+// Dynamic shared memory of the launch (which: 0 forward, 1 backward: the
+// larger of its two kernels), at the row block row_block() picks.
+size_t launch_smem(int L, int D, int which) {
+  const int rb = row_block(L, D, which);
+  if (which == 0) return fwd_smem(L, D, rb);
+  const size_t r = bwd_rows_smem(L, D, rb), c = bwd_cols_smem(D);
+  return r > c ? r : c;
+}
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* qu, const void* k, const void* v, const void* bias, void* out,
-                int BH, int L, float scale, Dropout drop, cudaStream_t stream) {
-  const size_t smem = fwd_smem(L, D);
-  cudaError_t err = set_smem(attn_fwd_kernel<T, D>, smem);
+template <typename T, int D, int RB>
+cudaError_t fwd_rb(const void* qu, const void* k, const void* v, const void* bias, void* out,
+                   int BH, int L, float scale, Dropout drop, cudaStream_t stream) {
+  const size_t smem = fwd_smem(L, D, RB);
+  if (smem > (size_t)SMEM_LIMIT) return cudaErrorInvalidConfiguration;
+  cudaError_t err = set_smem(attn_fwd_kernel<T, D, RB>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + BM - 1) / BM, BH);
-  attn_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  dim3 grid((L + RB - 1) / RB, BH);
+  attn_fwd_kernel<T, D, RB><<<grid, NT, smem, stream>>>(
       (const T*)qu, (const T*)k, (const T*)v, (const T*)bias, (T*)out, L, scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, const void* g,
-                void* dqu, void* dk, void* dv, void* dbias, float* stats, int BH, int L,
-                float scale, Dropout drop, cudaStream_t stream) {
-  const size_t smem_r = bwd_rows_smem(L, D), smem_c = bwd_cols_smem(D);
-  cudaError_t err = set_smem(attn_bwd_rows_kernel<T, D>, smem_r);
+cudaError_t fwd(const void* qu, const void* k, const void* v, const void* bias, void* out,
+                int BH, int L, float scale, Dropout drop, cudaStream_t stream) {
+  if (row_block(L, D, 0) == 64)
+    return fwd_rb<T, D, 64>(qu, k, v, bias, out, BH, L, scale, drop, stream);
+  return fwd_rb<T, D, 32>(qu, k, v, bias, out, BH, L, scale, drop, stream);
+}
+
+template <typename T, int D, int RB>
+cudaError_t bwd_rb(const void* qu, const void* k, const void* v, const void* bias,
+                   const void* g, void* dqu, void* dk, void* dv, void* dbias, float* stats,
+                   int BH, int L, float scale, Dropout drop, cudaStream_t stream) {
+  const size_t smem_r = bwd_rows_smem(L, D, RB), smem_c = bwd_cols_smem(D);
+  if (smem_r > (size_t)SMEM_LIMIT || smem_c > (size_t)SMEM_LIMIT)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = set_smem(attn_bwd_rows_kernel<T, D, RB>, smem_r);
   if (err != cudaSuccess) return err;
   err = set_smem(attn_bwd_cols_kernel<T, D>, smem_c);
   if (err != cudaSuccess) return err;
-  dim3 grid_r((L + BM - 1) / BM, BH), grid_c((L + BN - 1) / BN, BH);
-  attn_bwd_rows_kernel<T, D><<<grid_r, NT, smem_r, stream>>>(
+  dim3 grid_r((L + RB - 1) / RB, BH), grid_c((L + BN - 1) / BN, BH);
+  attn_bwd_rows_kernel<T, D, RB><<<grid_r, NT, smem_r, stream>>>(
       (const T*)qu, (const T*)k, (const T*)v, (const T*)bias, (const T*)g, (T*)dqu,
       (T*)dbias, stats, L, scale, drop);
   err = cudaGetLastError();
@@ -462,6 +501,17 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
       (const T*)qu, (const T*)k, (const T*)bias, (const T*)g, (const T*)dbias, stats,
       (T*)dk, (T*)dv, L, scale, drop);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, const void* g,
+                void* dqu, void* dk, void* dv, void* dbias, float* stats, int BH, int L,
+                float scale, Dropout drop, cudaStream_t stream) {
+  if (row_block(L, D, 1) == 64)
+    return bwd_rb<T, D, 64>(qu, k, v, bias, g, dqu, dk, dv, dbias, stats, BH, L, scale, drop,
+                            stream);
+  return bwd_rb<T, D, 32>(qu, k, v, bias, g, dqu, dk, dv, dbias, stats, BH, L, scale, drop,
+                          stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep) {
@@ -520,12 +570,15 @@ int attn_bwd(int dtype, const void* qu, const void* k, const void* v, const void
                            scale, drop, (cudaStream_t)stream)));
 }
 
-// Largest dynamic shared memory the launches above need for (L, head_dim).
-int attn_smem_bytes(int L, int head_dim) {
-  size_t a = fwd_smem(L, head_dim), b = bwd_rows_smem(L, head_dim), c = bwd_cols_smem(head_dim);
-  size_t m = a > b ? a : b;
-  return (int)(m > c ? m : c);
+// Dynamic shared memory a block of attn_fwd (which = 0) or attn_bwd (which = 1)
+// needs at (L, head_dim); the launch refuses more than a block has.
+int attn_smem_bytes(int L, int head_dim, int which) {
+  return (int)launch_smem(L, head_dim, which);
 }
+
+// Query rows a block of the forward (which = 0) or the backward row pass
+// (which = 1) takes at (L, head_dim): 64, or 32 where 64 do not fit.
+int attn_row_block(int L, int head_dim, int which) { return row_block(L, head_dim, which); }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

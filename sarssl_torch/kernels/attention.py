@@ -21,7 +21,10 @@ Two sets of kernels, chosen by dtype and shape (:func:`takes_tensor_cores`):
   which the ``autograd.Function`` saves with ``out`` for the backward.
 * ``csrc/attention.cu``: everything else the wrapper takes (float32, head
   dims 16 and 32, ragged lengths), as scalar f32 FMAs. A float32 product on
-  the tensor cores would be TF32 and miss the 1e-4 tolerance.
+  the tensor cores would be TF32 and miss the 1e-4 tolerance. A block keeps
+  whole score rows in shared memory: 64 query rows where they fit, 32 where
+  they do not (:func:`fma_row_block`), so every L up to 704 runs at every
+  head dim; a longer one raises.
 
 For a CUDA tensor the wrapper launches the set it names here or raises.
 """
@@ -64,11 +67,35 @@ def _library():
     lib.attn_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _F, _F, _U, _U, _F, _P]
     lib.attn_bwd.restype = _I
-    lib.attn_smem_bytes.argtypes = [_I, _I]
+    lib.attn_smem_bytes.argtypes = [_I, _I, _I]
     lib.attn_smem_bytes.restype = _I
+    lib.attn_row_block.argtypes = [_I, _I, _I]
+    lib.attn_row_block.restype = _I
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+_FMA_PASSES = {"fwd": 0, "bwd": 1}
+
+
+def fma_smem_bytes(kind: str, L: int, D: int) -> int:
+    """Dynamic shared memory a block of the FMA forward (``kind="fwd"``) or
+    backward (``"bwd"``, the larger of its two kernels) takes at (L, D)."""
+    return _library().attn_smem_bytes(L, D, _FMA_PASSES[kind])
+
+
+def fma_row_block(kind: str, L: int, D: int) -> int:
+    """Query rows a block of the FMA forward or backward row pass takes at
+    (L, D): 64, or 32 where 64 rows of scores do not fit."""
+    return _library().attn_row_block(L, D, _FMA_PASSES[kind])
+
+
+def _check_fma_smem(kind: str, L: int, D: int) -> None:
+    need = fma_smem_bytes(kind, L, D)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"the FMA attention {kind} at L={L}, D={D} needs {need} bytes "
+                         f"of shared memory, more than a block has ({_SMEM_LIMIT})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,8 +184,7 @@ def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: floa
     _check(qu, k, v, bias)
     lib = _library()
     B, H, L, D = qu.shape
-    if lib.attn_smem_bytes(L, D) > _SMEM_LIMIT:
-        raise ValueError(f"L={L} needs more shared memory than a block has")
+    _check_fma_smem("fwd", L, D)
     out = torch.empty_like(qu)
     code = lib.attn_fwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), B, H, L, D, scale,
@@ -175,8 +201,7 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
         raise ValueError("g must be contiguous")
     lib = _library()
     B, H, L, D = qu.shape
-    if lib.attn_smem_bytes(L, D) > _SMEM_LIMIT:
-        raise ValueError(f"L={L} needs more shared memory than a block has")
+    _check_fma_smem("bwd", L, D)
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
     stats = torch.empty((B, H, L, 2), dtype=torch.float32, device=qu.device)

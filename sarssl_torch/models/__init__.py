@@ -3,9 +3,11 @@ from .conformer import (ConformerBlock, ConformerEncoder, ConvModule, FeedForwar
                         RelPosSelfAttention, sinusoid_position_encoding)
 from .decoder import EmbedDecoder
 from .encoder import CNNFrontEnd, EmbedEncoder
-from .sarssl import SARSSL, SARSSLConfig, SARSSLMultiCH
+from .sarssl import SARSSL, MCConformer, SARSSLConfig, SARSSLMultiCH
+from .transformer import EncoderLayer, MultiHeadDotProductAttention, TransformerEncoder
 
 __all__ = ["BatchNorm", "Dense", "Dropout", "LayerNorm", "ConformerBlock",
            "ConformerEncoder", "ConvModule", "FeedForwardModule", "RelPosSelfAttention",
            "sinusoid_position_encoding", "EmbedDecoder", "CNNFrontEnd", "EmbedEncoder",
-           "SARSSL", "SARSSLConfig", "SARSSLMultiCH"]
+           "SARSSL", "SARSSLConfig", "SARSSLMultiCH", "MCConformer", "TransformerEncoder",
+           "EncoderLayer", "MultiHeadDotProductAttention"]

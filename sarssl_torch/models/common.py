@@ -4,9 +4,14 @@ Parameters are float32; each layer computes in its ``dtype`` (bf16 compute
 over f32 parameters, as the JAX package runs). Initialisers follow flax's
 defaults (lecun-normal kernels, zero biases) unless a caller asks for
 xavier-uniform, and draw from an explicit ``torch.Generator``.
+
+:func:`remat` is flax's ``nn.remat`` for these modules: the region's
+activations are recomputed in the backward, with the dropout seeds and the
+BatchNorm running stats of the first forward.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -16,8 +21,26 @@ import torch.nn.functional as F
 from ..kernels.dropout import hash_dropout
 
 
-def draw_seed(generator: torch.Generator) -> int:
-    """One uint32 dropout seed from a CPU generator (no device sync)."""
+class SeedReplay:
+    """Stands in for a generator inside a rematerialised region: the first
+    pass draws each seed from ``generator`` and records it, a recomputation
+    reads the recorded seeds in the same order (:func:`remat`)."""
+
+    def __init__(self, generator, seeds: list):
+        self.generator, self.seeds, self.pos = generator, seeds, 0
+
+    def draw(self) -> int:
+        if self.pos == len(self.seeds):
+            self.seeds.append(draw_seed(self.generator))
+        self.pos += 1
+        return self.seeds[self.pos - 1]
+
+
+def draw_seed(generator) -> int:
+    """One uint32 dropout seed from a CPU generator (no device sync), or the
+    next seed of a :class:`SeedReplay`."""
+    if isinstance(generator, SeedReplay):
+        return generator.draw()
     return int(torch.randint(0, 2 ** 32, (), dtype=torch.int64, generator=generator))
 
 
@@ -83,19 +106,24 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
+        self.update_stats = True  # off while remat recomputes the forward
 
     def forward(self, x, train: bool = False):
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.to(self.dtype)
-        with torch.no_grad():
-            dims = [0] + list(range(2, x.ndim))
-            var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        if self.update_stats:
+            self._update(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(self.dtype)
+
+    @torch.no_grad()
+    def _update(self, x):
+        dims = [0] + list(range(2, x.ndim))
+        var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
+        self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+        self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
 
 
 class Dropout(nn.Module):
@@ -111,3 +139,64 @@ class Dropout(nn.Module):
         if not train or self.rate == 0.0:
             return x
         return hash_dropout(x.contiguous(), draw_seed(generator), self.rate)
+
+
+@contextlib.contextmanager
+def _stats_frozen(module: nn.Module, frozen: bool):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)] if frozen else []
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+class _Remat(torch.autograd.Function):
+    """Runs ``run(x)`` without keeping its graph; the backward runs it again
+    with autograd on and takes the gradients of ``x`` and of the region's
+    parameters (inputs of this function, so they flow back as any input's
+    do)."""
+
+    @staticmethod
+    def forward(ctx, run, x, *params):
+        ctx.run = run
+        ctx.save_for_backward(x, *params)
+        with torch.no_grad():
+            return run(x, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        x = x.detach().requires_grad_(need[0])
+        with torch.enable_grad():
+            y = ctx.run(x, True)
+        wrt = [t for t, n in zip([x, *params], need) if n]
+        grads = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
+        return (None, *(next(grads) if n else None for n in need))
+
+
+def remat(module: nn.Module, fn, x, generator=None):
+    """``fn(x, generator)`` (a forward of ``module``) with its activations
+    recomputed in the backward instead of kept, as flax's ``nn.remat``.
+
+    A rerun of the forward would draw new dropout seeds from the caller's
+    generator (gradients of other masks than the forward's) and update the
+    BatchNorm running stats twice. So the region draws through a
+    :class:`SeedReplay`: the first pass takes its seeds from ``generator``
+    and records them, the recomputation reads them back, and the generator
+    ends where a plain forward leaves it; the recomputation updates no
+    running stat. Without autograd (eval, ``no_grad``) ``fn`` simply runs.
+    (``torch.utils.checkpoint`` keeps the global RNG only, not an explicit
+    generator, and imports ``torch._dynamo`` when first called.)"""
+    if not torch.is_grad_enabled():
+        return fn(x, generator)
+    seeds: list = []
+
+    def run(inp, recompute):
+        with _stats_frozen(module, recompute):
+            return fn(inp, SeedReplay(generator, seeds))
+
+    return _Remat.apply(run, x, *module.parameters())

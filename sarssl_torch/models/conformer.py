@@ -3,7 +3,9 @@
 Macaron half-step feed-forwards, Transformer-XL relative multi-head
 self-attention with learned u/v biases, a GLU + depthwise-conv module with
 BatchNorm, and a closing LayerNorm per block. Activations are
-``(batch, seq, dim)``. Block rematerialisation is not ported yet.
+``(batch, seq, dim)``. ``remat`` recomputes each block's activations in the
+backward (``common.remat``); ``add_same_one`` adds each block's mean over the
+sequence back to its output.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.attention import fused_attention
-from .common import BatchNorm, Dense, Dropout, LayerNorm, draw_seed, lecun_normal_
+from .common import BatchNorm, Dense, Dropout, LayerNorm, draw_seed, lecun_normal_, remat
 
 
 def sinusoid_position_encoding(length: int, d_model: int, dtype=torch.float32,
@@ -165,10 +167,15 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
+    """N conformer blocks; ``add_same_one`` adds the sequence mean after each
+    (Conformer.py:190-193); ``remat`` recomputes each block in the backward."""
+
     def __init__(self, dim: int, num_layers: int, num_heads: int = 4,
                  ff_expansion: int = 4, conv_kernel_size: int = 31, dropout: float = 0.1,
-                 fused_attention: bool = False, dtype=torch.float32, generator=None):
+                 fused_attention: bool = False, dtype=torch.float32, generator=None,
+                 add_same_one: bool = False, remat: bool = False):
         super().__init__()
+        self.add_same_one, self.remat = add_same_one, remat
         self.blocks = nn.ModuleList(
             ConformerBlock(dim, num_heads, ff_expansion, conv_kernel_size, dropout,
                            fused_attention, dtype, generator)
@@ -176,5 +183,10 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, x, train: bool = False, generator=None):
         for block in self.blocks:
-            x = block(x, train, generator)
+            if self.remat:
+                x = remat(block, lambda y, gen, b=block: b(y, train, gen), x, generator)
+            else:
+                x = block(x, train, generator)
+            if self.add_same_one:
+                x = x + x.mean(dim=1, keepdim=True)
         return x

@@ -1,12 +1,15 @@
 """Per-patch embedding encoder (port of ``sarssl_tpu/models/encoder.py``).
 
-``CNNFrontEnd`` (encoder.py:23-51) and the ``cnn``/``conformer`` arm of
-``EmbedEncoder`` (:110-144). The convolutions are cuDNN calls
-(``F.conv2d``), as the JAX package runs them outside any Pallas kernel.
-Public tensors keep the JAX package's NHWC layout; inside, the NCHW view of
-an NHWC tensor is channels-last, which cuDNN takes as it is. The ``fc`` and
-``cnn_f_first`` front ends, the CLS token, the transformer and the CRNN
-variants are not ported yet.
+``CNNFrontEnd`` (encoder.py:23-51) and ``EmbedEncoder`` (:110-150): a local
+front end (``fc``: one Dense over each patch; ``cnn``: the CNN over the
+patch-recovered TF map; ``cnn_f_first``: the same over the transposed
+``(nt, nf)`` canvas with a ``(pt, pf)`` projection), an optional CLS token
+appended last, and a global sequence model (``conformer``, ``transformer``
+or none). The convolutions are cuDNN calls (``F.conv2d``), as the JAX
+package runs them outside any Pallas kernel. Public tensors keep the JAX
+package's NHWC layout; inside, the NCHW view of an NHWC tensor is
+channels-last, which cuDNN takes as it is. The CRNN variants
+(``models/crnn.py``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,8 +18,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.patches import patch_recover
-from .common import BatchNorm, lecun_normal_
+from .common import BatchNorm, Dense, lecun_normal_, remat
 from .conformer import ConformerEncoder
+from .transformer import TransformerEncoder
+
+LOCAL_MODELS = ("fc", "cnn", "cnn_f_first")
+GLOBAL_MODELS = ("conformer", "transformer", "")
+CRNN_MODELS = ("crnn", "crnn-sim", "tcrnn")
 
 
 class Conv2d(nn.Conv2d):
@@ -35,6 +43,29 @@ class Conv2d(nn.Conv2d):
                         self.padding)
 
 
+def add_conv_stack(module: nn.Module, cin: int, cout: int, dembed: int, patch_shape,
+                   conv_chs: int = 64, dtype=torch.float32, generator=None) -> None:
+    """Give ``module`` flax's conv stack names: ``conv0``..``conv3`` (1x1, 3x3,
+    3x3, 1x1: cin -> conv_chs -> conv_chs -> conv_chs -> cout), ``bn0``..``bn3``
+    and the patch-strided projection ``proj`` to ``dembed``."""
+    conv = lambda ci, co, k: Conv2d(ci, co, k, padding=k // 2, dtype=dtype, generator=generator)
+    module.conv0, module.bn0 = conv(cin, conv_chs, 1), BatchNorm(conv_chs, dtype)
+    module.conv1, module.bn1 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
+    module.conv2, module.bn2 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
+    module.conv3, module.bn3 = conv(conv_chs, cout, 1), BatchNorm(cout, dtype)
+    module.proj = Conv2d(cout, dembed, tuple(patch_shape), stride=tuple(patch_shape),
+                         dtype=dtype, generator=generator)
+
+
+def run_conv_stack(module: nn.Module, x, train: bool = False):
+    """The stack of :func:`add_conv_stack` (BN + ReLU after each conv) over an
+    NHWC tensor; NHWC out."""
+    y = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
+    for i in range(4):
+        y = F.relu(getattr(module, f"bn{i}")(getattr(module, f"conv{i}")(y), train))
+    return module.proj(y).permute(0, 2, 3, 1)
+
+
 class CNNFrontEnd(nn.Module):
     """1x1 -> 3x3 -> 3x3 -> 1x1 (BN + ReLU each) -> patch-strided projection.
 
@@ -43,49 +74,83 @@ class CNNFrontEnd(nn.Module):
     def __init__(self, nch: int, dembed: int, patch_shape, conv_chs: int = 64,
                  dtype=torch.float32, generator=None):
         super().__init__()
-        conv = lambda cin, cout, k: Conv2d(cin, cout, k, padding=k // 2, dtype=dtype,
-                                           generator=generator)
-        self.conv0, self.bn0 = conv(nch, conv_chs, 1), BatchNorm(conv_chs, dtype)
-        self.conv1, self.bn1 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
-        self.conv2, self.bn2 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
-        self.conv3, self.bn3 = conv(conv_chs, nch, 1), BatchNorm(nch, dtype)
-        self.proj = Conv2d(nch, dembed, tuple(patch_shape), stride=tuple(patch_shape),
-                           dtype=dtype, generator=generator)
+        add_conv_stack(self, nch, nch, dembed, patch_shape, conv_chs, dtype, generator)
 
     def forward(self, x, train: bool = False):
-        y = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1),
-                         (self.conv2, self.bn2), (self.conv3, self.bn3)):
-            y = F.relu(bn(conv(y), train))
-        return self.proj(y).permute(0, 2, 3, 1)
+        return run_conv_stack(self, x, train)
 
 
 class EmbedEncoder(nn.Module):
-    """CNN front end over the patch-recovered TF map, then a conformer over
-    the patch sequence. ``embed (nb, npatch, dpatch*nreim*nmic)`` ->
-    ``(nb, npatch, dembed)``."""
+    """Local front end over the patches, then a global sequence model.
+    ``embed (nb, npatch, dpatch*nreim*nmic)`` -> ``(nb, npatch[+1], dembed)``
+    (one more token, last, with ``use_cls`` and a global model).
+
+    ``model`` is ``(local, global)`` from {'fc', 'cnn', 'cnn_f_first'} x
+    {'conformer', 'transformer', ''}; ``mode`` picks the layer count (spec 1,
+    spat 3) unless ``num_layers`` is given; ``remat_local`` recomputes the CNN
+    front end in the backward. flax names: ``patch_proj`` (fc), ``front``
+    (cnn), ``cls_token``, ``global`` -> ``seq``."""
 
     def __init__(self, sig_shape, patch_shape, dembed: int, model=("cnn", "conformer"),
                  mode: str = "spat", num_layers: int = 0, dropout: float = 0.1,
-                 fused_attention: bool = False, dtype=torch.float32, generator=None):
+                 fused_attention: bool = False, dtype=torch.float32, generator=None,
+                 use_cls: bool = False, remat_local: bool = False):
         super().__init__()
-        if tuple(model) != ("cnn", "conformer"):
-            raise NotImplementedError(f"EmbedEncoder model {tuple(model)} is not ported yet")
+        model = tuple(model)
+        if len(model) == 1 and model[0] in CRNN_MODELS:
+            raise NotImplementedError(f"EmbedEncoder model {model} is not ported yet")
+        self.local, self.global_ = model[0], (model[1] if len(model) > 1 else "")
+        if self.local not in LOCAL_MODELS:
+            raise ValueError(f"Unsupported local model: {self.local}")
+        if self.global_ not in GLOBAL_MODELS:
+            raise ValueError(f"Unsupported global model: {self.global_}")
         self.sig_shape, self.patch_shape, self.dembed = tuple(sig_shape), tuple(patch_shape), dembed
+        self.remat_local = remat_local
         nf, nt, nreim, nmic = sig_shape
+        pf, pt = patch_shape
         nlayers = num_layers or (1 if mode == "spec" else 3)
-        self.front = CNNFrontEnd(nreim * nmic, dembed, patch_shape, dtype=dtype,
-                                 generator=generator)
-        # flax name: "global"
-        self.seq = ConformerEncoder(dembed, nlayers, num_heads=4, ff_expansion=4,
-                                    dropout=dropout, fused_attention=fused_attention,
-                                    dtype=dtype, generator=generator)
+        if self.local == "fc":
+            self.patch_proj = Dense(pf * pt * nreim * nmic, dembed, dtype=dtype,
+                                    generator=generator)
+        else:
+            proj = (pt, pf) if self.local == "cnn_f_first" else (pf, pt)
+            self.front = CNNFrontEnd(nreim * nmic, dembed, proj, dtype=dtype,
+                                     generator=generator)
+        self.use_cls = use_cls and self.global_ != ""
+        if self.use_cls:
+            self.cls_token = nn.Parameter(nn.init.trunc_normal_(
+                torch.empty(1, 1, dembed), 0.0, 0.02, -0.04, 0.04, generator=generator))
+        if self.global_ == "conformer":
+            self.seq = ConformerEncoder(dembed, nlayers, num_heads=4, ff_expansion=4,
+                                        dropout=dropout, fused_attention=fused_attention,
+                                        dtype=dtype, generator=generator)
+        elif self.global_ == "transformer":
+            self.seq = TransformerEncoder(dembed, nlayers, num_heads=4, dropout=dropout,
+                                          dtype=dtype, generator=generator)
 
-    def forward(self, embed, train: bool = False, generator=None):
+    def _front(self, embed, train: bool):
         nf, nt, nreim, nmic = self.sig_shape
         pf, pt = self.patch_shape
         nb, npatch, _ = embed.shape
+        f_first = self.local == "cnn_f_first"
         v = embed.reshape(nb, npatch, pf * pt, nreim * nmic)
-        tf = patch_recover(v, (nf, nt), self.patch_shape)  # (nb, nf, nt, nch)
-        x = self.front(tf, train).reshape(nb, npatch, self.dembed)
-        return self.seq(x, train, generator)
+        tf = patch_recover(v, (nf, nt), self.patch_shape, f_first=f_first)  # (nb, nf, nt, nch)
+        if f_first:  # the transposed (nt, nf) canvas (encoder.py:118-123)
+            tf = tf.transpose(1, 2)
+        if self.remat_local:
+            y = remat(self.front, lambda t, _: self.front(t, train), tf)
+        else:
+            y = self.front(tf, train)
+        return y.reshape(nb, npatch, self.dembed)
+
+    def forward(self, embed, train: bool = False, generator=None):
+        if self.local == "fc":
+            x = self.patch_proj(embed)
+        else:
+            x = self._front(embed, train)
+        if self.use_cls:
+            cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, self.dembed)
+            x = torch.cat([x, cls], dim=1)
+        if self.global_:
+            x = self.seq(x, train, generator)
+        return x

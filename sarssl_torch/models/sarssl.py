@@ -1,15 +1,26 @@
 """SAR-SSL model (port of ``sarssl_tpu/models/sarssl.py``).
 
-Dual encoder (spec + spat, each a CNN front end and a conformer).
+Dual encoder (spec + spat, each a local front end and a global sequence
+model, ``local_model`` x ``global_model``; f-first patches, ``patch_shape``
+with ``pt != 1``, turn the ``cnn`` front end into ``cnn_f_first``).
 
-With ``pretrain=True``, cross-channel masked spectrogram reconstruction, for
+With ``pretrain=True``, cross-channel masked spectrogram reconstruction. For
 ``in_ver="separate"``:
 
   spec-encoder input = masked frames of the kept channel
                        + unmasked frames of the masked channel;
   spat-encoder input = both channels on unmasked frames only;
-  the MLP decoder predicts every patch of every channel; the loss reads the
+  the decoder predicts every patch of every channel; the loss reads the
   masked channel on masked frames, over ``sum(mask) * dpatch * 2``.
+
+``in_ver="same"`` gives both encoders the input with the masked channel's
+masked frames zeroed; ``"single_ch_each_patch"`` does too, but each patch
+carries one channel: the encoders run on the mics' patch sequences joined
+end to end (``(nf * nmic, nt)`` canvas, one channel, ``dembed / nmic``), and
+each mic's embeddings are joined again along features. ``use_cls`` appends a
+CLS token to each encoder's sequence; the decoder does not see it, and the
+downstream embedding is the token (``downstream_token="cls"``) or the mean
+of the patches (``"all"``).
 
 With ``pretrain=False``, the downstream regression head: both encoders on
 the unmasked input, the chosen embedding mean-pooled over patches, then
@@ -22,8 +33,8 @@ With ``frozen_encoder_pretext`` (the decoder retrained over frozen encoders,
 reference ``model.py:622-631``) the spec encoder sees only the masked frames
 of the kept channel.
 
-The other pretext ``in_ver``s, the CLS token and ``MCConformer`` are not
-ported yet.
+``MCConformer`` is the supervised encoder-decoder without masking
+(sarssl.py:266-304).
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.mask import PatchMask
-from ..ops.patches import patch_split
+from ..ops.patches import patch_recover, patch_split
 from ..utils.device import resolve_device
 from .common import Dense, LayerNorm
 from .decoder import EmbedDecoder
@@ -99,27 +110,34 @@ class SARSSLConfig:
 
 
 DOWNSTREAM_EMBEDS = ("spec_spat", "spec", "spat", "noinfo")
+IN_VERS = ("separate", "same", "single_ch_each_patch")
+DOWNSTREAM_TOKENS = ("all", "cls")
 
 
 def _check_ported(c: SARSSLConfig) -> None:
     if not c.pretrain and c.downstream_embed not in DOWNSTREAM_EMBEDS:
         raise ValueError(f"downstream_embed {c.downstream_embed!r} not in {DOWNSTREAM_EMBEDS}")
-    unported = {
-        # the downstream path encodes the unmasked input, where 'same' and
-        # 'separate' are the same
-        f"in_ver={c.in_ver!r}": c.in_ver not in (("separate",) if c.pretrain
-                                                 else ("separate", "same")),
-        f"downstream_head={c.downstream_head!r}": not c.pretrain and c.downstream_head != "mlp",
-        "use_cls": c.use_cls,
-        "remat_cnn": c.remat_cnn,
-        f"local_model={c.local_model!r} / f-first patches":
-            c.local_model != "cnn" or c.patch_shape[1] != 1,
-        f"global_model={c.global_model!r}": c.global_model != "conformer",
-        f"dec_model={c.dec_model!r}": tuple(c.dec_model) != ("", "fc"),
-    }
-    missing = [name for name, hit in unported.items() if hit]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if c.in_ver not in IN_VERS:
+        raise ValueError(f"in_ver {c.in_ver!r} not in {IN_VERS}")
+    if c.downstream_token not in DOWNSTREAM_TOKENS:
+        raise ValueError(f"downstream_token {c.downstream_token!r} not in {DOWNSTREAM_TOKENS}")
+    # the JAX package builds no head for another name, so its downstream
+    # forward has nothing to call
+    if not c.pretrain and c.downstream_head != "mlp":
+        raise NotImplementedError(f"downstream_head={c.downstream_head!r}: only 'mlp' "
+                                  f"exists in either package")
+
+
+def _local_model(c: SARSSLConfig) -> str:
+    """f-first patches run the CNN front end on the transposed canvas."""
+    f_first = c.patch_shape[1] != 1
+    return "cnn_f_first" if f_first and c.local_model == "cnn" else c.local_model
+
+
+def _join_mics(e, npatch: int, nmic: int):
+    """``(nb, nmic * npatch[+1], d)`` -> ``(nb, npatch, nmic * d)``: each mic's
+    patch embeddings side by side (a CLS token, last, drops out)."""
+    return torch.cat([e[:, m * npatch:(m + 1) * npatch] for m in range(nmic)], dim=2)
 
 
 class SARSSL(nn.Module):
@@ -136,15 +154,21 @@ class SARSSL(nn.Module):
         self.cfg = c = cfg
         gen = torch.Generator().manual_seed(seed)
         dtype = c.compute_dtype
+        if c.in_ver == "single_ch_each_patch":
+            nf, nt, nreim, nmic = c.sig_shape
+            enc_sig_shape, dembed_div = (nf * nmic, nt, nreim, 1), nmic
+        else:
+            enc_sig_shape, dembed_div = c.sig_shape, 1
         enc = lambda dembed, mode, layers: EmbedEncoder(
-            c.sig_shape, c.patch_shape, dembed, (c.local_model, c.global_model), mode,
-            layers, c.dropout, c.fused_attention, dtype, gen)
+            enc_sig_shape, c.patch_shape, dembed // dembed_div,
+            (_local_model(c), c.global_model), mode, layers, c.dropout, c.fused_attention,
+            dtype, gen, use_cls=c.use_cls, remat_local=c.remat_cnn)
         self.spec_encoder = enc(c.spec_dembed, "spec", c.spec_layers)
         self.spat_encoder = enc(c.spat_dembed, "spat", c.spat_layers)
         if c.pretrain:
             self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape,
-                                        c.spec_dembed + c.spat_dembed, c.dec_model, dtype,
-                                        gen)
+                                        c.spec_dembed + c.spat_dembed, c.dec_model, c.dropout,
+                                        dtype, gen)
         elif head:  # flax's names: head_norm, head_hidden, head_proj
             dembed = {"spec_spat": c.spec_dembed + c.spat_dembed, "spec": c.spec_dembed,
                       "spat": c.spat_dembed, "noinfo": c.spec_dembed}[c.downstream_embed]
@@ -156,7 +180,16 @@ class SARSSL(nn.Module):
 
     def _split(self, x):
         # (nb, nmic, nf, nt, nreim) -> patches (nb, npatch, dpatch, nreim, nmic)
-        return patch_split(x.permute(0, 2, 3, 4, 1), self.cfg.patch_shape)
+        return patch_split(x.permute(0, 2, 3, 4, 1), self.cfg.patch_shape,
+                           f_first=self.cfg.patch_shape[1] != 1)
+
+    def _encode_per_mic(self, vec, train, generator):
+        """``single_ch_each_patch``: both encoders over the mics' patch
+        sequences joined end to end, each mic's embeddings joined again."""
+        nb, npatch, nmic = vec.shape[0], vec.shape[1], vec.shape[-1]
+        flat = torch.cat([vec[..., m] for m in range(nmic)], dim=1).reshape(nb, npatch * nmic, -1)
+        return (_join_mics(self.spec_encoder(flat, train, generator), npatch, nmic),
+                _join_mics(self.spat_encoder(flat, train, generator), npatch, nmic))
 
     def forward(self, x, mask: Optional[PatchMask] = None, train: bool = False,
                 generator=None):
@@ -182,14 +215,22 @@ class SARSSL(nn.Module):
         masked_ch = F.one_hot(mask.ch, nmic).to(dtype)[:, None, None, None, :]
         kept_ch = 1.0 - masked_ch
         vecc = vec.to(dtype)
-        spec_in = vecc * masked * kept_ch
-        if not c.frozen_encoder_pretext:
-            spec_in = spec_in + vecc * (1.0 - masked) * masked_ch
-        spat_in = vecc * (1.0 - masked)
-        embed_spec = self.spec_encoder(spec_in.reshape(nb, npatch, -1), train, generator)
-        embed_spat = self.spat_encoder(spat_in.reshape(nb, npatch, -1), train, generator)
-        embed = torch.cat([embed_spec, embed_spat], dim=2)
-        pred = self.decoder(embed, train).reshape(nb, npatch, dpatch, 2, nmic)
+        if c.in_ver == "single_ch_each_patch":
+            both = vecc * (1.0 - masked * masked_ch)
+            embed_spec, embed_spat = self._encode_per_mic(both, train, generator)
+        else:
+            if c.in_ver == "same":
+                spec_in = spat_in = vecc * (1.0 - masked * masked_ch)
+            else:
+                spec_in = vecc * masked * kept_ch
+                if not c.frozen_encoder_pretext:
+                    spec_in = spec_in + vecc * (1.0 - masked) * masked_ch
+                spat_in = vecc * (1.0 - masked)
+            embed_spec = self.spec_encoder(spec_in.reshape(nb, npatch, -1), train, generator)
+            embed_spat = self.spat_encoder(spat_in.reshape(nb, npatch, -1), train, generator)
+        # the CLS token, last, is not decoded
+        embed = torch.cat([embed_spec[:, :npatch], embed_spat[:, :npatch]], dim=2)
+        pred = self.decoder(embed, train, generator).reshape(nb, npatch, dpatch, 2, nmic)
 
         pred_m = (pred.float() * masked_ch).sum(-1)
         with torch.no_grad():
@@ -208,9 +249,12 @@ class SARSSL(nn.Module):
         c = self.cfg
         nb = x.shape[0]
         vec = self._split(x).to(c.compute_dtype)
-        flat = vec.reshape(nb, vec.shape[1], -1)
-        embed_spec = self.spec_encoder(flat, train, generator)
-        embed_spat = self.spat_encoder(flat, train, generator)
+        if c.in_ver == "single_ch_each_patch":
+            embed_spec, embed_spat = self._encode_per_mic(vec, train, generator)
+        else:
+            flat = vec.reshape(nb, vec.shape[1], -1)
+            embed_spec = self.spec_encoder(flat, train, generator)
+            embed_spat = self.spat_encoder(flat, train, generator)
         if c.downstream_embed == "spec_spat":
             embed = torch.cat([embed_spec, embed_spat], dim=2)
         elif c.downstream_embed == "spec":
@@ -219,6 +263,10 @@ class SARSSL(nn.Module):
             embed = embed_spat
         else:  # noinfo: zeros, no gradient to the encoders
             embed = torch.zeros_like(embed_spec.detach())
+        if c.use_cls:
+            if c.downstream_token == "cls":
+                return embed[:, -1]
+            embed = embed[:, :-1]  # 'all': the mean of the patch tokens
         return embed.mean(dim=1)
 
     def downstream(self, x, train: bool = False, generator=None):
@@ -229,6 +277,48 @@ class SARSSL(nn.Module):
         if self.cfg.downstream_dlabel != 1:
             y = F.relu(self.head_hidden(y))
         return self.head_proj(y).float(), pooled
+
+
+class MCConformer(nn.Module):
+    """Supervised encoder-decoder without masking (sarssl.py:266-304): the
+    encoders that ``spec_dembed`` / ``spat_dembed`` > 0 ask for (mode's layer
+    count, unfused attention, no CLS token, no remat) over the patches, their
+    embeddings joined, the decoder, and the prediction recovered onto the TF
+    map: ``(nb, nmic, nf, nt, nreim)`` in, ``(nb, nf, nt, nreim, nmic)`` out.
+    Built like :class:`SARSSL` from a seed on the CPU, then moved to
+    ``device``."""
+
+    def __init__(self, cfg: SARSSLConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = c = cfg
+        gen = torch.Generator().manual_seed(seed)
+        dtype = c.compute_dtype
+        enc = lambda dembed, mode: EmbedEncoder(
+            c.sig_shape, c.patch_shape, dembed, (_local_model(c), c.global_model), mode,
+            0, c.dropout, False, dtype, gen)
+        if c.spec_dembed > 0:
+            self.spec_encoder = enc(c.spec_dembed, "spec")
+        if c.spat_dembed > 0:
+            self.spat_encoder = enc(c.spat_dembed, "spat")
+        self.decoder = EmbedDecoder(c.sig_shape, c.patch_shape, c.spec_dembed + c.spat_dembed,
+                                    c.dec_model, c.dropout, dtype, gen)
+        self.to(dev)
+
+    def forward(self, x, train: bool = False, generator=None):
+        c = self.cfg
+        nb, nmic = x.shape[0], x.shape[1]
+        f_first = c.patch_shape[1] != 1
+        vec = patch_split(x.permute(0, 2, 3, 4, 1), c.patch_shape, f_first=f_first)
+        npatch, dpatch = vec.shape[1], vec.shape[2]
+        flat = vec.reshape(nb, npatch, -1).to(c.compute_dtype)
+        embeds = [enc(flat, train, generator) for enc in
+                  (getattr(self, "spec_encoder", None), getattr(self, "spat_encoder", None))
+                  if enc is not None]
+        pred = self.decoder(torch.cat(embeds, dim=2), train, generator)
+        pred = pred.reshape(nb, npatch, dpatch, 2, nmic)
+        return patch_recover(pred, (c.sig_shape[0], c.sig_shape[1]), c.patch_shape,
+                             f_first=f_first)
 
 
 class SARSSLMultiCH(nn.Module):

@@ -1,6 +1,6 @@
 """Train and eval steps (port of ``sarssl_tpu/train/steps.py``).
 
-Pretext step: STFT features -> 'T' mask (the only mode ported yet) ->
+Pretext step: STFT features -> mask (``mask_mode``, 'T' by default) ->
 forward in train mode -> masked MSE -> backward -> Adam update of the
 parameters not frozen (the frozen-encoder pretext stage). Downstream step:
 STFT features -> head prediction -> MSE against the task's target ->
@@ -29,7 +29,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops.features import FeatureConfig, stft_features
-from ..ops.mask import gen_patch_mask
+from ..ops.mask import T_MODE, gen_patch_mask
 from ..utils.device import resolve_device
 from .state import TrainState
 
@@ -74,13 +74,16 @@ def _update(state: TrainState, lr: float, frozen: List[torch.nn.Parameter]) -> N
 
 
 def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device="cuda",
-                       trainable_mask: Optional[Dict[str, bool]] = None):
+                       trainable_mask: Optional[Dict[str, bool]] = None,
+                       mask_mode: str = T_MODE):
     """Returns ``step(state, wave_batch, lr, generator, mask=None) -> metrics``.
 
     ``wave_batch``: ``(nb, nsample, nch)`` float waveforms (tensor or numpy).
     ``metrics``: ``{"loss", "diff"}`` as 0-d tensors on the device.
     ``trainable_mask`` maps parameter names to False for frozen ones (the
-    encoders in the frozen-encoder pretext stage); see the module's note."""
+    encoders in the frozen-encoder pretext stage); see the module's note.
+    ``mask_mode`` is ``gen_patch_mask``'s; as in the JAX step no grid shape is
+    passed, so a step that draws a 'TF' mask raises (hand one in as ``mask``)."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     cfg = model.cfg
@@ -92,7 +95,7 @@ def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device=
         feats = _features(wave_batch, feat_cfg, dev)
         if mask is None:
             mask = gen_patch_mask(generator, feats.shape[0], cfg.npatch, nmasked, nmic=2,
-                                  device=dev)
+                                  mode=mask_mode, device=dev)
         state.model.train()
         with _without_grad(frozen):
             loss, diff, _ = state.model.pretext(feats, mask, True, generator)
@@ -104,7 +107,7 @@ def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device=
 
 
 def make_pretrain_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
-                            device="cuda"):
+                            device="cuda", mask_mode: str = T_MODE):
     """Returns ``step(state, wave_batch, generator, mask=None) -> metrics``
     (eval mode: running BatchNorm stats, no dropout, no update)."""
     dev = resolve_device(device)
@@ -117,7 +120,7 @@ def make_pretrain_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
         feats = _features(wave_batch, feat_cfg, dev)
         if mask is None:
             mask = gen_patch_mask(generator, feats.shape[0], cfg.npatch, nmasked, nmic=2,
-                                  device=dev)
+                                  mode=mask_mode, device=dev)
         state.model.eval()
         loss, diff, _ = state.model.pretext(feats, mask, False)
         return {"loss": loss, "diff": diff}

@@ -10,15 +10,20 @@ as nested dicts of numpy arrays and returns the parameters and buffers of
   * Dense kernels ``(in, out)`` are transposed to ``(out, in)``;
   * conv kernels go from HWIO to OIHW;
   * depthwise conv kernels ``(k, 1, ch)`` go to ``(ch, 1, k)``;
+  * the transformer's attention projections (``DenseGeneral`` kernels
+    ``(d, h, hd)`` / ``(h, hd, d)`` and their biases) keep flax's layout;
   * LayerNorm / BatchNorm ``scale`` becomes ``weight``;
   * BatchNorm ``mean`` / ``var`` become the ``running_mean`` / ``running_var``
     buffers.
 
 Module names follow flax's, with flax's automatic names renamed
-(``LayerNorm_0`` -> ``ln``, ``Dense_0`` -> ``dense0``, ``Dense_1`` ->
-``dense1``, ``Conv_0`` -> ``dwconv``, ``BatchNorm_0`` -> ``bn``,
-``block<i>`` -> ``blocks.<i>``, ``global`` -> ``seq``) at any depth, the
-multi-pair head's included.
+(``LayerNorm_0`` -> ``ln``, ``LayerNorm_1`` -> ``ln1``, ``Dense_0`` ->
+``dense0``, ``Dense_1`` -> ``dense1``, ``Conv_0`` -> ``dwconv``,
+``BatchNorm_0`` -> ``bn``, ``MultiHeadDotProductAttention_0`` -> ``mha``,
+``block<i>`` -> ``blocks.<i>``, ``layer<i>`` -> ``layers.<i>``, an encoder's
+``global`` -> ``seq``, the decoder's ``seq`` -> ``stage``) at any depth,
+the multi-pair head's included. A leaf without a rename (``cls_token``,
+``u_bias``, the decoder's ``conv0``..``proj``) keeps its name.
 
 ``to_jax_params`` is the inverse: the model's parameters and BatchNorm stats
 as flax's tree of float32 numpy arrays, with flax's names and layouts;
@@ -33,20 +38,25 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-_RENAME = {"LayerNorm_0": "ln", "Dense_0": "dense0", "Dense_1": "dense1",
-           "Conv_0": "dwconv", "BatchNorm_0": "bn", "global": "seq"}
-_BLOCK = re.compile(r"block(\d+)$")
+_RENAME = {"LayerNorm_0": "ln", "LayerNorm_1": "ln1", "Dense_0": "dense0",
+           "Dense_1": "dense1", "Conv_0": "dwconv", "BatchNorm_0": "bn",
+           "MultiHeadDotProductAttention_0": "mha", "global": "seq", "seq": "stage"}
+_LISTS = {"block": "blocks", "layer": "layers"}  # flax's block<i> / layer<i>
+_INDEXED = re.compile(r"(block|layer)(\d+)$")
+_MHA = "MultiHeadDotProductAttention_0"
 
 
 def _key(path, leaf: str) -> str:
     parts = []
     for p in path:
-        m = _BLOCK.match(p)
-        parts.append(f"blocks.{m.group(1)}" if m else _RENAME.get(p, p))
+        m = _INDEXED.match(p)
+        parts.append(f"{_LISTS[m.group(1)]}.{m.group(2)}" if m else _RENAME.get(p, p))
     return ".".join(parts + [leaf])
 
 
-def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _param(path, name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name == "kernel" and _MHA in path:
+        return "weight", value  # DenseGeneral, flax's layout
     if name == "kernel":
         if value.ndim == 2:
             return "weight", value.T
@@ -61,6 +71,7 @@ def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 _UNRENAME = {v: k for k, v in _RENAME.items()}
+_UNLISTS = {v: k for k, v in _LISTS.items()}
 
 
 def _flax_path(name: str) -> Tuple[List[str], str]:
@@ -68,8 +79,8 @@ def _flax_path(name: str) -> Tuple[List[str], str]:
     path = []
     i = 0
     while i < len(parts) - 1:
-        if parts[i] == "blocks":
-            path.append(f"block{parts[i + 1]}")
+        if parts[i] in _UNLISTS:
+            path.append(f"{_UNLISTS[parts[i]]}{parts[i + 1]}")
             i += 2
         else:
             path.append(_UNRENAME.get(parts[i], parts[i]))
@@ -77,7 +88,9 @@ def _flax_path(name: str) -> Tuple[List[str], str]:
     return path, parts[-1]
 
 
-def _flax_param(leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _flax_param(path, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if leaf == "weight" and _MHA in path:
+        return "kernel", value
     if leaf == "weight":
         if value.ndim == 1:
             return "scale", value
@@ -94,7 +107,9 @@ def _flax_param(leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
 def _insert(tree: Dict, path: List[str], leaf: str, value: np.ndarray) -> None:
     for p in path:
         tree = tree.setdefault(p, {})
-    tree[leaf] = np.ascontiguousarray(value, dtype=np.float32)
+    # a copy: the numpy view of a CPU tensor would follow the model's later
+    # in-place updates (a running stat, an optimizer step)
+    tree[leaf] = np.array(value, dtype=np.float32, order="C")
 
 
 def flax_tree(named: Dict[str, torch.Tensor]) -> Dict:
@@ -103,7 +118,7 @@ def flax_tree(named: Dict[str, torch.Tensor]) -> Dict:
     tree: Dict = {}
     for name, t in named.items():
         path, leaf = _flax_path(name)
-        fleaf, value = _flax_param(leaf, t.detach().float().cpu().numpy())
+        fleaf, value = _flax_param(path, leaf, t.detach().float().cpu().numpy())
         _insert(tree, path, fleaf, value)
     return tree
 
@@ -136,7 +151,7 @@ def from_jax_params(variables: Dict) -> Tuple[Dict[str, torch.Tensor],
     tree alone names every leaf, so no config is needed."""
     params, buffers = {}, {}
     for path, name, value in _walk(variables["params"]):
-        tname, tvalue = _param(name, value)
+        tname, tvalue = _param(path, name, value)
         params[_key(path, tname)] = torch.tensor(tvalue)
     stats_name = {"mean": "running_mean", "var": "running_var"}
     for path, name, value in _walk(variables.get("batch_stats", {})):

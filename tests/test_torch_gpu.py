@@ -12,7 +12,10 @@ torch = pytest.importorskip("torch")
 from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # noqa: E402
                                   conv3x3_s2d, conv3x3_s2d_plain, dropout_plain,
                                   fused_attention, hash_dropout, launches)
-from sarssl_torch.kernels.attention import (launch_attention_bwd_mma,  # noqa: E402
+from sarssl_torch.kernels.attention import (fma_row_block, fma_smem_bytes,  # noqa: E402
+                                            launch_attention_bwd_fma,
+                                            launch_attention_bwd_mma,
+                                            launch_attention_fwd_fma,
                                             launch_attention_fwd_mma, takes_tensor_cores)
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
 from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
@@ -78,6 +81,44 @@ def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
 @pytest.mark.parametrize("D", [64, 128])
 def test_attention_kernel_matches_plain_at_flagship_shape(cuda, D):
     _attention_case(cuda, (4, 4, 256, D), torch.bfloat16, 0.1)
+
+
+@pytest.mark.parametrize("L", [257, 384, 448, 512])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fma_attention_at_long_sequences_matches_plain(cuda, L, D, dtype):
+    """The FMA kernels, forward and backward, called directly at the lengths
+    the CLS token (257) and the single-channel patch sequence (512) bring,
+    with dropout: where 64 rows of scores do not fit in a block's shared
+    memory, the block takes 32 (at L = 512 the backward row pass at every D)."""
+    B, H = 2, 3
+    xs = [torch.randn(s, generator=cuda, device="cuda").to(dtype)
+          for s in [(B, H, L, D)] * 4 + [(B, H, L, L)]]
+    qu, k, v, g, bias = xs
+    seed, scale, rate = 0xFEEDBEEF, D ** -0.5, 0.1
+    assert fma_smem_bytes("bwd", L, D) <= 232448
+    if L == 512:
+        assert fma_row_block("bwd", L, D) == 32
+    out = launch_attention_fwd_fma(qu, k, v, bias, seed, scale, rate)
+    grads = launch_attention_bwd_fma(qu, k, v, bias, g, seed, scale, rate)
+    ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, seed, scale, rate)
+    ref_grads = torch.autograd.grad(ref, ys, g.float())
+    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                          (ref, *ref_grads)):
+        assert _rel(a, b) <= TOL[dtype], name
+
+
+def test_fma_attention_refuses_what_a_block_cannot_hold(cuda):
+    """At L = 768, D = 128 the forward fits at 32 rows a block and runs; the
+    backward row pass needs more shared memory than a block has and raises."""
+    x = torch.randn(1, 1, 768, 128, device="cuda")
+    bias = torch.randn(1, 1, 768, 768, device="cuda")
+    assert fma_row_block("fwd", 768, 128) == 32
+    out = launch_attention_fwd_fma(x, x, x, bias, 0, 0.1, 0.0)
+    assert _rel(out, attention_plain(x, x, x, bias, 0, 0.1, 0.0)) <= TOL[torch.float32]
+    with pytest.raises(ValueError):
+        launch_attention_bwd_fma(x, x, x, bias, x, 0, 0.1, 0.0)
 
 
 @pytest.mark.parametrize("D", [64, 128])

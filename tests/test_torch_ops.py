@@ -100,6 +100,4 @@ def test_gen_patch_mask_t_mode():
     assert set(m.ch.tolist()) == {0, 1}
     again = tops.gen_patch_mask(torch.Generator().manual_seed(0), nb, npatch, nmasked)
     assert all(torch.equal(a, b) for a, b in zip(m, again))
-    with pytest.raises(NotImplementedError):
-        tops.gen_patch_mask(gen, nb, npatch, nmasked, mode="T_cluster")
 
