@@ -76,7 +76,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
               vis_embed`` on a cell of (a) (the t-SNE's inputs caught). The
               host's synthetic batches and checkpoint writes are timed, every
               call caught.
- 10. model_options: the model's options, first each on a small model card
+ 10. data_path: the simulated-data path at the flagship widths, each CLI call
+              with the launch counts zeroed before and asserted exactly after:
+              (a) ``gen_simu`` writes a 256-item 4.112 s pre-training tree on a
+              worker per host core, small val / test trees and a 2-room
+              certain-room tree in process (s/item logged); ``pack_data``
+              packs the 256 items (GB/s logged) and three of them are held
+              against their wav and ``_info.npz``; (b) ``run_pretrain`` at the
+              flagship width (bf16, batch 128, fused attention, 2 train + 1 val
+              batches, 1 epoch) from the wav tree, the packed dir, and the
+              packed dir staged on the card (``--resident``, f32 and int16),
+              the resident runs drawing the packed run's rows; epoch utt/s and
+              the host's share of the wall inside the loader's ``next``; (c)
+              ``synth_batch_device`` alone at batch 128 (ms by CUDA events,
+              peak GiB), its deterministic part card against CPU on the same
+              draws at batch 4 (tolerance 1e-4 of the peak), a seed giving the
+              same batch bit for bit, then ``run_pretrain --device-synth`` for
+              2 epochs beside phase pretrain_cli's ``--synthetic`` rate; (d)
+              ``run_downstream`` from the committed trained checkpoint (f32,
+              batch 8, 1 epoch a cell): T60 and DRR on the 4.112 s tree each
+              with ``--ds-test`` (its MAE against the cell's), ``--room-trials
+              --ds-nsimroom 2`` on the certain-room tree and
+              ``--fixed-train-subset`` on the packed dir (hash_dropout 56 a
+              finetune step).
+ 11. model_options: the model's options, first each on a small model card
               against CPU (dropout on, same seeds), then at the flagship
               pretext width (bf16, batch 128, fused attention, dropout 0.1),
               each variant one warm-up and 3 timed steps through
@@ -198,6 +221,22 @@ DSCLI_SEED = 100  # run_downstream's default --seed: the init weights
 # forward launches; the multi-pair trunk embeds with the spat encoder alone,
 # so the spec encoder's block (7 sites) has no backward.
 DS_DROPOUT_PER_STEP = {"finetune": 56, "lineareval": 28, "multipair": 49}
+
+# data_path: a 256-item 4.112 s pre-training tree (2 train + 1 val batches of
+# 128 an epoch, as pretrain_cli), 16-item val and test trees and a 2-room
+# certain-room tree of 4 RIRs x 2 signals a room, generated on every core
+DATA_T = "4.112"
+DATA_NUM, DATA_EVAL_NUM = 256, 16
+DATA_ROOMS, DATA_RIRS, DATA_SIGS = 2, 4, 2
+DATA_SYNTH_EPOCHS = 2
+SYNTH_TIMED = 5  # synth_batch_device calls timed by CUDA events at batch 128
+SYNTH_CHECK_B = 4  # the synthesizer's deterministic part, card against CPU
+# ... relative to the CPU wave's peak: the tolerance of the port against JAX
+# on the CPU (tests/test_torch_device_synth.py); FFTs and sums in another order
+TOL_SYNTH = 1e-4
+# the data path's downstream cells: f32, batch 8, 1 epoch of 32 train rows
+# (4 finetune steps), 16 val and 16 test rows
+DS_DATA_NUMS = ("--train-num", "32", "--val-num", "16", "--test-num", "16")
 # --ds-test's printed test MAE (5 decimals) against the grid's test_mae of
 # the same cell: the same weights and batches on the same card
 TOL_DS_TEST = 1e-4
@@ -738,7 +777,7 @@ def phase_kernels():
 
 
 def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
-                 dscli_counts, mo_counts, mo_shapes):
+                 dscli_counts, data_counts, mo_counts, mo_shapes):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -756,9 +795,12 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
                 "library_ms": r[f"lib_{kind}_ms"],
                 "path": "pretext train step (launches), the pre-training CLI run "
                         "(launches_pretrain_cli) and its --test, frozen-encoder and mel runs "
-                        "(launches_pretrain_options); not on the downstream CLI's path",
+                        "(launches_pretrain_options), the pre-training runs from files, "
+                        "resident splits and --device-synth (launches_data_path); not on the "
+                        "downstream CLI's path",
                 "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_pretrain_options": opt_counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_data_path": data_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_model_options": mo_counts.get(f"attention_{kind}_tc_d{D}", 0),
             })
@@ -793,12 +835,14 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
         "path": "pretext train step (launches), the pre-training CLI run "
                 "(launches_pretrain_cli), its frozen-encoder and mel runs "
                 "(launches_pretrain_options), the downstream finetune step "
-                "(launches_downstream) and the downstream CLI's runs a, b and d "
-                "(launches_downstream_cli)",
+                "(launches_downstream), the downstream CLI's runs a, b and d "
+                "(launches_downstream_cli) and the data path's pre-training and downstream "
+                "runs (launches_data_path)",
         "launches_pretrain_cli": cli_counts.get("hash_dropout", 0),
         "launches_pretrain_options": opt_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
         "launches_downstream_cli": dscli_counts.get("hash_dropout", 0),
+        "launches_data_path": data_counts.get("hash_dropout", 0),
         "launches_model_options": mo_counts.get("hash_dropout", 0),
     })
     for name in CONV_LAUNCHES:
@@ -815,6 +859,7 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
                     "of the kernels phase",
             "launches_pretrain_options": opt_counts.get(name, 0),
             "launches_downstream_cli": dscli_counts.get(name, 0),
+            "launches_data_path": data_counts.get(name, 0),
             "launches_model_options": mo_counts.get(name, 0),
         })
     return {"kernels": out}
@@ -1047,10 +1092,10 @@ def phase_pretrain_cli(card, step_utt_s):
         f"{len(spent['ckpt'])} in {sum(spent['ckpt']):.2f} s "
         f"({sum(spent['ckpt']) / sum(wall):.1%}), {spent['ckpt']} ({card})")
     log(f"[pretrain_cli] checkpoint files (bytes): {files}")
-    return counts
+    return counts, [r["utt_per_sec"] for r in train]
 
 
-def _opt_run(what, argv, card):
+def _opt_run(what, argv, card, tag="pretrain_options"):
     """One ``run_pretrain`` call with the launch counts zeroed before and
     read after; returns (printed output, counts, wall seconds)."""
     from sarssl_torch.kernels import launches, reset_launches
@@ -1062,7 +1107,7 @@ def _opt_run(what, argv, card):
     wall = time.perf_counter() - t0
     counts = dict(launches)
     assert "device cuda" in out and "TF32 off" in out, f"{what}: the CLI did not report its device"
-    log(f"[pretrain_options] {what}: wall {wall:.2f} s, launches {counts} ({card})")
+    log(f"[{tag}] {what}: wall {wall:.2f} s, launches {counts} ({card})")
     return out, counts, wall
 
 
@@ -2249,6 +2294,252 @@ def phase_model_options_reference():
         f"err {err:.2e}; every case within {worst:.2e} (tol {TOL_REF})")
 
 
+class _DataWait:
+    """Wraps the pre-training learner's epoch loops: the host seconds each
+    loop spends inside ``next`` on its batch iterable (waiting on data) are
+    summed, and the first rows of every train batch kept (a device copy, no
+    synchronisation) to compare what two runs drew."""
+
+    def __init__(self, keep=4096):
+        from sarssl_torch.train import learner as learner_mod
+        self.cls, self.keep = learner_mod.PretrainLearner, keep
+        self.wait, self.batches = 0.0, []
+        self.saved = (self.cls.train_epoch, self.cls.eval_epoch)
+        train_epoch, eval_epoch = self.saved
+        me = self
+
+        def train(learner, batches, generator):
+            return train_epoch(learner, me._timed(batches, True), generator)
+
+        def evaluate(learner, batches, generator, split="val"):
+            return eval_epoch(learner, me._timed(batches, False), generator, split)
+        self.cls.train_epoch, self.cls.eval_epoch = train, evaluate
+
+    def _timed(self, batches, keep):
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            self.wait += time.perf_counter() - t0
+            if b is None:
+                return
+            if keep:
+                self.batches.append(b[:, :self.keep].clone())
+            yield b
+
+    def undo(self):
+        self.cls.train_epoch, self.cls.eval_epoch = self.saved
+
+
+def _data_pretrain_run(what, argv, card, train_steps, val_steps):
+    """One ``run_pretrain`` call on the data path, launch counts exact, its
+    epoch utt/s and the share of its wall spent waiting on data; returns
+    (counts, kept train rows, epoch utt/s, wait share)."""
+    waiter = _DataWait()
+    try:
+        _, counts, wall = _opt_run(what, argv, card, tag="data_path")
+    finally:
+        waiter.undo()
+    _check_opt_attention(what, counts, train_steps + val_steps, train_steps)
+    want = PRETRAIN_DROPOUT_PER_STEP["train"] * train_steps
+    assert counts.get("hash_dropout", 0) == want, (
+        f"{what}: hash_dropout {counts.get('hash_dropout', 0)} launches, want {want}")
+    exp = argv[argv.index("--exp-dir") + 1]
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert all(np.isfinite([r["loss"] for r in recs])), recs
+    utt = [r["utt_per_sec"] for r in recs if r["split"] == "train"]
+    log(f"[data_path] {what}: epoch utt/s {utt}, waiting on data {waiter.wait:.2f} s "
+        f"({waiter.wait / wall:.1%} of the wall {wall:.2f} s); launches exact ({card})")
+    return counts, waiter.batches, utt, waiter.wait / wall
+
+
+def _gen_tree(what, cli, argv, n, card):
+    t0 = time.perf_counter()
+    _cli(argv, cli)
+    wall = time.perf_counter() - t0
+    log(f"[data_path] (a) {what}: {n} items in {wall:.2f} s, {wall / n:.4f} s/item on a host "
+        f"of {os.cpu_count()} cores ({card})")
+
+
+def phase_data_path(card, synthetic_utt_s):
+    """The simulated-data path at the flagship widths: (a) generation and
+    packing; (b) pre-training from the wav tree, the packed dir and the packed
+    dir staged on the card in f32 and in int16; (c) the on-card synthesizer
+    alone, card against CPU, and through ``run_pretrain --device-synth``; (d)
+    downstream cells from the annotated trees. Each CLI call with the launch
+    counts zeroed before and asserted exactly after."""
+    import shutil
+    import tempfile
+
+    from sarssl_torch import data as data_mod
+    from sarssl_torch.data import FixMicSigDataset, PackedDataset
+    from sarssl_torch.data import device_synth as ds
+    from sarssl_torch.data.wavio import read_wav
+    from sarssl_torch.train import checkpoint as ckpt
+
+    total = {}
+    cores = str(os.cpu_count())
+    with tempfile.TemporaryDirectory(prefix="data_path_") as tmp:
+        tree, packed = os.path.join(tmp, "pretrain"), os.path.join(tmp, "pretrain_packed")
+        val, test, rooms = (os.path.join(tmp, d) for d in ("val", "test", "rooms"))
+        # (a) generation and packing: the pre-training tree on a worker per
+        # core; the small trees in this process (spawning workers would cost
+        # more than their 16 items)
+        _gen_tree(f"gen_simu --stage pretrain, {cores} workers", "gen_simu", [
+            "--stage", "pretrain", "--data-num", str(DATA_NUM), "--save-dir", tree, "--T",
+            DATA_T, "--workers", cores], DATA_NUM, card)
+        small = ["--T", DATA_T, "--workers", "1"]
+        for stage, d in (("val", val), ("test", test)):
+            _gen_tree(f"gen_simu --stage {stage}, in process", "gen_simu", [
+                "--stage", stage, "--data-num", str(DATA_EVAL_NUM), "--save-dir", d, *small],
+                DATA_EVAL_NUM, card)
+        _gen_tree(f"gen_simu_certain_room {DATA_ROOMS} rooms, in process",
+                  "gen_simu_certain_room", [
+                      "--room-num", str(DATA_ROOMS), "--rir-per-room", str(DATA_RIRS),
+                      "--sig-per-rir", str(DATA_SIGS), "--save-dir", rooms, *small],
+                  DATA_ROOMS * DATA_RIRS * DATA_SIGS, card)
+        t0 = time.perf_counter()
+        _cli(["--data-dir", tree, "--out", packed], "pack_data")
+        pack_s = time.perf_counter() - t0
+        pds = PackedDataset(packed)
+        gb = pds.n * pds.meta["nsample"] * pds.meta["nch"] * 4 / 1e9
+        assert pds.n == DATA_NUM and pds.meta["nsample"] == NSAMPLE, pds.meta
+        paths = FixMicSigDataset(tree).data_paths
+        for i in (0, DATA_NUM // 2 + 9, DATA_NUM - 1):
+            wave, annos = pds[i]
+            sig, fs = read_wav(str(paths[i]))
+            info = np.load(str(paths[i]).replace(".wav", "_info.npz"))
+            assert fs == 16000 and np.array_equal(wave, sig), i
+            for key, col in (("T60", "T60_edc"), ("DRR", "DRR"), ("TDOA", "TDOA"),
+                             ("SNR", "SNR")):
+                assert annos[key] == np.float32(info[col]), (i, key)
+        log(f"[data_path] (a) pack_data: {pds.n} items, {gb:.3f} GB in {pack_s:.2f} s, "
+            f"{gb / pack_s:.3f} GB/s; items 0, {DATA_NUM // 2 + 9}, {DATA_NUM - 1} of the tree "
+            f"(wav and _info.npz) equal PackedDataset's rows ({card})")
+
+        # (b) pre-training from files at the flagship width, 1 epoch a run
+        base = ["--pretrain", "--fused-attention", "--bs", str(BATCH), "--train-num",
+                str(CLI_TRAIN_NUM), "--val-num", str(CLI_VAL_NUM), "--epochs", "1"]
+        nb_train, nb_val = CLI_TRAIN_NUM // BATCH, CLI_VAL_NUM // BATCH
+        runs = {}
+        for what, src in (("wav tree", ["--data-dir", tree]),
+                          ("packed", ["--data-dir", packed]),
+                          ("resident f32", ["--data-dir", packed, "--resident"]),
+                          ("resident int16", ["--data-dir", packed, "--resident",
+                                              "--resident-dtype", "int16"])):
+            exp = os.path.join(tmp, "exp_" + what.replace(" ", "_"))
+            counts, rows, utt, share = _data_pretrain_run(
+                f"(b) {what}", base + src + ["--exp-dir", exp], card, nb_train, nb_val)
+            _add_counts(total, counts)
+            runs[what] = rows
+            shutil.rmtree(exp)
+        _, scale = pds.all_waves_i16(NSAMPLE)
+        for a, b, q in zip(runs["packed"], runs["resident f32"], runs["resident int16"]):
+            assert torch.equal(a, b), "--resident drew other rows than the packed stream"
+            assert float((q - a).abs().max()) <= scale / 2 + 1e-6, "int16 staging off its step"
+        log(f"[data_path] (b) the resident runs drew the packed run's rows: f32 equal, int16 "
+            f"within half its step ({scale / 2:.3e})")
+
+        # (c) the on-card synthesizer: alone at the flagship batch, then card
+        # against CPU on the same draws, then through the CLI
+        cfg = ds.DeviceSynthConfig(nsample=NSAMPLE)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ds.synth_batch_device(gen, BATCH, cfg)  # warm-up
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: ds.synth_batch_device(gen, BATCH, cfg), iters=SYNTH_TIMED, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        log(f"[data_path] (c) synth_batch_device B={BATCH}, nsample={NSAMPLE}: {ms:.2f} ms a "
+            f"batch (CUDA events, {SYNTH_TIMED} calls), peak {peak:.2f} GiB over the "
+            f"{base_mem / 2 ** 30:.2f} GiB held before ({card})")
+        draws = ds.draw_inputs(torch.Generator().manual_seed(1), SYNTH_CHECK_B, cfg)
+        want, wl = ds.synth_pair(draws, cfg)
+        got, gl = ds.synth_pair({k: v.cuda() for k, v in draws.items()}, cfg)
+        err = rel_err(got.cpu(), want)
+        assert err <= TOL_SYNTH, f"synth_pair card against CPU: {err}"
+        assert all(rel_err(gl[k].cpu(), wl[k]) <= 1e-6 for k in wl), (gl, wl)
+        again = [ds.synth_batch_device(torch.Generator(device="cuda").manual_seed(5), 16, cfg)[0]
+                 for _ in range(2)]
+        assert torch.equal(*again), "synth_batch_device is not deterministic on the card"
+        log(f"[data_path] (c) synth_pair's deterministic part at B={SYNTH_CHECK_B} f32, card "
+            f"against CPU on the same draws: max err {err:.2e} of the peak (tol {TOL_SYNTH}); "
+            "labels within 1e-6; a seed gives the same batch bit for bit")
+        timer = _Timed()
+        timer.wrap(data_mod, "synth_batch_device", "synth", sync=True)
+        exp = os.path.join(tmp, "exp_device_synth")
+        try:
+            counts, _, utt, _ = _data_pretrain_run(
+                "(c) --device-synth", ["--pretrain", "--device-synth", "--fused-attention",
+                                       "--bs", str(BATCH), "--train-num", str(CLI_TRAIN_NUM),
+                                       "--val-num", str(CLI_VAL_NUM), "--epochs",
+                                       str(DATA_SYNTH_EPOCHS), "--exp-dir", exp],
+                card, DATA_SYNTH_EPOCHS * nb_train, DATA_SYNTH_EPOCHS * nb_val)
+        finally:
+            timer.undo()
+        _add_counts(total, counts)
+        synth = timer.spent["synth"]
+        assert len(synth) == DATA_SYNTH_EPOCHS * (nb_train + nb_val), len(synth)
+        with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+            nrec = sum(1 for _ in f)  # one train and one val record an epoch
+        assert nrec == 2 * DATA_SYNTH_EPOCHS, nrec
+        log(f"[data_path] (c) --device-synth epoch utt/s {utt} beside phase pretrain_cli's "
+            f"--synthetic {synthetic_utt_s} in this run; synthesis {len(synth)} batches in "
+            f"{sum(synth):.2f} s ({1e3 * statistics.median(synth):.1f} ms median, synchronised) "
+            f"({card})")
+        shutil.rmtree(exp)
+
+        # (d) downstream from the annotated trees, flagship width, f32
+        pre = os.path.join(tmp, "pretrained")
+        os.makedirs(pre)
+        shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT, ckpt.best_path(pre))
+        spent = {"cell_epoch": []}
+        dbase = ["--ds-train", "--bs-set", str(DS_BATCH), "--lr-set", str(DS_LR), "--ntrial",
+                 "1", "--epochs", "1", "--pretrain-ckpt", pre, *DS_DATA_NUMS]
+        held = ["--val-data-dir", val, "--test-data-dir", test]
+        nbatch = int(DS_DATA_NUMS[1]) // DS_BATCH
+        for task in ("T60", "DRR"):
+            exp = os.path.join(tmp, "ds_" + task)
+            out, counts, learners, wall = _ds_cli_run(
+                f"(d) --ds-task {task}", dbase + ["--ds-task", task, "--data-dir", tree, *held,
+                                                  "--exp-dir", exp], spent, card)
+            _check_ds_launches(f"(d) {task}", counts, _ds_train_steps(learners, nbatch),
+                               "finetune")
+            _add_counts(total, counts)
+            res = _read_results(exp)
+            cell = next(iter(res["cells"]))
+            out_t, counts_t, _, wall_t = _ds_cli_run(
+                f"(d) --ds-test {task}", ["--ds-test", "--ds-task", task, "--bs-set",
+                                          str(DS_BATCH), "--data-dir", tree, *held,
+                                          *DS_DATA_NUMS, "--ckpt",
+                                          os.path.join(exp, cell, "ckpt"), "--exp-dir",
+                                          os.path.join(tmp, "ds_test_" + task)], spent, card)
+            _check_ds_launches(f"(d) --ds-test {task}", counts_t, 0, "finetune")
+            m = re.search(rf"test \[{task}\]: loss \S+ MAE (\S+)", out_t)
+            want = res["cells"][cell]["test_mae"]
+            assert m and abs(float(m.group(1)) - want) <= TOL_DS_TEST * max(1.0, abs(want)), (
+                out_t, res)
+            log(f"[data_path] (d) {task}: cell {cell} val MAE {res['cells'][cell]['val_mae']:.5f} "
+                f"test MAE {res['cells'][cell]['test_mae']:.5f}; the cell {wall:.2f} s, its "
+                f"--ds-test {wall_t:.2f} s ({card})")
+        for what, argv, rows in (
+                ("--room-trials", ["--data-dir", rooms, "--room-trials", "--ds-nsimroom",
+                                   str(DATA_ROOMS)], DATA_ROOMS * DATA_RIRS * DATA_SIGS),
+                ("--fixed-train-subset", ["--data-dir", packed, "--fixed-train-subset"],
+                 int(DS_DATA_NUMS[1]))):
+            exp = os.path.join(tmp, "ds_" + what.strip("-"))
+            out, counts, learners, wall = _ds_cli_run(
+                f"(d) {what}", dbase + argv + held + ["--exp-dir", exp], spent, card)
+            _check_ds_launches(f"(d) {what}", counts,
+                               _ds_train_steps(learners, min(rows, int(DS_DATA_NUMS[1]))
+                                               // DS_BATCH), "finetune")
+            _add_counts(total, counts)
+            res = _read_results(exp)
+            log(f"[data_path] (d) {what} (TDOA): {res['cells']}, {wall:.2f} s ({card})")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -2259,16 +2550,18 @@ def main():
     rows, opt_rows, drop, conv = phase_kernels()
     phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
-    cli_counts = phase_pretrain_cli(card, step_utt_s)
+    cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
     opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
     phase_trained(card)
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
     dscli_counts = phase_downstream_cli(card)
+    data_counts = phase_data_path(card, synthetic_utt_s)
     phase_model_options_reference()
     mo_counts, mo_shapes = phase_model_options(card)
     print(json.dumps(kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts,
-                                  opt_counts, dscli_counts, mo_counts, mo_shapes)), flush=True)
+                                  opt_counts, dscli_counts, data_counts, mo_counts, mo_shapes)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

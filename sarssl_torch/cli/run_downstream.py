@@ -11,7 +11,16 @@ and val MAE; the grid's summary goes to ``results.json`` and ``results.mat``.
 TDOA targets. ``--ds-test`` evaluates a trained cell's checkpoint, or the
 predict-the-train-mean baseline, or plots a t-SNE of its test embeddings.
 
+Data: annotated wav trees or packed directories (``--data-dir``,
+``--val-data-dir``, ``--test-data-dir``; ``cli/gen_simu.py``,
+``cli/gen_simu_certain_room.py``, ``cli/pack_data.py``) carry every task's
+label; ``--room-trials`` trains trial t on the t-th block of rooms of a
+certain-room tree, ``--fixed-train-subset`` on a fixed per-trial draw of a
+packed split. ``--synthetic`` carries TDOA labels only.
+
 Usage:
+  python -m sarssl_torch.cli.run_downstream --ds-train --ds-task T60 --data-dir DATA \
+      --pretrain-ckpt DIR
   python -m sarssl_torch.cli.run_downstream --ds-train --synthetic --pretrain-ckpt DIR
   python -m sarssl_torch.cli.run_downstream --ds-test --synthetic --ckpt CELL/ckpt
   python -m sarssl_torch.cli.run_downstream --smoke            # tiny run on the card
@@ -21,9 +30,9 @@ It runs on the card unless ``--cpu`` is given (``--smoke`` included). The
 parser holds every flag of the JAX CLI, with its default and ``dest``, so
 ``config.json`` has the same keys; a flag whose path is not ported yet raises
 ``NotImplementedError`` when it is set. ``--grid-chunk``, ``--scan-block``,
-``--time-budget`` and ``--trial-set`` act only under ``--grid-vmap``, and
-``--workers`` only on the file data path, so here they have no effect, as in
-the JAX CLI's sequential grid.
+``--time-budget`` and ``--trial-set`` act only under ``--grid-vmap``, so here
+they have no effect, as in the JAX CLI's sequential grid; ``--workers`` sets
+the wav-tree loader's threads.
 """
 from __future__ import annotations
 
@@ -31,12 +40,65 @@ import argparse
 import itertools
 import json
 import os
+import re
 import sys
 
 import numpy as np
 import torch
 
 _NOT_PORTED = "not ported yet"
+
+
+def fixed_train_subset(args, n, num, trial):
+    """Per-trial fixed training rows for --fixed-train-subset: a
+    deterministic, epoch-independent draw of num rows of the packed split,
+    seeded per trial (trials differ by their data subset). None = the whole
+    split."""
+    if not getattr(args, "fixed_train_subset", False) or num >= n:
+        return None
+    rng = np.random.default_rng(args.seed + 555_000 + trial)
+    return np.sort(rng.permutation(n)[:num])
+
+
+def room_block_rows(rooms_col, nsimroom, trial):
+    """Row indices of trial's room block for --room-trials: the trial-th
+    consecutive block of nsimroom rooms in sorted room-id order, so the
+    trials' room sets are disjoint (the reference's per-trial data dirs,
+    ``opt.py:283-290``, blocked by the ids present)."""
+    rooms_col = np.asarray(rooms_col, np.int64)
+    ids = np.unique(rooms_col)
+    blk = ids[trial * nsimroom:(trial + 1) * nsimroom]
+    if len(blk) != nsimroom:
+        raise ValueError(
+            f"trial {trial} needs rooms [{trial * nsimroom}:{(trial + 1) * nsimroom}) of "
+            f"{len(ids)} present: generate more rooms (gen_simu_certain_room --room-num >= "
+            "ntrial*nsimroom) or lower --ntrial/--ds-nsimroom")
+    return np.flatnonzero(np.isin(rooms_col, blk))
+
+
+def trial_subset_draw(rows, num, seed, trial):
+    """A fixed, epoch-independent draw of num of the given rows (sorted),
+    seeded per trial; all of them when num covers them."""
+    rows = np.asarray(rows)
+    if num >= len(rows):
+        return rows
+    rng = np.random.default_rng(seed + 555_000 + trial)
+    return np.sort(rows[rng.permutation(len(rows))[:num]])
+
+
+def packed_train_subset(args, pds, num, trial):
+    """The train-row universe of one trial of a packed split: the room
+    block's rows under --room-trials (--train-num is then a label budget: a
+    fixed per-trial draw from the block), the fixed draw under
+    --fixed-train-subset, else None (the whole split)."""
+    if getattr(args, "room_trials", False):
+        rc = pds.annos().get("room")
+        if rc is None:
+            raise ValueError(f"--room-trials: packed dir {pds.dir} has no 'room' column: "
+                             "re-pack the R{idx}/ tree with cli.pack_data")
+        rows = room_block_rows(rc, args.ds_nsimroom, trial)
+        return trial_subset_draw(rows, num, args.seed, trial)
+    return fixed_train_subset(args, pds.n, num, trial)
 
 
 def build_parser():
@@ -60,8 +122,13 @@ def build_parser():
                    choices=["spec_spat", "spec", "spat", "noinfo"])
     p.add_argument("--pretrain-ckpt", type=str, default=None,
                    help="pretrain checkpoint dir (best_model used)")
-    for flag in ("--data-dir", "--val-data-dir", "--test-data-dir", "--rir-dir",
-                 "--sim-rir-dir", "--src-dir"):
+    p.add_argument("--data-dir", type=str, default=None,
+                   help="annotated wav tree (gen_simu) or packed directory (pack_data)")
+    p.add_argument("--val-data-dir", type=str, default=None,
+                   help="validation data (default: --data-dir)")
+    p.add_argument("--test-data-dir", type=str, default=None,
+                   help="test data (default: --data-dir)")
+    for flag in ("--rir-dir", "--sim-rir-dir", "--src-dir"):
         p.add_argument(flag, type=str, default=None, help=_NOT_PORTED)
     p.add_argument("--rir-cv", action="store_true", help=_NOT_PORTED)
     p.add_argument("--real-sig-dir", type=str, default=None, help=_NOT_PORTED)
@@ -85,10 +152,16 @@ def build_parser():
                         "TDOA, 4.112 otherwise)")
     p.add_argument("--val-num", type=int, default=1000)
     p.add_argument("--test-num", type=int, default=4000)
-    p.add_argument("--room-trials", action="store_true", help=_NOT_PORTED)
-    p.add_argument("--fixed-train-subset", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--room-trials", action="store_true",
+                   help="the train data is a certain-room corpus (gen_simu_certain_room "
+                        "R{idx}/ tree, raw or packed): trial t trains on the t-th disjoint "
+                        "block of ds-nsimroom rooms; --train-num below the block size is a "
+                        "fixed per-trial draw from it")
+    p.add_argument("--fixed-train-subset", action="store_true",
+                   help="packed dirs: train each trial on a fixed train-num-row subset of "
+                        "the split instead of resampling the whole split every epoch")
     p.add_argument("--workers", type=int, default=4,
-                   help="data loader workers (the synthetic generator takes none)")
+                   help="wav-tree loader threads (the synthetic generator takes none)")
     p.add_argument("--grid-vmap", action="store_true", help=_NOT_PORTED)
     p.add_argument("--grid-chunk", type=int, default=8, help="--grid-vmap only")
     p.add_argument("--trial-set", type=int, nargs="+", default=None, help="--grid-vmap only")
@@ -108,12 +181,10 @@ def build_parser():
 
 
 # flags whose path the port lacks, and what it waits for
-_DATA_PATH = "waits for the port of the data path"
+_REAL_DATA = "waits for the port of the real-data half of the data path"
 _UNPORTED = {
-    **{dest: _DATA_PATH for dest in (
-        "data_dir", "val_data_dir", "test_data_dir", "rir_dir", "sim_rir_dir", "src_dir",
-        "rir_cv", "real_sig_dir", "sim_sig_dir", "room_trials", "fixed_train_subset",
-        "mp_loader")},
+    **{dest: _REAL_DATA for dest in ("rir_dir", "sim_rir_dir", "src_dir", "rir_cv",
+                                     "real_sig_dir", "sim_sig_dir", "mp_loader")},
     "grid_vmap": "waits for the port of the vmapped grid runner",
     "mesh": "the port runs on one card",
 }
@@ -124,10 +195,18 @@ def _check_ported(args, parser) -> None:
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: it {why}")
-    if not (args.synthetic or args.smoke):
-        raise NotImplementedError("reading data from files is not ported yet: pass --synthetic")
-    if args.ds_task != "TDOA":
+    synthetic = args.synthetic or args.smoke  # --smoke runs on synthetic data
+    if not (synthetic or args.data_dir):
+        raise ValueError("no data source: pass --data-dir or --synthetic")
+    if synthetic and args.ds_task != "TDOA":
         raise ValueError(f"--ds-task {args.ds_task}: the synthetic data carries TDOA labels only")
+    if args.room_trials:
+        if synthetic or not args.data_dir:
+            raise ValueError("--room-trials reads a certain-room corpus from --data-dir and "
+                             "composes with no other data source")
+        if not (args.val_data_dir and args.test_data_dir):
+            raise ValueError("--room-trials: pass --val-data-dir and --test-data-dir (held-out "
+                             "corpora): evaluating on the training rooms would leak")
 
 
 def main(argv=None):
@@ -136,7 +215,8 @@ def main(argv=None):
     _check_ported(args, parser)
 
     from ..config import DownstreamConfig, real_ds_setting
-    from ..data import SyntheticPairs, device_prefetch, synthetic
+    from ..data import (FixMicSigDataset, PackedDataset, SyntheticPairs, device_prefetch,
+                        is_packed, synthetic)
     from ..models import SARSSL, SARSSLConfig, SARSSLMultiCH
     from ..ops import FeatureConfig, num_pairs, pairwise_tdoa
     from ..train import (DownstreamLearner, create_train_state, make_downstream_eval_step,
@@ -176,12 +256,22 @@ def main(argv=None):
         bs_set = args.bs_set or list(cfg.bs_set)
         ntrial = args.ntrial or cfg.ntrial
         train_num = args.train_num or cfg.train_num
+    if args.room_trials:
+        ntrial = _room_trials(args, ntrial)
 
     fs = 16000
     T = args.T or cfg.T
     nsample = round(T * fs) if not args.smoke else 2304
     feat_cfg = FeatureConfig()
     nt = feat_cfg.num_frames(nsample)
+    if args.data_dir and not args.smoke:
+        probe = (PackedDataset(args.data_dir, load_anno=False)[0] if is_packed(args.data_dir)
+                 else FixMicSigDataset(args.data_dir, data_num=1)[0])
+        if probe.shape[0] < nsample:
+            raise ValueError(
+                f"data under {args.data_dir} has {probe.shape[0]} samples but task "
+                f"'{args.ds_task}' expects >= {nsample} ({T} s @ {fs} Hz); pass --T to "
+                "match the data")
 
     if args.smoke:
         mcfg = SARSSLConfig(dtype="float32", pretrain=False,
@@ -230,12 +320,16 @@ def main(argv=None):
                                  "checkpoint for this model config")
         return create_train_state(model), keys
 
-    def make_batches(split, bs, seed):
-        """The split's synthetic batches as device tensors: waves, and the
-        task's targets (per pair for the multi-pair model)."""
+    def make_batches(split, bs, seed, trial=0):
+        """The split's batches as device tensors: waves, and the task's
+        targets (per pair for the multi-pair model)."""
         num = {"train": train_num, "val": args.val_num, "test": args.test_num}[split]
         nbatch = max(1, num // bs)
-        if multipair:
+        if not args.synthetic:
+            data_dir = {"train": args.data_dir, "val": args.val_data_dir or args.data_dir,
+                        "test": args.test_data_dir or args.data_dir}[split]
+            it = _file_batches(args, data_dir, split, bs, seed, trial, num, nsample)
+        elif multipair:
             def gen():
                 rng = np.random.default_rng(seed)
                 for _ in range(nbatch):
@@ -286,15 +380,15 @@ def main(argv=None):
                 # one generator chain per (trial, epoch): the lr cells of a
                 # trial share it, as they share the data stream
                 gen = epoch_generator(args.seed, "train", 7000 + epoch + trial * 100_000)
-                learner.train_epoch(make_batches("train", bs, args.seed + trial * 1000 + epoch),
-                                    gen)
-                vm = learner.eval_epoch(make_batches("val", bs, 1), split="val")
+                learner.train_epoch(make_batches("train", bs, args.seed + trial * 1000 + epoch,
+                                                 trial), gen)
+                vm = learner.eval_epoch(make_batches("val", bs, 1, trial), split="val")
                 if learner.end_epoch(vm["mae"]):
                     break
             # ensemble the last <= 5 best epochs, then the final test
             learner.ensemble(k=5)
-            test_m = learner.eval_epoch(make_batches("test", bs, 2), split="test")
-            val_m = learner.eval_epoch(make_batches("val", bs, 1), split="val_final")
+            test_m = learner.eval_epoch(make_batches("test", bs, 2, trial), split="test")
+            val_m = learner.eval_epoch(make_batches("val", bs, 1, trial), split="val_final")
         finally:
             logger.close()
         results[cell] = {"val_mae": val_m["mae"], "test_mae": test_m["mae"],
@@ -317,6 +411,71 @@ def main(argv=None):
         print("SMOKE", "PASS" if ok else "FAIL")
         return 0 if ok else 1
     return 0
+
+
+def _room_trials(args, ntrial):
+    """--room-trials: the number of trials the certain-room tree holds room
+    blocks for (a protocol's default ntrial is clamped to it; an explicit
+    --ntrial that needs more rooms raises)."""
+    from ..data import PackedDataset, is_packed
+
+    if is_packed(args.data_dir):
+        rc = PackedDataset(args.data_dir).annos().get("room")
+        if rc is None:
+            raise ValueError(f"--room-trials: {args.data_dir} was packed without a 'room' "
+                             "column: re-pack the R{idx}/ tree with cli.pack_data")
+        room_ids = np.unique(np.asarray(rc, np.int64))
+    else:
+        room_ids = np.array(sorted(
+            int(m.group(1)) for d in os.listdir(args.data_dir)
+            if (m := re.fullmatch(r"R(\d+)", d)) and os.path.isdir(os.path.join(args.data_dir, d))))
+        if not room_ids.size:
+            raise ValueError(f"--room-trials: no R{{idx}}/ room subdirs under {args.data_dir} "
+                             "(generate with cli.gen_simu_certain_room)")
+    max_trials = len(room_ids) // args.ds_nsimroom
+    if max_trials < 1:
+        raise ValueError(f"{len(room_ids)} rooms < ds-nsimroom={args.ds_nsimroom}")
+    if args.ntrial is None and ntrial > max_trials:
+        print(f"room-trials: {len(room_ids)} rooms support only {max_trials} disjoint "
+              f"{args.ds_nsimroom}-room trials (protocol ntrial {ntrial}); clamping")
+        ntrial = max_trials
+    if ntrial * args.ds_nsimroom > len(room_ids):
+        raise ValueError(f"--ntrial {ntrial} x nsimroom {args.ds_nsimroom} needs "
+                         f"{ntrial * args.ds_nsimroom} rooms, found {len(room_ids)}")
+    return ntrial
+
+
+def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample):
+    """Host batches (waves (bs, nsample, nch), the annotation columns) of a
+    split read from a packed directory or an annotated wav tree. Train takes
+    the trial's rows: its room block under --room-trials (then a fixed draw of
+    --train-num of them), its fixed subset under --fixed-train-subset."""
+    from ..data import FixMicSigDataset, PackedDataset, Selecting, batch_iterator, is_packed
+    from ..data.shards import room_id_of_path
+
+    train = split == "train"
+    if is_packed(data_dir):
+        pds = PackedDataset(data_dir, load_anno=True)
+        subset = packed_train_subset(args, pds, num, trial) if train else None
+        if subset is not None and args.room_trials:
+            num = min(num, len(subset))
+        it = pds.iter_batches(bs, shuffle=train, seed=seed, subset=subset)
+        return ((w[:, :nsample], lab) for w, lab in itertools.islice(it, max(1, num // bs)))
+    if args.room_trials and train:
+        # the trial's room block, then a fixed seeded draw of num rows across
+        # the whole block (not the first num paths, which would keep only the
+        # block's lowest room ids)
+        ds = FixMicSigDataset(data_dir, load_anno=True, transforms=[Selecting((0, nsample))])
+        rooms = [room_id_of_path(p) for p in ds.data_paths]
+        if any(r is None for r in rooms):
+            raise ValueError(f"--room-trials: items outside R{{idx}}/ subdirs under {data_dir}")
+        rows = trial_subset_draw(room_block_rows(rooms, args.ds_nsimroom, trial), num,
+                                 args.seed, trial)
+        ds.data_paths = [ds.data_paths[i] for i in rows]
+    else:
+        ds = FixMicSigDataset(data_dir, load_anno=True, data_num=num,
+                              transforms=[Selecting((0, nsample))])
+    return batch_iterator(ds, bs, shuffle=train, seed=seed, num_workers=args.workers)
 
 
 def pretrained_params(path: str, multipair: bool):

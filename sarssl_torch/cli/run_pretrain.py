@@ -7,9 +7,16 @@ features, ``--pretrain-frozen-encoder`` to retrain the decoder over the
 encoders of ``--init-ckpt``, and ``--test`` to evaluate ``best_model``'s
 reconstructions (MSEs, PESQ, wav / plot / .mat dumps).
 
+Data: a generated wav tree or a packed directory (``--data-dir``,
+``--val-data-dir``, ``--extra-val-dirs``; ``cli/gen_simu.py``,
+``cli/pack_data.py``), a packed split staged on the card once
+(``--resident``, f32 or int16), the on-card synthesizer (``--device-synth``,
+``data/device_synth.py``) or the host's synthetic pairs (``--synthetic``).
+
 Usage:
-  python -m sarssl_torch.cli.run_pretrain --pretrain --synthetic --fused-attention
-  python -m sarssl_torch.cli.run_pretrain --test --synthetic --exp-dir DIR
+  python -m sarssl_torch.cli.run_pretrain --pretrain --data-dir DATA --fused-attention
+  python -m sarssl_torch.cli.run_pretrain --pretrain --device-synth --fused-attention
+  python -m sarssl_torch.cli.run_pretrain --test --data-dir DATA --exp-dir DIR
   python -m sarssl_torch.cli.run_pretrain --smoke            # tiny run on the card
   python -m sarssl_torch.cli.run_pretrain --smoke --cpu      # tiny run on the CPU
 
@@ -21,6 +28,7 @@ parser holds every flag of the JAX CLI, with its default and ``dest``, so
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 
@@ -37,9 +45,12 @@ def build_parser():
                    help="tiny synthetic end-to-end run (CI)")
     p.add_argument("--synthetic", action="store_true",
                    help="use the file-free synthetic pair generator (host)")
-    p.add_argument("--device-synth", action="store_true", help="not ported yet")
-    p.add_argument("--data-dir", type=str, default=None, help="not ported yet")
-    p.add_argument("--val-data-dir", type=str, default=None, help="not ported yet")
+    p.add_argument("--device-synth", action="store_true",
+                   help="synthesize the batches on the card (image-model mic pairs)")
+    p.add_argument("--data-dir", type=str, default=None,
+                   help="wav tree (gen_simu) or packed directory (pack_data)")
+    p.add_argument("--val-data-dir", type=str, default=None,
+                   help="validation data (default: --data-dir)")
     p.add_argument("--exp-dir", type=str, default="exp/pretrain")
     p.add_argument("--bs", type=int, default=128)
     p.add_argument("--epochs", type=int, default=30)
@@ -72,24 +83,26 @@ def build_parser():
     p.add_argument("--resume-from-best", action="store_true",
                    help="resume from best_model instead of latest")
     p.add_argument("--extra-val-dirs", type=str, nargs="+", default=None,
-                   help="not ported yet")
+                   help="extra wav trees evaluated each epoch as separate splits")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet")
-    p.add_argument("--resident", action="store_true", help="not ported yet")
+    p.add_argument("--resident", action="store_true",
+                   help="stage the packed train / val splits on the card once and "
+                        "draw each batch by an index gather there")
     p.add_argument("--resident-dtype", type=str, default="float32",
-                   choices=["float32", "int16"], help="not ported yet")
-    p.add_argument("--resident-num", type=int, default=None, help="not ported yet")
+                   choices=["float32", "int16"],
+                   help="staging dtype for --resident: int16 halves the device memory "
+                        "(one global scale, dequantized in the gather)")
+    p.add_argument("--resident-num", type=int, default=None,
+                   help="stage only the first N rows of the train split")
     return p
 
 
 # flags whose path the port lacks, and what it waits for
-_DATA_PATH = "waits for the port of the data path"
+_REAL_DATA = "waits for the port of the real-data half of the data path"
 _UNPORTED = {
-    "device_synth": _DATA_PATH, "data_dir": _DATA_PATH, "val_data_dir": _DATA_PATH,
-    "real_data_dirs": _DATA_PATH, "real_corpora": _DATA_PATH, "real_data_probs": _DATA_PATH,
-    "remove_spkoverlap": _DATA_PATH, "extra_val_dirs": _DATA_PATH, "resident": _DATA_PATH,
-    "resident_dtype": _DATA_PATH, "resident_num": _DATA_PATH,
-    "mesh": "the port runs on one card",
+    "real_data_dirs": _REAL_DATA, "real_corpora": _REAL_DATA, "real_data_probs": _REAL_DATA,
+    "remove_spkoverlap": _REAL_DATA, "mesh": "the port runs on one card",
 }
 
 
@@ -98,8 +111,13 @@ def _check_ported(args, parser) -> None:
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: it {why}")
-    if not (args.synthetic or args.smoke):
-        raise NotImplementedError("reading data from files is not ported yet: pass --synthetic")
+    if not (args.synthetic or args.smoke or args.device_synth or args.data_dir):
+        raise ValueError("no data source: pass --data-dir, --device-synth or --synthetic")
+    if args.resident:
+        if args.device_synth or args.synthetic:
+            raise ValueError("--resident needs a packed --data-dir corpus")
+        if args.resident_num is not None and args.resident_num <= 0:
+            raise ValueError(f"--resident-num must be positive, not {args.resident_num}")
 
 
 def main(argv=None):
@@ -108,15 +126,15 @@ def main(argv=None):
     _check_ported(args, parser)
 
     from ..config import AcousticSetting
-    from ..data import SyntheticPairs, device_prefetch
+    from ..data import DeviceSynthConfig, SyntheticPairs, device_prefetch, synth_batch_device
     from ..models import SARSSL, SARSSLConfig
     from ..ops import FeatureConfig
     from ..train import (PretrainLearner, cosine_schedule, create_train_state,
                          make_pretrain_eval_step, make_pretrain_step,
                          trainable_mask_from_loaded)
     from ..train import checkpoint as ckpt
-    from ..utils import (MetricLogger, count_params, epoch_generator, from_jax_params,
-                         resolve_device, save_config, set_seed)
+    from ..utils import (MetricLogger, batch_generator, count_params, epoch_generator,
+                         from_jax_params, resolve_device, save_config, set_seed)
 
     dev = resolve_device("cpu" if args.cpu else "cuda")
     # every matmul and convolution in full f32 where the model computes in f32
@@ -128,7 +146,9 @@ def main(argv=None):
 
     if args.smoke:
         args.pretrain = True
-        args.synthetic = True
+        # an explicit data source wins under --smoke (tiny-model drives of the
+        # file and on-card paths); --synthetic wins over everything
+        args.synthetic = args.synthetic or not (args.data_dir or args.device_synth)
         args.epochs = min(args.epochs, 2)
         args.bs = 4
         args.train_num = 16
@@ -201,12 +221,35 @@ def main(argv=None):
         print(f"resumed from epoch {payload['meta']['epoch']} "
               f"({os.path.basename(resume_path)})")
 
+    resident = _stage_resident(args, nsample, dev) if args.resident else None
+
     def batches(split, epoch):
-        num = args.train_num if split == "train" else args.val_num
-        # val reads one fixed set across epochs
-        gen = SyntheticPairs(nsample=nsample, seed=args.seed + epoch if split == "train" else 1)
-        return device_prefetch(gen.batches(args.bs, max(1, num // args.bs)), size=2,
-                               device=dev)
+        train = split == "train"
+        nbatch = max(1, (args.train_num if train else args.val_num) // args.bs)
+        if resident is not None:
+            # the batches the streaming packed path below draws, gathered on
+            # the card from the staged split
+            pds, waves, scale = resident[split]
+            subset = np.arange(waves.shape[0]) if train and args.resident_num else None
+            idx = pds.batch_indices(args.bs, shuffle=train, seed=args.seed + epoch,
+                                    subset=subset)
+            return (_gather(waves, i, scale) for i in itertools.islice(idx, nbatch))
+        if args.device_synth:
+            # batch i of epoch e from its own generator on the card; val is
+            # one fixed set across epochs. Already on the card: no prefetch.
+            dcfg = DeviceSynthConfig(nsample=nsample)
+            ep = epoch if train else 1_000_000
+            return (synth_batch_device(batch_generator(args.seed, "data", ep, i, dev),
+                                       args.bs, dcfg, dev)[0] for i in range(nbatch))
+        if args.synthetic:
+            # val reads one fixed set across epochs
+            it = SyntheticPairs(nsample=nsample, seed=args.seed + epoch if train else 1
+                                ).batches(args.bs, nbatch)
+        else:
+            data_dir = args.data_dir if train else (args.val_data_dir or args.data_dir)
+            it = _file_batches(data_dir, args.train_num if train else args.val_num, args.bs,
+                               train, args.seed + epoch, nsample, args.workers)
+        return device_prefetch(it, size=2, device=dev)
 
     try:
         for epoch in range(learner.epoch, args.epochs):
@@ -214,6 +257,13 @@ def main(argv=None):
                                      epoch_generator(args.seed, "train", epoch))
             vm = learner.eval_epoch(batches("val", epoch),
                                     epoch_generator(args.seed, "val", epoch))
+            for d in args.extra_val_dirs or ():
+                name = os.path.basename(d.rstrip("/"))
+                it = _file_batches(d, args.val_num, args.bs, False, 0, nsample, args.workers)
+                em = learner.eval_epoch(device_prefetch(it, size=2, device=dev),
+                                        epoch_generator(args.seed, "val_" + name, epoch),
+                                        split=f"val_{name}")
+                print(f"  extra val [{name}]: loss {em['loss']:.5f}")
             learner.end_epoch(vm["loss"])
             print(f"epoch {epoch}: train loss {tm['loss']:.5f} "
                   f"val loss {vm['loss']:.5f} diff {vm['diff']:.5f} "
@@ -237,6 +287,72 @@ def main(argv=None):
     return 0
 
 
+def _file_batches(data_dir, num, bs, shuffle, seed, nsample, workers):
+    """Host batches of ``num // bs`` waves (nb, nsample, 2) from a packed
+    directory (one memmap gather a batch, cropped to nsample) or a wav tree
+    (its first ``num`` sorted files, each cropped by ``Selecting``)."""
+    from ..data import FixMicSigDataset, PackedDataset, Selecting, batch_iterator, is_packed
+
+    if is_packed(data_dir):
+        it = PackedDataset(data_dir, load_anno=False).iter_batches(bs, shuffle=shuffle,
+                                                                   seed=seed)
+        return (w[:, :nsample] for w in itertools.islice(it, max(1, num // bs)))
+    ds = FixMicSigDataset(data_dir, data_num=num, transforms=[Selecting((0, nsample))])
+    return batch_iterator(ds, bs, shuffle=shuffle, seed=seed, num_workers=workers)
+
+
+def _stage_resident(args, nsample, dev):
+    """--resident: the packed train split (its first ``--resident-num`` rows)
+    and the val rows an epoch reads, staged on the card once, in f32 or in
+    int16 with one global scale. Returns {split: (dataset, waves, scale or
+    None)}; refuses a staging over ``SARSSL_RESIDENT_BUDGET_GB`` (default 8)."""
+    from ..data import PackedDataset, is_packed
+
+    if not (args.data_dir and is_packed(args.data_dir)):
+        raise ValueError(f"--resident needs a packed --data-dir (cli/pack_data.py): "
+                         f"{args.data_dir}")
+    vdir = args.val_data_dir or args.data_dir
+    if not is_packed(vdir):
+        raise ValueError(f"--resident: the val dir is not packed: {vdir}")
+    pds_t = PackedDataset(args.data_dir, load_anno=False)
+    pds_v = (pds_t if os.path.realpath(vdir) == os.path.realpath(args.data_dir)
+             else PackedDataset(vdir, load_anno=False))
+    int16 = args.resident_dtype == "int16"
+
+    def stage(pds, limit=None):
+        n = pds.n if limit is None else min(limit, pds.n)
+        nbytes = n * nsample * pds.meta["nch"] * (2 if int16 else 4)
+        budget = float(os.environ.get("SARSSL_RESIDENT_BUDGET_GB", "8")) * 1e9
+        if nbytes > budget:
+            raise ValueError(
+                f"--resident would stage {nbytes / 1e9:.1f} GB ({n} rows, "
+                f"{args.resident_dtype}), over the {budget / 1e9:.0f} GB budget "
+                "(SARSSL_RESIDENT_BUDGET_GB). Use --resident-dtype int16, --resident-num, "
+                "or stream")
+        if int16:
+            q, scale = pds.all_waves_i16(nsample, limit=limit)
+            return pds, torch.from_numpy(q).to(dev), scale
+        return pds, torch.from_numpy(pds.all_waves(nsample, limit=limit)).to(dev), None
+
+    # val is read in order: only its first val_rows rows are gathered, so
+    # stage no more, and reuse the train staging when it covers them
+    val_rows = max(1, args.val_num // args.bs) * args.bs
+    staged = {"train": stage(pds_t, args.resident_num)}
+    covered = pds_v is pds_t and staged["train"][1].shape[0] >= min(val_rows, pds_v.n)
+    staged["val"] = staged["train"] if covered else stage(pds_v, val_rows)
+    return staged
+
+
+def _gather(waves, idx, scale):
+    """Rows ``idx`` of a staged split, as f32 (int16 dequantized). The index
+    goes over from pinned memory, so the host does not wait for the card."""
+    idx = torch.as_tensor(idx)
+    if waves.is_cuda:
+        idx = idx.pin_memory().to(waves.device, non_blocking=True)
+    rows = waves[idx]
+    return rows if scale is None else rows.float() * scale
+
+
 def _pretext_test(args, state, feat_cfg, nsample, dev):
     """--test: reconstruction metrics of ``best_model`` on the fixed val set,
     and per-item dumps of its first batch (the reference's ``run_pretrain.py``
@@ -253,8 +369,16 @@ def _pretext_test(args, state, feat_cfg, nsample, dev):
     print(f"loaded best checkpoint (epoch {payload['meta']['epoch']})")
 
     model, mcfg = state.model, state.model.cfg
-    batches = SyntheticPairs(nsample=nsample, seed=1).batches(
-        args.bs, max(1, args.val_num // args.bs))
+    if args.synthetic:
+        batches = SyntheticPairs(nsample=nsample, seed=1).batches(
+            args.bs, max(1, args.val_num // args.bs))
+    elif args.data_dir:  # the first --val-num files of --data-dir, in order
+        from ..data import FixMicSigDataset, Selecting, batch_iterator
+        ds = FixMicSigDataset(args.data_dir, data_num=args.val_num,
+                              transforms=[Selecting((0, nsample))])
+        batches = batch_iterator(ds, args.bs, shuffle=False, num_workers=args.workers)
+    else:
+        raise ValueError("--test reads --synthetic or a wav tree --data-dir")
     out_dir = os.path.join(args.exp_dir, "test_dumps")
     os.makedirs(out_dir, exist_ok=True)
     mses, mse_masks, pesqs, pesq_mask_chs = [], [], [], []

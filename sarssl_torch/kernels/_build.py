@@ -53,13 +53,17 @@ def _nvcc() -> str:
     return found
 
 
+def hashed_target(stem: str, key: bytes) -> Path:
+    """``_build/lib<stem>_<hash of key>.so``: a build keyed by what made it
+    (sources and flags), so an edited source never loads an old build."""
+    return BUILD_DIR / f"lib{stem}_{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
 def _target(src: Path) -> Path:
     # every header counts for every source: an edited header never loads a
     # library built from the old one
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    return hashed_target(src.stem, src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
 
 
 def build_all(names=None) -> dict[str, str]:

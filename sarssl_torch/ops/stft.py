@@ -96,8 +96,9 @@ def istft(spec: torch.Tensor, win_len: int = 512, win_shift_ratio: float = 0.5,
     # the window and envelope in f64, rounded once: in f32, 1 - cos(2 pi n/N)
     # loses up to 1e-3 of itself at the window's ends, where the envelope
     # division amplifies it (the JAX package's host reconstruction,
-    # ``_istft_np``, takes them in f64 too)
-    win = hann_window(win_len, torch.float64)
+    # ``_istft_np``, takes them in f64 too); built on the frames' device, so
+    # no host copy waits for the card's queue
+    win = hann_window(win_len, torch.float64, frames.device)
     env = overlap_add((win * win).expand(x.shape[-2], win_len), hop).clamp_min(1e-11)
-    sig = overlap_add(frames * win.to(frames.device, frames.dtype), hop)  # (nb, nch, nsample)
-    return (sig / env.to(frames.device, frames.dtype)).movedim(1, -1)
+    sig = overlap_add(frames * win.to(frames.dtype), hop)  # (nb, nch, nsample)
+    return (sig / env.to(frames.dtype)).movedim(1, -1)

@@ -40,12 +40,25 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def _mix(seed: int, *words: int) -> int:
+    h = _splitmix64(seed & _MASK64)
+    for word in words:
+        h = _splitmix64(h ^ (word & _MASK64))
+    return h >> 1  # manual_seed takes 63 bits
+
+
 def epoch_generator(seed: int, purpose: str, epoch: int) -> torch.Generator:
     """An independent CPU generator per (purpose, epoch) of the run."""
-    h = _splitmix64(seed & _MASK64)
-    for word in (_purpose_id(purpose), epoch):
-        h = _splitmix64(h ^ (word & _MASK64))
-    return torch.Generator().manual_seed(h >> 1)  # manual_seed takes 63 bits
+    return torch.Generator().manual_seed(_mix(seed, _purpose_id(purpose), epoch))
+
+
+def batch_generator(seed: int, purpose: str, epoch: int, index: int,
+                    device="cpu") -> torch.Generator:
+    """An independent generator per (purpose, epoch, batch index) on
+    ``device``: the on-card synthesizer draws batch ``index`` of an epoch
+    from it, so a batch does not depend on the batches before it."""
+    return torch.Generator(device=device).manual_seed(
+        _mix(seed, _purpose_id(purpose), epoch, index))
 
 
 def step_generator(parent: torch.Generator) -> torch.Generator:

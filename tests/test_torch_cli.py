@@ -108,10 +108,8 @@ def test_init_ckpt_reads_a_jax_directory(tmp_path, capsys):
     assert f"partial_load: {n}/{n} keys loaded" in capsys.readouterr().out
 
 
-UNPORTED = [["--device-synth"], ["--data-dir", "d"], ["--val-data-dir", "d"],
-            ["--real-data-dirs", "d"], ["--real-corpora", "AMI=d"], ["--real-data-probs", "1"],
-            ["--remove-spkoverlap"], ["--extra-val-dirs", "d"], ["--resident"],
-            ["--resident-dtype", "int16"], ["--resident-num", "8"], ["--mesh", "1x1"]]
+UNPORTED = [["--real-data-dirs", "d"], ["--real-corpora", "AMI=d"], ["--real-data-probs", "1"],
+            ["--remove-spkoverlap"], ["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])
@@ -119,11 +117,6 @@ def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         _smoke(tmp_path, *flag)
     assert not os.listdir(tmp_path)  # raised before writing anything
-
-
-def test_file_data_raises_until_the_data_path_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        main(["--pretrain", "--cpu", "--exp-dir", str(tmp_path)])
 
 
 def test_without_cpu_and_without_a_gpu_main_raises(tmp_path):

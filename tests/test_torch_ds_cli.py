@@ -258,10 +258,9 @@ def test_results_reader_equals_jax_on_committed_grids(capsys):
     assert capsys.readouterr().out == want
 
 
-UNPORTED = [["--data-dir", "d"], ["--val-data-dir", "d"], ["--test-data-dir", "d"],
-            ["--rir-dir", "d"], ["--sim-rir-dir", "d"], ["--src-dir", "d"], ["--rir-cv"],
-            ["--real-sig-dir", "d"], ["--sim-sig-dir", "d"], ["--room-trials"],
-            ["--fixed-train-subset"], ["--mp-loader"], ["--grid-vmap"], ["--mesh", "1x1"]]
+UNPORTED = [["--rir-dir", "d"], ["--sim-rir-dir", "d"], ["--src-dir", "d"], ["--rir-cv"],
+            ["--real-sig-dir", "d"], ["--sim-sig-dir", "d"], ["--mp-loader"], ["--grid-vmap"],
+            ["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[" ".join(f) for f in UNPORTED])
@@ -269,11 +268,6 @@ def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         _smoke(tmp_path, *flag)
     assert not os.listdir(tmp_path)  # raised before writing anything
-
-
-def test_file_data_raises_until_the_data_path_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        main(["--ds-train", "--cpu", "--exp-dir", str(tmp_path)])
 
 
 def test_synthetic_data_has_no_label_for_other_tasks(tmp_path):

@@ -460,3 +460,38 @@ def test_vis_embed_on_card(cuda, tmp_path, capsys):
     plots = vis._plt() is not None and importlib.util.find_spec("sklearn") is not None
     want = str(tmp_path / "vis" / "tsne.png") if plots else None
     assert f"t-SNE saved to {want}" in out
+
+
+# the on-card synthesizer's deterministic part, card f32 against CPU f32 on the
+# same draws, relative to the CPU wave's peak: the same tolerance as JAX's
+# against the port's on the CPU (tests/test_torch_device_synth.py)
+TOL_SYNTH = 1e-4
+
+
+@pytest.mark.parametrize("nsample", [16640, 65792])
+def test_device_synth_card_matches_cpu(cuda, nsample):
+    from sarssl_torch.data import device_synth as ds
+
+    cfg = ds.DeviceSynthConfig(nsample=nsample)
+    draws = ds.draw_inputs(torch.Generator().manual_seed(3), 4, cfg)
+    want, wl = ds.synth_pair(draws, cfg)
+    got, gl = ds.synth_pair({k: v.cuda() for k, v in draws.items()}, cfg)
+    assert got.device.type == "cuda" and got.shape == (4, nsample, 2)
+    assert _rel(got.cpu(), want) <= TOL_SYNTH
+    for k in wl:
+        assert _rel(gl[k].cpu(), wl[k]) <= 1e-6, k
+
+
+def test_synth_batch_device_is_deterministic_on_card(cuda):
+    """The same generator seed gives the same batch bit for bit: the images
+    reach the frames by a one-hot matmul, not by atomics."""
+    from sarssl_torch.data import device_synth as ds
+
+    cfg = ds.DeviceSynthConfig(nsample=65792)
+    runs = [ds.synth_batch_device(torch.Generator(device="cuda").manual_seed(7), 16, cfg)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    other = ds.synth_batch_device(torch.Generator(device="cuda").manual_seed(8), 16, cfg)[0]
+    assert not torch.equal(runs[0][0], other)
+    assert torch.isfinite(runs[0][0]).all()
