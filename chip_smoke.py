@@ -99,7 +99,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
               --ds-nsimroom 2`` on the certain-room tree and
               ``--fixed-train-subset`` on the packed dir (hash_dropout 56 a
               finetune step).
- 11. model_options: the model's options, first each on a small model card
+ 11. real_data: the real-data path at the flagship widths on synthetic trees
+              in each corpus's on-disk layout, each CLI call with the launch
+              counts zeroed before and asserted exactly after: (a) on the host,
+              ``gen_real_rir --corpus ACE`` on a 3-room ACE tree (s a pair RIR),
+              ``gen_sig_from_real_rir`` (4.112 s items, s/item), ``gen_simu
+              --mode rir`` and ``gen_locata`` train / val / test; (b)
+              ``run_downstream --real-exp`` T60 finetune from the committed
+              trained checkpoint (f32, batch 16, 1 epoch a cell) on the real and
+              simulated RIR arms at ``--real-sim-ratio 1 1`` with ``--rir-cv``
+              (a cell a held-out room), s per cell epoch and the host's share
+              inside ``next``; the same call with ``--mp-loader --workers 8``
+              (its batches the threads' bit for bit); ``--ds-test`` on a cell;
+              (c) TDOA from the LOCATA tree mixed 1:1 with a simulated tree; (d)
+              ``run_pretrain`` at the flagship width (bf16, batch 128, fused
+              attention, 2 train + 1 val batches) from ``--real-corpora``
+              AISHELL4 (``--remove-spkoverlap``) and AMI, ``--real-data-dirs``
+              and ``--real-data-probs``: epoch utt/s, the host's share, and the
+              rows drawn against the mixture's draws.
+ 12. model_options: the model's options, first each on a small model card
               against CPU (dropout on, same seeds), then at the flagship
               pretext width (bf16, batch 128, fused attention, dropout 0.1),
               each variant one warm-up and 3 timed steps through
@@ -240,6 +258,24 @@ DS_DATA_NUMS = ("--train-num", "32", "--val-num", "16", "--test-num", "16")
 # --ds-test's printed test MAE (5 decimals) against the grid's test_mae of
 # the same cell: the same weights and batches on the same card
 TOL_DS_TEST = 1e-4
+
+# real_data: an ACE-layout corpus (3 rooms x Chromebook (2 mics) and Mobile
+# (3 mics) x 2 array positions, 48 kHz, its T60 / DRR CSV), a WSJ0-style
+# speaker tree, a LOCATA layout (dicit and benchmark2 in 'eval', dicit in
+# 'dev', 48 kHz) and pre-training corpora in the AISHELL4 (TextGrids), AMI
+# (a file a channel) and plain 4-channel layouts, all int16 but the RIRs
+RD_ROOMS = ("Office_1", "Office_2", "Meeting_Room_1")
+RD_ARRAYS = {"Chromebook": 2, "Mobile": 3}  # 1 + 3 pairs in [3, 20] cm
+RD_SIG_NUM = 32  # gen_sig_from_real_rir items of 4.112 s
+RD_SIM_RIRS = 16  # gen_simu --mode rir, the sim arm
+RD_LOCATA_NUM = {"train": 64, "val": 16, "test": 16}  # gen_locata items of 1.04 s
+RD_SIM_SIG_NUM = 32  # gen_simu 1.04 s items, the sim arm of --real-sig-dir
+RD_SIM_T60 = ("0.2", "0.8")  # gen_simu --t60-range of both sim trees (default 0.2-1.3)
+# the downstream cells: --real-exp's batch 16, one lr, 1 epoch of 4 finetune
+# steps, 16 val and 16 test rows
+RD_DS_NUMS = ("--train-num", "64", "--val-num", "16", "--test-num", "16")
+RD_DS_BATCH = 16
+RD_PROBS = ("0.4", "0.3", "0.3")  # AISHELL4, AMI, the 4-channel tree
 
 
 def log(*a):
@@ -777,7 +813,7 @@ def phase_kernels():
 
 
 def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
-                 dscli_counts, data_counts, mo_counts, mo_shapes):
+                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -796,11 +832,13 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
                 "path": "pretext train step (launches), the pre-training CLI run "
                         "(launches_pretrain_cli) and its --test, frozen-encoder and mel runs "
                         "(launches_pretrain_options), the pre-training runs from files, "
-                        "resident splits and --device-synth (launches_data_path); not on the "
+                        "resident splits and --device-synth (launches_data_path), the "
+                        "pre-training run from real corpora (launches_real_data); not on the "
                         "downstream CLI's path",
                 "launches_pretrain_cli": cli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_pretrain_options": opt_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_data_path": data_counts.get(f"attention_{kind}_d{D}", 0),
+                "launches_real_data": real_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_model_options": mo_counts.get(f"attention_{kind}_tc_d{D}", 0),
             })
@@ -836,13 +874,14 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
                 "(launches_pretrain_cli), its frozen-encoder and mel runs "
                 "(launches_pretrain_options), the downstream finetune step "
                 "(launches_downstream), the downstream CLI's runs a, b and d "
-                "(launches_downstream_cli) and the data path's pre-training and downstream "
-                "runs (launches_data_path)",
+                "(launches_downstream_cli), the data path's pre-training and downstream "
+                "runs (launches_data_path) and the real-data path's (launches_real_data)",
         "launches_pretrain_cli": cli_counts.get("hash_dropout", 0),
         "launches_pretrain_options": opt_counts.get("hash_dropout", 0),
         "launches_downstream": ds_counts.get("hash_dropout", 0),
         "launches_downstream_cli": dscli_counts.get("hash_dropout", 0),
         "launches_data_path": data_counts.get("hash_dropout", 0),
+        "launches_real_data": real_counts.get("hash_dropout", 0),
         "launches_model_options": mo_counts.get("hash_dropout", 0),
     })
     for name in CONV_LAUNCHES:
@@ -860,6 +899,7 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
             "launches_pretrain_options": opt_counts.get(name, 0),
             "launches_downstream_cli": dscli_counts.get(name, 0),
             "launches_data_path": data_counts.get(name, 0),
+            "launches_real_data": real_counts.get(name, 0),
             "launches_model_options": mo_counts.get(name, 0),
         })
     return {"kernels": out}
@@ -2295,24 +2335,25 @@ def phase_model_options_reference():
 
 
 class _DataWait:
-    """Wraps the pre-training learner's epoch loops: the host seconds each
-    loop spends inside ``next`` on its batch iterable (waiting on data) are
-    summed, and the first rows of every train batch kept (a device copy, no
-    synchronisation) to compare what two runs drew."""
+    """Wraps a learner class's epoch loops (the pre-training learner's by
+    default): the host seconds each loop spends inside ``next`` on its batch
+    iterable (waiting on data) are summed, and the first rows of every train
+    batch's waves kept (a device copy, no synchronisation) to compare what two
+    runs drew."""
 
-    def __init__(self, keep=4096):
+    def __init__(self, keep=4096, cls=None):
         from sarssl_torch.train import learner as learner_mod
-        self.cls, self.keep = learner_mod.PretrainLearner, keep
+        self.cls, self.keep = cls or learner_mod.PretrainLearner, keep
         self.wait, self.batches = 0.0, []
         self.saved = (self.cls.train_epoch, self.cls.eval_epoch)
         train_epoch, eval_epoch = self.saved
         me = self
 
-        def train(learner, batches, generator):
-            return train_epoch(learner, me._timed(batches, True), generator)
+        def train(learner, batches, *a, **k):
+            return train_epoch(learner, me._timed(batches, True), *a, **k)
 
-        def evaluate(learner, batches, generator, split="val"):
-            return eval_epoch(learner, me._timed(batches, False), generator, split)
+        def evaluate(learner, batches, *a, **k):
+            return eval_epoch(learner, me._timed(batches, False), *a, **k)
         self.cls.train_epoch, self.cls.eval_epoch = train, evaluate
 
     def _timed(self, batches, keep):
@@ -2324,20 +2365,21 @@ class _DataWait:
             if b is None:
                 return
             if keep:
-                self.batches.append(b[:, :self.keep].clone())
+                wave = b[0] if isinstance(b, (tuple, list)) else b
+                self.batches.append(wave[:, :self.keep].clone())
             yield b
 
     def undo(self):
         self.cls.train_epoch, self.cls.eval_epoch = self.saved
 
 
-def _data_pretrain_run(what, argv, card, train_steps, val_steps):
+def _data_pretrain_run(what, argv, card, train_steps, val_steps, tag="data_path"):
     """One ``run_pretrain`` call on the data path, launch counts exact, its
     epoch utt/s and the share of its wall spent waiting on data; returns
     (counts, kept train rows, epoch utt/s, wait share)."""
     waiter = _DataWait()
     try:
-        _, counts, wall = _opt_run(what, argv, card, tag="data_path")
+        _, counts, wall = _opt_run(what, argv, card, tag=tag)
     finally:
         waiter.undo()
     _check_opt_attention(what, counts, train_steps + val_steps, train_steps)
@@ -2349,16 +2391,16 @@ def _data_pretrain_run(what, argv, card, train_steps, val_steps):
         recs = [json.loads(line) for line in f]
     assert all(np.isfinite([r["loss"] for r in recs])), recs
     utt = [r["utt_per_sec"] for r in recs if r["split"] == "train"]
-    log(f"[data_path] {what}: epoch utt/s {utt}, waiting on data {waiter.wait:.2f} s "
+    log(f"[{tag}] {what}: epoch utt/s {utt}, waiting on data {waiter.wait:.2f} s "
         f"({waiter.wait / wall:.1%} of the wall {wall:.2f} s); launches exact ({card})")
     return counts, waiter.batches, utt, waiter.wait / wall
 
 
-def _gen_tree(what, cli, argv, n, card):
+def _gen_tree(what, cli, argv, n, card, tag="data_path"):
     t0 = time.perf_counter()
     _cli(argv, cli)
     wall = time.perf_counter() - t0
-    log(f"[data_path] (a) {what}: {n} items in {wall:.2f} s, {wall / n:.4f} s/item on a host "
+    log(f"[{tag}] (a) {what}: {n} items in {wall:.2f} s, {wall / n:.4f} s/item on a host "
         f"of {os.cpu_count()} cores ({card})")
 
 
@@ -2540,6 +2582,276 @@ def phase_data_path(card, synthetic_utt_s):
     return total
 
 
+def _int16_wav(path, sig, fs):
+    from scipy.io import wavfile
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    wavfile.write(path, fs, np.clip(sig * 32767, -32768, 32767).astype(np.int16))
+
+
+def _decaying_rir(rng, n, nmic, t60, fs, peak_at=200):
+    """A multichannel RIR: a direct path at ``peak_at`` (+3 samples a mic)
+    over an exponential tail decaying 60 dB in ``t60`` seconds."""
+    rir = rng.standard_normal((n, nmic)) * 0.05
+    rir *= np.exp(-6.91 * np.arange(n) / (t60 * fs))[:, None]
+    for m in range(nmic):
+        rir[peak_at + 3 * m, m] = 1.0
+    return rir.astype(np.float32)
+
+
+def _real_data_trees(tmp, rng):
+    """The corpus trees of phase real_data, in each corpus's on-disk layout;
+    returns {name: dir}."""
+    from sarssl_torch.data.extractors import ACEExtractor
+    from sarssl_torch.data.wavio import write_wav
+
+    d = {k: os.path.join(tmp, k) for k in ("ace", "src", "locata", "aishell4", "ami", "four")}
+    rows = ["Mic config:, Room decode:, Room config:, Chan:, FB T60:, FB DRR:"]
+    for r, room in enumerate(RD_ROOMS):
+        for array, nmic in RD_ARRAYS.items():
+            for pos in ("1", "2"):
+                base = os.path.join(d["ace"], "RIRN", array, room, pos)
+                os.makedirs(base)
+                t60 = 0.35 + 0.2 * r
+                write_wav(os.path.join(base, f"{room}_{pos}_RIR.wav"),
+                          _decaying_rir(rng, int(1.5 * t60 * 48000), nmic, t60, 48000), 48000)
+                write_wav(os.path.join(base, f"{room}_{pos}_Noise_Ambient.wav"),
+                          (rng.standard_normal((6 * 48000, nmic)) * 0.01).astype(np.float32),
+                          48000)
+                rows += [f"{array}, {room}, {pos}, {ch}, {t60:.3f}, {5.0 - 2 * r:.2f}"
+                         for ch in range(1, nmic + 1)]
+    os.makedirs(os.path.join(d["ace"], "Data"))
+    with open(os.path.join(d["ace"], "Data", ACEExtractor.ANNO_CSV), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    for spk in range(6):  # WSJ0-style: <dir>/<speaker>/<utterance>.wav
+        for u in range(3):
+            _int16_wav(os.path.join(d["src"], f"spk{spk}", f"utt{u}.wav"),
+                       rng.standard_normal(int((2.5 + u) * 16000)) * 0.1, 16000)
+    for subset, rec, array, nch in (("eval", 1, "dicit", 15), ("eval", 2, "benchmark2", 12),
+                                    ("dev", 1, "dicit", 15)):
+        adir = os.path.join(d["locata"], subset, "task1", f"recording{rec}", array)
+        sig = rng.standard_normal((8 * 48000, nch)) * 0.1
+        sig[:24000] *= 1e-3  # 0.5 s of silence first
+        _int16_wav(os.path.join(adir, f"audio_array_{array}.wav"), sig, 48000)
+        npt, t = 40, np.linspace(0, 8, 40)
+        tables = {"required_time.txt": {"hour": np.zeros(npt, int), "minute": np.zeros(npt, int),
+                                        "second": t},
+                  f"position_array_{array}.txt": {
+                      "x": np.full(npt, 1.0), "y": np.full(npt, 1.5), "z": np.full(npt, 1.2),
+                      **{f"rotation_{i + 1}{j + 1}": np.full(npt, float(i == j))
+                         for i in range(3) for j in range(3)}},
+                  "position_source_talker1.txt": {"x": 3.0 + 0.1 * t, "y": np.full(npt, 4.0),
+                                                  "z": np.full(npt, 1.6)}}
+        for name, cols in tables.items():
+            with open(os.path.join(adir, name), "w") as f:
+                f.write("\t".join(cols) + "\n")
+                f.writelines("\t".join(str(cols[c][i]) for c in cols) + "\n"
+                             for i in range(npt))
+    # AISHELL4: two 60 s 8-channel sessions, one speaker's 2 s sentences every
+    # 7 s and another's between them, so windows of >= 4.112 s hold one speaker
+    tg = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+          "xmax = 60", "tiers? <exists>", "size = 1", "item []:", "    item [1]:",
+          '        class = "IntervalTier"', '        name = "SPK01"', "        xmin = 0",
+          "        xmax = 60", "        intervals: size = 8"]
+    for k in range(8):
+        tg += [f"        intervals [{k + 1}]:", f"            xmin = {7 * k}",
+               f"            xmax = {7 * k + 2}", '            text = "speech"']
+    for ds, room in (("train_M", "M_R001"), ("train_L", "L_R001")):
+        name = f"20200707_{room}S01C01"
+        _int16_wav(os.path.join(d["aishell4"], ds, "wav", f"{name}.wav"),
+                   rng.standard_normal((60 * 16000, 8)) * 0.1, 16000)
+        os.makedirs(os.path.join(d["aishell4"], ds, "TextGrid"))
+        with open(os.path.join(d["aishell4"], ds, "TextGrid", f"{name}.TextGrid"), "w") as f:
+            f.write("\n".join(tg) + "\n")
+    for k in range(1, 9):
+        _int16_wav(os.path.join(d["ami"], "ScenarioMeetings", "ES2002", "audio",
+                                f"ES2002a.Array1-0{k}.wav"),
+                   rng.standard_normal(60 * 16000) * 0.1, 16000)
+    for i in range(4):
+        _int16_wav(os.path.join(d["four"], f"rec{i}.wav"),
+                   rng.standard_normal((30 * 16000, 4)) * 0.1, 16000)
+    return d
+
+
+def phase_real_data(card, step_utt_s):
+    """The real-data path at the flagship widths, each CLI call with the
+    launch counts zeroed before and asserted exactly after: (a) on the host,
+    ``gen_real_rir --corpus ACE`` on an ACE-layout tree, ``gen_sig_from_real_rir``,
+    ``gen_simu --mode rir`` and ``gen_locata``; (b) ``run_downstream --real-exp``
+    T60 finetune cells from real and simulated RIRs with ``--rir-cv`` (one trial
+    a room), then the same call with ``--mp-loader`` (the same batches), and
+    ``--ds-test`` on a cell; (c) TDOA from the LOCATA tree mixed with a
+    simulated one; (d) ``run_pretrain`` at the flagship width from
+    ``--real-corpora`` (AISHELL4 with ``--remove-spkoverlap``, AMI),
+    ``--real-data-dirs`` and ``--real-data-probs``."""
+    import shutil
+    import tempfile
+
+    from sarssl_torch.cli.run_pretrain import _real_mixture
+    from sarssl_torch.cli.run_pretrain import build_parser as pretrain_parser
+    from sarssl_torch.data import FixMicSigDataset, FixMicSigDatasetLOCATA
+    from sarssl_torch.data.wavio import read_wav
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.train import learner as learner_mod
+
+    total = {}
+    cores = str(os.cpu_count())
+    rng = np.random.default_rng(11)
+    with tempfile.TemporaryDirectory(prefix="real_data_") as tmp:
+        t0 = time.perf_counter()
+        d = _real_data_trees(tmp, rng)
+        log(f"[real_data] (a) corpus trees written in {time.perf_counter() - t0:.2f} s")
+        rirs, sig, simr, simsig = (os.path.join(tmp, k) for k in ("rirs", "sig", "sim_rirs",
+                                                                  "sim_sig"))
+        # (a) generation on the host
+        t0 = time.perf_counter()
+        out = _cli(["--corpus", "ACE", "--data-dir", d["ace"], "--save-dir", rirs],
+                   "gen_real_rir")
+        wall = time.perf_counter() - t0
+        m = re.search(r"ACE: wrote (\d+) pair RIRs, (\d+) noise wavs", out)
+        npair = 3 * len(RD_ROOMS) * 2 + len(RD_ROOMS) * 2  # Mobile 3 pairs, Chromebook 1
+        assert m and int(m.group(1)) == int(m.group(2)) == npair, out
+        assert sorted(os.listdir(rirs)) == sorted(RD_ROOMS), os.listdir(rirs)
+        info = np.load(os.path.join(rirs, "Office_2", "Mobile", "SP1_MP1-1-2_info.npz"))
+        assert abs(float(info["T60fromDataset"]) - 0.55) < 1e-9 and np.isfinite(info["DRR"])
+        log(f"[real_data] (a) gen_real_rir --corpus ACE: {npair} pair RIRs and noise wavs in "
+            f"{wall:.2f} s, {wall / npair:.4f} s a pair RIR ({card})")
+        t0 = time.perf_counter()
+        _cli(["--rir-dir", rirs, "--src-dir", d["src"], "--save-dir", sig, "--num",
+              str(RD_SIG_NUM), "--corpus", "ACE"], "gen_sig_from_real_rir")
+        wall = time.perf_counter() - t0
+        for i in (0, RD_SIG_NUM - 1):
+            w, fs = read_wav(os.path.join(sig, f"{i}.wav"))
+            lab = np.load(os.path.join(sig, f"{i}_info.npz"))
+            assert fs == 16000 and w.shape == (NSAMPLE, 2) and abs(np.abs(w).max() - 0.9) < 1e-6
+            assert all(np.isfinite(lab[k]) for k in ("T60", "DRR", "C50", "SNR", "ABS")), i
+        log(f"[real_data] (a) gen_sig_from_real_rir: {RD_SIG_NUM} items of {DATA_T} s in "
+            f"{wall:.2f} s, {wall / RD_SIG_NUM:.4f} s/item, one process ({card})")
+        sim_t60 = ["--t60-range", *RD_SIM_T60, "--workers", cores]
+        _gen_tree(f"gen_simu --mode rir, T60 {RD_SIM_T60}, {cores} workers", "gen_simu", [
+            "--mode", "rir", "--stage", "train", "--data-num", str(RD_SIM_RIRS), "--save-dir",
+            simr, *sim_t60], RD_SIM_RIRS, card, tag="real_data")
+        _gen_tree(f"gen_simu --T 1.04, T60 {RD_SIM_T60}, {cores} workers", "gen_simu", [
+            "--stage", "train", "--data-num", str(RD_SIM_SIG_NUM), "--save-dir", simsig, "--T",
+            "1.04", *sim_t60], RD_SIM_SIG_NUM, card, tag="real_data")
+        loc = os.path.join(tmp, "locata_sig")
+        for stage, n in RD_LOCATA_NUM.items():
+            t0 = time.perf_counter()
+            _cli(["--data-dir", d["locata"], "--save-dir", os.path.join(loc, stage), "--stage",
+                  stage, "--num", str(n)], "gen_locata")
+            wall = time.perf_counter() - t0
+            ds = FixMicSigDatasetLOCATA(os.path.join(loc, stage), load_anno=True)
+            w, lab = ds[n - 1]
+            assert len(ds) == n and w.shape == (DS_NSAMPLE, 2), (stage, len(ds), w.shape)
+            assert abs(lab["TDOA"]) <= 0.2 / 343 + 1e-6, lab
+            log(f"[real_data] (a) gen_locata --stage {stage}: {n} items in {wall:.2f} s, "
+                f"{wall / n:.4f} s/item ({card})")
+
+        # (b) downstream from RIRs: T60 finetune cells, one a held-out room
+        pre = os.path.join(tmp, "pretrained")
+        os.makedirs(pre)
+        shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT, ckpt.best_path(pre))
+        spent = {"cell_epoch": []}
+        nbatch = int(RD_DS_NUMS[1]) // RD_DS_BATCH
+        rir_flags = ["--rir-dir", rirs, "--sim-rir-dir", simr, "--src-dir", d["src"],
+                     "--real-sim-ratio", "1", "1", "--rir-cv", "--real-exp", "--ds-task", "T60",
+                     "--T", DATA_T, *RD_DS_NUMS]
+        dbase = ["--ds-train", "--ds-trainmode", "finetune", "--lr-set", "1e-3", "--epochs", "1",
+                 "--pretrain-ckpt", pre, *rir_flags]
+        drawn = {}
+        for what, more in (("threads", ["--workers", "4"]),
+                           ("--mp-loader", ["--mp-loader", "--workers", cores])):
+            exp = os.path.join(tmp, "ds_rir_" + what.strip("-"))
+            waiter = _DataWait(cls=learner_mod.DownstreamLearner)
+            first = len(spent["cell_epoch"])
+            try:
+                out, counts, learners, wall = _ds_cli_run(
+                    f"(b) T60 from RIRs, {what}", dbase + more + ["--exp-dir", exp], spent, card)
+            finally:
+                waiter.undo()
+            n_rooms = len(RD_ROOMS)
+            assert f"cross-validation over {n_rooms} rooms -> {n_rooms} trials" in out
+            res = _read_results(exp)
+            assert sorted(res["cells"]) == [f"trial{t}_bs{RD_DS_BATCH}_lr0.001"
+                                            for t in range(len(RD_ROOMS))], res["cells"]
+            _check_ds_launches(f"(b) {what}", counts, _ds_train_steps(learners, nbatch),
+                               "finetune")
+            _add_counts(total, counts)
+            drawn[what] = waiter.batches
+            cells = spent["cell_epoch"][first:]
+            log(f"[real_data] (b) {what} ({more[-1]} workers): {len(cells)} cells, s per cell "
+                f"epoch {[round(c, 3) for c in cells]}, waiting on data {waiter.wait:.2f} s "
+                f"({waiter.wait / wall:.1%} of the wall {wall:.2f} s); test MAE "
+                f"{[round(r['test_mae'], 5) for r in res['cells'].values()]} ({card})")
+            if what == "threads":
+                cell = f"trial0_bs{RD_DS_BATCH}_lr0.001"
+                want = res["cells"][cell]["test_mae"]
+                keep_exp = exp
+            else:
+                shutil.rmtree(exp)
+        assert len(drawn["threads"]) == len(drawn["--mp-loader"]) == len(RD_ROOMS) * nbatch
+        assert all(torch.equal(a, b) for a, b in zip(drawn["threads"], drawn["--mp-loader"])), \
+            "--mp-loader drew other batches than the threads"
+        out_t, counts_t, _, wall_t = _ds_cli_run(
+            "(b) --ds-test", ["--ds-test", *rir_flags,
+                              "--ckpt", os.path.join(keep_exp, cell, "ckpt"),
+                              "--exp-dir", os.path.join(tmp, "ds_rir_test")], spent, card)
+        _check_ds_launches("(b) --ds-test", counts_t, 0, "finetune")
+        m = re.search(r"test \[T60\]: loss \S+ MAE (\S+)", out_t)
+        assert m and abs(float(m.group(1)) - want) <= TOL_DS_TEST * max(1.0, abs(want)), (
+            out_t, want)
+        shutil.rmtree(keep_exp)
+        log(f"[real_data] (b) --mp-loader drew the threads' batches bit for bit; --ds-test on "
+            f"{cell}: MAE {m.group(1)} against the grid's {want:.5f}, {wall_t:.2f} s ({card})")
+
+        # (c) downstream from real signals: TDOA, the LOCATA tree mixed 1:1
+        # with a simulated one
+        exp = os.path.join(tmp, "ds_sig")
+        waiter = _DataWait(cls=learner_mod.DownstreamLearner)
+        first = len(spent["cell_epoch"])
+        try:
+            out, counts, learners, wall = _ds_cli_run(
+                "(c) TDOA from real signals", [
+                    "--ds-train", "--real-exp", "--ds-task", "TDOA", "--real-sig-dir", loc,
+                    "--sim-sig-dir", simsig, "--real-sim-ratio", "1", "1", "--lr-set", "1e-3",
+                    "--epochs", "1", "--pretrain-ckpt", pre, "--workers", cores, *RD_DS_NUMS,
+                    "--exp-dir", exp], spent, card)
+        finally:
+            waiter.undo()
+        res = _read_results(exp)
+        _check_ds_launches("(c)", counts, _ds_train_steps(learners, nbatch), "finetune")
+        _add_counts(total, counts)
+        log(f"[real_data] (c) TDOA --real-sig-dir + --sim-sig-dir: cell epoch "
+            f"{[round(c, 3) for c in spent['cell_epoch'][first:]]} s, waiting on data "
+            f"{waiter.wait:.2f} s ({waiter.wait / wall:.1%} of the wall {wall:.2f} s); "
+            f"{res['cells']} ({card})")
+        assert len(FixMicSigDataset(simsig)) == RD_SIM_SIG_NUM
+        shutil.rmtree(exp)
+
+        # (d) pre-training from real corpora at the flagship width
+        exp = os.path.join(tmp, "pre_real")
+        argv = ["--pretrain", "--fused-attention", "--bs", str(BATCH), "--train-num",
+                str(CLI_TRAIN_NUM), "--val-num", str(CLI_VAL_NUM), "--epochs", "1",
+                "--real-corpora", f"AISHELL4={d['aishell4']}", f"AMI={d['ami']}",
+                "--remove-spkoverlap", "--real-data-dirs", d["four"], "--real-data-probs",
+                *RD_PROBS, "--workers", cores, "--exp-dir", exp]
+        nb_train, nb_val = CLI_TRAIN_NUM // BATCH, CLI_VAL_NUM // BATCH
+        counts, rows, utt, share = _data_pretrain_run(
+            "(d) --real-corpora AISHELL4 AMI --remove-spkoverlap --real-data-dirs", argv, card,
+            nb_train, nb_val, tag="real_data")
+        _add_counts(total, counts)
+        # the first rows drawn are the mixture's items 0.. of epoch 0
+        mix = _real_mixture(pretrain_parser().parse_args(argv), NSAMPLE)
+        for i in (0, 1, BATCH + 5):
+            item = mix.sample(np.random.default_rng((100, 0, 0, 0, i)))
+            got = rows[i // BATCH][i % BATCH].float().cpu().numpy()
+            assert np.array_equal(got, item[:got.shape[0]]), f"item {i} of the epoch differs"
+        log(f"[real_data] (d) epoch utt/s {utt} beside phase train's step alone "
+            f"{step_utt_s:.1f}; the host waited {share:.1%} of the wall inside next; items 0, "
+            f"1, {BATCH + 5} of the epoch equal the mixture's draws ({card})")
+        shutil.rmtree(exp)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -2557,10 +2869,12 @@ def main():
     phase_downstream_reference()
     dscli_counts = phase_downstream_cli(card)
     data_counts = phase_data_path(card, synthetic_utt_s)
+    real_counts = phase_real_data(card, step_utt_s)
     phase_model_options_reference()
     mo_counts, mo_shapes = phase_model_options(card)
     print(json.dumps(kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts,
-                                  opt_counts, dscli_counts, data_counts, mo_counts, mo_shapes)),
+                                  opt_counts, dscli_counts, data_counts, real_counts, mo_counts,
+                                  mo_shapes)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

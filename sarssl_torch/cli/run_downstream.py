@@ -16,7 +16,14 @@ Data: annotated wav trees or packed directories (``--data-dir``,
 ``cli/gen_simu_certain_room.py``, ``cli/pack_data.py``) carry every task's
 label; ``--room-trials`` trains trial t on the t-th block of rooms of a
 certain-room tree, ``--fixed-train-subset`` on a fixed per-trial draw of a
-packed split. ``--synthetic`` carries TDOA labels only.
+packed split. ``--synthetic`` carries TDOA labels only. Real data: speech of
+a speaker tree (``--src-dir``) convolved on the fly with extracted real RIRs
+(``--rir-dir``, ``cli/gen_real_rir.py``) and / or simulated ones
+(``--sim-rir-dir``, ``gen_simu --mode rir``), mixed by ``--real-sim-ratio``,
+with ``--rir-cv`` for leave-one-room-out trials and ``--mp-loader`` for a
+process pool; or a presaved real tree with ``train`` / ``val`` / ``test``
+subdirs (``--real-sig-dir``, ``cli/gen_locata.py``) mixed with a simulated
+one (``--sim-sig-dir``).
 
 Usage:
   python -m sarssl_torch.cli.run_downstream --ds-train --ds-task T60 --data-dir DATA \
@@ -32,7 +39,7 @@ parser holds every flag of the JAX CLI, with its default and ``dest``, so
 ``NotImplementedError`` when it is set. ``--grid-chunk``, ``--scan-block``,
 ``--time-budget`` and ``--trial-set`` act only under ``--grid-vmap``, so here
 they have no effect, as in the JAX CLI's sequential grid; ``--workers`` sets
-the wav-tree loader's threads.
+the loader's threads (its processes under ``--mp-loader``).
 """
 from __future__ import annotations
 
@@ -128,15 +135,27 @@ def build_parser():
                    help="validation data (default: --data-dir)")
     p.add_argument("--test-data-dir", type=str, default=None,
                    help="test data (default: --data-dir)")
-    for flag in ("--rir-dir", "--sim-rir-dir", "--src-dir"):
-        p.add_argument(flag, type=str, default=None, help=_NOT_PORTED)
-    p.add_argument("--rir-cv", action="store_true", help=_NOT_PORTED)
-    p.add_argument("--real-sig-dir", type=str, default=None, help=_NOT_PORTED)
-    p.add_argument("--sim-sig-dir", type=str, default=None, help=_NOT_PORTED)
+    p.add_argument("--rir-dir", type=str, default=None,
+                   help="extracted real-RIR tree (gen_real_rir): train on speech x RIR "
+                        "convolved on the fly")
+    p.add_argument("--sim-rir-dir", type=str, default=None,
+                   help="simulated-RIR tree (gen_simu --mode rir): the sim arm of the "
+                        "on-the-fly real / sim mixture")
+    p.add_argument("--src-dir", type=str, default=None,
+                   help="speaker-tree source corpus for --rir-dir / --sim-rir-dir")
+    p.add_argument("--rir-cv", action="store_true",
+                   help="leave-one-room-out cross-validation over the immediate "
+                        "subdirectories of --rir-dir: ntrial becomes the room count and "
+                        "each trial holds out one room for test and one for val")
+    p.add_argument("--real-sig-dir", type=str, default=None,
+                   help="presaved real wav tree with train/val/test subdirs (gen_locata); "
+                        "mixes with --sim-sig-dir per --real-sim-ratio")
+    p.add_argument("--sim-sig-dir", type=str, default=None,
+                   help="presaved simulated wav tree, the sim arm for --real-sig-dir")
     p.add_argument("--real-sim-ratio", type=int, nargs=2, default=(1, 1),
                    metavar=("REAL", "SIM"),
-                   help="training-arm mix of real and simulated data; here it only "
-                        "selects the --real-exp training count")
+                   help="training-arm mix: 1 0 real only, 0 1 sim only, 1 1 50/50; val/test "
+                        "always use the real arm when one exists")
     p.add_argument("--real-exp", action="store_true",
                    help="use the reference real-world grids: bs 16, "
                         "lr {1e-3,1e-4}, per-task training counts")
@@ -161,13 +180,16 @@ def build_parser():
                    help="packed dirs: train each trial on a fixed train-num-row subset of "
                         "the split instead of resampling the whole split every epoch")
     p.add_argument("--workers", type=int, default=4,
-                   help="wav-tree loader threads (the synthetic generator takes none)")
+                   help="loader threads, processes under --mp-loader (the synthetic generator "
+                        "takes none)")
     p.add_argument("--grid-vmap", action="store_true", help=_NOT_PORTED)
     p.add_argument("--grid-chunk", type=int, default=8, help="--grid-vmap only")
     p.add_argument("--trial-set", type=int, nargs="+", default=None, help="--grid-vmap only")
     p.add_argument("--scan-block", type=int, default=25, help="--grid-vmap only")
     p.add_argument("--time-budget", type=float, default=0, help="--grid-vmap only")
-    p.add_argument("--mp-loader", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--mp-loader", action="store_true",
+                   help="process-pool loader (--workers processes) for the on-the-fly RIR "
+                        "paths: the convolutions scale past the GIL")
     p.add_argument("--nmic", type=int, default=2,
                    help="microphone count; > 2 builds the multi-pair "
                         "SARSSLMultiCH head")
@@ -181,10 +203,7 @@ def build_parser():
 
 
 # flags whose path the port lacks, and what it waits for
-_REAL_DATA = "waits for the port of the real-data half of the data path"
 _UNPORTED = {
-    **{dest: _REAL_DATA for dest in ("rir_dir", "sim_rir_dir", "src_dir", "rir_cv",
-                                     "real_sig_dir", "sim_sig_dir", "mp_loader")},
     "grid_vmap": "waits for the port of the vmapped grid runner",
     "mesh": "the port runs on one card",
 }
@@ -195,13 +214,34 @@ def _check_ported(args, parser) -> None:
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: it {why}")
-    synthetic = args.synthetic or args.smoke  # --smoke runs on synthetic data
-    if not (synthetic or args.data_dir):
-        raise ValueError("no data source: pass --data-dir or --synthetic")
+    rirs = args.rir_dir or args.sim_rir_dir
+    # the JAX CLI's order of sources: a presaved real tree, then the RIR
+    # arms, then the synthetic pairs (--smoke runs on them), then --data-dir
+    synthetic = (args.synthetic or args.smoke) and not (args.real_sig_dir or rirs)
+    if not (synthetic or args.data_dir or args.real_sig_dir or rirs):
+        raise ValueError("no data source: pass --data-dir, --real-sig-dir, --rir-dir / "
+                         "--sim-rir-dir with --src-dir, or --synthetic")
     if synthetic and args.ds_task != "TDOA":
         raise ValueError(f"--ds-task {args.ds_task}: the synthetic data carries TDOA labels only")
+    ratio = tuple(int(r) for r in args.real_sim_ratio)
+    if args.real_sig_dir:
+        if ratio[1] and not args.sim_sig_dir:
+            raise ValueError("--real-sim-ratio includes a sim arm: pass --sim-sig-dir")
+        if not any(ratio):
+            raise ValueError("--real-sim-ratio 0 0 selects no training arm")
+    elif rirs:
+        if not args.src_dir:
+            raise ValueError("--rir-dir / --sim-rir-dir convolve the speech of --src-dir: "
+                             "pass it")
+        if not ((ratio[0] and args.rir_dir) or (ratio[1] and args.sim_rir_dir)):
+            raise ValueError(f"--real-sim-ratio excludes every provided RIR arm (ratio {ratio}, "
+                             f"rir_dir={bool(args.rir_dir)}, "
+                             f"sim_rir_dir={bool(args.sim_rir_dir)})")
+    if args.rir_cv and not args.rir_dir:
+        raise ValueError("--rir-cv needs --rir-dir")
     if args.room_trials:
-        if synthetic or not args.data_dir:
+        if (synthetic or not args.data_dir or rirs or args.real_sig_dir
+                or args.rir_cv):
             raise ValueError("--room-trials reads a certain-room corpus from --data-dir and "
                              "composes with no other data source")
         if not (args.val_data_dir and args.test_data_dir):
@@ -213,6 +253,23 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     _check_ported(args, parser)
+    with _loader_pool(args) as pool:
+        return _main(args, pool)
+
+
+def _loader_pool(args):
+    """--mp-loader on the on-the-fly RIR paths: one pool of --workers spawned
+    processes for the whole run (every cell, epoch and split), terminated
+    when the run ends."""
+    import contextlib
+    import multiprocessing as mp
+
+    if args.mp_loader and args.workers > 0 and (args.rir_dir or args.sim_rir_dir):
+        return mp.get_context("spawn").Pool(args.workers)
+    return contextlib.nullcontext()
+
+
+def _main(args, pool):
 
     from ..config import DownstreamConfig, real_ds_setting
     from ..data import (FixMicSigDataset, PackedDataset, SyntheticPairs, device_prefetch,
@@ -258,6 +315,10 @@ def main(argv=None):
         train_num = args.train_num or cfg.train_num
     if args.room_trials:
         ntrial = _room_trials(args, ntrial)
+    cv_splits = None
+    if args.rir_cv:
+        cv_splits = _rir_cv_splits(args)
+        ntrial = len(cv_splits)
 
     fs = 16000
     T = args.T or cfg.T
@@ -325,7 +386,12 @@ def main(argv=None):
         targets (per pair for the multi-pair model)."""
         num = {"train": train_num, "val": args.val_num, "test": args.test_num}[split]
         nbatch = max(1, num // bs)
-        if not args.synthetic:
+        if args.real_sig_dir:
+            it = _real_sig_batches(args, split, bs, seed, num, nsample)
+        elif args.rir_dir or args.sim_rir_dir:
+            it = _rir_batches(args, split, bs, seed, num, T, fs,
+                              cv_splits[trial][split] if cv_splits is not None else None, pool)
+        elif not args.synthetic:
             data_dir = {"train": args.data_dir, "val": args.val_data_dir or args.data_dir,
                         "test": args.test_data_dir or args.data_dir}[split]
             it = _file_batches(args, data_dir, split, bs, seed, trial, num, nsample)
@@ -443,6 +509,84 @@ def _room_trials(args, ntrial):
         raise ValueError(f"--ntrial {ntrial} x nsimroom {args.ds_nsimroom} needs "
                          f"{ntrial * args.ds_nsimroom} rooms, found {len(room_ids)}")
     return ntrial
+
+
+def _rir_cv_splits(args):
+    """--rir-cv: leave-one-room-out splits over the room subdirectories of
+    --rir-dir, a val room drawn from the rest of each (one trial a room)."""
+    from ..utils.metrics import cross_validation_datadirs
+
+    rooms = sorted(d for d in os.listdir(args.rir_dir)
+                   if os.path.isdir(os.path.join(args.rir_dir, d)))
+    if len(rooms) < 3:
+        raise ValueError(f"--rir-cv needs >= 3 room subdirs under {args.rir_dir}, found {rooms}")
+    splits = list(cross_validation_datadirs(rooms, with_val=True, seed=args.seed))
+    print(f"cross-validation over {len(rooms)} rooms -> {len(splits)} trials")
+    return splits
+
+
+def _real_sig_batches(args, split, bs, seed, num, nsample):
+    """Host batches of the presaved real / sim mixture: train draws from the
+    arms per --real-sim-ratio; val and test enumerate the real tree's split."""
+    from ..data import (FixMicSigDataset, FixMicSigDatasetLOCATA, RandomMixDataset, Selecting,
+                        batch_iterator)
+
+    ratio = tuple(int(r) for r in args.real_sim_ratio)
+    tr = [Selecting((0, nsample))]
+    arms, weights = [], []
+    if split == "train" and ratio[1]:
+        arms.append(FixMicSigDataset(args.sim_sig_dir, load_anno=True, transforms=tr))
+        weights.append(ratio[1])
+    if ratio[0] or split != "train":
+        arms.append(FixMicSigDatasetLOCATA(os.path.join(args.real_sig_dir, split),
+                                           load_anno=True, transforms=tr))
+        weights.append(ratio[0] if split == "train" else 1)
+    if len(arms) == 1 and split != "train":
+        # a fixed eval corpus: its first num files, in order
+        arms[0].data_paths = arms[0].data_paths[:num]
+        return batch_iterator(arms[0], bs, shuffle=False, num_workers=args.workers)
+    # train draws num items with replacement over the whole of each arm (the
+    # reference's randint per item), even from one arm
+    ds = RandomMixDataset(arms, length=num, seed=seed * 13 + 5, probs=weights)
+    return batch_iterator(ds, bs, shuffle=split == "train", seed=seed, num_workers=args.workers)
+
+
+def _rir_batches(args, split, bs, seed, num, T, fs, rooms, pool):
+    """Host batches of speech x RIR convolved on the fly: train from the real
+    and / or simulated arm per --real-sim-ratio, val and test from the real
+    arm when there is one; ``rooms`` limits the real arm (--rir-cv). Under
+    --mp-loader the items are made in the run's process ``pool``."""
+    from ..data import (MicSigFromRIRDataset, NpyRIRDataset, RandomMixDataset, SimRIRDataset,
+                        SpeakerTreeDataset, batch_iterator, mp_batch_iterator)
+
+    ratio = tuple(int(r) for r in args.real_sim_ratio)
+    srcs = SpeakerTreeDataset(args.src_dir, T=T, fs=fs)
+
+    def real_arm():
+        return MicSigFromRIRDataset(NpyRIRDataset(args.rir_dir, fs=fs, rooms=rooms), srcs, T=T,
+                                    fs=fs, seed=seed * 7 + 1, length=num)
+
+    def sim_arm():
+        return MicSigFromRIRDataset(SimRIRDataset(args.sim_rir_dir, fs=fs), srcs, T=T, fs=fs,
+                                    seed=seed * 7 + 2, length=num, noise_type="diffuse_white")
+
+    arms, weights = [], []
+    if split == "train":
+        if ratio[0] and args.rir_dir:
+            arms.append(real_arm())
+            weights.append(ratio[0])
+        if ratio[1] and args.sim_rir_dir:
+            arms.append(sim_arm())
+            weights.append(ratio[1])
+    else:
+        arms.append(real_arm() if args.rir_dir else sim_arm())
+        weights.append(1)
+    ds = (arms[0] if len(arms) == 1 else
+          RandomMixDataset(arms, length=num, seed=seed * 13 + 5, probs=weights))
+    if pool is not None:
+        return mp_batch_iterator(ds, bs, shuffle=split == "train", seed=seed,
+                                 num_workers=args.workers, pool=pool)
+    return batch_iterator(ds, bs, shuffle=split == "train", seed=seed, num_workers=args.workers)
 
 
 def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample):

@@ -11,7 +11,11 @@ Data: a generated wav tree or a packed directory (``--data-dir``,
 ``--val-data-dir``, ``--extra-val-dirs``; ``cli/gen_simu.py``,
 ``cli/pack_data.py``), a packed split staged on the card once
 (``--resident``, f32 or int16), the on-card synthesizer (``--device-synth``,
-``data/device_synth.py``) or the host's synthetic pairs (``--synthetic``).
+``data/device_synth.py``), the host's synthetic pairs (``--synthetic``), or
+real recordings: corpora in their published layouts (``--real-corpora
+NAME=DIR``, ``data/corpora.py``; ``--remove-spkoverlap`` keeps the TextGrid
+corpora's single-speaker windows) and plain multichannel wav trees
+(``--real-data-dirs``), mixed by ``--real-data-probs``.
 
 Usage:
   python -m sarssl_torch.cli.run_pretrain --pretrain --data-dir DATA --fused-attention
@@ -74,11 +78,15 @@ def build_parser():
     p.add_argument("--init-ckpt", type=str, default=None,
                    help="checkpoint dir to initialize from (best_model)")
     p.add_argument("--real-data-dirs", type=str, nargs="+", default=None,
-                   help="not ported yet")
-    p.add_argument("--real-corpora", type=str, nargs="+", default=None, help="not ported yet")
+                   help="multichannel real-recording wav trees mixed into pretraining")
+    p.add_argument("--real-corpora", type=str, nargs="+", default=None,
+                   help="NAME=DIR entries read by the corpus readers of data/corpora.py "
+                        "(RealMAN, LOCATA, MCWSJ, LibriCSS, AMI, AISHELL4, M2MeT, CHiME3)")
     p.add_argument("--real-data-probs", type=float, nargs="+", default=None,
-                   help="not ported yet")
-    p.add_argument("--remove-spkoverlap", action="store_true", help="not ported yet")
+                   help="mixing probabilities over --real-corpora then --real-data-dirs")
+    p.add_argument("--remove-spkoverlap", action="store_true",
+                   help="TextGrid corpora (AISHELL4, M2MeT): crop only single-speaker "
+                        "windows")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--resume-from-best", action="store_true",
                    help="resume from best_model instead of latest")
@@ -99,22 +107,31 @@ def build_parser():
 
 
 # flags whose path the port lacks, and what it waits for
-_REAL_DATA = "waits for the port of the real-data half of the data path"
-_UNPORTED = {
-    "real_data_dirs": _REAL_DATA, "real_corpora": _REAL_DATA, "real_data_probs": _REAL_DATA,
-    "remove_spkoverlap": _REAL_DATA, "mesh": "the port runs on one card",
-}
+_UNPORTED = {"mesh": "the port runs on one card"}
 
 
 def _check_ported(args, parser) -> None:
+    from ..data import REAL_CORPORA
+
     for dest, why in _UNPORTED.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: it {why}")
-    if not (args.synthetic or args.smoke or args.device_synth or args.data_dir):
-        raise ValueError("no data source: pass --data-dir, --device-synth or --synthetic")
+    real = args.real_corpora or args.real_data_dirs
+    if not (args.synthetic or args.smoke or args.device_synth or args.data_dir or real):
+        raise ValueError("no data source: pass --data-dir, --device-synth, --real-corpora, "
+                         "--real-data-dirs or --synthetic")
+    for entry in args.real_corpora or ():
+        name, eq, _ = entry.partition("=")
+        if eq != "=" or name not in REAL_CORPORA:
+            raise ValueError(f"--real-corpora entries are NAME=DIR with NAME one of "
+                             f"{sorted(REAL_CORPORA)}: {entry}")
+    nreal = len(args.real_corpora or ()) + len(args.real_data_dirs or ())
+    if args.real_data_probs is not None and len(args.real_data_probs) != nreal:
+        raise ValueError(f"--real-data-probs has {len(args.real_data_probs)} values for "
+                         f"{nreal} real corpora and dirs")
     if args.resident:
-        if args.device_synth or args.synthetic:
+        if args.device_synth or args.synthetic or real:
             raise ValueError("--resident needs a packed --data-dir corpus")
         if args.resident_num is not None and args.resident_num <= 0:
             raise ValueError(f"--resident-num must be positive, not {args.resident_num}")
@@ -126,7 +143,8 @@ def main(argv=None):
     _check_ported(args, parser)
 
     from ..config import AcousticSetting
-    from ..data import DeviceSynthConfig, SyntheticPairs, device_prefetch, synth_batch_device
+    from ..data import (DeviceSynthConfig, SyntheticPairs, batch_iterator, device_prefetch,
+                        synth_batch_device)
     from ..models import SARSSL, SARSSLConfig
     from ..ops import FeatureConfig
     from ..train import (PretrainLearner, cosine_schedule, create_train_state,
@@ -222,6 +240,9 @@ def main(argv=None):
               f"({os.path.basename(resume_path)})")
 
     resident = _stage_resident(args, nsample, dev) if args.resident else None
+    # the real-corpus mixture is built once (its item tables probe only the
+    # files' headers); an epoch only reseeds the draws
+    real_mix = _real_mixture(args, nsample) if args.real_corpora or args.real_data_dirs else None
 
     def batches(split, epoch):
         train = split == "train"
@@ -241,7 +262,14 @@ def main(argv=None):
             ep = epoch if train else 1_000_000
             return (synth_batch_device(batch_generator(args.seed, "data", ep, i, dev),
                                        args.bs, dcfg, dev)[0] for i in range(nbatch))
-        if args.synthetic:
+        if real_mix is not None:
+            # item i of an epoch from its own generator (thread-safe); val is
+            # one fixed set across epochs
+            base = (args.seed, 0, epoch, 0) if train else (args.seed, 1, 0)
+            it = batch_iterator(_RealEpoch(real_mix, base, args.train_num if train
+                                           else args.val_num), args.bs,
+                                shuffle=False, num_workers=args.workers)
+        elif args.synthetic:
             # val reads one fixed set across epochs
             it = SyntheticPairs(nsample=nsample, seed=args.seed + epoch if train else 1
                                 ).batches(args.bs, nbatch)
@@ -285,6 +313,38 @@ def main(argv=None):
               f"(loss {h['train_loss'][0]:.4f} -> {h['train_loss'][-1]:.4f})")
         return 0 if ok else 1
     return 0
+
+
+def _real_mixture(args, nsample):
+    """The probability mixture over --real-corpora (the corpus readers, their
+    train stage) and --real-data-dirs (plain multichannel wav trees)."""
+    from ..data import REAL_CORPORA, CorpusSpec, RandomRealDataset, RealMicSigDataset
+
+    T = nsample / 16000
+    sets = []
+    for entry in args.real_corpora or ():
+        name, _, d = entry.partition("=")
+        sets.append(REAL_CORPORA[name](d, T=T, fs=16000, stage="train", seed=args.seed,
+                                       remove_spkoverlap=args.remove_spkoverlap))
+    for d in args.real_data_dirs or ():
+        sets.append(RealMicSigDataset(d, CorpusSpec(os.path.basename(d)), T=T, fs=16000,
+                                      seed=args.seed))
+    return RandomRealDataset(sets, probs=args.real_data_probs, seed=args.seed)
+
+
+class _RealEpoch:
+    """``num`` items of the real mixture, item i drawn by the generator seeded
+    ``base + (i,)``: a pure function of i, so the loader's threads cannot
+    change what an epoch holds."""
+
+    def __init__(self, mix, base, num):
+        self.mix, self.base, self.num = mix, tuple(base), num
+
+    def __len__(self):
+        return self.num
+
+    def __getitem__(self, i):
+        return self.mix.sample(np.random.default_rng(self.base + (int(i),)))
 
 
 def _file_batches(data_dir, num, bs, shuffle, seed, nsample, workers):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import pickle
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -225,32 +226,48 @@ def collate_items(items):
     return np.stack(items)
 
 
-_MP_DATASET = None
+# worker side of mp_batch_iterator: {path: dataset} of the last dataset file
+# this worker loaded
+_MP_CACHE: dict = {}
 
 
-def _mp_init(dataset):
-    global _MP_DATASET
-    _MP_DATASET = dataset
-
-
-def _mp_fetch(idx):
-    return _MP_DATASET[int(idx)]
+def _mp_fetch(task):
+    path, idx = task
+    dataset = _MP_CACHE.get(path)
+    if dataset is None:
+        with open(path, "rb") as f:
+            dataset = pickle.load(f)
+        _MP_CACHE.clear()
+        _MP_CACHE[path] = dataset
+    return dataset[int(idx)]
 
 
 def mp_batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                       seed: int = 0, drop_last: bool = True,
-                      num_workers: int = 4, prefetch_batches: int = 4) -> Iterator:
+                      num_workers: int = 4, prefetch_batches: int = 4,
+                      pool=None) -> Iterator:
     """Process-pool batch iterator for CPU-bound per-index datasets.
 
     ``batch_iterator``'s thread pool cannot scale item *synthesis* (scene
     generation, speech x RIR convolution) under the GIL; this is the
-    torch-DataLoader(num_workers=N) replacement for those datasets. The
-    dataset is pickled ONCE per spawned worker (initializer), then only
-    integer indices and finished items cross the pipe. Requires the
-    repo-wide per-index-purity convention: dataset[i] must be a pure
+    torch-DataLoader(num_workers=N) replacement for those datasets. Requires
+    the repo-wide per-index-purity convention: dataset[i] must be a pure
     function of i, so worker assignment cannot change the data.
+
+    The dataset is pickled once per call into a file of its own, which each
+    worker loads once at its first task of the call; a task then carries that
+    file's path and an index, and only finished items cross back. So the
+    speaker and RIR path lists of a large corpus cross the pipe once a worker
+    and call, not once an item.
+
+    ``pool``: a spawned process pool to reuse (``num_workers`` is then its
+    size), so one pool serves every epoch and split of a run; without it the
+    call spawns a pool of its own, whose workers each import torch again. The
+    batches are the same either way.
     """
     import multiprocessing as mp
+    import tempfile
+    import uuid
 
     n = len(dataset)
     order = np.arange(n)
@@ -261,22 +278,31 @@ def mp_batch_iterator(dataset, batch_size: int, shuffle: bool = True,
     batches = [order[s: s + batch_size]
                for s in range(0, len(order), batch_size)
                if len(order[s: s + batch_size]) == batch_size or not drop_last]
-    collate = collate_items
 
-    ctx = mp.get_context("spawn")
-    with ctx.Pool(num_workers, initializer=_mp_init,
-                  initargs=(dataset,)) as pool:
+    path = os.path.join(tempfile.gettempdir(), f"sarssl_loader_{uuid.uuid4().hex}.pkl")
+    with open(path, "xb") as f:
+        pickle.dump(dataset, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def submit(batch):
+        return workers.map_async(_mp_fetch, [(path, int(i)) for i in batch])
+
+    own = None if pool is not None else mp.get_context("spawn").Pool(num_workers)
+    workers = pool if own is None else own
+    try:
         pending: List = []
         it = iter(batches)
         for _ in range(prefetch_batches):
             b = next(it, None)
             if b is None:
                 break
-            pending.append(pool.map_async(_mp_fetch, [int(i) for i in b]))
+            pending.append(submit(b))
         while pending:
             items = pending.pop(0).get()
             b = next(it, None)
             if b is not None:
-                pending.append(pool.map_async(_mp_fetch,
-                                              [int(i) for i in b]))
-            yield collate(items)
+                pending.append(submit(b))
+            yield collate_items(items)
+    finally:
+        if own is not None:
+            own.terminate()
+        os.unlink(path)

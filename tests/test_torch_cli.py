@@ -108,8 +108,7 @@ def test_init_ckpt_reads_a_jax_directory(tmp_path, capsys):
     assert f"partial_load: {n}/{n} keys loaded" in capsys.readouterr().out
 
 
-UNPORTED = [["--real-data-dirs", "d"], ["--real-corpora", "AMI=d"], ["--real-data-probs", "1"],
-            ["--remove-spkoverlap"], ["--mesh", "1x1"]]
+UNPORTED = [["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])

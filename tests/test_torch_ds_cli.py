@@ -258,9 +258,7 @@ def test_results_reader_equals_jax_on_committed_grids(capsys):
     assert capsys.readouterr().out == want
 
 
-UNPORTED = [["--rir-dir", "d"], ["--sim-rir-dir", "d"], ["--src-dir", "d"], ["--rir-cv"],
-            ["--real-sig-dir", "d"], ["--sim-sig-dir", "d"], ["--mp-loader"], ["--grid-vmap"],
-            ["--mesh", "1x1"]]
+UNPORTED = [["--grid-vmap"], ["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[" ".join(f) for f in UNPORTED])

@@ -281,6 +281,51 @@ def test_downstream_step_on_card_matches_cpu(cuda):
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"]), losses
 
 
+def test_downstream_step_on_rir_data_on_card_matches_cpu(cuda, tmp_path):
+    """A batch of speech x real RIR (``MicSigFromRIRDataset``, recorded noise
+    mixed in) through one T60 finetune step, dropout 0.1, same seeds: card
+    (kernels) against CPU."""
+    import numpy as np
+
+    from sarssl_torch.data import (MicSigFromRIRDataset, NpyRIRDataset, SpeakerTreeDataset,
+                                   batch_iterator, write_wav)
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import create_train_state, make_downstream_step
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "src" / "s1").mkdir(parents=True)
+    write_wav(str(tmp_path / "src" / "s1" / "u.wav"),
+              (rng.standard_normal((4000, 1)) * 0.1).astype(np.float32), 16000)
+    room = tmp_path / "rirs" / "R1" / "A"
+    room.mkdir(parents=True)
+    for s in range(2):
+        rir = rng.standard_normal((800, 2)) * 0.05 * np.exp(-np.arange(800) / 200)[:, None]
+        rir[40 + s, 0] = rir[43, 1] = 1.0
+        np.save(room / f"SP{s}_MP1-1-2.npy", rir.astype(np.float32).T[None, :, :, None])
+        np.savez(room / f"SP{s}_MP1-1-2_info.npz", T60=0.3 + 0.2 * s, fs=16000)
+    write_wav(str(room / "_MP1-1-2_Ambient.wav"),
+              (rng.standard_normal((3000, 2)) * 0.01).astype(np.float32), 16000)
+    nsample = 15 * 64 + 128
+    ds = MicSigFromRIRDataset(NpyRIRDataset(str(tmp_path / "rirs")),
+                              SpeakerTreeDataset(str(tmp_path / "src"), T=nsample / 16000),
+                              T=nsample / 16000, seed=3, length=4)
+    wave, annos = next(batch_iterator(ds, 4, seed=1))
+    assert wave.shape == (4, nsample, 2)
+    cfg = SARSSLConfig().tiny(sig_shape=(64, 16, 2, 2), patch_shape=(64, 1), spec_dembed=64,
+                              spat_dembed=32, dropout=0.1, pretrain=False)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = SARSSL(cfg, device=dev, seed=1)
+        step = make_downstream_step(model, FeatureConfig(win_len=128, nfft=128), task="T60",
+                                    device=dev)
+        out = step(create_train_state(model), wave, annos["T60"], 1e-3,
+                   torch.Generator().manual_seed(2))
+        losses[dev] = float(out["loss"])
+    assert np.isfinite(losses["cpu"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"]), losses
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 2, 64, 16, device="cuda")
     bias = torch.randn(2, 2, 64, 64, device="cuda")
