@@ -27,7 +27,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               case (FMA kernel), then drives ``conv3x3`` / ``conv3x3_s2d``
               forward and backward once with the launch counts zeroed before
               and read after: the convs are on no model path, so that is
-              their path.
+              their path. The lane-seeded dropout (one seed a lane, under
+              ``torch.func.vmap``) against vmapped ``dropout_plain``, output,
+              mask and gradient exactly, at the grid's largest dropout shape
+              (8 lanes, f32; timed, queued behind a sleeping kernel, beside
+              its bound and ``F.dropout``) and on 8 bf16 lanes past 2**31
+              elements.
   4. ref    : a small pretext model on the card (kernels) against the same
               model on the CPU (plain versions), dropout on, same seeds.
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
@@ -76,7 +81,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
               vis_embed`` on a cell of (a) (the t-SNE's inputs caught). The
               host's synthetic batches and checkpoint writes are timed, every
               call caught.
- 10. data_path: the simulated-data path at the flagship widths, each CLI call
+ 10. grid_vmap: the vmapped downstream grid through ``run_downstream
+              --grid-vmap`` at the flagship width (f32, TDOA, batch 8) from the
+              committed trained checkpoint, each call with the launch counts
+              zeroed before and asserted exactly after: (a) the reference's
+              simulated grid, 4 lr x 4 trials = 16 cells in two chunks of 8
+              lanes, 2 epochs of 64 / 32 / 32 rows, --scan-block 4: seconds
+              per grid epoch, each chunk's first pass, the peak GiB of a chunk;
+              (b) the same grid without --grid-vmap (per-cell val and test MAE
+              of the two held together, TOL_GRID; seconds per grid epoch and
+              the ratio); (c) a lineareval chunk of 8 lanes (every ensemble's
+              encoders bit-identical to the checkpoint's); (d) a resident
+              packed run from a small gen_simu tree; (e) one vmapped step of 8
+              lanes timed beside a sequential step, then profiled (device ms,
+              busy share, the longest kernels). hash_dropout_lanes 56 a
+              finetune and 28 a lineareval vmapped step, no unbatched dropout.
+ 11. data_path: the simulated-data path at the flagship widths, each CLI call
               with the launch counts zeroed before and asserted exactly after:
               (a) ``gen_simu`` writes a 256-item 4.112 s pre-training tree on a
               worker per host core, small val / test trees and a 2-room
@@ -99,7 +119,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               --ds-nsimroom 2`` on the certain-room tree and
               ``--fixed-train-subset`` on the packed dir (hash_dropout 56 a
               finetune step).
- 11. real_data: the real-data path at the flagship widths on synthetic trees
+ 12. real_data: the real-data path at the flagship widths on synthetic trees
               in each corpus's on-disk layout, each CLI call with the launch
               counts zeroed before and asserted exactly after: (a) on the host,
               ``gen_real_rir --corpus ACE`` on a 3-room ACE tree (s a pair RIR),
@@ -117,7 +137,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               AISHELL4 (``--remove-spkoverlap``) and AMI, ``--real-data-dirs``
               and ``--real-data-probs``: epoch utt/s, the host's share, and the
               rows drawn against the mixture's draws.
- 12. model_options: the model's options, first each on a small model card
+ 13. model_options: the model's options, first each on a small model card
               against CPU (dropout on, same seeds), then at the flagship
               pretext width (bf16, batch 128, fused attention, dropout 0.1),
               each variant one warm-up and 3 timed steps through
@@ -259,6 +279,31 @@ DS_DATA_NUMS = ("--train-num", "32", "--val-num", "16", "--test-num", "16")
 # the same cell: the same weights and batches on the same card
 TOL_DS_TEST = 1e-4
 
+# grid_vmap: the reference's simulated grid, SIM_LR_SET x 4 trials = 16 cells in
+# two chunks of --grid-chunk 8 lanes, 2 epochs of 64 / 32 / 32 rows (8 train
+# steps a cell epoch) in blocks of --scan-block 4, from the committed trained
+# checkpoint; then the same grid without --grid-vmap in the same call
+GRID_LRS = ("1e-3", "5e-4", "1e-4", "5e-5")
+GRID_TRIALS = 4
+GRID_CHUNK = 8
+GRID_EPOCHS = 2
+GRID_SCAN = 4
+# a lineareval chunk (2 trials x the 4 lr, 1 epoch) and a resident packed run
+# from a small gen_simu tree (1.04 s items; 2 trials x 2 lr, 1 epoch)
+GRID_LIN_TRIALS = 2
+GRID_RES_NUM, GRID_RES_EVAL_NUM = 64, 16
+# per-cell val and test MAE, the vmapped grid against the sequential one on
+# the same data, generators and masks, relative: the grouped convolutions and
+# the lanes' batched products round otherwise than one cell's, and 2 epochs of
+# 8 Adam steps at lr up to 1e-3 carry that into the weights (worst read 1.2e-3
+# on an H100, 2.3e-4 on a CPU; tests/test_torch_grid_cli.py states the same)
+TOL_GRID = 1e-2
+# the lane-seeded dropout kernel: the grid's largest dropout shape (the spec
+# encoder's feed-forward hidden, batch 8 x 64 frames x 2048) on 8 lanes, f32;
+# and 8 bf16 lanes of 2**28 + 4096 elements, whose flat index passes 2**31
+GRID_DROP_SHAPE = (GRID_CHUNK, DS_BATCH, DS_FRAMES, 4 * 512)
+GRID_DROP_BIG = (GRID_CHUNK, 2 ** 28 + 4096)
+
 # real_data: an ACE-layout corpus (3 rooms x Chromebook (2 mics) and Mobile
 # (3 mics) x 2 array positions, 48 kHz, its T60 / DRR CSV), a WSJ0-style
 # speaker tree, a LOCATA layout (dicit and benchmark2 in 'eval', dicit in
@@ -373,6 +418,23 @@ def report_tensor_core_kernels(source, ptxas_log):
             log(f"  {source} {label}: {regs} registers, no spills, {stack} B stack, {smem} B "
                 f"shared memory, {threads} threads -> {blocks} blocks/SM")
             kernel = None
+
+
+def cuda_ms_queued(fn, iters=20, warmup=3):
+    """Device ms a call of ``fn`` with the launches queued behind a sleeping
+    kernel, so the host's launch time (tens of microseconds for a Triton
+    launch) does not gap a kernel shorter than it."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -582,6 +644,67 @@ def check_dropout(seed, gen):
         "plain_ms": cuda_ms(lambda: dropout_plain(x, seed, RATE)),
         "library_ms": cuda_ms(lambda: torch.nn.functional.dropout(x, RATE, True)),
         "bound": bound_ms(2 * n * 2, 10 * n, F32_FLOPS),
+    }
+
+
+def check_dropout_lanes(gen):
+    """The lane-seeded kernel (one seed a lane, as ``jax.vmap`` of
+    ``fused_dropout``): ``hash_dropout`` under ``torch.func.vmap`` (its vmap
+    rule, forward and gradient) and the bare launch, against ``dropout_plain``
+    vmapped over the same lanes and seeds, bit for bit: at the grid's largest
+    dropout shape (8 lanes, f32), timed there; and on 8 bf16 lanes whose flat
+    index passes 2**31 (held against the plain version two lanes at a time)."""
+    from torch.func import vmap
+
+    from sarssl_torch.kernels import dropout_plain, hash_dropout
+    from sarssl_torch.kernels.dropout import launch_dropout_lanes
+
+    plain = vmap(dropout_plain, in_dims=(0, 0, None))
+    err = 0.0
+    for shape, dtype, step in ((GRID_DROP_SHAPE, torch.float32, GRID_CHUNK),
+                               (GRID_DROP_BIG, torch.bfloat16, 2)):
+        seeds = torch.randint(0, 2 ** 32, (shape[0],), dtype=torch.int64, device="cuda",
+                              generator=gen)
+        seeds[0] = 0x9E3779B9  # above 2**31: the unsigned paths
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn_like(x)
+        xr = x.clone().requires_grad_()
+        out = vmap(hash_dropout, in_dims=(0, 0, None))(xr, seeds, RATE)
+        (grad,) = torch.autograd.grad(out, xr, g)
+        del xr
+        bare = launch_dropout_lanes(x, seeds, RATE)
+        what = f"dropout lanes {shape} {str(dtype)[6:]}"
+        for i in range(0, shape[0], step):
+            sl = slice(i, i + step)
+            ref, ref_grad = plain(x[sl], seeds[sl], RATE), plain(g[sl], seeds[sl], RATE)
+            assert torch.equal(out[sl], ref), f"{what}: lanes {i}+: output differs from plain"
+            assert torch.equal(bare[sl], ref), f"{what}: lanes {i}+: the bare launch differs"
+            assert torch.equal(out[sl] != 0, ref != 0), f"{what}: lanes {i}+: masks differ"
+            assert torch.equal(grad[sl], ref_grad), f"{what}: lanes {i}+: gradient differs"
+            err = max(err, max_abs(out[sl], ref), max_abs(grad[sl], ref_grad))
+            del ref, ref_grad
+        # the lanes differ from one another: each hashed its own seed
+        assert not torch.equal(out[0] != 0, out[1] != 0), f"{what}: two lanes share a mask"
+        log(f"[kernels] hash_dropout_lanes {shape} {str(dtype)[6:]} rate={RATE} "
+            f"({x.numel()} elements{', past 2**31' if x.numel() > 2 ** 31 else ''}): output, "
+            f"mask and gradient under vmap and the bare launch identical to vmapped "
+            f"dropout_plain (tol: exact)")
+        del x, g, out, grad, bare
+        torch.cuda.empty_cache()
+    x = torch.randn(GRID_DROP_SHAPE, generator=gen, device="cuda")
+    seeds = torch.randint(0, 2 ** 32, (GRID_CHUNK,), dtype=torch.int64, device="cuda",
+                          generator=gen)
+    n = x.numel()
+    # the kernel lasts about as long as the host takes to launch it: time it
+    # (and its yardsticks) queued, and also back to back as the other rows
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms_queued(lambda: launch_dropout_lanes(x, seeds, RATE)),
+        "launch_ms": cuda_ms(lambda: launch_dropout_lanes(x, seeds, RATE)),
+        "plain_ms": cuda_ms_queued(lambda: plain(x, seeds, RATE)),
+        "library_ms": cuda_ms_queued(lambda: torch.nn.functional.dropout(x, RATE, True)),
+        # one read and one write of each f32 element (and the 8 seeds)
+        "bound": bound_ms(2 * n * 4 + 8 * GRID_CHUNK, 10 * n, F32_FLOPS),
     }
 
 
@@ -808,12 +931,17 @@ def phase_kernels():
     drop = check_dropout(seed, gen)
     log(f"[kernels] hash_dropout: {drop['ms']:.4f} ms (plain {drop['plain_ms']:.4f}, "
         f"F.dropout {drop['library_ms']:.4f}, bound {drop['bound'][0]:.4f})")
+    lanes = check_dropout_lanes(gen)
+    log(f"[kernels] hash_dropout_lanes {GRID_DROP_SHAPE} f32: {lanes['ms']:.4f} ms queued, "
+        f"{lanes['launch_ms']:.4f} ms back to back (vmapped "
+        f"plain {lanes['plain_ms']:.4f}, F.dropout {lanes['library_ms']:.4f}, bound "
+        f"{lanes['bound'][0]:.4f})")
     conv = check_conv(gen)
-    return rows, opt_rows, drop, conv
+    return rows, opt_rows, drop, lanes, conv
 
 
-def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_counts,
-                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes):
+def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
+                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -841,6 +969,7 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
                 "launches_real_data": real_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_downstream_cli": dscli_counts.get(f"attention_{kind}_d{D}", 0),
                 "launches_model_options": mo_counts.get(f"attention_{kind}_tc_d{D}", 0),
+                "launches_grid_vmap": grid_counts.get(f"attention_{kind}_d{D}", 0),
             })
     for (L, D, dtype), r in opt_rows.items():
         for kind, line in (("fwd", 100), ("bwd", 128)):
@@ -883,6 +1012,21 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
         "launches_data_path": data_counts.get("hash_dropout", 0),
         "launches_real_data": real_counts.get("hash_dropout", 0),
         "launches_model_options": mo_counts.get("hash_dropout", 0),
+        "launches_grid_vmap": grid_counts.get("hash_dropout", 0),
+    })
+    out.append({
+        "name": "hash_dropout_lanes", "route": "triton",
+        "source": "sarssl_torch/kernels/dropout.py",
+        "replaces": "sarssl_tpu/kernels/dropout.py:40",
+        "launches": grid_counts.get("hash_dropout_lanes", 0),
+        "max_abs_err": lanes["max_abs_err"], "ms": lanes["ms"], "launch_ms": lanes["launch_ms"],
+        "plain_ms": lanes["plain_ms"],
+        "bound_ms": lanes["bound"][0], "bound_by": lanes["bound"][1],
+        "library_ms": lanes["library_ms"],
+        "path": "every dropout site of the vmapped downstream grid (run_downstream "
+                "--grid-vmap: finetune, lineareval, resident packed data; launches), one seed a "
+                "lane; timed at (8, 8, 64, 2048) f32",
+        "launches_grid_vmap": grid_counts.get("hash_dropout_lanes", 0),
     })
     for name in CONV_LAUNCHES:
         r = conv[name]
@@ -901,6 +1045,7 @@ def kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts, opt_
             "launches_data_path": data_counts.get(name, 0),
             "launches_real_data": real_counts.get(name, 0),
             "launches_model_options": mo_counts.get(name, 0),
+            "launches_grid_vmap": grid_counts.get(name, 0),
         })
     return {"kernels": out}
 
@@ -2852,6 +2997,292 @@ def phase_real_data(card, step_utt_s):
     return total
 
 
+def _grid_cli_run(what, argv, card):
+    """One ``run_downstream --grid-vmap`` call with the launch counts zeroed
+    before and read after, its runners caught and each chunk's epochs timed
+    (``train_epoch`` to ``end_epoch``, the card synchronised), the peak device
+    memory taken; returns (output, counts, runners, [(chunk, epoch, s)], wall,
+    peak GiB)."""
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.train import grid
+
+    cls = grid.VmappedGridRunner
+    runners, started, epochs = [], {}, []
+    saved = {k: getattr(cls, k) for k in ("train_epoch", "train_epoch_resident", "end_epoch")}
+
+    def start(name):
+        def run(self, *a, **k):
+            if self not in runners:
+                runners.append(self)
+            torch.cuda.synchronize()
+            started[id(self)] = time.perf_counter()
+            return saved[name](self, *a, **k)
+        return run
+
+    def end(self, *a, **k):
+        out = saved["end_epoch"](self, *a, **k)
+        torch.cuda.synchronize()
+        epochs.append((runners.index(self), self.epoch - 1,
+                       time.perf_counter() - started.pop(id(self))))
+        return out
+
+    cls.train_epoch, cls.train_epoch_resident = start("train_epoch"), start("train_epoch_resident")
+    cls.end_epoch = end
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = _cli(argv, "run_downstream")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for k, v in saved.items():
+            setattr(cls, k, v)
+    assert "device cuda" in out, f"{what}: the CLI did not report its device"
+    log(f"[grid_vmap] {what}: wall {wall:.2f} s, peak {peak:.2f} GiB, launches {counts} ({card})")
+    return out, counts, runners, epochs, wall, peak
+
+
+def _check_grid_launches(what, counts, runners, nbatch, kind):
+    """hash_dropout_lanes exactly DS_DROPOUT_PER_STEP[kind] a vmapped step
+    (each site once for all lanes, forward and backward), no unbatched
+    dropout and no other kernel inside the vmapped run."""
+    steps = sum(r.epoch for r in runners) * nbatch
+    want = DS_DROPOUT_PER_STEP[kind] * steps
+    assert counts.get("hash_dropout_lanes", 0) == want, (
+        f"{what}: hash_dropout_lanes {counts.get('hash_dropout_lanes', 0)} launches, want {want} "
+        f"({DS_DROPOUT_PER_STEP[kind]} x {steps} vmapped steps)")
+    assert set(counts) == {"hash_dropout_lanes"}, f"{what}: other launches {counts}"
+    return steps
+
+
+def _grid_results(exp, cells, truncated=False):
+    from sarssl_torch.utils.results import read_results
+    res = read_results(exp)
+    assert set(res) == {"task", "mode", "cells", "summary", "best", "best_test_mae"}, set(res)
+    assert sorted(res["cells"]) == sorted(cells), sorted(res["cells"])
+    for cell, r in res["cells"].items():
+        assert set(r) == {"val_mae", "test_mae", "lr", "bs", "trial", "epochs_run",
+                          "truncated"}, r
+        assert np.isfinite([r["val_mae"], r["test_mae"]]).all() and r["truncated"] == truncated
+        assert os.listdir(os.path.join(exp, cell, "ckpt")) == ["ensemble_model.msgpack"], cell
+    return res
+
+
+def _grid_step_profile(card, steps=3):
+    """One vmapped finetune step of GRID_CHUNK lanes at the flagship width
+    (f32, batch 8, 1.04 s, dropout 0.1, random weights), timed (median of
+    ``steps`` after 2 warm-ups, each synchronised) beside one sequential step
+    of the same model, then profiled: device ms a step, the busy share and
+    the kernels that take the most device time."""
+    from collections import defaultdict
+
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.train import VmappedGridRunner, create_train_state, make_downstream_step
+
+    model = SARSSL(SARSSLConfig(sig_shape=(256, DS_FRAMES, 2, 2), pretrain=False),
+                   device="cuda", seed=DSCLI_SEED)
+    wave, tdoa = synth_batch(np.random.default_rng(0), DS_BATCH, DS_NSAMPLE)
+    wave, gt = torch.from_numpy(wave).cuda(), torch.from_numpy(tdoa / 16000.0).cuda()
+    step = make_downstream_step(model, FeatureConfig(), "TDOA", device="cuda")
+    state = create_train_state(model)
+    gen = torch.Generator().manual_seed(0)
+    runner = VmappedGridRunner(model, FeatureConfig(), [create_train_state(model)] * GRID_CHUNK,
+                               [(0, float(lr)) for lr in GRID_LRS * 2], scan_block=1,
+                               lane_slots=[0] * GRID_CHUNK, device="cuda")
+    gens = [torch.Generator().manual_seed(1) for _ in range(GRID_CHUNK)]
+    lrs = runner._lrs()
+
+    def vstep():
+        runner.train_block(runner.states, gens, wave[None, None], gt[None, None], lrs)
+
+    out = {}
+    for what, fn in (("sequential", lambda: step(state, wave, gt, DS_LR, gen)),
+                     ("vmapped", vstep)):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[what] = statistics.median(times) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            vstep()
+        torch.cuda.synchronize()
+    per_kernel, counts = defaultdict(float), defaultdict(int)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.name] += evt.device_time_total / steps / 1e3
+            counts[evt.name] += 1
+    dev_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[grid_vmap] (e) one vmapped finetune step of {GRID_CHUNK} lanes: {out['vmapped']:.2f} "
+        f"ms (median of {steps}), one sequential step {out['sequential']:.2f} ms "
+        f"({GRID_CHUNK} of them {GRID_CHUNK * out['sequential']:.2f} ms, "
+        f"{GRID_CHUNK * out['sequential'] / out['vmapped']:.2f}x); profiled: device time "
+        f"{dev_ms:.2f} ms a step, busy share {dev_ms / out['vmapped']:.3f}, "
+        f"{sum(counts.values()) / steps:.0f} launches a step ({card})")
+    if dev_ms == 0:
+        log("[grid_vmap] (e) the profiler recorded no device time")
+    for name, ms in top:
+        log(f"[grid_vmap] (e)   {ms:8.3f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}% "
+            f"{counts[name] / steps:5.1f}/step  {name[:100]}")
+    del runner, model, state
+    torch.cuda.empty_cache()
+
+
+def phase_grid_vmap(card):
+    """The vmapped downstream grid through ``run_downstream --grid-vmap`` at
+    the flagship width (f32, TDOA, 1.04 s clips, batch 8) from the committed
+    trained checkpoint: (a) the reference's simulated grid, 16 cells (4 lr x
+    4 trials) in two chunks of 8 lanes, 2 epochs, then (b) the same grid
+    without --grid-vmap: seconds per grid epoch of each, per-cell MAE of the
+    two against each other, launch counts exact; (c) a lineareval chunk (the
+    encoders of every ensemble bit-identical to the checkpoint's); (d) a
+    resident packed run from a small gen_simu tree; (e) one vmapped step timed
+    beside a sequential one and profiled. Returns the launches of (a), (c)
+    and (d)."""
+    import shutil
+    import tempfile
+
+    from sarssl_torch.train import checkpoint as ckpt
+    from sarssl_torch.utils.weights import from_jax_params
+
+    total = {}
+    nbatch = int(DSCLI_NUMS[1]) // DS_BATCH
+    cells = [f"trial{t}_bs{DS_BATCH}_lr{float(lr):g}" for t in range(GRID_TRIALS)
+             for lr in GRID_LRS]
+    with tempfile.TemporaryDirectory(prefix="grid_vmap_") as tmp:
+        pre = os.path.join(tmp, "pretrained")
+        os.makedirs(pre)
+        shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT, ckpt.best_path(pre))
+        common = ["--ds-train", "--synthetic", "--ds-task", "TDOA", "--bs-set", str(DS_BATCH),
+                  "--lr-set", *GRID_LRS, "--pretrain-ckpt", pre, *DSCLI_NUMS]
+        grid = ["--grid-vmap", "--grid-chunk", str(GRID_CHUNK), "--scan-block", str(GRID_SCAN)]
+
+        # (a) the vmapped grid
+        exp_a = os.path.join(tmp, "a")
+        out, counts, runners, epochs, wall_a, peak = _grid_cli_run(
+            "(a) --grid-vmap 16 cells", common + grid + [
+                "--ntrial", str(GRID_TRIALS), "--epochs", str(GRID_EPOCHS), "--exp-dir", exp_a],
+            card)
+        res_a = _grid_results(exp_a, cells)
+        assert len(runners) == 2 and out.count("--- grid chunk") == 2, out
+        steps = _check_grid_launches("(a)", counts, runners, nbatch, "finetune")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        vm_epoch = [sum(t for _, e, t in epochs if e == ep) for ep in range(GRID_EPOCHS)]
+        for ci, ep, t in epochs:
+            log(f"[grid_vmap] (a) chunk {ci + 1} epoch {ep}: {t:.3f} s"
+                + (" (its first pass, with its warm-up)" if ep == 0 else ""))
+        ens = ckpt.load_checkpoint(ckpt.ensemble_path(os.path.join(exp_a, cells[0], "ckpt")))
+        assert set(ens) == {"meta", "params", "batch_stats"}, set(ens)
+
+        # (b) the same grid, one cell after another; a finished cell's files
+        # go at once (16 cells x ~0.7 GB)
+        from sarssl_torch.train import checkpoint as ckpt_mod
+        prune = ckpt_mod.remove_checkpoint_epochs
+        ckpt_mod.remove_checkpoint_epochs = lambda d, _e: shutil.rmtree(d)
+        spent = {"cell_epoch": []}
+        try:
+            exp_b = os.path.join(tmp, "b")
+            _, counts_b, learners, wall_b = _ds_cli_run(
+                "(b) sequential 16 cells", common + [
+                    "--ntrial", str(GRID_TRIALS), "--epochs", str(GRID_EPOCHS), "--exp-dir",
+                    exp_b], spent, card)
+        finally:
+            ckpt_mod.remove_checkpoint_epochs = prune
+        res_b = _read_results(exp_b)
+        _check_ds_launches("(b)", counts_b, _ds_train_steps(learners, nbatch), "finetune")
+        assert not counts_b.get("hash_dropout_lanes"), counts_b
+        seq_epoch = [sum(spent["cell_epoch"][i] for i in range(ep, len(spent["cell_epoch"]),
+                                                               GRID_EPOCHS))
+                     for ep in range(GRID_EPOCHS)]
+        worst = 0.0
+        for cell in cells:
+            a, b = res_a["cells"][cell], res_b["cells"][cell]
+            for k in ("val_mae", "test_mae"):
+                worst = max(worst, abs(a[k] - b[k]) / abs(b[k]))
+            log(f"[grid_vmap] {cell}: val MAE {a['val_mae']:.5f} / {b['val_mae']:.5f}, test MAE "
+                f"{a['test_mae']:.5f} / {b['test_mae']:.5f} (vmapped / sequential)")
+        log(f"[grid_vmap] seconds per grid epoch (16 cells): vmapped {vm_epoch[0]:.3f} / "
+            f"{vm_epoch[1]:.3f}, sequential {seq_epoch[0]:.3f} / {seq_epoch[1]:.3f} (epochs 0 / "
+            f"1); epoch 1 ratio {seq_epoch[1] / vm_epoch[1]:.2f}x; wall {wall_a:.2f} s vmapped, "
+            f"{wall_b:.2f} s sequential ({wall_b / wall_a:.2f}x); peak {peak:.2f} GiB a chunk "
+            f"of {GRID_CHUNK} lanes; hash_dropout_lanes {counts['hash_dropout_lanes']} = "
+            f"{DS_DROPOUT_PER_STEP['finetune']} x {steps} vmapped steps, hash_dropout 0 ({card})")
+        log(f"[grid_vmap] per-cell MAE, vmapped against sequential: worst relative difference "
+            f"{worst:.3e} (tol {TOL_GRID:g})")
+        assert worst <= TOL_GRID, f"vmapped and sequential cells differ by {worst:.3e}"
+
+        # (c) a lineareval chunk
+        exp_c = os.path.join(tmp, "c")
+        lin_cells = [f"trial{t}_bs{DS_BATCH}_lr{float(lr):g}" for t in range(GRID_LIN_TRIALS)
+                     for lr in GRID_LRS]
+        _, counts, runners, _, wall_c, _ = _grid_cli_run(
+            "(c) --grid-vmap lineareval chunk", common + grid + [
+                "--ds-trainmode", "lineareval", "--ntrial", str(GRID_LIN_TRIALS), "--epochs", "1",
+                "--exp-dir", exp_c], card)
+        _grid_results(exp_c, lin_cells)
+        steps_c = _check_grid_launches("(c)", counts, runners, nbatch, "lineareval")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        src = from_jax_params(ckpt.load_checkpoint(ckpt.best_path(pre)))[0]  # f16 -> f32
+        for cell in lin_cells:
+            ens_p, _ = from_jax_params(ckpt.load_checkpoint(ckpt.ensemble_path(
+                os.path.join(exp_c, cell, "ckpt"))))
+            enc = [n for n in ens_p if n.startswith(("spec_encoder.", "spat_encoder."))]
+            assert enc and all(torch.equal(ens_p[n], src[n].float()) for n in enc), (
+                f"lineareval {cell}: an encoder parameter moved")
+        log(f"[grid_vmap] (c) lineareval chunk of {len(lin_cells)} lanes: every cell's "
+            f"{len(enc)} encoder parameters bit-identical to the checkpoint's; "
+            f"hash_dropout_lanes {counts['hash_dropout_lanes']} = "
+            f"{DS_DROPOUT_PER_STEP['lineareval']} x {steps_c} vmapped steps; wall {wall_c:.2f} s")
+
+        # (d) resident packed data from a small gen_simu tree
+        tree, packed = os.path.join(tmp, "tree"), os.path.join(tmp, "packed")
+        val, test = os.path.join(tmp, "val"), os.path.join(tmp, "test")
+        small = ["--T", "1.04", "--workers", "1"]
+        for stage, d, n in (("train", tree, GRID_RES_NUM), ("val", val, GRID_RES_EVAL_NUM),
+                            ("test", test, GRID_RES_EVAL_NUM)):
+            _gen_tree(f"gen_simu --stage {stage}, in process", "gen_simu", [
+                "--stage", stage, "--data-num", str(n), "--save-dir", d, *small], n, card,
+                tag="grid_vmap")
+        _cli(["--data-dir", tree, "--out", packed], "pack_data")
+        exp_d = os.path.join(tmp, "d")
+        res_cells = [f"trial{t}_bs{DS_BATCH}_lr{float(lr):g}" for t in range(2)
+                     for lr in GRID_LRS[:2]]
+        out, counts, runners, _, wall_d, _ = _grid_cli_run(
+            "(d) --grid-vmap resident packed", [
+                "--ds-train", "--ds-task", "TDOA", "--bs-set", str(DS_BATCH), "--lr-set",
+                *GRID_LRS[:2], "--ntrial", "2", "--pretrain-ckpt", pre, "--data-dir", packed,
+                "--val-data-dir", val, "--test-data-dir", test, "--train-num",
+                str(GRID_RES_NUM), "--val-num", str(GRID_RES_EVAL_NUM), "--test-num",
+                str(GRID_RES_EVAL_NUM), "--epochs", "1", "--exp-dir", exp_d, *grid], card)
+        assert f"staged {GRID_RES_NUM} train utts" in out, out
+        assert all(r.resident_waves is not None for r in runners)
+        _grid_results(exp_d, res_cells)
+        steps_d = _check_grid_launches("(d)", counts, runners, GRID_RES_NUM // DS_BATCH,
+                                       "finetune")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[grid_vmap] (d) resident packed run: {GRID_RES_NUM} train utts on the card, "
+            f"{len(res_cells)} cells, {steps_d} vmapped steps, wall {wall_d:.2f} s")
+    # (e) where a vmapped step's time goes (its launches are not the runs')
+    _grid_step_profile(card)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -2859,7 +3290,7 @@ def main():
 
     card = phase_card()
     phase_build()
-    rows, opt_rows, drop, conv = phase_kernels()
+    rows, opt_rows, drop, lanes, conv = phase_kernels()
     phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
@@ -2868,13 +3299,14 @@ def main():
     ds_counts = phase_downstream(card, pretrained)
     phase_downstream_reference()
     dscli_counts = phase_downstream_cli(card)
+    grid_counts = phase_grid_vmap(card)
     data_counts = phase_data_path(card, synthetic_utt_s)
     real_counts = phase_real_data(card, step_utt_s)
     phase_model_options_reference()
     mo_counts, mo_shapes = phase_model_options(card)
-    print(json.dumps(kernels_line(rows, opt_rows, drop, conv, counts, ds_counts, cli_counts,
-                                  opt_counts, dscli_counts, data_counts, real_counts, mo_counts,
-                                  mo_shapes)),
+    print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
+                                  cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
+                                  mo_counts, mo_shapes, grid_counts)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,13 +32,28 @@ Usage:
   python -m sarssl_torch.cli.run_downstream --ds-test --synthetic --ckpt CELL/ckpt
   python -m sarssl_torch.cli.run_downstream --smoke            # tiny run on the card
   python -m sarssl_torch.cli.run_downstream --smoke --cpu      # tiny run on the CPU
+  python -m sarssl_torch.cli.run_downstream --smoke --cpu --grid-vmap --ntrial 2 \
+      --lr-set 1e-3 1e-4                                         # a vmapped tiny grid
+
+``--grid-vmap`` runs every (trial, lr) cell as one lane of one vmapped
+program (``train/grid.py``), ``--grid-chunk`` lanes at a time, each step of a
+lane equal to that cell's sequential step; ``--scan-block`` steps go to the
+card in one block, ``--time-budget`` ends each chunk's epochs at its prorated
+share of the seconds (its cells marked ``truncated``), ``--trial-set`` runs
+only the trials named. A packed ``--data-dir`` (no RIR, real-signal or
+synthetic source) is staged whole on the card once for all chunks, within
+``SARSSL_RESIDENT_BUDGET_GB`` (default 6; over it the split streams). Each
+cell writes only its ``ensemble_model``. It refuses (``ValueError``) more than
+one ``--bs-set`` value, ``--nmic`` > 2, ``--rir-cv`` and ``--mesh``. The
+sequential grid ignores ``--grid-chunk``, ``--scan-block``, ``--time-budget``
+and ``--trial-set``, as the JAX CLI's does.
 
 It runs on the card unless ``--cpu`` is given (``--smoke`` included). The
 parser holds every flag of the JAX CLI, with its default and ``dest``, so
-``config.json`` has the same keys; a flag whose path is not ported yet raises
-``NotImplementedError`` when it is set. ``--grid-chunk``, ``--scan-block``,
-``--time-budget`` and ``--trial-set`` act only under ``--grid-vmap``, so here
-they have no effect, as in the JAX CLI's sequential grid; ``--workers`` sets
+``config.json`` has the same keys; a flag whose path is not ported yet
+(``--mesh``) raises ``NotImplementedError`` when it is set. ``--smoke`` keeps
+an ``--lr-set``, ``--bs-set`` or ``--ntrial`` given with it (the JAX CLI
+overrides them), so a smoke grid can hold several cells. ``--workers`` sets
 the loader's threads (its processes under ``--mp-loader``).
 """
 from __future__ import annotations
@@ -49,11 +64,13 @@ import json
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import torch
 
 _NOT_PORTED = "not ported yet"
+_RESIDENT_BUDGET_GB = "6"  # SARSSL_RESIDENT_BUDGET_GB's default
 
 
 def fixed_train_subset(args, n, num, trial):
@@ -182,11 +199,23 @@ def build_parser():
     p.add_argument("--workers", type=int, default=4,
                    help="loader threads, processes under --mp-loader (the synthetic generator "
                         "takes none)")
-    p.add_argument("--grid-vmap", action="store_true", help=_NOT_PORTED)
-    p.add_argument("--grid-chunk", type=int, default=8, help="--grid-vmap only")
-    p.add_argument("--trial-set", type=int, nargs="+", default=None, help="--grid-vmap only")
-    p.add_argument("--scan-block", type=int, default=25, help="--grid-vmap only")
-    p.add_argument("--time-budget", type=float, default=0, help="--grid-vmap only")
+    p.add_argument("--grid-vmap", action="store_true",
+                   help="run every (trial, lr) cell as one lane of a vmapped program "
+                        "(train/grid.py) instead of one after another: the same per-cell "
+                        "life cycle, N lanes a dispatch (one --bs-set value, 2 mics)")
+    p.add_argument("--grid-chunk", type=int, default=8,
+                   help="lanes a vmapped program: the stacked states and the ensemble ring "
+                        "of a chunk must fit the card")
+    p.add_argument("--trial-set", type=int, nargs="+", default=None,
+                   help="run only these trials of a --grid-vmap grid (data streams and "
+                        "generators stay keyed by the trial, so the cells equal a full grid's)")
+    p.add_argument("--scan-block", type=int, default=25,
+                   help="steps a --grid-vmap block: the block's waves reach the card in one "
+                        "copy and its loss sums stay there")
+    p.add_argument("--time-budget", type=float, default=0,
+                   help="--grid-vmap wall-clock budget in seconds (0: off): a chunk's epochs "
+                        "end at its prorated share, its cells marked truncated; ensembles, "
+                        "the test and results.json still come")
     p.add_argument("--mp-loader", action="store_true",
                    help="process-pool loader (--workers processes) for the on-the-fly RIR "
                         "paths: the convolutions scale past the GIL")
@@ -204,12 +233,27 @@ def build_parser():
 
 # flags whose path the port lacks, and what it waits for
 _UNPORTED = {
-    "grid_vmap": "waits for the port of the vmapped grid runner",
     "mesh": "the port runs on one card",
 }
 
 
+def _check_grid_vmap(args) -> None:
+    """The grids --grid-vmap refuses, as the JAX CLI does."""
+    if args.bs_set is not None and len(args.bs_set) > 1:
+        raise ValueError("--grid-vmap runs one batch size: pass one --bs-set value")
+    if args.nmic > 2:
+        raise ValueError("--grid-vmap runs the 2-mic model: drop --nmic or run the "
+                         "sequential grid")
+    if args.mesh:
+        raise ValueError("--grid-vmap runs on one card: drop --mesh")
+    if args.rir_cv:
+        raise ValueError("--grid-vmap shares one val / test set across lanes, --rir-cv gives "
+                         "each trial its own rooms: run the sequential grid")
+
+
 def _check_ported(args, parser) -> None:
+    if args.grid_vmap:
+        _check_grid_vmap(args)
     for dest, why in _UNPORTED.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
@@ -293,9 +337,9 @@ def _main(args, pool):
         args.ds_train = True
         args.synthetic = True
         args.epochs = 3
-        args.lr_set = [1e-3]
-        args.bs_set = [4]
-        args.ntrial = 1
+        args.lr_set = args.lr_set or [1e-3]
+        args.bs_set = args.bs_set or [4]
+        args.ntrial = args.ntrial or 1
         args.train_num = 16
         args.val_num = 8
         args.test_num = 8
@@ -381,9 +425,9 @@ def _main(args, pool):
                                  "checkpoint for this model config")
         return create_train_state(model), keys
 
-    def make_batches(split, bs, seed, trial=0):
-        """The split's batches as device tensors: waves, and the task's
-        targets (per pair for the multi-pair model)."""
+    def make_batches(split, bs, seed, trial=0, host=False):
+        """The split's batches as device tensors (``host``: numpy arrays):
+        waves, and the task's targets (per pair for the multi-pair model)."""
         num = {"train": train_num, "val": args.val_num, "test": args.test_num}[split]
         nbatch = max(1, num // bs)
         if args.real_sig_dir:
@@ -413,6 +457,8 @@ def _main(args, pool):
                     g = pairwise_tdoa(torch.from_numpy(g.reshape(g.shape[0], -1)), args.nmic,
                                       args.ch_mode).numpy()
                 yield wave, g
+        if host:
+            return ((np.asarray(w, np.float32), g) for w, g in adapt())
         return device_prefetch(adapt(), size=2, device=dev)
 
     os.makedirs(args.exp_dir, exist_ok=True)
@@ -422,7 +468,11 @@ def _main(args, pool):
         return _ds_test(args, model, feat_cfg, make_batches, bs_set[0], dlabel, dev)
 
     results = {}
-    for trial, bs, lr in itertools.product(range(ntrial), bs_set, lr_set):
+    if args.grid_vmap:
+        results = _grid_vmapped(args, model, feat_cfg, fresh_state, make_batches, lr_set,
+                                bs_set[0], ntrial, dlabel, dev, nsample, train_num)
+    for trial, bs, lr in (() if args.grid_vmap else
+                          itertools.product(range(ntrial), bs_set, lr_set)):
         cell = f"trial{trial}_bs{bs}_lr{lr:g}"
         cell_dir = os.path.join(args.exp_dir, cell)
         state, keys = fresh_state()
@@ -477,6 +527,134 @@ def _main(args, pool):
         print("SMOKE", "PASS" if ok else "FAIL")
         return 0 if ok else 1
     return 0
+
+
+def _grid_vmapped(args, model, feat_cfg, fresh_state, make_batches, lr_set, bs, ntrial, dlabel,
+                  dev, nsample, train_num):
+    """Every (trial, lr) cell as a lane of vmapped programs (``train/grid.py``),
+    --grid-chunk lanes a program; each lane runs its cell's sequential life
+    cycle (the JAX CLI's ``_grid_vmapped``). Returns the cells' results."""
+    from ..data import PackedDataset, is_packed
+    from ..train import VmappedGridRunner, slice_state, trainable_mask_from_loaded
+    from ..train import checkpoint as ckpt
+    from ..utils import epoch_generator
+
+    trial_list = list(args.trial_set) if args.trial_set is not None else list(range(ntrial))
+    all_cells = [(t, lr) for t in trial_list for lr in lr_set]
+
+    # a packed train split stays on the card for every chunk and epoch, and
+    # the epochs send index batches only
+    pds_res, waves_dev = None, None
+    if (args.data_dir and not (args.real_sig_dir or args.rir_dir or args.sim_rir_dir
+                               or args.synthetic) and is_packed(args.data_dir)):
+        pds_res = PackedDataset(args.data_dir, load_anno=True)
+        nbytes = len(pds_res) * nsample * pds_res.meta["nch"] * 4
+        budget_b = float(os.environ.get("SARSSL_RESIDENT_BUDGET_GB", _RESIDENT_BUDGET_GB)) * 1e9
+        if nbytes > budget_b:
+            # a split that would crowd out the lanes' states and the ensemble
+            # ring streams instead
+            print(f"train split {nbytes / 1e9:.1f} GB exceeds the resident budget "
+                  f"({budget_b / 1e9:.0f} GB, SARSSL_RESIDENT_BUDGET_GB): streaming instead",
+                  flush=True)
+            pds_res = None
+        else:
+            waves = torch.from_numpy(pds_res.all_waves(nsample))
+            waves_dev = waves.pin_memory().to(dev) if dev.type == "cuda" else waves
+            print(f"staged {len(pds_res)} train utts ({nbytes / 1e6:.0f} MB) on {dev}",
+                  flush=True)
+
+    results = {}
+    nchunk = max(1, args.grid_chunk)
+    starts = list(range(0, len(all_cells), nchunk))
+    t_start = time.time()
+    budget = args.time_budget or 0
+    for ci, lo in enumerate(starts):
+        cells = all_cells[lo: lo + nchunk]
+        if len(all_cells) > nchunk:
+            print(f"--- grid chunk {ci + 1}: cells {[f'trial{t}_lr{lr:g}' for t, lr in cells]}",
+                  flush=True)
+        # one partial_load a chunk, stacked into every lane
+        st0, keys = fresh_state()
+        tmask = (trainable_mask_from_loaded(model, keys)
+                 if args.ds_trainmode == "lineareval" and keys else None)
+        # the lr cells of a trial read the same data stream: one data slot a
+        # trial, each lane gathering its slot on the card
+        trials = sorted({t for t, _ in cells})
+        runner = VmappedGridRunner(
+            model, feat_cfg, [st0] * len(cells), cells, task=args.ds_task, dlabel=dlabel,
+            trainable_mask=tmask, patience=10 if not args.smoke else 2,
+            scan_block=max(1, args.scan_block), lane_slots=[trials.index(t) for t, _ in cells],
+            device=dev)
+        # a prorated deadline: results.json is written even when the grid
+        # would outlive an outer time limit
+        deadline = t_start + budget * (ci + 1) / len(starts) if budget else None
+        staged_val = runner.stage_eval_blocks(make_batches("val", bs, 1, host=True))
+        if waves_dev is not None:
+            runner.stage_train_waves(waves_dev)
+        # per-trial train-row universes; the lanes step in lockstep, so an
+        # epoch's batch count is the smallest universe's
+        trial_subs = ({t: packed_train_subset(args, pds_res, train_num, t) for t in trials}
+                      if waves_dev is not None else {})
+        res_num = min([train_num] + [len(v) for v in trial_subs.values() if v is not None])
+        budget_hit = False
+        for epoch in range(args.epochs):
+            gens = [epoch_generator(args.seed, "train", 7000 + epoch + t * 100_000)
+                    for t, _ in cells]
+            t0 = time.time()
+            if waves_dev is not None:
+                acol = pds_res.annos()[args.ds_task]
+                idx = {t: itertools.islice(pds_res.batch_indices(
+                    bs, shuffle=True, seed=args.seed + t * 1000 + epoch, subset=trial_subs[t]),
+                    max(1, res_num // bs)) for t in trials}
+                tm = runner.train_epoch_resident(
+                    ((np.stack(per), np.stack([np.asarray(acol[i], np.float32) for i in per]))
+                     for per in zip(*idx.values())), gens)
+            else:
+                streams = [make_batches("train", bs, args.seed + t * 1000 + epoch, t, host=True)
+                           for t in trials]
+                tm = runner.train_epoch(
+                    ((np.stack([w for w, _ in per]), np.stack([g for _, g in per]))
+                     for per in zip(*streams)), gens)
+            t1 = time.time()
+            vm = runner.eval_epoch_staged(staged_val)
+            t2 = time.time()
+            ndone = sum(c.done for c in runner.cells)
+            print(f"epoch {epoch}: mean train mae {tm['mae'].mean():.5f} mean val mae "
+                  f"{vm['mae'].mean():.5f} cells done {ndone}/{len(cells)} [train {t1 - t0:.2f}s "
+                  f"val {t2 - t1:.2f}s tot {time.time() - t_start:.1f}s]", flush=True)
+            if runner.end_epoch(vm["mae"]):
+                break
+            if deadline is not None and time.time() > deadline:
+                print(f"chunk {ci + 1} hit its prorated time budget at epoch {epoch}; "
+                      "finalizing early", flush=True)
+                budget_hit = True
+                break
+
+        # read before ensembled_states() marks every cell done (the JAX CLI
+        # reads it after, so its flag is never set)
+        stopped = [c.done for c in runner.cells]
+        runner.ensembled_states()
+        test_m = runner.eval_epoch(make_batches("test", bs, 2, host=True))
+        val_m = runner.eval_epoch_staged(staged_val)
+        for i, (t, lr) in enumerate(cells):
+            cell = f"trial{t}_bs{bs}_lr{lr:g}"
+            c = runner.cells[i]
+            ckpt.save_named(os.path.join(args.exp_dir, cell, "ckpt"),
+                            slice_state(runner.states, i), "ensemble_model", epoch=-1,
+                            max_score=c.stopper.best)
+            results[cell] = {"val_mae": float(val_m["mae"][i]),
+                             "test_mae": float(test_m["mae"][i]), "lr": lr, "bs": bs,
+                             "trial": t, "epochs_run": c.epochs_run,
+                             # the deadline came before this cell stopped: its MAE
+                             # is an unconverged ensemble's
+                             "truncated": bool(budget_hit and not stopped[i])}
+            print(f"{cell}: val MAE {results[cell]['val_mae']:.5f} test MAE "
+                  f"{results[cell]['test_mae']:.5f}", flush=True)
+        # chunks already done survive a run that is killed later
+        with open(os.path.join(args.exp_dir, "results.partial.json"), "w") as f:
+            json.dump(results, f, indent=2, default=float)
+        del runner
+    return results
 
 
 def _room_trials(args, ntrial):

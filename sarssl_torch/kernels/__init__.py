@@ -3,7 +3,8 @@
   attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
                  (tensor cores; bfloat16, head dim 64/128, L % 64 == 0) and
                  ``csrc/attention.cu`` (f32 FMAs; everything else)
-  dropout.py   : counter-hash inverted dropout, Triton
+  dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
+                 torch.func.vmap one seed a lane)
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``
                  (tensor cores, ``wgmma``; bfloat16 at (C, Cout) in {64, 128}^2)
                  and ``csrc/conv3x3.cu`` (f32 FMAs; float32 at the same pairs)

@@ -13,6 +13,15 @@ Bound on an H100: one read and one write of the tensor, about 10 integer
 operations per element; at 3.35 TB/s the bytes dominate. The kernel is one
 elementwise pass in blocks of 4096 contiguous elements with masked loads,
 which is all a bandwidth-bound pass needs.
+
+Under ``torch.func.vmap`` (the vmapped downstream grid, ``train/grid.py``)
+every lane has its own seed: ``launch_dropout_lanes`` hashes each lane's
+flat index with that lane's seed, as ``jax.vmap`` of ``fused_dropout`` does.
+Its grid is (blocks of a lane, lanes), so the seed is one load a program and
+no element divides by the lane size; the lanes' base offsets are int64.
+``_HashDropout`` (one int seed) carries a ``vmap`` rule that hands the lanes
+to ``_HashDropoutLanes``, whose backward is the same lane-seeded kernel.
+Launches count as ``hash_dropout`` and ``hash_dropout_lanes``.
 """
 from __future__ import annotations
 
@@ -45,9 +54,11 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_keep_mask(n: int, seed: int, rate: float, device=None) -> torch.Tensor:
+def hash_keep_mask(n: int, seed, rate: float, device=None) -> torch.Tensor:
     """Plain version of the mask: ``(n,)`` bool, int64 arithmetic masked to
-    32 bits."""
+    32 bits. ``seed`` is a uint32 int, or a 0-d int64 tensor: under
+    ``torch.func.vmap`` a lane's own seed, so each lane hashes its lane-local
+    index with its seed, as ``jax.vmap`` of ``fused_dropout`` does."""
     x = (torch.arange(n, dtype=torch.int64, device=device) + seed) & _M32
     x = _mul32(x ^ (x >> 16), _C1)
     x = _mul32(x ^ (x >> 15), _C2)
@@ -55,8 +66,10 @@ def hash_keep_mask(n: int, seed: int, rate: float, device=None) -> torch.Tensor:
     return x >= keep_threshold(rate)
 
 
-def dropout_plain(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Plain PyTorch version: ``where(keep, x * scale, 0)``."""
+def dropout_plain(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Plain PyTorch version: ``where(keep, x * scale, 0)``; ``seed`` as in
+    :func:`hash_keep_mask`. Under ``torch.func.vmap`` with a batched seed it
+    is the plain version of :func:`launch_dropout_lanes`."""
     if rate == 0.0:
         return x
     keep = hash_keep_mask(x.numel(), seed, rate, x.device).reshape(x.shape)
@@ -86,19 +99,52 @@ def _triton_kernel():
     return triton, hash_dropout_kernel
 
 
+@functools.lru_cache(maxsize=None)
+def _triton_lanes_kernel():
+    triton, tl = import_triton()
+
+    @triton.jit
+    def hash_dropout_lanes_kernel(x_ptr, out_ptr, seed_ptr, lane_numel, thresh_bits, scale,
+                                  BLOCK: tl.constexpr):
+        # grid (blocks of a lane, lanes): lane = flat // lane_numel is the
+        # program's second index and flat % lane_numel its offset j, so no
+        # element divides; the lane's base offset is int64, as N * lane_numel
+        # may pass 2**31
+        lane = tl.program_id(1)
+        j = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        inb = j < lane_numel
+        base = lane.to(tl.int64) * lane_numel
+        x = tl.load(x_ptr + base + j, mask=inb, other=0.0)
+        # the lane's seed: the low 32 bits of its int64 entry, on the device
+        seed = tl.load(seed_ptr + lane).to(tl.uint32)
+        thresh = thresh_bits.to(tl.uint32, bitcast=True)
+        h = j.to(tl.uint32) + seed
+        h = (h ^ (h >> 16)) * tl.full((BLOCK,), 0x7FEB352D, tl.uint32)
+        h = (h ^ (h >> 15)) * tl.full((BLOCK,), 0x846CA68B, tl.uint32)
+        h = h ^ (h >> 16)
+        y = tl.where(h >= thresh, x.to(tl.float32) * scale, 0.0)
+        tl.store(out_ptr + base + j, y.to(out_ptr.dtype.element_ty), mask=inb)
+
+    return triton, hash_dropout_lanes_kernel
+
+
 def _as_int32(u: int) -> int:
     """uint32 bits as a signed int32 value (Triton types int args by range)."""
     return u - (1 << 32) if u >= (1 << 31) else u
 
 
-def launch_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Launch the Triton kernel on a contiguous CUDA tensor."""
+def _check_input(x: torch.Tensor, what: str) -> None:
     if not x.is_cuda:
-        raise ValueError("launch_dropout takes a CUDA tensor")
+        raise ValueError(f"{what} takes a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("launch_dropout takes a contiguous tensor")
+        raise ValueError(f"{what} takes a contiguous tensor")
+
+
+def launch_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Launch the Triton kernel on a contiguous CUDA tensor."""
+    _check_input(x, "launch_dropout")
     n = x.numel()
     if n >= 2 ** 31:
         raise ValueError("launch_dropout indexes elements with int32")
@@ -114,23 +160,109 @@ def launch_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return out
 
 
-class _HashDropout(torch.autograd.Function):
+def launch_dropout_lanes(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> torch.Tensor:
+    """Launch the lane-seeded Triton kernel on a contiguous CUDA tensor
+    ``(N, ...)``: ``out[l, j] = keep(hash(j + seeds[l])) ? x[l, j] * scale
+    : 0`` over each lane's flat index j, as ``jax.vmap`` of ``fused_dropout``
+    computes it. ``seeds``: ``(N,)`` integers whose low 32 bits are the
+    lanes' uint32 seeds (int64 in ``[0, 2**32)``, or their int32 / uint32
+    bits), read on the device."""
+    _check_input(x, "launch_dropout_lanes")
+    if x.ndim < 1 or seeds.shape != (x.shape[0],):
+        raise ValueError(f"seeds {tuple(seeds.shape)} must hold one seed a lane of "
+                         f"{tuple(x.shape)}")
+    if seeds.dtype.is_floating_point or seeds.dtype == torch.bool:
+        raise ValueError(f"seeds must be integers, not {seeds.dtype}")
+    nlane = x.shape[0]
+    lane_numel = x[0].numel() if nlane else 0
+    if lane_numel >= 2 ** 31:
+        raise ValueError("launch_dropout_lanes indexes a lane's elements with int32")
+    if nlane >= 2 ** 16:
+        raise ValueError("launch_dropout_lanes takes fewer than 65536 lanes")
+    out = torch.empty_like(x)
+    if nlane == 0 or lane_numel == 0:
+        return out
+    seeds = seeds.to(device=x.device, dtype=torch.int64).contiguous()
+    triton, kernel = _triton_lanes_kernel()
+    grid = (triton.cdiv(lane_numel, _BLOCK), nlane)
+    with torch.cuda.device(x.device):
+        kernel[grid](x, out, seeds, lane_numel, _as_int32(keep_threshold(rate)),
+                     keep_scale(rate, x.dtype), BLOCK=_BLOCK, num_warps=8)
+    launches["hash_dropout_lanes"] += 1
+    return out
+
+
+def _launch(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):  # a 0-d seed tensor outside vmap: one lane
+        return launch_dropout_lanes(x.reshape(1, *x.shape), seed.reshape(1), rate)[0]
+    return launch_dropout(x, seed, rate)
+
+
+class _HashDropoutLanes(torch.autograd.Function):
+    """Dropout of ``(N, ...)`` lanes with one seed a lane; the backward
+    applies the same lane-seeded kernel to the gradient."""
+
     @staticmethod
-    def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return launch_dropout(x, seed, rate)
+    def forward(x, seeds, rate):
+        return launch_dropout_lanes(x, seeds, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, seeds, ctx.rate = inputs
+        ctx.save_for_backward(seeds)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seeds,) = ctx.saved_tensors
+        return launch_dropout_lanes(g.contiguous(), seeds, ctx.rate), None, None
+
+
+class _HashDropout(torch.autograd.Function):
+    """Dropout with one uint32 seed (a Python int). Under ``torch.func.vmap``
+    its ``vmap`` rule runs the lanes through :class:`_HashDropoutLanes`, each
+    with its own seed (a batched seed tensor) or all with one (an int)."""
+
+    @staticmethod
+    def forward(x, seed, rate):
+        return _launch(x, seed, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, seed, ctx.rate = inputs
+        if isinstance(seed, torch.Tensor):
+            ctx.save_for_backward(seed)
+            ctx.seed = None
+        else:
+            ctx.seed = seed
 
     @staticmethod
     def backward(ctx, g):
         # same seed -> same mask; d(x*scale*keep)/dx = scale*keep
-        return launch_dropout(g.contiguous(), ctx.seed, ctx.rate), None, None
+        seed = ctx.saved_tensors[0] if ctx.seed is None else ctx.seed
+        return _launch(g.contiguous(), seed, ctx.rate), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, seed, rate):
+        x_dim, seed_dim, _ = in_dims
+        n = info.batch_size
+        # the lanes' physical layout: batch dim first, each lane contiguous
+        x = (x.movedim(x_dim, 0) if x_dim is not None else x.expand(n, *x.shape)).contiguous()
+        if not isinstance(seed, torch.Tensor):
+            seeds = torch.full((n,), seed, dtype=torch.int64, device=x.device)
+        elif seed_dim is None:
+            seeds = seed.reshape(1).expand(n)
+        else:
+            seeds = seed.movedim(seed_dim, 0).reshape(n)
+        return _HashDropoutLanes.apply(x, seeds, rate), 0
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Inverted dropout with the counter-hash mask of ``seed``.
+def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Inverted dropout with the counter-hash mask of ``seed`` (a uint32 int,
+    or under ``torch.func.vmap`` a batched 0-d int64 tensor: one seed a
+    lane).
 
-    CUDA tensors go through the Triton kernel; CPU tensors through
-    :func:`dropout_plain`.
+    CUDA tensors go through the Triton kernels (the lane-seeded one under
+    vmap); CPU tensors through :func:`dropout_plain`.
     """
     if rate == 0.0:
         return x

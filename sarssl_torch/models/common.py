@@ -36,10 +36,31 @@ class SeedReplay:
         return self.seeds[self.pos - 1]
 
 
-def draw_seed(generator) -> int:
+class LaneSeeds:
+    """Stands in for a generator inside a vmapped grid step
+    (``train/grid.py``): built from an ``(nsites,)`` int64 tensor of uint32
+    seeds that ``torch.func.vmap`` batches over the lanes, it hands out the
+    next entry at each draw, a 0-d tensor holding each lane's own seed. The
+    grid pre-draws a step's seeds, in site order, from each lane's step
+    generator, which are the draws a sequential step makes; ``pos`` counts
+    the draws of a step."""
+
+    def __init__(self, seeds: torch.Tensor):
+        self.seeds, self.pos = seeds, 0
+
+    def draw(self) -> torch.Tensor:
+        if self.pos == self.seeds.shape[0]:
+            raise RuntimeError(f"the step drew more than the {self.pos} dropout seeds "
+                               "pre-drawn for it")
+        self.pos += 1
+        return self.seeds[self.pos - 1]
+
+
+def draw_seed(generator):
     """One uint32 dropout seed from a CPU generator (no device sync), or the
-    next seed of a :class:`SeedReplay`."""
-    if isinstance(generator, SeedReplay):
+    next seed of a :class:`SeedReplay` or a :class:`LaneSeeds` (a batched
+    0-d tensor)."""
+    if isinstance(generator, (SeedReplay, LaneSeeds)):
         return generator.draw()
     return int(torch.randint(0, 2 ** 32, (), dtype=torch.int64, generator=generator))
 

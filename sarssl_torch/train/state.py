@@ -94,6 +94,52 @@ class Adam:
         self.lr = float(sd["hyperparams"]["learning_rate"])
 
 
+class StackedAdam:
+    """:class:`Adam`'s optax formulas over stacked ``(N, ...)`` parameters,
+    one lane a grid cell (``train/grid.py``), with one learning rate a lane:
+    ``p -= lr[l] * mu_hat / (sqrt(nu_hat) + eps)``. The lanes step in
+    lockstep, so they share one count and its f32 bias corrections. A lane at
+    lr 0 does not move (its moments do), which is how the grid freezes a
+    finished cell. A missing gradient reads as 0."""
+
+    b1, b2, eps = Adam.b1, Adam.b2, Adam.eps
+
+    def __init__(self, params: Iterable[torch.Tensor]):
+        self.params = list(params)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def update(self, lrs: torch.Tensor) -> None:
+        """One update from the gradients in ``.grad``; ``lrs``: ``(N,)`` f32
+        on the parameters' device."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        self.count += 1
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+        denom = torch._foreach_div(self.nu, _bias_correction(self.b2, self.count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(self.mu, _bias_correction(self.b1, self.count))
+        torch._foreach_div_(step, denom)
+        torch._foreach_mul_(step, [lrs.view(-1, *[1] * (p.ndim - 1)) for p in self.params])
+        torch._foreach_sub_(self.params, step)
+
+    def lane(self, names: Iterable[str], params: Iterable[torch.nn.Parameter],
+             i: int) -> Adam:
+        """Lane ``i``'s optimizer state as an :class:`Adam` over ``params``
+        (named ``names``, in this optimizer's order)."""
+        opt = Adam(zip(names, params))
+        with torch.no_grad():
+            for dst, src in ((opt.mu, self.mu), (opt.nu, self.nu)):
+                torch._foreach_copy_(dst, [m[i] for m in src])
+        opt.count = self.count
+        return opt
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay ** count`` in f32, as optax computes it: in f64, 1 - 0.999
     would differ from optax's by 1.3e-5 of itself."""

@@ -4,7 +4,8 @@ same ``config.json`` keys), ``--smoke`` on the CPU with the JAX CLI's result
 files, a JAX-written ``--pretrain-ckpt`` (the same keys loaded as JAX's
 ``partial_load``), the lineareval freeze through the ensemble, ``--ds-test``
 in both ported modes, the multi-pair run, the results reader on the committed
-JAX grids, every unported flag raising, and no silent fall-back to the CPU.
+JAX grids, every unported flag raising, the grids ``--grid-vmap`` refuses, and no
+silent fall-back to the CPU.
 
 Tolerances: ``--ds-test``'s printed test MAE against the grid's ``test_mae``
 to the printed 5 decimals (the same model on the same batches); the no-train
@@ -258,13 +259,25 @@ def test_results_reader_equals_jax_on_committed_grids(capsys):
     assert capsys.readouterr().out == want
 
 
-UNPORTED = [["--grid-vmap"], ["--mesh", "1x1"]]
+UNPORTED = [["--mesh", "1x1"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[" ".join(f) for f in UNPORTED])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         _smoke(tmp_path, *flag)
+    assert not os.listdir(tmp_path)  # raised before writing anything
+
+
+GRID_REFUSED = [["--bs-set", "4", "8"], ["--nmic", "4"], ["--rir-cv"], ["--mesh", "1x1"]]
+
+
+@pytest.mark.parametrize("flag", GRID_REFUSED, ids=[" ".join(f) for f in GRID_REFUSED])
+def test_grid_vmap_refusals_raise(flag, tmp_path):
+    """The grids --grid-vmap refuses, as the JAX CLI asserts: more than one
+    batch size, the multi-pair model, --rir-cv and --mesh."""
+    with pytest.raises(ValueError, match="--grid-vmap"):
+        _smoke(tmp_path, "--grid-vmap", *flag)
     assert not os.listdir(tmp_path)  # raised before writing anything
 
 

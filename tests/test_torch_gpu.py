@@ -20,7 +20,7 @@ from sarssl_torch.kernels.attention import (fma_row_block, fma_smem_bytes,  # no
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
 from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
-from sarssl_torch.kernels.dropout import launch_dropout  # noqa: E402
+from sarssl_torch.kernels.dropout import launch_dropout, launch_dropout_lanes  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -147,6 +147,26 @@ def test_dropout_kernel_equals_plain(cuda, dtype, n):
     g = torch.randn_like(x)
     (grad,) = torch.autograd.grad(hash_dropout(xr, 7, 0.2), xr, g)
     assert torch.equal(grad, dropout_plain(g, 7, 0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 5), (3, 4095), (8, 2, 4097)])
+def test_lane_seeded_dropout_kernel_equals_vmapped_plain(cuda, dtype, shape):
+    """One seed a lane: the bare launch and ``hash_dropout`` under vmap
+    (forward and gradient) against ``dropout_plain`` vmapped, bit for bit."""
+    from torch.func import vmap
+
+    plain = vmap(dropout_plain, in_dims=(0, 0, None))
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    seeds = torch.randint(0, 2 ** 32, (shape[0],), generator=cuda, device="cuda")
+    seeds[0] = 0xFFFFFFFF
+    assert torch.equal(launch_dropout_lanes(x, seeds, 0.1), plain(x, seeds, 0.1))
+    xr, g = x.clone().requires_grad_(), torch.randn_like(x)
+    before = launches["hash_dropout_lanes"]
+    out = vmap(hash_dropout, in_dims=(0, 0, None))(xr, seeds, 0.2)
+    (grad,) = torch.autograd.grad(out, xr, g)
+    assert launches["hash_dropout_lanes"] == before + 2
+    assert torch.equal(out, plain(x, seeds, 0.2)) and torch.equal(grad, plain(g, seeds, 0.2))
 
 
 CONV_SHAPES = [  # (N, H, W, C, Cout): H not a multiple of the tile, W not of 8
