@@ -152,7 +152,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
               encoders, (i) the decoder's stages and CNN head, (j)
               ``MCConformer``'s forward in f32 and bf16, (k)
               ``ConformerEncoder(remat=True)`` against plain.
-Then the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+ 14. ablations: the CRNN ablation encoders, ``EmbedEncoder(model=(m,))`` for
+              m in crnn, crnn-sim, tcrnn in mode spec (dembed 512) and spat
+              (dembed 256) and ``CauCRNN()`` at its defaults, at the flagship
+              pretext encoder's input ((256, 256) TF map, 2 x 2 channels,
+              (256, 1) patches; CauCRNN the (256, 256, 4) map), f32: (a) each
+              trains at batch 128 on an MSE to seeded targets with
+              ``make_adam(1e-3, weight_decay=1e-2, grad_clip=1.0)``, one
+              warm-up and 3 timed steps (step ms, utt/s, peak GiB) and one
+              profiled step (device ms, busy share, the longest kernel), every
+              launch count zeroed before and asserted 0 after; (b) each at
+              batch 2 card against CPU, the same weights and inputs: the eval
+              forward, then one AdamW + clip step (loss, parameters, BatchNorm
+              stats); (c) ``dpipd_template`` at the (37, 73) grid, nf 257,
+              and ``forgetting_norm`` on (128, 2, 257, 256), card against CPU;
+              ``estimate_flops`` of the flagship pretext forward; ``StepTimer``
+              and ``trace`` around two flagship pretext train steps.
+Then the ``kernels`` JSON line (each row with ``launches_ablations``) and,
+last, the ``ok`` JSON line.
 """
 import json
 import os
@@ -321,6 +338,31 @@ RD_SIM_T60 = ("0.2", "0.8")  # gen_simu --t60-range of both sim trees (default 0
 RD_DS_NUMS = ("--train-num", "64", "--val-num", "16", "--test-num", "16")
 RD_DS_BATCH = 16
 RD_PROBS = ("0.4", "0.3", "0.3")  # AISHELL4, AMI, the 4-channel tree
+
+# ablations: the CRNN arms (EmbedEncoder(model=(m,)) in both modes, CauCRNN at
+# its defaults) at the flagship pretext encoder's input, a (256, 256) TF map of
+# 2 x 2 channels in (256, 1) patches (256 patches of 1024 values), f32 (the JAX
+# modules' default dtype), batch 128; each trains on an MSE to seeded targets
+# with make_adam's AdamW and clipping: one warm-up and ABL_STEPS timed steps
+ABL_ARMS = (("crnn", "spec"), ("crnn", "spat"), ("crnn-sim", "spec"), ("crnn-sim", "spat"),
+            ("tcrnn", "spec"), ("tcrnn", "spat"), ("caucrnn", None))
+ABL_DEMBED = {"spec": 512, "spat": 256}  # SARSSLConfig's spec / spat widths
+ABL_SIG, ABL_PATCH = (256, 256, 2, 2), (256, 1)
+ABL_STEPS = 3
+ABL_LR, ABL_WD, ABL_CLIP = 1e-3, 1e-2, 1.0
+ABL_CHECK_B = 2  # card against CPU at this batch of the same shapes
+# ... after one AdamW + clip step, f32, TF32 off: Adam's first step moves an
+# element by at most lr (1 + wd |p|), so two readings of a gradient that is
+# mostly rounding may land up to 2 lr apart; all but ABL_FAR_SHARE of the
+# elements within ABL_STEP_FAR (gradients clipped to norm 1 fall near Adam's
+# eps 1e-8, where the step follows the gradient's size: rounding in the
+# smallest shows, as tests/test_torch_utils_optim.py finds on the CPU)
+ABL_STEP_FAR, ABL_FAR_SHARE = 2e-5, 1e-2
+# dpipd_template at the reference's DOA grid with nf 257 on a 4-mic array (all
+# 6 pairs), card against CPU: complex64 of modulus 1 whose phases reach ~30 rad,
+# each rounded in f32 on both sides
+ABL_DOA_GRID, ABL_NF, TOL_DPIPD = (37, 73), 257, 1e-4
+ABL_FN_SHAPE = (BATCH, 2, 257, 256)  # forgetting_norm over a flagship STFT map
 
 
 def log(*a):
@@ -941,7 +983,8 @@ def phase_kernels():
 
 
 def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
-                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts):
+                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts,
+                 abl_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1047,6 +1090,8 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
             "launches_model_options": mo_counts.get(name, 0),
             "launches_grid_vmap": grid_counts.get(name, 0),
         })
+    for row in out:  # phase ablations asserts that every count read 0
+        row["launches_ablations"] = abl_counts.get(row["name"], 0)
     return {"kernels": out}
 
 
@@ -3283,6 +3328,233 @@ def phase_grid_vmap(card):
     return total
 
 
+def _ablation_model(local, mode, seed=0):
+    from sarssl_torch.models import CauCRNN, EmbedEncoder
+
+    gen = torch.Generator().manual_seed(seed)
+    if local == "caucrnn":
+        return CauCRNN(generator=gen)
+    return EmbedEncoder(ABL_SIG, ABL_PATCH, ABL_DEMBED[mode], model=(local,), mode=mode,
+                        generator=gen)
+
+
+def _ablation_data(local, mode, nb, seed):
+    """Seeded (input, target): the patches (or CauCRNN's TF map) and an MSE
+    target of the arm's output shape."""
+    rng = np.random.default_rng(seed)
+    nf, nt, nreim, nmic = ABL_SIG
+    if local == "caucrnn":  # its pools stride time 1 * 1 * 2 * 2 * 3
+        x, y = (nb, nf, nt, nreim * nmic), (nb, nt // 12, 512)
+    else:
+        x, y = (nb, nt, ABL_PATCH[0] * ABL_PATCH[1] * nreim * nmic), (nb, nt, ABL_DEMBED[mode])
+    return (torch.from_numpy(rng.standard_normal(x, dtype=np.float32)),
+            torch.from_numpy(rng.standard_normal(y, dtype=np.float32)))
+
+
+def _ablation_step(state, x, target):
+    """One train step: forward in train mode, MSE, backward, AdamW + clip."""
+    state.model.train()
+    loss = torch.nn.functional.mse_loss(state.model(x, True), target)
+    loss.backward()
+    state.apply_gradients(ABL_LR)
+    return loss.detach()
+
+
+def _ablation_tx():
+    from sarssl_torch.train import make_adam
+
+    return make_adam(ABL_LR, weight_decay=ABL_WD, grad_clip=ABL_CLIP)
+
+
+def _device_ms(prof, steps):
+    """From a profile of ``steps`` steps: device ms a step (the kernels' summed
+    times), busy ms a step (the union of their intervals: the GRU's two
+    directions overlap) and the 3 kernels that take the most device time."""
+    per_kernel, spans = {}, []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + evt.device_time_total / 1e3
+            spans.append((evt.time_range.start, evt.time_range.end))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
+    return (sum(per_kernel.values()) / steps, busy_us / 1e3 / steps,
+            [(name[:60], ms / steps) for name, ms in top])
+
+
+def _ablation_train(card):
+    """(a) Every arm at batch 128: one warm-up and ABL_STEPS timed steps, then
+    one profiled step (device ms, busy share, the longest kernel)."""
+    from sarssl_torch.train import create_train_state
+
+    rows = {}
+    for local, mode in ABL_ARMS:
+        name = local if mode is None else f"{local}/{mode}"
+        model = _ablation_model(local, mode).cuda()
+        state = create_train_state(model, tx=_ablation_tx())
+        x, target = (t.cuda() for t in _ablation_data(local, mode, BATCH, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(_ablation_step(state, x, target))]
+        warm = time.perf_counter() - t0
+        times = []
+        for _ in range(ABL_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(_ablation_step(state, x, target)))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert all(np.isfinite(losses)), f"{name}: non-finite loss {losses}"
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _ablation_step(state, x, target)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        dev_ms, busy_ms, top = _device_ms(prof, 1)
+        med = statistics.median(times)
+        nparam = sum(p.numel() for p in model.parameters()) / 1e6
+        rows[name] = {"ms": 1e3 * med, "utt_s": BATCH / med, "peak_gib": peak}
+        log(f"[ablations] (a) {name}: {nparam:.3f} M params, warm-up {1e3 * warm:.1f} ms, median "
+            f"step {1e3 * med:.2f} ms ({ABL_STEPS} steps), {BATCH / med:.1f} utt/s, peak "
+            f"{peak:.2f} GiB, losses {[round(v, 5) for v in losses]}; profiled step "
+            f"{1e3 * prof_s:.2f} ms: kernels {dev_ms:.2f} ms, busy {busy_ms:.2f} ms (share "
+            f"{busy_ms / (1e3 * prof_s):.3f}), longest {[(n, round(t, 2)) for n, t in top]} "
+            f"({card})")
+        del model, state, x, target, prof
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ablation_card_vs_cpu():
+    """(b) Every arm at batch ABL_CHECK_B: the same weights and inputs on the
+    card and on the CPU, the eval forward, then one AdamW + clip step (its
+    loss, parameters and BatchNorm stats)."""
+    import copy
+
+    from sarssl_torch.train import create_train_state
+
+    for local, mode in ABL_ARMS:
+        name = local if mode is None else f"{local}/{mode}"
+        x, target = _ablation_data(local, mode, ABL_CHECK_B, 2)
+        models = {"cpu": _ablation_model(local, mode, seed=3)}
+        models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
+        out, loss = {}, {}
+        for dev, m in models.items():
+            m.eval()
+            with torch.no_grad():
+                out[dev] = m(x.to(dev), False).cpu()
+            loss[dev] = float(_ablation_step(create_train_state(m, tx=_ablation_tx()),
+                                             x.to(dev), target.to(dev)))
+        fwd_err = rel_err(out["cuda"], out["cpu"])
+        loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        cpu_p = dict(models["cpu"].named_parameters())
+        worst, far, total = 0.0, 0, 0
+        for n, p in models["cuda"].named_parameters():
+            d = (p.detach().cpu() - cpu_p[n].detach()).abs()
+            worst, far, total = max(worst, float(d.max())), far + int((d > ABL_STEP_FAR).sum()), \
+                total + d.numel()
+        cpu_b = dict(models["cpu"].named_buffers())
+        stats_err = max(rel_err(b.cpu(), cpu_b[n]) for n, b in models["cuda"].named_buffers())
+        log(f"[ablations] (b) {name} at batch {ABL_CHECK_B}, card against CPU: eval forward "
+            f"{fwd_err:.2e}, train loss {loss_err:.2e}, BatchNorm stats {stats_err:.2e} (of the "
+            f"max, tol {TOL_REF}); after one AdamW + clip step the parameters differ by at most "
+            f"{worst:.3e} (bound {2 * ABL_LR * 1.05:.2e}), {far} of {total} elements "
+            f"({far / total:.2e}) past {ABL_STEP_FAR} (at most {ABL_FAR_SHARE})")
+        assert fwd_err <= TOL_REF and loss_err <= TOL_REF and stats_err <= TOL_REF, name
+        assert worst <= 2 * ABL_LR * 1.05 and far <= ABL_FAR_SHARE * total, name
+
+
+def _ablation_utils(card):
+    """(c) dpipd_template and forgetting_norm, card against CPU;
+    estimate_flops of the flagship pretext forward; StepTimer and trace
+    around two flagship pretext train steps."""
+    import tempfile
+
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig, gen_patch_mask, stft_features
+    from sarssl_torch.ops.dpipd import dpipd_template
+    from sarssl_torch.train import create_train_state, make_pretrain_step
+    from sarssl_torch.utils.metrics import estimate_flops, forgetting_norm
+    from sarssl_torch.utils.profiling import StepTimer, trace
+
+    rng = np.random.default_rng(4)
+    mic = rng.uniform(-0.05, 0.05, (4, 3))
+    tpl = {dev: dpipd_template(mic, ABL_DOA_GRID, ABL_NF, ch_mode="MM", device=dev)[0]
+           for dev in ("cpu", "cuda")}
+    ms = cuda_ms(lambda: dpipd_template(mic, ABL_DOA_GRID, ABL_NF, ch_mode="MM", device="cuda"),
+                 iters=5, warmup=1)
+    err = float((tpl["cuda"].cpu() - tpl["cpu"]).abs().max())
+    log(f"[ablations] (c) dpipd_template {tuple(tpl['cuda'].shape)} MM: card against CPU max abs "
+        f"err {err:.2e} (tol {TOL_DPIPD}), {ms:.3f} ms on the card ({card})")
+    assert err <= TOL_DPIPD, err
+    x = torch.from_numpy(np.abs(rng.standard_normal(ABL_FN_SHAPE, dtype=np.float32)))
+    xc = x.cuda()
+    fn = {"cpu": forgetting_norm(x), "cuda": forgetting_norm(xc).cpu()}
+    ms = cuda_ms(lambda: forgetting_norm(xc), iters=3, warmup=1)
+    err = rel_err(fn["cuda"], fn["cpu"])
+    log(f"[ablations] (c) forgetting_norm {ABL_FN_SHAPE}: card against CPU {err:.2e} of the max "
+        f"(tol {TOL_F32}), {ms:.2f} ms on the card ({card})")
+    assert err <= TOL_F32, err
+
+    wave, _ = synth_batch(np.random.default_rng(0), BATCH, NSAMPLE)
+    wave = torch.from_numpy(wave).cuda()
+    # the flagship pretext forward, unfused, so the attention's products are
+    # aten calls that FlopCounterMode sees (it does not see a hand-written kernel)
+    model = SARSSL(SARSSLConfig(), device="cuda", seed=0).eval()
+    feats = stft_features(wave, FeatureConfig())
+    mask = gen_patch_mask(torch.Generator().manual_seed(0), feats.shape[0], model.cfg.npatch,
+                          model.cfg.effective_nmasked(), nmic=2, device="cuda")
+    gflops = estimate_flops(lambda: model.pretext(feats, mask, False))
+    log(f"[ablations] (c) estimate_flops of the flagship pretext forward (f32, batch "
+        f"{feats.shape[0]} pair rows): {gflops:.1f} GFLOPs, {gflops / BATCH:.3f} a 2-mic "
+        f"utterance (FlopCounterMode: matmuls, convolutions, attention)")
+    assert gflops > 0
+    del model, feats
+    model = SARSSL(SARSSLConfig(dtype="bfloat16", fused_attention=True), device="cuda", seed=0)
+    state = create_train_state(model)
+    step = make_pretrain_step(model, FeatureConfig(), device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    step(state, wave, 1e-3, gen)  # cuDNN plans, outside the timer
+    timer = StepTimer(warmup=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for _ in range(2):
+                timer.start()
+                timer.stop(step(state, wave, 1e-3, gen))
+        size = os.path.getsize(os.path.join(tmp, "trace.json"))
+    summary = timer.summary(items_per_step=BATCH)
+    dev_ms, busy_ms, top = _device_ms(prof, 2)
+    log(f"[ablations] (c) StepTimer over 2 traced flagship pretext steps: {summary}; trace.json "
+        f"{size / 2 ** 20:.1f} MiB, kernels {dev_ms:.1f} ms a step, busy {busy_ms:.1f} ms, "
+        f"longest {[(n, round(t, 1)) for n, t in top[:1]]} ({card})")
+    assert len(timer.times) == 2 and size > 0 and dev_ms > 0
+    del model, state, prof
+    torch.cuda.empty_cache()
+
+
+def phase_ablations(card):
+    """The CRNN ablation encoders at the flagship input, with make_adam's
+    AdamW and clipping: (a) training at batch 128, every kernel's launch
+    count zeroed before and read after (no hand-written kernel is on this
+    path: each must read 0); (b) card against CPU; (c) the ported utils.
+    Returns (a)'s launch counts."""
+    from sarssl_torch.kernels import reset_launches
+
+    reset_launches()
+    _ablation_train(card)
+    counts = _kernel_counts()
+    assert not counts, f"the CRNN arms launched hand-written kernels: {counts}"
+    log("[ablations] (a) launches over the phase's training: none, as none of the CRNN arms "
+        "runs a hand-written kernel")
+    _ablation_card_vs_cpu()
+    _ablation_utils(card)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -3304,9 +3576,10 @@ def main():
     real_counts = phase_real_data(card, step_utt_s)
     phase_model_options_reference()
     mo_counts, mo_shapes = phase_model_options(card)
+    abl_counts = phase_ablations(card)
     print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
-                                  mo_counts, mo_shapes, grid_counts)),
+                                  mo_counts, mo_shapes, grid_counts, abl_counts)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 from .common import BatchNorm, Dense, Dropout, LayerNorm
 from .conformer import (ConformerBlock, ConformerEncoder, ConvModule, FeedForwardModule,
                         RelPosSelfAttention, sinusoid_position_encoding)
+from .crnn import CRNN, TCRNN, BiGRU, CauCRNN, CausCnnBlock, CnnBlock, CRNNSim, GRUCell
 from .decoder import EmbedDecoder
 from .encoder import CNNFrontEnd, EmbedEncoder
 from .sarssl import SARSSL, MCConformer, SARSSLConfig, SARSSLMultiCH
@@ -10,4 +11,5 @@ __all__ = ["BatchNorm", "Dense", "Dropout", "LayerNorm", "ConformerBlock",
            "ConformerEncoder", "ConvModule", "FeedForwardModule", "RelPosSelfAttention",
            "sinusoid_position_encoding", "EmbedDecoder", "CNNFrontEnd", "EmbedEncoder",
            "SARSSL", "SARSSLConfig", "SARSSLMultiCH", "MCConformer", "TransformerEncoder",
-           "EncoderLayer", "MultiHeadDotProductAttention"]
+           "EncoderLayer", "MultiHeadDotProductAttention", "CnnBlock", "GRUCell", "BiGRU",
+           "CRNN", "CRNNSim", "TCRNN", "CausCnnBlock", "CauCRNN"]

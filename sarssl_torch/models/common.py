@@ -91,6 +91,46 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
+def same_pads(n: int, k: int, s: int):
+    """flax's 'SAME' padding of one axis of length ``n`` for a kernel ``k`` at
+    stride ``s``: ``ceil(n / s)`` outputs, the odd pad row at the end (torch's
+    symmetric ``padding`` would start a strided conv's windows elsewhere)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` without bias over ``(nb, cin, *spatial)`` (1-D or
+    2-D), computing in ``dtype``. ``padding``: 'SAME' (flax's, from the
+    input's size), 'VALID', or a ``(lo, hi)`` pair per spatial axis. The
+    weight is torch's ``(cout, cin, *kernel)``, lecun-normal."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, stride=1, padding="SAME",
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        nd = len(self.kernel_size)
+        self.stride = (stride,) * nd if isinstance(stride, int) else tuple(stride)
+        self.padding, self.dtype = padding, dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, *self.kernel_size))
+        lecun_normal_(self.weight.data, math.prod(self.kernel_size) * cin, generator)
+
+    def forward(self, x):
+        if self.padding == "SAME":
+            pads = [same_pads(n, k, s) for n, k, s in
+                    zip(x.shape[2:], self.kernel_size, self.stride)]
+        elif self.padding == "VALID":
+            pads = [(0, 0)] * len(self.kernel_size)
+        else:
+            pads = self.padding
+        x = x.to(self.dtype)
+        if any(lo != hi for lo, hi in pads):
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+            pads = [(0, 0)] * len(pads)
+        conv = F.conv1d if len(self.kernel_size) == 1 else F.conv2d
+        return conv(x, self.weight.to(self.dtype), None, self.stride, [lo for lo, _ in pads])
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: eps 1e-6 (torch's default is 1e-5), statistics
     in f32, output in dtype."""

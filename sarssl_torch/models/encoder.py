@@ -8,8 +8,10 @@ appended last, and a global sequence model (``conformer``, ``transformer``
 or none). The convolutions are cuDNN calls (``F.conv2d``), as the JAX
 package runs them outside any Pallas kernel. Public tensors keep the JAX
 package's NHWC layout; inside, the NCHW view of an NHWC tensor is
-channels-last, which cuDNN takes as it is. The CRNN variants
-(``models/crnn.py``) are not ported yet.
+channels-last, which cuDNN takes as it is. A single-model ``("crnn",)``,
+``("crnn-sim",)`` or ``("tcrnn",)`` encoder (encoder.py:87-108) runs a
+``models/crnn.py`` module, named ``crnn``, over the patch-recovered TF map:
+its frame-wise outputs are the embeddings.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.patches import patch_recover
-from .common import BatchNorm, Dense, lecun_normal_, remat
+from .common import BatchNorm, Conv, Dense, remat
 from .conformer import ConformerEncoder
+from .crnn import CRNN, CRNNSim, TCRNN
 from .transformer import TransformerEncoder
 
 LOCAL_MODELS = ("fc", "cnn", "cnn_f_first")
@@ -27,34 +30,18 @@ GLOBAL_MODELS = ("conformer", "transformer", "")
 CRNN_MODELS = ("crnn", "crnn-sim", "tcrnn")
 
 
-class Conv2d(nn.Conv2d):
-    """flax ``nn.Conv`` without bias: 'SAME' padding for odd kernels, or
-    'VALID' with a stride; lecun-normal init; computes in ``dtype``."""
-
-    def __init__(self, cin, cout, kernel_size, stride=1, padding=0, dtype=torch.float32,
-                 generator=None):
-        super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, bias=False)
-        self.dtype = dtype
-        kh, kw = self.kernel_size
-        lecun_normal_(self.weight.data, kh * kw * cin, generator)
-
-    def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None, self.stride,
-                        self.padding)
-
-
 def add_conv_stack(module: nn.Module, cin: int, cout: int, dembed: int, patch_shape,
                    conv_chs: int = 64, dtype=torch.float32, generator=None) -> None:
     """Give ``module`` flax's conv stack names: ``conv0``..``conv3`` (1x1, 3x3,
     3x3, 1x1: cin -> conv_chs -> conv_chs -> conv_chs -> cout), ``bn0``..``bn3``
     and the patch-strided projection ``proj`` to ``dembed``."""
-    conv = lambda ci, co, k: Conv2d(ci, co, k, padding=k // 2, dtype=dtype, generator=generator)
+    conv = lambda ci, co, k: Conv(ci, co, (k, k), dtype=dtype, generator=generator)
     module.conv0, module.bn0 = conv(cin, conv_chs, 1), BatchNorm(conv_chs, dtype)
     module.conv1, module.bn1 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
     module.conv2, module.bn2 = conv(conv_chs, conv_chs, 3), BatchNorm(conv_chs, dtype)
     module.conv3, module.bn3 = conv(conv_chs, cout, 1), BatchNorm(cout, dtype)
-    module.proj = Conv2d(cout, dembed, tuple(patch_shape), stride=tuple(patch_shape),
-                         dtype=dtype, generator=generator)
+    module.proj = Conv(cout, dembed, patch_shape, stride=tuple(patch_shape), padding="VALID",
+                       dtype=dtype, generator=generator)
 
 
 def run_conv_stack(module: nn.Module, x, train: bool = False):
@@ -80,16 +67,30 @@ class CNNFrontEnd(nn.Module):
         return run_conv_stack(self, x, train)
 
 
+def _crnn(local: str, mode: str, nf: int, nch: int, dembed: int, dtype, generator):
+    """The single-model CRNN variant ``local`` (encoder.py:87-108)."""
+    kw = dict(out_dim=dembed, dtype=dtype, generator=generator)
+    if local == "crnn" and mode == "spec":
+        return CRNN(nch, nf, planes=(32, 32, 64), f_stride=(1, 4, 4), **kw)
+    if local == "crnn":
+        return CRNN(nch, nf, planes=(16, 16, 32, 64, 128), f_stride=(1, 1, 4, 4, 4), **kw)
+    if local == "crnn-sim":
+        return CRNNSim(nch, nf, conv_chs=64, rnn_hid=dembed, **kw)
+    return TCRNN(nch, nf, **kw)
+
+
 class EmbedEncoder(nn.Module):
     """Local front end over the patches, then a global sequence model.
     ``embed (nb, npatch, dpatch*nreim*nmic)`` -> ``(nb, npatch[+1], dembed)``
     (one more token, last, with ``use_cls`` and a global model).
 
     ``model`` is ``(local, global)`` from {'fc', 'cnn', 'cnn_f_first'} x
-    {'conformer', 'transformer', ''}; ``mode`` picks the layer count (spec 1,
-    spat 3) unless ``num_layers`` is given; ``remat_local`` recomputes the CNN
-    front end in the backward. flax names: ``patch_proj`` (fc), ``front``
-    (cnn), ``cls_token``, ``global`` -> ``seq``."""
+    {'conformer', 'transformer', ''}, or one of ``("crnn",)``,
+    ``("crnn-sim",)``, ``("tcrnn",)`` (``(nb, nt, dembed)`` out, the CRNN's
+    size picked by ``mode``); ``mode`` picks the layer count (spec 1, spat 3)
+    unless ``num_layers`` is given; ``remat_local`` recomputes the CNN front
+    end in the backward. flax names: ``patch_proj`` (fc), ``front`` (cnn),
+    ``crnn``, ``cls_token``, ``global`` -> ``seq``."""
 
     def __init__(self, sig_shape, patch_shape, dembed: int, model=("cnn", "conformer"),
                  mode: str = "spat", num_layers: int = 0, dropout: float = 0.1,
@@ -97,16 +98,18 @@ class EmbedEncoder(nn.Module):
                  use_cls: bool = False, remat_local: bool = False):
         super().__init__()
         model = tuple(model)
-        if len(model) == 1 and model[0] in CRNN_MODELS:
-            raise NotImplementedError(f"EmbedEncoder model {model} is not ported yet")
         self.local, self.global_ = model[0], (model[1] if len(model) > 1 else "")
+        self.sig_shape, self.patch_shape, self.dembed = tuple(sig_shape), tuple(patch_shape), dembed
+        nf, nt, nreim, nmic = sig_shape
+        self.is_crnn = len(model) == 1 and self.local in CRNN_MODELS
+        if self.is_crnn:
+            self.crnn = _crnn(self.local, mode, nf, nreim * nmic, dembed, dtype, generator)
+            return
         if self.local not in LOCAL_MODELS:
             raise ValueError(f"Unsupported local model: {self.local}")
         if self.global_ not in GLOBAL_MODELS:
             raise ValueError(f"Unsupported global model: {self.global_}")
-        self.sig_shape, self.patch_shape, self.dembed = tuple(sig_shape), tuple(patch_shape), dembed
         self.remat_local = remat_local
-        nf, nt, nreim, nmic = sig_shape
         pf, pt = patch_shape
         nlayers = num_layers or (1 if mode == "spec" else 3)
         if self.local == "fc":
@@ -144,6 +147,12 @@ class EmbedEncoder(nn.Module):
         return y.reshape(nb, npatch, self.dembed)
 
     def forward(self, embed, train: bool = False, generator=None):
+        if self.is_crnn:  # frame-wise outputs are the embeddings
+            nb, npatch, _ = embed.shape
+            v = embed.reshape(nb, npatch, self.patch_shape[0] * self.patch_shape[1], -1)
+            tf = patch_recover(v, self.sig_shape[:2], self.patch_shape,
+                               f_first=self.patch_shape[1] != 1)
+            return self.crnn(tf, train)  # (nb, nt, dembed)
         if self.local == "fc":
             x = self.patch_proj(embed)
         else:

@@ -4,11 +4,12 @@ from .grid import (StackedState, VmappedGridRunner, make_scanned_downstream_step
 from .learner import (DownstreamLearner, EarlyStopping, PretrainLearner, mae_without_training,
                       smooth_data)
 from .schedules import cosine_schedule, exp_decay, linear_schedule
-from .state import Adam, StackedAdam, TrainState, create_train_state
+from .state import Adam, StackedAdam, TrainState, create_train_state, make_adam
 from .steps import (make_downstream_eval_step, make_downstream_step, make_pretrain_eval_step,
                     make_pretrain_step)
 
-__all__ = ["Adam", "StackedAdam", "TrainState", "create_train_state", "make_pretrain_step",
+__all__ = ["Adam", "StackedAdam", "TrainState", "create_train_state", "make_adam",
+           "make_pretrain_step",
            "make_pretrain_eval_step", "make_downstream_step", "make_downstream_eval_step",
            "partial_load", "trainable_mask_from_loaded", "cosine_schedule", "linear_schedule",
            "exp_decay", "EarlyStopping", "PretrainLearner", "DownstreamLearner", "smooth_data",

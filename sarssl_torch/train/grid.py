@@ -76,6 +76,9 @@ def stack_states(states: Sequence[TrainState]) -> StackedState:
     along a new leading axis; the stacked parameters are leaves that take
     gradients."""
     model = states[0].model
+    if states[0].optimizer.weight_decay or states[0].optimizer.grad_clip:
+        raise ValueError("the vmapped grid steps make_adam(lr)'s Adam only, without weight "
+                         "decay or clipping")
     per = [dict(s.model.named_parameters()) for s in states]
     params = {n: torch.stack([p[n].detach() for p in per]).requires_grad_()
               for n, _ in model.named_parameters()}

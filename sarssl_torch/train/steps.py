@@ -11,10 +11,11 @@ a step is a plain function over a ``TrainState``.
 Freezing, as the JAX steps do it: a frozen parameter takes no gradient (here
 ``requires_grad`` is off during the step, so autograd skips whatever only it
 needs, the backward of a wholly frozen encoder included; Adam reads the
-missing gradient as 0), the update runs over all parameters, and the frozen
-values are then put back: moments restored from a checkpoint would otherwise
-move them. The BatchNorm stats of a frozen encoder still move, as the JAX
-steps replace all of ``batch_stats``.
+missing gradient as 0, and so does a clipping norm), the update runs over all
+parameters, and the frozen values are then put back: moments restored from a
+checkpoint, or AdamW's weight decay, would otherwise move them. The BatchNorm
+stats of a frozen encoder still move, as the JAX steps replace all of
+``batch_stats``.
 
 Randomness comes from an explicit CPU ``torch.Generator``: the mask (unless
 one is given, e.g. replayed from the JAX package) and one uint32 dropout
@@ -68,6 +69,8 @@ def _without_grad(frozen: List[torch.nn.Parameter]):
 @torch.no_grad()
 def _update(state: TrainState, lr: float, frozen: List[torch.nn.Parameter]) -> None:
     kept = torch._foreach_mul(frozen, 1.0) if frozen else []  # exact copies
+    for p in frozen:  # masked, as the JAX step masks them: 0 in a clipping norm
+        p.grad = None
     state.apply_gradients(lr)
     if frozen:
         torch._foreach_copy_(frozen, kept)

@@ -21,9 +21,13 @@ Module names follow flax's, with flax's automatic names renamed
 ``dense0``, ``Dense_1`` -> ``dense1``, ``Conv_0`` -> ``dwconv``,
 ``BatchNorm_0`` -> ``bn``, ``MultiHeadDotProductAttention_0`` -> ``mha``,
 ``block<i>`` -> ``blocks.<i>``, ``layer<i>`` -> ``layers.<i>``, an encoder's
-``global`` -> ``seq``, the decoder's ``seq`` -> ``stage``) at any depth,
-the multi-pair head's included. A leaf without a rename (``cls_token``,
-``u_bias``, the decoder's ``conv0``..``proj``) keeps its name.
+``global`` -> ``seq``, the decoder's ``seq`` -> ``stage``, a GRU's
+``GRUCell_0`` / ``GRUCell_1`` -> ``fwd`` / ``bwd`` and its gate ``in`` ->
+``in_``) at any depth, the multi-pair head's included. A leaf without a
+rename (``cls_token``, ``u_bias``, the decoder's ``conv0``..``proj``, the
+CRNNs' ``pre``, ``block<i>a``, ``conv<i>a``, ``down<i>``) keeps its name.
+TCRNN's 1-D conv kernels ``(k, cin, cout)`` go to ``(cout, cin, k)`` as the
+depthwise ones do.
 
 ``to_jax_params`` is the inverse: the model's parameters and BatchNorm stats
 as flax's tree of float32 numpy arrays, with flax's names and layouts;
@@ -40,7 +44,8 @@ import torch
 
 _RENAME = {"LayerNorm_0": "ln", "LayerNorm_1": "ln1", "Dense_0": "dense0",
            "Dense_1": "dense1", "Conv_0": "dwconv", "BatchNorm_0": "bn",
-           "MultiHeadDotProductAttention_0": "mha", "global": "seq", "seq": "stage"}
+           "MultiHeadDotProductAttention_0": "mha", "global": "seq", "seq": "stage",
+           "GRUCell_0": "fwd", "GRUCell_1": "bwd", "in": "in_"}
 _LISTS = {"block": "blocks", "layer": "layers"}  # flax's block<i> / layer<i>
 _INDEXED = re.compile(r"(block|layer)(\d+)$")
 _MHA = "MultiHeadDotProductAttention_0"
