@@ -168,8 +168,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
               and ``forgetting_norm`` on (128, 2, 257, 256), card against CPU;
               ``estimate_flops`` of the flagship pretext forward; ``StepTimer``
               and ``trace`` around two flagship pretext train steps.
-Then the ``kernels`` JSON line (each row with ``launches_ablations``) and,
-last, the ``ok`` JSON line.
+ 15. mesh: the multi-device path (``sarssl_torch/parallel``) on one card,
+              every call's launch counts zeroed before and asserted after:
+              (a) the flagship pretext step (bf16, batch 128, fused attention)
+              through ``make_sharded_pretrain_step`` on a 1x1 mesh (an NCCL
+              group of one rank in this process): 6 steps equal to the plain
+              step's from the same state and generator bit for bit (cuDNN
+              deterministic for both), then 1 warm-up and 5 timed steps (step
+              ms beside phase train's, peak GiB), one profiled step (the NCCL
+              kernels' device ms: none, one data rank syncs no gradients) and
+              the all-reduce of a bucket of every parameter alone by CUDA
+              events; (b) ``run_pretrain --mesh 1x1
+              --fused-attention`` (1 epoch: 2 train and 1 val batches of 128)
+              and ``run_downstream --mesh 1x1`` (a finetune cell epoch from the
+              committed trained checkpoint), each beside the same call
+              unmeshed (epoch utt/s, s a cell epoch); (c) the index maps of a
+              tensor-parallel rank: attention forward and backward on half the
+              heads with ``(heads_total, head_offset)`` on the tensor-core
+              route (bf16, D = 128 / 64, L = 256) and the FMA route (f32 D =
+              64; bf16 L = 257), and the dropout kernel on half the columns
+              with ``(row_local, row_total, col_offset)``: each equal to the
+              slice of the full launch bit for bit and held against its plain
+              version, timed beside the same launch unsharded.
+Then the ``kernels`` JSON line (each row with ``launches_ablations`` and
+``launches_mesh``; rows 1-3 with their index-mapped times) and, last, the
+``ok`` JSON line.
 """
 import json
 import os
@@ -367,6 +390,149 @@ ABL_FN_SHAPE = (BATCH, 2, 257, 256)  # forgetting_norm over a flagship STFT map
 
 def log(*a):
     print(*a, flush=True)
+
+
+# mesh (c): the index-mapped launches of a tensor-parallel rank. Attention at
+# (L, D, dtype) on each route: the tensor-core kernels at both flagship head
+# dims, the FMA kernels in f32 and at a ragged L; the rank holds half the
+# heads. The dropout at the spec encoder's feed-forward hidden (B, L, 2048)
+# bf16 with half its units.
+MESH_ATTENTION_SHAPES = ((SEQ, 128, torch.bfloat16), (SEQ, 64, torch.bfloat16),
+                         (SEQ, 64, torch.float32), (SEQ + 1, 64, torch.bfloat16))
+MESH_DROP_SHAPE = (BATCH, SEQ, 4 * 512)
+
+
+def _sharded_attention(D, dtype, L, gen):
+    """Attention forward and backward on each half of the heads with (H, h0),
+    against the head slice of the full launch bit for bit and against the
+    plain version; returns the errors, launch counts and times."""
+    from sarssl_torch.kernels import attention_plain, fused_attention, launches
+    from sarssl_torch.kernels.attention import takes_tensor_cores
+
+    scale = 1.0 / np.sqrt(HEADS * D)
+    seed = 0x9E3779B9
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
+    xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    full = fused_attention(*xs, seed, scale, RATE)
+    full_grads = torch.autograd.grad(full, xs, g)
+    hl = HEADS // 2
+    tc = takes_tensor_cores(dtype, L, D)
+    names = (f"attention_fwd_d{D}", f"attention_bwd_d{D}")
+    err, plain_err = 0.0, 0.0
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    for h0 in (0, hl):
+        hs = slice(h0, h0 + hl)
+        part = [t[:, hs].contiguous().requires_grad_() for t in (qu, k, v, bias)]
+        before = [launches[n] for n in names]
+        out = fused_attention(*part, seed, scale, RATE, HEADS, h0)
+        grads = torch.autograd.grad(out, part, g[:, hs].contiguous())
+        rose = [launches[n] - b for n, b in zip(names, before)]
+        assert rose == [1, 1], f"sharded attention D={D}: launches {rose}"
+        for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                              (full, *full_grads)):
+            assert torch.equal(a, b[:, hs]), (
+                f"attention L={L} D={D} {dtype} heads {h0}+{hl} of {HEADS}: {name} differs "
+                f"from the full launch's head slice")
+            err = max(err, max_abs(a, b[:, hs]))
+        ys = [t[:, hs].float().requires_grad_() for t in (qu, k, v, bias)]
+        ref = attention_plain(*ys, seed, scale, RATE, HEADS, h0)
+        ref_grads = torch.autograd.grad(ref, ys, g[:, hs].float())
+        for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                              (ref, *ref_grads)):
+            rel = rel_err(a, b)
+            assert rel <= tol, (f"sharded attention L={L} D={D} {dtype}: {name} rel err "
+                                f"{rel} against the plain version > {tol}")
+            plain_err = max(plain_err, max_abs(a, b))
+    # times: the half-heads launch with (H, h0) beside the same launch
+    # unsharded (H/2, 0); back to back on one card
+    hs = slice(hl, HEADS)
+    part = [t[:, hs].contiguous() for t in (qu, k, v, bias, g)]
+    from sarssl_torch.kernels.attention import (launch_attention_bwd_fma,
+                                                launch_attention_bwd_mma,
+                                                launch_attention_fwd_fma,
+                                                launch_attention_fwd_mma)
+    res = {"tc": tc, "max_abs_err": err, "plain_err": plain_err}
+    times = {}
+    # mapped, unmapped, unmapped, mapped: each time the mean of its two
+    for tag, heads in (("mapped", (HEADS, hl)), ("unmapped", (None, 0)),
+                       ("unmapped", (None, 0)), ("mapped", (HEADS, hl))):
+        a = (seed, scale, RATE, *heads)
+        if tc:
+            out, lse = launch_attention_fwd_mma(*part[:4], *a)
+            fwd = cuda_ms(lambda: launch_attention_fwd_mma(*part[:4], *a), iters=50)
+            bwd = cuda_ms(lambda: launch_attention_bwd_mma(*part, out, lse, *a), iters=50)
+            del out, lse
+        else:
+            fwd = cuda_ms(lambda: launch_attention_fwd_fma(*part[:4], *a), iters=50)
+            bwd = cuda_ms(lambda: launch_attention_bwd_fma(*part, *a), iters=50)
+        times.setdefault(f"{tag}_fwd_ms", []).append(fwd)
+        times.setdefault(f"{tag}_bwd_ms", []).append(bwd)
+    res.update({k: sum(v) / len(v) for k, v in times.items()})
+    log(f"[mesh] (c) attention L={L} D={D} {str(dtype)[6:]} rate={RATE} "
+        f"({'tensor-core' if tc else 'FMA'} kernels), heads h0..h0+{hl} of {HEADS} for h0 in "
+        f"(0, {hl}): out, dqu, dk, dv, dbias identical to the full launch's head slice; "
+        f"against the plain version max abs {plain_err:.2e} (tol rel {tol}); fwd "
+        f"{res['mapped_fwd_ms']:.4f} ms with (H, h0), {res['unmapped_fwd_ms']:.4f} ms "
+        f"unsharded; bwd {res['mapped_bwd_ms']:.4f} / {res['unmapped_bwd_ms']:.4f} ms")
+    return res
+
+
+def _sharded_dropout(gen):
+    """The dropout kernel on each half of the columns with (row_local,
+    row_total, col_offset), forward and gradient, against the full launch's
+    column slice and the plain version bit for bit; timed beside the
+    unsharded launch of the same half."""
+    from sarssl_torch.kernels import dropout_plain, hash_dropout, launches
+    from sarssl_torch.kernels.dropout import launch_dropout
+
+    seed = 0x9E3779B9
+    x = torch.randn(MESH_DROP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn_like(x)
+    full = hash_dropout(x, seed, RATE)
+    full_g = hash_dropout(g, seed, RATE)
+    cols = x.shape[-1]
+    w = cols // 2
+    err = 0.0
+    for c0 in (0, w):
+        xs = x[..., c0:c0 + w].contiguous()
+        imap = (w, cols, c0)
+        xr = xs.clone().requires_grad_()
+        before = launches["hash_dropout"]
+        out = hash_dropout(xr, seed, RATE, imap)
+        (grad,) = torch.autograd.grad(out, xr, g[..., c0:c0 + w].contiguous())
+        assert launches["hash_dropout"] - before == 2, "sharded dropout: launches"
+        ref = dropout_plain(xs, seed, RATE, imap)
+        for name, a, b in (("out", out, full[..., c0:c0 + w]), ("grad", grad,
+                                                                 full_g[..., c0:c0 + w]),
+                           ("plain", out, ref)):
+            assert torch.equal(a, b), f"sharded dropout cols {c0}+{w}: {name} differs"
+            err = max(err, max_abs(a, b))
+    xs = x[..., w:].contiguous()
+    n = xs.numel()
+    mapped = lambda: launch_dropout(xs, seed, RATE, (w, cols, w))  # noqa: E731
+    unmapped = lambda: launch_dropout(xs, seed, RATE)  # noqa: E731
+    # mapped, unmapped, unmapped, mapped: each time the mean of its two
+    t = [cuda_ms(fn, iters=50) for fn in (mapped, unmapped, unmapped, mapped)]
+    res = {"max_abs_err": err, "mapped_ms": (t[0] + t[3]) / 2, "unmapped_ms": (t[1] + t[2]) / 2,
+           "plain_ms": cuda_ms(lambda: dropout_plain(xs, seed, RATE, (w, cols, w))),
+           "library_ms": cuda_ms(lambda: torch.nn.functional.dropout(xs, RATE, True)),
+           "bound": bound_ms(2 * n * 2, 14 * n, F32_FLOPS)}
+    log(f"[mesh] (c) hash_dropout {tuple(xs.shape)} bf16 rate={RATE}, columns c0..c0+{w} of "
+        f"{cols} for c0 in (0, {w}): output, gradient and the plain version identical to the "
+        f"full launch's column slice; {res['mapped_ms']:.4f} ms with the index map, "
+        f"{res['unmapped_ms']:.4f} ms unsharded (plain {res['plain_ms']:.4f}, F.dropout "
+        f"{res['library_ms']:.4f}, bound {res['bound'][0]:.4f})")
+    return res
+
+
+def check_index_maps():
+    """mesh (c): every index-mapped launch against its full launch's slice
+    and its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    att = {shape: _sharded_attention(shape[1], shape[2], shape[0], gen)
+           for shape in MESH_ATTENTION_SHAPES}
+    torch.cuda.empty_cache()
+    return att, _sharded_dropout(gen)
 
 
 def phase_card():
@@ -984,7 +1150,7 @@ def phase_kernels():
 
 def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
                  dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts,
-                 abl_counts):
+                 abl_counts, mesh_counts, mesh):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1092,6 +1258,23 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
         })
     for row in out:  # phase ablations asserts that every count read 0
         row["launches_ablations"] = abl_counts.get(row["name"], 0)
+    # phase mesh: the launches of its sharded step and meshed CLI runs, and
+    # each kernel's index-mapped launch (a tensor-parallel rank's half of the
+    # heads or units) beside the same launch unsharded
+    att = {(f"attention_{kind}_d{D}" if L == SEQ and dtype == torch.bfloat16 else
+            f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}"): (r, kind)
+           for (L, D, dtype), r in mesh["attention"].items() for kind in ("fwd", "bwd")}
+    for row in out:
+        row["launches_mesh"] = mesh_counts.get(row["name"], 0)
+        if row["name"] in att:
+            r, kind = att[row["name"]]
+            row.update(index_args="(heads_total, head_offset)",
+                       index_map_ms=r[f"mapped_{kind}_ms"],
+                       index_map_unsharded_ms=r[f"unmapped_{kind}_ms"])
+        elif row["name"] == "hash_dropout":
+            row.update(index_args="(row_local, row_total, col_offset)",
+                       index_map_ms=mesh["dropout"]["mapped_ms"],
+                       index_map_unsharded_ms=mesh["dropout"]["unmapped_ms"])
     return {"kernels": out}
 
 
@@ -3555,6 +3738,229 @@ def phase_ablations(card):
     return counts
 
 
+# mesh: the pretext step at the flagship width through the sharded step on a
+# world of one rank (an NCCL group in this process), against the plain step
+# from the same state and generator; then both CLIs with --mesh 1x1 beside
+# their unmeshed runs: the pre-training run 1 epoch of 2 train and 1 val
+# batches of 128, the downstream run one finetune cell epoch of 8 steps of 8
+# (with 4 val batches) from the committed trained checkpoint
+MESH_CLI_TRAIN_NUM, MESH_CLI_VAL_NUM = 256, 128
+# each CLI call unmeshed, meshed, meshed, unmeshed: the first call of a shape
+# also builds its cuDNN plans
+MESH_CLI_ORDER = (("unmeshed", []), ("mesh 1x1", ["--mesh", "1x1"]),
+                  ("mesh 1x1", ["--mesh", "1x1"]), ("unmeshed", []))
+
+
+def _pretext_runs(state_of, steps, wave):
+    """``steps`` pretext steps of the step ``state_of()`` builds from a fresh
+    flagship state (seed 0) on one generator (seed 0): their losses and the
+    parameters after."""
+    model, state, step = state_of()
+    gen = torch.Generator().manual_seed(0)
+    losses = [step(state, wave, 1e-3, gen)["loss"].float().item() for _ in range(steps)]
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return losses, params
+
+
+def _mesh_step(card, train_ms):
+    """(a) The flagship pretext step through ``make_sharded_pretrain_step``
+    on a 1x1 mesh: equal to the plain step bit for bit (cuDNN deterministic
+    for both); then 1 warm-up and 5 timed steps (launches exact, peak GiB),
+    one profiled step (its NCCL kernels' device ms) and the all-reduce of a
+    bucket of every parameter alone, timed by CUDA events. Returns the timed
+    steps' counts."""
+    import torch.distributed as dist
+
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+    from sarssl_torch.parallel import make_mesh, make_sharded_pretrain_step
+    from sarssl_torch.train import create_train_state, make_pretrain_step
+
+    assert not dist.is_initialized(), "a process group is already up"
+    mesh = make_mesh(1, 1, device_type="cuda")
+    cfg = SARSSLConfig(dtype="bfloat16", fused_attention=True)
+    wave = torch.from_numpy(synth_batch(np.random.default_rng(0), BATCH, NSAMPLE)[0]).cuda()
+
+    def plain():
+        model = SARSSL(cfg, device="cuda", seed=0)
+        return model, create_train_state(model), make_pretrain_step(model, FeatureConfig(),
+                                                                    device="cuda")
+
+    def sharded():
+        model = SARSSL(cfg, device="cuda", seed=0)
+        state = create_train_state(model)
+        step, _, _ = make_sharded_pretrain_step(model, FeatureConfig(), mesh, state)
+        return model, state, step
+
+    n = 1 + STEPS
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = _pretext_runs(plain, n, wave)
+        got = _pretext_runs(sharded, n, wave)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    diff = max(float((got[1][k].float() - v.float()).abs().max()) for k, v in ref[1].items())
+    same = got[0] == ref[0] and diff == 0.0
+    if not same:  # the plain step against itself: what run-to-run order gives
+        again = _pretext_runs(plain, n, wave)
+        diff_plain = max(float((again[1][k].float() - v.float()).abs().max())
+                         for k, v in ref[1].items())
+        log(f"[mesh] (a) the sharded step differs from the plain step (max param diff "
+            f"{diff:.3e}, losses {got[0]} / {ref[0]}); the plain step against itself: max "
+            f"param diff {diff_plain:.3e}, losses {again[0]}")
+        assert diff_plain > 0 and diff <= 2 * diff_plain, "the 1x1 sharded step is not the plain step"
+    log(f"[mesh] (a) flagship pretext step (bf16, batch {BATCH}, fused attention) on a 1x1 "
+        f"mesh (NCCL, world size {dist.get_world_size()}): {n} steps' losses and the "
+        f"parameters after {'identical to the plain step bit for bit' if same else 'as above'}"
+        f" (cuDNN deterministic for both runs); losses {got[0]}")
+    del got, ref
+    torch.cuda.empty_cache()
+
+    model, state, step = sharded()
+    gen = torch.Generator().manual_seed(0)
+    step(state, wave, 1e-3, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        step(state, wave, 1e-3, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for D in HEAD_DIMS:
+        for kind in ("fwd", "bwd", "fwd_tc", "bwd_tc"):
+            got = counts.get(f"attention_{kind}_d{D}", 0)
+            assert got == LAYERS[D] * STEPS, f"mesh attention_{kind}_d{D}: {got} launches"
+    want = PRETRAIN_DROPOUT_PER_STEP["train"] * STEPS
+    assert counts.get("hash_dropout", 0) == want, (
+        f"mesh: hash_dropout {counts.get('hash_dropout', 0)} launches, want {want}")
+    _assert_no_conv_launch(counts, "sharded pretext")
+    med = statistics.median(times)
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(state, wave, 1e-3, gen)
+        torch.cuda.synchronize()
+    nccl = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "nccl" in e.name.lower()]
+    nccl_ms = sum(e.device_time_total for e in nccl) / 1e3
+    dev_ms, busy_ms, _ = _device_ms(prof, 1)
+    # one data rank sums no gradients: the 1x1 step is the plain step's body
+    # with no gradient sync; the all-reduce that D > 1 adds, on a bucket of
+    # every parameter, timed alone
+    from sarssl_torch.parallel.steps import _prepare
+
+    assert _prepare(model, mesh, state, sync=True)[2] is None, "a 1x1 step syncs gradients"
+    numel = sum(p.numel() for p in model.parameters())
+    bucket = torch.ones(numel, device="cuda")
+    ar_ms = cuda_ms(lambda: dist.all_reduce(bucket, group=mesh.data_group))
+    log(f"[mesh] (a) launches over {STEPS} sharded steps: {counts}")
+    log(f"[mesh] (a) sharded step: median {1e3 * med:.1f} ms ({BATCH / med:.1f} utt/s) beside "
+        f"phase train's plain step {train_ms:.1f} ms, peak {peak:.2f} GiB; one profiled step: "
+        f"device {dev_ms:.1f} ms, busy {busy_ms:.1f} ms, NCCL kernels {len(nccl)} taking "
+        f"{nccl_ms:.4f} ms ({', '.join(sorted({e.name[:40] for e in nccl})) or 'none seen'}); "
+        f"no gradient bucket at one data rank; the all-reduce of a {numel}-f32 bucket "
+        f"{ar_ms:.4f} ms by CUDA events ({card})")
+    del model, state, step, bucket
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": 1e3 * med, "nccl_ms": nccl_ms, "allreduce_ms": ar_ms,
+                    "peak_gib": peak}
+
+
+def _mesh_clis(card):
+    """(b) ``run_pretrain --mesh 1x1 --fused-attention`` (1 epoch: 2 train and
+    1 val batches) and ``run_downstream --mesh 1x1`` (one finetune cell epoch
+    from the committed trained checkpoint), each beside the same call
+    unmeshed; every call's launches zeroed before and asserted after. Each
+    meshed call joins and leaves its own group of one rank. Returns the
+    meshed calls' summed counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.train import checkpoint as ckpt
+
+    total, rates = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mesh_cli_") as tmp:
+        common = ["--pretrain", "--synthetic", "--fused-attention", "--bs", str(BATCH),
+                  "--train-num", str(MESH_CLI_TRAIN_NUM), "--val-num", str(MESH_CLI_VAL_NUM),
+                  "--epochs", "1"]
+        train_steps = MESH_CLI_TRAIN_NUM // BATCH
+        val_steps = MESH_CLI_VAL_NUM // BATCH
+        for i, (tag, extra) in enumerate(MESH_CLI_ORDER):
+            exp = os.path.join(tmp, f"pre{i}")
+            reset_launches()
+            out = _cli(common + extra + ["--exp-dir", exp])
+            torch.cuda.synchronize()
+            counts = dict(launches)
+            assert not dist.is_initialized(), "the CLI left its process group up"
+            assert "epoch 0:" in out, out
+            for D in HEAD_DIMS:
+                for kind, steps in (("fwd", train_steps + val_steps), ("bwd", train_steps)):
+                    for name in (f"attention_{kind}_d{D}", f"attention_{kind}_tc_d{D}"):
+                        assert counts.get(name, 0) == LAYERS[D] * steps, (tag, name, counts)
+            want = PRETRAIN_DROPOUT_PER_STEP["train"] * train_steps
+            assert counts.get("hash_dropout", 0) == want, (tag, counts)
+            _assert_no_conv_launch(counts, "pre-training CLI " + tag)
+            with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            train = [r for r in recs if r["split"] == "train"]
+            rates.setdefault("pretrain " + tag, []).append(train[0]["utt_per_sec"])
+            log(f"[mesh] (b) run_pretrain {tag}: train loss {train[0]['loss']:.5f}, epoch "
+                f"{train[0]['utt_per_sec']:.1f} utt/s, launches {counts} ({card})")
+            if extra:
+                _add_counts(total, counts)
+
+        pre = os.path.join(tmp, "pretrained")
+        os.makedirs(pre)
+        shutil.copyfile(Path(__file__).resolve().parent / TRAINED_CKPT, ckpt.best_path(pre))
+        common = ["--ds-train", "--synthetic", "--ds-task", "TDOA", "--bs-set", str(DS_BATCH),
+                  "--lr-set", "1e-3", "--ntrial", "1", "--epochs", "1", "--pretrain-ckpt", pre,
+                  *DSCLI_NUMS]
+        nbatch = int(DSCLI_NUMS[1]) // DS_BATCH
+        for i, (tag, extra) in enumerate(MESH_CLI_ORDER):
+            exp = os.path.join(tmp, f"ds{i}")
+            spent = {"cell_epoch": []}
+            out, counts, learners, wall = _ds_cli_run(f"mesh (b) run_downstream {tag}",
+                                                      common + extra + ["--exp-dir", exp],
+                                                      spent, card)
+            assert not dist.is_initialized(), "the CLI left its process group up"
+            _check_ds_launches(tag, counts, _ds_train_steps(learners, nbatch), "finetune")
+            res = _read_results(exp)
+            rates.setdefault("downstream " + tag, []).append(spent["cell_epoch"][0])
+            log(f"[mesh] (b) run_downstream {tag}: {spent['cell_epoch'][0]:.3f} s a cell epoch "
+                f"({nbatch} steps of {DS_BATCH}, then {int(DSCLI_NUMS[3]) // DS_BATCH} val "
+                f"batches and the checkpoint), test MAE {res['best_test_mae']:.5f}, wall "
+                f"{wall:.2f} s ({card})")
+            if extra:
+                _add_counts(total, counts)
+    log(f"[mesh] (b) meshed against unmeshed, in the order unmeshed, meshed, meshed, "
+        f"unmeshed: pre-training epoch utt/s {rates['pretrain mesh 1x1']} / "
+        f"{rates['pretrain unmeshed']}, downstream s a cell epoch "
+        f"{rates['downstream mesh 1x1']} / {rates['downstream unmeshed']} ({card})")
+    return total, rates
+
+
+def phase_mesh(card, train_ms):
+    """The multi-device path on one card: (a) the sharded pretext step at
+    world size 1, (b) both CLIs with ``--mesh 1x1``, (c) the index-mapped
+    kernels of a tensor-parallel rank. Returns the launch counts of (a) and
+    (b) and the times of (a) and (c)."""
+    counts, step = _mesh_step(card, train_ms)
+    cli_counts, rates = _mesh_clis(card)
+    _add_counts(counts, cli_counts)
+    att, drop = check_index_maps()
+    return counts, {"step": step, "rates": rates, "attention": att, "dropout": drop}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -3577,9 +3983,11 @@ def main():
     phase_model_options_reference()
     mo_counts, mo_shapes = phase_model_options(card)
     abl_counts = phase_ablations(card)
+    mesh_counts, mesh = phase_mesh(card, 1e3 * BATCH / step_utt_s)
     print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
-                                  mo_counts, mo_shapes, grid_counts, abl_counts)),
+                                  mo_counts, mo_shapes, grid_counts, abl_counts, mesh_counts,
+                                  mesh)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -48,10 +48,19 @@ one ``--bs-set`` value, ``--nmic`` > 2, ``--rir-cv`` and ``--mesh``. The
 sequential grid ignores ``--grid-chunk``, ``--scan-block``, ``--time-budget``
 and ``--trial-set``, as the JAX CLI's does.
 
+``--mesh DxM`` trains each cell over D data x M model ranks (``parallel/``),
+one process a card, launched by ``torchrun`` (``torchrun --nproc-per-node 8 -m
+sarssl_torch.cli.run_downstream --mesh 8x1 ...``; ``--cpu``: gloo ranks); a
+``--mesh 1x1`` run without ``torchrun`` joins a group of one rank in process.
+A data rank reads ``bs / D`` rows of each batch: its block of a packed batch
+(the unmeshed run's rows), its strided share of a wav tree, or the random
+sources (synthetic, RIR, real-signal) with its own seed and ``num / D``
+items, as the JAX CLI's hosts do; rank 0 writes the logs, checkpoints and
+results. ``--ds-test`` and ``--grid-vmap`` refuse it.
+
 It runs on the card unless ``--cpu`` is given (``--smoke`` included). The
 parser holds every flag of the JAX CLI, with its default and ``dest``, so
-``config.json`` has the same keys; a flag whose path is not ported yet
-(``--mesh``) raises ``NotImplementedError`` when it is set. ``--smoke`` keeps
+``config.json`` has the same keys. ``--smoke`` keeps
 an ``--lr-set``, ``--bs-set`` or ``--ntrial`` given with it (the JAX CLI
 overrides them), so a smoke grid can hold several cells. ``--workers`` sets
 the loader's threads (its processes under ``--mp-loader``).
@@ -69,7 +78,6 @@ import time
 import numpy as np
 import torch
 
-_NOT_PORTED = "not ported yet"
 _RESIDENT_BUDGET_GB = "6"  # SARSSL_RESIDENT_BUDGET_GB's default
 
 
@@ -227,14 +235,9 @@ def build_parser():
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--dtype", type=str, default="float32")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    p.add_argument("--mesh", type=str, default=None, help=_NOT_PORTED)
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'DxM' data x model mesh, e.g. 8x1 (under torchrun, one process a card)")
     return p
-
-
-# flags whose path the port lacks, and what it waits for
-_UNPORTED = {
-    "mesh": "the port runs on one card",
-}
 
 
 def _check_grid_vmap(args) -> None:
@@ -251,13 +254,15 @@ def _check_grid_vmap(args) -> None:
                          "each trial its own rooms: run the sequential grid")
 
 
-def _check_ported(args, parser) -> None:
+def _check_args(args) -> None:
     if args.grid_vmap:
         _check_grid_vmap(args)
-    for dest, why in _UNPORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: it {why}")
+    if args.mesh:
+        from ..parallel import parse_mesh
+
+        parse_mesh(args.mesh)
+        if args.ds_test:
+            raise ValueError("--ds-test evaluates in one process: drop --mesh")
     rirs = args.rir_dir or args.sim_rir_dir
     # the JAX CLI's order of sources: a presaved real tree, then the RIR
     # arms, then the synthetic pairs (--smoke runs on them), then --data-dir
@@ -294,11 +299,26 @@ def _check_ported(args, parser) -> None:
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    _check_ported(args, parser)
-    with _loader_pool(args) as pool:
-        return _main(args, pool)
+    args = build_parser().parse_args(argv)
+    _check_args(args)
+    from ..utils import resolve_device
+
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+    if not args.mesh:
+        with _loader_pool(args) as pool:
+            return _main(args, pool, dev, None)
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_mesh, parse_mesh
+
+    own_group = init_distributed(dev.type)
+    try:
+        mesh = make_mesh(*parse_mesh(args.mesh), device_type=dev.type)
+        with _loader_pool(args) as pool:
+            return _main(args, pool, mesh.device, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 def _loader_pool(args):
@@ -313,7 +333,7 @@ def _loader_pool(args):
     return contextlib.nullcontext()
 
 
-def _main(args, pool):
+def _main(args, pool, dev, mesh):
 
     from ..config import DownstreamConfig, real_ds_setting
     from ..data import (FixMicSigDataset, PackedDataset, SyntheticPairs, device_prefetch,
@@ -323,9 +343,8 @@ def _main(args, pool):
     from ..train import (DownstreamLearner, create_train_state, make_downstream_eval_step,
                          make_downstream_step, partial_load, trainable_mask_from_loaded)
     from ..train import checkpoint as ckpt
-    from ..utils import MetricLogger, epoch_generator, resolve_device, save_config, set_seed
+    from ..utils import MetricLogger, epoch_generator, save_config, set_seed
 
-    dev = resolve_device("cpu" if args.cpu else "cuda")
     # every matmul and convolution in full f32 where the model computes in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -398,6 +417,9 @@ def _main(args, pool):
     set_seed(args.seed)
     # the initial weights, built once from --seed; every cell starts from them
     init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    # a data rank's share of each batch (the JAX CLI's host share)
+    pc, pi = (mesh.data_size, mesh.data_index) if mesh else (1, 0)
+    writer = mesh is None or mesh.is_writer
 
     # pretrained encoder weights (finetune / lineareval)
     pre_sd = None
@@ -416,7 +438,7 @@ def _main(args, pool):
     def fresh_state():
         """The initial weights with the pretrained ones loaded, and a fresh
         optimizer; returns the state and the names loaded."""
-        model.load_state_dict(init_sd, strict=True)
+        ckpt.load_full_state_dict(model, init_sd)
         keys = []
         if pre_sd is not None:
             keys = partial_load(model, pre_sd)
@@ -429,25 +451,30 @@ def _main(args, pool):
         """The split's batches as device tensors (``host``: numpy arrays):
         waves, and the task's targets (per pair for the multi-pair model)."""
         num = {"train": train_num, "val": args.val_num, "test": args.test_num}[split]
-        nbatch = max(1, num // bs)
+        if bs % pc:
+            raise ValueError(f"batch size {bs} does not split over {pc} data ranks")
+        # a data rank draws its own rows of the random sources
+        lbs, lnum, lseed = bs // pc, num // pc, seed + pi * 7919
+        nbatch = max(1, lnum // lbs)
         if args.real_sig_dir:
-            it = _real_sig_batches(args, split, bs, seed, num, nsample)
+            it = _real_sig_batches(args, split, lbs, lseed, lnum, nsample)
         elif args.rir_dir or args.sim_rir_dir:
-            it = _rir_batches(args, split, bs, seed, num, T, fs,
+            it = _rir_batches(args, split, lbs, lseed, lnum, T, fs,
                               cv_splits[trial][split] if cv_splits is not None else None, pool)
         elif not args.synthetic:
             data_dir = {"train": args.data_dir, "val": args.val_data_dir or args.data_dir,
                         "test": args.test_data_dir or args.data_dir}[split]
-            it = _file_batches(args, data_dir, split, bs, seed, trial, num, nsample)
+            it = _file_batches(args, data_dir, split, bs, seed, trial, num, nsample, pi, pc)
         elif multipair:
             def gen():
-                rng = np.random.default_rng(seed)
+                rng = np.random.default_rng(lseed)
                 for _ in range(nbatch):
-                    wave, tdoa = synthetic.synth_batch_multich(rng, bs, nsample, nch=args.nmic)
+                    wave, tdoa = synthetic.synth_batch_multich(rng, lbs, nsample, nch=args.nmic)
                     yield wave, {"TDOA": tdoa / fs}
             it = gen()
         else:
-            it = SyntheticPairs(nsample=nsample, seed=seed).batches(bs, nbatch, with_labels=True)
+            it = SyntheticPairs(nsample=nsample, seed=lseed).batches(lbs, nbatch,
+                                                                     with_labels=True)
 
         def adapt():
             for wave, gt in it:
@@ -462,7 +489,8 @@ def _main(args, pool):
         return device_prefetch(adapt(), size=2, device=dev)
 
     os.makedirs(args.exp_dir, exist_ok=True)
-    save_config(vars(args), os.path.join(args.exp_dir, "config.json"))
+    if writer:
+        save_config(vars(args), os.path.join(args.exp_dir, "config.json"))
 
     if args.ds_test:
         return _ds_test(args, model, feat_cfg, make_batches, bs_set[0], dlabel, dev)
@@ -482,11 +510,21 @@ def _main(args, pool):
         tmask = None
         if args.ds_trainmode == "lineareval" and keys:
             tmask = trainable_mask_from_loaded(model, keys)
-        train_step = make_downstream_step(model, feat_cfg, task=args.ds_task,
-                                          trainable_mask=tmask, dlabel=dlabel, device=dev)
-        eval_step = make_downstream_eval_step(model, feat_cfg, task=args.ds_task,
-                                              dlabel=dlabel, device=dev)
-        logger = MetricLogger(os.path.join(cell_dir, "logs"), use_tensorboard=False)
+        if mesh is None:
+            train_step = make_downstream_step(model, feat_cfg, task=args.ds_task,
+                                              trainable_mask=tmask, dlabel=dlabel, device=dev)
+            eval_step = make_downstream_eval_step(model, feat_cfg, task=args.ds_task,
+                                                  dlabel=dlabel, device=dev)
+        else:
+            from ..parallel import make_sharded_downstream_eval_step, make_sharded_downstream_step
+
+            train_step, _, _ = make_sharded_downstream_step(
+                model, feat_cfg, mesh, state, task=args.ds_task, trainable_mask=tmask,
+                dlabel=dlabel)
+            eval_step, _, _ = make_sharded_downstream_eval_step(
+                model, feat_cfg, mesh, state, task=args.ds_task, dlabel=dlabel)
+        logger = (MetricLogger(os.path.join(cell_dir, "logs"), use_tensorboard=False)
+                  if writer else None)
         learner = DownstreamLearner(
             state=state, train_step=train_step, eval_step=eval_step, lr_init=lr,
             ckpt_dir=os.path.join(cell_dir, "ckpt"),
@@ -506,20 +544,23 @@ def _main(args, pool):
             test_m = learner.eval_epoch(make_batches("test", bs, 2, trial), split="test")
             val_m = learner.eval_epoch(make_batches("val", bs, 1, trial), split="val_final")
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         results[cell] = {"val_mae": val_m["mae"], "test_mae": test_m["mae"],
                          "lr": lr, "bs": bs, "trial": trial, "epochs_run": learner.epoch}
         print(f"{cell}: val MAE {val_m['mae']:.5f} test MAE {test_m['mae']:.5f}", flush=True)
         kept = set(learner.best_epochs[-5:])
-        ckpt.remove_checkpoint_epochs(os.path.join(cell_dir, "ckpt"),
-                                      [e for e in range(learner.epoch) if e not in kept])
+        if writer:
+            ckpt.remove_checkpoint_epochs(os.path.join(cell_dir, "ckpt"),
+                                          [e for e in range(learner.epoch) if e not in kept])
 
     out = grid_summary(args.ds_task, args.ds_trainmode, results)
-    with open(os.path.join(args.exp_dir, "results.json"), "w") as f:
-        json.dump(out, f, indent=2, default=float)
-    from scipy.io import savemat
-    savemat(os.path.join(args.exp_dir, "results.mat"),
-            {"results": json.loads(json.dumps(out, default=float))})
+    if writer:
+        with open(os.path.join(args.exp_dir, "results.json"), "w") as f:
+            json.dump(out, f, indent=2, default=float)
+        from scipy.io import savemat
+        savemat(os.path.join(args.exp_dir, "results.mat"),
+                {"results": json.loads(json.dumps(out, default=float))})
     print(f"BEST {out['best']}: test MAE {out['best_test_mae']:.5f}")
 
     if args.smoke:
@@ -767,11 +808,14 @@ def _rir_batches(args, split, bs, seed, num, T, fs, rooms, pool):
     return batch_iterator(ds, bs, shuffle=split == "train", seed=seed, num_workers=args.workers)
 
 
-def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample):
+def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample, pi=0, pc=1):
     """Host batches (waves (bs, nsample, nch), the annotation columns) of a
     split read from a packed directory or an annotated wav tree. Train takes
     the trial's rows: its room block under --room-trials (then a fixed draw of
-    --train-num of them), its fixed subset under --fixed-train-subset."""
+    --train-num of them), its fixed subset under --fixed-train-subset. Data
+    rank ``pi`` of ``pc`` reads ``bs / pc`` rows a batch: its block of each
+    packed batch (one shared permutation), its strided share of a tree
+    (shuffled with its own seed)."""
     from ..data import FixMicSigDataset, PackedDataset, Selecting, batch_iterator, is_packed
     from ..data.shards import room_id_of_path
 
@@ -781,7 +825,9 @@ def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample):
         subset = packed_train_subset(args, pds, num, trial) if train else None
         if subset is not None and args.room_trials:
             num = min(num, len(subset))
-        it = pds.iter_batches(bs, shuffle=train, seed=seed, subset=subset)
+        from ..parallel import packed_batches
+
+        it = packed_batches(pds, bs, pi, pc, shuffle=train, seed=seed, subset=subset)
         return ((w[:, :nsample], lab) for w, lab in itertools.islice(it, max(1, num // bs)))
     if args.room_trials and train:
         # the trial's room block, then a fixed seeded draw of num rows across
@@ -797,7 +843,12 @@ def _file_batches(args, data_dir, split, bs, seed, trial, num, nsample):
     else:
         ds = FixMicSigDataset(data_dir, load_anno=True, data_num=num,
                               transforms=[Selecting((0, nsample))])
-    return batch_iterator(ds, bs, shuffle=train, seed=seed, num_workers=args.workers)
+    if pc > 1:
+        from ..parallel import shard_for_process
+
+        ds.data_paths = shard_for_process(ds.data_paths, pi, pc)
+        seed += pi * 7919
+    return batch_iterator(ds, bs // pc, shuffle=train, seed=seed, num_workers=args.workers)
 
 
 def pretrained_params(path: str, multipair: bool):

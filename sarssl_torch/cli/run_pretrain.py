@@ -26,8 +26,20 @@ Usage:
 
 It runs on the card unless ``--cpu`` is given (``--smoke`` included). The
 parser holds every flag of the JAX CLI, with its default and ``dest``, so
-``config.json`` has the same keys; a flag whose path is not ported yet raises
-``NotImplementedError`` when it is set.
+``config.json`` has the same keys.
+
+``--mesh DxM`` trains over D data x M model ranks (``parallel/``), one
+process a card, launched by ``torchrun``:
+
+  torchrun --nproc-per-node 8 -m sarssl_torch.cli.run_pretrain --mesh 8x1 ...
+
+(``--cpu``: gloo ranks on the CPU). Without ``torchrun``'s environment a
+``--mesh 1x1`` run joins a group of one rank in process. A data rank reads
+``--bs / D`` rows of each global batch: its block of the packed batch (the
+unmeshed run's rows), its strided share of a wav tree, the synthetic pairs
+and real mixture with its own seeds, as the JAX CLI's hosts do; rank 0
+writes the logs, checkpoints and config. ``--resident``, ``--device-synth``
+and ``--test`` run unmeshed.
 """
 from __future__ import annotations
 
@@ -93,7 +105,8 @@ def build_parser():
     p.add_argument("--extra-val-dirs", type=str, nargs="+", default=None,
                    help="extra wav trees evaluated each epoch as separate splits")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'DxM' data x model mesh, e.g. 8x1 (under torchrun, one process a card)")
     p.add_argument("--resident", action="store_true",
                    help="stage the packed train / val splits on the card once and "
                         "draw each batch by an index gather there")
@@ -106,17 +119,17 @@ def build_parser():
     return p
 
 
-# flags whose path the port lacks, and what it waits for
-_UNPORTED = {"mesh": "the port runs on one card"}
-
-
-def _check_ported(args, parser) -> None:
+def _check_args(args) -> None:
     from ..data import REAL_CORPORA
 
-    for dest, why in _UNPORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: it {why}")
+    if args.mesh:
+        from ..parallel import parse_mesh
+
+        parse_mesh(args.mesh)
+        for flag, on in (("--resident", args.resident), ("--device-synth", args.device_synth),
+                         ("--test", args.test)):
+            if on:
+                raise ValueError(f"{flag} is a single-process, unsharded path: drop --mesh")
     real = args.real_corpora or args.real_data_dirs
     if not (args.synthetic or args.smoke or args.device_synth or args.data_dir or real):
         raise ValueError("no data source: pass --data-dir, --device-synth, --real-corpora, "
@@ -138,10 +151,27 @@ def _check_ported(args, parser) -> None:
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    _check_ported(args, parser)
+    args = build_parser().parse_args(argv)
+    _check_args(args)
+    from ..utils import resolve_device
 
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+    if not args.mesh:
+        return _main(args, dev, None)
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_mesh, parse_mesh
+
+    own_group = init_distributed(dev.type)
+    try:
+        mesh = make_mesh(*parse_mesh(args.mesh), device_type=dev.type)
+        return _main(args, mesh.device, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _main(args, dev, mesh):
     from ..config import AcousticSetting
     from ..data import (DeviceSynthConfig, SyntheticPairs, batch_iterator, device_prefetch,
                         synth_batch_device)
@@ -152,9 +182,8 @@ def main(argv=None):
                          trainable_mask_from_loaded)
     from ..train import checkpoint as ckpt
     from ..utils import (MetricLogger, batch_generator, count_params, epoch_generator,
-                         from_jax_params, resolve_device, save_config, set_seed)
+                         from_jax_params, save_config, set_seed)
 
-    dev = resolve_device("cpu" if args.cpu else "cuda")
     # every matmul and convolution in full f32 where the model computes in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -194,14 +223,21 @@ def main(argv=None):
     set_seed(args.seed)
     state = create_train_state(model, lr=args.lr)
     print("# Parameters (M):", count_params(model, ["spec_encoder", "spat_encoder", "decoder"]))
+    # a data rank's share of each global batch (the JAX CLI's host share)
+    pc, pi = (mesh.data_size, mesh.data_index) if mesh else (1, 0)
+    if args.bs % pc:
+        raise ValueError(f"--bs {args.bs} does not split over {pc} data ranks")
+    local_bs = args.bs // pc
+    writer = mesh is None or mesh.is_writer
 
     ckpt_dir = os.path.join(args.exp_dir, "checkpoints")
     log_dir = os.path.join(args.exp_dir, "logs")
     os.makedirs(ckpt_dir, exist_ok=True)
     # a --test run points --exp-dir at a training run: its config goes beside
     # that run's instead of over it
-    save_config(vars(args), os.path.join(args.exp_dir,
-                                         "config_test.json" if args.test else "config.json"))
+    if writer:
+        save_config(vars(args), os.path.join(args.exp_dir,
+                                             "config_test.json" if args.test else "config.json"))
 
     if args.test:
         return _pretext_test(args, state, feat_cfg, nsample, dev)
@@ -218,10 +254,18 @@ def main(argv=None):
             trainable_mask = trainable_mask_from_loaded(
                 model, [k for k in loaded if not k.startswith("decoder")])
 
-    train_step = make_pretrain_step(model, feat_cfg, device=dev, trainable_mask=trainable_mask)
-    eval_step = make_pretrain_eval_step(model, feat_cfg, device=dev)
+    if mesh is None:
+        train_step = make_pretrain_step(model, feat_cfg, device=dev,
+                                        trainable_mask=trainable_mask)
+        eval_step = make_pretrain_eval_step(model, feat_cfg, device=dev)
+    else:
+        from ..parallel import make_sharded_pretrain_eval_step, make_sharded_pretrain_step
 
-    logger = MetricLogger(log_dir)
+        train_step, _, _ = make_sharded_pretrain_step(model, feat_cfg, mesh, state,
+                                                      trainable_mask=trainable_mask)
+        eval_step, _, _ = make_sharded_pretrain_eval_step(model, feat_cfg, mesh, state)
+
+    logger = MetricLogger(log_dir) if writer else None
     learner = PretrainLearner(
         state=state, train_step=train_step, eval_step=eval_step,
         lr_schedule=cosine_schedule(args.epochs, args.lr, warmup_steps=args.warmup_epochs),
@@ -263,20 +307,20 @@ def main(argv=None):
             return (synth_batch_device(batch_generator(args.seed, "data", ep, i, dev),
                                        args.bs, dcfg, dev)[0] for i in range(nbatch))
         if real_mix is not None:
-            # item i of an epoch from its own generator (thread-safe); val is
-            # one fixed set across epochs
-            base = (args.seed, 0, epoch, 0) if train else (args.seed, 1, 0)
-            it = batch_iterator(_RealEpoch(real_mix, base, args.train_num if train
-                                           else args.val_num), args.bs,
-                                shuffle=False, num_workers=args.workers)
+            # item i of an epoch (of data rank pi) from its own generator
+            # (thread-safe); val is one fixed set across epochs
+            base = (args.seed, 0, epoch, pi) if train else (args.seed, 1, pi)
+            it = batch_iterator(_RealEpoch(real_mix, base, (args.train_num if train
+                                                            else args.val_num) // pc),
+                                local_bs, shuffle=False, num_workers=args.workers)
         elif args.synthetic:
-            # val reads one fixed set across epochs
-            it = SyntheticPairs(nsample=nsample, seed=args.seed + epoch if train else 1
-                                ).batches(args.bs, nbatch)
+            # val reads one fixed set across epochs; data ranks their own pairs
+            it = SyntheticPairs(nsample=nsample, seed=(args.seed + epoch if train else 1)
+                                + pi * 7919).batches(local_bs, nbatch)
         else:
             data_dir = args.data_dir if train else (args.val_data_dir or args.data_dir)
             it = _file_batches(data_dir, args.train_num if train else args.val_num, args.bs,
-                               train, args.seed + epoch, nsample, args.workers)
+                               train, args.seed + epoch, nsample, args.workers, pi, pc)
         return device_prefetch(it, size=2, device=dev)
 
     try:
@@ -287,7 +331,8 @@ def main(argv=None):
                                     epoch_generator(args.seed, "val", epoch))
             for d in args.extra_val_dirs or ():
                 name = os.path.basename(d.rstrip("/"))
-                it = _file_batches(d, args.val_num, args.bs, False, 0, nsample, args.workers)
+                it = _file_batches(d, args.val_num, args.bs, False, 0, nsample, args.workers,
+                                   pi, pc)
                 em = learner.eval_epoch(device_prefetch(it, size=2, device=dev),
                                         epoch_generator(args.seed, "val_" + name, epoch),
                                         split=f"val_{name}")
@@ -300,7 +345,8 @@ def main(argv=None):
                 print("early stopping")
                 break
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
     if args.smoke:
         h = learner.history
@@ -347,18 +393,26 @@ class _RealEpoch:
         return self.mix.sample(np.random.default_rng(self.base + (int(i),)))
 
 
-def _file_batches(data_dir, num, bs, shuffle, seed, nsample, workers):
+def _file_batches(data_dir, num, bs, shuffle, seed, nsample, workers, pi=0, pc=1):
     """Host batches of ``num // bs`` waves (nb, nsample, 2) from a packed
     directory (one memmap gather a batch, cropped to nsample) or a wav tree
-    (its first ``num`` sorted files, each cropped by ``Selecting``)."""
+    (its first ``num`` sorted files, each cropped by ``Selecting``). Data
+    rank ``pi`` of ``pc`` reads ``bs / pc`` rows a batch: its block of each
+    packed batch (one shared permutation), its strided share of the tree."""
     from ..data import FixMicSigDataset, PackedDataset, Selecting, batch_iterator, is_packed
 
     if is_packed(data_dir):
-        it = PackedDataset(data_dir, load_anno=False).iter_batches(bs, shuffle=shuffle,
-                                                                   seed=seed)
+        from ..parallel import packed_batches
+
+        it = packed_batches(PackedDataset(data_dir, load_anno=False), bs, pi, pc,
+                            shuffle=shuffle, seed=seed)
         return (w[:, :nsample] for w in itertools.islice(it, max(1, num // bs)))
     ds = FixMicSigDataset(data_dir, data_num=num, transforms=[Selecting((0, nsample))])
-    return batch_iterator(ds, bs, shuffle=shuffle, seed=seed, num_workers=workers)
+    if pc > 1:
+        from ..parallel import shard_for_process
+
+        ds.data_paths = shard_for_process(ds.data_paths, pi, pc)
+    return batch_iterator(ds, bs // pc, shuffle=shuffle, seed=seed, num_workers=workers)
 
 
 def _stage_resident(args, nsample, dev):

@@ -33,7 +33,9 @@
 //   * attention dropout hashes the flat (b, h, i, j) index of the (B,H,L,L)
 //     probability tensor with the counter hash of kernels/dropout.py (murmur3
 //     finalizer of index + seed, keep where hash >= thresh), so forward and
-//     backward regenerate the same mask and it equals the plain version's.
+//     backward regenerate the same mask and it equals the plain version's; a
+//     tensor-parallel shard of heads (h_offset .. h_offset + H of h_total)
+//     hashes the index of the whole (B, h_total, L, L) tensor;
 // These kernels multiply with scalar f32 FMAs from shared memory, so they run
 // well above their bound. bfloat16 at head dims 64 and 128 with L a multiple
 // of 64 runs attention_mma.cu (tensor cores) instead; these serve float32
@@ -67,7 +69,14 @@ struct Dropout {
   uint32_t thresh;   // keep where hash >= thresh
   float inv_keep;    // 1 / (1 - rate)
   int active;
+  int h_local, h_total, h_offset;  // this launch's heads among the whole tensor's
 };
+
+// (b, h) of a block's flat bh = b * h_local + h, as the dropout index reads
+// it: b * h_total + h_offset + h (bh itself when the launch holds every head)
+__device__ __forceinline__ size_t drop_bh(const Dropout& d, size_t bh) {
+  return (bh / d.h_local) * d.h_total + d.h_offset + bh % d.h_local;
+}
 
 __device__ __forceinline__ bool keep(const Dropout& d, uint32_t flat) {
   uint32_t x = flat + d.seed;
@@ -236,7 +245,7 @@ attn_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k, const T* __re
   float* KVs = Qs + RB * (D + 1);
   const size_t bh = blockIdx.y;
   const int row0 = blockIdx.x * RB;
-  const size_t off = bh * L * D, offs = bh * L * L;
+  const size_t off = bh * L * D, offs = bh * L * L, dbh = drop_bh(drop, bh);
 
   load_rows<T, D, RB>(Qs, qu + off, row0, L);
   score_rows<T, D, RB>(S, SP, Qs, KVs, k + off, bias + offs, row0, L, scale);
@@ -250,7 +259,7 @@ attn_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k, const T* __re
     if (i < L && j < L) {
       p = S[rr * SP + j];
       if (drop.active)
-        p = keep(drop, (uint32_t)((bh * L + i) * L + j)) ? p * drop.inv_keep : 0.f;
+        p = keep(drop, (uint32_t)((dbh * L + i) * L + j)) ? p * drop.inv_keep : 0.f;
     }
     S[rr * SP + j] = round_t<T>(p);
   }
@@ -278,7 +287,7 @@ attn_bwd_rows_kernel(const T* __restrict__ qu, const T* __restrict__ k,
   float* KVs = Qs + RB * (D + 1);
   const size_t bh = blockIdx.y;
   const int row0 = blockIdx.x * RB;
-  const size_t off = bh * L * D, offs = bh * L * L;
+  const size_t off = bh * L * D, offs = bh * L * L, dbh = drop_bh(drop, bh);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
   load_rows<T, D, RB>(Qs, qu + off, row0, L);
@@ -311,7 +320,7 @@ attn_bwd_rows_kernel(const T* __restrict__ qu, const T* __restrict__ k,
       for (int j = lane; j < LP; j += 32) drow[j] = 0.f;
       continue;
     }
-    const size_t flat0 = (bh * L + i) * L;
+    const size_t flat0 = (dbh * L + i) * L;
     float dot = 0.f;
     for (int j = lane; j < L; j += 32) {
       float dp = drow[j];
@@ -358,6 +367,7 @@ attn_bwd_cols_kernel(const T* __restrict__ qu, const T* __restrict__ k,
   const int col0 = blockIdx.x * BN;
   const size_t off = bh * L * D, offs = bh * L * L;
   const float* st = stats + 2 * bh * L;
+  const size_t dbh = drop_bh(drop, bh);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
   float ov[4][CPT], ok[4][CPT];
@@ -389,7 +399,7 @@ attn_bwd_cols_kernel(const T* __restrict__ qu, const T* __restrict__ k,
           const float s = score(acc[r][c], to_f(bias[offs + (size_t)i * L + j]), scale);
           pd = expf(s - st[2 * i]) / st[2 * i + 1];
           if (drop.active)
-            pd = keep(drop, (uint32_t)((bh * L + i) * L + j)) ? pd * drop.inv_keep : 0.f;
+            pd = keep(drop, (uint32_t)((dbh * L + i) * L + j)) ? pd * drop.inv_keep : 0.f;
         }
         Pt[(ty + 16 * r) * TP + tx + 16 * c] = round_t<T>(pd);
       }
@@ -514,12 +524,16 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
                           stream);
 }
 
-Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep) {
+Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
+                     int h_local, int h_total, int h_offset) {
   Dropout d;
   d.seed = seed;
   d.thresh = thresh;
   d.inv_keep = inv_keep;
   d.active = rate > 0.f;
+  d.h_local = h_local;
+  d.h_total = h_total;
+  d.h_offset = h_offset;
   return d;
 }
 
@@ -549,22 +563,27 @@ Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float i
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim in {16, 32, 64, 128}.
+// dtype: 0 = float32, 1 = bfloat16; head_dim in {16, 32, 64, 128}. The H heads
+// are h_offset .. h_offset + H of h_total for the dropout index (H, 0 for all).
 // Returns cudaGetLastError() after the launches (0 on success).
 int attn_fwd(int dtype, const void* qu, const void* k, const void* v, const void* bias,
              void* out, int B, int H, int L, int head_dim, float scale, float rate,
-             unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
-  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep);
+             unsigned int seed, unsigned int thresh, float inv_keep, int h_total, int h_offset,
+             void* stream) {
+  if (h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   DISPATCH(dtype, head_dim,
            (int)(fwd<T, D>(qu, k, v, bias, out, B * H, L, scale, drop, (cudaStream_t)stream)));
 }
 
 // stats: float32 scratch of 2*B*H*L values (row max and sum), written then read.
+// h_total, h_offset as in attn_fwd.
 int attn_bwd(int dtype, const void* qu, const void* k, const void* v, const void* bias,
              const void* g, void* dqu, void* dk, void* dv, void* dbias, void* stats, int B,
              int H, int L, int head_dim, float scale, float rate, unsigned int seed,
-             unsigned int thresh, float inv_keep, void* stream) {
-  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep);
+             unsigned int thresh, float inv_keep, int h_total, int h_offset, void* stream) {
+  if (h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   DISPATCH(dtype, head_dim,
            (int)(bwd<T, D>(qu, k, v, bias, g, dqu, dk, dv, dbias, (float*)stats, B * H, L,
                            scale, drop, (cudaStream_t)stream)));

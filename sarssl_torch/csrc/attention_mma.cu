@@ -59,7 +59,9 @@
 //  * Dropout is the counter hash of the flat (b, h, i, j) index (murmur3
 //    finalizer of index + seed, keep where hash >= thresh), computed from each
 //    accumulator element's own (i, j), so the dropped positions equal the
-//    plain version's and forward and backward agree.
+//    plain version's and forward and backward agree. A tensor-parallel shard
+//    of heads (h_offset .. h_offset + H of h_total) hashes the index of the
+//    whole (B, h_total, L, L) tensor: each block maps its (b, h) once.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -82,7 +84,14 @@ struct Dropout {
   uint32_t thresh;   // keep where hash >= thresh
   float inv_keep;    // 1 / (1 - rate)
   int active;
+  int h_local, h_total, h_offset;  // this launch's heads among the whole tensor's
 };
+
+// (b, h) of a block's flat bh = b * h_local + h, as the dropout index reads
+// it: b * h_total + h_offset + h (bh itself when the launch holds every head)
+__device__ __forceinline__ uint32_t drop_bh(const Dropout& d, int bh) {
+  return (uint32_t)((bh / d.h_local) * d.h_total + d.h_offset + bh % d.h_local);
+}
 
 struct Strides {  // element strides of a (B, H, L, D) view, last dim contiguous
   i64 b, h, l;
@@ -269,7 +278,7 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // rows g and g + 8
-  const uint32_t row_a = ((uint32_t)bh * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
+  const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
 
   for (int tt = 0; tt < ntiles; ++tt) {
     cp_async_wait_all();
@@ -453,6 +462,7 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   const bf16* bp = bias + (i64)bh * L * L + j0;
   const float* lp = lse + (i64)bh * L;
   const float* dp = delta + (i64)bh * L;
+  const uint32_t dbh = drop_bh(drop, bh);
   const int nsteps = L / BQ;
 
   auto load_stage = [&](int stage, int q0) {
@@ -516,7 +526,7 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
           const float pe = fast_exp2((p[n][e] + b) * sl2 - ((e & 1) ? ls.y : ls.x) * LOG2E);
           bool kp = true;
           if (drop.active)
-            kp = keep(drop, ((uint32_t)bh * L + q0 + qq) * L + (e < 2 ? key_a : key_b));
+            kp = keep(drop, (dbh * L + q0 + qq) * L + (e < 2 ? key_a : key_b));
           p[n][e] = kp ? pe : -pe;
           pd[n][e] = kp ? pe * drop.inv_keep : 0.f;
         }
@@ -676,12 +686,16 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
   return cudaGetLastError();
 }
 
-Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep) {
+Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
+                     int h_local, int h_total, int h_offset) {
   Dropout d;
   d.seed = seed;
   d.thresh = thresh;
   d.inv_keep = inv_keep;
   d.active = rate > 0.f;
+  d.h_local = h_local;
+  d.h_total = h_total;
+  d.h_offset = h_offset;
   return d;
 }
 
@@ -698,14 +712,15 @@ Strides make_strides(const i64* s) {
 extern "C" {
 
 // bf16 only; head_dim in {64, 128}; L a multiple of 64. out_strides: element
-// strides of out over (b, h, l). lse: (B, H, L) float32, written.
+// strides of out over (b, h, l). lse: (B, H, L) float32, written. The H heads
+// are h_offset .. h_offset + H of h_total for the dropout index (H, 0 for all).
 // Returns cudaGetLastError() after the launch (0 on success).
 int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias, void* out,
                  void* lse, const long long* out_strides, int B, int H, int L, int head_dim,
                  float scale, float rate, unsigned int seed, unsigned int thresh, float inv_keep,
-                 void* stream) {
-  if (L % 64 != 0) return (int)cudaErrorInvalidValue;
-  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep);
+                 int h_total, int h_offset, void* stream) {
+  if (L % 64 != 0 || h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
   switch (head_dim) {
     case 64:
@@ -720,13 +735,14 @@ int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias,
 
 // g_strides, out_strides: element strides of g and out over (b, h, l).
 // lse: the forward's; delta: (B, H, L) float32 scratch, written then read.
+// h_total, h_offset as in attn_mma_fwd.
 int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias, const void* g,
                  const void* out, const void* lse, void* delta, void* dqu, void* dk, void* dv,
                  void* dbias, const long long* g_strides, const long long* out_strides, int B,
                  int H, int L, int head_dim, float scale, float rate, unsigned int seed,
-                 unsigned int thresh, float inv_keep, void* stream) {
-  if (L % 64 != 0) return (int)cudaErrorInvalidValue;
-  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep);
+                 unsigned int thresh, float inv_keep, int h_total, int h_offset, void* stream) {
+  if (L % 64 != 0 || h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
   switch (head_dim) {
     case 64:

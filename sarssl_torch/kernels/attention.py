@@ -11,7 +11,11 @@ are built outside the kernel, so their own gradients flow through autograd.
 Attention dropout hashes the flat ``(b, h, i, j)`` index of the probability
 tensor with ``kernels/dropout.py``'s counter hash, so the plain version is
 exactly the JAX unfused path (``models/conformer.py:110-119``: softmax, then
-``fused_dropout``, then PV) and the kernel's mask equals it bit for bit.
+``fused_dropout``, then PV) and the kernel's mask equals it bit for bit. A
+tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
+``heads_total``: it hashes the index its probabilities have in the whole
+``(B, heads_total, L, L)`` tensor, ``((b * heads_total + head_offset + h) * L
++ i) * L + j``, so its mask is the head slice of the unsharded one.
 
 Two sets of kernels, chosen by dtype and shape (:func:`takes_tensor_cores`):
 
@@ -49,12 +53,25 @@ _F = ctypes.c_float
 _U = ctypes.c_uint32
 
 
-def attention_plain(qu, k, v, bias, seed: int, scale: float, rate: float):
+def _heads(H: int, heads_total, head_offset: int):
+    """``(heads_total, head_offset)`` of a launch over H heads (None: H)."""
+    heads_total = H if heads_total is None else heads_total
+    if not 0 <= head_offset <= heads_total - H:
+        raise ValueError(f"heads {head_offset}..{head_offset + H} do not lie in "
+                         f"{heads_total} heads")
+    return heads_total, head_offset
+
+
+def attention_plain(qu, k, v, bias, seed: int, scale: float, rate: float,
+                    heads_total=None, head_offset: int = 0):
     """Plain version: f32 scores and softmax, ``p.astype(T)``, hash dropout on
-    p, f32-accumulated PV, output in ``qu``'s dtype."""
+    p (at the heads' place in ``heads_total``), f32-accumulated PV, output in
+    ``qu``'s dtype."""
+    B, H, L, _ = qu.shape
+    heads_total, head_offset = _heads(H, heads_total, head_offset)
     s = (torch.matmul(qu.float(), k.float().transpose(-1, -2)) + bias.float()) * scale
     p = torch.softmax(s, dim=-1).to(qu.dtype)
-    p = dropout_plain(p, seed, rate)
+    p = dropout_plain(p, seed, rate, (H * L * L, heads_total * L * L, head_offset * L * L))
     return torch.matmul(p.float(), v.float()).to(qu.dtype)
 
 
@@ -62,10 +79,10 @@ def attention_plain(qu, k, v, bias, seed: int, scale: float, rate: float):
 def _library():
     lib = load_library("attention")
     lib.attn_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _U, _U,
-                             _F, _P]
+                             _F, _I, _I, _P]
     lib.attn_fwd.restype = _I
     lib.attn_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _F, _F, _U, _U, _F, _P]
+                             _I, _F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_bwd.restype = _I
     lib.attn_smem_bytes.argtypes = [_I, _I, _I]
     lib.attn_smem_bytes.restype = _I
@@ -101,9 +118,9 @@ def _check_fma_smem(kind: str, L: int, D: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _library_mma():
     lib = load_library("attention_mma")
-    lib.attn_mma_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _U, _U, _F, _P]
+    lib.attn_mma_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_fwd.restype = _I
-    lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _P]
+    lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_bwd.restype = _I
     lib.attn_mma_smem_bytes.argtypes = [_I, _I]
     lib.attn_mma_smem_bytes.restype = _I
@@ -124,7 +141,7 @@ def takes_tensor_cores(dtype: torch.dtype, L: int, D: int) -> bool:
     return dtype == torch.bfloat16 and D in MMA_HEAD_DIMS and L % 64 == 0
 
 
-def _check(qu, k, v, bias):
+def _check(qu, k, v, bias, heads_total=None):
     ts = (qu, k, v, bias)
     if not all(t.is_cuda and t.device == qu.device for t in ts):
         raise ValueError("fused attention takes CUDA tensors on one device")
@@ -140,8 +157,9 @@ def _check(qu, k, v, bias):
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("fused attention takes contiguous tensors")
-    if B * H * L * L >= 2 ** 32:
-        raise ValueError("the dropout index of (B, H, L, L) must fit in uint32")
+    heads_total, _ = _heads(H, heads_total, 0)
+    if B * heads_total * L * L >= 2 ** 32:
+        raise ValueError("the dropout index of (B, heads_total, L, L) must fit in uint32")
     if B * H > 65535:
         raise ValueError("B * H must fit the launch grid's second dimension")
 
@@ -151,12 +169,14 @@ def _check_like_qu(t, qu, name):
         raise ValueError(f"{name} must be a tensor like qu")
 
 
-def _drop_args(seed, rate):
-    """(rate, seed, threshold, 1/(1-rate)); the kernel scales the f32
-    probabilities before rounding them to the input type."""
+def _drop_args(seed, rate, H, heads_total, head_offset):
+    """(rate, seed, threshold, 1/(1-rate), heads_total, head_offset); the
+    kernel scales the f32 probabilities before rounding them to the input
+    type."""
+    heads_total, head_offset = _heads(H, heads_total, head_offset)
     if rate == 0.0:
-        return 0.0, 0, 0, 1.0
-    return float(rate), seed, keep_threshold(rate), 1.0 / (1.0 - rate)
+        return 0.0, 0, 0, 1.0, heads_total, head_offset
+    return float(rate), seed, keep_threshold(rate), 1.0 / (1.0 - rate), heads_total, head_offset
 
 
 def _stream(t):
@@ -180,22 +200,24 @@ def _row_strides(t):
 # ---------------------------------------------------------------------------
 # scalar-FMA kernels (csrc/attention.cu)
 # ---------------------------------------------------------------------------
-def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: float):
-    _check(qu, k, v, bias)
+def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: float,
+                             heads_total=None, head_offset: int = 0):
+    _check(qu, k, v, bias, heads_total)
     lib = _library()
     B, H, L, D = qu.shape
     _check_fma_smem("fwd", L, D)
     out = torch.empty_like(qu)
     code = lib.attn_fwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), B, H, L, D, scale,
-                        *_drop_args(seed, rate), _stream(qu))
+                        *_drop_args(seed, rate, H, heads_total, head_offset), _stream(qu))
     check_cuda_status(lib, code, "attn_fwd")
     launches[f"attention_fwd_d{D}"] += 1
     return out
 
 
-def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: float):
-    _check(qu, k, v, bias)
+def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: float,
+                             heads_total=None, head_offset: int = 0):
+    _check(qu, k, v, bias, heads_total)
     _check_like_qu(g, qu, "g")
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
@@ -208,7 +230,8 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
     code = lib.attn_bwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr(), g.data_ptr(), dqu.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), dbias.data_ptr(), stats.data_ptr(), B, H, L, D,
-                        scale, *_drop_args(seed, rate), _stream(qu))
+                        scale, *_drop_args(seed, rate, H, heads_total, head_offset),
+                        _stream(qu))
     check_cuda_status(lib, code, "attn_bwd")
     launches[f"attention_bwd_d{D}"] += 1
     return dqu, dk, dv, dbias
@@ -217,8 +240,8 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
 # ---------------------------------------------------------------------------
 # tensor-core kernels (csrc/attention_mma.cu)
 # ---------------------------------------------------------------------------
-def _check_mma(qu, k, v, bias):
-    _check(qu, k, v, bias)
+def _check_mma(qu, k, v, bias, heads_total=None):
+    _check(qu, k, v, bias, heads_total)
     B, H, L, D = qu.shape
     if not takes_tensor_cores(qu.dtype, L, D):
         raise ValueError(f"the tensor-core kernels take bfloat16, head dim in "
@@ -226,18 +249,20 @@ def _check_mma(qu, k, v, bias):
                          f"D={D}, L={L}")
 
 
-def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float):
+def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float,
+                             heads_total=None, head_offset: int = 0):
     """Returns ``(out, lse)``: ``out`` is a (B, H, L, D) view of a (B, L, H, D)
     buffer, so that ``out.transpose(1, 2).reshape(B, L, H * D)`` copies
     nothing; ``lse`` is the rows' log-sum-exp, (B, H, L) float32."""
-    _check_mma(qu, k, v, bias)
+    _check_mma(qu, k, v, bias, heads_total)
     lib = _library_mma()
     B, H, L, D = qu.shape
     out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
     code = lib.attn_mma_fwd(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                             out.data_ptr(), lse.data_ptr(), _row_strides(out), B, H, L, D,
-                            scale, *_drop_args(seed, rate), _stream(qu))
+                            scale, *_drop_args(seed, rate, H, heads_total, head_offset),
+                            _stream(qu))
     check_cuda_status(lib, code, "attn_mma_fwd")
     launches[f"attention_fwd_d{D}"] += 1
     launches[f"attention_fwd_tc_d{D}"] += 1
@@ -245,10 +270,10 @@ def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: floa
 
 
 def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: float,
-                             rate: float):
+                             rate: float, heads_total=None, head_offset: int = 0):
     """``g`` and ``out`` may be strided over (b, h, l); their rows must be
     contiguous and 16-byte aligned."""
-    _check_mma(qu, k, v, bias)
+    _check_mma(qu, k, v, bias, heads_total)
     _check_like_qu(g, qu, "g")
     _check_like_qu(out, qu, "out")
     B, H, L, D = qu.shape
@@ -262,7 +287,7 @@ def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: floa
                             g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                             dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
                             _row_strides(g), _row_strides(out), B, H, L, D, scale,
-                            *_drop_args(seed, rate), _stream(qu))
+                            *_drop_args(seed, rate, H, heads_total, head_offset), _stream(qu))
     check_cuda_status(lib, code, "attn_mma_bwd")
     launches[f"attention_bwd_d{D}"] += 1
     launches[f"attention_bwd_tc_d{D}"] += 1
@@ -271,16 +296,16 @@ def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: floa
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qu, k, v, bias, seed, scale, rate):
-        ctx.args = (seed, scale, rate)
-        _check(qu, k, v, bias)
+    def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
+        ctx.args = (seed, scale, rate, heads_total, head_offset)
+        _check(qu, k, v, bias, heads_total)
         ctx.tensor_cores = takes_tensor_cores(qu.dtype, qu.shape[2], qu.shape[3])
         if ctx.tensor_cores:
-            out, lse = launch_attention_fwd_mma(qu, k, v, bias, seed, scale, rate)
+            out, lse = launch_attention_fwd_mma(qu, k, v, bias, *ctx.args)
             ctx.save_for_backward(qu, k, v, bias, out, lse)
             return out
         ctx.save_for_backward(qu, k, v, bias)
-        return launch_attention_fwd_fma(qu, k, v, bias, seed, scale, rate)
+        return launch_attention_fwd_fma(qu, k, v, bias, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
@@ -292,18 +317,21 @@ class _FusedAttention(torch.autograd.Function):
         else:
             qu, k, v, bias = ctx.saved_tensors
             grads = launch_attention_bwd_fma(qu, k, v, bias, g.contiguous(), *ctx.args)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
-def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0):
+def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
+                    heads_total=None, head_offset: int = 0):
     """``dropout(softmax((qu k^T + bias) * scale)) v`` for (B, H, L, D) inputs.
 
     CUDA tensors run the hand-written kernels, forward and backward: the
     tensor-core set for bfloat16 at head dim 64 or 128 and L a multiple of 64
     (its output is a (B, H, L, D) view of a (B, L, H, D) buffer), the FMA set
     for float32, head dims 16 and 32 and any other L. CPU tensors run
-    :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0.
+    :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0. A
+    tensor-parallel rank's H heads are ``head_offset ..`` of ``heads_total``
+    (None: H), which places its dropout mask (module note).
     """
     if qu.device.type == "cpu":
-        return attention_plain(qu, k, v, bias, seed, scale, rate)
-    return _FusedAttention.apply(qu, k, v, bias, seed, scale, rate)
+        return attention_plain(qu, k, v, bias, seed, scale, rate, heads_total, head_offset)
+    return _FusedAttention.apply(qu, k, v, bias, seed, scale, rate, heads_total, head_offset)

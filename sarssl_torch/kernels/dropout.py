@@ -22,6 +22,17 @@ no element divides by the lane size; the lanes' base offsets are int64.
 ``_HashDropout`` (one int seed) carries a ``vmap`` rule that hands the lanes
 to ``_HashDropoutLanes``, whose backward is the same lane-seeded kernel.
 Launches count as ``hash_dropout`` and ``hash_dropout_lanes``.
+
+A shard of a tensor (``parallel/``: a tensor-parallel rank's heads or
+feed-forward units) hashes the flat index its elements have in the whole
+tensor, so every rank draws its slice of the unsharded mask. The shard's
+``index_map = (row_local, row_total, col_offset)`` says where its elements
+lie: local element ``i`` is global element ``(i // row_local) * row_total +
+col_offset + i % row_local`` (rows of ``row_total`` elements, of which the
+shard holds ``row_local`` from ``col_offset`` on). A data shard's rows are a
+contiguous block of the whole tensor, so its offset is folded into the seed
+by the caller (``models/common.py``). ``None`` (or ``row_local ==
+row_total``, offset 0) is the unsharded index.
 """
 from __future__ import annotations
 
@@ -54,25 +65,42 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_keep_mask(n: int, seed, rate: float, device=None) -> torch.Tensor:
+def _check_index_map(n: int, index_map) -> None:
+    row_local, row_total, col_offset = index_map
+    if not (0 < row_local <= row_total and 0 <= col_offset <= row_total - row_local):
+        raise ValueError(f"index map {index_map}: a row of row_local elements from "
+                         "col_offset on must lie inside a row of row_total")
+    if n % row_local:
+        raise ValueError(f"index map {index_map}: {n} elements are not whole rows")
+
+
+def hash_keep_mask(n: int, seed, rate: float, device=None, index_map=None) -> torch.Tensor:
     """Plain version of the mask: ``(n,)`` bool, int64 arithmetic masked to
     32 bits. ``seed`` is a uint32 int, or a 0-d int64 tensor: under
     ``torch.func.vmap`` a lane's own seed, so each lane hashes its lane-local
-    index with its seed, as ``jax.vmap`` of ``fused_dropout`` does."""
-    x = (torch.arange(n, dtype=torch.int64, device=device) + seed) & _M32
+    index with its seed, as ``jax.vmap`` of ``fused_dropout`` does.
+    ``index_map``: a shard's ``(row_local, row_total, col_offset)`` (module
+    note), None for the unsharded index."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if index_map is not None:
+        _check_index_map(n, index_map)
+        row_local, row_total, col_offset = index_map
+        i = (i // row_local) * row_total + col_offset + i % row_local
+    x = (i + seed) & _M32
     x = _mul32(x ^ (x >> 16), _C1)
     x = _mul32(x ^ (x >> 15), _C2)
     x = x ^ (x >> 16)
     return x >= keep_threshold(rate)
 
 
-def dropout_plain(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
-    """Plain PyTorch version: ``where(keep, x * scale, 0)``; ``seed`` as in
-    :func:`hash_keep_mask`. Under ``torch.func.vmap`` with a batched seed it
-    is the plain version of :func:`launch_dropout_lanes`."""
+def dropout_plain(x: torch.Tensor, seed, rate: float, index_map=None) -> torch.Tensor:
+    """Plain PyTorch version: ``where(keep, x * scale, 0)``; ``seed`` and
+    ``index_map`` as in :func:`hash_keep_mask`. Under ``torch.func.vmap``
+    with a batched seed it is the plain version of
+    :func:`launch_dropout_lanes`."""
     if rate == 0.0:
         return x
-    keep = hash_keep_mask(x.numel(), seed, rate, x.device).reshape(x.shape)
+    keep = hash_keep_mask(x.numel(), seed, rate, x.device, index_map).reshape(x.shape)
     scale = torch.tensor(keep_scale(rate, x.dtype), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros_like(x))
 
@@ -82,14 +110,22 @@ def _triton_kernel():
     triton, tl = import_triton()
 
     @triton.jit
-    def hash_dropout_kernel(x_ptr, out_ptr, n, seed_bits, thresh_bits, scale,
-                            BLOCK: tl.constexpr):
+    def hash_dropout_kernel(x_ptr, out_ptr, n, seed_bits, thresh_bits, scale, row_local,
+                            row_total_bits, col_offset_bits, BLOCK: tl.constexpr,
+                            MAPPED: tl.constexpr):
         offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
         inb = offs < n
         x = tl.load(x_ptr + offs, mask=inb, other=0.0)
         seed = seed_bits.to(tl.uint32, bitcast=True)
         thresh = thresh_bits.to(tl.uint32, bitcast=True)
-        h = offs.to(tl.uint32) + seed
+        if MAPPED:
+            # a shard's element: its flat index in the whole tensor, mod 2**32
+            row = offs // row_local
+            h = (row.to(tl.uint32) * row_total_bits.to(tl.uint32, bitcast=True)
+                 + col_offset_bits.to(tl.uint32, bitcast=True)
+                 + (offs - row * row_local).to(tl.uint32) + seed)
+        else:
+            h = offs.to(tl.uint32) + seed
         h = (h ^ (h >> 16)) * tl.full((BLOCK,), 0x7FEB352D, tl.uint32)
         h = (h ^ (h >> 15)) * tl.full((BLOCK,), 0x846CA68B, tl.uint32)
         h = h ^ (h >> 16)
@@ -142,20 +178,29 @@ def _check_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} takes a contiguous tensor")
 
 
-def launch_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Launch the Triton kernel on a contiguous CUDA tensor."""
+def launch_dropout(x: torch.Tensor, seed: int, rate: float, index_map=None) -> torch.Tensor:
+    """Launch the Triton kernel on a contiguous CUDA tensor; ``index_map`` as
+    in :func:`hash_keep_mask`."""
     _check_input(x, "launch_dropout")
     n = x.numel()
     if n >= 2 ** 31:
         raise ValueError("launch_dropout indexes elements with int32")
     if not 0 <= seed < 2 ** 32:
         raise ValueError("seed must be a uint32")
+    if index_map is not None:
+        _check_index_map(n, index_map)
+    # a whole row (row_local == row_total) is the unsharded index
+    mapped = index_map is not None and index_map[0] != index_map[1]
+    row_local, row_total, col_offset = index_map if mapped else (1, 1, 0)
+    if row_total >= 2 ** 32:
+        raise ValueError("the index map's row_total must be a uint32")
     triton, kernel = _triton_kernel()
     out = torch.empty_like(x)
     grid = (triton.cdiv(n, _BLOCK),)
     with torch.cuda.device(x.device):
         kernel[grid](x, out, n, _as_int32(seed), _as_int32(keep_threshold(rate)),
-                     keep_scale(rate, x.dtype), BLOCK=_BLOCK, num_warps=8)
+                     keep_scale(rate, x.dtype), row_local, _as_int32(row_total),
+                     _as_int32(col_offset), BLOCK=_BLOCK, MAPPED=mapped, num_warps=8)
     launches["hash_dropout"] += 1
     return out
 
@@ -192,10 +237,14 @@ def launch_dropout_lanes(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> t
     return out
 
 
-def _launch(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, seed, rate: float, index_map=None) -> torch.Tensor:
     if isinstance(seed, torch.Tensor):  # a 0-d seed tensor outside vmap: one lane
+        if index_map is not None:
+            raise ValueError("a lane-seeded dropout takes no index map")
         return launch_dropout_lanes(x.reshape(1, *x.shape), seed.reshape(1), rate)[0]
-    return launch_dropout(x, seed, rate)
+    if index_map is None:
+        return launch_dropout(x, seed, rate)
+    return launch_dropout(x, seed, rate, index_map)
 
 
 class _HashDropoutLanes(torch.autograd.Function):
@@ -218,17 +267,20 @@ class _HashDropoutLanes(torch.autograd.Function):
 
 
 class _HashDropout(torch.autograd.Function):
-    """Dropout with one uint32 seed (a Python int). Under ``torch.func.vmap``
-    its ``vmap`` rule runs the lanes through :class:`_HashDropoutLanes`, each
-    with its own seed (a batched seed tensor) or all with one (an int)."""
+    """Dropout with one uint32 seed (a Python int) and an optional index map.
+    Under ``torch.func.vmap`` its ``vmap`` rule runs the lanes through
+    :class:`_HashDropoutLanes`, each with its own seed (a batched seed
+    tensor) or all with one (an int)."""
 
     @staticmethod
-    def forward(x, seed, rate):
-        return _launch(x, seed, rate)
+    def forward(x, seed, rate, index_map=None):
+        return _launch(x, seed, rate, index_map)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, seed, ctx.rate = inputs
+        _, seed, ctx.rate, *index_map = inputs
+        ctx.index_map = index_map[0] if index_map else None
+        ctx.n_inputs = len(inputs)
         if isinstance(seed, torch.Tensor):
             ctx.save_for_backward(seed)
             ctx.seed = None
@@ -239,11 +291,14 @@ class _HashDropout(torch.autograd.Function):
     def backward(ctx, g):
         # same seed -> same mask; d(x*scale*keep)/dx = scale*keep
         seed = ctx.saved_tensors[0] if ctx.seed is None else ctx.seed
-        return _launch(g.contiguous(), seed, ctx.rate), None, None
+        grad = _launch(g.contiguous(), seed, ctx.rate, ctx.index_map)
+        return (grad,) + (None,) * (ctx.n_inputs - 1)
 
     @staticmethod
-    def vmap(info, in_dims, x, seed, rate):
-        x_dim, seed_dim, _ = in_dims
+    def vmap(info, in_dims, x, seed, rate, index_map=None):
+        if index_map is not None:
+            raise ValueError("the vmapped (lane-seeded) dropout takes no index map")
+        x_dim, seed_dim = in_dims[:2]
         n = info.batch_size
         # the lanes' physical layout: batch dim first, each lane contiguous
         x = (x.movedim(x_dim, 0) if x_dim is not None else x.expand(n, *x.shape)).contiguous()
@@ -256,10 +311,11 @@ class _HashDropout(torch.autograd.Function):
         return _HashDropoutLanes.apply(x, seeds, rate), 0
 
 
-def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed, rate: float, index_map=None) -> torch.Tensor:
     """Inverted dropout with the counter-hash mask of ``seed`` (a uint32 int,
     or under ``torch.func.vmap`` a batched 0-d int64 tensor: one seed a
-    lane).
+    lane); ``index_map``: a shard's ``(row_local, row_total, col_offset)``
+    (module note), None for the unsharded index.
 
     CUDA tensors go through the Triton kernels (the lane-seeded one under
     vmap); CPU tensors through :func:`dropout_plain`.
@@ -267,5 +323,5 @@ def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
     if rate == 0.0:
         return x
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate)
-    return _HashDropout.apply(x, seed, rate)
+        return dropout_plain(x, seed, rate, index_map)
+    return _HashDropout.apply(x, seed, rate, index_map)

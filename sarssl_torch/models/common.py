@@ -8,6 +8,13 @@ xavier-uniform, and draw from an explicit ``torch.Generator``.
 :func:`remat` is flax's ``nn.remat`` for these modules: the region's
 activations are recomputed in the backward, with the dropout seeds and the
 BatchNorm running stats of the first forward.
+
+Sharded over a mesh (``parallel/steps.py`` sets the attributes): a
+row-parallel ``Dense`` sums its partial products over the model group and
+adds its bias once after (``reduce_group``); ``BatchNorm`` normalises with
+the global batch's statistics (``data_group``); ``Dropout`` hashes the index
+its rows have in the global batch (``data_shard``) and, where a caller says
+so, the index a model shard's columns have in the whole tensor.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.dropout import hash_dropout
+from ..parallel import tp
 
 
 class SeedReplay:
@@ -65,6 +73,16 @@ def draw_seed(generator):
     return int(torch.randint(0, 2 ** 32, (), dtype=torch.int64, generator=generator))
 
 
+def data_seed(seed, data_shard, numel: int):
+    """A dropout seed for data shard ``data_shard = (index, count)`` of a
+    tensor whose global batch holds ``count`` blocks of ``numel`` elements:
+    the shard's rows start at flat index ``index * numel`` of the global
+    tensor, and the counter hash reads ``index + seed`` mod 2**32, so that
+    offset folds into the seed."""
+    index = data_shard[0]
+    return seed if index == 0 else (seed + index * numel) % 2 ** 32
+
+
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None):
     # flax's lecun_normal: truncated normal at +-2 std, variance 1/fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -85,10 +103,15 @@ class Dense(nn.Module):
         else:
             lecun_normal_(self.weight, din, generator)
         self.bias = nn.Parameter(torch.zeros(dout)) if bias else None
+        self.reduce_group = None  # row-parallel: the model group to sum over
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        if self.reduce_group is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        y = tp.reduce_from(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
+                           self.reduce_group)
+        return y if b is None else y + b
 
 
 def same_pads(n: int, k: int, s: int):
@@ -154,7 +177,12 @@ class BatchNorm(nn.Module):
     Training normalises with the biased batch variance and updates
     ``running = 0.9 * running + 0.1 * batch`` with the *biased* variance, as
     flax does (torch's BatchNorm keeps an unbiased running variance).
-    Statistics are f32; the output is in ``dtype``.
+    Statistics are f32; the output is in ``dtype``. With a ``data_group``
+    (a batch sharded over data ranks) the statistics are the global batch's,
+    in f32 and summed over the group with their gradient, in two passes as
+    ``F.batch_norm`` takes them on one rank: the mean from ``sum x``, then
+    the variance from ``sum (x - mean)^2`` (the one-pass ``E[x^2] - mean^2``
+    loses the digits that the mean holds against the spread).
     """
 
     momentum = 0.9  # flax's sense: the weight of the old running value
@@ -168,12 +196,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
         self.update_stats = True  # off while remat recomputes the forward
+        self.data_group = None
 
     def forward(self, x, train: bool = False):
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.to(self.dtype)
+        if self.data_group is not None:
+            return self._global(x)
         if self.update_stats:
             self._update(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -183,23 +214,50 @@ class BatchNorm(nn.Module):
     def _update(self, x):
         dims = [0] + list(range(2, x.ndim))
         var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
+        self._update_from(mean, var)
+
+    @torch.no_grad()
+    def _update_from(self, mean, var):
         self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
         self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+
+    def _global(self, x):
+        dims = [0] + list(range(2, x.ndim))
+        xf = x.float()
+        n = x.numel() // x.shape[1] * torch.distributed.get_world_size(self.data_group)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mean = tp.all_reduce(xf.sum(dims), self.data_group) / n
+        centred = xf - mean.view(shape)
+        var = tp.all_reduce((centred * centred).sum(dims), self.data_group) / n
+        if self.update_stats:
+            self._update_from(mean.detach(), var.detach())
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(self.dtype)
 
 
 class Dropout(nn.Module):
     """Inverted dropout with the counter-hash mask (``kernels/dropout.py``):
     the Triton kernel on CUDA tensors, the plain version on CPU tensors. One
-    seed per call, drawn from the caller's generator."""
+    seed per call, drawn from the caller's generator.
+
+    ``data_shard = (index, count)``: this rank's rows are block ``index`` of
+    ``count`` equal blocks of the global batch (the leading dim); the block's
+    offset folds into the seed (:func:`data_seed`). ``index_map``: a model
+    shard's place in the whole tensor, ``(row_local, row_total,
+    col_offset)`` (``kernels/dropout.py``). So each rank draws its slice of
+    the unsharded mask."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.data_shard = (0, 1)
 
-    def forward(self, x, train: bool = False, generator=None):
+    def forward(self, x, train: bool = False, generator=None, index_map=None):
         if not train or self.rate == 0.0:
             return x
-        return hash_dropout(x.contiguous(), draw_seed(generator), self.rate)
+        numel = x.numel() if index_map is None else x.numel() // index_map[0] * index_map[1]
+        seed = data_seed(draw_seed(generator), self.data_shard, numel)
+        return hash_dropout(x.contiguous(), seed, self.rate, index_map)
 
 
 @contextlib.contextmanager

@@ -6,6 +6,13 @@ BatchNorm, and a closing LayerNorm per block. Activations are
 ``(batch, seq, dim)``. ``remat`` recomputes each block's activations in the
 backward (``common.remat``); ``add_same_one`` adds each block's mean over the
 sequence back to its output.
+
+Tensor-parallel (``parallel/steps.py`` sets ``tp``): a rank of ``M`` holds
+``num_heads / M`` heads of the attention (its column shards of ``query``,
+``key``, ``value``, ``pos``, its rows of ``u_bias`` / ``v_bias``, and a
+row shard of ``out``) and ``4d / M`` units of each feed-forward (a column
+shard of ``dense0``, a row shard of ``dense1``); the mask of each dropout
+over a shard is that shard's slice of the unsharded mask.
 """
 from __future__ import annotations
 
@@ -16,7 +23,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.attention import fused_attention
-from .common import BatchNorm, Dense, Dropout, LayerNorm, draw_seed, lecun_normal_, remat
+from ..parallel import tp
+from .common import (BatchNorm, Dense, Dropout, LayerNorm, data_seed, draw_seed, lecun_normal_,
+                     remat)
 
 
 def sinusoid_position_encoding(length: int, d_model: int, dtype=torch.float32,
@@ -63,38 +72,56 @@ class RelPosSelfAttention(nn.Module):
         self.v_bias = nn.Parameter(nn.init.xavier_uniform_(torch.empty(num_heads, dh),
                                                            generator=generator))
         self.drop = Dropout(dropout)
+        self.tp = None  # tensor-parallel: (model group, rank in it, its size)
+
+    def tensor_parallel(self, group, index: int, size: int):
+        """Run rank ``index`` of ``size``'s heads (``parallel/steps.py``);
+        returns the replicated leaves it uses only in part."""
+        if self.num_heads % size:
+            raise ValueError(f"{self.num_heads} heads do not split over {size} model ranks")
+        self.tp = (group, index, size)
+        return ["u_bias", "v_bias"]
 
     def forward(self, x, train: bool = False, generator=None):
         nb, nseq, _ = x.shape
         nh, dt = self.num_heads, self.dtype
         dh = self.d_model // nh
+        h0 = 0
+        if self.tp is not None:
+            group, index, size = self.tp
+            nh = self.num_heads // size
+            h0 = index * nh
+            x = tp.copy_to(x, group)
         q = self.query(x).reshape(nb, nseq, nh, dh)
         k = self.key(x).reshape(nb, nseq, nh, dh)
         v = self.value(x).reshape(nb, nseq, nh, dh)
         pe = sinusoid_position_encoding(nseq, self.d_model, dt, x.device)
         p = self.pos(pe).reshape(nseq, nh, dh)
+        u_bias, v_bias = self.u_bias[h0:h0 + nh], self.v_bias[h0:h0 + nh]
         # the reference scales by sqrt(d_model), not sqrt(d_head)
         scale = 1.0 / math.sqrt(self.d_model)
-        qv = q + self.v_bias.to(dt)
+        qv = q + v_bias.to(dt)
         drop_active = train and self.rate > 0.0
         if self.fused:
             # (q+v) P^T at compute dtype, then the relative shift (pure data
             # movement, so casting first is bitwise the same)
             pos = _relative_shift(torch.einsum("bihd,jhd->bhij", qv, p)).contiguous()
-            qu = (q + self.u_bias.to(dt)).transpose(1, 2).contiguous()
-            seed = draw_seed(generator) if drop_active else 0
+            qu = (q + u_bias.to(dt)).transpose(1, 2).contiguous()
+            seed = (data_seed(draw_seed(generator), self.drop.data_shard,
+                              nb * self.num_heads * nseq * nseq) if drop_active else 0)
             ctx = fused_attention(qu, k.transpose(1, 2).contiguous(),
                                   v.transpose(1, 2).contiguous(), pos, seed, scale,
-                                  self.rate if drop_active else 0.0)
+                                  self.rate if drop_active else 0.0, self.num_heads, h0)
             ctx = ctx.transpose(1, 2)
         else:
             pos = _relative_shift(torch.einsum("bihd,jhd->bhij", qv.float(), p.float()))
-            content = torch.einsum("bihd,bjhd->bhij", (q + self.u_bias.to(dt)).float(),
-                                   k.float())
+            content = torch.einsum("bihd,bjhd->bhij", (q + u_bias.to(dt)).float(), k.float())
             attn = torch.softmax((content + pos) * scale, dim=-1).to(dt)
-            attn = self.drop(attn, train, generator)
+            ll = nseq * nseq
+            attn = self.drop(attn, train, generator,
+                             None if self.tp is None else (nh * ll, self.num_heads * ll, h0 * ll))
             ctx = torch.einsum("bhij,bjhd->bihd", attn.float(), v.float())
-        return self.out(ctx.to(dt).reshape(nb, nseq, self.d_model))
+        return self.out(ctx.to(dt).reshape(nb, nseq, nh * dh))
 
 
 class FeedForwardModule(nn.Module):
@@ -109,10 +136,21 @@ class FeedForwardModule(nn.Module):
         self.dense1 = Dense(dim * expansion, dim, dtype=dtype, xavier=True,
                             generator=generator)
         self.drop = Dropout(dropout)
+        # tensor-parallel: the model group, and the hidden units' index map
+        self.tp_group, self.hidden_map = None, None
+
+    def tensor_parallel(self, group, index: int, size: int):
+        """Run rank ``index`` of ``size``'s hidden units (``parallel/steps.py``)."""
+        hidden = self.dense0.weight.shape[0]
+        self.tp_group, self.hidden_map = group, (hidden // size, hidden, index * hidden // size)
+        return []
 
     def forward(self, x, train: bool = False, generator=None):
-        y = F.silu(self.dense0(self.ln(x)))
-        y = self.dense1(self.drop(y, train, generator))
+        y = self.ln(x)
+        if self.tp_group is not None:
+            y = tp.copy_to(y, self.tp_group)
+        y = F.silu(self.dense0(y))
+        y = self.dense1(self.drop(y, train, generator, self.hidden_map))
         return self.drop(y, train, generator)
 
 

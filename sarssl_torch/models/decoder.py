@@ -4,7 +4,9 @@ one layer, four heads, unfused attention as in the JAX package; flax's
 ``seq``, here ``stage``), then a head back to ``dpatch * nreim * nmic``
 values a patch:
 
-  * ``fc``: a 2-layer MLP with 3x expansion (``proj0``, ``proj1``);
+  * ``fc``: a 2-layer MLP with 3x expansion (``proj0``, ``proj1``; under
+    tensor parallelism, ``tp_group``, a column shard of ``proj0`` and a row
+    shard of ``proj1``);
   * ``cnn`` (decoder.py:50-82): each embedding spread over its patch of the
     TF canvas (``dembed / dpatch`` channels; the transposed ``(nt, nf)``
     canvas for f-first patches, as the encoder's), the front end's conv stack
@@ -18,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.patches import patch_recover
+from ..parallel import tp
 from .common import Dense
 from .conformer import ConformerEncoder
 from .encoder import add_conv_stack, run_conv_stack
@@ -38,6 +41,7 @@ class EmbedDecoder(nn.Module):
             raise ValueError(f"Unsupported decoder head: {head}")
         self.sig_shape, self.patch_shape, self.dembed = tuple(sig_shape), tuple(patch_shape), dembed
         self.head = head
+        self.tp_group = None
         nf, nt, nreim, nmic = sig_shape
         pf, pt = patch_shape
         dout = pf * pt * nreim * nmic
@@ -59,10 +63,17 @@ class EmbedDecoder(nn.Module):
                            (pt, pf) if self.f_first else (pf, pt), dtype=dtype,
                            generator=generator)
 
+    def tensor_parallel(self, group, index: int, size: int):
+        """Run the fc head's shards of ``proj0`` / ``proj1`` (``parallel/steps.py``)."""
+        self.tp_group = group
+        return []
+
     def forward(self, embed, train: bool = False, generator=None):
         if hasattr(self, "stage"):
             embed = self.stage(embed, train, generator)
         if self.head == "fc":
+            if self.tp_group is not None:
+                embed = tp.copy_to(embed, self.tp_group)
             return self.proj1(F.relu(self.proj0(embed)))
         nf, nt, _, _ = self.sig_shape
         dpatch = self.patch_shape[0] * self.patch_shape[1]

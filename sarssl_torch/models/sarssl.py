@@ -35,6 +35,10 @@ of the kept channel.
 
 ``MCConformer`` is the supervised encoder-decoder without masking
 (sarssl.py:266-304).
+
+With a batch sharded over data ranks (``data_group``, set by
+``parallel/steps.py``) the pretext loss is the global batch's: its
+numerator and denominator are summed over the group.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import torch.nn.functional as F
 
 from ..ops.mask import PatchMask
 from ..ops.patches import patch_recover, patch_split
+from ..parallel import tp
 from ..utils.device import resolve_device
 from .common import Dense, LayerNorm
 from .decoder import EmbedDecoder
@@ -152,6 +157,7 @@ class SARSSL(nn.Module):
         _check_ported(cfg)
         dev = resolve_device(device)
         self.cfg = c = cfg
+        self.data_group = None
         gen = torch.Generator().manual_seed(seed)
         dtype = c.compute_dtype
         if c.in_ver == "single_ch_each_patch":
@@ -238,8 +244,14 @@ class SARSSL(nn.Module):
             tar_k = (vec * kept_ch).sum(-1)
         w = mask.patch.float()[:, :, None, None]
         denom = mask.patch.sum() * dpatch * 2
-        loss = (((pred_m - tar_m) ** 2) * w).sum() / denom
-        diff = (((tar_m - tar_k) ** 2) * w).sum() / denom
+        num = (((pred_m - tar_m) ** 2) * w).sum()
+        num_diff = (((tar_m - tar_k) ** 2) * w).sum()
+        if self.data_group is not None:  # the global batch's sums
+            num = tp.reduce_from(num, self.data_group)
+            num_diff = tp.summed(num_diff, self.data_group)
+            denom = tp.summed(denom, self.data_group)
+        loss = num / denom
+        diff = num_diff / denom
         return loss, diff, {"pred": pred, "tar": vec, "mask": mask}
 
     def embed(self, x, train: bool = False, generator=None):

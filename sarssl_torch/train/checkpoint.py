@@ -12,6 +12,12 @@ cast up to f32 on restore.
 Like the JAX downstream run, which loads ``params`` only, ``partial_load``
 copies parameters and never buffers: the downstream model keeps its own
 freshly initialised BatchNorm running stats.
+
+A model sharded over a mesh (``parallel/steps.py``, its ``shard_layout``)
+saves whole arrays, gathered from every model rank, so the file is the
+world-size-1 file of the same state; rank 0 alone writes it, and every rank
+waits for the write. Reading takes whole arrays and slices each rank's
+shard.
 """
 from __future__ import annotations
 
@@ -42,11 +48,13 @@ def ensemble_path(d: str) -> str:
     return os.path.join(d, "ensemble_model" + SUFFIX)
 
 
-def _blob(state, meta: Dict[str, Any], save_opt: bool) -> bytes:
+def _blob(state, meta: Dict[str, Any], save_opt: bool) -> Optional[bytes]:
+    """The file's bytes, on the process that writes it (over a mesh every
+    rank takes part in gathering the whole arrays; rank 0 serialises)."""
     payload = {"meta": meta, **to_jax_params(state.model)}
     if save_opt:
         payload["opt_state"] = state.optimizer.state_dict()
-    return msgpack_serialize(payload)
+    return msgpack_serialize(payload) if is_writer(state) else None
 
 
 def _write(path: str, blob: bytes) -> None:
@@ -56,6 +64,23 @@ def _write(path: str, blob: bytes) -> None:
     os.replace(tmp, path)
 
 
+def _layout(state_or_model):
+    model = getattr(state_or_model, "model", state_or_model)
+    return getattr(model, "shard_layout", None)
+
+
+def is_writer(state_or_model) -> bool:
+    """Whether this process writes files: always, but over a mesh rank 0."""
+    layout = _layout(state_or_model)
+    return layout is None or layout.is_writer
+
+
+def _written(state) -> None:
+    """Over a mesh, every rank waits here for rank 0's writes."""
+    if _layout(state) is not None:
+        torch.distributed.barrier()
+
+
 def save_checkpoint(ckpt_dir: str, state, epoch: int, max_score: float,
                     is_best: bool = False, keep_epoch: bool = True,
                     save_opt: bool = True, extra: Optional[Dict[str, Any]] = None):
@@ -63,11 +88,13 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, max_score: float,
     os.makedirs(ckpt_dir, exist_ok=True)
     blob = _blob(state, {"epoch": int(epoch), "max_score": float(max_score), **(extra or {})},
                  save_opt)
-    _write(latest_path(ckpt_dir), blob)
-    if keep_epoch:
-        _write(epoch_path(ckpt_dir, epoch), blob)
-    if is_best:
-        _write(best_path(ckpt_dir), blob)
+    if is_writer(state):
+        _write(latest_path(ckpt_dir), blob)
+        if keep_epoch:
+            _write(epoch_path(ckpt_dir, epoch), blob)
+        if is_best:
+            _write(best_path(ckpt_dir), blob)
+    _written(state)
 
 
 def save_named(ckpt_dir: str, state, name: str, epoch: int = -1,
@@ -75,7 +102,10 @@ def save_named(ckpt_dir: str, state, name: str, epoch: int = -1,
     """Write a single named checkpoint file (e.g. 'ensemble_model')."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name + SUFFIX)
-    _write(path, _blob(state, {"epoch": int(epoch), "max_score": float(max_score)}, save_opt))
+    blob = _blob(state, {"epoch": int(epoch), "max_score": float(max_score)}, save_opt)
+    if is_writer(state):
+        _write(path, blob)
+    _written(state)
     return path
 
 
@@ -85,12 +115,22 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 @torch.no_grad()
+def load_full_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """``model.load_state_dict(state_dict, strict=True)`` from whole tensors:
+    a sharded model takes each parameter's shard."""
+    layout = _layout(model)
+    if layout is not None:
+        state_dict = {k: layout.local(k, v) for k, v in state_dict.items()}
+    model.load_state_dict(state_dict, strict=True)
+
+
+@torch.no_grad()
 def restore_state(state, payload: Dict[str, Any], restore_opt: bool = True):
     """Restore a TrainState in place from a checkpoint payload (every leaf
     present, shapes equal) and return it."""
     params, buffers = from_jax_params({"params": payload["params"],
                                        "batch_stats": payload["batch_stats"]})
-    state.model.load_state_dict({**params, **buffers}, strict=True)
+    load_full_state_dict(state.model, {**params, **buffers})
     if restore_opt and "opt_state" in payload:
         state.optimizer.load_state_dict(payload["opt_state"])
     return state
@@ -104,14 +144,17 @@ def partial_load(model: torch.nn.Module, source_state_dict: Dict[str, torch.Tens
 
     ``ex_prefix`` is stripped from the source names that start with it.
     Source entries that name no parameter (buffers such as BatchNorm running
-    stats, or a decoder the model lacks) are skipped."""
+    stats, or a decoder the model lacks) are skipped. The source is whole: a
+    sharded model takes each parameter's shard."""
     src = {(k[len(ex_prefix):] if ex_prefix and k.startswith(ex_prefix) else k): v
            for k, v in source_state_dict.items()}
+    layout = _layout(model)
     loaded = []
     for name, p in model.named_parameters():
         v = src.get(name)
-        if v is not None and tuple(v.shape) == tuple(p.shape):
-            p.copy_(v)
+        shape = p.shape if layout is None else layout.full_shape(name, p.shape)
+        if v is not None and tuple(v.shape) == tuple(shape):
+            p.copy_(v if layout is None else layout.local(name, v))
             loaded.append(name)
     return loaded
 

@@ -10,6 +10,11 @@ that is only appended, so the host runs ahead of the card. They are read
 once at the epoch's end, before its time is taken. Randomness comes from the
 CPU ``torch.Generator`` given for the epoch: each step gets a child of it
 (``utils/seeding.step_generator``), as the JAX learner splits a subkey.
+
+Over a mesh (``parallel/steps.py``) every rank runs the same loop: the
+steps' metrics are the global batch's, the same on every rank, so every
+rank takes the same stopping decisions; checkpoints are written by rank 0
+(``checkpoint.py``), and the caller gives a logger to rank 0 only.
 """
 from __future__ import annotations
 
@@ -62,6 +67,12 @@ class EarlyStopping:
         self.stopped = False
 
 
+def _data_ranks(state) -> int:
+    """How many data ranks share each batch (1 off a mesh)."""
+    layout = getattr(state.model, "shard_layout", None)
+    return 1 if layout is None else layout.mesh.data_size
+
+
 def _read_sums(*series: List[torch.Tensor]) -> Tuple[float, ...]:
     """Sums of 0-d device tensors, in f64, read back in one transfer."""
     if not series[0]:
@@ -97,7 +108,7 @@ class PretrainLearner:
             m = self.train_step(self.state, wave, lr, step_generator(generator))
             losses.append(m["loss"])
             diffs.append(m["diff"])
-            nutt += wave.shape[0]
+            nutt += wave.shape[0] * _data_ranks(self.state)
         n = len(losses)
         tot, tot_diff = _read_sums(losses, diffs)
         dt = time.time() - t0
@@ -229,7 +240,9 @@ class DownstreamLearner:
                   if os.path.exists(ckpt.epoch_path(self.ckpt_dir, e))]
         model = self.state.model
         if not epochs:
-            return {n: p.detach() for n, p in model.named_parameters()}
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            layout = getattr(model, "shard_layout", None)
+            return params if layout is None else layout.full_dict(params)
         plist, blist = [], []
         for e in epochs:
             payload = ckpt.load_checkpoint(ckpt.epoch_path(self.ckpt_dir, e))
@@ -238,7 +251,7 @@ class DownstreamLearner:
             plist.append(params)
             blist.append(buffers)
         avg, avg_bs = ckpt.ensemble_params(plist), ckpt.ensemble_params(blist)
-        model.load_state_dict({**avg, **avg_bs}, strict=True)
+        ckpt.load_full_state_dict(model, {**avg, **avg_bs})
         ckpt.save_named(self.ckpt_dir, self.state, "ensemble_model", epoch=-1,
                         max_score=self.stopper.best)
         return avg

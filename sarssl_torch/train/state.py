@@ -12,6 +12,10 @@ nothing back to the host.
 ``Adam.state_dict()`` is optax's state in flax's names, as
 ``flax.serialization.to_state_dict(make_adam(...).init(params))`` lays it
 out, so each package restores the other's optimizer state from a checkpoint.
+Over a mesh (``parallel/steps.py``) the moments are the rank's shards: the
+state's moments are gathered whole, a loaded state's sliced, through the
+optimizer's ``layout``, and the clipping norm is the whole tree's
+(``global_norm``).
 """
 from __future__ import annotations
 
@@ -49,6 +53,8 @@ class Adam:
         self.b1, self.b2 = b1, b2
         self.weight_decay = float(weight_decay or 0.0)
         self.grad_clip = float(grad_clip) if grad_clip else None
+        self.layout = None  # a sharded model's parallel.steps.Layout
+        self.global_norm = None  # the norm of the whole tree from a rank's shards
         self.reset()
 
     def reset(self) -> None:
@@ -63,7 +69,7 @@ class Adam:
         """One update from the gradients in ``.grad`` (a missing one is 0)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         if self.grad_clip:
-            grads = _clip_by_global_norm(grads, self.grad_clip)
+            grads = _clip_by_global_norm(grads, self.grad_clip, self.global_norm)
         self.count += 1
         self.lr = float(lr)
         torch._foreach_mul_(self.mu, self.b1)
@@ -85,8 +91,9 @@ class Adam:
         """The optimizer state as optax's, in flax's names: numpy arrays,
         the moments with flax's parameter names and layouts."""
         count = np.asarray(self.count, np.int32)
-        adam = {"count": count, "mu": flax_tree(dict(zip(self.names, self.mu))),
-                "nu": flax_tree(dict(zip(self.names, self.nu)))}
+        whole = (lambda d: d) if self.layout is None else self.layout.full_dict
+        adam = {"count": count, "mu": flax_tree(whole(dict(zip(self.names, self.mu)))),
+                "nu": flax_tree(whole(dict(zip(self.names, self.nu))))}
         return {"count": count, "hyperparams": {"learning_rate": np.asarray(self.lr, np.float32)},
                 "hyperparams_states": {}, "inner_state": self._inner(adam)}
 
@@ -114,10 +121,12 @@ class Adam:
             if set(loaded) != set(self.names):
                 raise ValueError("optimizer moments name other parameters than the model's")
             for name, m in zip(self.names, moments):
-                if tuple(loaded[name].shape) != tuple(m.shape):
+                want = m.shape if self.layout is None else self.layout.full_shape(name, m.shape)
+                if tuple(loaded[name].shape) != tuple(want):
                     raise ValueError(f"moment of {name}: shape {tuple(loaded[name].shape)}, "
-                                     f"parameter {tuple(m.shape)}")
-                m.copy_(loaded[name])
+                                     f"parameter {tuple(want)}")
+                m.copy_(loaded[name] if self.layout is None
+                        else self.layout.local(name, loaded[name]))
         self.count = int(adam["count"])
         self.lr = float(sd["hyperparams"]["learning_rate"])
 
@@ -175,10 +184,14 @@ def _chain_shape(tree):
     return {k: _chain_shape(v) for k, v in tree.items()}
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         global_norm=None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: ``g / g_norm * max_norm`` where
-    ``g_norm >= max_norm``, else ``g`` (decided on the device)."""
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``g_norm >= max_norm``, else ``g`` (decided on the device).
+    ``global_norm(grads)``, where given, takes ``g_norm`` over a sharded
+    tree's every rank."""
+    g_norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+              if global_norm is None else global_norm(grads))
     keep = g_norm < max_norm
     return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
 

@@ -21,6 +21,12 @@ Randomness comes from an explicit CPU ``torch.Generator``: the mask (unless
 one is given, e.g. replayed from the JAX package) and one uint32 dropout
 seed per dropout site. Drawing on the host keeps the step free of device
 syncs.
+
+The sharded steps of ``parallel/steps.py`` are these steps, given this
+rank's ``rows`` of the global batch (the mask is drawn for the global batch
+and sliced), a ``grad_sync`` (its ``attach()`` before the forward, its call
+between backward and update) and the global batch's ``mean``; the defaults
+are the step over its own batch.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops.features import FeatureConfig, stft_features
-from ..ops.mask import T_MODE, gen_patch_mask
+from ..ops.mask import T_MODE, PatchMask, gen_patch_mask
 from ..utils.device import resolve_device
 from .state import TrainState
 
@@ -76,9 +82,27 @@ def _update(state: TrainState, lr: float, frozen: List[torch.nn.Parameter]) -> N
         torch._foreach_copy_(frozen, kept)
 
 
+def _mean(x: torch.Tensor, dim: Optional[int] = None, grad: bool = False) -> torch.Tensor:
+    """The mean over the step's own rows (``dim`` 0) or over every element;
+    ``grad`` says whether the loss's gradient flows through it."""
+    return x.mean() if dim is None else x.mean(dim=dim)
+
+
+def _step_mask(mask, generator, nb, cfg, mask_mode, rows, dev):
+    """The step's mask: ``mask`` or one drawn for the global batch, then
+    this rank's ``rows`` of it (the whole of it without a mesh)."""
+    count = 1 if rows is None else rows.count
+    if mask is None:
+        mask = gen_patch_mask(generator, nb * count, cfg.npatch, cfg.effective_nmasked(),
+                              nmic=2, mode=mask_mode, device=dev)
+    if rows is None:
+        return mask
+    return PatchMask(*(rows.local(t) for t in mask)).to(dev)
+
+
 def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device="cuda",
                        trainable_mask: Optional[Dict[str, bool]] = None,
-                       mask_mode: str = T_MODE):
+                       mask_mode: str = T_MODE, rows=None, grad_sync=None):
     """Returns ``step(state, wave_batch, lr, generator, mask=None) -> metrics``.
 
     ``wave_batch``: ``(nb, nsample, nch)`` float waveforms (tensor or numpy).
@@ -86,23 +110,25 @@ def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device=
     ``trainable_mask`` maps parameter names to False for frozen ones (the
     encoders in the frozen-encoder pretext stage); see the module's note.
     ``mask_mode`` is ``gen_patch_mask``'s; as in the JAX step no grid shape is
-    passed, so a step that draws a 'TF' mask raises (hand one in as ``mask``)."""
+    passed, so a step that draws a 'TF' mask raises (hand one in as ``mask``).
+    ``rows``, ``grad_sync``: a mesh's (the module's note)."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     cfg = model.cfg
-    nmasked = cfg.effective_nmasked()
     frozen = _frozen_params(model, trainable_mask)
 
     def step(state: TrainState, wave_batch, lr: float, generator: torch.Generator,
              mask=None):
         feats = _features(wave_batch, feat_cfg, dev)
-        if mask is None:
-            mask = gen_patch_mask(generator, feats.shape[0], cfg.npatch, nmasked, nmic=2,
-                                  mode=mask_mode, device=dev)
+        mask = _step_mask(mask, generator, feats.shape[0], cfg, mask_mode, rows, dev)
         state.model.train()
         with _without_grad(frozen):
+            if grad_sync is not None:
+                grad_sync.attach()
             loss, diff, _ = state.model.pretext(feats, mask, True, generator)
             loss.backward()
+        if grad_sync is not None:
+            grad_sync()
         _update(state, lr, frozen)
         return {"loss": loss.detach(), "diff": diff.detach()}
 
@@ -110,20 +136,17 @@ def make_pretrain_step(model, feat_cfg: FeatureConfig = FeatureConfig(), device=
 
 
 def make_pretrain_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
-                            device="cuda", mask_mode: str = T_MODE):
+                            device="cuda", mask_mode: str = T_MODE, rows=None):
     """Returns ``step(state, wave_batch, generator, mask=None) -> metrics``
     (eval mode: running BatchNorm stats, no dropout, no update)."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     cfg = model.cfg
-    nmasked = cfg.effective_nmasked()
 
     @torch.no_grad()
     def step(state: TrainState, wave_batch, generator: torch.Generator, mask=None):
         feats = _features(wave_batch, feat_cfg, dev)
-        if mask is None:
-            mask = gen_patch_mask(generator, feats.shape[0], cfg.npatch, nmasked, nmic=2,
-                                  mode=mask_mode, device=dev)
+        mask = _step_mask(mask, generator, feats.shape[0], cfg, mask_mode, rows, dev)
         state.model.eval()
         loss, diff, _ = state.model.pretext(feats, mask, False)
         return {"loss": loss, "diff": diff}
@@ -148,7 +171,7 @@ def _targets(gt_batch, task, dlabel, dev):
 
 def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task: str = "TDOA",
                          trainable_mask: Optional[Dict[str, bool]] = None, dlabel: int = 1,
-                         device="cuda"):
+                         device="cuda", grad_sync=None, mean=_mean):
     """Returns ``step(state, wave_batch, gt_batch, lr, generator) -> metrics``.
 
     MSE of the head's prediction against the transformed target (no
@@ -157,7 +180,7 @@ def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task:
 
     ``trainable_mask`` (e.g. from ``trainable_mask_from_loaded``) maps
     parameter names to False for frozen ones (lineareval); see the module's
-    note."""
+    note. ``grad_sync``, ``mean``: a mesh's (the module's note)."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     frozen = _frozen_params(model, trainable_mask)
@@ -167,18 +190,22 @@ def make_downstream_step(model, feat_cfg: FeatureConfig = FeatureConfig(), task:
         tar = _targets(gt_batch, task, dlabel, dev)
         state.model.train()
         with _without_grad(frozen):
+            if grad_sync is not None:
+                grad_sync.attach()
             pred, _ = state.model.downstream(feats, True, generator)
-            loss = ((pred - tar) ** 2).mean()
+            loss = mean((pred - tar) ** 2, grad=True)
             loss.backward()
+        if grad_sync is not None:
+            grad_sync()
         _update(state, lr, frozen)
         pred = pred.detach()
-        return {"loss": loss.detach(), "mae": (pred - tar).abs().mean()}
+        return {"loss": loss.detach(), "mae": mean((pred - tar).abs())}
 
     return step
 
 
 def make_downstream_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
-                              task: str = "TDOA", dlabel: int = 1, device="cuda"):
+                              task: str = "TDOA", dlabel: int = 1, device="cuda", mean=_mean):
     """Returns ``step(state, wave_batch, gt_batch) -> metrics`` (eval mode:
     running BatchNorm stats, no dropout, no update): ``loss``, ``mae``,
     ``pred``, ``embed``, and the per-dimension ``mae_dims`` when
@@ -193,10 +220,9 @@ def make_downstream_eval_step(model, feat_cfg: FeatureConfig = FeatureConfig(),
         state.model.eval()
         pred, embed = state.model.downstream(feats, False)
         err = pred - tar
-        out = {"loss": (err ** 2).mean(), "mae": err.abs().mean(), "pred": pred,
-               "embed": embed}
+        out = {"loss": mean(err ** 2), "mae": mean(err.abs()), "pred": pred, "embed": embed}
         if dlabel > 1:
-            out["mae_dims"] = err.abs().mean(dim=0)
+            out["mae_dims"] = mean(err.abs(), dim=0)
         return out
 
     return step

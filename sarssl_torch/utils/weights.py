@@ -30,9 +30,10 @@ TCRNN's 1-D conv kernels ``(k, cin, cout)`` go to ``(cout, cin, k)`` as the
 depthwise ones do.
 
 ``to_jax_params`` is the inverse: the model's parameters and BatchNorm stats
-as flax's tree of float32 numpy arrays, with flax's names and layouts;
-``flax_tree`` maps any ``{parameter name: tensor}`` dict (the optimizer's
-moments) the same way.
+as flax's tree of float32 numpy arrays, with flax's names and layouts (a
+model sharded over a mesh, ``parallel/steps.py``, gives its whole
+parameters, gathered from the model group's ranks); ``flax_tree`` maps any
+``{parameter name: tensor}`` dict (the optimizer's moments) the same way.
 """
 from __future__ import annotations
 
@@ -109,6 +110,14 @@ def _flax_param(path, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     return leaf, value
 
 
+def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``name`` of rank ``ndim``, its
+    leaf named as flax names it (``kernel``, ``scale``, ...)."""
+    path, leaf = _flax_path(name)
+    fleaf, _ = _flax_param(path, leaf, np.empty((0,) * ndim))
+    return tuple(path) + (fleaf,)
+
+
 def _insert(tree: Dict, path: List[str], leaf: str, value: np.ndarray) -> None:
     for p in path:
         tree = tree.setdefault(p, {})
@@ -137,8 +146,11 @@ def to_jax_params(model: torch.nn.Module) -> Dict[str, Dict]:
         path, leaf = _flax_path(name)
         if leaf in stats_name:
             _insert(batch_stats, path, stats_name[leaf], b.detach().float().cpu().numpy())
-    return {"params": flax_tree(dict(model.named_parameters())),
-            "batch_stats": batch_stats}
+    params = dict(model.named_parameters())
+    layout = getattr(model, "shard_layout", None)
+    if layout is not None:
+        params = layout.full_dict(params)
+    return {"params": flax_tree(params), "batch_stats": batch_stats}
 
 
 def _walk(tree, path=()):

@@ -113,9 +113,13 @@ UNPORTED = [["--mesh", "1x1"]]
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])
 def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        _smoke(tmp_path, *flag)
-    assert not os.listdir(tmp_path)  # raised before writing anything
+    """The flags that raised NotImplementedError until their path was
+    ported now run: --mesh 1x1 joins a group of one rank in process, runs the
+    smoke to the end and leaves no process group behind."""
+    import torch.distributed as dist
+
+    assert _smoke(tmp_path, *flag) == 0
+    assert not dist.is_initialized()
 
 
 def test_without_cpu_and_without_a_gpu_main_raises(tmp_path):

@@ -560,3 +560,50 @@ def test_synth_batch_device_is_deterministic_on_card(cuda):
     other = ds.synth_batch_device(torch.Generator(device="cuda").manual_seed(8), 16, cfg)[0]
     assert not torch.equal(runs[0][0], other)
     assert torch.isfinite(runs[0][0]).all()
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 4, 128, 64), torch.bfloat16),
+                                         ((2, 4, 128, 128), torch.bfloat16),
+                                         ((2, 4, 96, 32), torch.float32),
+                                         ((2, 4, 65, 64), torch.bfloat16)])
+def test_attention_head_shards_are_slices_of_the_full_launch(cuda, shape, dtype):
+    """A tensor-parallel rank's heads h0..h0+H/2 with (H, h0), forward and
+    backward, equal the head slice of the full launch bit for bit, on the
+    route the shape takes, and the plain version with the same arguments."""
+    B, H, L, D = shape
+    gen = cuda
+    qu, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    bias = torch.randn((B, H, L, L), generator=gen, device="cuda").to(dtype)
+    seed, scale, rate = 0x9E3779B9, D ** -0.5, 0.1
+    xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    full = fused_attention(*xs, seed, scale, rate)
+    full_grads = torch.autograd.grad(full, xs, g)
+    for h0 in (0, H // 2):
+        hs = slice(h0, h0 + H // 2)
+        part = [t[:, hs].contiguous().requires_grad_() for t in (qu, k, v, bias)]
+        out = fused_attention(*part, seed, scale, rate, H, h0)
+        grads = torch.autograd.grad(out, part, g[:, hs].contiguous())
+        for a, b in zip((out, *grads), (full, *full_grads)):
+            assert torch.equal(a, b[:, hs])
+        ys = [t.detach().float().requires_grad_() for t in part]
+        ref = attention_plain(*ys, seed, scale, rate, H, h0)
+        assert _rel(out, ref) <= TOL[dtype]
+
+
+def test_dropout_column_shards_are_slices_of_the_full_launch(cuda):
+    """The dropout kernel with (row_local, row_total, col_offset), forward
+    and gradient, equals the column slice of the full launch and the plain
+    version with the same index map, bit for bit."""
+    x = torch.randn((4, 33, 96), generator=cuda, device="cuda")
+    g = torch.randn_like(x)
+    seed, rate = 0x9E3779B9, 0.25
+    full, full_g = hash_dropout(x, seed, rate), hash_dropout(g, seed, rate)
+    for c0, w in ((0, 32), (32, 32), (64, 32), (8, 40)):
+        imap = (w, 96, c0)
+        xs = x[..., c0:c0 + w].contiguous().requires_grad_()
+        out = hash_dropout(xs, seed, rate, imap)
+        (grad,) = torch.autograd.grad(out, xs, g[..., c0:c0 + w].contiguous())
+        assert torch.equal(out, full[..., c0:c0 + w])
+        assert torch.equal(grad, full_g[..., c0:c0 + w])
+        assert torch.equal(out, dropout_plain(xs.detach(), seed, rate, imap))
+        assert torch.equal(launch_dropout(xs.detach(), seed, rate, imap), out)
