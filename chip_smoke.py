@@ -16,7 +16,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (attention also beside the FMA kernels it replaced at these
               shapes), and the attention at the shapes the model's options
               bring (L = 257 with the CLS token, L = 512 with one channel a
-              patch), each on the route the wrapper takes. Then the attention
+              patch), each on the route the wrapper takes (bf16 on the tensor
+              cores at every L and D = 32 / 64 / 128, beside the FMA kernels
+              launched directly with a 4x floor at L = 257 and at D = 32;
+              f32 on the FMA kernels). Then the attention
               module of the conformer at both
               flagship widths in bf16, fused against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
@@ -144,10 +147,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               ``make_pretrain_step`` with its launch counts zeroed before and
               asserted exactly after, and its peak memory: (a) the mask modes
               (every drawn mask's count checked), (b) ``in_ver="same"``, (c)
-              ``in_ver="single_ch_each_patch"`` (L = 512: D = 64 on the tensor
-              cores, D = 32 on FMA), (d) ``use_cls`` (L = 257 on FMA) and the
-              downstream model with the token, (e) ``remat_cnn`` (its first
-              step against the plain one's), (f) the ``fc`` front end, (g)
+              ``in_ver="single_ch_each_patch"`` (L = 512: D = 64 and D = 32
+              on the tensor cores), (d) ``use_cls`` (L = 257 on the tensor
+              cores) and the downstream model with the token (f32, no fused
+              attention), (e) ``remat_cnn`` (its first step against the
+              plain one's), (f) the ``fc`` front end, (g)
               f-first (16, 16) patches with 'TF' masks, (h) transformer
               encoders, (i) the decoder's stages and CNN head, (j)
               ``MCConformer``'s forward in f32 and bf16, (k)
@@ -185,8 +189,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               unmeshed (epoch utt/s, s a cell epoch); (c) the index maps of a
               tensor-parallel rank: attention forward and backward on half the
               heads with ``(heads_total, head_offset)`` on the tensor-core
-              route (bf16, D = 128 / 64, L = 256) and the FMA route (f32 D =
-              64; bf16 L = 257), and the dropout kernel on half the columns
+              route (bf16, D = 128 / 64, L = 256; D = 64, L = 257) and the FMA
+              route (f32 D = 64), and the dropout kernel on half the columns
               with ``(row_local, row_total, col_offset)``: each equal to the
               slice of the full launch bit for bit and held against its plain
               version, timed beside the same launch unsharded.
@@ -394,7 +398,7 @@ def log(*a):
 
 # mesh (c): the index-mapped launches of a tensor-parallel rank. Attention at
 # (L, D, dtype) on each route: the tensor-core kernels at both flagship head
-# dims, the FMA kernels in f32 and at a ragged L; the rank holds half the
+# dims and at a ragged L, the FMA kernels in f32; the rank holds half the
 # heads. The dropout at the spec encoder's feed-forward hidden (B, L, 2048)
 # bf16 with half its units.
 MESH_ATTENTION_SHAPES = ((SEQ, 128, torch.bfloat16), (SEQ, 64, torch.bfloat16),
@@ -586,10 +590,13 @@ def _tensor_core_kernel(source, line):
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
                    "attn_delta": 256}
-        entry = re.search(r"Compiling entry function '.*?(attn_[a-z_]+?)ILi(\d+)E", line)
+        # each kernel's instance for whole tiles (exact = 1) and for any L
+        entry = re.search(r"Compiling entry function '.*?(attn_[a-z_]+?)ILi(\d+)ELb([01])E",
+                          line)
         if entry:
-            name, D = entry.group(1), int(entry.group(2))
-            return f"{name}<{D}>", threads[name], mma_smem_bytes(name, D)
+            name, D, exact = entry.group(1), int(entry.group(2)), entry.group(3) == "1"
+            return (f"{name}<{D}, {'exact' if exact else 'any L'}>", threads[name],
+                    mma_smem_bytes(name, D, exact))
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -714,10 +721,12 @@ def check_attention(D, dtype, rate, seed, gen, L=SEQ):
         keep = hash_keep_mask(BATCH * HEADS * L * L, seed, rate,
                               "cuda").reshape(BATCH, HEADS, L, L)
         eye = torch.eye(L, device="cuda", dtype=dtype)
-        for c in range(L // D):
-            basis = eye[:, c * D:(c + 1) * D].expand(BATCH, HEADS, L, D).contiguous()
+        # D columns at a time, the last block ending at column L (it overlaps
+        # the one before where D does not divide L)
+        for c0 in sorted(set(range(0, L - D + 1, D)) | {L - D}):
+            basis = eye[:, c0:c0 + D].expand(BATCH, HEADS, L, D).contiguous()
             pd = fused_attention(qu, k, basis, bias, seed, scale, rate)
-            same = torch.equal(pd != 0, keep[..., c * D:(c + 1) * D])
+            same = torch.equal(pd != 0, keep[..., c0:c0 + D])
             assert same, (f"attention L={L} D={D} {dtype}: dropped positions differ from "
                           f"the plain mask")
     log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
@@ -741,10 +750,10 @@ def time_attention(D, seed, gen):
     out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
     res = {}
     # new, old, old, new: both sets on the same card in the same run
-    res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
-    res["fma_fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
-    res["fma_bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
-    res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
+    res["fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+    res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+    res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    res["bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
     del out, lse
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
     return res
@@ -757,20 +766,20 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 
     res = {}
     with torch.no_grad():
-        res["plain_fwd_ms"] = cuda_ms(lambda: attention_plain(qu, k, v, bias, seed, scale, RATE))
+        res["plain_fwd_ms"] = cuda_ms_queued(lambda: attention_plain(qu, k, v, bias, seed, scale, RATE))
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
     out = attention_plain(*xs, seed, scale, RATE)
-    res["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, xs, g, retain_graph=True))
+    res["plain_bwd_ms"] = cuda_ms_queued(lambda: torch.autograd.grad(out, xs, g, retain_graph=True))
     del out
     # library yardstick (never called by the port): SDPA with the bias as a
     # float mask, rate 0
     mask = bias * scale
     with torch.no_grad():
-        res["lib_fwd_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        res["lib_fwd_ms"] = cuda_ms_queued(lambda: torch.nn.functional.scaled_dot_product_attention(
             qu, k, v, attn_mask=mask, scale=scale))
     ys = [t.clone().requires_grad_() for t in (qu, k, v, mask)]
     out = torch.nn.functional.scaled_dot_product_attention(*ys[:3], attn_mask=ys[3], scale=scale)
-    res["lib_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, ys, g, retain_graph=True))
+    res["lib_bwd_ms"] = cuda_ms_queued(lambda: torch.autograd.grad(out, ys, g, retain_graph=True))
     del out
     B, H, L, D = qu.shape
     es = qu.element_size()
@@ -785,18 +794,26 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 
 
 # attention shapes the model's options bring (phase model_options), at the
-# flagship batch and heads: (L, D, dtype). L = 257: the CLS token, FMA route
-# at both widths; L = 512: in_ver="single_ch_each_patch" (the spec encoder at
-# d = 256 on the tensor cores, the spat encoder at d = 128, D = 32, on FMA),
-# and one f32 case there.
+# flagship batch and heads: (L, D, dtype). L = 257: the CLS token at both
+# widths; L = 512: in_ver="single_ch_each_patch" (the spec encoder at d = 256,
+# D = 64, the spat encoder at d = 128, D = 32); all bf16, on the tensor cores.
+# Then the f32 route (FMA kernels), on no variant's path: at L = 512 and at
+# the flagship's L = 256, its gap to SDPA.
 OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
                            (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
-                           (512, 64, torch.float32))
+                           (512, 64, torch.float32), (256, 128, torch.float32),
+                           (256, 64, torch.float32))
+# (L, D) of the bf16 shapes whose tensor-core launches took over from the FMA
+# kernels: each launch, forward and backward, at least this many times faster
+# than the FMA kernel at its shape in the same run
+FMA_FLOOR_SHAPES = ((257, 128), (257, 64), (512, 32))
+ATTENTION_FMA_FLOOR = 4.0
 
 
 def time_attention_route(L, D, dtype, seed, gen):
     """Times of fwd and bwd on the route ``fused_attention`` takes at this
-    shape (rate 0.1), beside the plain version, SDPA and the bound."""
+    shape (rate 0.1), beside the plain version, SDPA and the bound; on the
+    tensor-core route also the FMA kernels' times, launched directly."""
     from sarssl_torch.kernels.attention import (fma_row_block, launch_attention_bwd_fma,
                                                 launch_attention_bwd_mma,
                                                 launch_attention_fwd_fma,
@@ -808,14 +825,17 @@ def time_attention_route(L, D, dtype, seed, gen):
     res = {"tc": takes_tensor_cores(dtype, L, D)}
     if res["tc"]:
         out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
-        res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
-        res["bwd_ms"] = cuda_ms(
+        # new, old, old, new: both sets on the same card in the same run
+        res["fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+        res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+        res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+        res["bwd_ms"] = cuda_ms_queued(
             lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
         del out, lse
     else:
         res["row_block"] = (fma_row_block("fwd", L, D), fma_row_block("bwd", L, D))
-        res["fwd_ms"] = cuda_ms(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
-        res["bwd_ms"] = cuda_ms(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+        res["fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+        res["bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
     return res
 
@@ -1117,11 +1137,17 @@ def phase_kernels():
         t.update(max_abs_err=err, out_err=out_err)
         opt_rows[(L, D, dtype)] = t
         route = "tensor-core" if t["tc"] else f"FMA, row blocks (fwd, bwd) {t['row_block']}"
+        fma = {kind: (f"FMA kernel {t[f'fma_{kind}_ms']:.4f}, " if t["tc"] else "")
+               for kind in ("fwd", "bwd")}
         log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} ({route}): fwd "
-            f"{t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
-            f"bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms (plain "
-            f"{t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
+            f"{t['fwd_ms']:.4f} ms ({fma['fwd']}plain {t['plain_fwd_ms']:.3f}, sdpa "
+            f"{t['lib_fwd_ms']:.4f}, bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms "
+            f"({fma['bwd']}plain {t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
             f"{t['bwd_bound'][0]:.4f})")
+        if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16:
+            for kind in ("fwd", "bwd"):
+                assert ATTENTION_FMA_FLOOR * t[f"{kind}_ms"] <= t[f"fma_{kind}_ms"], (
+                    f"attention {kind} L={L} D={D}: under {ATTENTION_FMA_FLOOR}x the FMA kernel")
         torch.cuda.empty_cache()
     for D in HEAD_DIMS:
         t = time_attention(D, seed, gen)
@@ -1190,16 +1216,19 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                 "variant": "mma" if r["tc"] else "fma",
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
-                # variant (d) (L=257) and (c) (L=512); the f32 case is no
+                # variant (d) (L=257) and (c) (L=512); the f32 cases are no
                 # variant's (those run bf16)
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
                 "library_ms": r[f"lib_{kind}_ms"],
-                "path": "phase model_options (launches_model_options): use_cls (L=257) and "
-                        "in_ver=single_ch_each_patch (L=512)",
+                "path": ("phase model_options (launches_model_options): use_cls (L=257) and "
+                         "in_ver=single_ch_each_patch (L=512)" if dtype == torch.bfloat16 else
+                         "no model path runs f32 attention fused; timed for the f32 route's "
+                         "gap to SDPA"),
                 "launches_model_options": n,
+                **({"fma_ms": r[f"fma_{kind}_ms"]} if r["tc"] else {}),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -2577,16 +2606,16 @@ def phase_model_options(card):
         cap.undo()
     run("(b) in_ver=same", base, in_ver="same")
     r = run("(c) in_ver=single_ch_each_patch",
-            {**_attention_want((64, 1, True), (32, 3, False)),
+            {**_attention_want((64, 1, True), (32, 3, True)),
              "hash_dropout": OPTION_DROPOUT["encoders"]}, in_ver="single_ch_each_patch")
     for kind in ("fwd", "bwd"):
         shapes[(512, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d64", 0)
-        shapes[(512, 32, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d32", 0)
-    r = run("(d) use_cls", {**_attention_want((128, 1, False), (64, 3, False)),
+        shapes[(512, 32, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d32", 0)
+    r = run("(d) use_cls", {**_attention_want((128, 1, True), (64, 3, True)),
                             "hash_dropout": OPTION_DROPOUT["encoders"]}, use_cls=True)
     for kind in ("fwd", "bwd"):
-        shapes[(257, 128, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d128", 0)
-        shapes[(257, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_d64", 0)
+        shapes[(257, 128, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d128", 0)
+        shapes[(257, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d64", 0)
     _downstream_cls(card, total)
     _remat_cnn_matches_plain(wave, card)
     r = run("(e) remat_cnn", base, remat_cnn=True)

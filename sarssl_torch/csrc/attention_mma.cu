@@ -1,7 +1,7 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
-// for bfloat16 at head dims 64 and 128 and a sequence length that is a
-// multiple of 64. (float32, head dims 16 and 32 and ragged lengths stay on the
-// FMA kernels of attention.cu: the wrapper routes them there.)
+// for bfloat16 at head dims 32, 64 and 128 and any sequence length L >= 1.
+// (float32 and head dim 16 stay on the FMA kernels of attention.cu: the
+// wrapper routes them there.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
@@ -18,7 +18,8 @@
 //
 // What bounds it on an H100: bytes. At B=128, H=4, L=256, D=128 the forward
 // must move 201 MB (60 us at 3.35 TB/s) for 17 GFLOP (17 us at the 989 TFLOP/s
-// tensor rate); the (B,H,L,L) bias is a third of the bytes. The design:
+// tensor rate); the (B,H,L,L) bias is a third of the bytes (at L=512, D=32
+// nearly all of them). The design:
 //
 //  * All five products run on the tensor cores as mma.sync.m16n8k16 (bf16
 //    operands, f32 accumulation) with ldmatrix from shared memory. wgmma is
@@ -29,9 +30,10 @@
 //    without a trip through shared memory. So mma.sync was taken.
 //  * Operands stay bf16 in shared memory, copied 16 bytes a thread with
 //    cp.async into rows whose 16-byte chunks are XOR-swizzled with the row
-//    index (chunk ^ (row & 7)), which makes every ldmatrix conflict-free.
-//    Tiles are double-buffered: the copy of tile t+1 is started before the
-//    products of tile t.
+//    index (chunk ^ (row & 7) for rows of 8 or more chunks, chunk ^ ((row >> 1)
+//    & 3) for the 4-chunk rows of D = 32), which makes every ldmatrix
+//    conflict-free. Tiles are double-buffered: the copy of tile t+1 is started
+//    before the products of tile t.
 //  * The bias is read once per kernel through the same cp.async pipeline
 //    (16-byte loads) into a padded tile, and added in f32 to the accumulator
 //    before the scale.
@@ -62,6 +64,24 @@
 //    plain version's and forward and backward agree. A tensor-parallel shard
 //    of heads (h_offset .. h_offset + H of h_total) hashes the index of the
 //    whole (B, h_total, L, L) tensor: each block maps its (b, h) once.
+//  * Any L: each kernel has two instances, chosen at launch. EXACT (L a
+//    multiple of 64, bias 16-byte aligned: the flagship) is the code above
+//    with no predicate. The other takes ceil(L / 64) tiles and
+//      - zero-fills the rows of the last tile past L (cp.async with a source
+//        size of 0), sets the scores of keys >= L to -inf before the running
+//        max (they add exactly 0 to the sum and to P V), and never stores a
+//        row >= L (out, lse, dqu, dk, dv, dbias);
+//      - reads the bias and dbias rows, which start at any 2-byte boundary (a
+//        row is 2L bytes: at L = 257 most rows are not 16-byte aligned, and
+//        neither TMA nor a 16-byte cp.async takes them), as WINDOWS: each
+//        row's 16-byte chunks from the one holding its first value on (9 for
+//        64 values) go, still 16 bytes a thread and coalesced across the warp,
+//        to a tile row of 9 chunks, where value j sits at column shift + j,
+//        shift = (the row's address / 2) & 7. Readers add the row's shift. The
+//        dqu pass builds its A fragments from such rows with 2-byte loads
+//        (ldmatrix needs 16-byte aligned rows). dbias goes out in 16-byte
+//        stores where a chunk lies inside the row and 2-byte stores at its
+//        two ends; lse and delta come in by 4-byte cp.async.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -78,6 +98,7 @@ constexpr int NT = 128;    // threads per block: 4 warps, 16 tile rows each
 constexpr int BK = 64;     // keys per tile
 constexpr int BQ = 32;     // queries per step of the backward's loop
 constexpr int BSTR = 72;   // row stride (elements) of a padded 64-key bias tile
+constexpr int BCH = BSTR / 8;  // 16-byte chunks in a padded bias tile row
 
 struct Dropout {
   uint32_t seed;
@@ -114,22 +135,43 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// copies `bytes` (0 or 4) from src and fills the rest of the 4 with zeros
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+// The XOR that a row of a swizzled tile of width W applies to its chunk
+// index: 8 rows of 16-byte chunks at one chunk index land in 8 bank groups.
+// Rows of 64 bytes (W = 32, two rows a 128-byte line) take bits 1-2 of the row.
+template <int W>
+__device__ __forceinline__ int swz_key(int row) {
+  static_assert(W == 32 || W % 64 == 0, "swizzled rows of 4 or a multiple of 8 chunks");
+  return W == 32 ? (row >> 1) & 3 : row & 7;
+}
+
 // Byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile whose
 // rows hold W bf16 values.
 template <int W>
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)(row * (W * 2) + ((chunk ^ (row & 7)) << 4));
+  return (uint32_t)(row * (W * 2) + ((chunk ^ swz_key<W>(row)) << 4));
 }
 
-// ROWS x W values from device memory (row stride ld elements) -> swizzled tile
-template <int ROWS, int W>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, i64 ld) {
+// ROWS x W values from device memory (row stride ld elements) -> swizzled
+// tile; with TAIL, rows >= nrows are zero-filled (the tile at the end of L)
+template <int ROWS, int W, bool TAIL = false>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, i64 ld, int nrows = ROWS) {
   constexpr int CH = W / 8;
   static_assert(ROWS * CH % NT == 0, "the tile's chunks divide among the threads");
 #pragma unroll
   for (int it = 0; it < ROWS * CH / NT; ++it) {
     const int idx = threadIdx.x + it * NT, r = idx / CH, c = idx % CH;
-    cp_async16(dst + swz<W>(r, c), src + (i64)r * ld + c * 8);
+    if constexpr (TAIL) {
+      const bool ok = r < nrows;
+      cp_async16_zfill(dst + swz<W>(r, c), ok ? src + (i64)r * ld + c * 8 : src, ok ? 16 : 0);
+    } else {
+      cp_async16(dst + swz<W>(r, c), src + (i64)r * ld + c * 8);
+    }
   }
 }
 
@@ -144,13 +186,77 @@ __device__ __forceinline__ void load_bias_tile(uint32_t dst, const bf16* src, in
   }
 }
 
+// Where value 0 of a window row lies in its tile row: (address / 2) & 7.
+__device__ __forceinline__ int window_shift(const bf16* row) {
+  return (int)((reinterpret_cast<uintptr_t>(row) >> 1) & 7);
+}
+
+// ROWS x ncols (<= 64) values of a bf16 matrix of row stride ld whose rows
+// start at any 2-byte boundary -> padded tile of stride BSTR, as windows:
+// row r's 16-byte chunks from the one holding its first value on fill tile
+// row r, so value j lands at column window_shift(row) + j. Bytes past a row's
+// ncols values and rows >= nrows are zero-filled. The bytes ahead of a row's
+// first value in its chunk lie in the same storage (a 16-byte aligned address
+// at or above the storage's start) and are ignored.
+template <int ROWS>
+__device__ __forceinline__ void load_window_tile(uint32_t dst, const bf16* src, i64 ld, int nrows,
+                                                 int ncols) {
+  constexpr int N = ROWS * BCH;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15;  // for 0-byte copies
+#pragma unroll
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx / BCH, c = idx % BCH;
+    if (N % NT != 0 && idx >= N) break;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src + (i64)r * ld);
+    const int lead = (int)(a & 15);  // bytes ahead of the first value in its chunk
+    const int bytes = r < nrows ? min(max(lead + 2 * ncols - 16 * c, 0), 16) : 0;
+    const uintptr_t from = bytes > 0 ? (a & ~(uintptr_t)15) + 16 * c : any;
+    cp_async16_zfill(dst + (uint32_t)((r * BSTR + c * 8) * 2), reinterpret_cast<const void*>(from),
+                     bytes);
+  }
+}
+
+// The padded tile's ROWS rows (value j of row r at column window_shift(dst
+// row r) + j, as load_window_tile places them) -> the first ncols values of
+// rows 0..nrows of dst (row stride ld): 16-byte stores for the chunks that lie
+// inside a row, 2-byte stores for the values of the chunks at its two ends.
+template <int ROWS>
+__device__ __forceinline__ void store_window_tile(bf16* dst, i64 ld, const unsigned char* tile,
+                                                  int nrows, int ncols) {
+  constexpr int N = ROWS * BCH;
+#pragma unroll
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx / BCH, c = idx % BCH;
+    if ((N % NT != 0 && idx >= N) || r >= nrows) continue;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(dst + (i64)r * ld);
+    const int lead = (int)(a & 15), end = lead + 2 * ncols;  // the row's bytes in its window
+    const int lo = 16 * c;
+    if (end <= lo || lead >= lo + 16) continue;
+    const unsigned char* from = tile + (r * BSTR + c * 8) * 2;
+    bf16* to = reinterpret_cast<bf16*>((a & ~(uintptr_t)15) + lo);
+    if (lead <= lo && end >= lo + 16) {
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (lo + 2 * e >= lead && lo + 2 * e < end)
+          to[e] = reinterpret_cast<const bf16*>(from)[e];
+    }
+  }
+}
+
+// two consecutive bf16 values of a tile at any element index, packed
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[1]) << 16);
+}
+
 // ldmatrix addressing. A lane's address of chunk (2 * kk + hi) of its row is
 // (tile + lane_off(row, hi)) ^ (kk << 5): the swizzle's XOR splits into a
 // per-lane part and a compile-time part because tiles start at multiples of
 // their row pitch times 8, so one address register serves a whole tile.
 template <int W>
 __device__ __forceinline__ uint32_t lane_off(int row, int hi) {
-  return (uint32_t)(row * (W * 2) + ((hi ^ (row & 7)) << 4));
+  return (uint32_t)(row * (W * 2) + ((hi ^ swz_key<W>(row)) << 4));
 }
 // lane's base for x4 loads of A fragments (16 rows x 16 k) or, transposed, of
 // B fragments from rows that run along the product's n (16 k x 16 n)
@@ -210,11 +316,12 @@ __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t 
 }
 
 // The warp's 16 x D accumulator -> its own 16 rows (row0..) of a swizzled tile
-// as bf16, then out to device memory in 16-byte stores (row stride ld).
-template <int D>
+// as bf16, then out to device memory in 16-byte stores (row stride ld); with
+// TAIL only the first nrows of the 16.
+template <int D, bool TAIL = false>
 __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_off,
                                            const float (&acc)[D / 8][4], int row0, bf16* dst,
-                                           i64 ld, int lane) {
+                                           i64 ld, int lane, int nrows = 16) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -228,14 +335,15 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_of
 #pragma unroll
   for (int it = 0; it < 16 * CH / 32; ++it) {
     const int idx = lane + it * 32, r = idx / CH, c = idx % CH;
+    if (TAIL && r >= nrows) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_off + swz<D>(row0 + r, c));
     *reinterpret_cast<uint4*>(dst + (i64)r * ld + c * 8) = val;
   }
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (L/64, B*H); blockIdx.x is the query tile, so the tiles of one
-// (b, h) run together and k, v come from L2 after the first.
+// forward: grid (ceil(L/64), B*H); blockIdx.x is the query tile, so the tiles
+// of one (b, h) run together and k, v come from L2 after the first.
 // smem: Q tile, 2 x (K tile, V tile, bias tile)
 // ---------------------------------------------------------------------------
 template <int D>
@@ -250,8 +358,8 @@ struct FwdSmem {
   static_assert(TILE % 256 == 0 && BIAS % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, D == 64 ? 3 : 2)
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT, D == 32 ? 4 : D == 64 ? 3 : 2)
 attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ bias,
              bf16* __restrict__ out, float* __restrict__ lse, int H, int L, float scale,
@@ -265,12 +373,20 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   const bf16* kp = k + (i64)bh * L * D;
   const bf16* vp = v + (i64)bh * L * D;
   const bf16* bp = bias + ((i64)bh * L + i0) * L;
-  const int ntiles = L / BK;
+  const int ntiles = EXACT ? L / BK : (L + BK - 1) / BK;
+  const int qrows = L - i0;  // the query tile's rows inside L (TAIL instances)
 
-  load_tile<64, D>(sb + S::Q, qu + ((i64)bh * L + i0) * D, D);
-  load_tile<64, D>(sb + S::K, kp, D);
-  load_tile<64, D>(sb + S::V, vp, D);
-  load_bias_tile<64>(sb + S::B, bp, L);
+  if constexpr (EXACT) {
+    load_tile<64, D>(sb + S::Q, qu + ((i64)bh * L + i0) * D, D);
+    load_tile<64, D>(sb + S::K, kp, D);
+    load_tile<64, D>(sb + S::V, vp, D);
+    load_bias_tile<64>(sb + S::B, bp, L);
+  } else {
+    load_tile<64, D, true>(sb + S::Q, qu + ((i64)bh * L + i0) * D, D, qrows);
+    load_tile<64, D, true>(sb + S::K, kp, D, L);
+    load_tile<64, D, true>(sb + S::V, vp, D, L);
+    load_window_tile<64>(sb + S::B, bp, L, qrows, min(L, BK));
+  }
   cp_async_commit();
 
   uint32_t qf[D / 16][4];
@@ -279,6 +395,10 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // rows g and g + 8
   const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
+  // the bias tile's rows r0 + g and r0 + g + 8: their first elements (TAIL:
+  // each row's window shift, the same in every key tile)
+  const int ba_off = (r0 + g) * BSTR + (EXACT ? 0 : window_shift(bp + (i64)(r0 + g) * L));
+  const int bb_off = (r0 + g + 8) * BSTR + (EXACT ? 0 : window_shift(bp + (i64)(r0 + g + 8) * L));
 
   for (int tt = 0; tt < ntiles; ++tt) {
     cp_async_wait_all();
@@ -286,9 +406,15 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
     const int st = tt & 1;
     if (tt + 1 < ntiles) {
       const int nx = st ^ 1, j1 = (tt + 1) * BK;
-      load_tile<64, D>(sb + S::K + nx * S::TILE, kp + (i64)j1 * D, D);
-      load_tile<64, D>(sb + S::V + nx * S::TILE, vp + (i64)j1 * D, D);
-      load_bias_tile<64>(sb + S::B + nx * S::BIAS, bp + j1, L);
+      if constexpr (EXACT) {
+        load_tile<64, D>(sb + S::K + nx * S::TILE, kp + (i64)j1 * D, D);
+        load_tile<64, D>(sb + S::V + nx * S::TILE, vp + (i64)j1 * D, D);
+        load_bias_tile<64>(sb + S::B + nx * S::BIAS, bp + j1, L);
+      } else {
+        load_tile<64, D, true>(sb + S::K + nx * S::TILE, kp + (i64)j1 * D, D, L - j1);
+        load_tile<64, D, true>(sb + S::V + nx * S::TILE, vp + (i64)j1 * D, D, L - j1);
+        load_window_tile<64>(sb + S::B + nx * S::BIAS, bp + j1, L, qrows, min(L - j1, BK));
+      }
       cp_async_commit();
     }
     if (tt == 0) {
@@ -313,21 +439,33 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       }
     }
 
-    // (s + bias) * scale, in log2 units for exp2f; running max
+    // (s + bias) * scale, in log2 units for exp2f; running max. TAIL: keys
+    // >= L (zero rows of K) get -inf, so they weigh exactly 0
     const bf16* bt = reinterpret_cast<const bf16*>(smem + S::B + st * S::BIAS);
     const float sl2 = scale * LOG2E;
+    const int kleft = L - tt * BK;  // keys of this tile inside L
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int col = 8 * n + 2 * t;
-      const float2 ba = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(bt + (r0 + g) * BSTR + col));
-      const float2 bb = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(bt + (r0 + g + 8) * BSTR + col));
+      float2 ba, bb;
+      if constexpr (EXACT) {
+        ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + ba_off + col));
+        bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + bb_off + col));
+      } else {
+        ba = make_float2(__bfloat162float(bt[ba_off + col]),
+                         __bfloat162float(bt[ba_off + col + 1]));
+        bb = make_float2(__bfloat162float(bt[bb_off + col]),
+                         __bfloat162float(bt[bb_off + col + 1]));
+      }
       s[n][0] = (s[n][0] + ba.x) * sl2;
       s[n][1] = (s[n][1] + ba.y) * sl2;
       s[n][2] = (s[n][2] + bb.x) * sl2;
       s[n][3] = (s[n][3] + bb.y) * sl2;
+      if constexpr (!EXACT) {
+        if (col >= kleft) s[n][0] = s[n][2] = -INFINITY;
+        if (col + 1 >= kleft) s[n][1] = s[n][3] = -INFINITY;
+      }
       mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
       mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
     }
@@ -387,24 +525,28 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   if (t == 0) {
     // m is in log2 units of the scaled score; lse in natural units
     float* lp = lse + (i64)bh * L + i0 + r0;
-    lp[g] = (m_a + log2f(l_a)) / LOG2E;
-    lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+    if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
+    if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
   }
   // the query tile's rows r0.. were read by this warp alone: reuse them
   bf16* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l;
-  store_rows<D>(smem, S::Q, o, r0, op, os.l, lane);
+  store_rows<D, !EXACT>(smem, S::Q, o, r0, op, os.l, lane, qrows - r0);
 }
 
 // ---------------------------------------------------------------------------
 // delta[b, h, i] = sum_d g[b, h, i, d] * out[b, h, i, d]; D/8 lanes per row
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(256)
 attn_delta(const bf16* __restrict__ g, const bf16* __restrict__ out,
-           float* __restrict__ delta, int H, int L, Strides gs, Strides os) {
+           float* __restrict__ delta, int H, int L, int rows, Strides gs, Strides os) {
   constexpr int LPR = D / 8;
   const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
-  const int bh = row / L, i = row % L;
+  // TAIL: the last block's rows past B*H*L read row 0 and write nothing (they
+  // stay in the warp's shuffles)
+  const bool live = EXACT || row < rows;
+  const int rr = live ? row : 0;
+  const int bh = rr / L, i = rr % L;
   const i64 b = bh / H, h = bh % H;
   const uint4 gv = *reinterpret_cast<const uint4*>(g + b * gs.b + h * gs.h + i * gs.l + c * 8);
   const uint4 ov = *reinterpret_cast<const uint4*>(out + b * os.b + h * os.h + i * os.l + c * 8);
@@ -419,12 +561,13 @@ attn_delta(const bf16* __restrict__ g, const bf16* __restrict__ out,
   }
 #pragma unroll
   for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (c == 0) delta[row] = sum;
+  if (c == 0 && live) delta[row] = sum;
 }
 
 // ---------------------------------------------------------------------------
-// backward, main pass: grid (L/64, B*H); blockIdx.x is the key tile. Each warp
-// owns 16 keys and keeps their dv and dk in registers over the query loop.
+// backward, main pass: grid (ceil(L/64), B*H); blockIdx.x is the key tile.
+// Each warp owns 16 keys and keeps their dv and dk in registers over the
+// query loop.
 // smem: K tile, V tile, 2 x (Q, G, bias tiles of BQ queries, lse, delta),
 // dbias staging tile
 // ---------------------------------------------------------------------------
@@ -443,8 +586,8 @@ struct BwdSmem {
   static_assert(QG % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, D == 64 ? 3 : 2)
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT, D == 32 ? 4 : D == 64 ? 3 : 2)
 attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ bias,
              const bf16* __restrict__ gr, const float* __restrict__ lse,
@@ -460,26 +603,53 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   const bf16* qp = qu + (i64)bh * L * D;
   const bf16* gp = gr + (bh / H) * gs.b + (bh % H) * gs.h;
   const bf16* bp = bias + (i64)bh * L * L + j0;
+  bf16* dbp = dbias + (i64)bh * L * L + j0;
   const float* lp = lse + (i64)bh * L;
   const float* dp = delta + (i64)bh * L;
   const uint32_t dbh = drop_bh(drop, bh);
-  const int nsteps = L / BQ;
+  const int nsteps = EXACT ? L / BQ : (L + BQ - 1) / BQ;
+  const int kcols = min(L - j0, BK);  // the key tile's keys inside L (TAIL instances)
+  // TAIL: the window shift of bias / dbias row i of this key tile is
+  // (*_sh + i * L) & 7 (addresses / 2, taken mod 8)
+  const uint32_t b_sh = (uint32_t)(reinterpret_cast<uintptr_t>(bp) >> 1);
+  const uint32_t db_sh = (uint32_t)(reinterpret_cast<uintptr_t>(dbp) >> 1);
 
   auto load_stage = [&](int stage, int q0) {
     const uint32_t base = sb + S::ST + stage * S::STAGE;
-    load_tile<BQ, D>(base, qp + (i64)q0 * D, D);
-    load_tile<BQ, D>(base + S::QG, gp + (i64)q0 * gs.l, gs.l);
-    load_bias_tile<BQ>(base + 2 * S::QG, bp + (i64)q0 * L, L);
-    constexpr int SC = BQ / 4;  // 16-byte chunks of BQ floats
-    if (threadIdx.x < 2 * SC) {
-      const int c = threadIdx.x;
-      const float* src = c < SC ? lp + q0 + 4 * c : dp + q0 + 4 * (c - SC);
-      cp_async16(base + 2 * S::QG + S::BIAS + 16 * c, src);
+    const uint32_t stat = base + 2 * S::QG + S::BIAS;
+    if constexpr (EXACT) {
+      load_tile<BQ, D>(base, qp + (i64)q0 * D, D);
+      load_tile<BQ, D>(base + S::QG, gp + (i64)q0 * gs.l, gs.l);
+      load_bias_tile<BQ>(base + 2 * S::QG, bp + (i64)q0 * L, L);
+      constexpr int SC = BQ / 4;  // 16-byte chunks of BQ floats
+      if (threadIdx.x < 2 * SC) {
+        const int c = threadIdx.x;
+        const float* src = c < SC ? lp + q0 + 4 * c : dp + q0 + 4 * (c - SC);
+        cp_async16(stat + 16 * c, src);
+      }
+    } else {
+      const int nq = L - q0;
+      load_tile<BQ, D, true>(base, qp + (i64)q0 * D, D, nq);
+      load_tile<BQ, D, true>(base + S::QG, gp + (i64)q0 * gs.l, gs.l, nq);
+      load_window_tile<BQ>(base + 2 * S::QG, bp + (i64)q0 * L, L, nq, kcols);
+      // a (B, H, L) f32 row starts 4-byte aligned only: one value a thread,
+      // zeros past L
+      if (threadIdx.x < 2 * BQ) {
+        const int c = threadIdx.x % BQ;
+        const float* row = threadIdx.x < BQ ? lp : dp;
+        const bool ok = c < nq;
+        cp_async4_zfill(stat + 4 * threadIdx.x, ok ? row + q0 + c : row, ok ? 4 : 0);
+      }
     }
   };
 
-  load_tile<64, D>(sb + S::K, k + ((i64)bh * L + j0) * D, D);
-  load_tile<64, D>(sb + S::V, v + ((i64)bh * L + j0) * D, D);
+  if constexpr (EXACT) {
+    load_tile<64, D>(sb + S::K, k + ((i64)bh * L + j0) * D, D);
+    load_tile<64, D>(sb + S::V, v + ((i64)bh * L + j0) * D, D);
+  } else {
+    load_tile<64, D, true>(sb + S::K, k + ((i64)bh * L + j0) * D, D, kcols);
+    load_tile<64, D, true>(sb + S::V, v + ((i64)bh * L + j0) * D, D, kcols);
+  }
   load_stage(0, 0);
   cp_async_commit();
 
@@ -522,7 +692,9 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qq = q + (e & 1), kk = r0 + g + (e < 2 ? 0 : 8);
-          const float b = __bfloat162float(bt[qq * BSTR + kk]);
+          const int bcol =
+              EXACT ? kk : kk + (int)((b_sh + (uint32_t)(q0 + qq) * (uint32_t)L) & 7);
+          const float b = __bfloat162float(bt[qq * BSTR + bcol]);
           const float pe = fast_exp2((p[n][e] + b) * sl2 - ((e & 1) ? ls.y : ls.x) * LOG2E);
           bool kp = true;
           if (drop.active)
@@ -558,7 +730,9 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
         const float dpm = kp ? dpt[n][e] * drop.inv_keep : 0.f;
         const float ds = fabsf(p[n][e]) * (dpm - ((e & 1) ? dl.y : dl.x)) * scale;
         const bf16 dsx = __float2bfloat16(ds);
-        dst[(q + (e & 1)) * BSTR + r0 + g + (e < 2 ? 0 : 8)] = dsx;
+        const int qq = q + (e & 1), kk = r0 + g + (e < 2 ? 0 : 8);
+        const int dcol = EXACT ? kk : kk + (int)((db_sh + (uint32_t)(q0 + qq) * (uint32_t)L) & 7);
+        dst[qq * BSTR + dcol] = dsx;
         dpt[n][e] = __bfloat162float(dsx);
       }
     }
@@ -572,41 +746,47 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
     // dk[key] += dbias^T qu
     mma_a_regs_b_rows<D, BQ / 16, D / 8>(dka, af, lane_base_a<D>(qt, 0, lane));
 
-    // the dbias tile, BQ rows of 64 keys, out in 16-byte stores
+    // the dbias tile, BQ rows of 64 keys, out in 16-byte stores (TAIL: as
+    // windows, rows and keys inside L only)
     __syncthreads();
-    bf16* db = dbias + ((i64)bh * L + q0) * L + j0;
+    bf16* db = dbp + (i64)q0 * L;
+    if constexpr (EXACT) {
 #pragma unroll
-    for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
-      const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
-      *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
+      for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
+        const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
+        *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
+      }
+    } else {
+      store_window_tile<BQ>(db, L, smem + S::DS, L - q0, kcols);
     }
   }
 
   // K and V rows r0.. were read by this warp alone: reuse them as staging
   const i64 orow = ((i64)bh * L + j0 + r0) * D;
-  store_rows<D>(smem, S::K, dka, r0, dk + orow, D, lane);
-  store_rows<D>(smem, S::V, dva, r0, dv + orow, D, lane);
+  store_rows<D, !EXACT>(smem, S::K, dka, r0, dk + orow, D, lane, kcols - r0);
+  store_rows<D, !EXACT>(smem, S::V, dva, r0, dv + orow, D, lane, kcols - r0);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dqu = dbias k: grid (L/64, B*H); blockIdx.x is the query tile.
-// smem: 2 x (dbias tile 64 x 64, K tile 64 x D)
+// backward, dqu = dbias k: grid (ceil(L/64), B*H); blockIdx.x is the query
+// tile. smem: 2 x (dbias tile 64 x 64, K tile 64 x D); TAIL: the dbias tile
+// is a padded window tile (64 x BSTR)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool EXACT>
 struct DquSmem {
-  static constexpr int A = 64 * 64 * 2;
+  static constexpr int A = EXACT ? 64 * 64 * 2 : 64 * BSTR * 2;
   static constexpr int KT = 64 * D * 2;
   static constexpr int STAGE = A + KT;
   static constexpr int BYTES = 2 * STAGE;
   static_assert(A % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(NT)
 attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
              bf16* __restrict__ dqu, int L) {
-  typedef DquSmem<D> S;
+  typedef DquSmem<D, EXACT> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
   const int bh = blockIdx.y, i0 = blockIdx.x * 64;
@@ -614,15 +794,26 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
   const int r0 = 16 * warp;
   const bf16* ap = dbias + ((i64)bh * L + i0) * L;
   const bf16* kp = k + (i64)bh * L * D;
-  const int ntiles = L / BK;
+  const int ntiles = EXACT ? L / BK : (L + BK - 1) / BK;
+  const int qrows = L - i0;
 
-  load_tile<64, 64>(sb, ap, L);
-  load_tile<64, D>(sb + S::A, kp, D);
+  if constexpr (EXACT) {
+    load_tile<64, 64>(sb, ap, L);
+    load_tile<64, D>(sb + S::A, kp, D);
+  } else {
+    load_window_tile<64>(sb, ap, L, qrows, min(L, BK));
+    load_tile<64, D, true>(sb + S::A, kp, D, L);
+  }
   cp_async_commit();
 
   float acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // TAIL: the thread's A rows r0 + g and r0 + g + 8 in the window tiles
+  const int g = lane >> 2, t = lane & 3;
+  const int a_off = (r0 + g) * BSTR + 2 * t + (EXACT ? 0 : window_shift(ap + (i64)(r0 + g) * L));
+  const int b_off =
+      (r0 + g + 8) * BSTR + 2 * t + (EXACT ? 0 : window_shift(ap + (i64)(r0 + g + 8) * L));
 
   for (int tt = 0; tt < ntiles; ++tt) {
     cp_async_wait_all();
@@ -630,19 +821,37 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
     const int st = tt & 1;
     if (tt + 1 < ntiles) {
       const uint32_t nx = sb + (st ^ 1) * S::STAGE;
-      load_tile<64, 64>(nx, ap + (tt + 1) * BK, L);
-      load_tile<64, D>(nx + S::A, kp + (i64)(tt + 1) * BK * D, D);
+      const int j1 = (tt + 1) * BK;
+      if constexpr (EXACT) {
+        load_tile<64, 64>(nx, ap + j1, L);
+        load_tile<64, D>(nx + S::A, kp + (i64)j1 * D, D);
+      } else {
+        load_window_tile<64>(nx, ap + j1, L, qrows, min(L - j1, BK));
+        load_tile<64, D, true>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
+      }
       cp_async_commit();
     }
     const uint32_t at = sb + st * S::STAGE;
     uint32_t af[4][4];
+    if constexpr (EXACT) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      ldsm_x4(af[kc], lane_base_a<64>(at, r0, lane) ^ (kc << 5));
+      for (int kc = 0; kc < 4; ++kc)
+        ldsm_x4(af[kc], lane_base_a<64>(at, r0, lane) ^ (kc << 5));
+    } else {
+      const bf16* a = reinterpret_cast<const bf16*>(smem + st * S::STAGE);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        af[kc][0] = ld_pair(a + a_off + 16 * kc);
+        af[kc][1] = ld_pair(a + b_off + 16 * kc);
+        af[kc][2] = ld_pair(a + a_off + 16 * kc + 8);
+        af[kc][3] = ld_pair(a + b_off + 16 * kc + 8);
+      }
+    }
     mma_a_regs_b_rows<D, 4, D / 8>(acc, af, lane_base_a<D>(at + S::A, 0, lane));
   }
   __syncthreads();  // every warp is done with the stages: reuse stage 0's K tile
-  store_rows<D>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D, D, lane);
+  store_rows<D, !EXACT>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D, D, lane,
+                        qrows - r0);
 }
 
 template <typename K>
@@ -650,39 +859,41 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+template <int D, bool EXACT>
 cudaError_t fwd(const void* qu, const void* k, const void* v, const void* bias, void* out,
                 float* lse, int BH, int H, int L, float scale, Dropout drop, Strides os,
                 cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_fwd_mma<D>, FwdSmem<D>::BYTES);
+  cudaError_t err = set_smem(attn_fwd_mma<D, EXACT>, FwdSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  attn_fwd_mma<D><<<dim3(L / 64, BH), NT, FwdSmem<D>::BYTES, stream>>>(
+  attn_fwd_mma<D, EXACT><<<dim3(ceil_div(L, 64), BH), NT, FwdSmem<D>::BYTES, stream>>>(
       (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, lse, H, L,
       scale, drop, os);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool EXACT>
 cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, const void* g,
                 const void* out, const float* lse, float* delta, void* dqu, void* dk, void* dv,
                 void* dbias, int BH, int H, int L, float scale, Dropout drop, Strides gs,
                 Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_bwd_mma<D>, BwdSmem<D>::BYTES);
+  cudaError_t err = set_smem(attn_bwd_mma<D, EXACT>, BwdSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  err = set_smem(attn_dqu_mma<D>, DquSmem<D>::BYTES);
+  err = set_smem(attn_dqu_mma<D, EXACT>, DquSmem<D, EXACT>::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(L / 64, BH);
-  attn_delta<D><<<BH * L / (256 / (D / 8)), 256, 0, stream>>>(
-      (const bf16*)g, (const bf16*)out, delta, H, L, gs, os);
+  const dim3 grid(ceil_div(L, 64), BH);
+  attn_delta<D, EXACT><<<ceil_div(BH * L, 256 / (D / 8)), 256, 0, stream>>>(
+      (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, gs, os);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_mma<D><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
+  attn_bwd_mma<D, EXACT><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
       (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
       delta, (bf16*)dk, (bf16*)dv, (bf16*)dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dqu_mma<D><<<grid, NT, DquSmem<D>::BYTES, stream>>>((const bf16*)dbias, (const bf16*)k,
-                                                           (bf16*)dqu, L);
+  attn_dqu_mma<D, EXACT><<<grid, NT, DquSmem<D, EXACT>::BYTES, stream>>>(
+      (const bf16*)dbias, (const bf16*)k, (bf16*)dqu, L);
   return cudaGetLastError();
 }
 
@@ -707,11 +918,25 @@ Strides make_strides(const i64* s) {
   return r;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The instance a launch takes: EXACT where every tile is whole and the bias
+// rows are 16-byte aligned (the flagship shapes), the general one elsewhere.
+bool exact_tiles(int L, const void* bias) { return L % 64 == 0 && aligned16(bias); }
+
+// qu, k, v (and dqu, dk, dv, dbias, which the wrapper allocates) are read in
+// 16-byte chunks of their rows: their bases must be 16-byte aligned
+bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* k,
+           const void* v) {
+  return L >= 1 && h_offset >= 0 && h_offset + H <= h_total && aligned16(qu) && aligned16(k) &&
+         aligned16(v);
+}
+
 }  // namespace
 
 extern "C" {
 
-// bf16 only; head_dim in {64, 128}; L a multiple of 64. out_strides: element
+// bf16 only; head_dim in {32, 64, 128}; any L >= 1. out_strides: element
 // strides of out over (b, h, l). lse: (B, H, L) float32, written. The H heads
 // are h_offset .. h_offset + H of h_total for the dropout index (H, 0 for all).
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -719,17 +944,21 @@ int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias,
                  void* lse, const long long* out_strides, int B, int H, int L, int head_dim,
                  float scale, float rate, unsigned int seed, unsigned int thresh, float inv_keep,
                  int h_total, int h_offset, void* stream) {
-  if (L % 64 != 0 || h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  if (!valid(L, H, h_total, h_offset, qu, k, v)) return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
+  const bool exact = exact_tiles(L, bias);
+#define ATTN_FWD(D, E)                                                                         \
+  fwd<D, E>(qu, k, v, bias, out, (float*)lse, B * H, H, L, scale, drop, os, (cudaStream_t)stream)
   switch (head_dim) {
+    case 32:
+      return (int)(exact ? ATTN_FWD(32, true) : ATTN_FWD(32, false));
     case 64:
-      return (int)fwd<64>(qu, k, v, bias, out, (float*)lse, B * H, H, L, scale, drop, os,
-                          (cudaStream_t)stream);
+      return (int)(exact ? ATTN_FWD(64, true) : ATTN_FWD(64, false));
     case 128:
-      return (int)fwd<128>(qu, k, v, bias, out, (float*)lse, B * H, H, L, scale, drop, os,
-                           (cudaStream_t)stream);
+      return (int)(exact ? ATTN_FWD(128, true) : ATTN_FWD(128, false));
   }
+#undef ATTN_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -741,26 +970,42 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
                  void* dbias, const long long* g_strides, const long long* out_strides, int B,
                  int H, int L, int head_dim, float scale, float rate, unsigned int seed,
                  unsigned int thresh, float inv_keep, int h_total, int h_offset, void* stream) {
-  if (L % 64 != 0 || h_offset < 0 || h_offset + H > h_total) return (int)cudaErrorInvalidValue;
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || !aligned16(dbias))
+    return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
+  const bool exact = exact_tiles(L, bias);
+#define ATTN_BWD(D, E)                                                                        \
+  bwd<D, E>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv, dbias, B * H, \
+            H, L, scale, drop, gs, os, (cudaStream_t)stream)
   switch (head_dim) {
+    case 32:
+      return (int)(exact ? ATTN_BWD(32, true) : ATTN_BWD(32, false));
     case 64:
-      return (int)bwd<64>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv,
-                          dbias, B * H, H, L, scale, drop, gs, os, (cudaStream_t)stream);
+      return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
     case 128:
-      return (int)bwd<128>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv,
-                           dbias, B * H, H, L, scale, drop, gs, os, (cudaStream_t)stream);
+      return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
   }
+#undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory per block: which = 0 forward, 1 backward main pass,
-// 2 backward dqu pass.
-int attn_mma_smem_bytes(int head_dim, int which) {
-  if (head_dim == 64)
-    return which == 0 ? FwdSmem<64>::BYTES : which == 1 ? BwdSmem<64>::BYTES : DquSmem<64>::BYTES;
-  return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES : DquSmem<128>::BYTES;
+// 2 backward dqu pass; exact = 1 for the instance of whole tiles (L a
+// multiple of 64), 0 for the general one.
+int attn_mma_smem_bytes(int head_dim, int which, int exact) {
+  switch (head_dim) {
+    case 32:
+      return which == 0 ? FwdSmem<32>::BYTES : which == 1 ? BwdSmem<32>::BYTES
+             : exact    ? DquSmem<32, true>::BYTES : DquSmem<32, false>::BYTES;
+    case 64:
+      return which == 0 ? FwdSmem<64>::BYTES : which == 1 ? BwdSmem<64>::BYTES
+             : exact    ? DquSmem<64, true>::BYTES : DquSmem<64, false>::BYTES;
+    case 128:
+      return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES
+             : exact    ? DquSmem<128, true>::BYTES : DquSmem<128, false>::BYTES;
+  }
+  return -1;
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
   attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
-                 (tensor cores; bfloat16, head dim 64/128, L % 64 == 0) and
-                 ``csrc/attention.cu`` (f32 FMAs; everything else)
+                 (tensor cores; bfloat16, head dim 32/64/128, any L) and
+                 ``csrc/attention.cu`` (f32 FMAs; float32 and head dim 16)
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
                  torch.func.vmap one seed a lane)
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``

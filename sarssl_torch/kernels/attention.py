@@ -17,18 +17,21 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 ``(B, heads_total, L, L)`` tensor, ``((b * heads_total + head_offset + h) * L
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
-Two sets of kernels, chosen by dtype and shape (:func:`takes_tensor_cores`):
+Two sets of kernels, chosen by dtype and head dim (:func:`takes_tensor_cores`):
 
-* ``csrc/attention_mma.cu``: bfloat16, head dim 64 or 128, sequence length a
-  multiple of 64 (the flagship's shapes). Tensor cores (``mma.sync``),
-  ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
-  which the ``autograd.Function`` saves with ``out`` for the backward.
-* ``csrc/attention.cu``: everything else the wrapper takes (float32, head
-  dims 16 and 32, ragged lengths), as scalar f32 FMAs. A float32 product on
-  the tensor cores would be TF32 and miss the 1e-4 tolerance. A block keeps
-  whole score rows in shared memory: 64 query rows where they fit, 32 where
-  they do not (:func:`fma_row_block`), so every L up to 704 runs at every
-  head dim; a longer one raises.
+* ``csrc/attention_mma.cu``: bfloat16 at head dim 32, 64 or 128 and any
+  sequence length. Tensor cores (``mma.sync``), ``cp.async`` pipelines; the
+  forward also returns the rows' log-sum-exp, which the
+  ``autograd.Function`` saves with ``out`` for the backward. Each kernel has
+  an instance for whole 64-row tiles (L a multiple of 64: the flagship's
+  shapes) and one that masks the last tile and reads the bias rows at any
+  alignment (the CLS token's L = 257 takes it; ``single_ch_each_patch``'s
+  L = 512 at D = 32 the first).
+* ``csrc/attention.cu``: float32 and head dim 16, as scalar f32 FMAs. A
+  float32 product on the tensor cores would be TF32 and miss the 1e-4
+  tolerance. A block keeps whole score rows in shared memory: 64 query rows
+  where they fit, 32 where they do not (:func:`fma_row_block`), so every L
+  up to 704 runs at every head dim; a longer one raises.
 
 For a CUDA tensor the wrapper launches the set it names here or raises.
 """
@@ -43,7 +46,7 @@ from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
 HEAD_DIMS = (16, 32, 64, 128)
-MMA_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernels (bfloat16 only)
+MMA_HEAD_DIMS = (32, 64, 128)  # head dims of the tensor-core kernels (bfloat16 only)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
@@ -122,23 +125,25 @@ def _library_mma():
     lib.attn_mma_fwd.restype = _I
     lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_bwd.restype = _I
-    lib.attn_mma_smem_bytes.argtypes = [_I, _I]
+    lib.attn_mma_smem_bytes.argtypes = [_I, _I, _I]
     lib.attn_mma_smem_bytes.restype = _I
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
-def mma_smem_bytes(kernel: str, D: int) -> int:
-    """Dynamic shared memory a block of a tensor-core kernel takes."""
+def mma_smem_bytes(kernel: str, D: int, exact: bool = True) -> int:
+    """Dynamic shared memory a block of a tensor-core kernel takes, in its
+    instance for whole tiles (``exact``) or for any L."""
     which = {"attn_fwd_mma": 0, "attn_bwd_mma": 1, "attn_dqu_mma": 2, "attn_delta": None}[kernel]
-    return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which)
+    return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which, int(exact))
 
 
 def takes_tensor_cores(dtype: torch.dtype, L: int, D: int) -> bool:
     """Whether ``fused_attention`` runs ``attention_mma.cu`` for CUDA tensors
-    of this dtype, sequence length and head dim (else ``attention.cu``)."""
-    return dtype == torch.bfloat16 and D in MMA_HEAD_DIMS and L % 64 == 0
+    of this dtype, sequence length and head dim (else ``attention.cu``): every
+    L runs on the tensor cores, so only dtype and head dim decide."""
+    return dtype == torch.bfloat16 and D in MMA_HEAD_DIMS
 
 
 def _check(qu, k, v, bias, heads_total=None):
@@ -244,9 +249,11 @@ def _check_mma(qu, k, v, bias, heads_total=None):
     _check(qu, k, v, bias, heads_total)
     B, H, L, D = qu.shape
     if not takes_tensor_cores(qu.dtype, L, D):
-        raise ValueError(f"the tensor-core kernels take bfloat16, head dim in "
-                         f"{MMA_HEAD_DIMS} and L a multiple of 64, got {qu.dtype}, "
-                         f"D={D}, L={L}")
+        raise ValueError(f"the tensor-core kernels take bfloat16 and head dim in "
+                         f"{MMA_HEAD_DIMS}, got {qu.dtype}, D={D}")
+    if any(t.data_ptr() % 16 for t in (qu, k, v)):
+        raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
+                         "data must start 16-byte aligned")
 
 
 def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float,
@@ -325,9 +332,9 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
     """``dropout(softmax((qu k^T + bias) * scale)) v`` for (B, H, L, D) inputs.
 
     CUDA tensors run the hand-written kernels, forward and backward: the
-    tensor-core set for bfloat16 at head dim 64 or 128 and L a multiple of 64
-    (its output is a (B, H, L, D) view of a (B, L, H, D) buffer), the FMA set
-    for float32, head dims 16 and 32 and any other L. CPU tensors run
+    tensor-core set for bfloat16 at head dim 32, 64 or 128 and any L (its
+    output is a (B, H, L, D) view of a (B, L, H, D) buffer), the FMA set for
+    float32 and head dim 16. CPU tensors run
     :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0. A
     tensor-parallel rank's H heads are ``head_offset ..`` of ``heads_total``
     (None: H), which places its dropout mask (module note).

@@ -60,9 +60,20 @@ def _attention_case(gen, shape, dtype, rate):
     ys = [x.detach().float().requires_grad_() for x in xs]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
-    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
-                          (ref, *ref_grads)):
-        assert _rel(a, b) <= TOL[dtype], name
+    errs = [_rel(a, b) for a, b in zip((out, *grads), (ref, *ref_grads))]
+    if L == 1:
+        # the softmax of one score is constant: dqu, dk and dbias of the plain
+        # version vanish up to f32 rounding, and the kernel's are out's bf16
+        # rounding left in ds = p (dp - delta); each is measured against the
+        # terms that cancel there, scale max |g . v| / (1 - rate), times
+        # max |k| for dqu and max |qu| for dk
+        qu, k, v, _ = (x.detach().float() for x in xs)
+        cancel = scale * float((g.float() * v).sum(-1).abs().max()) / (1.0 - rate)
+        for i, factor in ((1, k.abs().max()), (2, qu.abs().max()), (4, 1.0)):
+            errs[i] = float((grads[i - 1].float() - ref_grads[i - 1]).abs().max()
+                            / (cancel * factor))
+    for name, e in zip(("out", "dqu", "dk", "dv", "dbias"), errs):
+        assert e <= TOL[dtype], name
 
 
 @pytest.mark.parametrize("L", [64, 100, 256])
@@ -70,12 +81,41 @@ def _attention_case(gen, shape, dtype, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
-    """bfloat16 at head dim 64 or 128 and L a multiple of 64 runs the
-    tensor-core kernels (their count rises); every other case the FMA kernels
-    (it does not)."""
-    assert takes_tensor_cores(dtype, L, D) == (
-        dtype == torch.bfloat16 and D in (64, 128) and L in (64, 256))
+    """bfloat16 at head dim 32, 64 or 128 runs the tensor-core kernels at
+    every L (their count rises); float32 and head dim 16 the FMA kernels (it
+    does not)."""
+    assert takes_tensor_cores(dtype, L, D) == (dtype == torch.bfloat16 and D in (32, 64, 128))
     _attention_case(cuda, (2, 3, L, D), dtype, rate)
+
+
+@pytest.mark.parametrize("L,D", [(1, 32), (33, 32), (257, 32), (512, 32), (257, 64),
+                                 (257, 128)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_kernel_at_option_lengths_matches_plain(cuda, L, D, rate):
+    """The tensor-core kernels at the lengths the CLS token (257) and one
+    channel a patch (512, D = 32) bring, and at tails of 1 and 33 rows."""
+    _attention_case(cuda, (2, 2, L, D), torch.bfloat16, rate)
+
+
+@pytest.mark.parametrize("L", [256, 257])
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_attention_kernel_takes_a_bias_at_any_alignment(cuda, L, offset):
+    """A bias whose data starts ``offset`` elements into its storage (not
+    16-byte aligned, but for 8): the kernels read its rows as windows."""
+    B, H, D = 2, 2, 64
+    qu, k, v, g = (torch.randn((B, H, L, D), generator=cuda, device="cuda").bfloat16()
+                   for _ in range(4))
+    store = torch.randn(offset + B * H * L * L, generator=cuda, device="cuda").bfloat16()
+    bias = store[offset:].view(B, H, L, L)
+    args = (0xFEEDBEEF, D ** -0.5, 0.3)
+    out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
+    grads = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args)
+    ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g.float())
+    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                          (ref, *ref_grads)):
+        assert _rel(a, b) <= TOL[torch.bfloat16], name
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -121,12 +161,13 @@ def test_fma_attention_refuses_what_a_block_cannot_hold(cuda):
         launch_attention_bwd_fma(x, x, x, bias, x, 0, 0.1, 0.0)
 
 
-@pytest.mark.parametrize("D", [64, 128])
-def test_attention_backward_is_bit_identical_from_run_to_run(cuda, D):
-    shape = (4, 4, 256, D)
+@pytest.mark.parametrize("L,D", [(256, 64), (256, 128), (257, 64), (257, 128), (512, 32),
+                                 (257, 32)])
+def test_attention_backward_is_bit_identical_from_run_to_run(cuda, L, D):
+    shape = (4, 4, L, D)
     qu, k, v, g = (torch.randn(shape, generator=cuda, device="cuda").bfloat16()
                    for _ in range(4))
-    bias = torch.randn((4, 4, 256, 256), generator=cuda, device="cuda").bfloat16()
+    bias = torch.randn((4, 4, L, L), generator=cuda, device="cuda").bfloat16()
     args = (0xFEEDBEEF, D ** -0.5, 0.1)
     out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
     first = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args)

@@ -216,10 +216,14 @@ def test_backward_from_lse_and_delta_equals_autograd_of_plain(rate):
 
 @pytest.mark.parametrize("dtype,L,D,want", [
     (torch.bfloat16, 256, 128, True), (torch.bfloat16, 64, 64, True),
-    (torch.float32, 256, 128, False), (torch.bfloat16, 256, 32, False),
-    (torch.bfloat16, 100, 64, False), (torch.bfloat16, 256, 16, False),
+    (torch.float32, 256, 128, False), (torch.bfloat16, 256, 32, True),
+    (torch.bfloat16, 100, 64, True), (torch.bfloat16, 256, 16, False),
+    (torch.bfloat16, 1, 32, True), (torch.bfloat16, 257, 128, True),
+    (torch.float32, 257, 32, False), (torch.bfloat16, 33, 16, False),
 ])
 def test_dispatch_names_the_tensor_core_kernels_for_flagship_shapes_only(dtype, L, D, want):
+    """The tensor-core kernels take every bfloat16 input at head dim 32, 64
+    or 128, at any L; float32 and head dim 16 stay on the FMA kernels."""
     from sarssl_torch.kernels.attention import takes_tensor_cores
 
     assert takes_tensor_cores(dtype, L, D) is want
