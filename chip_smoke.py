@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               TF32 is switched off for matmuls and cuDNN throughout.
   2. build  : compiles ``sarssl_torch/csrc/*.cu`` with nvcc (one process per
               source, started together), prints ptxas' register report, and
-              fails if a tensor-core kernel (attention, conv) spills or its
-              library holds no tensor-core instruction.
+              fails if a tensor-core kernel (attention bf16 and f32, conv)
+              spills or its library holds no tensor-core instruction.
   3. kernels: each hand-written kernel against its plain PyTorch version at
               the shapes the pretext step gives it, with the tolerance stated,
               and timed with CUDA events beside its bound and a library call
@@ -18,8 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
               bring (L = 257 with the CLS token, L = 512 with one channel a
               patch), each on the route the wrapper takes (bf16 on the tensor
               cores at every L and D = 32 / 64 / 128, beside the FMA kernels
-              launched directly with a 4x floor at L = 257 and at D = 32;
-              f32 on the FMA kernels). Then the attention
+              launched directly with a 4x floor at L = 257 and at D = 32).
+              f32 at D = 32 / 64 / 128 runs the 3xTF32 tensor-core kernels:
+              held against the plain version at L = 64, 257 and 768 (past
+              the FMA kernels' 704), and at L = 512 D = 64, L = 256 D = 128
+              and L = 256 D = 64 timed beside the FMA kernels launched
+              directly (2x floor), SDPA and the bound (bytes, or three TF32
+              products a product at the TF32 rate). Then the attention
               module of the conformer at both
               flagship widths in bf16, fused against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
@@ -155,7 +160,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               f-first (16, 16) patches with 'TF' masks, (h) transformer
               encoders, (i) the decoder's stages and CNN head, (j)
               ``MCConformer``'s forward in f32 and bf16, (k)
-              ``ConformerEncoder(remat=True)`` against plain.
+              ``ConformerEncoder(remat=True)`` against plain, (l) the flagship
+              step in f32 with fused attention (the 3xTF32 kernels: 1 / 3
+              launches a step, forward and backward, at D = 128 / 64; none on
+              the FMA kernels) beside the same f32 step unfused.
  14. ablations: the CRNN ablation encoders, ``EmbedEncoder(model=(m,))`` for
               m in crnn, crnn-sim, tcrnn in mode spec (dembed 512) and spat
               (dembed 256) and ``CauCRNN()`` at its defaults, at the flagship
@@ -189,8 +197,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               unmeshed (epoch utt/s, s a cell epoch); (c) the index maps of a
               tensor-parallel rank: attention forward and backward on half the
               heads with ``(heads_total, head_offset)`` on the tensor-core
-              route (bf16, D = 128 / 64, L = 256; D = 64, L = 257) and the FMA
-              route (f32 D = 64), and the dropout kernel on half the columns
+              route (bf16, D = 128 / 64, L = 256; D = 64, L = 257) and the
+              3xTF32 route (f32 D = 64), and the dropout kernel on half the columns
               with ``(row_local, row_total, col_offset)``: each equal to the
               slice of the full launch bit for bit and held against its plain
               version, timed beside the same launch unsharded.
@@ -222,6 +230,11 @@ RATE = 0.1
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # CUDA-core rate, used for the dropout hash's 32-bit ops
+TF32_FLOPS = 494.7e12
+# f32-accurate products on the tensor cores take three TF32 products each
+# (3xTF32), so the least time for f32 attention's operations is 3 x ops at
+# the TF32 rate; at 201.3 TFLOP/s of f32 work that beats the CUDA cores' 67
+TF32_SPLIT = 3
 
 # Tolerances, relative to the largest magnitude of the plain f32 result:
 # bf16 inputs carry 8 mantissa bits; the kernel rounds p to bf16 before the
@@ -397,9 +410,8 @@ def log(*a):
 
 
 # mesh (c): the index-mapped launches of a tensor-parallel rank. Attention at
-# (L, D, dtype) on each route: the tensor-core kernels at both flagship head
-# dims and at a ragged L, the FMA kernels in f32; the rank holds half the
-# heads. The dropout at the spec encoder's feed-forward hidden (B, L, 2048)
+# (L, D, dtype): the bf16 tensor-core kernels at both flagship head dims and
+# at a ragged L, the 3xTF32 kernels in f32; the rank holds half the heads. The dropout at the spec encoder's feed-forward hidden (B, L, 2048)
 # bf16 with half its units.
 MESH_ATTENTION_SHAPES = ((SEQ, 128, torch.bfloat16), (SEQ, 64, torch.bfloat16),
                          (SEQ, 64, torch.float32), (SEQ + 1, 64, torch.bfloat16))
@@ -411,7 +423,7 @@ def _sharded_attention(D, dtype, L, gen):
     against the head slice of the full launch bit for bit and against the
     plain version; returns the errors, launch counts and times."""
     from sarssl_torch.kernels import attention_plain, fused_attention, launches
-    from sarssl_torch.kernels.attention import takes_tensor_cores
+    from sarssl_torch.kernels.attention import _TC_LAUNCHES, attention_route
 
     scale = 1.0 / np.sqrt(HEADS * D)
     seed = 0x9E3779B9
@@ -420,7 +432,8 @@ def _sharded_attention(D, dtype, L, gen):
     full = fused_attention(*xs, seed, scale, RATE)
     full_grads = torch.autograd.grad(full, xs, g)
     hl = HEADS // 2
-    tc = takes_tensor_cores(dtype, L, D)
+    route = attention_route(dtype, L, D)
+    tc = route != "fma"
     names = (f"attention_fwd_d{D}", f"attention_bwd_d{D}")
     err, plain_err = 0.0, 0.0
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
@@ -451,20 +464,18 @@ def _sharded_attention(D, dtype, L, gen):
     # unsharded (H/2, 0); back to back on one card
     hs = slice(hl, HEADS)
     part = [t[:, hs].contiguous() for t in (qu, k, v, bias, g)]
-    from sarssl_torch.kernels.attention import (launch_attention_bwd_fma,
-                                                launch_attention_bwd_mma,
-                                                launch_attention_fwd_fma,
-                                                launch_attention_fwd_mma)
-    res = {"tc": tc, "max_abs_err": err, "plain_err": plain_err}
+    from sarssl_torch.kernels.attention import launch_attention_bwd_fma, launch_attention_fwd_fma
+    res = {"tc": tc, "route": route, "max_abs_err": err, "plain_err": plain_err}
     times = {}
     # mapped, unmapped, unmapped, mapped: each time the mean of its two
     for tag, heads in (("mapped", (HEADS, hl)), ("unmapped", (None, 0)),
                        ("unmapped", (None, 0)), ("mapped", (HEADS, hl))):
         a = (seed, scale, RATE, *heads)
         if tc:
-            out, lse = launch_attention_fwd_mma(*part[:4], *a)
-            fwd = cuda_ms(lambda: launch_attention_fwd_mma(*part[:4], *a), iters=50)
-            bwd = cuda_ms(lambda: launch_attention_bwd_mma(*part, out, lse, *a), iters=50)
+            launch_fwd, launch_bwd = _TC_LAUNCHES[route]
+            out, lse = launch_fwd(*part[:4], *a)
+            fwd = cuda_ms(lambda: launch_fwd(*part[:4], *a), iters=50)
+            bwd = cuda_ms(lambda: launch_bwd(*part, out, lse, *a), iters=50)
             del out, lse
         else:
             fwd = cuda_ms(lambda: launch_attention_fwd_fma(*part[:4], *a), iters=50)
@@ -473,7 +484,7 @@ def _sharded_attention(D, dtype, L, gen):
         times.setdefault(f"{tag}_bwd_ms", []).append(bwd)
     res.update({k: sum(v) / len(v) for k, v in times.items()})
     log(f"[mesh] (c) attention L={L} D={D} {str(dtype)[6:]} rate={RATE} "
-        f"({'tensor-core' if tc else 'FMA'} kernels), heads h0..h0+{hl} of {HEADS} for h0 in "
+        f"({ROUTE_WORDS[route]} kernels), heads h0..h0+{hl} of {HEADS} for h0 in "
         f"(0, {hl}): out, dqu, dk, dv, dbias identical to the full launch's head slice; "
         f"against the plain version max abs {plain_err:.2e} (tol rel {tol}); fwd "
         f"{res['mapped_fwd_ms']:.4f} ms with (H, h0), {res['unmapped_fwd_ms']:.4f} ms "
@@ -552,7 +563,7 @@ def phase_card():
     return smi.splitlines()[0]
 
 
-TENSOR_CORE_SOURCES = ("attention_mma", "conv3x3_mma")
+TENSOR_CORE_SOURCES = ("attention_mma", "attention_f32_mma", "conv3x3_mma")
 
 
 def phase_build():
@@ -585,18 +596,20 @@ def phase_build():
 def _tensor_core_kernel(source, line):
     """(label, threads a block, dynamic shared memory) of the kernel that a
     ptxas 'Compiling entry function' line names, or None."""
-    if source == "attention_mma":
-        from sarssl_torch.kernels.attention import mma_smem_bytes
+    if source in ("attention_mma", "attention_f32_mma"):
+        from sarssl_torch.kernels.attention import mma_smem_bytes, tf32_smem_bytes
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
-                   "attn_delta": 256}
+                   "attn_delta": 256, "attn_fwd_tf32": 128, "attn_bwd_tf32": 128,
+                   "attn_dqu_tf32": 128, "attn_delta_f32": 256}
         # each kernel's instance for whole tiles (exact = 1) and for any L
-        entry = re.search(r"Compiling entry function '.*?(attn_[a-z_]+?)ILi(\d+)ELb([01])E",
+        entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)ELb([01])E",
                           line)
         if entry:
             name, D, exact = entry.group(1), int(entry.group(2)), entry.group(3) == "1"
-            return (f"{name}<{D}, {'exact' if exact else 'any L'}>", threads[name],
-                    mma_smem_bytes(name, D, exact))
+            smem = (mma_smem_bytes(name, D, exact) if source == "attention_mma"
+                    else tf32_smem_bytes(name, D))
+            return (f"{name}<{D}, {'exact' if exact else 'any L'}>", threads[name], smem)
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -687,23 +700,41 @@ def _attention_inputs(D, dtype, gen, L=SEQ):
     return qu, k, v, bias, g
 
 
+# the attention routes (kernels/attention.py::attention_route): their
+# launch-count tags and the words the log gives them
+ROUTE_TAGS = {"tc": "tc_", "tf32x3": "tf32x3_", "fma": None}
+ROUTE_WORDS = {"tc": "bf16 tensor-core", "tf32x3": "3xTF32 tensor-core", "fma": "FMA"}
+ROUTE_SOURCES = {"tc": "attention_mma.cu", "tf32x3": "attention_f32_mma.cu",
+                 "fma": "attention.cu"}
+
+
+def _route_launches(D, route):
+    """(names, want): the attention launch counts one forward and backward on
+    ``route`` raises by one, and the other routes' counts, which stay."""
+    names, want = [], []
+    for r, tag in (("", ""), *ROUTE_TAGS.items()):
+        if tag is None:
+            continue
+        names += [f"attention_{kind}_{tag}d{D}" for kind in ("fwd", "bwd")]
+        want += [int(r in ("", route))] * 2
+    return names, want
+
+
 def check_attention(D, dtype, rate, seed, gen, L=SEQ):
     """Kernel (fwd + bwd) against the plain version in f32; returns errors."""
     from sarssl_torch.kernels import (attention_plain, fused_attention, hash_keep_mask,
                                       launches)
-    from sarssl_torch.kernels.attention import takes_tensor_cores
+    from sarssl_torch.kernels.attention import attention_route
 
     scale = 1.0 / np.sqrt(HEADS * D)
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
-    names = (f"attention_fwd_d{D}", f"attention_bwd_d{D}", f"attention_fwd_tc_d{D}",
-             f"attention_bwd_tc_d{D}")
+    route = attention_route(dtype, L, D)
+    names, want = _route_launches(D, route)
     before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
     rose = [launches[n] - b for n, b in zip(names, before)]
-    tc = int(takes_tensor_cores(dtype, L, D))
-    want = [1, 1, tc, tc]
     assert rose == want, f"attention L={L} D={D} {dtype}: launches {rose}, want {want}"
     ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
     ref = attention_plain(*ys, seed, scale, rate)
@@ -721,18 +752,22 @@ def check_attention(D, dtype, rate, seed, gen, L=SEQ):
         keep = hash_keep_mask(BATCH * HEADS * L * L, seed, rate,
                               "cuda").reshape(BATCH, HEADS, L, L)
         eye = torch.eye(L, device="cuda", dtype=dtype)
-        # D columns at a time, the last block ending at column L (it overlaps
-        # the one before where D does not divide L)
-        for c0 in sorted(set(range(0, L - D + 1, D)) | {L - D}):
-            basis = eye[:, c0:c0 + D].expand(BATCH, HEADS, L, D).contiguous()
-            pd = fused_attention(qu, k, basis, bias, seed, scale, rate)
-            same = torch.equal(pd != 0, keep[..., c0:c0 + D])
+        # w = min(D, L) columns at a time (the rest of v zero), the last block
+        # ending at column L (it overlaps the one before where w does not
+        # divide L)
+        w = min(D, L)
+        for c0 in sorted(set(range(0, L - w + 1, w)) | {L - w}):
+            basis = torch.zeros((L, D), device="cuda", dtype=dtype)
+            basis[:, :w] = eye[:, c0:c0 + w]
+            basis = basis.expand(BATCH, HEADS, L, D).contiguous()
+            pd = fused_attention(qu, k, basis, bias, seed, scale, rate)[..., :w]
+            same = torch.equal(pd != 0, keep[..., c0:c0 + w])
             assert same, (f"attention L={L} D={D} {dtype}: dropped positions differ from "
                           f"the plain mask")
     log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
         f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
         + (" ; dropped positions identical" if rate > 0 else "")
-        + f" (tol {tol}; {'tensor-core' if tc else 'FMA'} kernels)")
+        + f" (tol {tol}; {ROUTE_WORDS[route]} kernels)")
     return max(a for _, a in errs.values()), max(a for n, (_, a) in errs.items() if n == "out")
 
 
@@ -783,13 +818,15 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
     del out
     B, H, L, D = qu.shape
     es = qu.element_size()
-    rate = BF16_FLOPS if qu.dtype == torch.bfloat16 else F32_FLOPS
+    # bf16: the tensor rate; f32: three TF32 products a product at the TF32
+    # rate, the least time f32-accurate products take on this card
+    rate, split = (BF16_FLOPS, 1) if qu.dtype == torch.bfloat16 else (TF32_FLOPS, TF32_SPLIT)
     n_qkv, n_s = B * H * L * D, B * H * L * L
-    res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, 4 * n_s * D, rate)
+    res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, split * 4 * n_s * D, rate)
     # reads qu k v g bias, writes dqu dk dv dbias; 5 products of 2*L*L*D each
     # (the saved out and row statistics that the kernels also read are left
     # out: the function needs no more than the nine tensors above)
-    res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, 10 * n_s * D, rate)
+    res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, split * 10 * n_s * D, rate)
     return res
 
 
@@ -797,8 +834,8 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 # flagship batch and heads: (L, D, dtype). L = 257: the CLS token at both
 # widths; L = 512: in_ver="single_ch_each_patch" (the spec encoder at d = 256,
 # D = 64, the spat encoder at d = 128, D = 32); all bf16, on the tensor cores.
-# Then the f32 route (FMA kernels), on no variant's path: at L = 512 and at
-# the flagship's L = 256, its gap to SDPA.
+# Then the f32 route (3xTF32 tensor cores): at L = 512 and at the flagship's
+# L = 256 (phase model_options' variant (l) runs the last two).
 OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
                            (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
                            (512, 64, torch.float32), (256, 128, torch.float32),
@@ -808,29 +845,34 @@ OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16)
 # than the FMA kernel at its shape in the same run
 FMA_FLOOR_SHAPES = ((257, 128), (257, 64), (512, 32))
 ATTENTION_FMA_FLOOR = 4.0
+# the f32 shapes' 3xTF32 launches against the FMA kernels they replaced
+F32_FMA_FLOOR = 2.0
+# f32 shapes held against the plain version (not timed): a ragged tail, the
+# CLS token's L and one past the FMA kernels' 704, at every tensor-core D
+F32_CHECK_LENGTHS = (64, 257, 768)
 
 
 def time_attention_route(L, D, dtype, seed, gen):
     """Times of fwd and bwd on the route ``fused_attention`` takes at this
-    shape (rate 0.1), beside the plain version, SDPA and the bound; on the
-    tensor-core route also the FMA kernels' times, launched directly."""
-    from sarssl_torch.kernels.attention import (fma_row_block, launch_attention_bwd_fma,
-                                                launch_attention_bwd_mma,
-                                                launch_attention_fwd_fma,
-                                                launch_attention_fwd_mma, takes_tensor_cores)
+    shape (rate 0.1), beside the plain version, SDPA and the bound; on a
+    tensor-core route also the FMA kernels' times, launched directly (new,
+    old, old, new)."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_route, fma_row_block,
+                                                launch_attention_bwd_fma,
+                                                launch_attention_fwd_fma)
 
     scale = 1.0 / np.sqrt(HEADS * D)
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
     args = (seed, scale, RATE)
-    res = {"tc": takes_tensor_cores(dtype, L, D)}
+    route = attention_route(dtype, L, D)
+    res = {"route": route, "tc": route != "fma"}
     if res["tc"]:
-        out, lse = launch_attention_fwd_mma(qu, k, v, bias, *args)
-        # new, old, old, new: both sets on the same card in the same run
-        res["fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+        fwd, bwd = _TC_LAUNCHES[route]
+        out, lse = fwd(qu, k, v, bias, *args)
+        res["fwd_ms"] = cuda_ms_queued(lambda: fwd(qu, k, v, bias, *args))
         res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
         res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
-        res["bwd_ms"] = cuda_ms_queued(
-            lambda: launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *args))
+        res["bwd_ms"] = cuda_ms_queued(lambda: bwd(qu, k, v, bias, g, out, lse, *args))
         del out, lse
     else:
         res["row_block"] = (fma_row_block("fwd", L, D), fma_row_block("bwd", L, D))
@@ -1129,25 +1171,31 @@ def phase_kernels():
             err, out_err = check_attention(D, torch.bfloat16, rate, seed, gen)
             if rate == RATE:
                 rows[D] = {"max_abs_err": err, "out_err": out_err}
-    check_attention(64, torch.float32, RATE, seed, gen)
+    for D in (32, 64, 128):
+        for L in F32_CHECK_LENGTHS:
+            check_attention(D, torch.float32, RATE, seed, gen, L)
+        torch.cuda.empty_cache()
     opt_rows = {}
     for L, D, dtype in OPTION_ATTENTION_SHAPES:
         err, out_err = check_attention(D, dtype, RATE, seed, gen, L)
         t = time_attention_route(L, D, dtype, seed, gen)
         t.update(max_abs_err=err, out_err=out_err)
         opt_rows[(L, D, dtype)] = t
-        route = "tensor-core" if t["tc"] else f"FMA, row blocks (fwd, bwd) {t['row_block']}"
+        route = (ROUTE_WORDS[t["route"]] if t["tc"]
+                 else f"FMA, row blocks (fwd, bwd) {t['row_block']}")
         fma = {kind: (f"FMA kernel {t[f'fma_{kind}_ms']:.4f}, " if t["tc"] else "")
                for kind in ("fwd", "bwd")}
         log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} ({route}): fwd "
             f"{t['fwd_ms']:.4f} ms ({fma['fwd']}plain {t['plain_fwd_ms']:.3f}, sdpa "
-            f"{t['lib_fwd_ms']:.4f}, bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms "
-            f"({fma['bwd']}plain {t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
-            f"{t['bwd_bound'][0]:.4f})")
-        if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16:
+            f"{t['lib_fwd_ms']:.4f}, bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd "
+            f"{t['bwd_ms']:.4f} ms ({fma['bwd']}plain {t['plain_bwd_ms']:.3f}, sdpa "
+            f"{t['lib_bwd_ms']:.4f}, bound {t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
+        floor = (ATTENTION_FMA_FLOOR if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16
+                 else F32_FMA_FLOOR if dtype == torch.float32 else None)
+        if floor:
             for kind in ("fwd", "bwd"):
-                assert ATTENTION_FMA_FLOOR * t[f"{kind}_ms"] <= t[f"fma_{kind}_ms"], (
-                    f"attention {kind} L={L} D={D}: under {ATTENTION_FMA_FLOOR}x the FMA kernel")
+                assert floor * t[f"{kind}_ms"] <= t[f"fma_{kind}_ms"], (
+                    f"attention {kind} L={L} D={D} {dtype}: under {floor}x the FMA kernel")
         torch.cuda.empty_cache()
     for D in HEAD_DIMS:
         t = time_attention(D, seed, gen)
@@ -1211,13 +1259,12 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
             n = mo_shapes.get((L, D, str(dtype)[6:], kind), 0)
             out.append({
                 "name": f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}", "route": "cuda",
-                "source": "sarssl_torch/csrc/" + ("attention_mma.cu" if r["tc"]
-                                                  else "attention.cu"),
-                "variant": "mma" if r["tc"] else "fma",
+                "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[r["route"]],
+                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3", "fma": "fma"}[r["route"]],
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
-                # variant (d) (L=257) and (c) (L=512); the f32 cases are no
-                # variant's (those run bf16)
+                # variant (d) (L=257), (c) (L=512, bf16) and (l) (L=256, f32);
+                # no variant runs L=512 in f32
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
@@ -1225,8 +1272,10 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                 "library_ms": r[f"lib_{kind}_ms"],
                 "path": ("phase model_options (launches_model_options): use_cls (L=257) and "
                          "in_ver=single_ch_each_patch (L=512)" if dtype == torch.bfloat16 else
-                         "no model path runs f32 attention fused; timed for the f32 route's "
-                         "gap to SDPA"),
+                         "phase model_options (launches_model_options): the flagship step in "
+                         "f32 with fused attention, variant (l)" if L == SEQ else
+                         "no model path runs f32 attention fused at this length; timed beside "
+                         "the FMA kernels and SDPA"),
                 "launches_model_options": n,
                 **({"fma_ms": r[f"fma_{kind}_ms"]} if r["tc"] else {}),
             })
@@ -2303,12 +2352,12 @@ OPTION_STEPS = 3
 # the unfused attention, whose probabilities go through the module); a
 # transformer layer 3 sites and its attention-weight mask (forward only: the
 # mask of ones takes no gradient), the transformer encoder 1 more site at its
-# input. So the flagship's 4 encoder blocks give 48; transformer encoders
-# instead (1 + 3 layers) 2 * 1 + 7 * 1 + 2 * 1 + 7 * 3 = 32; a decoder
-# conformer stage adds 14, a decoder transformer stage 9; MCConformer's
-# unfused forward without autograd 7 * 4 = 28.
-OPTION_DROPOUT = {"encoders": 48, "transformer_encoders": 32, "dec_conformer": 14,
-                  "dec_transformer": 9, "mc_forward": 28}
+# input. So the flagship's 4 encoder blocks give 48, 56 with the unfused
+# attention; transformer encoders instead (1 + 3 layers) 2 * 1 + 7 * 1 + 2 * 1
+# + 7 * 3 = 32; a decoder conformer stage adds 14, a decoder transformer stage
+# 9; MCConformer's unfused forward without autograd 7 * 4 = 28.
+OPTION_DROPOUT = {"encoders": 48, "encoders_unfused": 56, "transformer_encoders": 32,
+                  "dec_conformer": 14, "dec_transformer": 9, "mc_forward": 28}
 # remat against the plain path on the card: the forward is the same
 # computation, so the loss, the running stats and the generator's state must
 # be equal bit for bit; the gradients too unless a library kernel of the
@@ -2319,17 +2368,18 @@ TOL_REMAT_GRAD = 2 ** -8
 
 def _attention_want(spec, spat):
     """Attention launches of one pretext train step: ``spec`` / ``spat`` are
-    (head dim, layers, on the tensor cores) of each encoder's conformer."""
+    (head dim, layers, route) of each encoder's conformer (``ROUTE_TAGS``)."""
     want = {}
-    for D, layers, tc in (spec, spat):
+    for D, layers, route in (spec, spat):
+        tag = ROUTE_TAGS[route]
         for kind in ("fwd", "bwd"):
-            for name in (f"attention_{kind}_d{D}",) + ((f"attention_{kind}_tc_d{D}",) if tc
+            for name in (f"attention_{kind}_d{D}",) + ((f"attention_{kind}_{tag}d{D}",) if tag
                                                        else ()):
                 want[name] = want.get(name, 0) + layers
     return want
 
 
-FLAGSHIP_ATTENTION = _attention_want((128, 1, True), (64, 3, True))
+FLAGSHIP_ATTENTION = _attention_want((128, 1, "tc"), (64, 3, "tc"))
 
 
 def _kernel_counts():
@@ -2371,7 +2421,7 @@ def _pretext_variant(what, card, wave, want_per_step, mask_mode="T", masks=None,
     from sarssl_torch.ops import FeatureConfig
     from sarssl_torch.train import create_train_state, make_pretrain_step
 
-    cfg = SARSSLConfig(dtype="bfloat16", fused_attention=True, dropout=RATE, **kw)
+    cfg = SARSSLConfig(**{"dtype": "bfloat16", "fused_attention": True, "dropout": RATE, **kw})
     model = SARSSL(cfg, device="cuda", seed=0)
     state = create_train_state(model)
     step = make_pretrain_step(model, FeatureConfig(), device="cuda", mask_mode=mask_mode)
@@ -2572,7 +2622,7 @@ def _conformer_remat(card, total):
 
 
 def phase_model_options(card):
-    """The model's options at the flagship pretext width, variants (a)-(k);
+    """The model's options at the flagship pretext width, variants (a)-(l);
     each with its launch counts zeroed before and read after. Returns the
     phase's summed counts and, for the kernels line, the launches at each of
     the new attention shapes."""
@@ -2606,12 +2656,12 @@ def phase_model_options(card):
         cap.undo()
     run("(b) in_ver=same", base, in_ver="same")
     r = run("(c) in_ver=single_ch_each_patch",
-            {**_attention_want((64, 1, True), (32, 3, True)),
+            {**_attention_want((64, 1, "tc"), (32, 3, "tc")),
              "hash_dropout": OPTION_DROPOUT["encoders"]}, in_ver="single_ch_each_patch")
     for kind in ("fwd", "bwd"):
         shapes[(512, 64, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d64", 0)
         shapes[(512, 32, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d32", 0)
-    r = run("(d) use_cls", {**_attention_want((128, 1, True), (64, 3, True)),
+    r = run("(d) use_cls", {**_attention_want((128, 1, "tc"), (64, 3, "tc")),
                             "hash_dropout": OPTION_DROPOUT["encoders"]}, use_cls=True)
     for kind in ("fwd", "bwd"):
         shapes[(257, 128, "bfloat16", kind)] = r["counts"].get(f"attention_{kind}_tc_d128", 0)
@@ -2640,6 +2690,20 @@ def phase_model_options(card):
     run("(i) dec_model=('', cnn)", base, dec_model=("", "cnn"))
     _mc_conformer(card, wave, total)
     _conformer_remat(card, total)
+    # (l) the flagship step in f32, the reference's precision: fused attention
+    # on the 3xTF32 kernels, beside the same f32 step unfused
+    r = run("(l) dtype=float32, fused attention (3xTF32)",
+            {**_attention_want((128, 1, "tf32x3"), (64, 3, "tf32x3")),
+             "hash_dropout": OPTION_DROPOUT["encoders"]}, dtype="float32")
+    for kind in ("fwd", "bwd"):
+        shapes[(256, 128, "float32", kind)] = r["counts"].get(f"attention_{kind}_tf32x3_d128", 0)
+        shapes[(256, 64, "float32", kind)] = r["counts"].get(f"attention_{kind}_tf32x3_d64", 0)
+    u = run("(l) dtype=float32, unfused attention",
+            {"hash_dropout": OPTION_DROPOUT["encoders_unfused"]}, dtype="float32",
+            fused_attention=False)
+    log(f"[model_options] (l) f32 step, fused (3xTF32) against unfused: {r['ms']:.1f} / "
+        f"{u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / "
+        f"{u['peak_gib']:.2f} GiB (bf16 plain step {res['plain']['ms']:.1f} ms) ({card})")
     log(f"[model_options] launches over the phase: {total}")
     return total, shapes
 

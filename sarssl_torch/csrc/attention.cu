@@ -37,10 +37,10 @@
 //     tensor-parallel shard of heads (h_offset .. h_offset + H of h_total)
 //     hashes the index of the whole (B, h_total, L, L) tensor;
 // These kernels multiply with scalar f32 FMAs from shared memory, so they run
-// well above their bound. bfloat16 at head dims 32, 64 and 128 runs
-// attention_mma.cu (tensor cores, any L) instead; these serve float32 (a
-// tensor-core f32 product would be TF32 and miss the 1e-4 tolerance) and
-// head dim 16.
+// well above their bound. Head dims 32, 64 and 128 run on the tensor cores
+// instead, at any L: bfloat16 in attention_mma.cu, float32 in
+// attention_f32_mma.cu (three TF32 products a product, which hold the 1e-4
+// tolerance that one misses); the model's path leaves these head dim 16.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -1,7 +1,10 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that
-// multiply with mma.sync (attention_mma.cu, conv3x3_mma.cu): cp.async copies
-// of 16 bytes, ldmatrix loads of four 8x8 bf16 matrices, the m16n8k16
-// bf16 -> f32 product and the f32 -> packed bf16 conversion.
+// multiply with mma.sync (attention_mma.cu, attention_f32_mma.cu,
+// conv3x3_mma.cu): cp.async copies of 16 bytes, ldmatrix loads of four 8x8
+// bf16 matrices (or, read as 32-bit words, four 8x4 f32 ones), the m16n8k16
+// bf16 -> f32 product and the f32 -> packed bf16 conversion, and the m16n8k8
+// TF32 product with the split that makes three of them about as exact as an
+// f32 product (3xTF32).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,4 +49,37 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c (16x8, f32) += a (16x8, tf32, row) * b (8x8, tf32, col). Fragments: a[0]
+// (row g, col t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4); b0
+// (row t, col g), b1 (t + 4, g); c as mma16816's, with g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// f32 -> tf32 in a 32-bit word: round to nearest, ties away from zero, the
+// 13 low mantissa bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+// c += a b from split operands (3xTF32): the two small products first, then
+// hi * hi; the lo * lo term (about 2^-22 of the product) is left out
+__device__ __forceinline__ void mma1688_3x(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma1688(c, al, bh0, bh1);
+  mma1688(c, ah, bl0, bl1);
+  mma1688(c, ah, bh0, bh1);
 }

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
   attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
-                 (tensor cores; bfloat16, head dim 32/64/128, any L) and
-                 ``csrc/attention.cu`` (f32 FMAs; float32 and head dim 16)
+                 (tensor cores; bfloat16, head dim 32/64/128, any L),
+                 ``csrc/attention_f32_mma.cu`` (tensor cores as 3xTF32;
+                 float32, head dim 32/64/128, any L) and ``csrc/attention.cu``
+                 (f32 FMAs; head dim 16)
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
                  torch.func.vmap one seed a lane)
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``
@@ -13,7 +15,7 @@
                  blocks of the expanded weight that exist (it walks the view's
                  64-channel chunks); anything else on the dense kernels at
                  twice the channels
-  csrc/mma_common.cuh : cp.async / ldmatrix / mma primitives both tensor-core
+  csrc/mma_common.cuh : cp.async / ldmatrix / mma primitives the tensor-core
                  sources include
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and uses the

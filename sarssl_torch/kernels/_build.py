@@ -8,8 +8,9 @@ the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
 directory. Nothing is built when a module is imported.
 
 ``launches`` counts kernel launches by name (the attention kernels by head
-dim, e.g. ``attention_fwd_d128`` for every forward launch and
-``attention_fwd_tc_d128`` for those of the tensor-core kernels; the conv
+dim, e.g. ``attention_fwd_d128`` for every forward launch,
+``attention_fwd_tc_d128`` for those of the bf16 tensor-core kernels and
+``attention_fwd_tf32x3_d128`` for those of the f32 ones; the conv
 launches likewise, ``conv3x3_fwd`` and ``conv3x3_fwd_tc``): each wrapper adds
 one where it launches its kernel, and nowhere else.
 """

@@ -17,21 +17,24 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 ``(B, heads_total, L, L)`` tensor, ``((b * heads_total + head_offset + h) * L
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
-Two sets of kernels, chosen by dtype and head dim (:func:`takes_tensor_cores`):
+Three sets of kernels, chosen by dtype and head dim (:func:`attention_route`):
 
-* ``csrc/attention_mma.cu``: bfloat16 at head dim 32, 64 or 128 and any
-  sequence length. Tensor cores (``mma.sync``), ``cp.async`` pipelines; the
-  forward also returns the rows' log-sum-exp, which the
+* ``"tc"``, ``csrc/attention_mma.cu``: bfloat16 at head dim 32, 64 or 128
+  and any sequence length. Tensor cores (``mma.sync``), ``cp.async``
+  pipelines; the forward also returns the rows' log-sum-exp, which the
   ``autograd.Function`` saves with ``out`` for the backward. Each kernel has
   an instance for whole 64-row tiles (L a multiple of 64: the flagship's
   shapes) and one that masks the last tile and reads the bias rows at any
   alignment (the CLS token's L = 257 takes it; ``single_ch_each_patch``'s
   L = 512 at D = 32 the first).
-* ``csrc/attention.cu``: float32 and head dim 16, as scalar f32 FMAs. A
-  float32 product on the tensor cores would be TF32 and miss the 1e-4
-  tolerance. A block keeps whole score rows in shared memory: 64 query rows
-  where they fit, 32 where they do not (:func:`fma_row_block`), so every L
-  up to 704 runs at every head dim; a longer one raises.
+* ``"tf32x3"``, ``csrc/attention_f32_mma.cu``: float32 at head dim 32, 64 or
+  128 and any L, with the same structure, on the tensor cores as three TF32
+  products per product (each operand split into a TF32 high and low part),
+  which hold the float32 tolerance of 1e-4 that one TF32 product misses.
+* ``"fma"``, ``csrc/attention.cu``: head dim 16 at either dtype, as scalar
+  f32 FMAs. A block keeps whole score rows in shared memory: 64 query rows
+  where they fit, 32 where they do not (:func:`fma_row_block`), so every L up
+  to 704 runs at every head dim; a longer one raises.
 
 For a CUDA tensor the wrapper launches the set it names here or raises.
 """
@@ -46,7 +49,7 @@ from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
 HEAD_DIMS = (16, 32, 64, 128)
-MMA_HEAD_DIMS = (32, 64, 128)  # head dims of the tensor-core kernels (bfloat16 only)
+MMA_HEAD_DIMS = (32, 64, 128)  # head dims of the tensor-core kernels (either dtype)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
@@ -139,11 +142,38 @@ def mma_smem_bytes(kernel: str, D: int, exact: bool = True) -> int:
     return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which, int(exact))
 
 
-def takes_tensor_cores(dtype: torch.dtype, L: int, D: int) -> bool:
-    """Whether ``fused_attention`` runs ``attention_mma.cu`` for CUDA tensors
-    of this dtype, sequence length and head dim (else ``attention.cu``): every
-    L runs on the tensor cores, so only dtype and head dim decide."""
-    return dtype == torch.bfloat16 and D in MMA_HEAD_DIMS
+@functools.lru_cache(maxsize=None)
+def _library_tf32():
+    lib = load_library("attention_f32_mma")
+    lib.attn_tf32_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_tf32_fwd.restype = _I
+    lib.attn_tf32_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_tf32_bwd.restype = _I
+    lib.attn_tf32_smem_bytes.argtypes = [_I, _I]
+    lib.attn_tf32_smem_bytes.restype = _I
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tf32_smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory a block of a 3xTF32 kernel takes (either
+    instance)."""
+    which = {"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2,
+             "attn_delta_f32": None}[kernel]
+    return 0 if which is None else _library_tf32().attn_tf32_smem_bytes(D, which)
+
+
+def attention_route(dtype: torch.dtype, L: int, D: int) -> str:
+    """The set of kernels ``fused_attention`` runs for CUDA tensors of this
+    dtype, sequence length and head dim (module note): ``"tc"``
+    (``attention_mma.cu``, bfloat16 at D = 32 / 64 / 128), ``"tf32x3"``
+    (``attention_f32_mma.cu``, float32 at those D) or ``"fma"``
+    (``attention.cu``, D = 16). Every L runs on the first two, so only dtype
+    and head dim decide."""
+    if D not in MMA_HEAD_DIMS:
+        return "fma"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _check(qu, k, v, bias, heads_total=None):
@@ -192,7 +222,7 @@ def _rows_addressable(t) -> bool:
     """Whether the tensor-core kernels can address a (B, H, L, D) tensor's
     rows through its strides: contiguous, 16-byte aligned rows."""
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and not any(s % 8 for s in t.stride()[:3]))
+            and not any(s * t.element_size() % 16 for s in t.stride()[:3]))
 
 
 def _row_strides(t):
@@ -243,62 +273,96 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
 
 
 # ---------------------------------------------------------------------------
-# tensor-core kernels (csrc/attention_mma.cu)
+# tensor-core kernels (csrc/attention_mma.cu: bf16; csrc/attention_f32_mma.cu:
+# f32 as 3xTF32), one calling convention
 # ---------------------------------------------------------------------------
-def _check_mma(qu, k, v, bias, heads_total=None):
+def _check_mma(qu, k, v, bias, heads_total, route):
     _check(qu, k, v, bias, heads_total)
     B, H, L, D = qu.shape
-    if not takes_tensor_cores(qu.dtype, L, D):
-        raise ValueError(f"the tensor-core kernels take bfloat16 and head dim in "
+    if attention_route(qu.dtype, L, D) != route:
+        want = "bfloat16" if route == "tc" else "float32"
+        raise ValueError(f"the {route} kernels take {want} and head dim in "
                          f"{MMA_HEAD_DIMS}, got {qu.dtype}, D={D}")
     if any(t.data_ptr() % 16 for t in (qu, k, v)):
         raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
                          "data must start 16-byte aligned")
 
 
-def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float,
-                             heads_total=None, head_offset: int = 0):
-    """Returns ``(out, lse)``: ``out`` is a (B, H, L, D) view of a (B, L, H, D)
-    buffer, so that ``out.transpose(1, 2).reshape(B, L, H * D)`` copies
-    nothing; ``lse`` is the rows' log-sum-exp, (B, H, L) float32."""
-    _check_mma(qu, k, v, bias, heads_total)
-    lib = _library_mma()
+def _launch_fwd(route, entry, lib, qu, k, v, bias, seed, scale, rate, heads_total,
+                head_offset):
+    _check_mma(qu, k, v, bias, heads_total, route)
     B, H, L, D = qu.shape
     out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
-    code = lib.attn_mma_fwd(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(), _row_strides(out), B, H, L, D,
-                            scale, *_drop_args(seed, rate, H, heads_total, head_offset),
-                            _stream(qu))
-    check_cuda_status(lib, code, "attn_mma_fwd")
+    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                               out.data_ptr(), lse.data_ptr(), _row_strides(out), B, H, L, D,
+                               scale, *_drop_args(seed, rate, H, heads_total, head_offset),
+                               _stream(qu))
+    check_cuda_status(lib, code, entry)
     launches[f"attention_fwd_d{D}"] += 1
-    launches[f"attention_fwd_tc_d{D}"] += 1
+    launches[f"attention_fwd_{route}_d{D}"] += 1
     return out, lse
 
 
-def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: float,
-                             rate: float, heads_total=None, head_offset: int = 0):
-    """``g`` and ``out`` may be strided over (b, h, l); their rows must be
-    contiguous and 16-byte aligned."""
-    _check_mma(qu, k, v, bias, heads_total)
+def _launch_bwd(route, entry, lib, qu, k, v, bias, g, out, lse, seed, scale, rate,
+                heads_total, head_offset):
+    _check_mma(qu, k, v, bias, heads_total, route)
     _check_like_qu(g, qu, "g")
     _check_like_qu(out, qu, "out")
     B, H, L, D = qu.shape
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous (B, H, L) float32")
-    lib = _library_mma()
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
     delta = torch.empty_like(lse)
-    code = lib.attn_mma_bwd(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                            g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                            dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                            _row_strides(g), _row_strides(out), B, H, L, D, scale,
-                            *_drop_args(seed, rate, H, heads_total, head_offset), _stream(qu))
-    check_cuda_status(lib, code, "attn_mma_bwd")
+    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                               g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                               dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                               _row_strides(g), _row_strides(out), B, H, L, D, scale,
+                               *_drop_args(seed, rate, H, heads_total, head_offset),
+                               _stream(qu))
+    check_cuda_status(lib, code, entry)
     launches[f"attention_bwd_d{D}"] += 1
-    launches[f"attention_bwd_tc_d{D}"] += 1
+    launches[f"attention_bwd_{route}_d{D}"] += 1
     return dqu, dk, dv, dbias
+
+
+def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: float,
+                             heads_total=None, head_offset: int = 0):
+    """bf16 (``attention_mma.cu``). Returns ``(out, lse)``: ``out`` is a (B, H,
+    L, D) view of a (B, L, H, D) buffer, so that ``out.transpose(1,
+    2).reshape(B, L, H * D)`` copies nothing; ``lse`` is the rows'
+    log-sum-exp, (B, H, L) float32."""
+    return _launch_fwd("tc", "attn_mma_fwd", _library_mma(), qu, k, v, bias, seed, scale,
+                       rate, heads_total, head_offset)
+
+
+def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: float,
+                             rate: float, heads_total=None, head_offset: int = 0):
+    """bf16 (``attention_mma.cu``). ``g`` and ``out`` may be strided over (b,
+    h, l); their rows must be contiguous and 16-byte aligned."""
+    return _launch_bwd("tc", "attn_mma_bwd", _library_mma(), qu, k, v, bias, g, out, lse,
+                       seed, scale, rate, heads_total, head_offset)
+
+
+def launch_attention_fwd_tf32(qu, k, v, bias, seed: int, scale: float, rate: float,
+                              heads_total=None, head_offset: int = 0):
+    """f32 as 3xTF32 (``attention_f32_mma.cu``); returns ``(out, lse)`` as
+    :func:`launch_attention_fwd_mma` does."""
+    return _launch_fwd("tf32x3", "attn_tf32_fwd", _library_tf32(), qu, k, v, bias, seed,
+                       scale, rate, heads_total, head_offset)
+
+
+def launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, seed: int, scale: float,
+                              rate: float, heads_total=None, head_offset: int = 0):
+    """f32 as 3xTF32 (``attention_f32_mma.cu``); ``g`` and ``out`` as in
+    :func:`launch_attention_bwd_mma`."""
+    return _launch_bwd("tf32x3", "attn_tf32_bwd", _library_tf32(), qu, k, v, bias, g, out,
+                       lse, seed, scale, rate, heads_total, head_offset)
+
+
+_TC_LAUNCHES = {"tc": (launch_attention_fwd_mma, launch_attention_bwd_mma),
+                "tf32x3": (launch_attention_fwd_tf32, launch_attention_bwd_tf32)}
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -306,9 +370,9 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
         ctx.args = (seed, scale, rate, heads_total, head_offset)
         _check(qu, k, v, bias, heads_total)
-        ctx.tensor_cores = takes_tensor_cores(qu.dtype, qu.shape[2], qu.shape[3])
-        if ctx.tensor_cores:
-            out, lse = launch_attention_fwd_mma(qu, k, v, bias, *ctx.args)
+        ctx.route = attention_route(qu.dtype, qu.shape[2], qu.shape[3])
+        if ctx.route in _TC_LAUNCHES:
+            out, lse = _TC_LAUNCHES[ctx.route][0](qu, k, v, bias, *ctx.args)
             ctx.save_for_backward(qu, k, v, bias, out, lse)
             return out
         ctx.save_for_backward(qu, k, v, bias)
@@ -316,11 +380,11 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.tensor_cores:
+        if ctx.route in _TC_LAUNCHES:
             qu, k, v, bias, out, lse = ctx.saved_tensors
             if not _rows_addressable(g):
                 g = g.contiguous()
-            grads = launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, *ctx.args)
+            grads = _TC_LAUNCHES[ctx.route][1](qu, k, v, bias, g, out, lse, *ctx.args)
         else:
             qu, k, v, bias = ctx.saved_tensors
             grads = launch_attention_bwd_fma(qu, k, v, bias, g.contiguous(), *ctx.args)
@@ -331,10 +395,11 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
                     heads_total=None, head_offset: int = 0):
     """``dropout(softmax((qu k^T + bias) * scale)) v`` for (B, H, L, D) inputs.
 
-    CUDA tensors run the hand-written kernels, forward and backward: the
-    tensor-core set for bfloat16 at head dim 32, 64 or 128 and any L (its
-    output is a (B, H, L, D) view of a (B, L, H, D) buffer), the FMA set for
-    float32 and head dim 16. CPU tensors run
+    CUDA tensors run the hand-written kernels, forward and backward, on the
+    set :func:`attention_route` names: the tensor-core sets for bfloat16 or
+    float32 at head dim 32, 64 or 128 and any L (their output is a (B, H, L,
+    D) view of a (B, L, H, D) buffer), the FMA set at head dim 16. CPU tensors
+    run
     :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0. A
     tensor-parallel rank's H heads are ``head_offset ..`` of ``heads_total``
     (None: H), which places its dropout mask (module note).

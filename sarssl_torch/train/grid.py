@@ -74,17 +74,20 @@ class StackedState:
 def stack_states(states: Sequence[TrainState]) -> StackedState:
     """Stack N TrainStates of one model (parameters, buffers, Adam moments)
     along a new leading axis; the stacked parameters are leaves that take
-    gradients."""
+    gradients. The lanes share their optimizer's chain (``make_adam``'s b1,
+    b2, weight decay and clipping; ``ValueError`` where they differ)."""
     model = states[0].model
-    if states[0].optimizer.weight_decay or states[0].optimizer.grad_clip:
-        raise ValueError("the vmapped grid steps make_adam(lr)'s Adam only, without weight "
-                         "decay or clipping")
+    chains = {(s.optimizer.b1, s.optimizer.b2, s.optimizer.weight_decay, s.optimizer.grad_clip)
+              for s in states}
+    if len(chains) > 1:
+        raise ValueError(f"the lanes' optimizers differ in (b1, b2, weight_decay, grad_clip): "
+                         f"{sorted(chains, key=str)}; one program steps one chain")
     per = [dict(s.model.named_parameters()) for s in states]
     params = {n: torch.stack([p[n].detach() for p in per]).requires_grad_()
               for n, _ in model.named_parameters()}
     bufs = [dict(s.model.named_buffers()) for s in states]
     buffers = {n: torch.stack([b[n] for b in bufs]) for n, _ in model.named_buffers()}
-    opt = StackedAdam(params.values())
+    opt = StackedAdam(params.values(), *chains.pop())
     for i, name in enumerate(params):
         j = states[0].optimizer.names.index(name)
         opt.mu[i].copy_(torch.stack([s.optimizer.mu[j] for s in states]))

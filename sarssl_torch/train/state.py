@@ -132,17 +132,26 @@ class Adam:
 
 
 class StackedAdam:
-    """:class:`Adam`'s optax formulas over stacked ``(N, ...)`` parameters,
-    one lane a grid cell (``train/grid.py``), with one learning rate a lane:
-    ``p -= lr[l] * mu_hat / (sqrt(nu_hat) + eps)``. The lanes step in
-    lockstep, so they share one count and its f32 bias corrections. A lane at
-    lr 0 does not move (its moments do), which is how the grid freezes a
-    finished cell. A missing gradient reads as 0."""
+    """:class:`Adam`'s chain over stacked ``(N, ...)`` parameters, one lane a
+    grid cell (``train/grid.py``), with one learning rate a lane: each lane
+    takes the step ``make_adam(lr, b1, b2, weight_decay, grad_clip)`` gives
+    its sequential cell, as ``jax.vmap`` applies one optax chain to every
+    lane. Clipping scales a lane by its own global norm (over that lane's
+    slices of every gradient, decided on the device); the decay is added to a
+    lane's step before its rate. The lanes step in lockstep, so they share
+    one count and its f32 bias corrections. A lane at lr 0 does not move (its
+    moments do), which is how the grid freezes a finished cell. A missing
+    gradient reads as 0."""
 
-    b1, b2, eps = Adam.b1, Adam.b2, Adam.eps
+    eps = Adam.eps
 
-    def __init__(self, params: Iterable[torch.Tensor]):
+    def __init__(self, params: Iterable[torch.Tensor], b1: float = Adam.b1,
+                 b2: float = Adam.b2, weight_decay: float = 0.0,
+                 grad_clip: Optional[float] = None):
         self.params = list(params)
+        self.b1, self.b2 = b1, b2
+        self.weight_decay = float(weight_decay or 0.0)
+        self.grad_clip = float(grad_clip) if grad_clip else None
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
@@ -152,6 +161,8 @@ class StackedAdam:
         """One update from the gradients in ``.grad``; ``lrs``: ``(N,)`` f32
         on the parameters' device."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if self.grad_clip:
+            grads = _clip_lanes_by_global_norm(grads, self.grad_clip)
         self.count += 1
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
@@ -162,19 +173,39 @@ class StackedAdam:
         torch._foreach_add_(denom, self.eps)
         step = torch._foreach_div(self.mu, _bias_correction(self.b1, self.count))
         torch._foreach_div_(step, denom)
-        torch._foreach_mul_(step, [lrs.view(-1, *[1] * (p.ndim - 1)) for p in self.params])
+        if self.weight_decay:
+            torch._foreach_add_(step, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(step, [_per_lane(lrs, p) for p in self.params])
         torch._foreach_sub_(self.params, step)
 
     def lane(self, names: Iterable[str], params: Iterable[torch.nn.Parameter],
              i: int) -> Adam:
         """Lane ``i``'s optimizer state as an :class:`Adam` over ``params``
-        (named ``names``, in this optimizer's order)."""
-        opt = Adam(zip(names, params))
+        (named ``names``, in this optimizer's order), with this chain's
+        settings."""
+        opt = Adam(zip(names, params), b1=self.b1, b2=self.b2,
+                   weight_decay=self.weight_decay, grad_clip=self.grad_clip)
         with torch.no_grad():
             for dst, src in ((opt.mu, self.mu), (opt.nu, self.nu)):
                 torch._foreach_copy_(dst, [m[i] for m in src])
         opt.count = self.count
         return opt
+
+
+def _per_lane(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An ``(N,)`` tensor viewed to broadcast over a stacked ``(N, ...)`` one."""
+    return x.view(-1, *[1] * (like.ndim - 1))
+
+
+def _clip_lanes_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """:func:`_clip_by_global_norm` for each lane of stacked ``(N, ...)``
+    gradients: lane ``l``'s norm is taken over its slices ``g[l]`` alone."""
+    n = grads[0].shape[0]
+    g_norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.reshape(n, -1), dim=1) for g in grads]), dim=0)
+    keep = g_norm < max_norm
+    return [torch.where(_per_lane(keep, g), g, g / _per_lane(g_norm, g) * max_norm)
+            for g in grads]
 
 
 def _chain_shape(tree):

@@ -12,11 +12,13 @@ torch = pytest.importorskip("torch")
 from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # noqa: E402
                                   conv3x3_s2d, conv3x3_s2d_plain, dropout_plain,
                                   fused_attention, hash_dropout, launches)
-from sarssl_torch.kernels.attention import (fma_row_block, fma_smem_bytes,  # noqa: E402
-                                            launch_attention_bwd_fma,
+from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # noqa: E402
+                                            fma_smem_bytes, launch_attention_bwd_fma,
                                             launch_attention_bwd_mma,
+                                            launch_attention_bwd_tf32,
                                             launch_attention_fwd_fma,
-                                            launch_attention_fwd_mma, takes_tensor_cores)
+                                            launch_attention_fwd_mma,
+                                            launch_attention_fwd_tf32)
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
 from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
@@ -50,20 +52,21 @@ def _attention_case(gen, shape, dtype, rate):
           for s in shapes]
     g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     seed, scale = 0xFEEDBEEF, D ** -0.5
-    names = [f"attention_fwd_d{D}", f"attention_bwd_d{D}", f"attention_fwd_tc_d{D}",
-             f"attention_bwd_tc_d{D}"]
+    names = [f"attention_{kind}_{tag}d{D}" for tag in ("", "tc_", "tf32x3_")
+             for kind in ("fwd", "bwd")]
     before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
-    tc = int(takes_tensor_cores(dtype, L, D))
-    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
+    route = attention_route(dtype, L, D)
+    tc, tf = int(route == "tc"), int(route == "tf32x3")
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc, tf, tf]
     ys = [x.detach().float().requires_grad_() for x in xs]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
     errs = [_rel(a, b) for a, b in zip((out, *grads), (ref, *ref_grads))]
     if L == 1:
         # the softmax of one score is constant: dqu, dk and dbias of the plain
-        # version vanish up to f32 rounding, and the kernel's are out's bf16
+        # version vanish up to f32 rounding, and the kernel's are out's
         # rounding left in ds = p (dp - delta); each is measured against the
         # terms that cancel there, scale max |g . v| / (1 - rate), times
         # max |k| for dqu and max |qu| for dk
@@ -81,11 +84,75 @@ def _attention_case(gen, shape, dtype, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
-    """bfloat16 at head dim 32, 64 or 128 runs the tensor-core kernels at
-    every L (their count rises); float32 and head dim 16 the FMA kernels (it
-    does not)."""
-    assert takes_tensor_cores(dtype, L, D) == (dtype == torch.bfloat16 and D in (32, 64, 128))
+    """Head dim 32, 64 or 128 runs the tensor-core kernels at every L,
+    bfloat16 those of attention_mma.cu, float32 the 3xTF32 ones of
+    attention_f32_mma.cu (their counts rise); head dim 16 the FMA kernels."""
+    want = "fma" if D == 16 else "tc" if dtype == torch.bfloat16 else "tf32x3"
+    assert attention_route(dtype, L, D) == want
     _attention_case(cuda, (2, 3, L, D), dtype, rate)
+
+
+@pytest.mark.parametrize("L", [64, 100, 256])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_fma_attention_in_f32_matches_plain_when_called_directly(cuda, L, D, rate):
+    """The FMA kernels in f32 at the tensor-core head dims, which
+    ``fused_attention`` no longer routes there: launched directly."""
+    xs = [torch.randn(s, generator=cuda, device="cuda")
+          for s in [(2, 3, L, D)] * 4 + [(2, 3, L, L)]]
+    qu, k, v, g, bias = xs
+    args = (0xFEEDBEEF, D ** -0.5, rate)
+    out = launch_attention_fwd_fma(qu, k, v, bias, *args)
+    grads = launch_attention_bwd_fma(qu, k, v, bias, g, *args)
+    ys = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g)
+    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                          (ref, *ref_grads)):
+        assert _rel(a, b) <= TOL[torch.float32], name
+
+
+@pytest.mark.parametrize("L", [1, 33, 257, 768, 1000])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_tf32_attention_at_ragged_and_long_lengths_matches_plain(cuda, L, D, rate):
+    """The 3xTF32 kernels at tails of 1 and 33 rows, the CLS token's 257, and
+    past the 704 where the FMA kernels stop (768, 1000)."""
+    _attention_case(cuda, (1, 2, L, D), torch.float32, rate)
+
+
+@pytest.mark.parametrize("L", [256, 257])
+@pytest.mark.parametrize("offset", [1, 3, 4])
+def test_tf32_attention_takes_a_bias_at_any_alignment(cuda, L, offset):
+    """An f32 bias whose data starts ``offset`` elements into its storage: 1
+    and 3 take the any-L instance's 4-byte copies, 4 (16 bytes) at L = 256
+    the instance for whole tiles."""
+    B, H, D = 2, 2, 64
+    qu, k, v, g = (torch.randn((B, H, L, D), generator=cuda, device="cuda") for _ in range(4))
+    store = torch.randn(offset + B * H * L * L, generator=cuda, device="cuda")
+    bias = store[offset:].view(B, H, L, L)
+    args = (0xFEEDBEEF, D ** -0.5, 0.3)
+    out, lse = launch_attention_fwd_tf32(qu, k, v, bias, *args)
+    grads = launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, *args)
+    ys = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g)
+    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads),
+                          (ref, *ref_grads)):
+        assert _rel(a, b) <= TOL[torch.float32], name
+
+
+@pytest.mark.parametrize("L,D", [(256, 64), (256, 128), (257, 64), (512, 32)])
+def test_tf32_attention_backward_is_bit_identical_from_run_to_run(cuda, L, D):
+    shape = (4, 4, L, D)
+    qu, k, v, g = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    bias = torch.randn((4, 4, L, L), generator=cuda, device="cuda")
+    args = (0xFEEDBEEF, D ** -0.5, 0.1)
+    out, lse = launch_attention_fwd_tf32(qu, k, v, bias, *args)
+    first = launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, *args)
+    second = launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, *args)
+    for name, a, b in zip(("dqu", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("L,D", [(1, 32), (33, 32), (257, 32), (512, 32), (257, 64),
