@@ -24,9 +24,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the FMA kernels' 704), and at L = 512 D = 64, L = 256 D = 128
               and L = 256 D = 64 timed beside the FMA kernels launched
               directly (2x floor), SDPA and the bound (bytes, or three TF32
-              products a product at the TF32 rate). Then the attention
-              module of the conformer at both
-              flagship widths in bf16, fused against unfused, on the card.
+              products a product at the TF32 rate). Head dim 16 in both
+              dtypes on the tensor cores (bf16 and 3xTF32): held against the
+              plain version at L = 1, 33, 257, 768 and 1000, and at the
+              flagship's (128, 4, 256) at rates 0 and 0.1, timed there beside
+              the FMA kernels launched directly (1.5x floor), SDPA and the
+              bound; head dims 8 and 48, which run the next instance on
+              zero-padded inputs, held against the plain version, and D = 8
+              timed through the padding beside the bare launch. Then the
+              attention module of the conformer in bf16 at both flagship
+              widths, at d_model 64 (D = 16) and 32 (D = 8, padded), fused
+              against unfused, on the card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
               (128, 256, 256, 64) bf16 on the tensor-core kernel, timed beside
@@ -41,8 +49,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (8 lanes, f32; timed, queued behind a sleeping kernel, beside
               its bound and ``F.dropout``) and on 8 bf16 lanes past 2**31
               elements.
-  4. ref    : a small pretext model on the card (kernels) against the same
-              model on the CPU (plain versions), dropout on, same seeds.
+  4. ref    : small pretext models on the card (kernels) against the same
+              models on the CPU (plain versions), f32, dropout on, same seeds:
+              one at head dims 32 and 16, and SARSSLConfig.tiny(
+              fused_attention=True) (head dims 8 and 4, through the padding).
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
               65792-sample 2-mic waves, fused attention, dropout 0.1): one
               warm-up and 5 timed steps through ``make_pretrain_step``, with
@@ -202,9 +212,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               with ``(row_local, row_total, col_offset)``: each equal to the
               slice of the full launch bit for bit and held against its plain
               version, timed beside the same launch unsharded.
-Then the ``kernels`` JSON line (each row with ``launches_ablations`` and
-``launches_mesh``; rows 1-3 with their index-mapped times) and, last, the
-``ok`` JSON line.
+Then the FMA attention kernels' launch counts are asserted 0 in every model
+phase (``fused_attention`` never reaches them; only phase kernels' yardsticks
+launch them, directly), the ``kernels`` JSON line (each row with
+``launches_ablations`` and ``launches_mesh``; rows 1-3 with their index-mapped
+times) and, last, the ``ok`` JSON line.
 """
 import json
 import os
@@ -433,7 +445,6 @@ def _sharded_attention(D, dtype, L, gen):
     full_grads = torch.autograd.grad(full, xs, g)
     hl = HEADS // 2
     route = attention_route(dtype, L, D)
-    tc = route != "fma"
     names = (f"attention_fwd_d{D}", f"attention_bwd_d{D}")
     err, plain_err = 0.0, 0.0
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
@@ -464,22 +475,17 @@ def _sharded_attention(D, dtype, L, gen):
     # unsharded (H/2, 0); back to back on one card
     hs = slice(hl, HEADS)
     part = [t[:, hs].contiguous() for t in (qu, k, v, bias, g)]
-    from sarssl_torch.kernels.attention import launch_attention_bwd_fma, launch_attention_fwd_fma
-    res = {"tc": tc, "route": route, "max_abs_err": err, "plain_err": plain_err}
+    res = {"route": route, "max_abs_err": err, "plain_err": plain_err}
     times = {}
+    launch_fwd, launch_bwd = _TC_LAUNCHES[route]
     # mapped, unmapped, unmapped, mapped: each time the mean of its two
     for tag, heads in (("mapped", (HEADS, hl)), ("unmapped", (None, 0)),
                        ("unmapped", (None, 0)), ("mapped", (HEADS, hl))):
         a = (seed, scale, RATE, *heads)
-        if tc:
-            launch_fwd, launch_bwd = _TC_LAUNCHES[route]
-            out, lse = launch_fwd(*part[:4], *a)
-            fwd = cuda_ms(lambda: launch_fwd(*part[:4], *a), iters=50)
-            bwd = cuda_ms(lambda: launch_bwd(*part, out, lse, *a), iters=50)
-            del out, lse
-        else:
-            fwd = cuda_ms(lambda: launch_attention_fwd_fma(*part[:4], *a), iters=50)
-            bwd = cuda_ms(lambda: launch_attention_bwd_fma(*part, *a), iters=50)
+        out, lse = launch_fwd(*part[:4], *a)
+        fwd = cuda_ms(lambda: launch_fwd(*part[:4], *a), iters=50)
+        bwd = cuda_ms(lambda: launch_bwd(*part, out, lse, *a), iters=50)
+        del out, lse
         times.setdefault(f"{tag}_fwd_ms", []).append(fwd)
         times.setdefault(f"{tag}_bwd_ms", []).append(bwd)
     res.update({k: sum(v) / len(v) for k, v in times.items()})
@@ -648,21 +654,33 @@ def report_tensor_core_kernels(source, ptxas_log):
             kernel = None
 
 
-def cuda_ms_queued(fn, iters=20, warmup=3):
+def cuda_ms_queued(fn, iters=20, warmup=3, tries=4):
     """Device ms a call of ``fn`` with the launches queued behind a sleeping
     kernel, so the host's launch time (tens of microseconds for a Triton
-    launch) does not gap a kernel shorter than it."""
+    launch) does not gap a kernel shorter than it. A window in which the card
+    passed the sleeping kernel before the host had queued the last launch (a
+    pause of the host longer than the sleep) may hold the host's gaps: it is
+    logged with its reading and taken again, up to ``tries`` windows, and the
+    last one's reading is kept if every window drained (``tries=1``: a call
+    that outlasts the sleep, kept without a word)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
+        start.record()
+        for _ in range(iters):
+            fn()
+        drained = start.query()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if not drained or tries == 1:
+            return ms
+        log(f"  queued window {attempt} of {tries} drained before its last launch was "
+            f"queued: {ms:.4f} ms a call, {'taken again' if attempt < tries else 'kept'}")
+    return ms
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -701,23 +719,48 @@ def _attention_inputs(D, dtype, gen, L=SEQ):
 
 
 # the attention routes (kernels/attention.py::attention_route): their
-# launch-count tags and the words the log gives them
-ROUTE_TAGS = {"tc": "tc_", "tf32x3": "tf32x3_", "fma": None}
-ROUTE_WORDS = {"tc": "bf16 tensor-core", "tf32x3": "3xTF32 tensor-core", "fma": "FMA"}
-ROUTE_SOURCES = {"tc": "attention_mma.cu", "tf32x3": "attention_f32_mma.cu",
-                 "fma": "attention.cu"}
+# launch-count tags and the words the log gives them; "fma" tags the FMA
+# kernels' launches, which no route takes (they are launched directly)
+ROUTE_TAGS = {"tc": "tc_", "tf32x3": "tf32x3_", "fma": "fma_"}
+ROUTE_WORDS = {"tc": "bf16 tensor-core", "tf32x3": "3xTF32 tensor-core"}
+ROUTE_SOURCES = {"tc": "attention_mma.cu", "tf32x3": "attention_f32_mma.cu"}
 
 
 def _route_launches(D, route):
     """(names, want): the attention launch counts one forward and backward on
-    ``route`` raises by one, and the other routes' counts, which stay."""
+    ``route`` raises by one (at the instance's head dim: D padded to the next
+    of 16 / 32 / 64 / 128), and the other routes' counts, which stay (the FMA
+    kernels' among them: ``fused_attention`` never launches those)."""
+    from sarssl_torch.kernels.attention import padded_head_dim
+
     names, want = [], []
     for r, tag in (("", ""), *ROUTE_TAGS.items()):
-        if tag is None:
-            continue
-        names += [f"attention_{kind}_{tag}d{D}" for kind in ("fwd", "bwd")]
+        names += [f"attention_{kind}_{tag}d{padded_head_dim(D)}" for kind in ("fwd", "bwd")]
         want += [int(r in ("", route))] * 2
     return names, want
+
+
+def _fma_launches(counts):
+    """The FMA kernels' launches among ``counts``: a model phase has none."""
+    return {k: v for k, v in counts.items() if re.fullmatch(r"attention_(fwd|bwd)_fma_d\d+", k)
+            and v}
+
+
+def _vanishing_errors(qu, k, v, g, args, grads, ref_grads):
+    """At L = 1 the softmax of one score is constant: dqu, dk and dbias of
+    the plain version vanish up to f32 rounding, and the kernel's are the
+    rounding of out (delta = g . out) left in ds = p (dp - delta). Each
+    is measured against the terms that cancel there, ``scale * max |g . v| /
+    (1 - rate)`` (times max |k| for dqu, max |qu| for dk); dv against its own
+    max."""
+    _, scale, rate = args
+    qu, k, v, g = (t.detach().float() for t in (qu, k, v, g))
+    cancel = scale * float((g * v).sum(-1).abs().max()) / (1.0 - rate)
+    dqu, dk, dv, dbias = grads
+    rdqu, rdk, rdv, rdbias = ref_grads
+    return [max_abs(dqu, rdqu) / (cancel * float(k.abs().max())),
+            max_abs(dk, rdk) / (cancel * float(qu.abs().max())),
+            rel_err(dv, rdv), max_abs(dbias, rdbias) / cancel]
 
 
 def check_attention(D, dtype, rate, seed, gen, L=SEQ):
@@ -741,8 +784,11 @@ def check_attention(D, dtype, rate, seed, gen, L=SEQ):
     ref_grads = torch.autograd.grad(ref, ys, g.float())
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
     errs = {"out": (rel_err(out, ref), max_abs(out, ref))}
-    for name, a, b in zip(("dqu", "dk", "dv", "dbias"), grads, ref_grads):
-        errs[name] = (rel_err(a, b), max_abs(a, b))
+    rels = ([rel_err(a, b) for a, b in zip(grads, ref_grads)] if L > 1 else
+            _vanishing_errors(qu, k, v, g, (seed, scale, rate), grads, ref_grads))
+    for name, a, b, rel in zip(("dqu", "dk", "dv", "dbias"), grads, ref_grads, rels):
+        errs[name] = (rel, max_abs(a, b))
+    assert out.shape == qu.shape, f"attention L={L} D={D}: out {tuple(out.shape)}"
     torch.cuda.synchronize()
     for name, (rel, _) in errs.items():
         assert rel <= tol, (f"attention L={L} D={D} {dtype} rate={rate}: {name} rel err "
@@ -801,7 +847,10 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 
     res = {}
     with torch.no_grad():
-        res["plain_fwd_ms"] = cuda_ms_queued(lambda: attention_plain(qu, k, v, bias, seed, scale, RATE))
+        # its 20 calls (~6 ms each) outlast the sleep, so the card passes the
+        # sleeping kernel before the host has queued them all: one window, kept
+        res["plain_fwd_ms"] = cuda_ms_queued(
+            lambda: attention_plain(qu, k, v, bias, seed, scale, RATE), tries=1)
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
     out = attention_plain(*xs, seed, scale, RATE)
     res["plain_bwd_ms"] = cuda_ms_queued(lambda: torch.autograd.grad(out, xs, g, retain_graph=True))
@@ -835,11 +884,14 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 # widths; L = 512: in_ver="single_ch_each_patch" (the spec encoder at d = 256,
 # D = 64, the spat encoder at d = 128, D = 32); all bf16, on the tensor cores.
 # Then the f32 route (3xTF32 tensor cores): at L = 512 and at the flagship's
-# L = 256 (phase model_options' variant (l) runs the last two).
+# L = 256 (phase model_options' variant (l) runs the last two). Last, head
+# dim 16 (a d_model of 64; the small models of phase ref, and through the
+# padding the tiny one's 8 and 4) at the flagship batch and L in both dtypes.
 OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
                            (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
                            (512, 64, torch.float32), (256, 128, torch.float32),
-                           (256, 64, torch.float32))
+                           (256, 64, torch.float32), (256, 16, torch.bfloat16),
+                           (256, 16, torch.float32))
 # (L, D) of the bf16 shapes whose tensor-core launches took over from the FMA
 # kernels: each launch, forward and backward, at least this many times faster
 # than the FMA kernel at its shape in the same run
@@ -850,14 +902,23 @@ F32_FMA_FLOOR = 2.0
 # f32 shapes held against the plain version (not timed): a ragged tail, the
 # CLS token's L and one past the FMA kernels' 704, at every tensor-core D
 F32_CHECK_LENGTHS = (64, 257, 768)
+# head dim 16's launches, forward and backward in both dtypes, against the
+# FMA kernels at its shape in the same run (the FMA kernels' row blocks hold
+# little at D = 16, so the floor is lower than the other shapes')
+D16_FMA_FLOOR = 1.5
+# head dim 16 held against the plain version (not timed) at tails of 1 and
+# 33 rows, the CLS token's L and two past the FMA kernels' 704, both dtypes
+D16_CHECK_LENGTHS = (1, 33, 257, 768, 1000)
+# head dims that are no instance's, held against the plain version through
+# the padding (at L = 256, both dtypes); the first also timed padded
+PADDED_HEAD_DIMS = (8, 48)
 
 
 def time_attention_route(L, D, dtype, seed, gen):
-    """Times of fwd and bwd on the route ``fused_attention`` takes at this
-    shape (rate 0.1), beside the plain version, SDPA and the bound; on a
-    tensor-core route also the FMA kernels' times, launched directly (new,
-    old, old, new)."""
-    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_route, fma_row_block,
+    """Times of fwd and bwd on the tensor-core route ``fused_attention`` takes
+    at this shape (rate 0.1), beside the FMA kernels launched directly (new,
+    old, old, new), the plain version, SDPA and the bound."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_route,
                                                 launch_attention_bwd_fma,
                                                 launch_attention_fwd_fma)
 
@@ -865,20 +926,40 @@ def time_attention_route(L, D, dtype, seed, gen):
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
     args = (seed, scale, RATE)
     route = attention_route(dtype, L, D)
-    res = {"route": route, "tc": route != "fma"}
-    if res["tc"]:
-        fwd, bwd = _TC_LAUNCHES[route]
-        out, lse = fwd(qu, k, v, bias, *args)
-        res["fwd_ms"] = cuda_ms_queued(lambda: fwd(qu, k, v, bias, *args))
-        res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
-        res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
-        res["bwd_ms"] = cuda_ms_queued(lambda: bwd(qu, k, v, bias, g, out, lse, *args))
-        del out, lse
-    else:
-        res["row_block"] = (fma_row_block("fwd", L, D), fma_row_block("bwd", L, D))
-        res["fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
-        res["bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    res = {"route": route}
+    fwd, bwd = _TC_LAUNCHES[route]
+    out, lse = fwd(qu, k, v, bias, *args)
+    res["fwd_ms"] = cuda_ms_queued(lambda: fwd(qu, k, v, bias, *args))
+    res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+    res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    res["bwd_ms"] = cuda_ms_queued(lambda: bwd(qu, k, v, bias, g, out, lse, *args))
+    del out, lse
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
+    return res
+
+
+def time_padded_attention(D, dtype, seed, gen):
+    """What the padding costs at head dim D (not an instance's): fwd and bwd
+    through ``attention_fwd_padded`` / ``attention_bwd_padded`` (pad, launch
+    at the next instance's head dim, slice) beside the same launches on
+    inputs padded beforehand, queued, at the flagship batch, L = 256, rate
+    0.1."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_bwd_padded,
+                                                attention_fwd_padded, attention_route)
+
+    scale = 1.0 / np.sqrt(HEADS * D)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
+    args = (seed, scale, RATE)
+    fwd, bwd = _TC_LAUNCHES[attention_route(dtype, SEQ, D)]
+    _, lse, padded = attention_fwd_padded(fwd, qu, k, v, bias, *args)
+    qu_p, k_p, v_p, out_p = padded
+    g_p = torch.nn.functional.pad(g, (0, qu_p.shape[-1] - D))
+    res = {"Dp": qu_p.shape[-1]}
+    res["fwd_ms"] = cuda_ms_queued(lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args))
+    res["launch_fwd_ms"] = cuda_ms_queued(lambda: fwd(qu_p, k_p, v_p, bias, *args))
+    res["launch_bwd_ms"] = cuda_ms_queued(lambda: bwd(qu_p, k_p, v_p, bias, g_p, out_p, lse,
+                                                      *args))
+    res["bwd_ms"] = cuda_ms_queued(lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args))
     return res
 
 
@@ -1125,15 +1206,17 @@ def check_conv(gen):
 
 
 def check_attention_module(gen):
-    """The conformer's attention module in bf16 at both flagship widths,
+    """The conformer's attention module in bf16 at both flagship widths, at
+    d_model 64 (head dim 16) and at 32 (head dim 8, through the padding),
     B=8, L=256, rate 0: fused (tensor-core kernels) against unfused (plain
     PyTorch) on the card with the same weights; output and the gradients of
     the input, u_bias and v_bias."""
     from sarssl_torch.kernels import launches
+    from sarssl_torch.kernels.attention import padded_head_dim
     from sarssl_torch.models.conformer import RelPosSelfAttention
 
-    for d_model in (512, 256):
-        D = d_model // HEADS
+    for d_model in (512, 256, 64, 32):
+        D = padded_head_dim(d_model // HEADS)
         mods = {}
         for fused in (True, False):
             m = RelPosSelfAttention(d_model, HEADS, dropout=0.0, fused=fused,
@@ -1175,28 +1258,41 @@ def phase_kernels():
         for L in F32_CHECK_LENGTHS:
             check_attention(D, torch.float32, RATE, seed, gen, L)
         torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for L in D16_CHECK_LENGTHS:
+            check_attention(16, dtype, RATE, seed, gen, L)
+        for D in PADDED_HEAD_DIMS:
+            check_attention(D, dtype, RATE, seed, gen)
+        torch.cuda.empty_cache()
     opt_rows = {}
     for L, D, dtype in OPTION_ATTENTION_SHAPES:
+        if D == 16:
+            check_attention(D, dtype, 0.0, seed, gen, L)
         err, out_err = check_attention(D, dtype, RATE, seed, gen, L)
         t = time_attention_route(L, D, dtype, seed, gen)
         t.update(max_abs_err=err, out_err=out_err)
         opt_rows[(L, D, dtype)] = t
-        route = (ROUTE_WORDS[t["route"]] if t["tc"]
-                 else f"FMA, row blocks (fwd, bwd) {t['row_block']}")
-        fma = {kind: (f"FMA kernel {t[f'fma_{kind}_ms']:.4f}, " if t["tc"] else "")
-               for kind in ("fwd", "bwd")}
-        log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} ({route}): fwd "
-            f"{t['fwd_ms']:.4f} ms ({fma['fwd']}plain {t['plain_fwd_ms']:.3f}, sdpa "
-            f"{t['lib_fwd_ms']:.4f}, bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd "
-            f"{t['bwd_ms']:.4f} ms ({fma['bwd']}plain {t['plain_bwd_ms']:.3f}, sdpa "
+        log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} "
+            f"({ROUTE_WORDS[t['route']]}): fwd {t['fwd_ms']:.4f} ms (FMA kernel "
+            f"{t['fma_fwd_ms']:.4f}, plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
+            f"bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms "
+            f"(FMA kernel {t['fma_bwd_ms']:.4f}, plain {t['plain_bwd_ms']:.3f}, sdpa "
             f"{t['lib_bwd_ms']:.4f}, bound {t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
-        floor = (ATTENTION_FMA_FLOOR if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16
+        floor = (D16_FMA_FLOOR if D == 16 else
+                 ATTENTION_FMA_FLOOR if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16
                  else F32_FMA_FLOOR if dtype == torch.float32 else None)
         if floor:
             for kind in ("fwd", "bwd"):
                 assert floor * t[f"{kind}_ms"] <= t[f"fma_{kind}_ms"], (
                     f"attention {kind} L={L} D={D} {dtype}: under {floor}x the FMA kernel")
         torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        D = PADDED_HEAD_DIMS[0]
+        t = opt_rows[(SEQ, 16, dtype)]["padded"] = time_padded_attention(D, dtype, seed, gen)
+        log(f"[kernels] attention L={SEQ} D={D} {str(dtype)[6:]} rate={RATE} through the "
+            f"padding to D={t['Dp']}: fwd {t['fwd_ms']:.4f} ms (the launch on inputs padded "
+            f"beforehand {t['launch_fwd_ms']:.4f}), bwd {t['bwd_ms']:.4f} ms (the launch "
+            f"{t['launch_bwd_ms']:.4f})")
     for D in HEAD_DIMS:
         t = time_attention(D, seed, gen)
         rows[D].update(t)
@@ -1224,7 +1320,7 @@ def phase_kernels():
 
 def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
                  dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts,
-                 abl_counts, mesh_counts, mesh):
+                 abl_counts, mesh_counts, mesh, tiny_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1257,27 +1353,37 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
     for (L, D, dtype), r in opt_rows.items():
         for kind, line in (("fwd", 100), ("bwd", 128)):
             n = mo_shapes.get((L, D, str(dtype)[6:], kind), 0)
+            if D == 16:  # the tiny model of phase ref (head dims 8 and 4, padded)
+                n = tiny_counts.get(f"attention_{kind}_{ROUTE_TAGS[r['route']]}d16", 0)
             out.append({
                 "name": f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}", "route": "cuda",
                 "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[r["route"]],
-                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3", "fma": "fma"}[r["route"]],
+                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[r["route"]],
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
                 # variant (d) (L=257), (c) (L=512, bf16) and (l) (L=256, f32);
-                # no variant runs L=512 in f32
+                # no variant runs L=512 in f32. D=16: phase ref's tiny model
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
                 "bound_ms": r[f"{kind}_bound"][0], "bound_by": r[f"{kind}_bound"][1],
                 "library_ms": r[f"lib_{kind}_ms"],
-                "path": ("phase model_options (launches_model_options): use_cls (L=257) and "
+                "path": ("no CLI configuration has head dim 16: launches of phase ref's "
+                         "SARSSLConfig.tiny(fused_attention=True), whose head dims 8 and 4 run "
+                         "this instance through the padding (launches_tiny_model); 0 on every "
+                         "CLI path" if D == 16 else
+                         "phase model_options (launches_model_options): use_cls (L=257) and "
                          "in_ver=single_ch_each_patch (L=512)" if dtype == torch.bfloat16 else
                          "phase model_options (launches_model_options): the flagship step in "
                          "f32 with fused attention, variant (l)" if L == SEQ else
                          "no model path runs f32 attention fused at this length; timed beside "
                          "the FMA kernels and SDPA"),
-                "launches_model_options": n,
-                **({"fma_ms": r[f"fma_{kind}_ms"]} if r["tc"] else {}),
+                "launches_model_options": mo_shapes.get((L, D, str(dtype)[6:], kind), 0),
+                "fma_ms": r[f"fma_{kind}_ms"],
+                **({"launches_tiny_model": n,
+                    "padded_d8_ms": r["padded"][f"{kind}_ms"],
+                    "padded_d8_launch_ms": r["padded"][f"launch_{kind}_ms"]}
+                   if D == 16 else {}),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -1356,31 +1462,63 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
     return {"kernels": out}
 
 
-def phase_reference():
-    """Small model: card (kernels) against CPU (plain versions), 2 train steps
-    with dropout 0.1 and the same seeds, so both draw identical masks."""
-    from sarssl_torch.data.synthetic import synth_batch
-    from sarssl_torch.models import SARSSL, SARSSLConfig
-    from sarssl_torch.ops import FeatureConfig
+REF_STEPS = 2
+
+
+def _card_against_cpu(what, cfg, feat, wave, want_attention):
+    """REF_STEPS pretext train steps of ``cfg`` on the card (kernels) and on
+    the CPU (plain versions), dropout on and the same seeds, so both draw
+    identical masks; the card's attention launches asserted exactly
+    (``want_attention`` a step), none of the FMA kernels. Returns the card's
+    launch counts."""
+    from sarssl_torch.kernels import launches, reset_launches
+    from sarssl_torch.models import SARSSL
     from sarssl_torch.train import create_train_state, make_pretrain_step
 
-    feat = FeatureConfig(win_len=128, nfft=128)
-    cfg = SARSSLConfig().tiny(sig_shape=(64, 64, 2, 2), patch_shape=(64, 1),
-                              spec_dembed=128, spat_dembed=64, spat_layers=2,
-                              dropout=RATE, fused_attention=True)
-    wave, _ = synth_batch(np.random.default_rng(1), 8, 63 * 64 + 128)
     losses = {}
     for dev in ("cuda", "cpu"):
         model = SARSSL(cfg, device=dev, seed=3)
         state = create_train_state(model)
         step = make_pretrain_step(model, feat, device=dev)
         gen = torch.Generator().manual_seed(5)
+        reset_launches()
         losses[dev] = [float(step(state, torch.from_numpy(wave), 1e-3, gen)["loss"])
-                       for _ in range(2)]
+                       for _ in range(REF_STEPS)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = _kernel_counts()
+    att = {k: v for k, v in counts.items() if k.startswith("attention_")}
+    want = {k: v * REF_STEPS for k, v in want_attention.items()}
+    assert att == want, f"{what}: attention launches {att}, want {want}"
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    log(f"[ref] small pretext model, 2 steps, dropout {RATE}: card {losses['cuda']} "
-        f"cpu {losses['cpu']} max rel err {err:.2e} (tol {TOL_REF})")
-    assert err <= TOL_REF, f"card and CPU losses differ by {err}"
+    log(f"[ref] {what}, {REF_STEPS} steps, dropout {RATE}: card {losses['cuda']} cpu "
+        f"{losses['cpu']} max rel err {err:.2e} (tol {TOL_REF}); launches {counts}")
+    assert err <= TOL_REF, f"{what}: card and CPU losses differ by {err}"
+    return counts
+
+
+def phase_reference():
+    """Small models: card (kernels) against CPU (plain versions), f32: one at
+    head dims 32 and 16, then ``SARSSLConfig.tiny(fused_attention=True)``,
+    whose 4 heads over d = 32 and 16 give head dims 8 and 4, which run the D =
+    16 instances through the padding. Returns the tiny model's counts."""
+    from sarssl_torch.data.synthetic import synth_batch
+    from sarssl_torch.models import SARSSLConfig
+    from sarssl_torch.ops import FeatureConfig
+
+    cfg = SARSSLConfig().tiny(sig_shape=(64, 64, 2, 2), patch_shape=(64, 1),
+                              spec_dembed=128, spat_dembed=64, spat_layers=2,
+                              dropout=RATE, fused_attention=True)
+    wave, _ = synth_batch(np.random.default_rng(1), 8, 63 * 64 + 128)
+    _card_against_cpu("small pretext model (D = 32, 16)", cfg,
+                      FeatureConfig(win_len=128, nfft=128), wave,
+                      _attention_want((32, 1, "tf32x3"), (16, 2, "tf32x3")))
+    tiny = SARSSLConfig().tiny(dropout=RATE, fused_attention=True)
+    nf, nt = tiny.sig_shape[:2]
+    wave, _ = synth_batch(np.random.default_rng(2), 8, (nt - 1) * nf + 2 * nf)
+    return _card_against_cpu("SARSSLConfig.tiny(fused_attention=True) (D = 8, 4)", tiny,
+                             FeatureConfig(win_len=2 * nf, nfft=2 * nf), wave,
+                             _attention_want((16, 1, "tf32x3"), (16, 1, "tf32x3")))
 
 
 def _assert_no_conv_launch(counts, step):
@@ -2371,10 +2509,8 @@ def _attention_want(spec, spat):
     (head dim, layers, route) of each encoder's conformer (``ROUTE_TAGS``)."""
     want = {}
     for D, layers, route in (spec, spat):
-        tag = ROUTE_TAGS[route]
         for kind in ("fwd", "bwd"):
-            for name in (f"attention_{kind}_d{D}",) + ((f"attention_{kind}_{tag}d{D}",) if tag
-                                                       else ()):
+            for name in (f"attention_{kind}_d{D}", f"attention_{kind}_{ROUTE_TAGS[route]}d{D}"):
                 want[name] = want.get(name, 0) + layers
     return want
 
@@ -4062,7 +4198,7 @@ def main():
     card = phase_card()
     phase_build()
     rows, opt_rows, drop, lanes, conv = phase_kernels()
-    phase_reference()
+    tiny_counts = phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
     opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
@@ -4077,10 +4213,20 @@ def main():
     mo_counts, mo_shapes = phase_model_options(card)
     abl_counts = phase_ablations(card)
     mesh_counts, mesh = phase_mesh(card, 1e3 * BATCH / step_utt_s)
+    # fused_attention never reaches the FMA kernels: only phase kernels'
+    # yardsticks launch them, directly
+    for phase, c in (("ref", tiny_counts), ("train", counts), ("pretrain_cli", cli_counts),
+                     ("pretrain_options", opt_counts), ("downstream", ds_counts),
+                     ("downstream_cli", dscli_counts), ("grid_vmap", grid_counts),
+                     ("data_path", data_counts), ("real_data", real_counts),
+                     ("model_options", mo_counts), ("ablations", abl_counts),
+                     ("mesh", mesh_counts)):
+        assert not _fma_launches(c), f"phase {phase} launched the FMA kernels: {_fma_launches(c)}"
+    log("[kernels] the FMA attention kernels' launches in every model phase: 0")
     print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
                                   mo_counts, mo_shapes, grid_counts, abl_counts, mesh_counts,
-                                  mesh)),
+                                  mesh, tiny_counts)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // Fused rel-pos attention on the H100's tensor cores in float32, forward and
-// backward, at head dims 32, 64 and 128 and any sequence length L >= 1, as
-// split-precision TF32 products (3xTF32). (bfloat16 at those head dims runs
-// attention_mma.cu; head dim 16 runs the FMA kernels of attention.cu.)
+// backward, at head dims 16, 32, 64 and 128 and any sequence length L >= 1, as
+// split-precision TF32 products (3xTF32). (bfloat16 runs attention_mma.cu; the
+// wrapper runs every other head dim up to 128 on the next of these instances,
+// on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_tf32
@@ -31,7 +32,8 @@
 //    exact to about 2^-22 of itself. A fragment is split once, where it is
 //    loaded, for every product it feeds.
 //  * Tiles of qu, k, v and g sit in shared memory as f32 rows padded to D + 4
-//    floats (a row pitch of 4 banks mod 32), copied 16 bytes a thread with
+//    floats (a row pitch of 4 banks mod 32; 20 floats, 80 bytes, at D = 16,
+//    which keeps every row 16-byte aligned), copied 16 bytes a thread with
 //    cp.async and double-buffered. Operands whose rows run along the
 //    product's k (q and k in q k^T; k, v, qu and g in the backward's k qu^T
 //    and v g^T) are read with ldmatrix: an 8x8 b16 matrix is an 8x4 f32 one,
@@ -45,6 +47,14 @@
 //    the next A fragment with no shuffle, and the B operand reads rows 2t and
 //    2t + 1, which the 4-float pad keeps free of bank conflicts. The sum over
 //    keys does not depend on their order.
+//  * Head dim 16: q k^T is two k-steps of m16n8k8, p v (and the backward's
+//    products into dv, dk and dqu) two n8 output tiles. The bias and dbias are
+//    then 128 of the forward's 160 MiB at B=128, H=4, L=256 and the TF32
+//    products a fifth of the time the bytes need, so the work a score takes
+//    outside the products (exp, the split of p, the dropout hash, ds) weighs
+//    most. Four blocks share an SM in both passes (the launch bounds below,
+//    measured, PERF.md: at five or six the forward spills, and both
+//    passes run slower).
 //  * Forward: a block of 4 warps owns 64 query rows, each warp 16. It walks
 //    the keys in tiles of 64 (32 at D = 128, where that lets two blocks share
 //    an SM) with a running row max and sum (online softmax).
@@ -297,8 +307,21 @@ struct FwdSmem {
                 "tiles start 128-byte aligned");
 };
 
+// Blocks an SM that each pass's launch bounds ask for, from the registers its
+// accumulators leave room for. At D = 16 (57,344 B of shared memory forward,
+// 47,104 B backward: four blocks an SM) 3 to 6 were measured (PERF.md): at
+// five or six the forward spills, and both passes run slower.
+template <int D>
+__host__ __device__ constexpr int fwd_blocks() {
+  return D == 16 ? 4 : D == 32 ? 3 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int bwd_blocks() {
+  return D == 16 ? 4 : D == 32 ? 3 : 2;
+}
+
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT, D == 32 ? 3 : 2)
+__global__ void __launch_bounds__(NT, fwd_blocks<D>())
 attn_fwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               float* __restrict__ out, float* __restrict__ lse, int H, int L, float scale,
@@ -513,7 +536,7 @@ struct BwdSmem {
 };
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT, D == 32 ? 3 : 2)
+__global__ void __launch_bounds__(NT, bwd_blocks<D>())
 attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               const float* __restrict__ gr, const float* __restrict__ lse,
@@ -804,7 +827,7 @@ bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* 
 
 extern "C" {
 
-// float32 only; head_dim in {32, 64, 128}; any L >= 1. out_strides: element
+// float32 only; head_dim in {16, 32, 64, 128}; any L >= 1. out_strides: element
 // strides of out over (b, h, l) (multiples of 4: rows 16-byte aligned). lse:
 // (B, H, L) float32, written. The H heads are h_offset .. h_offset + H of
 // h_total for the dropout index (H, 0 for all). Returns cudaGetLastError()
@@ -821,6 +844,8 @@ int attn_tf32_fwd(const void* qu, const void* k, const void* v, const void* bias
   fwd<D, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,          \
             (float*)out, (float*)lse, B * H, H, L, scale, drop, os, (cudaStream_t)stream)
   switch (head_dim) {
+    case 16:
+      return (int)(exact ? ATTN_FWD(16, true) : ATTN_FWD(16, false));
     case 32:
       return (int)(exact ? ATTN_FWD(32, true) : ATTN_FWD(32, false));
     case 64:
@@ -851,6 +876,8 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
             (float*)dk, (float*)dv, (float*)dbias, B * H, H, L, scale, drop, gs, os,          \
             (cudaStream_t)stream)
   switch (head_dim) {
+    case 16:
+      return (int)(exact ? ATTN_BWD(16, true) : ATTN_BWD(16, false));
     case 32:
       return (int)(exact ? ATTN_BWD(32, true) : ATTN_BWD(32, false));
     case 64:
@@ -866,6 +893,9 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
 // 2 backward dqu pass (the same in both instances).
 int attn_tf32_smem_bytes(int head_dim, int which) {
   switch (head_dim) {
+    case 16:
+      return which == 0 ? FwdSmem<16>::BYTES : which == 1 ? BwdSmem<16>::BYTES
+                                                          : DquSmem<16>::BYTES;
     case 32:
       return which == 0 ? FwdSmem<32>::BYTES : which == 1 ? BwdSmem<32>::BYTES
                                                           : DquSmem<32>::BYTES;

@@ -1,7 +1,7 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
-// for bfloat16 at head dims 32, 64 and 128 and any sequence length L >= 1.
-// (float32 and head dim 16 stay on the FMA kernels of attention.cu: the
-// wrapper routes them there.)
+// for bfloat16 at head dims 16, 32, 64 and 128 and any sequence length L >= 1.
+// (float32 runs attention_f32_mma.cu; the wrapper runs every other head dim
+// up to 128 on the next of these instances, on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
@@ -32,8 +32,19 @@
 //    cp.async into rows whose 16-byte chunks are XOR-swizzled with the row
 //    index (chunk ^ (row & 7) for rows of 8 or more chunks, chunk ^ ((row >> 1)
 //    & 3) for the 4-chunk rows of D = 32), which makes every ldmatrix
-//    conflict-free. Tiles are double-buffered: the copy of tile t+1 is started
-//    before the products of tile t.
+//    conflict-free (the 2-chunk rows of D = 16 take chunk ^ ((row >> 2) & 1)).
+//    Tiles are double-buffered: the copy of tile t+1 is started before the
+//    products of tile t.
+//  * Head dim 16: q k^T is a single k-step of m16n8k16, and p v and the
+//    backward's dv, dk and dqu products two n8 output tiles. The (B,H,L,L) bias
+//    and dbias are then nearly all of the bytes (64 of the forward's 80 MiB at
+//    B=128, H=4, L=256), and the work a score takes outside the products
+//    (exp, the dropout hash, ds) does not shrink with D: that work on the
+//    CUDA cores, not the bias stream, sets the time (at rate 0 the forward
+//    takes a fifth less). Measured at B=128, H=4, L=256 (PERF.md): the
+//    forward runs fastest at 4 blocks an SM, the backward at 6 (3% faster
+//    than at 4), and a third or fourth cp.async stage moves neither by more
+//    than 2%, so both keep the double buffer (fwd_blocks, bwd_blocks below).
 //  * The bias is read once per kernel through the same cp.async pipeline
 //    (16-byte loads) into a padded tile, and added in f32 to the accumulator
 //    before the scale.
@@ -143,11 +154,14 @@ __device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, i
 
 // The XOR that a row of a swizzled tile of width W applies to its chunk
 // index: 8 rows of 16-byte chunks at one chunk index land in 8 bank groups.
-// Rows of 64 bytes (W = 32, two rows a 128-byte line) take bits 1-2 of the row.
+// Rows of 64 bytes (W = 32, two rows a 128-byte line) take bits 1-2 of the row,
+// rows of 32 bytes (W = 16, four rows a line) bit 2 (measured against
+// unswizzled rows, PERF.md: the backward 1-3% faster).
 template <int W>
 __device__ __forceinline__ int swz_key(int row) {
-  static_assert(W == 32 || W % 64 == 0, "swizzled rows of 4 or a multiple of 8 chunks");
-  return W == 32 ? (row >> 1) & 3 : row & 7;
+  static_assert(W == 16 || W == 32 || W % 64 == 0,
+                "swizzled rows of 2, 4 or a multiple of 8 chunks");
+  return W == 16 ? (row >> 2) & 1 : W == 32 ? (row >> 1) & 3 : row & 7;
 }
 
 // Byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile whose
@@ -158,14 +172,17 @@ __device__ __forceinline__ uint32_t swz(int row, int chunk) {
 }
 
 // ROWS x W values from device memory (row stride ld elements) -> swizzled
-// tile; with TAIL, rows >= nrows are zero-filled (the tile at the end of L)
+// tile; with TAIL, rows >= nrows are zero-filled (the tile at the end of L).
+// A tile of fewer chunks than threads (the backward's 32-row tiles at D = 16)
+// leaves the last threads idle.
 template <int ROWS, int W, bool TAIL = false>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, i64 ld, int nrows = ROWS) {
-  constexpr int CH = W / 8;
-  static_assert(ROWS * CH % NT == 0, "the tile's chunks divide among the threads");
+  constexpr int CH = W / 8, N = ROWS * CH;
+  static_assert(N % NT == 0 || NT % N == 0, "the tile's chunks divide among the threads");
 #pragma unroll
-  for (int it = 0; it < ROWS * CH / NT; ++it) {
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
     const int idx = threadIdx.x + it * NT, r = idx / CH, c = idx % CH;
+    if (N < NT && idx >= N) break;
     if constexpr (TAIL) {
       const bool ok = r < nrows;
       cp_async16_zfill(dst + swz<W>(r, c), ok ? src + (i64)r * ld + c * 8 : src, ok ? 16 : 0);
@@ -342,6 +359,21 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_of
 }
 
 // ---------------------------------------------------------------------------
+// The blocks an SM that each pass's launch bounds ask for (the registers its
+// accumulators leave room for). At D = 16 registers alone bound the blocks
+// (28,672 B of shared memory forward, 22,528 B backward): 3 to 6 were
+// measured (PERF.md), and these were the fastest.
+// ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int fwd_blocks() {
+  return D <= 32 ? 4 : D == 64 ? 3 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int bwd_blocks() {
+  return D == 16 ? 6 : D == 32 ? 4 : D == 64 ? 3 : 2;
+}
+
+// ---------------------------------------------------------------------------
 // forward: grid (ceil(L/64), B*H); blockIdx.x is the query tile, so the tiles
 // of one (b, h) run together and k, v come from L2 after the first.
 // smem: Q tile, 2 x (K tile, V tile, bias tile)
@@ -359,7 +391,7 @@ struct FwdSmem {
 };
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT, D == 32 ? 4 : D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(NT, fwd_blocks<D>())
 attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ bias,
              bf16* __restrict__ out, float* __restrict__ lse, int H, int L, float scale,
@@ -587,7 +619,7 @@ struct BwdSmem {
 };
 
 template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT, D == 32 ? 4 : D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(NT, bwd_blocks<D>())
 attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ bias,
              const bf16* __restrict__ gr, const float* __restrict__ lse,
@@ -936,7 +968,7 @@ bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* 
 
 extern "C" {
 
-// bf16 only; head_dim in {32, 64, 128}; any L >= 1. out_strides: element
+// bf16 only; head_dim in {16, 32, 64, 128}; any L >= 1. out_strides: element
 // strides of out over (b, h, l). lse: (B, H, L) float32, written. The H heads
 // are h_offset .. h_offset + H of h_total for the dropout index (H, 0 for all).
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -951,6 +983,8 @@ int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias,
 #define ATTN_FWD(D, E)                                                                         \
   fwd<D, E>(qu, k, v, bias, out, (float*)lse, B * H, H, L, scale, drop, os, (cudaStream_t)stream)
   switch (head_dim) {
+    case 16:
+      return (int)(exact ? ATTN_FWD(16, true) : ATTN_FWD(16, false));
     case 32:
       return (int)(exact ? ATTN_FWD(32, true) : ATTN_FWD(32, false));
     case 64:
@@ -979,6 +1013,8 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
   bwd<D, E>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv, dbias, B * H, \
             H, L, scale, drop, gs, os, (cudaStream_t)stream)
   switch (head_dim) {
+    case 16:
+      return (int)(exact ? ATTN_BWD(16, true) : ATTN_BWD(16, false));
     case 32:
       return (int)(exact ? ATTN_BWD(32, true) : ATTN_BWD(32, false));
     case 64:
@@ -995,6 +1031,9 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
 // multiple of 64), 0 for the general one.
 int attn_mma_smem_bytes(int head_dim, int which, int exact) {
   switch (head_dim) {
+    case 16:
+      return which == 0 ? FwdSmem<16>::BYTES : which == 1 ? BwdSmem<16>::BYTES
+             : exact    ? DquSmem<16, true>::BYTES : DquSmem<16, false>::BYTES;
     case 32:
       return which == 0 ? FwdSmem<32>::BYTES : which == 1 ? BwdSmem<32>::BYTES
              : exact    ? DquSmem<32, true>::BYTES : DquSmem<32, false>::BYTES;

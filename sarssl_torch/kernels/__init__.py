@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
   attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
-                 (tensor cores; bfloat16, head dim 32/64/128, any L),
-                 ``csrc/attention_f32_mma.cu`` (tensor cores as 3xTF32;
-                 float32, head dim 32/64/128, any L) and ``csrc/attention.cu``
-                 (f32 FMAs; head dim 16)
+                 (tensor cores; bfloat16) and ``csrc/attention_f32_mma.cu``
+                 (tensor cores as 3xTF32; float32), head dim 16/32/64/128 and
+                 any L; every other head dim up to 128 on zero-padded inputs;
+                 ``csrc/attention.cu`` (f32 FMAs) only launched directly, as
+                 the yardstick
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
                  torch.func.vmap one seed a lane)
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``

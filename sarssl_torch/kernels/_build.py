@@ -9,8 +9,10 @@ directory. Nothing is built when a module is imported.
 
 ``launches`` counts kernel launches by name (the attention kernels by head
 dim, e.g. ``attention_fwd_d128`` for every forward launch,
-``attention_fwd_tc_d128`` for those of the bf16 tensor-core kernels and
-``attention_fwd_tf32x3_d128`` for those of the f32 ones; the conv
+``attention_fwd_tc_d128`` for those of the bf16 tensor-core kernels,
+``attention_fwd_tf32x3_d128`` for those of the f32 ones and
+``attention_fwd_fma_d128`` for the FMA kernels'; a padded head dim counts
+at its instance's, e.g. D = 8 as ``d16``; the conv
 launches likewise, ``conv3x3_fwd`` and ``conv3x3_fwd_tc``): each wrapper adds
 one where it launches its kernel, and nowhere else.
 """

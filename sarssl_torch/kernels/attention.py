@@ -17,24 +17,35 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 ``(B, heads_total, L, L)`` tensor, ``((b * heads_total + head_offset + h) * L
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
-Three sets of kernels, chosen by dtype and head dim (:func:`attention_route`):
+Two sets of kernels, chosen by dtype (:func:`attention_route`), each with
+instances at head dims 16, 32, 64 and 128 and any sequence length:
 
-* ``"tc"``, ``csrc/attention_mma.cu``: bfloat16 at head dim 32, 64 or 128
-  and any sequence length. Tensor cores (``mma.sync``), ``cp.async``
-  pipelines; the forward also returns the rows' log-sum-exp, which the
-  ``autograd.Function`` saves with ``out`` for the backward. Each kernel has
-  an instance for whole 64-row tiles (L a multiple of 64: the flagship's
-  shapes) and one that masks the last tile and reads the bias rows at any
-  alignment (the CLS token's L = 257 takes it; ``single_ch_each_patch``'s
+* ``"tc"``, ``csrc/attention_mma.cu``: bfloat16. Tensor cores (``mma.sync``),
+  ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
+  which the ``autograd.Function`` saves with ``out`` for the backward. Each
+  kernel has an instance for whole 64-row tiles (L a multiple of 64: the
+  flagship's shapes) and one that masks the last tile and reads the bias rows
+  at any alignment (the CLS token's L = 257 takes it; ``single_ch_each_patch``'s
   L = 512 at D = 32 the first).
-* ``"tf32x3"``, ``csrc/attention_f32_mma.cu``: float32 at head dim 32, 64 or
-  128 and any L, with the same structure, on the tensor cores as three TF32
-  products per product (each operand split into a TF32 high and low part),
-  which hold the float32 tolerance of 1e-4 that one TF32 product misses.
-* ``"fma"``, ``csrc/attention.cu``: head dim 16 at either dtype, as scalar
-  f32 FMAs. A block keeps whole score rows in shared memory: 64 query rows
-  where they fit, 32 where they do not (:func:`fma_row_block`), so every L up
-  to 704 runs at every head dim; a longer one raises.
+* ``"tf32x3"``, ``csrc/attention_f32_mma.cu``: float32, with the same
+  structure, on the tensor cores as three TF32 products per product (each
+  operand split into a TF32 high and low part), which hold the float32
+  tolerance of 1e-4 that one TF32 product misses.
+
+Every other head dim up to 128 (the JAX kernel takes any) runs the instance of
+the next of those widths (:func:`padded_head_dim`): qu, k, v and, in the
+backward, g are zero-padded on their last dim, and out, dqu, dk and dv sliced
+back (:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns
+add exactly 0 to qu k^T and give exactly 0 in the padded columns of every
+product, so this is the same function; the bias, the scale and the dropout
+index (b, h, i, j) do not depend on D. A head dim above 128 raises.
+
+``csrc/attention.cu`` holds the first design, scalar f32 FMAs with whole score
+rows in shared memory (:func:`fma_row_block`: 64 query rows a block, 32 where
+64 do not fit, so L up to 704), at head dims 16, 32, 64 and 128 in either
+dtype. ``fused_attention`` never launches it: :func:`launch_attention_fwd_fma`
+and :func:`launch_attention_bwd_fma` are called directly, as the yardstick the
+tensor-core kernels are timed against.
 
 For a CUDA tensor the wrapper launches the set it names here or raises.
 """
@@ -48,8 +59,7 @@ import torch
 from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
-HEAD_DIMS = (16, 32, 64, 128)
-MMA_HEAD_DIMS = (32, 64, 128)  # head dims of the tensor-core kernels (either dtype)
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances (both sets, and the FMA kernels)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
@@ -167,13 +177,51 @@ def tf32_smem_bytes(kernel: str, D: int) -> int:
 def attention_route(dtype: torch.dtype, L: int, D: int) -> str:
     """The set of kernels ``fused_attention`` runs for CUDA tensors of this
     dtype, sequence length and head dim (module note): ``"tc"``
-    (``attention_mma.cu``, bfloat16 at D = 32 / 64 / 128), ``"tf32x3"``
-    (``attention_f32_mma.cu``, float32 at those D) or ``"fma"``
-    (``attention.cu``, D = 16). Every L runs on the first two, so only dtype
-    and head dim decide."""
-    if D not in MMA_HEAD_DIMS:
-        return "fma"
+    (``attention_mma.cu``, bfloat16) or ``"tf32x3"`` (``attention_f32_mma.cu``,
+    float32), at every D up to 128 (other than 16 / 32 / 64 / 128 through the
+    padding) and every L. Raises ``ValueError`` past D = 128."""
+    padded_head_dim(D)
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def padded_head_dim(D: int) -> int:
+    """The head dim of the instance that runs D: the smallest of
+    ``HEAD_DIMS`` at or above it."""
+    for Dp in HEAD_DIMS:
+        if 1 <= D <= Dp:
+            return Dp
+    raise ValueError(f"fused attention takes head dims 1..{HEAD_DIMS[-1]}, got {D} "
+                     f"(a D = 256 instance is not written)")
+
+
+def _pad_last(t, Dp: int):
+    D = t.shape[-1]
+    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
+
+
+def attention_fwd_padded(launch, qu, k, v, bias, *args):
+    """``launch`` (a forward launcher, ``(qu, k, v, bias, *args) -> (out,
+    lse)``) at ``padded_head_dim(D)``: qu, k, v zero-padded on their last dim
+    (untouched where D is an instance's), bias and ``args`` (seed, scale, ...)
+    as they are. Returns ``(out, lse, padded)``: ``out`` sliced back to D,
+    ``padded`` the launch's (qu, k, v, out) for :func:`attention_bwd_padded`."""
+    Dp = padded_head_dim(qu.shape[-1])
+    qu_p, k_p, v_p = (_pad_last(t, Dp) for t in (qu, k, v))
+    out_p, lse = launch(qu_p, k_p, v_p, bias, *args)
+    out = out_p if Dp == qu.shape[-1] else out_p[..., :qu.shape[-1]]
+    return out, lse, (qu_p, k_p, v_p, out_p)
+
+
+def attention_bwd_padded(launch, padded, bias, g, lse, *args):
+    """``launch`` (a backward launcher, ``(qu, k, v, bias, g, out, lse, *args)
+    -> (dqu, dk, dv, dbias)``) on :func:`attention_fwd_padded`'s ``padded``
+    tensors, with g zero-padded alike; dqu, dk and dv sliced back to g's D."""
+    qu_p, k_p, v_p, out_p = padded
+    D, Dp = g.shape[-1], qu_p.shape[-1]
+    dqu, dk, dv, dbias = launch(qu_p, k_p, v_p, bias, _pad_last(g, Dp), out_p, lse, *args)
+    if Dp != D:
+        dqu, dk, dv = (t[..., :D] for t in (dqu, dk, dv))
+    return dqu, dk, dv, dbias
 
 
 def _check(qu, k, v, bias, heads_total=None):
@@ -188,8 +236,7 @@ def _check(qu, k, v, bias, heads_total=None):
     B, H, L, D = qu.shape
     if bias.shape != (B, H, L, L):
         raise ValueError(f"bias must be {(B, H, L, L)}, got {tuple(bias.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    padded_head_dim(D)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("fused attention takes contiguous tensors")
     heads_total, _ = _heads(H, heads_total, 0)
@@ -197,6 +244,12 @@ def _check(qu, k, v, bias, heads_total=None):
         raise ValueError("the dropout index of (B, heads_total, L, L) must fit in uint32")
     if B * H > 65535:
         raise ValueError("B * H must fit the launch grid's second dimension")
+
+
+def _check_instance(D: int, what: str) -> None:
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the {what} kernels have instances at head dims {HEAD_DIMS}, got "
+                         f"{D} (fused_attention pads other head dims)")
 
 
 def _check_like_qu(t, qu, name):
@@ -240,6 +293,7 @@ def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: floa
     _check(qu, k, v, bias, heads_total)
     lib = _library()
     B, H, L, D = qu.shape
+    _check_instance(D, "FMA")
     _check_fma_smem("fwd", L, D)
     out = torch.empty_like(qu)
     code = lib.attn_fwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -247,6 +301,7 @@ def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: floa
                         *_drop_args(seed, rate, H, heads_total, head_offset), _stream(qu))
     check_cuda_status(lib, code, "attn_fwd")
     launches[f"attention_fwd_d{D}"] += 1
+    launches[f"attention_fwd_fma_d{D}"] += 1
     return out
 
 
@@ -258,6 +313,7 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
         raise ValueError("g must be contiguous")
     lib = _library()
     B, H, L, D = qu.shape
+    _check_instance(D, "FMA")
     _check_fma_smem("bwd", L, D)
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
@@ -269,6 +325,7 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
                         _stream(qu))
     check_cuda_status(lib, code, "attn_bwd")
     launches[f"attention_bwd_d{D}"] += 1
+    launches[f"attention_bwd_fma_d{D}"] += 1
     return dqu, dk, dv, dbias
 
 
@@ -281,8 +338,8 @@ def _check_mma(qu, k, v, bias, heads_total, route):
     B, H, L, D = qu.shape
     if attention_route(qu.dtype, L, D) != route:
         want = "bfloat16" if route == "tc" else "float32"
-        raise ValueError(f"the {route} kernels take {want} and head dim in "
-                         f"{MMA_HEAD_DIMS}, got {qu.dtype}, D={D}")
+        raise ValueError(f"the {route} kernels take {want}, got {qu.dtype}")
+    _check_instance(D, route)
     if any(t.data_ptr() % 16 for t in (qu, k, v)):
         raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
                          "data must start 16-byte aligned")
@@ -370,24 +427,18 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
         ctx.args = (seed, scale, rate, heads_total, head_offset)
         _check(qu, k, v, bias, heads_total)
-        ctx.route = attention_route(qu.dtype, qu.shape[2], qu.shape[3])
-        if ctx.route in _TC_LAUNCHES:
-            out, lse = _TC_LAUNCHES[ctx.route][0](qu, k, v, bias, *ctx.args)
-            ctx.save_for_backward(qu, k, v, bias, out, lse)
-            return out
-        ctx.save_for_backward(qu, k, v, bias)
-        return launch_attention_fwd_fma(qu, k, v, bias, *ctx.args)
+        ctx.launch = _TC_LAUNCHES[attention_route(qu.dtype, qu.shape[2], qu.shape[3])]
+        out, lse, padded = attention_fwd_padded(ctx.launch[0], qu, k, v, bias, *ctx.args)
+        ctx.save_for_backward(*padded, bias, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.route in _TC_LAUNCHES:
-            qu, k, v, bias, out, lse = ctx.saved_tensors
-            if not _rows_addressable(g):
-                g = g.contiguous()
-            grads = _TC_LAUNCHES[ctx.route][1](qu, k, v, bias, g, out, lse, *ctx.args)
-        else:
-            qu, k, v, bias = ctx.saved_tensors
-            grads = launch_attention_bwd_fma(qu, k, v, bias, g.contiguous(), *ctx.args)
+        qu_p, k_p, v_p, out_p, bias, lse = ctx.saved_tensors
+        if not _rows_addressable(g):
+            g = g.contiguous()
+        grads = attention_bwd_padded(ctx.launch[1], (qu_p, k_p, v_p, out_p), bias, g, lse,
+                                     *ctx.args)
         return (*grads, None, None, None, None, None)
 
 
@@ -395,14 +446,15 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
                     heads_total=None, head_offset: int = 0):
     """``dropout(softmax((qu k^T + bias) * scale)) v`` for (B, H, L, D) inputs.
 
-    CUDA tensors run the hand-written kernels, forward and backward, on the
-    set :func:`attention_route` names: the tensor-core sets for bfloat16 or
-    float32 at head dim 32, 64 or 128 and any L (their output is a (B, H, L,
-    D) view of a (B, L, H, D) buffer), the FMA set at head dim 16. CPU tensors
-    run
-    :func:`attention_plain`. ``seed`` is a uint32, ignored at rate 0. A
-    tensor-parallel rank's H heads are ``head_offset ..`` of ``heads_total``
-    (None: H), which places its dropout mask (module note).
+    CUDA tensors run the hand-written tensor-core kernels, forward and
+    backward, on the set :func:`attention_route` names: bfloat16 on
+    ``attention_mma.cu``, float32 on ``attention_f32_mma.cu``, at any L and
+    any head dim up to 128 (16, 32, 64 and 128 are instances; other head dims
+    run the next one up on zero-padded inputs, module note). The output is a
+    (B, H, L, D) view of a (B, L, H, D') buffer, D' that instance's head dim.
+    CPU tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
+    rate 0. A tensor-parallel rank's H heads are ``head_offset ..`` of
+    ``heads_total`` (None: H), which places its dropout mask (module note).
     """
     if qu.device.type == "cpu":
         return attention_plain(qu, k, v, bias, seed, scale, rate, heads_total, head_offset)

@@ -9,7 +9,8 @@ beside the FMA kernels, the plain version, SDPA and the bound.
 
 The short first check of an edited ``csrc/attention_mma.cu`` (bf16) or
 ``csrc/attention_f32_mma.cu`` (f32, 3xTF32); ``chip_smoke.py`` is the whole run
-(its functions do the full-shape part here).
+(its functions do the full-shape part here). Small shapes run head dims 16,
+32, 64 and 128 and, through the padding, 8 and 48.
 """
 import argparse
 import subprocess
@@ -21,28 +22,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-from sarssl_torch.kernels import attention_plain, fused_attention, launches  # noqa: E402
+from sarssl_torch.kernels import attention, attention_plain, fused_attention, launches  # noqa: E402
 from sarssl_torch.kernels._build import build_all  # noqa: E402
 
 SMALL_L = (1, 17, 33, 64, 65, 100, 128, 257)
+SMALL_D = (16, 32, 64, 128, 8, 48)  # the instances, then two head dims padded
 DTYPES = {"bf16": (torch.bfloat16,), "f32": (torch.float32,),
           "both": (torch.bfloat16, torch.float32)}
-
-
-def vanishing_errors(qu, k, v, g, args, grads, ref_grads):
-    """At L = 1 the softmax of one score is constant: dqu, dk and dbias of
-    the plain version vanish up to f32 rounding, and the kernel's are the
-    rounding of out (delta = g . out) left in ds = p (dp - delta). Each
-    is measured against the terms that cancel there, ``scale * max |g . v| /
-    (1 - rate)`` (times max |k| for dqu, max |qu| for dk); dv against its own
-    max."""
-    _, scale, rate = args
-    cancel = scale * float((g.float() * v.float()).sum(-1).abs().max()) / (1.0 - rate)
-    dqu, dk, dv, dbias = grads
-    rdqu, rdk, rdv, rdbias = ref_grads
-    return [cs.max_abs(dqu, rdqu) / (cancel * float(k.float().abs().max())),
-            cs.max_abs(dk, rdk) / (cancel * float(qu.float().abs().max())),
-            cs.rel_err(dv, rdv), cs.max_abs(dbias, rdbias) / cancel]
 
 
 def check_small(gen, dtype):
@@ -54,8 +40,9 @@ def check_small(gen, dtype):
     bad = 0
     tag = "tc" if dtype == torch.bfloat16 else "tf32x3"
     tol = cs.TOL_BF16 if dtype == torch.bfloat16 else cs.TOL_F32
-    for D in (32, 64, 128):
-        for L in SMALL_L + ((768,) if dtype == torch.float32 else ()):
+    for D in SMALL_D:
+        Dp = attention.padded_head_dim(D)
+        for L in SMALL_L + ((768,) if dtype == torch.float32 or D == 16 else ()):
             for offset in ((0, 1, 3) if L in (64, 257) else (0,)):
                 xs = [torch.randn((2, 3, L, D), generator=gen, device="cuda").to(dtype)
                       for _ in range(4)]
@@ -64,7 +51,7 @@ def check_small(gen, dtype):
                 qu, k, v, g = xs
                 bias = store[offset:].view(2, 3, L, L)
                 args = (0x9E3779B9, D ** -0.5, 0.3)
-                names = f"attention_fwd_{tag}_d{D}", f"attention_bwd_{tag}_d{D}"
+                names = f"attention_fwd_{tag}_d{Dp}", f"attention_bwd_{tag}_d{Dp}"
                 before = launches[names[0]], launches[names[1]]
                 ins = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
                 out = fused_attention(*ins, *args)
@@ -76,7 +63,7 @@ def check_small(gen, dtype):
                 torch.cuda.synchronize()
                 errs = [cs.rel_err(a, b) for a, b in zip((out, *grads), (ref, *ref_grads))]
                 if L == 1:
-                    errs[1:5] = vanishing_errors(qu, k, v, g, args, grads, ref_grads)
+                    errs[1:5] = cs._vanishing_errors(qu, k, v, g, args, grads, ref_grads)
                 ok = rose == (1, 1) and max(errs) <= tol and all(
                     bool(torch.isfinite(t).all()) for t in (out, *grads))
                 bad += not ok
@@ -121,13 +108,12 @@ def main():
                 continue
             cs.check_attention(D, dtype, cs.RATE, seed, gen, L)
             t = cs.time_attention_route(L, D, dtype, seed, gen)
-            fma = {kind: (f"FMA {t[f'fma_{kind}_ms']:.4f} " if t["tc"] else "")
-                   for kind in ("fwd", "bwd")}
             print(f"L={L} D={D} {str(dtype)[6:]} ({cs.ROUTE_WORDS[t['route']]}): "
-                  f"fwd {t['fwd_ms']:.4f} ms ({fma['fwd']}plain {t['plain_fwd_ms']:.4f} sdpa "
-                  f"{t['lib_fwd_ms']:.4f} bound {t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} "
-                  f"ms ({fma['bwd']}plain {t['plain_bwd_ms']:.4f} sdpa {t['lib_bwd_ms']:.4f} "
-                  f"bound {t['bwd_bound'][0]:.4f})", flush=True)
+                  f"fwd {t['fwd_ms']:.4f} ms (FMA {t['fma_fwd_ms']:.4f} plain "
+                  f"{t['plain_fwd_ms']:.4f} sdpa {t['lib_fwd_ms']:.4f} bound "
+                  f"{t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms (FMA "
+                  f"{t['fma_bwd_ms']:.4f} plain {t['plain_bwd_ms']:.4f} sdpa "
+                  f"{t['lib_bwd_ms']:.4f} bound {t['bwd_bound'][0]:.4f})", flush=True)
             torch.cuda.empty_cache()
         for D in (cs.HEAD_DIMS if torch.bfloat16 in dtypes else ()):
             t = cs.time_attention(D, seed, gen)

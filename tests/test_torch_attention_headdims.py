@@ -1,0 +1,125 @@
+"""Every head dim up to 128 on the tensor-core attention, on the CPU.
+
+``fused_attention`` runs head dims 16, 32, 64 and 128 on instances of the
+tensor-core kernels and every other D up to 128 on the instance of the next
+of those widths, with qu, k, v (and g in the backward) zero-padded on their
+last dim and out, dqu, dk, dv sliced back (``kernels/attention.py``). The
+kernels run only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``);
+here the padding and the slicing are driven with ``attention_plain`` as the
+launcher and held against the JAX package's Pallas kernel in interpret mode at
+the head dims that need them, output and all four gradients.
+
+Tolerance: 1e-4 of the largest magnitude of the Pallas result (``chip_smoke.py``'s
+``TOL_F32``): in f32 the two differ only in the order of their sums.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from sarssl_tpu.kernels.attention import fused_attention as jax_fused_attention  # noqa: E402
+from sarssl_torch.kernels import attention as att  # noqa: E402
+from sarssl_torch.kernels import attention_plain  # noqa: E402
+
+B, H, L = 2, 2, 32  # as tests/test_fused_attention.py
+TOL = 1e-4
+SEED = 0x9E3779B9
+
+
+@pytest.mark.parametrize("D,Dp", [(4, 16), (8, 16), (12, 16), (16, 16), (48, 64), (96, 128),
+                                  (128, 128)])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "tf32x3")])
+def test_route_names_the_tensor_cores_at_every_head_dim_up_to_128(D, Dp, dtype, route):
+    assert att.attention_route(dtype, 257, D) == route
+    assert att.padded_head_dim(D) == Dp
+
+
+@pytest.mark.parametrize("D", [129, 256])
+def test_head_dims_past_128_raise(D):
+    with pytest.raises(ValueError, match="128"):
+        att.attention_route(torch.bfloat16, 64, D)
+    with pytest.raises(ValueError, match="128"):
+        att.padded_head_dim(D)
+
+
+def _plain_fwd(qu, k, v, bias, *args):
+    return attention_plain(qu, k, v, bias, *args), None
+
+
+def _plain_bwd(qu, k, v, bias, g, out, lse, *args):
+    xs = [t.detach().clone().requires_grad_() for t in (qu, k, v, bias)]
+    with torch.enable_grad():  # a launcher of a backward runs under no_grad
+        return torch.autograd.grad(attention_plain(*xs, *args), xs, g)
+
+
+def _inputs(seed, D):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in [(B, H, L, D)] * 4 + [(B, H, L, L)]]
+
+
+@pytest.mark.parametrize("D", [4, 8, 12, 48, 96])
+def test_padded_route_matches_pallas_interpret(D):
+    """The pad and slice around a launch at ``padded_head_dim(D)`` (here
+    ``attention_plain``), rate 0, against the Pallas kernel in interpret mode
+    and its ``_fa_bwd`` at D itself; the launch's padded columns of out, dqu,
+    dk and dv are exactly 0."""
+    qu, k, v, g, bias = _inputs(D, D)
+    scale = 1.0 / np.sqrt(H * D)  # the model's 1 / sqrt(d_model)
+    args = (SEED, scale, 0.0)
+    out, lse, padded = att.attention_fwd_padded(_plain_fwd, qu, k, v, bias, *args)
+    Dp = att.padded_head_dim(D)
+    assert all(t.shape[-1] == Dp for t in padded) and out.shape == qu.shape
+    full = []
+
+    def bwd(*a):
+        full.extend(_plain_bwd(*a))
+        return full[:4]
+
+    grads = att.attention_bwd_padded(bwd, padded, bias, g, lse, *args)
+    for t in (padded[3], *full[:3]):  # out, dqu, dk, dv at Dp
+        assert torch.count_nonzero(t[..., D:]) == 0
+    xs = tuple(jnp.asarray(t.numpy()) for t in (qu, k, v, bias))
+    seed0 = jnp.zeros((1,), jnp.int32)
+    ref, vjp = jax.vjp(lambda *a: jax_fused_attention(*a, seed0, scale, 0.0, True), *xs)
+    ref = [np.asarray(t) for t in (ref, *vjp(jnp.asarray(g.numpy())))]
+    for name, got, want in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads), ref):
+        assert got.shape == want.shape, name
+        err = float(np.abs(got.detach().numpy() - want).max() / np.abs(want).max())
+        assert err <= TOL, f"D={D} {name}: {err:.3e} of the largest value against Pallas"
+
+
+@pytest.mark.parametrize("D", [8, 16, 48])
+def test_fused_function_launches_the_padded_instance_and_slices(monkeypatch, D):
+    """``_FusedAttention`` (the card's autograd path) with the plain version
+    standing in for the tensor-core launchers on CPU tensors: each launch
+    sees the instance's head dim, out and the gradients come back at D and
+    equal the plain version's, with dropout."""
+    seen = []
+
+    def fwd(qu, *a):
+        seen.append(("fwd", qu.shape[-1]))
+        return _plain_fwd(qu, *a)
+
+    def bwd(qu, *a):
+        seen.append(("bwd", qu.shape[-1]))
+        return _plain_bwd(qu, *a)
+
+    monkeypatch.setattr(att, "_check", lambda *a: None)
+    monkeypatch.setitem(att._TC_LAUNCHES, "tf32x3", (fwd, bwd))
+    qu, k, v, g, bias = _inputs(100 + D, D)
+    args = (SEED, 1.0 / np.sqrt(H * D), 0.3, None, 0)
+    xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    out = att._FusedAttention.apply(*xs, *args)
+    grads = torch.autograd.grad(out, xs, g)
+    Dp = att.padded_head_dim(D)
+    assert seen == [("fwd", Dp), ("bwd", Dp)]
+    ys = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g)
+    for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads), (ref, *ref_grads)):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.detach().abs().max()))

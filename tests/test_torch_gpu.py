@@ -14,6 +14,7 @@ from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # no
                                   fused_attention, hash_dropout, launches)
 from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # noqa: E402
                                             fma_smem_bytes, launch_attention_bwd_fma,
+                                            padded_head_dim,
                                             launch_attention_bwd_mma,
                                             launch_attention_bwd_tf32,
                                             launch_attention_fwd_fma,
@@ -45,21 +46,24 @@ def _rel(a, b):
 
 def _attention_case(gen, shape, dtype, rate):
     """fused_attention, forward and backward, against the plain version in
-    f32; asserts which set of kernels ran from the launch counts."""
+    f32; asserts which set of kernels ran from the launch counts (at the
+    instance's head dim, D padded to the next of 16 / 32 / 64 / 128; never
+    the FMA kernels)."""
     B, H, L, D = shape
     shapes = [shape] * 3 + [(B, H, L, L)]
     xs = [torch.randn(s, generator=gen, device="cuda").to(dtype).requires_grad_()
           for s in shapes]
     g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     seed, scale = 0xFEEDBEEF, D ** -0.5
-    names = [f"attention_{kind}_{tag}d{D}" for tag in ("", "tc_", "tf32x3_")
-             for kind in ("fwd", "bwd")]
+    names = [f"attention_{kind}_{tag}d{padded_head_dim(D)}"
+             for tag in ("", "tc_", "tf32x3_", "fma_") for kind in ("fwd", "bwd")]
     before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
     grads = torch.autograd.grad(out, xs, g)
     route = attention_route(dtype, L, D)
     tc, tf = int(route == "tc"), int(route == "tf32x3")
-    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc, tf, tf]
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc, tf, tf, 0, 0]
+    assert out.shape == shape and all(a.shape == x.shape for a, x in zip(grads, xs))
     ys = [x.detach().float().requires_grad_() for x in xs]
     ref = attention_plain(*ys, seed, scale, rate)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
@@ -84,10 +88,10 @@ def _attention_case(gen, shape, dtype, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_kernel_matches_plain(cuda, L, D, dtype, rate):
-    """Head dim 32, 64 or 128 runs the tensor-core kernels at every L,
+    """Head dim 16, 32, 64 or 128 runs the tensor-core kernels at every L,
     bfloat16 those of attention_mma.cu, float32 the 3xTF32 ones of
-    attention_f32_mma.cu (their counts rise); head dim 16 the FMA kernels."""
-    want = "fma" if D == 16 else "tc" if dtype == torch.bfloat16 else "tf32x3"
+    attention_f32_mma.cu (their counts rise)."""
+    want = "tc" if dtype == torch.bfloat16 else "tf32x3"
     assert attention_route(dtype, L, D) == want
     _attention_case(cuda, (2, 3, L, D), dtype, rate)
 
@@ -153,6 +157,25 @@ def test_tf32_attention_backward_is_bit_identical_from_run_to_run(cuda, L, D):
     second = launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, *args)
     for name, a, b in zip(("dqu", "dk", "dv", "dbias"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("L", [1, 33, 257, 768, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_head_dim_16_at_ragged_and_long_lengths_matches_plain(cuda, L, dtype, rate):
+    """Head dim 16 on the tensor-core kernels at tails of 1 and 33 rows, the
+    CLS token's 257, and past the 704 where the FMA kernels stop (768, 1000)."""
+    _attention_case(cuda, (1, 2, L, 16), dtype, rate)
+
+
+@pytest.mark.parametrize("L", [1, 64, 257])
+@pytest.mark.parametrize("D", [4, 8, 48, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_dims_match_plain(cuda, L, D, dtype):
+    """Head dims that are no instance's run the next one up on zero-padded
+    inputs (16, 16, 64, 128), with dropout: out and the gradients come back at
+    D."""
+    _attention_case(cuda, (2, 2, L, D), dtype, 0.3)
 
 
 @pytest.mark.parametrize("L,D", [(1, 32), (33, 32), (257, 32), (512, 32), (257, 64),
@@ -461,8 +484,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, bias, 0, 0.1)
     with pytest.raises(ValueError):
         fused_attention(x.half(), x.half(), x.half(), bias.half(), 0, 0.1)
+    wide = torch.randn(2, 2, 64, 129, device="cuda")
     with pytest.raises(ValueError):
-        fused_attention(torch.randn(2, 2, 64, 24, device="cuda"), x, x, bias, 0, 0.1)
+        fused_attention(wide, wide, wide, bias, 0, 0.1)
     with pytest.raises(ValueError):
         launch_dropout(torch.randn(4, 4, device="cuda").t(), 0, 0.1)
 

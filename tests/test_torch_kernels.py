@@ -217,14 +217,14 @@ def test_backward_from_lse_and_delta_equals_autograd_of_plain(rate):
 @pytest.mark.parametrize("dtype,L,D,want", [
     (torch.bfloat16, 256, 128, "tc"), (torch.bfloat16, 64, 64, "tc"),
     (torch.float32, 256, 128, "tf32x3"), (torch.bfloat16, 256, 32, "tc"),
-    (torch.bfloat16, 100, 64, "tc"), (torch.bfloat16, 256, 16, "fma"),
+    (torch.bfloat16, 100, 64, "tc"), (torch.bfloat16, 256, 16, "tc"),
     (torch.bfloat16, 1, 32, "tc"), (torch.bfloat16, 257, 128, "tc"),
-    (torch.float32, 257, 32, "tf32x3"), (torch.bfloat16, 33, 16, "fma"),
+    (torch.float32, 257, 32, "tf32x3"), (torch.float32, 33, 16, "tf32x3"),
 ])
 def test_dispatch_names_the_tensor_core_kernels_for_flagship_shapes_only(dtype, L, D, want):
-    """The tensor-core kernels take every input at head dim 32, 64 or 128, at
-    any L: bfloat16 those of attention_mma.cu ("tc"), float32 the 3xTF32 ones
-    of attention_f32_mma.cu ("tf32x3"); head dim 16 stays on the FMA kernels."""
+    """The tensor-core kernels take every input at head dim 16, 32, 64 or 128,
+    at any L: bfloat16 those of attention_mma.cu ("tc"), float32 the 3xTF32
+    ones of attention_f32_mma.cu ("tf32x3")."""
     from sarssl_torch.kernels.attention import attention_route
 
     assert attention_route(dtype, L, D) == want
