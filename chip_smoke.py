@@ -29,9 +29,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
               plain version at L = 1, 33, 257, 768 and 1000, and at the
               flagship's (128, 4, 256) at rates 0 and 0.1, timed there beside
               the FMA kernels launched directly (1.5x floor), SDPA and the
-              bound; head dims 8 and 48, which run the next instance on
-              zero-padded inputs, held against the plain version, and D = 8
-              timed through the padding beside the bare launch. Then the
+              bound. Head dim 256 in both dtypes on the tensor cores: held
+              against the plain version at L = 1, 33, 256, 257 and 768, and
+              at (128, 4, 256) at rates 0 and 0.1, timed there beside SDPA
+              and the bound (the FMA kernels have no D = 256 instance). Head
+              dims 8, 48 and 200, which run the next instance on zero-padded
+              inputs, held against the plain version, and D = 8 timed
+              through the padding beside the bare launch. Then the
               attention module of the conformer in bf16 at both flagship
               widths, at d_model 64 (D = 16) and 32 (D = 8, padded), fused
               against unfused, on the card.
@@ -51,8 +55,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               elements.
   4. ref    : small pretext models on the card (kernels) against the same
               models on the CPU (plain versions), f32, dropout on, same seeds:
-              one at head dims 32 and 16, and SARSSLConfig.tiny(
-              fused_attention=True) (head dims 8 and 4, through the padding).
+              one at head dims 32 and 16, SARSSLConfig.tiny(
+              fused_attention=True) (head dims 8 and 4, through the padding)
+              and SARSSLConfig.tiny(spec_dembed=1024, fused_attention=True)
+              (head dim 256 at L = 16).
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
               65792-sample 2-mic waves, fused attention, dropout 0.1): one
               warm-up and 5 timed steps through ``make_pretrain_step``, with
@@ -173,7 +179,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               ``ConformerEncoder(remat=True)`` against plain, (l) the flagship
               step in f32 with fused attention (the 3xTF32 kernels: 1 / 3
               launches a step, forward and backward, at D = 128 / 64; none on
-              the FMA kernels) beside the same f32 step unfused.
+              the FMA kernels) beside the same f32 step unfused, (m)
+              ``spec_dembed=1024`` (the spec encoder at head dim 256 on the
+              D = 256 kernels) in bf16 and f32, each beside the same step
+              unfused, their losses held together (bf16 2e-2, f32 1e-3).
  14. ablations: the CRNN ablation encoders, ``EmbedEncoder(model=(m,))`` for
               m in crnn, crnn-sim, tcrnn in mode spec (dembed 512) and spat
               (dembed 256) and ``CauCRNN()`` at its defaults, at the flagship
@@ -607,7 +616,7 @@ def _tensor_core_kernel(source, line):
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
                    "attn_delta": 256, "attn_fwd_tf32": 128, "attn_bwd_tf32": 128,
-                   "attn_dqu_tf32": 128, "attn_delta_f32": 256}
+                   "attn_dqu_tf32": 128, "attn_dk_tf32": 128, "attn_delta_f32": 256}
         # each kernel's instance for whole tiles (exact = 1) and for any L
         entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)ELb([01])E",
                           line)
@@ -887,11 +896,14 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 # L = 256 (phase model_options' variant (l) runs the last two). Last, head
 # dim 16 (a d_model of 64; the small models of phase ref, and through the
 # padding the tiny one's 8 and 4) at the flagship batch and L in both dtypes.
+# Then head dim 256 (spec_dembed=1024: phase model_options' variant (m)) in
+# both dtypes, which the FMA kernels have no instance of.
 OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
                            (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
                            (512, 64, torch.float32), (256, 128, torch.float32),
                            (256, 64, torch.float32), (256, 16, torch.bfloat16),
-                           (256, 16, torch.float32))
+                           (256, 16, torch.float32), (256, 256, torch.bfloat16),
+                           (256, 256, torch.float32))
 # (L, D) of the bf16 shapes whose tensor-core launches took over from the FMA
 # kernels: each launch, forward and backward, at least this many times faster
 # than the FMA kernel at its shape in the same run
@@ -910,15 +922,20 @@ D16_FMA_FLOOR = 1.5
 # 33 rows, the CLS token's L and two past the FMA kernels' 704, both dtypes
 D16_CHECK_LENGTHS = (1, 33, 257, 768, 1000)
 # head dims that are no instance's, held against the plain version through
-# the padding (at L = 256, both dtypes); the first also timed padded
-PADDED_HEAD_DIMS = (8, 48)
+# the padding (at L = 256, both dtypes); the first also timed padded. 200
+# runs the D = 256 instances.
+PADDED_HEAD_DIMS = (8, 48, 200)
+# head dim 256 held against the plain version (not timed) at tails of 1 and
+# 33 rows, whole tiles, the CLS token's L and a long 768, both dtypes
+D256_CHECK_LENGTHS = (1, 33, 256, 257, 768)
 
 
 def time_attention_route(L, D, dtype, seed, gen):
     """Times of fwd and bwd on the tensor-core route ``fused_attention`` takes
     at this shape (rate 0.1), beside the FMA kernels launched directly (new,
-    old, old, new), the plain version, SDPA and the bound."""
-    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_route,
+    old, old, new; None at D = 256, which they have no instance of), the
+    plain version, SDPA and the bound."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, FMA_HEAD_DIMS, attention_route,
                                                 launch_attention_bwd_fma,
                                                 launch_attention_fwd_fma)
 
@@ -926,12 +943,15 @@ def time_attention_route(L, D, dtype, seed, gen):
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
     args = (seed, scale, RATE)
     route = attention_route(dtype, L, D)
-    res = {"route": route}
+    res = {"route": route, "fma_fwd_ms": None, "fma_bwd_ms": None}
     fwd, bwd = _TC_LAUNCHES[route]
     out, lse = fwd(qu, k, v, bias, *args)
     res["fwd_ms"] = cuda_ms_queued(lambda: fwd(qu, k, v, bias, *args))
-    res["fma_fwd_ms"] = cuda_ms_queued(lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
-    res["fma_bwd_ms"] = cuda_ms_queued(lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
+    if D in FMA_HEAD_DIMS:
+        res["fma_fwd_ms"] = cuda_ms_queued(
+            lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
+        res["fma_bwd_ms"] = cuda_ms_queued(
+            lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
     res["bwd_ms"] = cuda_ms_queued(lambda: bwd(qu, k, v, bias, g, out, lse, *args))
     del out, lse
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
@@ -1261,24 +1281,29 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         for L in D16_CHECK_LENGTHS:
             check_attention(16, dtype, RATE, seed, gen, L)
+        for L in D256_CHECK_LENGTHS:
+            check_attention(256, dtype, RATE, seed, gen, L)
+            torch.cuda.empty_cache()
         for D in PADDED_HEAD_DIMS:
             check_attention(D, dtype, RATE, seed, gen)
         torch.cuda.empty_cache()
     opt_rows = {}
     for L, D, dtype in OPTION_ATTENTION_SHAPES:
-        if D == 16:
+        if D in (16, 256):
             check_attention(D, dtype, 0.0, seed, gen, L)
         err, out_err = check_attention(D, dtype, RATE, seed, gen, L)
         t = time_attention_route(L, D, dtype, seed, gen)
         t.update(max_abs_err=err, out_err=out_err)
         opt_rows[(L, D, dtype)] = t
+        fma = {kind: "none at D=256" if t[f"fma_{kind}_ms"] is None else
+               f"{t[f'fma_{kind}_ms']:.4f}" for kind in ("fwd", "bwd")}
         log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} "
             f"({ROUTE_WORDS[t['route']]}): fwd {t['fwd_ms']:.4f} ms (FMA kernel "
-            f"{t['fma_fwd_ms']:.4f}, plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
+            f"{fma['fwd']}, plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
             f"bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms "
-            f"(FMA kernel {t['fma_bwd_ms']:.4f}, plain {t['plain_bwd_ms']:.3f}, sdpa "
+            f"(FMA kernel {fma['bwd']}, plain {t['plain_bwd_ms']:.3f}, sdpa "
             f"{t['lib_bwd_ms']:.4f}, bound {t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
-        floor = (D16_FMA_FLOOR if D == 16 else
+        floor = (None if t["fma_fwd_ms"] is None else D16_FMA_FLOOR if D == 16 else
                  ATTENTION_FMA_FLOOR if (L, D) in FMA_FLOOR_SHAPES and dtype == torch.bfloat16
                  else F32_FMA_FLOOR if dtype == torch.float32 else None)
         if floor:
@@ -1320,7 +1345,7 @@ def phase_kernels():
 
 def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
                  dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts,
-                 abl_counts, mesh_counts, mesh, tiny_counts):
+                 abl_counts, mesh_counts, mesh, tiny_counts, d256_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1361,8 +1386,9 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                 "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[r["route"]],
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
-                # variant (d) (L=257), (c) (L=512, bf16) and (l) (L=256, f32);
-                # no variant runs L=512 in f32. D=16: phase ref's tiny model
+                # variant (d) (L=257), (c) (L=512, bf16), (l) (L=256, f32) and
+                # (m) (D=256); no variant runs L=512 in f32. D=16: phase ref's
+                # tiny model
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
@@ -1372,6 +1398,10 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                          "SARSSLConfig.tiny(fused_attention=True), whose head dims 8 and 4 run "
                          "this instance through the padding (launches_tiny_model); 0 on every "
                          "CLI path" if D == 16 else
+                         "no CLI configuration has head dim 256: phase model_options' variant "
+                         "(m), the flagship step with spec_dembed=1024 "
+                         "(launches_model_options), and phase ref's SARSSLConfig.tiny("
+                         "spec_dembed=1024) in f32 (launches_tiny_model)" if D == 256 else
                          "phase model_options (launches_model_options): use_cls (L=257) and "
                          "in_ver=single_ch_each_patch (L=512)" if dtype == torch.bfloat16 else
                          "phase model_options (launches_model_options): the flagship step in "
@@ -1384,6 +1414,8 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                     "padded_d8_ms": r["padded"][f"{kind}_ms"],
                     "padded_d8_launch_ms": r["padded"][f"launch_{kind}_ms"]}
                    if D == 16 else {}),
+                **({"launches_tiny_model": d256_counts.get(
+                    f"attention_{kind}_{ROUTE_TAGS[r['route']]}d256", 0)} if D == 256 else {}),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -1501,7 +1533,8 @@ def phase_reference():
     """Small models: card (kernels) against CPU (plain versions), f32: one at
     head dims 32 and 16, then ``SARSSLConfig.tiny(fused_attention=True)``,
     whose 4 heads over d = 32 and 16 give head dims 8 and 4, which run the D =
-    16 instances through the padding. Returns the tiny model's counts."""
+    16 instances through the padding, then the same with ``spec_dembed=1024``
+    (head dim 256 at L = 16). Returns the two tiny models' counts."""
     from sarssl_torch.data.synthetic import synth_batch
     from sarssl_torch.models import SARSSLConfig
     from sarssl_torch.ops import FeatureConfig
@@ -1516,9 +1549,15 @@ def phase_reference():
     tiny = SARSSLConfig().tiny(dropout=RATE, fused_attention=True)
     nf, nt = tiny.sig_shape[:2]
     wave, _ = synth_batch(np.random.default_rng(2), 8, (nt - 1) * nf + 2 * nf)
-    return _card_against_cpu("SARSSLConfig.tiny(fused_attention=True) (D = 8, 4)", tiny,
-                             FeatureConfig(win_len=2 * nf, nfft=2 * nf), wave,
-                             _attention_want((16, 1, "tf32x3"), (16, 1, "tf32x3")))
+    feat = FeatureConfig(win_len=2 * nf, nfft=2 * nf)
+    tiny_counts = _card_against_cpu("SARSSLConfig.tiny(fused_attention=True) (D = 8, 4)", tiny,
+                                    feat, wave,
+                                    _attention_want((16, 1, "tf32x3"), (16, 1, "tf32x3")))
+    d256_counts = _card_against_cpu(
+        "SARSSLConfig.tiny(spec_dembed=1024, fused_attention=True) (D = 256, 4)",
+        SARSSLConfig().tiny(spec_dembed=1024, dropout=RATE, fused_attention=True), feat, wave,
+        _attention_want((256, 1, "tf32x3"), (16, 1, "tf32x3")))
+    return tiny_counts, d256_counts
 
 
 def _assert_no_conv_launch(counts, step):
@@ -2585,7 +2624,8 @@ def _pretext_variant(what, card, wave, want_per_step, mask_mode="T", masks=None,
         f"{nsteps} steps {counts} (exact) ({card})")
     del state, step, model
     torch.cuda.empty_cache()
-    return {"ms": 1e3 * med, "utt_s": BATCH / med, "peak_gib": peak, "counts": counts}
+    return {"ms": 1e3 * med, "utt_s": BATCH / med, "peak_gib": peak, "counts": counts,
+            "losses": losses}
 
 
 def _add_counts(total, counts):
@@ -2758,7 +2798,7 @@ def _conformer_remat(card, total):
 
 
 def phase_model_options(card):
-    """The model's options at the flagship pretext width, variants (a)-(l);
+    """The model's options at the flagship pretext width, variants (a)-(m);
     each with its launch counts zeroed before and read after. Returns the
     phase's summed counts and, for the kernels line, the launches at each of
     the new attention shapes."""
@@ -2840,6 +2880,27 @@ def phase_model_options(card):
     log(f"[model_options] (l) f32 step, fused (3xTF32) against unfused: {r['ms']:.1f} / "
         f"{u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / "
         f"{u['peak_gib']:.2f} GiB (bf16 plain step {res['plain']['ms']:.1f} ms) ({card})")
+    # (m) spec_dembed=1024: the spec encoder's 4 heads run head dim 256 (L =
+    # 256) on the D = 256 kernels, in bf16 and f32, each beside the same step
+    # unfused from the same weights, masks and dropout seeds (the unfused
+    # attention drops the same positions), so their losses agree to the
+    # dtype's tolerance
+    for dtype, route, tol in (("bfloat16", "tc", TOL_BF16), ("float32", "tf32x3", TOL_REF)):
+        r = run(f"(m) spec_dembed=1024 {dtype}, fused attention",
+                {**_attention_want((256, 1, route), (64, 3, route)),
+                 "hash_dropout": OPTION_DROPOUT["encoders"]}, dtype=dtype, spec_dembed=1024)
+        for kind in ("fwd", "bwd"):
+            shapes[(256, 256, dtype, kind)] = r["counts"].get(
+                f"attention_{kind}_{ROUTE_TAGS[route]}d256", 0)
+        u = run(f"(m) spec_dembed=1024 {dtype}, unfused attention",
+                {"hash_dropout": OPTION_DROPOUT["encoders_unfused"]}, dtype=dtype,
+                spec_dembed=1024, fused_attention=False)
+        err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], u["losses"]))
+        log(f"[model_options] (m) spec_dembed=1024 {dtype} step, fused ({ROUTE_WORDS[route]}, "
+            f"D = 256) against unfused: {r['ms']:.1f} / {u['ms']:.1f} ms, {r['utt_s']:.1f} / "
+            f"{u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / {u['peak_gib']:.2f} GiB, losses "
+            f"max rel err {err:.2e} (tol {tol}) ({card})")
+        assert err <= tol, f"(m) spec_dembed=1024 {dtype}: fused and unfused losses differ by {err}"
     log(f"[model_options] launches over the phase: {total}")
     return total, shapes
 
@@ -4198,7 +4259,7 @@ def main():
     card = phase_card()
     phase_build()
     rows, opt_rows, drop, lanes, conv = phase_kernels()
-    tiny_counts = phase_reference()
+    tiny_counts, d256_counts = phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
     opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
@@ -4215,7 +4276,8 @@ def main():
     mesh_counts, mesh = phase_mesh(card, 1e3 * BATCH / step_utt_s)
     # fused_attention never reaches the FMA kernels: only phase kernels'
     # yardsticks launch them, directly
-    for phase, c in (("ref", tiny_counts), ("train", counts), ("pretrain_cli", cli_counts),
+    for phase, c in (("ref", tiny_counts), ("ref", d256_counts), ("train", counts),
+                     ("pretrain_cli", cli_counts),
                      ("pretrain_options", opt_counts), ("downstream", ds_counts),
                      ("downstream_cli", dscli_counts), ("grid_vmap", grid_counts),
                      ("data_path", data_counts), ("real_data", real_counts),
@@ -4226,7 +4288,7 @@ def main():
     print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
                                   mo_counts, mo_shapes, grid_counts, abl_counts, mesh_counts,
-                                  mesh, tiny_counts)),
+                                  mesh, tiny_counts, d256_counts)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

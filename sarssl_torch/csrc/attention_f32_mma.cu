@@ -1,8 +1,8 @@
 // Fused rel-pos attention on the H100's tensor cores in float32, forward and
-// backward, at head dims 16, 32, 64 and 128 and any sequence length L >= 1, as
-// split-precision TF32 products (3xTF32). (bfloat16 runs attention_mma.cu; the
-// wrapper runs every other head dim up to 128 on the next of these instances,
-// on zero-padded inputs.)
+// backward, at head dims 16, 32, 64, 128 and 256 and any sequence length
+// L >= 1, as split-precision TF32 products (3xTF32). (bfloat16 runs
+// attention_mma.cu; the wrapper runs every other head dim up to 256 on the
+// next of these instances, on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_tf32
@@ -64,7 +64,7 @@
 //    between, only the order of the sums differs. lse = m + log(sum) per row
 //    is written, (B,H,L) f32. At D <= 64 each warp keeps its qu fragments, hi
 //    and lo, in registers (the qu tile shares its shared memory with the
-//    second bias stage); at D = 128 that would be 128 registers, so the
+//    second bias stage); at D >= 128 that would be 128 registers, so the
 //    fragments are loaded and split again from shared memory every tile.
 //  * Backward: attn_delta_f32 writes delta_i = sum_d g_id out_id (equal to
 //    sum_j dp_ij p_ij up to rounding). attn_bwd_tf32 runs per (b, h, tile of
@@ -75,6 +75,19 @@
 //    registers; the dbias tile goes through shared memory to 16-byte stores.
 //    attn_dqu_tf32 then takes dqu = dbias k per (b, h, 64 query rows). No
 //    atomics: results are bit-identical from run to run.
+//  * Head dim 256: a warp's 16 x 256 accumulator is 128 registers a thread.
+//    The forward is the D = 128 design (qu fragments loaded and split again
+//    every tile, one bias stage) with tiles of 16 keys, 139,264 bytes of
+//    shared memory: with 32 keys the scores' registers beside the accumulator
+//    spill the instance for any L. The main backward pass keeps dv alone
+//    (dv and dk for 16 keys x 256 would be 256 registers) and writes dbias as
+//    before; attn_dk_tf32 then takes dk = dbias^T qu per (b, h, 64 keys),
+//    reading dbias's columns as attn_dqu_tf32 reads its rows, so no score is
+//    computed twice. Both of those passes compute one half of their output's
+//    columns a block (grid z = 2): 16 x 256 beside the dbias fragments
+//    spills. The main kernels (212,992 bytes backward) run one block of 4
+//    warps an SM. (Splitting the main pass's dv and dk columns across blocks
+//    instead repeats its score products, and spilled at halves: PERF.md.)
 //  * Dropout, the tensor-parallel head map (h_total, h_offset) and the launch
 //    grids are attention_mma.cu's: the counter hash of the flat (b, h, i, j)
 //    index of the whole (B, h_total, L, L) tensor, from each element's own
@@ -214,12 +227,18 @@ __device__ __forceinline__ void split4(const uint32_t (&x)[4], uint32_t (&hi)[4]
   for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(x[e]), hi[e], lo[e]);
 }
 
+// k-steps of mma_rows_rows unrolled together at D = 256 (all of them below).
+// Unrolled whole, the 32 steps let the scheduler hoist fragment loads and
+// splits until the main backward pass spills beside its 16 x 256 dv; of 1, 2,
+// 3, 4, 8, 16 and 32, only 3 left both of its instances unspilled (PERF.md)
+constexpr int KSTEP_UNROLL_256 = 3;
+
 // acc (16 x 8*NTILES) += A (16 rows of a tile from a_addr) * B^T (rows
 // 0..8*NTILES of a tile from b_addr), both of pitch D + 4 with rows along k
 template <int D, int NTILES>
 __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t a_addr,
                                               uint32_t b_addr) {
-#pragma unroll
+#pragma unroll (D <= 128 ? D / 8 : KSTEP_UNROLL_256)
   for (int kk = 0; kk < D / 8; ++kk) {
     uint32_t a[4], ah[4], al[4];
     ldsm_x4(a, a_addr + 32 * kk);
@@ -264,15 +283,16 @@ __device__ __forceinline__ void mma_acc_rows(float (&acc)[D / 8][4], const float
   }
 }
 
-// The warp's 16 x D accumulator (rows row0 + g, row0 + g + 8) -> dst rows of
-// stride ld in 8-byte stores; with TAIL only rows < nrows (relative to row0)
-template <int D, bool TAIL>
-__device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], float* dst, i64 ld,
+// The warp's 16 x N accumulator (rows row0 + g, row0 + g + 8) -> the first N
+// columns of dst's rows of stride ld in 8-byte stores; with TAIL only rows <
+// nrows (relative to row0)
+template <int N, bool TAIL>
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 8][4], float* dst, i64 ld,
                                           int nrows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const bool a = !TAIL || g < nrows, b = !TAIL || g + 8 < nrows;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < N / 8; ++n) {
     if (a) *reinterpret_cast<float2*>(dst + (i64)g * ld + 8 * n + 2 * t) =
         make_float2(acc[n][0], acc[n][1]);
     if (b) *reinterpret_cast<float2*>(dst + (i64)(g + 8) * ld + 8 * n + 2 * t) =
@@ -284,14 +304,17 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], float* d
 // forward: grid (ceil(L/64), B*H); blockIdx.x is the query tile.
 // smem: 2 x K tile, 2 x V tile, the bias tiles and the Q tile. At D <= 64:
 // tiles of 64 keys, 2 bias stages, the Q tile in the second one (it is read
-// into registers before that is filled). At D = 128: tiles of 32 keys and one
-// bias stage (refilled once every warp has read it), which bring a block to
-// 111,616 bytes, so two blocks share an SM.
+// into registers before that is filled). At D = 128 and 256: tiles of 32 keys
+// and one bias stage (refilled once every warp has read it), which bring a
+// block to 111,616 bytes at D = 128, so two blocks share an SM (209,920 bytes,
+// one block, at D = 256).
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdSmem {
   static constexpr bool QREG = D <= 64;  // qu fragments kept in registers
-  static constexpr int BKF = QREG ? 64 : 32;  // keys a tile
+  // keys a tile: 16 at D = 256, where the scores of 32 keys beside the
+  // 16 x 256 accumulator spill the instance for any L
+  static constexpr int BKF = QREG ? 64 : D == 128 ? 32 : 16;
   static constexpr int PB = BKF + 8;  // bias tile pitch: float2 reads free of conflicts
   static constexpr int BSTAGES = QREG ? 2 : 1;
   static constexpr int TILE = BKF * (D + 4) * 4;  // a K or V tile
@@ -313,11 +336,11 @@ struct FwdSmem {
 // five or six the forward spills, and both passes run slower.
 template <int D>
 __host__ __device__ constexpr int fwd_blocks() {
-  return D == 16 ? 4 : D == 32 ? 3 : 2;
+  return D == 16 ? 4 : D == 32 ? 3 : D <= 128 ? 2 : 1;
 }
 template <int D>
 __host__ __device__ constexpr int bwd_blocks() {
-  return D == 16 ? 4 : D == 32 ? 3 : 2;
+  return D == 16 ? 4 : D == 32 ? 3 : D <= 128 ? 2 : 1;
 }
 
 template <int D, bool EXACT>
@@ -485,13 +508,19 @@ attn_fwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// delta[b, h, i] = sum_d g[b, h, i, d] * out[b, h, i, d]; D/4 lanes per row
+// delta[b, h, i] = sum_d g[b, h, i, d] * out[b, h, i, d]; delta_lanes(D)
+// lanes per row (a warp's 32 at most), 16 bytes of each row a lane a step
 // ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D / 4 < 32 ? D / 4 : 32;
+}
+
 template <int D, bool EXACT>
 __global__ void __launch_bounds__(256)
 attn_delta_f32(const float* __restrict__ g, const float* __restrict__ out,
                float* __restrict__ delta, int H, int L, int rows, Strides gs, Strides os) {
-  constexpr int LPR = D / 4;
+  constexpr int LPR = delta_lanes<D>();
   const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
   // TAIL: the last block's rows past B*H*L read row 0 and write nothing (they
   // stay in the warp's shuffles)
@@ -499,13 +528,18 @@ attn_delta_f32(const float* __restrict__ g, const float* __restrict__ out,
   const int rr = live ? row : 0;
   const int bh = rr / L, i = rr % L;
   const i64 b = bh / H, h = bh % H;
-  const float4 gv = *reinterpret_cast<const float4*>(g + b * gs.b + h * gs.h + i * gs.l + 4 * c);
-  const float4 ov =
-      *reinterpret_cast<const float4*>(out + b * os.b + h * os.h + i * os.l + 4 * c);
-  float sum = gv.x * ov.x;
-  sum = fmaf(gv.y, ov.y, sum);
-  sum = fmaf(gv.z, ov.z, sum);
-  sum = fmaf(gv.w, ov.w, sum);
+  const float* gr = g + b * gs.b + h * gs.h + i * gs.l;
+  const float* orow = out + b * os.b + h * os.h + i * os.l;
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 4 / LPR; ++j) {
+    const float4 gv = *reinterpret_cast<const float4*>(gr + 4 * (c + j * LPR));
+    const float4 ov = *reinterpret_cast<const float4*>(orow + 4 * (c + j * LPR));
+    sum = fmaf(gv.x, ov.x, sum);
+    sum = fmaf(gv.y, ov.y, sum);
+    sum = fmaf(gv.z, ov.z, sum);
+    sum = fmaf(gv.w, ov.w, sum);
+  }
 #pragma unroll
   for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (c == 0 && live) delta[row] = sum;
@@ -514,14 +548,15 @@ attn_delta_f32(const float* __restrict__ g, const float* __restrict__ out,
 // ---------------------------------------------------------------------------
 // backward, main pass: grid (ceil(L/64), B*H); blockIdx.x is the key tile.
 // Each warp owns 16 keys and keeps their dv and dk in registers over the
-// query loop.
+// query loop (at D = 256 dv alone: attn_dk_tf32 takes dk, module note).
 // smem: K tile, V tile, 2 x (Q, G, bias tiles of BQ queries, lse, delta),
-// dbias staging tile. BQ is 32, and 16 at D = 128, where that brings a block
-// to 114,688 bytes, so two blocks share an SM.
+// dbias staging tile. BQ is 32, and 16 at D = 128 (where that brings a block
+// to 114,688 bytes, so two blocks share an SM) and 256.
 // ---------------------------------------------------------------------------
 template <int D>
 struct BwdSmem {
-  static constexpr int BQ = D == 128 ? 16 : 32;  // queries a step of the loop
+  static constexpr bool DK = D <= 128;  // dk in this pass
+  static constexpr int BQ = D >= 128 ? 16 : 32;  // queries a step of the loop
   static constexpr int KV = 64 * (D + 4) * 4;
   static constexpr int QG = BQ * (D + 4) * 4;
   static constexpr int BIAS = BQ * SBT * 4;
@@ -586,12 +621,11 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   load_stage(0, 0);
   cp_async_commit();
 
-  float dva[D / 8][4], dka[D / 8][4];
+  float dva[D / 8][4], dka[S::DK ? D / 8 : 1][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-  }
+  for (int n = 0; n < D / 8; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (S::DK ? D / 8 : 1); ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
   const uint32_t key_a = (uint32_t)(j0 + r0 + g), key_b = key_a + 8u;
   const float sl2 = scale * LOG2E;
   const uint32_t ka = sb + S::K + lane_a<P>(r0, lane), va = sb + S::V + lane_a<P>(r0, lane);
@@ -656,7 +690,7 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
       }
     }
     // dk[key] += dbias^T qu
-    mma_acc_rows<D, QT>(dka, dpt, qf);
+    if constexpr (S::DK) mma_acc_rows<D, QT>(dka, dpt, qf);
 
     // the dbias tile, BQ rows of 64 keys (rows and keys inside L)
     __syncthreads();
@@ -679,45 +713,63 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   }
 
   const i64 orow = ((i64)bh * L + j0 + r0) * D;
-  store_acc<D, !EXACT>(dka, dk + orow, D, kcols - r0);
+  if constexpr (S::DK) store_acc<D, !EXACT>(dka, dk + orow, D, kcols - r0);
   store_acc<D, !EXACT>(dva, dv + orow, D, kcols - r0);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dqu = dbias k: grid (ceil(L/64), B*H); blockIdx.x is the query
-// tile. smem: 2 x (dbias tile 64 x 64 at pitch SBF, K tile 64 x D)
+// backward, dqu = dbias k (attn_dqu_tf32) and, at D = 256, dk = dbias^T qu
+// (attn_dk_tf32): grid (ceil(L/64), B*H, D/DH); blockIdx.x is the tile of 64
+// output rows (queries of dqu, keys of dk), blockIdx.z the DH columns of the
+// output the block computes (all D of them up to D = 128; one half at
+// D = 256, where a 16 x 256 accumulator beside the dbias fragments spills).
+// The block walks the other side of dbias in tiles of 64: dqu its 64 rows of
+// dbias, dk its 64 columns, whose A fragments it reads transposed.
+// smem: 2 x (dbias tile 64 x 64 at pitch SBF, k or qu tile 64 x DH)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DquSmem {
+  static constexpr int DH = D <= 128 ? D : 128;  // output columns a block
+  static constexpr int SPLITS = D / DH;
   static constexpr int A = 64 * SBF * 4;
-  static constexpr int KT = 64 * (D + 4) * 4;
+  static constexpr int KT = 64 * (DH + 4) * 4;
   static constexpr int STAGE = A + KT;
   static constexpr int BYTES = 2 * STAGE;
   static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT)
-attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
-              float* __restrict__ dqu, int L) {
+// out (B, H, L, D) = dbias x (TRANS: dbias^T x), x (B, H, L, D)
+template <int D, bool EXACT, bool TRANS>
+__device__ __forceinline__ void dbias_product(const float* __restrict__ dbias,
+                                              const float* __restrict__ x,
+                                              float* __restrict__ out, int L) {
   typedef DquSmem<D> S;
+  constexpr int DH = S::DH;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int bh = blockIdx.y, i0 = blockIdx.x * 64;
+  const int bh = blockIdx.y, o0 = blockIdx.x * 64, c0 = blockIdx.z * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const float* ap = dbias + ((i64)bh * L + i0) * L;
-  const float* kp = k + (i64)bh * L * D;
+  const float* xp = x + (i64)bh * L * D + c0;  // the block's DH columns of x
   const int ntiles = (L + BK - 1) / BK;
-  const int qrows = L - i0;
+  const int orows = L - o0;  // the output tile's rows inside L
+  // dbias tile j1 / 64: rows o0.., columns j1.. (dqu); rows j1.., columns o0.. (dk)
+  auto load_a = [&](uint32_t dst, int j1) {
+    if constexpr (TRANS)
+      load_scores<64, SBF, EXACT>(dst, dbias + ((i64)bh * L + j1) * L + o0, L, L - j1,
+                                  min(orows, BK));
+    else
+      load_scores<64, SBF, EXACT>(dst, dbias + ((i64)bh * L + o0) * L + j1, L, orows,
+                                  min(L - j1, BK));
+  };
 
-  load_scores<64, SBF, EXACT>(sb, ap, L, qrows, min(L, BK));
-  load_rows<64, D, !EXACT>(sb + S::A, kp, D, L);
+  load_a(sb, 0);
+  load_rows<64, DH, !EXACT>(sb + S::A, xp, D, L);
   cp_async_commit();
 
-  float acc[D / 8][4];
+  float acc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int tt = 0; tt < ntiles; ++tt) {
     cp_async_wait_all();
@@ -726,26 +778,50 @@ attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
     if (tt + 1 < ntiles) {
       const uint32_t nx = sb + (st ^ 1) * S::STAGE;
       const int j1 = (tt + 1) * BK;
-      load_scores<64, SBF, EXACT>(nx, ap + j1, L, qrows, min(L - j1, BK));
-      load_rows<64, D, !EXACT>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
+      load_a(nx, j1);
+      load_rows<64, DH, !EXACT>(nx + S::A, xp + (i64)j1 * D, D, L - j1);
       cp_async_commit();
     }
-    // the warp's 16 dbias rows as accumulator-layout pairs: columns 8kc + 2t,
-    // 8kc + 2t + 1 of rows g and g + 8, read as float2
+    // the warp's 16 output rows of dbias (TRANS: of its transpose) as
+    // accumulator-layout pairs: columns 8kc + 2t, 8kc + 2t + 1 of rows g and
+    // g + 8 (dqu: float2 reads along a row; dk: down a column)
     const float* a = reinterpret_cast<const float*>(smem + st * S::STAGE);
     float af[8][4];
 #pragma unroll
     for (int kc = 0; kc < 8; ++kc) {
-      const float2 x = *reinterpret_cast<const float2*>(a + (r0 + g) * SBF + 8 * kc + 2 * t);
-      const float2 y = *reinterpret_cast<const float2*>(a + (r0 + g + 8) * SBF + 8 * kc + 2 * t);
-      af[kc][0] = x.x;
-      af[kc][1] = x.y;
-      af[kc][2] = y.x;
-      af[kc][3] = y.y;
+      if constexpr (TRANS) {
+        const float* col = a + (8 * kc + 2 * t) * SBF + r0 + g;
+        af[kc][0] = col[0];
+        af[kc][1] = col[SBF];
+        af[kc][2] = col[8];
+        af[kc][3] = col[SBF + 8];
+      } else {
+        const float2 u = *reinterpret_cast<const float2*>(a + (r0 + g) * SBF + 8 * kc + 2 * t);
+        const float2 w =
+            *reinterpret_cast<const float2*>(a + (r0 + g + 8) * SBF + 8 * kc + 2 * t);
+        af[kc][0] = u.x;
+        af[kc][1] = u.y;
+        af[kc][2] = w.x;
+        af[kc][3] = w.y;
+      }
     }
-    mma_acc_rows<D, 8>(acc, af, reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
+    mma_acc_rows<DH, 8>(acc, af, reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
   }
-  store_acc<D, !EXACT>(acc, dqu + ((i64)bh * L + i0 + r0) * D, D, qrows - r0);
+  store_acc<DH, !EXACT>(acc, out + ((i64)bh * L + o0 + r0) * D + c0, D, orows - r0);
+}
+
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT)
+attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
+              float* __restrict__ dqu, int L) {
+  dbias_product<D, EXACT, false>(dbias, k, dqu, L);
+}
+
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT)
+attn_dk_tf32(const float* __restrict__ dbias, const float* __restrict__ qu,
+             float* __restrict__ dk, int L) {
+  dbias_product<D, EXACT, true>(dbias, qu, dk, L);
 }
 
 template <typename K>
@@ -776,7 +852,7 @@ cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bi
   err = set_smem(attn_dqu_tf32<D, EXACT>, DquSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(L, 64), BH);
-  attn_delta_f32<D, EXACT><<<ceil_div(BH * L, 256 / (D / 4)), 256, 0, stream>>>(
+  attn_delta_f32<D, EXACT><<<ceil_div(BH * L, 256 / delta_lanes<D>()), 256, 0, stream>>>(
       g, out, delta, H, L, BH * L, gs, os);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -784,7 +860,15 @@ cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bi
       qu, k, v, bias, g, lse, delta, dk, dv, dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dqu_tf32<D, EXACT><<<grid, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
+  const dim3 split(grid.x, grid.y, DquSmem<D>::SPLITS);
+  attn_dqu_tf32<D, EXACT><<<split, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
+  if constexpr (!BwdSmem<D>::DK) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = set_smem(attn_dk_tf32<D, EXACT>, DquSmem<D>::BYTES);
+    if (err != cudaSuccess) return err;
+    attn_dk_tf32<D, EXACT><<<split, NT, DquSmem<D>::BYTES, stream>>>(dbias, qu, dk, L);
+  }
   return cudaGetLastError();
 }
 
@@ -827,7 +911,7 @@ bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* 
 
 extern "C" {
 
-// float32 only; head_dim in {16, 32, 64, 128}; any L >= 1. out_strides: element
+// float32 only; head_dim in {16, 32, 64, 128, 256}; any L >= 1. out_strides: element
 // strides of out over (b, h, l) (multiples of 4: rows 16-byte aligned). lse:
 // (B, H, L) float32, written. The H heads are h_offset .. h_offset + H of
 // h_total for the dropout index (H, 0 for all). Returns cudaGetLastError()
@@ -852,6 +936,8 @@ int attn_tf32_fwd(const void* qu, const void* k, const void* v, const void* bias
       return (int)(exact ? ATTN_FWD(64, true) : ATTN_FWD(64, false));
     case 128:
       return (int)(exact ? ATTN_FWD(128, true) : ATTN_FWD(128, false));
+    case 256:
+      return (int)(exact ? ATTN_FWD(256, true) : ATTN_FWD(256, false));
   }
 #undef ATTN_FWD
   return (int)cudaErrorInvalidValue;
@@ -884,6 +970,8 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
       return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
     case 128:
       return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
+    case 256:
+      return (int)(exact ? ATTN_BWD(256, true) : ATTN_BWD(256, false));
   }
 #undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
@@ -905,6 +993,9 @@ int attn_tf32_smem_bytes(int head_dim, int which) {
     case 128:
       return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES
                                                            : DquSmem<128>::BYTES;
+    case 256:
+      return which == 0 ? FwdSmem<256>::BYTES : which == 1 ? BwdSmem<256>::BYTES
+                                                           : DquSmem<256>::BYTES;
   }
   return -1;
 }

@@ -1,7 +1,7 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
-// for bfloat16 at head dims 16, 32, 64 and 128 and any sequence length L >= 1.
-// (float32 runs attention_f32_mma.cu; the wrapper runs every other head dim
-// up to 128 on the next of these instances, on zero-padded inputs.)
+// for bfloat16 at head dims 16, 32, 64, 128 and 256 and any sequence length
+// L >= 1. (float32 runs attention_f32_mma.cu; the wrapper runs every other
+// head dim up to 256 on the next of these instances, on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
@@ -75,6 +75,21 @@
 //    plain version's and forward and backward agree. A tensor-parallel shard
 //    of heads (h_offset .. h_offset + H of h_total) hashes the index of the
 //    whole (B, h_total, L, L) tensor: each block maps its (b, h) once.
+//  * Head dim 256: a warp's 16 x 256 f32 output accumulator is 128 registers
+//    a thread, so the forward keeps no qu fragments beside it (another 64),
+//    reads them from shared memory again for every key tile, and takes a
+//    tile's 64 keys in steps of 32 (16 in the instance for any L, which holds
+//    more addresses): with all 64 the scores' registers spill. And the
+//    backward's dv and dk for 16 keys x 256 (256 registers) cannot both stay.
+//    So the backward's main pass runs twice per key tile (grid z = 2), each
+//    block holding dv and dk for one half of the head dim's columns: both
+//    compute the full-D scores s^T = k qu^T and dp^T = v g^T, and only the
+//    first writes dbias. That repeats two of the pass's four products and its
+//    reads of qu, g and the bias (bytes bound it, so about 1.5x its time).
+//    The dqu pass likewise computes one half of dqu's columns a block (grid
+//    z = 2; the dbias tiles are read twice). Shared memory (182,272 B forward,
+//    145,920 B backward) and registers leave one block of 4 warps an SM in the
+//    two main kernels.
 //  * Any L: each kernel has two instances, chosen at launch. EXACT (L a
 //    multiple of 64, bias 16-byte aligned: the flagship) is the code above
 //    with no predicate. The other takes ceil(L / 64) tiles and
@@ -270,7 +285,7 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
 // ldmatrix addressing. A lane's address of chunk (2 * kk + hi) of its row is
 // (tile + lane_off(row, hi)) ^ (kk << 5): the swizzle's XOR splits into a
 // per-lane part and a compile-time part because tiles start at multiples of
-// their row pitch times 8, so one address register serves a whole tile.
+// their row pitch, so one address register serves a whole tile.
 template <int W>
 __device__ __forceinline__ uint32_t lane_off(int row, int hi) {
   return (uint32_t)(row * (W * 2) + ((hi ^ swz_key<W>(row)) << 4));
@@ -332,28 +347,28 @@ __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t 
   }
 }
 
-// The warp's 16 x D accumulator -> its own 16 rows (row0..) of a swizzled tile
-// as bf16, then out to device memory in 16-byte stores (row stride ld); with
-// TAIL only the first nrows of the 16.
-template <int D, bool TAIL = false>
+// The warp's 16 x N accumulator -> the first N columns of its own 16 rows
+// (row0..) of a swizzled tile of width W as bf16, then out to device memory
+// in 16-byte stores (row stride ld); with TAIL only the first nrows of the 16.
+template <int W, bool TAIL = false, int N = W>
 __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_off,
-                                           const float (&acc)[D / 8][4], int row0, bf16* dst,
+                                           const float (&acc)[N / 8][4], int row0, bf16* dst,
                                            i64 ld, int lane, int nrows = 16) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<D>(row0 + g, n) + 4 * t) =
+  for (int n = 0; n < N / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<W>(row0 + g, n) + 4 * t) =
         pack2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<D>(row0 + g + 8, n) + 4 * t) =
+    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<W>(row0 + g + 8, n) + 4 * t) =
         pack2(acc[n][2], acc[n][3]);
   }
   __syncwarp();
-  constexpr int CH = D / 8;
+  constexpr int CH = N / 8;
 #pragma unroll
   for (int it = 0; it < 16 * CH / 32; ++it) {
     const int idx = lane + it * 32, r = idx / CH, c = idx % CH;
     if (TAIL && r >= nrows) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_off + swz<D>(row0 + r, c));
+    const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_off + swz<W>(row0 + r, c));
     *reinterpret_cast<uint4*>(dst + (i64)r * ld + c * 8) = val;
   }
 }
@@ -366,11 +381,11 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_of
 // ---------------------------------------------------------------------------
 template <int D>
 __host__ __device__ constexpr int fwd_blocks() {
-  return D <= 32 ? 4 : D == 64 ? 3 : 2;
+  return D <= 32 ? 4 : D == 64 ? 3 : D == 128 ? 2 : 1;
 }
 template <int D>
 __host__ __device__ constexpr int bwd_blocks() {
-  return D == 16 ? 6 : D == 32 ? 4 : D == 64 ? 3 : 2;
+  return D == 16 ? 6 : D == 32 ? 4 : D == 64 ? 3 : D == 128 ? 2 : 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -421,7 +436,15 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   }
   cp_async_commit();
 
-  uint32_t qf[D / 16][4];
+  // the warp's qu fragments stay in registers up to D = 128; at D = 256 they
+  // are read from the Q tile again for every key tile (module note)
+  constexpr bool QREG = D <= 128;
+  // keys of a tile taken at once: all 64 up to D = 128; at D = 256 32 (16 in
+  // the instance for any L, which holds more addresses), so the scores and P
+  // fragments of a step take a half (a quarter) of the registers beside the
+  // 16 x 256 accumulator
+  constexpr int KS = D <= 128 ? BK : EXACT ? 32 : 16;
+  uint32_t qf[QREG ? D / 16 : 1][4];
   float o[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -449,99 +472,112 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       }
       cp_async_commit();
     }
-    if (tt == 0) {
+    if constexpr (QREG) {
+      if (tt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], lane_base_a<D>(sb + S::Q, r0, lane) ^ (kk << 5));
-    }
-
-    // s = qu k^T for the warp's 16 rows and the tile's 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const uint32_t kb = lane_base_b<D>(sb + S::K + st * S::TILE, lane);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, (kb ^ (kk << 5)) + np * 16 * D * 2);
-        mma16816(s[2 * np], qf[kk], b[0], b[1]);
-        mma16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm_x4(qf[kk], lane_base_a<D>(sb + S::Q, r0, lane) ^ (kk << 5));
       }
     }
 
-    // (s + bias) * scale, in log2 units for exp2f; running max. TAIL: keys
-    // >= L (zero rows of K) get -inf, so they weigh exactly 0
+    // the tile's keys KS at a time
     const bf16* bt = reinterpret_cast<const bf16*>(smem + S::B + st * S::BIAS);
     const float sl2 = scale * LOG2E;
     const int kleft = L - tt * BK;  // keys of this tile inside L
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+    // at D = 256 one step at a time, so the compiler does not interleave
+    // the two steps' score registers
+#pragma unroll 1
+    for (int h = 0; h < BK / KS; ++h) {
+      // s = qu k^T for the warp's 16 rows and the KS keys from h * KS
+      float s[KS / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = 8 * n + 2 * t;
-      float2 ba, bb;
-      if constexpr (EXACT) {
-        ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + ba_off + col));
-        bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + bb_off + col));
-      } else {
-        ba = make_float2(__bfloat162float(bt[ba_off + col]),
-                         __bfloat162float(bt[ba_off + col + 1]));
-        bb = make_float2(__bfloat162float(bt[bb_off + col]),
-                         __bfloat162float(bt[bb_off + col + 1]));
-      }
-      s[n][0] = (s[n][0] + ba.x) * sl2;
-      s[n][1] = (s[n][1] + ba.y) * sl2;
-      s[n][2] = (s[n][2] + bb.x) * sl2;
-      s[n][3] = (s[n][3] + bb.y) * sl2;
-      if constexpr (!EXACT) {
-        if (col >= kleft) s[n][0] = s[n][2] = -INFINITY;
-        if (col + 1 >= kleft) s[n][1] = s[n][3] = -INFINITY;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
-    const float corr_a = fast_exp2(m_a - mn_a), corr_b = fast_exp2(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // e = exp(s - m): summed in f32; dropped or scaled by 1/(1-rate), then
-    // rounded to bf16 as the A operand of the PV product
-    float sum_a = 0.f, sum_b = 0.f;
-    const uint32_t j0 = (uint32_t)(tt * BK);
+      for (int n = 0; n < KS / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const uint32_t kb = lane_base_b<D>(sb + S::K + st * S::TILE, lane) + h * KS * D * 2;
+      if constexpr (QREG) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+        for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[n][e] - (e < 2 ? m_a : m_b));
-        if (e < 2) sum_a += p; else sum_b += p;
-        float pd = p;
-        if (drop.active) {
-          const uint32_t flat = (e < 2 ? row_a : row_b) + j0 + 8 * n + 2 * t + (e & 1);
-          pd = keep(drop, flat) ? p * drop.inv_keep : 0.f;
+          for (int np = 0; np < KS / 16; ++np) {
+            uint32_t b[4];
+            ldsm_x4(b, (kb ^ (kk << 5)) + np * 16 * D * 2);
+            mma16816(s[2 * np], qf[kk], b[0], b[1]);
+            mma16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+          }
         }
-        s[n][e] = pd;
+      } else {
+        mma_rows_rows<D, KS / 8>(s, lane_base_a<D>(sb + S::Q, r0, lane), kb);
       }
-    }
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
+
+      // (s + bias) * scale, in log2 units for exp2f; running max. TAIL: keys
+      // >= L (zero rows of K) get -inf, so they weigh exactly 0
+      float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= corr_a;
-      o[n][1] *= corr_a;
-      o[n][2] *= corr_b;
-      o[n][3] *= corr_b;
-    }
-    uint32_t pf[4][4];
+      for (int n = 0; n < KS / 8; ++n) {
+        const int col = h * KS + 8 * n + 2 * t;
+        float2 ba, bb;
+        if constexpr (EXACT) {
+          ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + ba_off + col));
+          bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + bb_off + col));
+        } else {
+          ba = make_float2(__bfloat162float(bt[ba_off + col]),
+                           __bfloat162float(bt[ba_off + col + 1]));
+          bb = make_float2(__bfloat162float(bt[bb_off + col]),
+                           __bfloat162float(bt[bb_off + col + 1]));
+        }
+        s[n][0] = (s[n][0] + ba.x) * sl2;
+        s[n][1] = (s[n][1] + ba.y) * sl2;
+        s[n][2] = (s[n][2] + bb.x) * sl2;
+        s[n][3] = (s[n][3] + bb.y) * sl2;
+        if constexpr (!EXACT) {
+          if (col >= kleft) s[n][0] = s[n][2] = -INFINITY;
+          if (col + 1 >= kleft) s[n][1] = s[n][3] = -INFINITY;
+        }
+        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float corr_a = fast_exp2(m_a - mn_a), corr_b = fast_exp2(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+
+      // e = exp(s - m): summed in f32; dropped or scaled by 1/(1-rate), then
+      // rounded to bf16 as the A operand of the PV product
+      float sum_a = 0.f, sum_b = 0.f;
+      const uint32_t j0 = (uint32_t)(tt * BK + h * KS);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      pf[kc][0] = pack2(s[2 * kc][0], s[2 * kc][1]);
-      pf[kc][1] = pack2(s[2 * kc][2], s[2 * kc][3]);
-      pf[kc][2] = pack2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pf[kc][3] = pack2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      for (int n = 0; n < KS / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(s[n][e] - (e < 2 ? m_a : m_b));
+          if (e < 2) sum_a += p; else sum_b += p;
+          float pd = p;
+          if (drop.active) {
+            const uint32_t flat = (e < 2 ? row_a : row_b) + j0 + 8 * n + 2 * t + (e & 1);
+            pd = keep(drop, flat) ? p * drop.inv_keep : 0.f;
+          }
+          s[n][e] = pd;
+        }
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= corr_a;
+        o[n][1] *= corr_a;
+        o[n][2] *= corr_b;
+        o[n][3] *= corr_b;
+      }
+      uint32_t pf[KS / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < KS / 16; ++kc) {
+        pf[kc][0] = pack2(s[2 * kc][0], s[2 * kc][1]);
+        pf[kc][1] = pack2(s[2 * kc][2], s[2 * kc][3]);
+        pf[kc][2] = pack2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        pf[kc][3] = pack2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      }
+      mma_a_regs_b_rows<D, KS / 16, D / 8>(
+          o, pf, lane_base_a<D>(sb + S::V + st * S::TILE, h * KS, lane));
     }
-    mma_a_regs_b_rows<D, 4, D / 8>(o, pf, lane_base_a<D>(sb + S::V + st * S::TILE, 0, lane));
   }
 
   l_a = quad_sum(l_a);
@@ -560,7 +596,8 @@ attn_fwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
     if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
     if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
   }
-  // the query tile's rows r0.. were read by this warp alone: reuse them
+  // the query tile's rows r0.. were read by this warp alone (its last read
+  // of them is behind it): reuse them
   bf16* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l;
   store_rows<D, !EXACT>(smem, S::Q, o, r0, op, os.l, lane, qrows - r0);
 }
@@ -597,25 +634,31 @@ attn_delta(const bf16* __restrict__ g, const bf16* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// backward, main pass: grid (ceil(L/64), B*H); blockIdx.x is the key tile.
-// Each warp owns 16 keys and keeps their dv and dk in registers over the
-// query loop.
+// backward, main pass: grid (ceil(L/64), B*H, D/DH); blockIdx.x is the key
+// tile, blockIdx.z the DH columns of dv and dk the block holds (all D of them
+// up to D = 128; one half at D = 256, module note). Each warp owns 16 keys and
+// keeps their dv and dk in registers over the query loop.
 // smem: K tile, V tile, 2 x (Q, G, bias tiles of BQ queries, lse, delta),
 // dbias staging tile
 // ---------------------------------------------------------------------------
 template <int D>
 struct BwdSmem {
+  static constexpr int DH = D <= 128 ? D : 128;  // dv and dk columns a block
+  static constexpr int SPLITS = D / DH;
   static constexpr int KV = 64 * D * 2;
   static constexpr int QG = BQ * D * 2;
   static constexpr int BIAS = BQ * BSTR * 2;
   static constexpr int STAT = 2 * BQ * 4;                 // lse then delta
-  static constexpr int STAGE = 2 * QG + BIAS + STAT;
+  // a stage's Q and G tiles start at multiples of their row pitch, as the
+  // ldmatrix addressing's XOR of chunk offsets needs (512 bytes at D = 256)
+  static constexpr int PITCH = D * 2 < 256 ? 256 : D * 2;
+  static constexpr int STAGE = (2 * QG + BIAS + STAT + PITCH - 1) / PITCH * PITCH;
   static constexpr int K = 0;
   static constexpr int V = KV;
   static constexpr int ST = 2 * KV;                       // 2 stages: Q, G, bias, stats
   static constexpr int DS = 2 * KV + 2 * STAGE;
   static constexpr int BYTES = DS + BIAS;
-  static_assert(QG % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
+  static_assert(QG % PITCH == 0 && STAGE % PITCH == 0, "tiles start at multiples of their pitch");
 };
 
 template <int D, bool EXACT>
@@ -629,9 +672,14 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   constexpr int QT = BQ / 8;  // 8-query accumulator tiles per step
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int bh = blockIdx.y, j0 = blockIdx.x * BK;
+  constexpr int DH = S::DH;
+  const int bh = blockIdx.y, j0 = blockIdx.x * BK, c0 = blockIdx.z * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // the warp's keys within the tile
+  // ldmatrix bases of the g and qu tiles' B fragments from column c0 on: the
+  // column's chunk index (a multiple of DH / 8, above the swizzle's 3 bits)
+  // XORs into the address as the fragment loops' own chunk offsets do
+  const uint32_t col_xor = (uint32_t)(c0 / 16) << 5;
   const bf16* qp = qu + (i64)bh * L * D;
   const bf16* gp = gr + (bh / H) * gs.b + (bh % H) * gs.h;
   const bf16* bp = bias + (i64)bh * L * L + j0;
@@ -685,9 +733,9 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   load_stage(0, 0);
   cp_async_commit();
 
-  float dva[D / 8][4], dka[D / 8][4];
+  float dva[DH / 8][4], dka[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DH / 8; ++n) {
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
     dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
   }
@@ -743,8 +791,8 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
         af[kc][3] = pack2(pd[2 * kc + 1][2], pd[2 * kc + 1][3]);
       }
     }
-    // dv[key] += T(pd)^T g
-    mma_a_regs_b_rows<D, BQ / 16, D / 8>(dva, af, lane_base_a<D>(gt, 0, lane));
+    // dv[key] += T(pd)^T g, the block's DH columns
+    mma_a_regs_b_rows<D, BQ / 16, DH / 8>(dva, af, lane_base_a<D>(gt, 0, lane) ^ col_xor);
 
     // dp^T = v g^T through the same mask; ds = p (dp - delta); dbias = T(ds * scale)
     float dpt[QT][4];
@@ -775,40 +823,46 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       af[kc][2] = pack2(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]);
       af[kc][3] = pack2(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3]);
     }
-    // dk[key] += dbias^T qu
-    mma_a_regs_b_rows<D, BQ / 16, D / 8>(dka, af, lane_base_a<D>(qt, 0, lane));
+    // dk[key] += dbias^T qu, the block's DH columns
+    mma_a_regs_b_rows<D, BQ / 16, DH / 8>(dka, af, lane_base_a<D>(qt, 0, lane) ^ col_xor);
 
     // the dbias tile, BQ rows of 64 keys, out in 16-byte stores (TAIL: as
-    // windows, rows and keys inside L only)
+    // windows, rows and keys inside L only), by the first block of a key tile
     __syncthreads();
     bf16* db = dbp + (i64)q0 * L;
-    if constexpr (EXACT) {
+    if (S::SPLITS == 1 || blockIdx.z == 0) {
+      if constexpr (EXACT) {
 #pragma unroll
-      for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
-        const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
-        *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
-            *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
+        for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
+          const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
+          *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
+              *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
+        }
+      } else {
+        store_window_tile<BQ>(db, L, smem + S::DS, L - q0, kcols);
       }
-    } else {
-      store_window_tile<BQ>(db, L, smem + S::DS, L - q0, kcols);
     }
   }
 
   // K and V rows r0.. were read by this warp alone: reuse them as staging
-  const i64 orow = ((i64)bh * L + j0 + r0) * D;
-  store_rows<D, !EXACT>(smem, S::K, dka, r0, dk + orow, D, lane, kcols - r0);
-  store_rows<D, !EXACT>(smem, S::V, dva, r0, dv + orow, D, lane, kcols - r0);
+  const i64 orow = ((i64)bh * L + j0 + r0) * D + c0;
+  store_rows<D, !EXACT, DH>(smem, S::K, dka, r0, dk + orow, D, lane, kcols - r0);
+  store_rows<D, !EXACT, DH>(smem, S::V, dva, r0, dv + orow, D, lane, kcols - r0);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dqu = dbias k: grid (ceil(L/64), B*H); blockIdx.x is the query
-// tile. smem: 2 x (dbias tile 64 x 64, K tile 64 x D); TAIL: the dbias tile
-// is a padded window tile (64 x BSTR)
+// backward, dqu = dbias k: grid (ceil(L/64), B*H, D/DH); blockIdx.x is the
+// query tile, blockIdx.z the DH columns of dqu the block computes (all D of
+// them up to D = 128; one half at D = 256, where a 16 x 256 accumulator beside
+// the dbias fragments spills). smem: 2 x (dbias tile 64 x 64, K tile 64 x DH);
+// TAIL: the dbias tile is a padded window tile (64 x BSTR)
 // ---------------------------------------------------------------------------
 template <int D, bool EXACT>
 struct DquSmem {
+  static constexpr int DH = D <= 128 ? D : 128;  // dqu columns a block
+  static constexpr int SPLITS = D / DH;
   static constexpr int A = EXACT ? 64 * 64 * 2 : 64 * BSTR * 2;
-  static constexpr int KT = 64 * D * 2;
+  static constexpr int KT = 64 * DH * 2;
   static constexpr int STAGE = A + KT;
   static constexpr int BYTES = 2 * STAGE;
   static_assert(A % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
@@ -819,28 +873,30 @@ __global__ void __launch_bounds__(NT)
 attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
              bf16* __restrict__ dqu, int L) {
   typedef DquSmem<D, EXACT> S;
+  constexpr int DH = S::DH;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
   const int bh = blockIdx.y, i0 = blockIdx.x * 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = 16 * warp;
   const bf16* ap = dbias + ((i64)bh * L + i0) * L;
-  const bf16* kp = k + (i64)bh * L * D;
+  const int c0 = blockIdx.z * DH;
+  const bf16* kp = k + (i64)bh * L * D + c0;  // the block's DH columns of k
   const int ntiles = EXACT ? L / BK : (L + BK - 1) / BK;
   const int qrows = L - i0;
 
   if constexpr (EXACT) {
     load_tile<64, 64>(sb, ap, L);
-    load_tile<64, D>(sb + S::A, kp, D);
+    load_tile<64, DH>(sb + S::A, kp, D);
   } else {
     load_window_tile<64>(sb, ap, L, qrows, min(L, BK));
-    load_tile<64, D, true>(sb + S::A, kp, D, L);
+    load_tile<64, DH, true>(sb + S::A, kp, D, L);
   }
   cp_async_commit();
 
-  float acc[D / 8][4];
+  float acc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   // TAIL: the thread's A rows r0 + g and r0 + g + 8 in the window tiles
   const int g = lane >> 2, t = lane & 3;
   const int a_off = (r0 + g) * BSTR + 2 * t + (EXACT ? 0 : window_shift(ap + (i64)(r0 + g) * L));
@@ -856,10 +912,10 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
       const int j1 = (tt + 1) * BK;
       if constexpr (EXACT) {
         load_tile<64, 64>(nx, ap + j1, L);
-        load_tile<64, D>(nx + S::A, kp + (i64)j1 * D, D);
+        load_tile<64, DH>(nx + S::A, kp + (i64)j1 * D, D);
       } else {
         load_window_tile<64>(nx, ap + j1, L, qrows, min(L - j1, BK));
-        load_tile<64, D, true>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
+        load_tile<64, DH, true>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
       }
       cp_async_commit();
     }
@@ -879,11 +935,11 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
         af[kc][3] = ld_pair(a + b_off + 16 * kc + 8);
       }
     }
-    mma_a_regs_b_rows<D, 4, D / 8>(acc, af, lane_base_a<D>(at + S::A, 0, lane));
+    mma_a_regs_b_rows<DH, 4, DH / 8>(acc, af, lane_base_a<DH>(at + S::A, 0, lane));
   }
   __syncthreads();  // every warp is done with the stages: reuse stage 0's K tile
-  store_rows<D, !EXACT>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D, D, lane,
-                        qrows - r0);
+  store_rows<DH, !EXACT>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D + c0, D, lane,
+                         qrows - r0);
 }
 
 template <typename K>
@@ -919,12 +975,14 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
       (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, gs, os);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_mma<D, EXACT><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
+  attn_bwd_mma<D, EXACT><<<dim3(grid.x, grid.y, BwdSmem<D>::SPLITS), NT, BwdSmem<D>::BYTES,
+                            stream>>>(
       (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
       delta, (bf16*)dk, (bf16*)dv, (bf16*)dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dqu_mma<D, EXACT><<<grid, NT, DquSmem<D, EXACT>::BYTES, stream>>>(
+  attn_dqu_mma<D, EXACT><<<dim3(grid.x, grid.y, DquSmem<D, EXACT>::SPLITS), NT,
+                            DquSmem<D, EXACT>::BYTES, stream>>>(
       (const bf16*)dbias, (const bf16*)k, (bf16*)dqu, L);
   return cudaGetLastError();
 }
@@ -968,7 +1026,7 @@ bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* 
 
 extern "C" {
 
-// bf16 only; head_dim in {16, 32, 64, 128}; any L >= 1. out_strides: element
+// bf16 only; head_dim in {16, 32, 64, 128, 256}; any L >= 1. out_strides: element
 // strides of out over (b, h, l). lse: (B, H, L) float32, written. The H heads
 // are h_offset .. h_offset + H of h_total for the dropout index (H, 0 for all).
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -991,6 +1049,8 @@ int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias,
       return (int)(exact ? ATTN_FWD(64, true) : ATTN_FWD(64, false));
     case 128:
       return (int)(exact ? ATTN_FWD(128, true) : ATTN_FWD(128, false));
+    case 256:
+      return (int)(exact ? ATTN_FWD(256, true) : ATTN_FWD(256, false));
   }
 #undef ATTN_FWD
   return (int)cudaErrorInvalidValue;
@@ -1021,6 +1081,8 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
       return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
     case 128:
       return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
+    case 256:
+      return (int)(exact ? ATTN_BWD(256, true) : ATTN_BWD(256, false));
   }
 #undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
@@ -1043,6 +1105,9 @@ int attn_mma_smem_bytes(int head_dim, int which, int exact) {
     case 128:
       return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES
              : exact    ? DquSmem<128, true>::BYTES : DquSmem<128, false>::BYTES;
+    case 256:
+      return which == 0 ? FwdSmem<256>::BYTES : which == 1 ? BwdSmem<256>::BYTES
+             : exact    ? DquSmem<256, true>::BYTES : DquSmem<256, false>::BYTES;
   }
   return -1;
 }

@@ -18,7 +18,7 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
 Two sets of kernels, chosen by dtype (:func:`attention_route`), each with
-instances at head dims 16, 32, 64 and 128 and any sequence length:
+instances at head dims 16, 32, 64, 128 and 256 and any sequence length:
 
 * ``"tc"``, ``csrc/attention_mma.cu``: bfloat16. Tensor cores (``mma.sync``),
   ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
@@ -32,19 +32,20 @@ instances at head dims 16, 32, 64 and 128 and any sequence length:
   operand split into a TF32 high and low part), which hold the float32
   tolerance of 1e-4 that one TF32 product misses.
 
-Every other head dim up to 128 (the JAX kernel takes any) runs the instance of
+Every other head dim up to 256 (the JAX kernel takes any) runs the instance of
 the next of those widths (:func:`padded_head_dim`): qu, k, v and, in the
 backward, g are zero-padded on their last dim, and out, dqu, dk and dv sliced
 back (:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns
 add exactly 0 to qu k^T and give exactly 0 in the padded columns of every
 product, so this is the same function; the bias, the scale and the dropout
-index (b, h, i, j) do not depend on D. A head dim above 128 raises.
+index (b, h, i, j) do not depend on D. A head dim above 256 raises.
 
 ``csrc/attention.cu`` holds the first design, scalar f32 FMAs with whole score
 rows in shared memory (:func:`fma_row_block`: 64 query rows a block, 32 where
 64 do not fit, so L up to 704), at head dims 16, 32, 64 and 128 in either
-dtype. ``fused_attention`` never launches it: :func:`launch_attention_fwd_fma`
-and :func:`launch_attention_bwd_fma` are called directly, as the yardstick the
+dtype (:data:`FMA_HEAD_DIMS`; no D = 256 instance). ``fused_attention`` never
+launches it: :func:`launch_attention_fwd_fma` and
+:func:`launch_attention_bwd_fma` are called directly, as the yardstick the
 tensor-core kernels are timed against.
 
 For a CUDA tensor the wrapper launches the set it names here or raises.
@@ -59,7 +60,8 @@ import torch
 from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances (both sets, and the FMA kernels)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the tensor-core kernels' instances (both sets)
+FMA_HEAD_DIMS = (16, 32, 64, 128)  # the FMA kernels' instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
 
@@ -169,7 +171,7 @@ def _library_tf32():
 def tf32_smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory a block of a 3xTF32 kernel takes (either
     instance)."""
-    which = {"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2,
+    which = {"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2, "attn_dk_tf32": 2,
              "attn_delta_f32": None}[kernel]
     return 0 if which is None else _library_tf32().attn_tf32_smem_bytes(D, which)
 
@@ -178,8 +180,8 @@ def attention_route(dtype: torch.dtype, L: int, D: int) -> str:
     """The set of kernels ``fused_attention`` runs for CUDA tensors of this
     dtype, sequence length and head dim (module note): ``"tc"``
     (``attention_mma.cu``, bfloat16) or ``"tf32x3"`` (``attention_f32_mma.cu``,
-    float32), at every D up to 128 (other than 16 / 32 / 64 / 128 through the
-    padding) and every L. Raises ``ValueError`` past D = 128."""
+    float32), at every D up to 256 (other than 16 / 32 / 64 / 128 / 256
+    through the padding) and every L. Raises ``ValueError`` past D = 256."""
     padded_head_dim(D)
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
@@ -190,8 +192,7 @@ def padded_head_dim(D: int) -> int:
     for Dp in HEAD_DIMS:
         if 1 <= D <= Dp:
             return Dp
-    raise ValueError(f"fused attention takes head dims 1..{HEAD_DIMS[-1]}, got {D} "
-                     f"(a D = 256 instance is not written)")
+    raise ValueError(f"fused attention takes head dims 1..{HEAD_DIMS[-1]}, got {D}")
 
 
 def _pad_last(t, Dp: int):
@@ -246,9 +247,9 @@ def _check(qu, k, v, bias, heads_total=None):
         raise ValueError("B * H must fit the launch grid's second dimension")
 
 
-def _check_instance(D: int, what: str) -> None:
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the {what} kernels have instances at head dims {HEAD_DIMS}, got "
+def _check_instance(D: int, what: str, dims=HEAD_DIMS) -> None:
+    if D not in dims:
+        raise ValueError(f"the {what} kernels have instances at head dims {dims}, got "
                          f"{D} (fused_attention pads other head dims)")
 
 
@@ -293,7 +294,7 @@ def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: floa
     _check(qu, k, v, bias, heads_total)
     lib = _library()
     B, H, L, D = qu.shape
-    _check_instance(D, "FMA")
+    _check_instance(D, "FMA", FMA_HEAD_DIMS)
     _check_fma_smem("fwd", L, D)
     out = torch.empty_like(qu)
     code = lib.attn_fwd(_DTYPES[qu.dtype], qu.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -313,7 +314,7 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
         raise ValueError("g must be contiguous")
     lib = _library()
     B, H, L, D = qu.shape
-    _check_instance(D, "FMA")
+    _check_instance(D, "FMA", FMA_HEAD_DIMS)
     _check_fma_smem("bwd", L, D)
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
@@ -449,8 +450,8 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
     CUDA tensors run the hand-written tensor-core kernels, forward and
     backward, on the set :func:`attention_route` names: bfloat16 on
     ``attention_mma.cu``, float32 on ``attention_f32_mma.cu``, at any L and
-    any head dim up to 128 (16, 32, 64 and 128 are instances; other head dims
-    run the next one up on zero-padded inputs, module note). The output is a
+    any head dim up to 256 (16, 32, 64, 128 and 256 are instances; other head
+    dims run the next one up on zero-padded inputs, module note). The output is a
     (B, H, L, D) view of a (B, L, H, D') buffer, D' that instance's head dim.
     CPU tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
     rate 0. A tensor-parallel rank's H heads are ``head_offset ..`` of

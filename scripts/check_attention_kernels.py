@@ -6,11 +6,13 @@ dropout 0.1) that the flagship and the model's options give them, timed
 beside the FMA kernels, the plain version, SDPA and the bound.
 
     python3 scripts/check_attention_kernels.py [--small-only] [--dtype bf16|f32|both]
+        [--head-dims D ...]
 
 The short first check of an edited ``csrc/attention_mma.cu`` (bf16) or
 ``csrc/attention_f32_mma.cu`` (f32, 3xTF32); ``chip_smoke.py`` is the whole run
 (its functions do the full-shape part here). Small shapes run head dims 16,
-32, 64 and 128 and, through the padding, 8 and 48.
+32, 64, 128 and 256 and, through the padding, 8, 48 and 200; ``--head-dims``
+keeps the full-shape part to the shapes at those head dims.
 """
 import argparse
 import subprocess
@@ -26,15 +28,16 @@ from sarssl_torch.kernels import attention, attention_plain, fused_attention, la
 from sarssl_torch.kernels._build import build_all  # noqa: E402
 
 SMALL_L = (1, 17, 33, 64, 65, 100, 128, 257)
-SMALL_D = (16, 32, 64, 128, 8, 48)  # the instances, then two head dims padded
+SMALL_D = (16, 32, 64, 128, 256, 8, 48, 200)  # the instances, then three head dims padded
 DTYPES = {"bf16": (torch.bfloat16,), "f32": (torch.float32,),
           "both": (torch.bfloat16, torch.float32)}
 
 
 def check_small(gen, dtype):
     """fused_attention (forward and backward) against the plain version at B
-    = 2, H = 3, rate 0.3, every small L (f32: and L = 768, past the FMA
-    kernels' reach) and head dim of the tensor-core kernels, and with a bias
+    = 2, H = 3, rate 0.3, every small L (f32, D = 16 and D = 256: and L =
+    768, past the FMA kernels' reach) and head dim of the tensor-core
+    kernels, and with a bias
     that starts 1 or 3 elements into its storage; returns the number of
     failures."""
     bad = 0
@@ -42,7 +45,7 @@ def check_small(gen, dtype):
     tol = cs.TOL_BF16 if dtype == torch.bfloat16 else cs.TOL_F32
     for D in SMALL_D:
         Dp = attention.padded_head_dim(D)
-        for L in SMALL_L + ((768,) if dtype == torch.float32 or D == 16 else ()):
+        for L in SMALL_L + ((768,) if dtype == torch.float32 or D in (16, 256) else ()):
             for offset in ((0, 1, 3) if L in (64, 257) else (0,)):
                 xs = [torch.randn((2, 3, L, D), generator=gen, device="cuda").to(dtype)
                       for _ in range(4)]
@@ -79,6 +82,8 @@ def main():
                     help="only the small shapes: no full-shape checks or times")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="both",
                     help="which tensor-core route to check (default both)")
+    ap.add_argument("--head-dims", type=int, nargs="+", default=None,
+                    help="only the full shapes at these head dims (default all)")
     args = ap.parse_args()
     dtypes = DTYPES[args.dtype]
     if not torch.cuda.is_available():
@@ -103,19 +108,24 @@ def main():
         print(f"FAILED: {bad} small case(s) or kernel report(s)")
     if not args.small_only:
         seed = 0x9E3779B9
+        wanted = (lambda D: True) if args.head_dims is None else args.head_dims.__contains__
         for L, D, dtype in cs.OPTION_ATTENTION_SHAPES:
-            if dtype not in dtypes:
+            if dtype not in dtypes or not wanted(D):
                 continue
             cs.check_attention(D, dtype, cs.RATE, seed, gen, L)
             t = cs.time_attention_route(L, D, dtype, seed, gen)
+            fma = {k: "-" if t[f"fma_{k}_ms"] is None else f"{t[f'fma_{k}_ms']:.4f}"
+                   for k in ("fwd", "bwd")}
             print(f"L={L} D={D} {str(dtype)[6:]} ({cs.ROUTE_WORDS[t['route']]}): "
-                  f"fwd {t['fwd_ms']:.4f} ms (FMA {t['fma_fwd_ms']:.4f} plain "
+                  f"fwd {t['fwd_ms']:.4f} ms (FMA {fma['fwd']} plain "
                   f"{t['plain_fwd_ms']:.4f} sdpa {t['lib_fwd_ms']:.4f} bound "
                   f"{t['fwd_bound'][0]:.4f}), bwd {t['bwd_ms']:.4f} ms (FMA "
-                  f"{t['fma_bwd_ms']:.4f} plain {t['plain_bwd_ms']:.4f} sdpa "
+                  f"{fma['bwd']} plain {t['plain_bwd_ms']:.4f} sdpa "
                   f"{t['lib_bwd_ms']:.4f} bound {t['bwd_bound'][0]:.4f})", flush=True)
             torch.cuda.empty_cache()
         for D in (cs.HEAD_DIMS if torch.bfloat16 in dtypes else ()):
+            if not wanted(D):
+                continue
             t = cs.time_attention(D, seed, gen)
             print(f"L={cs.SEQ} D={D} bfloat16 (tensor-core): fwd {t['fwd_ms']:.4f} ms (FMA "
                   f"{t['fma_fwd_ms']:.4f} sdpa {t['lib_fwd_ms']:.4f} bound "

@@ -1,7 +1,7 @@
-"""Every head dim up to 128 on the tensor-core attention, on the CPU.
+"""Every head dim up to 256 on the tensor-core attention, on the CPU.
 
-``fused_attention`` runs head dims 16, 32, 64 and 128 on instances of the
-tensor-core kernels and every other D up to 128 on the instance of the next
+``fused_attention`` runs head dims 16, 32, 64, 128 and 256 on instances of the
+tensor-core kernels and every other D up to 256 on the instance of the next
 of those widths, with qu, k, v (and g in the backward) zero-padded on their
 last dim and out, dqu, dk, dv sliced back (``kernels/attention.py``). The
 kernels run only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``);
@@ -37,11 +37,20 @@ def test_route_names_the_tensor_cores_at_every_head_dim_up_to_128(D, Dp, dtype, 
     assert att.padded_head_dim(D) == Dp
 
 
-@pytest.mark.parametrize("D", [129, 256])
+@pytest.mark.parametrize("D,Dp", [(129, 256), (200, 256), (256, 256)])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "tf32x3")])
+def test_route_names_the_tensor_cores_at_head_dims_129_to_256(D, Dp, dtype, route):
+    assert att.attention_route(dtype, 257, D) == route
+    assert att.padded_head_dim(D) == Dp
+
+
+@pytest.mark.parametrize("D", [257, 512])
 def test_head_dims_past_128_raise(D):
-    with pytest.raises(ValueError, match="128"):
+    """Past the largest instance, 256, both raise and name it (the test's
+    name keeps the limit of its first version)."""
+    with pytest.raises(ValueError, match="256"):
         att.attention_route(torch.bfloat16, 64, D)
-    with pytest.raises(ValueError, match="128"):
+    with pytest.raises(ValueError, match="256"):
         att.padded_head_dim(D)
 
 
@@ -61,7 +70,7 @@ def _inputs(seed, D):
             for s in [(B, H, L, D)] * 4 + [(B, H, L, L)]]
 
 
-@pytest.mark.parametrize("D", [4, 8, 12, 48, 96])
+@pytest.mark.parametrize("D", [4, 8, 12, 48, 96, 160, 256])
 def test_padded_route_matches_pallas_interpret(D):
     """The pad and slice around a launch at ``padded_head_dim(D)`` (here
     ``attention_plain``), rate 0, against the Pallas kernel in interpret mode
@@ -92,7 +101,7 @@ def test_padded_route_matches_pallas_interpret(D):
         assert err <= TOL, f"D={D} {name}: {err:.3e} of the largest value against Pallas"
 
 
-@pytest.mark.parametrize("D", [8, 16, 48])
+@pytest.mark.parametrize("D", [8, 16, 48, 200])
 def test_fused_function_launches_the_padded_instance_and_slices(monkeypatch, D):
     """``_FusedAttention`` (the card's autograd path) with the plain version
     standing in for the tensor-core launchers on CPU tensors: each launch
@@ -123,3 +132,53 @@ def test_fused_function_launches_the_padded_instance_and_slices(monkeypatch, D):
     for name, a, b in zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads), (ref, *ref_grads)):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.detach().abs().max()))
+
+
+def test_spec_encoder_at_head_dim_256_matches_jax():
+    """``SARSSLConfig.tiny(spec_dembed=1024)``: the spec encoder's 4 heads over
+    d = 1024 give head dim 256 at L = 16. The port with fused attention (on
+    the CPU its plain version), from the JAX init's weights carried across by
+    ``from_jax_params``, against the JAX model (its unfused attention: the
+    Pallas kernel runs on the CPU only in interpret mode, which the model does
+    not ask for), dropout 0, train mode, one replayed mask: the pretext loss
+    within rtol 1e-4 and each parameter's gradient within rtol 1e-4 and 1e-5
+    of the largest gradient (f32 on both sides, sums in another order; the
+    key biases' exact gradient is 0)."""
+    from sarssl_tpu.models import SARSSL as JSARSSL
+    from sarssl_tpu.models import SARSSLConfig as JSARSSLConfig
+    from sarssl_tpu.ops import gen_patch_mask
+    from sarssl_torch.models import SARSSL, SARSSLConfig
+    from sarssl_torch.ops import PatchMask
+    from sarssl_torch.utils.weights import from_jax_params
+
+    jcfg = JSARSSLConfig().tiny(spec_dembed=1024, dropout=0.0)
+    nf, nt, nreim, nmic = jcfg.sig_shape
+    x = np.random.default_rng(3).standard_normal((4, nmic, nf, nt, nreim)).astype(np.float32)
+    mask = gen_patch_mask(jax.random.key(7), 4, jcfg.npatch, jcfg.effective_nmasked())
+    jm = JSARSSL(jcfg)
+    variables = jax.jit(lambda: jm.init({"params": jax.random.key(0)}, jnp.asarray(x), mask,
+                                        False))()
+
+    def jloss(params):
+        (loss, _, _), _ = jm.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                   jnp.asarray(x), mask, True, mutable=["batch_stats"])
+        return loss
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(variables["params"])
+    model = SARSSL(SARSSLConfig(**{**jcfg.__dict__, "fused_attention": True}), device="cpu")
+    mhsa = model.spec_encoder.seq.blocks[0].mhsa
+    assert mhsa.fused and mhsa.d_model // mhsa.num_heads == 256
+    params, buffers = from_jax_params(jax.tree.map(np.asarray, variables))
+    model.load_state_dict({**params, **buffers}, strict=True)
+    tmask = PatchMask(*(torch.tensor(np.asarray(t)) if t.dtype == bool
+                        else torch.tensor(np.asarray(t)).long() for t in mask))
+    loss, _, _ = model.pretext(torch.from_numpy(x), tmask, True)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    ref, _ = from_jax_params({"params": jax.tree.map(np.asarray, jg)})
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert set(ref) == set(got)
+    atol = 1e-5 * max(float(r.abs().max()) for r in ref.values())
+    for name, r in ref.items():
+        np.testing.assert_allclose(got[name].numpy(), r.numpy(), rtol=1e-4, atol=atol,
+                                   err_msg=name)

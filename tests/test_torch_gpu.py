@@ -47,8 +47,8 @@ def _rel(a, b):
 def _attention_case(gen, shape, dtype, rate):
     """fused_attention, forward and backward, against the plain version in
     f32; asserts which set of kernels ran from the launch counts (at the
-    instance's head dim, D padded to the next of 16 / 32 / 64 / 128; never
-    the FMA kernels)."""
+    instance's head dim, D padded to the next of 16 / 32 / 64 / 128 / 256;
+    never the FMA kernels)."""
     B, H, L, D = shape
     shapes = [shape] * 3 + [(B, H, L, L)]
     xs = [torch.randn(s, generator=gen, device="cuda").to(dtype).requires_grad_()
@@ -169,13 +169,41 @@ def test_head_dim_16_at_ragged_and_long_lengths_matches_plain(cuda, L, dtype, ra
 
 
 @pytest.mark.parametrize("L", [1, 64, 257])
-@pytest.mark.parametrize("D", [4, 8, 48, 100])
+@pytest.mark.parametrize("D", [4, 8, 48, 100, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_padded_head_dims_match_plain(cuda, L, D, dtype):
     """Head dims that are no instance's run the next one up on zero-padded
-    inputs (16, 16, 64, 128), with dropout: out and the gradients come back at
-    D."""
+    inputs (16, 16, 64, 128, 256), with dropout: out and the gradients come
+    back at D."""
     _attention_case(cuda, (2, 2, L, D), dtype, 0.3)
+
+
+@pytest.mark.parametrize("L", [1, 33, 256, 257, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_head_dim_256_matches_plain(cuda, L, dtype, rate):
+    """Head dim 256 on the tensor-core kernels (the backward's main pass in
+    two halves of the columns) at tails of 1 and 33 rows, whole tiles, the CLS
+    token's 257 and a long 768, with dropout's positions (held through the
+    gradients) those of the plain version."""
+    _attention_case(cuda, (1, 2, L, 256), dtype, rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_dropped_positions_equal_plain(cuda, dtype):
+    """With v the identity's first 256 columns, out is the dropped and
+    rescaled probabilities: the kernel's zeros are the plain mask's."""
+    from sarssl_torch.kernels import hash_keep_mask
+
+    B, H, L, D = 2, 2, 320, 256
+    qu, k = (torch.randn((B, H, L, D), generator=cuda, device="cuda").to(dtype)
+             for _ in range(2))
+    bias = torch.randn((B, H, L, L), generator=cuda, device="cuda").to(dtype)
+    v = torch.eye(L, device="cuda", dtype=dtype)[:, :D].expand(B, H, L, D).contiguous()
+    seed, rate = 0xFEEDBEEF, 0.3
+    pd = fused_attention(qu, k, v, bias, seed, D ** -0.5, rate)
+    keep = hash_keep_mask(B * H * L * L, seed, rate, "cuda").reshape(B, H, L, L)
+    assert torch.equal(pd != 0, keep[..., :D])
 
 
 @pytest.mark.parametrize("L,D", [(1, 32), (33, 32), (257, 32), (512, 32), (257, 64),
@@ -484,7 +512,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, bias, 0, 0.1)
     with pytest.raises(ValueError):
         fused_attention(x.half(), x.half(), x.half(), bias.half(), 0, 0.1)
-    wide = torch.randn(2, 2, 64, 129, device="cuda")
+    wide = torch.randn(2, 2, 64, 257, device="cuda")
     with pytest.raises(ValueError):
         fused_attention(wide, wide, wide, bias, 0, 0.1)
     with pytest.raises(ValueError):
