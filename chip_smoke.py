@@ -35,10 +35,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
               and the bound (the FMA kernels have no D = 256 instance). Head
               dims 8, 48 and 200, which run the next instance on zero-padded
               inputs, held against the plain version, and D = 8 timed
-              through the padding beside the bare launch. Then the
-              attention module of the conformer in bf16 at both flagship
-              widths, at d_model 64 (D = 16) and 32 (D = 8, padded), fused
-              against unfused, on the card.
+              through the padding beside the bare launch. The wide instance
+              (every head dim past 256) in both dtypes: D = 512 at (128, 4,
+              256) at rates 0 and 0.1 and at L = 257, timed at 256 beside
+              SDPA and the bound; D = 300 (padded to 320: blocks of 64
+              columns) and 1000 (to 1024: of 128) at batch 8, L = 33, 257
+              and 256, timed at 256; the wide
+              instance launched at D = 256 held against the plain version
+              and timed beside the D = 256 instance (instance, wide, wide,
+              instance); a torch.profiler split of the D = 512 launches by
+              kernel. Then the attention module of the conformer in bf16 at
+              both flagship widths, at d_model 64 (D = 16), 32 (D = 8,
+              padded) and 2048 (D = 512, wide), fused against unfused, on the
+              card.
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
               (128, 256, 256, 64) bf16 on the tensor-core kernel, timed beside
@@ -58,7 +67,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               one at head dims 32 and 16, SARSSLConfig.tiny(
               fused_attention=True) (head dims 8 and 4, through the padding)
               and SARSSLConfig.tiny(spec_dembed=1024, fused_attention=True)
-              (head dim 256 at L = 16).
+              (head dim 256 at L = 16) and SARSSLConfig.tiny(spec_dembed=1280,
+              fused_attention=True) (head dim 320 on the wide instance).
   5. train  : the flagship pretext pre-training step (bf16, batch 128,
               65792-sample 2-mic waves, fused attention, dropout 0.1): one
               warm-up and 5 timed steps through ``make_pretrain_step``, with
@@ -182,7 +192,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the FMA kernels) beside the same f32 step unfused, (m)
               ``spec_dembed=1024`` (the spec encoder at head dim 256 on the
               D = 256 kernels) in bf16 and f32, each beside the same step
-              unfused, their losses held together (bf16 2e-2, f32 1e-3).
+              unfused, their losses held together (bf16 2e-2, f32 1e-3), (n)
+              ``spec_dembed=2048`` (head dim 512 on the wide instance) the
+              same way.
  14. ablations: the CRNN ablation encoders, ``EmbedEncoder(model=(m,))`` for
               m in crnn, crnn-sim, tcrnn in mode spec (dembed 512) and spat
               (dembed 256) and ``CauCRNN()`` at its defaults, at the flagship
@@ -616,15 +628,20 @@ def _tensor_core_kernel(source, line):
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
                    "attn_delta": 256, "attn_fwd_tf32": 128, "attn_bwd_tf32": 128,
-                   "attn_dqu_tf32": 128, "attn_dk_tf32": 128, "attn_delta_f32": 256}
-        # each kernel's instance for whole tiles (exact = 1) and for any L
-        entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)ELb([01])E",
-                          line)
+                   "attn_dqu_tf32": 128, "attn_dk_tf32": 128, "attn_delta_f32": 256,
+                   "attn_delta_wide": 256, "attn_delta_wide_f32": 256}
+        # each kernel's instance for whole tiles (exact = 1) and for any L; the
+        # wide instance's kernels are templated on their column width (the
+        # streamed chunk's or the output's) and the products on A x / A^T x
+        entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)ELb([01])E"
+                          r"(?:Lb([01])E)?", line)
         if entry:
             name, D, exact = entry.group(1), int(entry.group(2)), entry.group(3) == "1"
             smem = (mma_smem_bytes(name, D, exact) if source == "attention_mma"
                     else tf32_smem_bytes(name, D))
-            return (f"{name}<{D}, {'exact' if exact else 'any L'}>", threads[name], smem)
+            trans = {None: "", "0": ", A x", "1": ", A^T x"}[entry.group(4)]
+            return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}>",
+                    threads.get(name, 128), smem)
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -719,11 +736,11 @@ def bound_ms(nbytes, ops, rate):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _attention_inputs(D, dtype, gen, L=SEQ):
-    shape = (BATCH, HEADS, L, D)
+def _attention_inputs(D, dtype, gen, L=SEQ, B=BATCH):
+    shape = (B, HEADS, L, D)
     qu, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
-    bias = torch.randn((BATCH, HEADS, L, L), generator=gen, device="cuda").to(dtype)
+    bias = torch.randn((B, HEADS, L, L), generator=gen, device="cuda").to(dtype)
     return qu, k, v, bias, g
 
 
@@ -738,14 +755,20 @@ ROUTE_SOURCES = {"tc": "attention_mma.cu", "tf32x3": "attention_f32_mma.cu"}
 def _route_launches(D, route):
     """(names, want): the attention launch counts one forward and backward on
     ``route`` raises by one (at the instance's head dim: D padded to the next
-    of 16 / 32 / 64 / 128), and the other routes' counts, which stay (the FMA
-    kernels' among them: ``fused_attention`` never launches those)."""
-    from sarssl_torch.kernels.attention import padded_head_dim
+    of 16 / 32 / 64 / 128 / 256, past 256 to the wide instance's next multiple
+    of its chunk, which also counts as ``..._wide_d{Dp}``), and the other
+    routes' counts, which stay (the FMA kernels' among them:
+    ``fused_attention`` never launches those)."""
+    from sarssl_torch.kernels.attention import HEAD_DIMS, padded_head_dim
 
     names, want = [], []
+    Dp = padded_head_dim(D)
     for r, tag in (("", ""), *ROUTE_TAGS.items()):
-        names += [f"attention_{kind}_{tag}d{padded_head_dim(D)}" for kind in ("fwd", "bwd")]
+        names += [f"attention_{kind}_{tag}d{Dp}" for kind in ("fwd", "bwd")]
         want += [int(r in ("", route))] * 2
+        if r in ("tc", "tf32x3"):
+            names += [f"attention_{kind}_{tag}wide_d{Dp}" for kind in ("fwd", "bwd")]
+            want += [int(r == route and Dp > HEAD_DIMS[-1])] * 2
     return names, want
 
 
@@ -772,14 +795,14 @@ def _vanishing_errors(qu, k, v, g, args, grads, ref_grads):
             rel_err(dv, rdv), max_abs(dbias, rdbias) / cancel]
 
 
-def check_attention(D, dtype, rate, seed, gen, L=SEQ):
+def check_attention(D, dtype, rate, seed, gen, L=SEQ, B=BATCH):
     """Kernel (fwd + bwd) against the plain version in f32; returns errors."""
     from sarssl_torch.kernels import (attention_plain, fused_attention, hash_keep_mask,
                                       launches)
     from sarssl_torch.kernels.attention import attention_route
 
     scale = 1.0 / np.sqrt(HEADS * D)
-    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L, B)
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
     route = attention_route(dtype, L, D)
     names, want = _route_launches(D, route)
@@ -804,8 +827,7 @@ def check_attention(D, dtype, rate, seed, gen, L=SEQ):
                             f"{rel} > {tol}")
     if rate > 0:
         # the kernel's dropped positions: with v = identity columns, out = pd
-        keep = hash_keep_mask(BATCH * HEADS * L * L, seed, rate,
-                              "cuda").reshape(BATCH, HEADS, L, L)
+        keep = hash_keep_mask(B * HEADS * L * L, seed, rate, "cuda").reshape(B, HEADS, L, L)
         eye = torch.eye(L, device="cuda", dtype=dtype)
         # w = min(D, L) columns at a time (the rest of v zero), the last block
         # ending at column L (it overlaps the one before where w does not
@@ -814,12 +836,13 @@ def check_attention(D, dtype, rate, seed, gen, L=SEQ):
         for c0 in sorted(set(range(0, L - w + 1, w)) | {L - w}):
             basis = torch.zeros((L, D), device="cuda", dtype=dtype)
             basis[:, :w] = eye[:, c0:c0 + w]
-            basis = basis.expand(BATCH, HEADS, L, D).contiguous()
+            basis = basis.expand(B, HEADS, L, D).contiguous()
             pd = fused_attention(qu, k, basis, bias, seed, scale, rate)[..., :w]
             same = torch.equal(pd != 0, keep[..., c0:c0 + w])
             assert same, (f"attention L={L} D={D} {dtype}: dropped positions differ from "
                           f"the plain mask")
-    log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={rate}: " + ", ".join(
+    log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={rate}"
+        + (f" B={B}" if B != BATCH else "") + ": " + ", ".join(
         f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
         + (" ; dropped positions identical" if rate > 0 else "")
         + f" (tol {tol}; {ROUTE_WORDS[route]} kernels)")
@@ -897,13 +920,15 @@ def _attention_yardsticks(qu, k, v, bias, g, seed, scale):
 # dim 16 (a d_model of 64; the small models of phase ref, and through the
 # padding the tiny one's 8 and 4) at the flagship batch and L in both dtypes.
 # Then head dim 256 (spec_dembed=1024: phase model_options' variant (m)) in
-# both dtypes, which the FMA kernels have no instance of.
+# both dtypes, which the FMA kernels have no instance of, and head dim 512 on
+# the wide instance (spec_dembed=2048: variant (n)).
 OPTION_ATTENTION_SHAPES = ((257, 128, torch.bfloat16), (257, 64, torch.bfloat16),
                            (512, 64, torch.bfloat16), (512, 32, torch.bfloat16),
                            (512, 64, torch.float32), (256, 128, torch.float32),
                            (256, 64, torch.float32), (256, 16, torch.bfloat16),
                            (256, 16, torch.float32), (256, 256, torch.bfloat16),
-                           (256, 256, torch.float32))
+                           (256, 256, torch.float32), (256, 512, torch.bfloat16),
+                           (256, 512, torch.float32))
 # (L, D) of the bf16 shapes whose tensor-core launches took over from the FMA
 # kernels: each launch, forward and backward, at least this many times faster
 # than the FMA kernel at its shape in the same run
@@ -928,32 +953,44 @@ PADDED_HEAD_DIMS = (8, 48, 200)
 # head dim 256 held against the plain version (not timed) at tails of 1 and
 # 33 rows, whole tiles, the CLS token's L and a long 768, both dtypes
 D256_CHECK_LENGTHS = (1, 33, 256, 257, 768)
+# the wide instance (every head dim past 256): D = 512 at the flagship batch
+# also at the CLS token's tail L = 257 (not timed); at a batch of WIDE_B a head
+# dim that is no multiple of its chunk (300, padded to 320, which runs blocks of
+# 64 columns) and one past 1000 (padded to 1024, blocks of 128), held at L =
+# 33, 257 and 256 and timed at 256, both dtypes
+WIDE_B = 8
+WIDE_SMALL_HEAD_DIMS = (300, 1000)
+WIDE_CHECK_LENGTHS = (33, 257, SEQ)
 
 
-def time_attention_route(L, D, dtype, seed, gen):
+def time_attention_route(L, D, dtype, seed, gen, B=BATCH):
     """Times of fwd and bwd on the tensor-core route ``fused_attention`` takes
     at this shape (rate 0.1), beside the FMA kernels launched directly (new,
-    old, old, new; None at D = 256, which they have no instance of), the
-    plain version, SDPA and the bound."""
-    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, FMA_HEAD_DIMS, attention_route,
+    old, old, new; None at D >= 256, which they have no instance of), the
+    plain version, SDPA and the bound. A D that is no instance's runs padded
+    (``attention_fwd_padded`` / ``attention_bwd_padded``, as the model's
+    calls do)."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, FMA_HEAD_DIMS, attention_bwd_padded,
+                                                attention_fwd_padded, attention_route,
                                                 launch_attention_bwd_fma,
                                                 launch_attention_fwd_fma)
 
     scale = 1.0 / np.sqrt(HEADS * D)
-    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L, B)
     args = (seed, scale, RATE)
     route = attention_route(dtype, L, D)
     res = {"route": route, "fma_fwd_ms": None, "fma_bwd_ms": None}
     fwd, bwd = _TC_LAUNCHES[route]
-    out, lse = fwd(qu, k, v, bias, *args)
-    res["fwd_ms"] = cuda_ms_queued(lambda: fwd(qu, k, v, bias, *args))
+    _, lse, padded = attention_fwd_padded(fwd, qu, k, v, bias, *args)
+    res["Dp"] = padded[0].shape[-1]
+    res["fwd_ms"] = cuda_ms_queued(lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args))
     if D in FMA_HEAD_DIMS:
         res["fma_fwd_ms"] = cuda_ms_queued(
             lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
         res["fma_bwd_ms"] = cuda_ms_queued(
             lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
-    res["bwd_ms"] = cuda_ms_queued(lambda: bwd(qu, k, v, bias, g, out, lse, *args))
-    del out, lse
+    res["bwd_ms"] = cuda_ms_queued(lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args))
+    del padded, lse
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
     return res
 
@@ -981,6 +1018,124 @@ def time_padded_attention(D, dtype, seed, gen):
                                                       *args))
     res["bwd_ms"] = cuda_ms_queued(lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args))
     return res
+
+
+def check_wide_at_256(dtype, seed, gen):
+    """The wide instance launched at D = 256 (``_wide_launches``: two chunks
+    of 128) on the flagship batch and L, rate 0.1, held against the plain
+    version (errors against the largest value, dropped positions those of the
+    plain mask with v = the identity), then timed beside the D = 256 instance
+    on the same inputs: instance, wide, wide, instance. Returns the errors and
+    the four readings."""
+    from sarssl_torch.kernels import attention_plain, hash_keep_mask, launches
+    from sarssl_torch.kernels.attention import _TC_LAUNCHES, _wide_launches, attention_route
+
+    D = 256
+    scale = 1.0 / np.sqrt(HEADS * D)
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
+    route = attention_route(dtype, SEQ, D)
+    (fwd, bwd), (wide_fwd, wide_bwd) = _TC_LAUNCHES[route], _wide_launches(route)
+    args = (seed, scale, RATE)
+    tag = ROUTE_TAGS[route]
+    # the wide counts rise, the D = 256 instance's stay
+    names = [f"attention_{kind}_{t}d256" for kind in ("fwd", "bwd")
+             for t in (f"{tag}wide_", tag, "")]
+    before = [launches[n] for n in names]
+    out, lse = wide_fwd(qu, k, v, bias, *args)
+    grads = wide_bwd(qu, k, v, bias, g, out, lse, *args)
+    rose = [launches[n] - b for n, b in zip(names, before)]
+    assert rose == [1, 0, 0] * 2, f"the wide instance at D=256 {dtype}: {names} rose {rose}"
+    ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g.float())
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    errs = {n: (rel_err(a, b), max_abs(a, b)) for n, a, b in
+            zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads), (ref, *ref_grads))}
+    for n, (rel, _) in errs.items():
+        assert rel <= tol, f"the wide instance at D=256 {dtype}: {n} rel err {rel} > {tol}"
+    eye = torch.eye(SEQ, device="cuda", dtype=dtype).expand(BATCH, HEADS, SEQ, D).contiguous()
+    pd = wide_fwd(qu, k, eye, bias, *args)[0]
+    keep = hash_keep_mask(BATCH * HEADS * SEQ * SEQ, seed, RATE, "cuda").reshape(pd.shape)
+    assert torch.equal(pd != 0, keep), f"the wide instance at D=256 {dtype}: dropped positions"
+    del ref, ref_grads, grads, pd, eye, keep
+    res = {"max_abs_err": max(a for _, a in errs.values()), "out_err": errs["out"][1]}
+    for kind in ("fwd", "bwd"):
+        call = ((lambda w: (wide_fwd if w else fwd)(qu, k, v, bias, *args)) if kind == "fwd"
+                else (lambda w: (wide_bwd if w else bwd)(qu, k, v, bias, g, out, lse, *args)))
+        inst1 = cuda_ms_queued(lambda: call(False))
+        wide1 = cuda_ms_queued(lambda: call(True))
+        wide2 = cuda_ms_queued(lambda: call(True))
+        inst2 = cuda_ms_queued(lambda: call(False))
+        res.update({f"{kind}_ms": (wide1 + wide2) / 2, f"{kind}_readings": (wide1, wide2),
+                    f"inst_{kind}_readings": (inst1, inst2)})
+    log(f"[kernels] attention L={SEQ} D=256 {str(dtype)[6:]} rate={RATE} on the wide instance "
+        f"(_wide_launches): " + ", ".join(f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
+        + f" (tol {tol}); dropped positions identical; fwd {res['fwd_readings'][0]:.4f} / "
+        f"{res['fwd_readings'][1]:.4f} ms beside the D=256 instance's "
+        f"{res['inst_fwd_readings'][0]:.4f} / {res['inst_fwd_readings'][1]:.4f}, bwd "
+        f"{res['bwd_readings'][0]:.4f} / {res['bwd_readings'][1]:.4f} beside "
+        f"{res['inst_bwd_readings'][0]:.4f} / {res['inst_bwd_readings'][1]:.4f} "
+        f"(instance, wide, wide, instance)")
+    return res
+
+
+def profile_wide(dtype, seed, gen, D=512, launches=3):
+    """Device ms a launch of each kernel of the wide instance's forward and
+    backward at (B, H, L, D) = (128, 4, 256, D), rate 0.1, from a
+    torch.profiler trace of ``launches`` launches of each; logged."""
+    from sarssl_torch.kernels.attention import _TC_LAUNCHES, attention_route
+
+    qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
+    fwd, bwd = _TC_LAUNCHES[attention_route(dtype, SEQ, D)]
+    args = (seed, 1.0 / np.sqrt(HEADS * D), RATE)
+    out, lse = fwd(qu, k, v, bias, *args)
+    bwd(qu, k, v, bias, g, out, lse, *args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(launches):
+            fwd(qu, k, v, bias, *args)
+            bwd(qu, k, v, bias, g, out, lse, *args)
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.events():
+        name = re.search(r"attn_\w+(<[^>]*>)?", evt.name)  # the products: A x or A^T x
+        if evt.device_type == torch.autograd.DeviceType.CUDA and name:
+            per[name.group(0)] = per.get(name.group(0), 0.0) + evt.device_time_total / 1e3
+    if not per:
+        log(f"[kernels] the wide instance at D={D} {str(dtype)[6:]}: the profiler recorded no "
+            f"device time")
+        return
+    log(f"[kernels] the wide instance at (128, 4, {SEQ}, {D}) {str(dtype)[6:]} rate={RATE}, "
+        f"device ms a launch by kernel (torch.profiler, {launches} launches): " + ", ".join(
+            f"{n} {ms / launches:.4f}" for n, ms in per.items()))
+
+
+def check_wide(seed, gen):
+    """The wide instance at the shapes phase kernels' option loop does not
+    give it (module note): D = 512 at L = 257, D = 300 and 1000 at a batch of
+    WIDE_B (held, timed at L = 256), and the launch at D = 256 beside the
+    D = 256 instance. Returns the rows for the kernels line."""
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        check_attention(512, dtype, RATE, seed, gen, 257)
+        torch.cuda.empty_cache()
+        for D in WIDE_SMALL_HEAD_DIMS:
+            for L in WIDE_CHECK_LENGTHS:
+                err, out_err = check_attention(D, dtype, RATE, seed, gen, L, WIDE_B)
+            t = time_attention_route(SEQ, D, dtype, seed, gen, WIDE_B)
+            t.update(max_abs_err=err, out_err=out_err)
+            rows[(D, dtype)] = t
+            log(f"[kernels] attention L={SEQ} D={D} (padded to {t['Dp']}) B={WIDE_B} "
+                f"{str(dtype)[6:]} rate={RATE} ({ROUTE_WORDS[t['route']]}, wide instance): fwd "
+                f"{t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
+                f"bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms "
+                f"(plain {t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
+                f"{t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
+        rows[(256, dtype)] = check_wide_at_256(dtype, seed, gen)
+        profile_wide(dtype, seed, gen)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_dropout(seed, gen):
@@ -1227,15 +1382,15 @@ def check_conv(gen):
 
 def check_attention_module(gen):
     """The conformer's attention module in bf16 at both flagship widths, at
-    d_model 64 (head dim 16) and at 32 (head dim 8, through the padding),
-    B=8, L=256, rate 0: fused (tensor-core kernels) against unfused (plain
-    PyTorch) on the card with the same weights; output and the gradients of
-    the input, u_bias and v_bias."""
+    d_model 64 (head dim 16), at 32 (head dim 8, through the padding) and at
+    2048 (head dim 512, the wide instance), B=8, L=256, rate 0: fused
+    (tensor-core kernels) against unfused (plain PyTorch) on the card with the
+    same weights; output and the gradients of the input, u_bias and v_bias."""
     from sarssl_torch.kernels import launches
     from sarssl_torch.kernels.attention import padded_head_dim
     from sarssl_torch.models.conformer import RelPosSelfAttention
 
-    for d_model in (512, 256, 64, 32):
+    for d_model in (512, 256, 64, 32, 2048):
         D = padded_head_dim(d_model // HEADS)
         mods = {}
         for fused in (True, False):
@@ -1289,13 +1444,13 @@ def phase_kernels():
         torch.cuda.empty_cache()
     opt_rows = {}
     for L, D, dtype in OPTION_ATTENTION_SHAPES:
-        if D in (16, 256):
+        if D in (16, 256, 512):
             check_attention(D, dtype, 0.0, seed, gen, L)
         err, out_err = check_attention(D, dtype, RATE, seed, gen, L)
         t = time_attention_route(L, D, dtype, seed, gen)
         t.update(max_abs_err=err, out_err=out_err)
         opt_rows[(L, D, dtype)] = t
-        fma = {kind: "none at D=256" if t[f"fma_{kind}_ms"] is None else
+        fma = {kind: f"none at D={D}" if t[f"fma_{kind}_ms"] is None else
                f"{t[f'fma_{kind}_ms']:.4f}" for kind in ("fwd", "bwd")}
         log(f"[kernels] attention L={L} D={D} {str(dtype)[6:]} rate={RATE} "
             f"({ROUTE_WORDS[t['route']]}): fwd {t['fwd_ms']:.4f} ms (FMA kernel "
@@ -1330,6 +1485,7 @@ def phase_kernels():
         # FMA kernels in this same run
         assert 4 * t["fwd_ms"] <= t["fma_fwd_ms"], f"attention fwd D={D}: under 4x the FMA kernel"
         assert 3 * t["bwd_ms"] <= t["fma_bwd_ms"], f"attention bwd D={D}: under 3x the FMA kernels"
+    wide = check_wide(seed, gen)
     check_attention_module(gen)
     drop = check_dropout(seed, gen)
     log(f"[kernels] hash_dropout: {drop['ms']:.4f} ms (plain {drop['plain_ms']:.4f}, "
@@ -1340,12 +1496,13 @@ def phase_kernels():
         f"plain {lanes['plain_ms']:.4f}, F.dropout {lanes['library_ms']:.4f}, bound "
         f"{lanes['bound'][0]:.4f})")
     conv = check_conv(gen)
-    return rows, opt_rows, drop, lanes, conv
+    return rows, opt_rows, wide, drop, lanes, conv
 
 
-def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_counts, opt_counts,
-                 dscli_counts, data_counts, real_counts, mo_counts, mo_shapes, grid_counts,
-                 abl_counts, mesh_counts, mesh, tiny_counts, d256_counts):
+def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli_counts,
+                 opt_counts, dscli_counts, data_counts, real_counts, mo_counts, mo_shapes,
+                 grid_counts, abl_counts, mesh_counts, mesh, tiny_counts, d256_counts,
+                 d320_counts):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1383,12 +1540,13 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
             out.append({
                 "name": f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}", "route": "cuda",
                 "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[r["route"]],
-                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[r["route"]],
+                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[r["route"]]
+                + ("_wide" if D > 256 else ""),
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
                 # variant (d) (L=257), (c) (L=512, bf16), (l) (L=256, f32) and
-                # (m) (D=256); no variant runs L=512 in f32. D=16: phase ref's
-                # tiny model
+                # (m) (D=256), (n) (D=512); no variant runs L=512 in f32. D=16:
+                # phase ref's tiny model
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
@@ -1402,6 +1560,9 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                          "(m), the flagship step with spec_dembed=1024 "
                          "(launches_model_options), and phase ref's SARSSLConfig.tiny("
                          "spec_dembed=1024) in f32 (launches_tiny_model)" if D == 256 else
+                         "no CLI configuration has head dim 512: phase model_options' variant "
+                         "(n), the flagship step with spec_dembed=2048 on the wide instance "
+                         "(launches_model_options)" if D == 512 else
                          "phase model_options (launches_model_options): use_cls (L=257) and "
                          "in_ver=single_ch_each_patch (L=512)" if dtype == torch.bfloat16 else
                          "phase model_options (launches_model_options): the flagship step in "
@@ -1416,6 +1577,46 @@ def kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts, cli_count
                    if D == 16 else {}),
                 **({"launches_tiny_model": d256_counts.get(
                     f"attention_{kind}_{ROUTE_TAGS[r['route']]}d256", 0)} if D == 256 else {}),
+            })
+    # the wide instance beside the option shapes: D = 300 and 1000 at a batch
+    # of WIDE_B (padded to 320 and 1024), and its launch at D = 256 (plain,
+    # SDPA and the bound: the D = 256 row's, the same shape in this run).
+    # Launches: the sum over every model phase's counts of that padded head
+    # dim on the wide instance
+    model_phases = (tiny_counts, d256_counts, d320_counts, counts, cli_counts, opt_counts,
+                    ds_counts, dscli_counts, grid_counts, data_counts, real_counts, mo_counts,
+                    abl_counts, mesh_counts)
+    for (D, dtype), r in wide.items():
+        at256 = D == 256
+        yard = opt_rows[(SEQ, 256, dtype)] if at256 else r
+        route = "tc" if dtype == torch.bfloat16 else "tf32x3"
+        for kind, line in (("fwd", 100), ("bwd", 128)):
+            name = f"attention_{kind}_{ROUTE_TAGS[route]}wide_d{256 if at256 else r['Dp']}"
+            n = sum(c.get(name, 0) for c in model_phases)
+            out.append({
+                "name": (f"attention_{kind}_d256_wide_L{SEQ}_{str(dtype)[6:]}" if at256 else
+                         f"attention_{kind}_d{D}_L{SEQ}_B{WIDE_B}_{str(dtype)[6:]}"),
+                "route": "cuda", "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[route],
+                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[route] + "_wide",
+                "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
+                "launches": n,
+                "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
+                "ms": r[f"{kind}_ms"], "plain_ms": yard[f"plain_{kind}_ms"],
+                "bound_ms": yard[f"{kind}_bound"][0], "bound_by": yard[f"{kind}_bound"][1],
+                "library_ms": yard[f"lib_{kind}_ms"], "fma_ms": None,
+                "path": ("no model path runs the wide instance at D = 256 (the D = 256 instance "
+                         "takes it); launched through _wide_launches beside that instance "
+                         "(instance_readings_ms), the same kernels as the D = 512 rows"
+                         if at256 else
+                         "the kernels at 320: phase ref's SARSSLConfig.tiny(spec_dembed=1280) "
+                         "in f32, head dim 320 (launches_tiny_model); no CLI configuration"
+                         if r["Dp"] == 320 else
+                         "no model path has head dim 1000 (padded to 1024): the same kernels as "
+                         "the D = 512 rows"),
+                **({"readings_ms": r[f"{kind}_readings"],
+                    "instance_readings_ms": r[f"inst_{kind}_readings"]} if at256 else
+                   {"padded_to": r["Dp"], "batch": WIDE_B}),
+                **({"launches_tiny_model": d320_counts.get(name, 0)} if D == 300 else {}),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -1534,7 +1735,9 @@ def phase_reference():
     head dims 32 and 16, then ``SARSSLConfig.tiny(fused_attention=True)``,
     whose 4 heads over d = 32 and 16 give head dims 8 and 4, which run the D =
     16 instances through the padding, then the same with ``spec_dembed=1024``
-    (head dim 256 at L = 16). Returns the two tiny models' counts."""
+    (head dim 256 at L = 16) and with ``spec_dembed=1280`` (head dim 320 on
+    the wide instance, blocks of 64 columns). Returns the three tiny models'
+    counts."""
     from sarssl_torch.data.synthetic import synth_batch
     from sarssl_torch.models import SARSSLConfig
     from sarssl_torch.ops import FeatureConfig
@@ -1557,7 +1760,11 @@ def phase_reference():
         "SARSSLConfig.tiny(spec_dembed=1024, fused_attention=True) (D = 256, 4)",
         SARSSLConfig().tiny(spec_dembed=1024, dropout=RATE, fused_attention=True), feat, wave,
         _attention_want((256, 1, "tf32x3"), (16, 1, "tf32x3")))
-    return tiny_counts, d256_counts
+    d320_counts = _card_against_cpu(
+        "SARSSLConfig.tiny(spec_dembed=1280, fused_attention=True) (D = 320 wide, 4)",
+        SARSSLConfig().tiny(spec_dembed=1280, dropout=RATE, fused_attention=True), feat, wave,
+        _attention_want((320, 1, "tf32x3"), (16, 1, "tf32x3")))
+    return tiny_counts, d256_counts, d320_counts
 
 
 def _assert_no_conv_launch(counts, step):
@@ -2545,11 +2752,15 @@ TOL_REMAT_GRAD = 2 ** -8
 
 def _attention_want(spec, spat):
     """Attention launches of one pretext train step: ``spec`` / ``spat`` are
-    (head dim, layers, route) of each encoder's conformer (``ROUTE_TAGS``)."""
+    (instance head dim, layers, route) of each encoder's conformer
+    (``ROUTE_TAGS``); past 256 the wide instance also counts as
+    ``..._wide_d{D}``."""
     want = {}
     for D, layers, route in (spec, spat):
         for kind in ("fwd", "bwd"):
-            for name in (f"attention_{kind}_d{D}", f"attention_{kind}_{ROUTE_TAGS[route]}d{D}"):
+            tag = ROUTE_TAGS[route]
+            names = [f"attention_{kind}_d{D}", f"attention_{kind}_{tag}d{D}"]
+            for name in names + ([f"attention_{kind}_{tag}wide_d{D}"] if D > 256 else []):
                 want[name] = want.get(name, 0) + layers
     return want
 
@@ -2798,7 +3009,7 @@ def _conformer_remat(card, total):
 
 
 def phase_model_options(card):
-    """The model's options at the flagship pretext width, variants (a)-(m);
+    """The model's options at the flagship pretext width, variants (a)-(n);
     each with its launch counts zeroed before and read after. Returns the
     phase's summed counts and, for the kernels line, the launches at each of
     the new attention shapes."""
@@ -2881,26 +3092,30 @@ def phase_model_options(card):
         f"{u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / "
         f"{u['peak_gib']:.2f} GiB (bf16 plain step {res['plain']['ms']:.1f} ms) ({card})")
     # (m) spec_dembed=1024: the spec encoder's 4 heads run head dim 256 (L =
-    # 256) on the D = 256 kernels, in bf16 and f32, each beside the same step
-    # unfused from the same weights, masks and dropout seeds (the unfused
-    # attention drops the same positions), so their losses agree to the
-    # dtype's tolerance
-    for dtype, route, tol in (("bfloat16", "tc", TOL_BF16), ("float32", "tf32x3", TOL_REF)):
-        r = run(f"(m) spec_dembed=1024 {dtype}, fused attention",
-                {**_attention_want((256, 1, route), (64, 3, route)),
-                 "hash_dropout": OPTION_DROPOUT["encoders"]}, dtype=dtype, spec_dembed=1024)
-        for kind in ("fwd", "bwd"):
-            shapes[(256, 256, dtype, kind)] = r["counts"].get(
-                f"attention_{kind}_{ROUTE_TAGS[route]}d256", 0)
-        u = run(f"(m) spec_dembed=1024 {dtype}, unfused attention",
-                {"hash_dropout": OPTION_DROPOUT["encoders_unfused"]}, dtype=dtype,
-                spec_dembed=1024, fused_attention=False)
-        err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], u["losses"]))
-        log(f"[model_options] (m) spec_dembed=1024 {dtype} step, fused ({ROUTE_WORDS[route]}, "
-            f"D = 256) against unfused: {r['ms']:.1f} / {u['ms']:.1f} ms, {r['utt_s']:.1f} / "
-            f"{u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / {u['peak_gib']:.2f} GiB, losses "
-            f"max rel err {err:.2e} (tol {tol}) ({card})")
-        assert err <= tol, f"(m) spec_dembed=1024 {dtype}: fused and unfused losses differ by {err}"
+    # 256) on the D = 256 kernels; (n) spec_dembed=2048: head dim 512 on the
+    # wide instance. Each in bf16 and f32, beside the same step unfused from
+    # the same weights, masks and dropout seeds (the unfused attention drops
+    # the same positions), so their losses agree to the dtype's tolerance
+    for tag, dembed in (("m", 1024), ("n", 2048)):
+        D = dembed // HEADS
+        for dtype, route, tol in (("bfloat16", "tc", TOL_BF16), ("float32", "tf32x3", TOL_REF)):
+            r = run(f"({tag}) spec_dembed={dembed} {dtype}, fused attention",
+                    {**_attention_want((D, 1, route), (64, 3, route)),
+                     "hash_dropout": OPTION_DROPOUT["encoders"]}, dtype=dtype, spec_dembed=dembed)
+            for kind in ("fwd", "bwd"):
+                shapes[(256, D, dtype, kind)] = r["counts"].get(
+                    f"attention_{kind}_{ROUTE_TAGS[route]}d{D}", 0)
+            u = run(f"({tag}) spec_dembed={dembed} {dtype}, unfused attention",
+                    {"hash_dropout": OPTION_DROPOUT["encoders_unfused"]}, dtype=dtype,
+                    spec_dembed=dembed, fused_attention=False)
+            err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], u["losses"]))
+            log(f"[model_options] ({tag}) spec_dembed={dembed} {dtype} step, fused "
+                f"({ROUTE_WORDS[route]}, D = {D}{', wide instance' if D > 256 else ''}) against "
+                f"unfused: {r['ms']:.1f} / {u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} "
+                f"utt/s, peak {r['peak_gib']:.2f} / {u['peak_gib']:.2f} GiB, losses max rel err "
+                f"{err:.2e} (tol {tol}) ({card})")
+            assert err <= tol, (f"({tag}) spec_dembed={dembed} {dtype}: fused and unfused losses "
+                                f"differ by {err}")
     log(f"[model_options] launches over the phase: {total}")
     return total, shapes
 
@@ -4258,8 +4473,8 @@ def main():
 
     card = phase_card()
     phase_build()
-    rows, opt_rows, drop, lanes, conv = phase_kernels()
-    tiny_counts, d256_counts = phase_reference()
+    rows, opt_rows, wide, drop, lanes, conv = phase_kernels()
+    tiny_counts, d256_counts, d320_counts = phase_reference()
     counts, pretrained, step_utt_s = phase_train(card)
     cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
     opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
@@ -4276,7 +4491,8 @@ def main():
     mesh_counts, mesh = phase_mesh(card, 1e3 * BATCH / step_utt_s)
     # fused_attention never reaches the FMA kernels: only phase kernels'
     # yardsticks launch them, directly
-    for phase, c in (("ref", tiny_counts), ("ref", d256_counts), ("train", counts),
+    for phase, c in (("ref", tiny_counts), ("ref", d256_counts), ("ref", d320_counts),
+                     ("train", counts),
                      ("pretrain_cli", cli_counts),
                      ("pretrain_options", opt_counts), ("downstream", ds_counts),
                      ("downstream_cli", dscli_counts), ("grid_vmap", grid_counts),
@@ -4285,10 +4501,10 @@ def main():
                      ("mesh", mesh_counts)):
         assert not _fma_launches(c), f"phase {phase} launched the FMA kernels: {_fma_launches(c)}"
     log("[kernels] the FMA attention kernels' launches in every model phase: 0")
-    print(json.dumps(kernels_line(rows, opt_rows, drop, lanes, conv, counts, ds_counts,
+    print(json.dumps(kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
                                   mo_counts, mo_shapes, grid_counts, abl_counts, mesh_counts,
-                                  mesh, tiny_counts, d256_counts)),
+                                  mesh, tiny_counts, d256_counts, d320_counts)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
 // Fused rel-pos attention on the H100's tensor cores in float32, forward and
-// backward, at head dims 16, 32, 64, 128 and 256 and any sequence length
-// L >= 1, as split-precision TF32 products (3xTF32). (bfloat16 runs
-// attention_mma.cu; the wrapper runs every other head dim up to 256 on the
-// next of these instances, on zero-padded inputs.)
+// backward, at head dims 16, 32, 64, 128 and 256, and every multiple of WDC =
+// 64 past 256 (the wide instance), at any sequence length L >= 1, as
+// split-precision TF32 products (3xTF32). (bfloat16 runs attention_mma.cu; the
+// wrapper runs every other head dim on the next of these instances, on
+// zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_tf32
+//                                                (wide: attn_fwd_scores_wide_tf32 +
+//                                                 attn_fwd_pv_wide_tf32)
 //   backward _fa_bwd   (_bwd_kernel)          -> attn_delta_f32 + attn_bwd_tf32 + attn_dqu_tf32
+//                                                (wide: attn_delta_wide_f32 +
+//                                                 attn_bwd_ds_wide_tf32 + 3 x attn_prod_wide_tf32)
 //
 //   s = (qu k^T + bias) * scale ; p = softmax(s) ; pd = dropout(p) ; out = pd v
 //   dv = pd^T g ; dp = dropout'(g v^T) ; ds = p (dp - sum_j dp p)
@@ -100,6 +105,13 @@
 //    always starts 4-byte aligned, so this instance copies bias and dbias
 //    tiles value by value (4-byte cp.async and stores) and reads lse and
 //    delta the same way. Tiles do not depend on L: every L runs.
+//  * Head dims past 256, the wide instance: attention_mma.cu's design (the
+//    scores once to an f32 scratch, then out = p v in DC-column blocks; the
+//    backward's dbias and pd once, then three products), with every product
+//    3xTF32 as above. The streamed chunks are WKC = 32 columns (rows of 36
+//    floats), so the backward's four chunk tiles, double-buffered, leave room
+//    for two blocks an SM; pd is f32, and dbias and pd are stored straight
+//    from the accumulators.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -234,11 +246,12 @@ __device__ __forceinline__ void split4(const uint32_t (&x)[4], uint32_t (&hi)[4]
 constexpr int KSTEP_UNROLL_256 = 3;
 
 // acc (16 x 8*NTILES) += A (16 rows of a tile from a_addr) * B^T (rows
-// 0..8*NTILES of a tile from b_addr), both of pitch D + 4 with rows along k
-template <int D, int NTILES>
+// 0..8*NTILES of a tile from b_addr), both of pitch D + 4 with rows along k;
+// UNROLL k-steps unrolled together
+template <int D, int NTILES, int UNROLL = (D <= 128 ? D / 8 : KSTEP_UNROLL_256)>
 __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t a_addr,
                                               uint32_t b_addr) {
-#pragma unroll (D <= 128 ? D / 8 : KSTEP_UNROLL_256)
+#pragma unroll (UNROLL)
   for (int kk = 0; kk < D / 8; ++kk) {
     uint32_t a[4], ah[4], al[4];
     ldsm_x4(a, a_addr + 32 * kk);
@@ -824,6 +837,458 @@ attn_dk_tf32(const float* __restrict__ dbias, const float* __restrict__ qu,
   dbias_product<D, EXACT, true>(dbias, qu, dk, L);
 }
 
+// ===========================================================================
+// The wide instance: every head dim above 256 (module note). Dp, the padded
+// head dim, is a runtime multiple of WDC; no tile and no register array
+// depends on it.
+// ===========================================================================
+// The wide head dims are the multiples of WDC (WIDE_CHUNK in kernels/attention.py,
+// which pads to them). The p v and product passes take 2 WDC output columns a
+// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5).
+constexpr int WDC = 64;
+constexpr int WKC = 32;   // columns of a streamed qu / k / g / v chunk (pitch WKC + 4)
+static_assert(WDC % WKC == 0 && WDC % 64 == 0, "Dp is whole chunks and whole delta steps");
+
+// ---------------------------------------------------------------------------
+// wide forward, pass 1: grid (ceil(L/64), B*H). The block's 64 query rows
+// against every key tile: s = sum over the Dp / KC chunks of qu_c k_c^T
+// (chunks streamed through a cp.async double buffer in (key tile, chunk)
+// order), (s + bias) * scale in log2 units, keys >= L at -inf, written to the
+// f32 score scratch (B*H, Lp, Lp), Lp = 64 ceil(L / 64), with the running row
+// max and sum; lse per row at the end.
+// smem: 2 x (qu chunk, k chunk), 2 x bias tile
+// ---------------------------------------------------------------------------
+template <int KC>
+struct WideScoresSmem {
+  static constexpr int CH = 64 * (KC + 4) * 4;  // a 64-row chunk tile
+  static constexpr int STAGE = 2 * CH;
+  static constexpr int BIAS = 64 * SBF * 4;
+  static constexpr int B = 2 * STAGE;           // 2 bias stages
+  static constexpr int BYTES = B + 2 * BIAS;
+  static_assert(CH % 128 == 0 && BIAS % 128 == 0, "tiles start 128-byte aligned");
+};
+
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
+                          const float* __restrict__ bias, float* __restrict__ scores,
+                          float* __restrict__ lse, int L, int Dp, float scale) {
+  typedef WideScoresSmem<KC> S;
+  constexpr int P = KC + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int bh = blockIdx.y, i0 = blockIdx.x * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, nsteps = ntiles * nkc;
+  const int qrows = L - i0;
+  const float* qp = qu + ((i64)bh * L + i0) * Dp;
+  const float* kp = k + (i64)bh * L * Dp;
+  const float* bp = bias + ((i64)bh * L + i0) * L;
+
+  // step s: chunk s % nkc of key tile s / nkc; a tile's first chunk also
+  // brings its bias, into the stage the tile before last has left
+  auto load_step = [&](int s) {
+    const int tt = s / nkc, c = s % nkc, j = tt * BK;
+    const uint32_t st = sb + (s & 1) * S::STAGE;
+    load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
+    load_rows<64, KC, !EXACT>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j);
+    if (c == 0)
+      load_scores<64, SBF, EXACT>(sb + S::B + (tt & 1) * S::BIAS, bp + j, L, qrows,
+                                  min(L - j, BK));
+  };
+  load_step(0);
+  cp_async_commit();
+
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // rows g and g + 8
+  const float sl2 = scale * LOG2E;
+  float* sa = scores + ((i64)bh * Lp + i0 + r0 + g) * Lp;
+  float* sbr = sa + 8 * (i64)Lp;
+
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < nsteps) {
+      load_step(step + 1);
+      cp_async_commit();
+    }
+    const uint32_t st = sb + (step & 1) * S::STAGE;
+    mma_rows_rows<KC, 8>(s, st + lane_a<P>(r0, lane), st + S::CH + lane_b<P>(lane));
+    if (step % nkc != nkc - 1) continue;
+
+    // the key tile's scores are whole: bias, scale, running max and sum, out
+    const int tt = step / nkc, kleft = L - tt * BK;
+    const float* bt = reinterpret_cast<const float*>(smem + S::B + (tt & 1) * S::BIAS);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      const float2 ba = *reinterpret_cast<const float2*>(bt + (r0 + g) * SBF + col);
+      const float2 bb = *reinterpret_cast<const float2*>(bt + (r0 + g + 8) * SBF + col);
+      s[n][0] = (s[n][0] + ba.x) * sl2;
+      s[n][1] = (s[n][1] + ba.y) * sl2;
+      s[n][2] = (s[n][2] + bb.x) * sl2;
+      s[n][3] = (s[n][3] + bb.y) * sl2;
+      if constexpr (!EXACT) {
+        if (col >= kleft) s[n][0] = s[n][2] = -INFINITY;
+        if (col + 1 >= kleft) s[n][1] = s[n][3] = -INFINITY;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sum_a += fast_exp2(s[n][0] - mn_a) + fast_exp2(s[n][1] - mn_a);
+      sum_b += fast_exp2(s[n][2] - mn_b) + fast_exp2(s[n][3] - mn_b);
+      const int col = tt * BK + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(sa + col) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(sbr + col) = make_float2(s[n][2], s[n][3]);
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+    l_a = l_a * fast_exp2(m_a - mn_a) + sum_a;
+    l_b = l_b * fast_exp2(m_b - mn_b) + sum_b;
+    m_a = mn_a;
+    m_b = mn_b;
+  }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (t == 0) {
+    float* lp = lse + (i64)bh * L + i0 + r0;
+    if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
+    if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide forward, pass 2: grid (ceil(L/64) * Dp/DC, B*H); blockIdx.x is query
+// tile * (Dp / DC) + the block's DC output columns, so the blocks of one query
+// tile run side by side and share its score tiles in L2. Walks the key tiles:
+// p = exp2(s - lse) (the scratch's scores, exact softmax), dropped or scaled
+// by 1/(1-rate), into out += p v.
+// smem: 2 x (score tile, v chunk)
+// ---------------------------------------------------------------------------
+template <int DC>
+struct WidePvSmem {
+  static constexpr int SC = 64 * SBF * 4;
+  static constexpr int VT = 64 * (DC + 4) * 4;
+  static constexpr int STAGE = SC + VT;
+  static constexpr int BYTES = 2 * STAGE;
+  static_assert(SC % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
+};
+
+template <int DC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_pv_wide_tf32(const float* __restrict__ scores, const float* __restrict__ lse,
+                      const float* __restrict__ v, float* __restrict__ out, int H, int L, int Dp,
+                      Dropout drop, Strides os) {
+  typedef WidePvSmem<DC> S;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int nch = Dp / DC, bh = blockIdx.y;
+  const int i0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, qrows = L - i0;
+  const float* sp = scores + ((i64)bh * Lp + i0) * Lp;
+  const float* vp = v + (i64)bh * L * Dp + c0;
+
+  auto load = [&](int tt) {
+    const uint32_t st = sb + (tt & 1) * S::STAGE;
+    const int j = tt * BK;
+    load_scores<64, SBF, true>(st, sp + j, Lp, 64, 64);
+    load_rows<64, DC, !EXACT>(st + S::SC, vp + (i64)j * Dp, Dp, L - j);
+  };
+  load(0);
+  cp_async_commit();
+
+  const float* lr = lse + (i64)bh * L + i0 + r0 + g;
+  const float l2a = EXACT || r0 + g < qrows ? lr[0] * LOG2E : 0.f;
+  const float l2b = EXACT || r0 + g + 8 < qrows ? lr[8] * LOG2E : 0.f;
+  const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
+  float o[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int tt = 0; tt < ntiles; ++tt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (tt + 1 < ntiles) {
+      load(tt + 1);
+      cp_async_commit();
+    }
+    const int stage = (tt & 1) * S::STAGE;
+    const float* sc = reinterpret_cast<const float*>(smem + stage);
+    const uint32_t j0 = (uint32_t)(tt * BK);
+    float p[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 a = *reinterpret_cast<const float2*>(sc + (r0 + g) * SBF + 8 * n + 2 * t);
+      const float2 b = *reinterpret_cast<const float2*>(sc + (r0 + g + 8) * SBF + 8 * n + 2 * t);
+      p[n][0] = a.x;
+      p[n][1] = a.y;
+      p[n][2] = b.x;
+      p[n][3] = b.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = fast_exp2(p[n][e] - (e < 2 ? l2a : l2b));
+        float pd = pe * drop.inv_keep;
+        if (drop.active && !keep(drop, (e < 2 ? row_a : row_b) + j0 + 8 * n + 2 * t + (e & 1)))
+          pd = 0.f;
+        p[n][e] = pd;
+      }
+    }
+    mma_acc_rows<DC, 8>(o, p, reinterpret_cast<const float*>(smem + stage + S::SC));
+  }
+  float* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l + c0;
+  store_acc<DC, !EXACT>(o, op, os.l, qrows - r0);
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, delta = rowsum(g * out): 16 lanes a row, W = 64 columns a
+// step of the loop over Dp
+// ---------------------------------------------------------------------------
+template <int W, bool EXACT>
+__global__ void __launch_bounds__(256)
+attn_delta_wide_f32(const float* __restrict__ g, const float* __restrict__ out,
+                    float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs,
+                    Strides os) {
+  constexpr int LPR = W / 4;
+  const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
+  const bool live = EXACT || row < rows;
+  const int rr = live ? row : 0;
+  const int bh = rr / L, i = rr % L;
+  const i64 b = bh / H, h = bh % H;
+  const float* gr = g + b * gs.b + h * gs.h + i * gs.l + 4 * c;
+  const float* orow = out + b * os.b + h * os.h + i * os.l + 4 * c;
+  float sum = 0.f;
+  for (int d = 0; d < Dp; d += W) {
+    const float4 gv = *reinterpret_cast<const float4*>(gr + d);
+    const float4 ov = *reinterpret_cast<const float4*>(orow + d);
+    sum = fmaf(gv.x, ov.x, sum);
+    sum = fmaf(gv.y, ov.y, sum);
+    sum = fmaf(gv.z, ov.z, sum);
+    sum = fmaf(gv.w, ov.w, sum);
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (c == 0 && live) delta[row] = sum;
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, scores: grid (ceil(L/64) key tiles, ceil(L/64) query tiles,
+// B*H). A block holds no D-sized accumulator: it streams the chunks of qu, k,
+// g and v for its (64 queries, 64 keys) and sums s = qu k^T and dp = g v^T,
+// then writes dbias = p (dropout'(dp) - delta) * scale and the dropped,
+// rescaled probabilities pd = dropout(p) (B, H, L, L), which the product
+// passes turn into dv = pd^T g, dk = dbias^T qu and dqu = dbias k.
+// smem: 2 x (qu, k, g, v chunks), bias tile, lse and delta
+// ---------------------------------------------------------------------------
+template <int KC>
+struct WideDsSmem {
+  static constexpr int CH = 64 * (KC + 4) * 4;
+  static constexpr int STAGE = 4 * CH;
+  static constexpr int BIAS = 64 * SBF * 4;
+  static constexpr int B = 2 * STAGE;
+  static constexpr int STAT = B + BIAS;  // lse, then delta, 64 rows each
+  static constexpr int BYTES = STAT + 2 * 64 * 4;
+  static_assert(CH % 128 == 0 && STAT % 128 == 0, "tiles start 128-byte aligned");
+};
+
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const float* __restrict__ gr, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dbias,
+                      float* __restrict__ pd, int H, int L, int Dp, float scale, Dropout drop,
+                      Strides gs) {
+  typedef WideDsSmem<KC> S;
+  constexpr int P = KC + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int j0 = blockIdx.x * BK, i0 = blockIdx.y * 64, bh = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // the warp's queries within the tile
+  const int nkc = Dp / KC, qrows = L - i0, kcols = min(L - j0, BK);
+  const float* qp = qu + ((i64)bh * L + i0) * Dp;
+  const float* kp = k + ((i64)bh * L + j0) * Dp;
+  const float* vp = v + ((i64)bh * L + j0) * Dp;
+  const float* gp = gr + (bh / H) * gs.b + (bh % H) * gs.h + (i64)i0 * gs.l;
+  const i64 tile0 = ((i64)bh * L + i0) * L + j0;  // element (i0, j0) of the (L, L) matrices
+
+  auto load_chunk = [&](int c) {
+    const uint32_t st = sb + (c & 1) * S::STAGE;
+    load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
+    load_rows<64, KC, !EXACT>(st + S::CH, kp + c * KC, Dp, kcols);
+    load_rows<64, KC, !EXACT>(st + 2 * S::CH, gp + c * KC, gs.l, qrows);
+    load_rows<64, KC, !EXACT>(st + 3 * S::CH, vp + c * KC, Dp, kcols);
+  };
+  load_chunk(0);
+  load_scores<64, SBF, EXACT>(sb + S::B, bias + tile0, L, qrows, kcols);
+  const float* lp = lse + (i64)bh * L + i0;
+  const float* dlp = delta + (i64)bh * L + i0;
+  if constexpr (EXACT) {
+    if (threadIdx.x < 32) {
+      const int c = threadIdx.x;
+      cp_async16(sb + S::STAT + 16 * c, c < 16 ? lp + 4 * c : dlp + 4 * (c - 16));
+    }
+  } else {
+    const int c = threadIdx.x & 63;
+    const float* row = threadIdx.x < 64 ? lp : dlp;
+    const bool ok = c < qrows;
+    cp_async4_zfill(sb + S::STAT + 4 * threadIdx.x, ok ? row + c : row, ok ? 4 : 0);
+  }
+  cp_async_commit();
+
+  float s[8][4], dp[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  }
+  for (int c = 0; c < nkc; ++c) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (c + 1 < nkc) {
+      load_chunk(c + 1);
+      cp_async_commit();
+    }
+    const uint32_t st = sb + (c & 1) * S::STAGE;
+    // the instance for any L holds more addresses: with the chunk's k-steps
+    // unrolled whole its two products' fragments spill
+    constexpr int U = EXACT ? KC / 8 : 1;
+    mma_rows_rows<KC, 8, U>(s, st + lane_a<P>(r0, lane), st + S::CH + lane_b<P>(lane));
+    mma_rows_rows<KC, 8, U>(dp, st + 2 * S::CH + lane_a<P>(r0, lane),
+                            st + 3 * S::CH + lane_b<P>(lane));
+  }
+
+  // p, pd and ds of the warp's 16 queries x 64 keys, straight to dbias and pd
+  const float* bt = reinterpret_cast<const float*>(smem + S::B);
+  const float* stat = reinterpret_cast<const float*>(smem + S::STAT);
+  const float sl2 = scale * LOG2E;
+  const uint32_t dbh = drop_bh(drop, bh);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    const float l2 = stat[r] * LOG2E, dl = stat[64 + r];
+    const uint32_t flat = (dbh * L + i0 + r) * L + j0;
+    float* dbr = dbias + tile0 + (i64)r * L;
+    float* pdr = pd + tile0 + (i64)r * L;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(bt + r * SBF + col);
+      float dsv[2], pdv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 2 * half + e;
+        const float p = fast_exp2((s[n][x] + (e ? b.y : b.x)) * sl2 - l2);
+        const bool kept = !drop.active || keep(drop, flat + col + e);
+        const float dpm = kept ? dp[n][x] * drop.inv_keep : 0.f;
+        dsv[e] = p * (dpm - dl) * scale;
+        pdv[e] = kept ? p * drop.inv_keep : 0.f;
+      }
+      if constexpr (EXACT) {
+        *reinterpret_cast<float2*>(dbr + col) = make_float2(dsv[0], dsv[1]);
+        *reinterpret_cast<float2*>(pdr + col) = make_float2(pdv[0], pdv[1]);
+      } else if (r < qrows) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col + e < kcols) {
+            dbr[col + e] = dsv[e];
+            pdr[col + e] = pdv[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, products: out (B, H, L, Dp) = A x, or with TRANS A^T x, for
+// A (B, H, L, L) (dbias or pd) and x (B, H, L, Dp) of strides xs: dqu = dbias
+// k, dk = dbias^T qu, dv = pd^T g. Grid (ceil(L/64) * Dp/DC, B*H) as pass 2 of
+// the forward; the block walks the other side of A in tiles of 64 and reads
+// its A fragments as attn_dqu_tf32 / attn_dk_tf32 do.
+// smem: 2 x (A tile 64 x 64 at pitch SBF, x chunk 64 x DC)
+// ---------------------------------------------------------------------------
+template <int DC>
+struct WideProdSmem {
+  static constexpr int A = 64 * SBF * 4;
+  static constexpr int XT = 64 * (DC + 4) * 4;
+  static constexpr int STAGE = A + XT;
+  static constexpr int BYTES = 2 * STAGE;
+  static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
+};
+
+template <int DC, bool EXACT, bool TRANS>
+__global__ void __launch_bounds__(NT, 2)
+attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
+                    float* __restrict__ out, int H, int L, int Dp, Strides xs) {
+  typedef WideProdSmem<DC> S;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int nch = Dp / DC, bh = blockIdx.y;
+  const int o0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntiles = (L + BK - 1) / BK, orows = L - o0;
+  const float* am = a + (i64)bh * L * L;
+  const float* xp = x + (bh / H) * xs.b + (bh % H) * xs.h + c0;
+
+  auto load = [&](int tt) {
+    const uint32_t st = sb + (tt & 1) * S::STAGE;
+    const int j1 = tt * BK;
+    if constexpr (TRANS)
+      load_scores<64, SBF, EXACT>(st, am + (i64)j1 * L + o0, L, L - j1, min(orows, BK));
+    else
+      load_scores<64, SBF, EXACT>(st, am + (i64)o0 * L + j1, L, orows, min(L - j1, BK));
+    load_rows<64, DC, !EXACT>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
+  };
+  load(0);
+  cp_async_commit();
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int tt = 0; tt < ntiles; ++tt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (tt + 1 < ntiles) {
+      load(tt + 1);
+      cp_async_commit();
+    }
+    const int stage = (tt & 1) * S::STAGE;
+    const float* at = reinterpret_cast<const float*>(smem + stage);
+    float af[8][4];
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {
+      if constexpr (TRANS) {
+        const float* col = at + (8 * kc + 2 * t) * SBF + r0 + g;
+        af[kc][0] = col[0];
+        af[kc][1] = col[SBF];
+        af[kc][2] = col[8];
+        af[kc][3] = col[SBF + 8];
+      } else {
+        const float2 u = *reinterpret_cast<const float2*>(at + (r0 + g) * SBF + 8 * kc + 2 * t);
+        const float2 w =
+            *reinterpret_cast<const float2*>(at + (r0 + g + 8) * SBF + 8 * kc + 2 * t);
+        af[kc][0] = u.x;
+        af[kc][1] = u.y;
+        af[kc][2] = w.x;
+        af[kc][3] = w.y;
+      }
+    }
+    mma_acc_rows<DC, 8>(acc, af, reinterpret_cast<const float*>(smem + stage + S::A));
+  }
+  store_acc<DC, !EXACT>(acc, out + ((i64)bh * L + o0 + r0) * Dp + c0, Dp, orows - r0);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -870,6 +1335,62 @@ cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bi
     attn_dk_tf32<D, EXACT><<<split, NT, DquSmem<D>::BYTES, stream>>>(dbias, qu, dk, L);
   }
   return cudaGetLastError();
+}
+
+template <int DC, bool EXACT>
+cudaError_t fwd_wide(const float* qu, const float* k, const float* v, const float* bias,
+                     float* out, float* lse, float* scores, int BH, int H, int L, int Dp,
+                     float scale, Dropout drop, Strides os, cudaStream_t stream) {
+  cudaError_t err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT>, WidePvSmem<DC>::BYTES);
+  if (err != cudaSuccess) return err;
+  const int nt = ceil_div(L, 64);
+  attn_fwd_scores_wide_tf32<WKC, EXACT><<<dim3(nt, BH), NT, WideScoresSmem<WKC>::BYTES, stream>>>(
+      qu, k, bias, scores, lse, L, Dp, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_fwd_pv_wide_tf32<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES,
+                                      stream>>>(scores, lse, v, out, H, L, Dp, drop, os);
+  return cudaGetLastError();
+}
+
+template <int DC, bool EXACT, bool TRANS>
+cudaError_t prod_wide(const float* a, const float* x, Strides xs, float* out, int BH, int H,
+                      int L, int Dp, cudaStream_t stream) {
+  typedef WideProdSmem<DC> S;
+  cudaError_t err = set_smem(attn_prod_wide_tf32<DC, EXACT, TRANS>, S::BYTES);
+  if (err != cudaSuccess) return err;
+  attn_prod_wide_tf32<DC, EXACT, TRANS><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT, S::BYTES,
+                                           stream>>>(a, x, out, H, L, Dp, xs);
+  return cudaGetLastError();
+}
+
+template <int DC, bool EXACT>
+cudaError_t bwd_wide(const float* qu, const float* k, const float* v, const float* bias,
+                     const float* g, const float* out, const float* lse, float* delta, float* dqu,
+                     float* dk, float* dv, float* dbias, float* pd, int BH, int H, int L, int Dp,
+                     float scale, Dropout drop, Strides gs, Strides os, cudaStream_t stream) {
+  cudaError_t err = set_smem(attn_bwd_ds_wide_tf32<WKC, EXACT>, WideDsSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  const int nt = ceil_div(L, 64);
+  attn_delta_wide_f32<64, EXACT><<<ceil_div(BH * L, 16), 256, 0, stream>>>(
+      g, out, delta, H, L, BH * L, Dp, gs, os);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_ds_wide_tf32<WKC, EXACT><<<dim3(nt, nt, BH), NT, WideDsSmem<WKC>::BYTES, stream>>>(
+      qu, k, v, bias, g, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  Strides cs;  // qu and k: contiguous (B, H, L, Dp)
+  cs.b = (i64)H * L * Dp;
+  cs.h = (i64)L * Dp;
+  cs.l = Dp;
+  err = prod_wide<DC, EXACT, true>(pd, g, gs, dv, BH, H, L, Dp, stream);
+  if (err != cudaSuccess) return err;
+  err = prod_wide<DC, EXACT, true>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
+  if (err != cudaSuccess) return err;
+  return prod_wide<DC, EXACT, false>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
@@ -977,9 +1498,70 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
   return (int)cudaErrorInvalidValue;
 }
 
+// The wide instance, as attn_tf32_fwd, at a padded head dim Dp (a multiple
+// of WDC, 256 or more). scores: (B, H, Lp, Lp) float32
+// scratch, Lp = 64 ceil(L / 64), written then read.
+int attn_tf32_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
+                       void* lse, void* scores, const long long* out_strides, int B, int H,
+                       int L, int head_dim, float scale, float rate, unsigned int seed,
+                       unsigned int thresh, float inv_keep, int h_total, int h_offset,
+                       void* stream) {
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
+      !aligned16(scores))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
+  const Strides os = make_strides(out_strides);
+#define ATTN_FWD_WIDE(DC, E)                                                                    \
+  fwd_wide<DC, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,        \
+                  (float*)out, (float*)lse, (float*)scores, B * H, H, L, head_dim, scale, drop,   \
+                  os, (cudaStream_t)stream)
+  const bool exact = exact_tiles(L, bias);
+  if (head_dim % (2 * WDC) == 0)
+    return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
+  return (int)(exact ? ATTN_FWD_WIDE(WDC, true) : ATTN_FWD_WIDE(WDC, false));
+#undef ATTN_FWD_WIDE
+}
+
+// The wide instance, as attn_tf32_bwd. pd: (B, H, L, L) float32 scratch (the
+// dropped probabilities), written then read; 16-byte aligned like dbias.
+int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void* bias,
+                       const void* g, const void* out, const void* lse, void* delta, void* dqu,
+                       void* dk, void* dv, void* dbias, void* pd, const long long* g_strides,
+                       const long long* out_strides, int B, int H, int L, int head_dim,
+                       float scale, float rate, unsigned int seed, unsigned int thresh,
+                       float inv_keep, int h_total, int h_offset, void* stream) {
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || !aligned16(dbias) || !aligned16(pd) ||
+      head_dim < 256 || head_dim % WDC != 0)
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
+  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
+#define ATTN_BWD_WIDE(DC, E)                                                                    \
+  bwd_wide<DC, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,        \
+                  (const float*)g, (const float*)out, (const float*)lse, (float*)delta,          \
+                  (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H, H, L,    \
+                  head_dim, scale, drop, gs, os, (cudaStream_t)stream)
+  const bool exact = exact_tiles(L, bias);
+  if (head_dim % (2 * WDC) == 0)
+    return (int)(exact ? ATTN_BWD_WIDE(2 * WDC, true) : ATTN_BWD_WIDE(2 * WDC, false));
+  return (int)(exact ? ATTN_BWD_WIDE(WDC, true) : ATTN_BWD_WIDE(WDC, false));
+#undef ATTN_BWD_WIDE
+}
+
 // Dynamic shared memory per block: which = 0 forward, 1 backward main pass,
-// 2 backward dqu pass (the same in both instances).
+// 2 backward dqu pass (the same in both instances). The wide instance's
+// kernels: which = 3 forward scores, 4 forward p v, 5 backward scores, 6
+// backward products (head_dim the padded one, or the column width of 4 / 6).
 int attn_tf32_smem_bytes(int head_dim, int which) {
+  switch (which) {
+    case 3:
+      return WideScoresSmem<WKC>::BYTES;
+    case 4:
+      return head_dim % (2 * WDC) ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
+    case 5:
+      return WideDsSmem<WKC>::BYTES;
+    case 6:
+      return head_dim % (2 * WDC) ? WideProdSmem<WDC>::BYTES : WideProdSmem<2 * WDC>::BYTES;
+  }
   switch (head_dim) {
     case 16:
       return which == 0 ? FwdSmem<16>::BYTES : which == 1 ? BwdSmem<16>::BYTES

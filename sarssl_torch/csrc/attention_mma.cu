@@ -1,11 +1,15 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
-// for bfloat16 at head dims 16, 32, 64, 128 and 256 and any sequence length
-// L >= 1. (float32 runs attention_f32_mma.cu; the wrapper runs every other
-// head dim up to 256 on the next of these instances, on zero-padded inputs.)
+// for bfloat16 at head dims 16, 32, 64, 128 and 256, and every multiple of
+// WDC = 64 past 256 (the wide instance), at any sequence length L >= 1.
+// (float32 runs attention_f32_mma.cu; the wrapper runs every other head dim
+// on the next of these instances, on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
+//                                                (wide: attn_fwd_scores_wide + attn_fwd_pv_wide)
 //   backward _fa_bwd   (_bwd_kernel)          -> attn_delta + attn_bwd_mma + attn_dqu_mma
+//                                                (wide: attn_delta_wide + attn_bwd_ds_wide +
+//                                                 3 x attn_prod_wide)
 //
 //   s = (qu k^T + bias) * scale ; p = softmax(s) ; pd = dropout(p) ; out = T(pd) v
 //   dv = T(pd)^T g ; dp = dropout'(g v^T) ; ds = p (dp - sum_j dp p)
@@ -108,6 +112,33 @@
 //        (ldmatrix needs 16-byte aligned rows). dbias goes out in 16-byte
 //        stores where a chunk lies inside the row and 2-byte stores at its
 //        two ends; lse and delta come in by 4-byte cp.async.
+//  * Head dims past 256, the wide instance: a warp's 16-row output at full
+//    width would need more than the 255 registers a thread has (16 x 512 f32
+//    is 256), and no whole-D tile of qu, k, v or g fits beside the others in
+//    shared memory. So the head dim Dp (a multiple of WDC) is a runtime
+//    argument, and
+//      - every score product is streamed: sum over the Dp / WKC column chunks
+//        of qu_c k_c^T (g_c v_c^T), the chunks through a cp.async double
+//        buffer, with mma_rows_rows and the swizzle at W = WKC = 64;
+//      - the forward computes each score once: attn_fwd_scores_wide writes
+//        (s + bias) * scale (log2 units, keys >= L at -inf) to an f32 scratch
+//        (B, H, Lp, Lp), Lp = L rounded up to whole 64-row tiles, and lse
+//        from the running row max and sum; attn_fwd_pv_wide then takes out =
+//        T(dropout(exp2(s - lse))) v for DC output columns a block (the exact
+//        softmax: no rescaling), the blocks of one query tile side by side in
+//        the grid so they share its score tiles in L2;
+//      - the backward computes each score once too: attn_bwd_ds_wide, one
+//        block a (64 queries, 64 keys) tile with no D-sized accumulator,
+//        writes dbias and the dropped, rescaled probabilities pd (B, H, L, L,
+//        bf16, scratch); then attn_prod_wide takes dv = pd^T g, dk = dbias^T
+//        qu and dqu = dbias k, DC output columns a block, reading pd / dbias
+//        by rows (A x) or, through ldmatrix.trans, by columns (A^T x). The
+//        pd and dbias roundings to bf16 are the other instances'.
+//    That moves the f32 scores (forward) and pd (backward) through device
+//    memory twice, in place of repeating the score products once for every
+//    block of output columns. DC is 128 where Dp is a multiple of 128, else
+//    64: at D = 512, 64 took 22% longer in the forward; at D = 320, padding
+//    to 384 for 128 took twice as long (PERF.md §5).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -942,6 +973,545 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
                          qrows - r0);
 }
 
+// ===========================================================================
+// The wide instance: every head dim above 256 (module note). Dp, the padded
+// head dim, is a runtime multiple of WDC; no tile and no register array
+// depends on it.
+// ===========================================================================
+// The wide head dims are the multiples of WDC (WIDE_CHUNK in kernels/attention.py,
+// which pads to them). The p v and product passes take 2 WDC output columns a
+// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5).
+constexpr int WDC = 64;
+constexpr int WKC = 64;   // columns of a streamed qu / k / g / v chunk
+static_assert(WDC % WKC == 0, "a wide head dim is a whole number of streamed chunks");
+constexpr int SBF = 72;   // pitch (floats) of a 64 x 64 f32 score tile read as float2 pairs
+
+// 64 x 64 floats of a matrix of row stride ld (rows 16-byte aligned) -> tile
+// of pitch SBF
+__device__ __forceinline__ void load_f32_tile(uint32_t dst, const float* src, i64 ld) {
+#pragma unroll
+  for (int it = 0; it < 64 * 16 / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx >> 4, c = idx & 15;
+    cp_async16(dst + (uint32_t)((r * SBF + 4 * c) * 4), src + (i64)r * ld + 4 * c);
+  }
+}
+
+// two bf16 values of a tile at any element indices, packed (lo first)
+__device__ __forceinline__ uint32_t ld_two(const bf16* lo, const bf16* hi) {
+  return (uint32_t)__bfloat16_as_ushort(*lo) | ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
+}
+
+// ---------------------------------------------------------------------------
+// wide forward, pass 1: grid (ceil(L/64), B*H). The block's 64 query rows
+// against every key tile: s = sum over the Dp / KC chunks of qu_c k_c^T
+// (chunks streamed through a cp.async double buffer in (key tile, chunk)
+// order), then (s + bias) * scale in log2 units, keys >= L at -inf, written to
+// the f32 score scratch (B*H, Lp, Lp), Lp = 64 ceil(L / 64), with the running
+// row max and sum; lse per row at the end.
+// smem: 2 x (qu chunk, k chunk), 2 x bias tile
+// ---------------------------------------------------------------------------
+template <int KC>
+struct WideScoresSmem {
+  static constexpr int CH = 64 * KC * 2;  // a 64-row chunk tile
+  static constexpr int STAGE = 2 * CH;    // qu chunk, k chunk
+  static constexpr int BIAS = 64 * BSTR * 2;
+  static constexpr int B = 2 * STAGE;     // 2 bias stages
+  static constexpr int BYTES = B + 2 * BIAS;
+  static_assert(CH % 1024 == 0 && BIAS % 256 == 0, "tiles start at multiples of 256 bytes");
+};
+
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                     const bf16* __restrict__ bias, float* __restrict__ scores,
+                     float* __restrict__ lse, int L, int Dp, float scale) {
+  typedef WideScoresSmem<KC> S;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int bh = blockIdx.y, i0 = blockIdx.x * 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, nsteps = ntiles * nkc;
+  const int qrows = L - i0;
+  const bf16* qp = qu + ((i64)bh * L + i0) * Dp;
+  const bf16* kp = k + (i64)bh * L * Dp;
+  const bf16* bp = bias + ((i64)bh * L + i0) * L;
+
+  // step s: chunk s % nkc of key tile s / nkc; a tile's first chunk also
+  // brings its bias, into the stage the tile before last has left
+  auto load_step = [&](int s) {
+    const int tt = s / nkc, c = s % nkc, j = tt * BK;
+    const uint32_t st = sb + (s & 1) * S::STAGE;
+    if constexpr (EXACT) {
+      load_tile<64, KC>(st, qp + c * KC, Dp);
+      load_tile<64, KC>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp);
+    } else {
+      load_tile<64, KC, true>(st, qp + c * KC, Dp, qrows);
+      load_tile<64, KC, true>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j);
+    }
+    if (c == 0) {
+      const uint32_t bt = sb + S::B + (tt & 1) * S::BIAS;
+      if constexpr (EXACT) load_bias_tile<64>(bt, bp + j, L);
+      else load_window_tile<64>(bt, bp + j, L, qrows, min(L - j, BK));
+    }
+  };
+  load_step(0);
+  cp_async_commit();
+
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // rows g and g + 8
+  const float sl2 = scale * LOG2E;
+  const int ba_off = (r0 + g) * BSTR + (EXACT ? 0 : window_shift(bp + (i64)(r0 + g) * L));
+  const int bb_off = (r0 + g + 8) * BSTR + (EXACT ? 0 : window_shift(bp + (i64)(r0 + g + 8) * L));
+  float* sa = scores + ((i64)bh * Lp + i0 + r0 + g) * Lp;
+  float* sbr = sa + 8 * (i64)Lp;
+
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < nsteps) {
+      load_step(step + 1);
+      cp_async_commit();
+    }
+    const uint32_t st = sb + (step & 1) * S::STAGE;
+    mma_rows_rows<KC, 8>(s, lane_base_a<KC>(st, r0, lane), lane_base_b<KC>(st + S::CH, lane));
+    if (step % nkc != nkc - 1) continue;
+
+    // the key tile's scores are whole: bias, scale, running max and sum, out
+    const int tt = step / nkc, kleft = L - tt * BK;
+    const bf16* bt = reinterpret_cast<const bf16*>(smem + S::B + (tt & 1) * S::BIAS);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      float2 ba, bb;
+      if constexpr (EXACT) {
+        ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + ba_off + col));
+        bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bt + bb_off + col));
+      } else {
+        ba = make_float2(__bfloat162float(bt[ba_off + col]),
+                         __bfloat162float(bt[ba_off + col + 1]));
+        bb = make_float2(__bfloat162float(bt[bb_off + col]),
+                         __bfloat162float(bt[bb_off + col + 1]));
+      }
+      s[n][0] = (s[n][0] + ba.x) * sl2;
+      s[n][1] = (s[n][1] + ba.y) * sl2;
+      s[n][2] = (s[n][2] + bb.x) * sl2;
+      s[n][3] = (s[n][3] + bb.y) * sl2;
+      if constexpr (!EXACT) {
+        if (col >= kleft) s[n][0] = s[n][2] = -INFINITY;
+        if (col + 1 >= kleft) s[n][1] = s[n][3] = -INFINITY;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sum_a += fast_exp2(s[n][0] - mn_a) + fast_exp2(s[n][1] - mn_a);
+      sum_b += fast_exp2(s[n][2] - mn_b) + fast_exp2(s[n][3] - mn_b);
+      const int col = tt * BK + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(sa + col) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(sbr + col) = make_float2(s[n][2], s[n][3]);
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+    l_a = l_a * fast_exp2(m_a - mn_a) + sum_a;
+    l_b = l_b * fast_exp2(m_b - mn_b) + sum_b;
+    m_a = mn_a;
+    m_b = mn_b;
+  }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (t == 0) {
+    float* lp = lse + (i64)bh * L + i0 + r0;
+    if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
+    if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide forward, pass 2: grid (ceil(L/64) * Dp/DC, B*H); blockIdx.x is query
+// tile * (Dp / DC) + the block's DC output columns, so the blocks of one query
+// tile run side by side and share its score tiles in L2. Walks the key tiles:
+// p = exp2(s - lse) (the scratch's scores, exact softmax), dropped or scaled
+// by 1/(1-rate), rounded to bf16 as the A operand of out += p v.
+// smem: 2 x (score tile, v chunk)
+// ---------------------------------------------------------------------------
+template <int DC>
+struct WidePvSmem {
+  static constexpr int SC = 64 * SBF * 4;
+  static constexpr int VT = 64 * DC * 2;
+  static constexpr int STAGE = SC + VT;
+  static constexpr int BYTES = 2 * STAGE;
+  static_assert(SC % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
+};
+
+template <int DC, bool EXACT>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_pv_wide(const float* __restrict__ scores, const float* __restrict__ lse,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int H, int L, int Dp,
+                 Dropout drop, Strides os) {
+  typedef WidePvSmem<DC> S;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int nch = Dp / DC, bh = blockIdx.y;
+  const int i0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, qrows = L - i0;
+  const float* sp = scores + ((i64)bh * Lp + i0) * Lp;
+  const bf16* vp = v + (i64)bh * L * Dp + c0;
+
+  auto load = [&](int tt) {
+    const uint32_t st = sb + (tt & 1) * S::STAGE;
+    const int j = tt * BK;
+    load_f32_tile(st, sp + j, Lp);
+    if constexpr (EXACT) load_tile<64, DC>(st + S::SC, vp + (i64)j * Dp, Dp);
+    else load_tile<64, DC, true>(st + S::SC, vp + (i64)j * Dp, Dp, L - j);
+  };
+  load(0);
+  cp_async_commit();
+
+  const float* lr = lse + (i64)bh * L + i0 + r0 + g;
+  const float l2a = EXACT || r0 + g < qrows ? lr[0] * LOG2E : 0.f;
+  const float l2b = EXACT || r0 + g + 8 < qrows ? lr[8] * LOG2E : 0.f;
+  const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
+  float o[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int tt = 0; tt < ntiles; ++tt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (tt + 1 < ntiles) {
+      load(tt + 1);
+      cp_async_commit();
+    }
+    const int stage = (tt & 1) * S::STAGE;
+    const float* sc = reinterpret_cast<const float*>(smem + stage);
+    const uint32_t j0 = (uint32_t)(tt * BK);
+    float p[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 a = *reinterpret_cast<const float2*>(sc + (r0 + g) * SBF + 8 * n + 2 * t);
+      const float2 b = *reinterpret_cast<const float2*>(sc + (r0 + g + 8) * SBF + 8 * n + 2 * t);
+      p[n][0] = a.x;
+      p[n][1] = a.y;
+      p[n][2] = b.x;
+      p[n][3] = b.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = fast_exp2(p[n][e] - (e < 2 ? l2a : l2b));
+        float pd = pe * drop.inv_keep;
+        if (drop.active && !keep(drop, (e < 2 ? row_a : row_b) + j0 + 8 * n + 2 * t + (e & 1)))
+          pd = 0.f;
+        p[n][e] = pd;
+      }
+    }
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      pf[kc][0] = pack2(p[2 * kc][0], p[2 * kc][1]);
+      pf[kc][1] = pack2(p[2 * kc][2], p[2 * kc][3]);
+      pf[kc][2] = pack2(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+      pf[kc][3] = pack2(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+    }
+    mma_a_regs_b_rows<DC, 4, DC / 8>(o, pf, lane_base_a<DC>(sb + stage + S::SC, 0, lane));
+  }
+  __syncthreads();  // every warp is done with the tiles: stage 0's v tile stages the rows
+  bf16* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l + c0;
+  store_rows<DC, !EXACT>(smem, S::SC, o, r0, op, os.l, lane, qrows - r0);
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, delta = rowsum(g * out): W / 8 lanes a row, W = DC columns
+// a step of the loop over Dp
+// ---------------------------------------------------------------------------
+template <int W, bool EXACT>
+__global__ void __launch_bounds__(256)
+attn_delta_wide(const bf16* __restrict__ g, const bf16* __restrict__ out,
+                float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs, Strides os) {
+  constexpr int LPR = W / 8;
+  const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
+  const bool live = EXACT || row < rows;
+  const int rr = live ? row : 0;
+  const int bh = rr / L, i = rr % L;
+  const i64 b = bh / H, h = bh % H;
+  const bf16* gr = g + b * gs.b + h * gs.h + i * gs.l + c * 8;
+  const bf16* orow = out + b * os.b + h * os.h + i * os.l + c * 8;
+  float sum = 0.f;
+  for (int d = 0; d < Dp; d += W) {
+    const uint4 gv = *reinterpret_cast<const uint4*>(gr + d);
+    const uint4 ov = *reinterpret_cast<const uint4*>(orow + d);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(g2[e]), bb = __bfloat1622float2(o2[e]);
+      sum = fmaf(a.x, bb.x, sum);
+      sum = fmaf(a.y, bb.y, sum);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (c == 0 && live) delta[row] = sum;
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, scores: grid (ceil(L/64) key tiles, ceil(L/64) query tiles,
+// B*H). A block holds no D-sized accumulator: it streams the chunks of qu, k,
+// g and v for its (64 queries, 64 keys) and sums s = qu k^T and dp = g v^T,
+// then writes dbias = T(p (dropout'(dp) - delta) * scale) and the dropped,
+// rescaled probabilities pd = T(dropout(p)) (B, H, L, L), which the product
+// passes turn into dv = pd^T g, dk = dbias^T qu and dqu = dbias k.
+// smem: 2 x (qu, k, g, v chunks), bias tile, lse and delta, dbias and pd
+// staging tiles
+// ---------------------------------------------------------------------------
+template <int KC>
+struct WideDsSmem {
+  static constexpr int CH = 64 * KC * 2;
+  static constexpr int STAGE = 4 * CH;
+  static constexpr int BIAS = 64 * BSTR * 2;
+  static constexpr int B = 2 * STAGE;
+  static constexpr int STAT = B + BIAS;   // lse, then delta, 64 rows each
+  static constexpr int DS = STAT + 2 * 64 * 4;
+  static constexpr int PD = DS + BIAS;
+  static constexpr int BYTES = PD + BIAS;
+  static_assert(CH % 1024 == 0 && DS % 16 == 0, "tiles start 16-byte aligned, chunks swizzled");
+};
+
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const bf16* __restrict__ gr, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dbias, bf16* __restrict__ pd,
+                 int H, int L, int Dp, float scale, Dropout drop, Strides gs) {
+  typedef WideDsSmem<KC> S;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int j0 = blockIdx.x * BK, i0 = blockIdx.y * 64, bh = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // the warp's queries within the tile
+  const int nkc = Dp / KC, qrows = L - i0, kcols = min(L - j0, BK);
+  const bf16* qp = qu + ((i64)bh * L + i0) * Dp;
+  const bf16* kp = k + ((i64)bh * L + j0) * Dp;
+  const bf16* vp = v + ((i64)bh * L + j0) * Dp;
+  const bf16* gp = gr + (bh / H) * gs.b + (bh % H) * gs.h + (i64)i0 * gs.l;
+  const i64 tile0 = ((i64)bh * L + i0) * L + j0;  // element (i0, j0) of the (L, L) matrices
+
+  auto load_chunk = [&](int c) {
+    const uint32_t st = sb + (c & 1) * S::STAGE;
+    if constexpr (EXACT) {
+      load_tile<64, KC>(st, qp + c * KC, Dp);
+      load_tile<64, KC>(st + S::CH, kp + c * KC, Dp);
+      load_tile<64, KC>(st + 2 * S::CH, gp + c * KC, gs.l);
+      load_tile<64, KC>(st + 3 * S::CH, vp + c * KC, Dp);
+    } else {
+      load_tile<64, KC, true>(st, qp + c * KC, Dp, qrows);
+      load_tile<64, KC, true>(st + S::CH, kp + c * KC, Dp, kcols);
+      load_tile<64, KC, true>(st + 2 * S::CH, gp + c * KC, gs.l, qrows);
+      load_tile<64, KC, true>(st + 3 * S::CH, vp + c * KC, Dp, kcols);
+    }
+  };
+  load_chunk(0);
+  const float* lp = lse + (i64)bh * L + i0;
+  const float* dlp = delta + (i64)bh * L + i0;
+  if constexpr (EXACT) {
+    load_bias_tile<64>(sb + S::B, bias + tile0, L);
+    if (threadIdx.x < 32) {
+      const int c = threadIdx.x;
+      cp_async16(sb + S::STAT + 16 * c, c < 16 ? lp + 4 * c : dlp + 4 * (c - 16));
+    }
+  } else {
+    load_window_tile<64>(sb + S::B, bias + tile0, L, qrows, kcols);
+    const int c = threadIdx.x & 63;
+    const float* row = threadIdx.x < 64 ? lp : dlp;
+    const bool ok = c < qrows;
+    cp_async4_zfill(sb + S::STAT + 4 * threadIdx.x, ok ? row + c : row, ok ? 4 : 0);
+  }
+  cp_async_commit();
+
+  float s[8][4], dp[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  }
+  for (int c = 0; c < nkc; ++c) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (c + 1 < nkc) {
+      load_chunk(c + 1);
+      cp_async_commit();
+    }
+    const uint32_t st = sb + (c & 1) * S::STAGE;
+    mma_rows_rows<KC, 8>(s, lane_base_a<KC>(st, r0, lane), lane_base_b<KC>(st + S::CH, lane));
+    mma_rows_rows<KC, 8>(dp, lane_base_a<KC>(st + 2 * S::CH, r0, lane),
+                         lane_base_b<KC>(st + 3 * S::CH, lane));
+  }
+
+  // p, pd and ds of the warp's 16 queries x 64 keys, staged as bf16 rows
+  // (TAIL: each row at its window shift in dbias / pd)
+  const bf16* bt = reinterpret_cast<const bf16*>(smem + S::B);
+  const float* stat = reinterpret_cast<const float*>(smem + S::STAT);
+  bf16* dst = reinterpret_cast<bf16*>(smem + S::DS);
+  bf16* pdt = reinterpret_cast<bf16*>(smem + S::PD);
+  const float sl2 = scale * LOG2E;
+  const uint32_t dbh = drop_bh(drop, bh);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    const i64 at = tile0 + (i64)r * L;
+    const int boff = r * BSTR + (EXACT ? 0 : window_shift(bias + at));
+    const int doff = r * BSTR + (EXACT ? 0 : window_shift(dbias + at));
+    const int poff = r * BSTR + (EXACT ? 0 : window_shift(pd + at));
+    const float l2 = stat[r] * LOG2E, dl = stat[64 + r];
+    const uint32_t flat = (dbh * L + i0 + r) * L + j0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e, x = 2 * half + e;
+        const float b = __bfloat162float(bt[boff + col]);
+        const float p = fast_exp2((s[n][x] + b) * sl2 - l2);
+        const bool kept = !drop.active || keep(drop, flat + col);
+        const float dpm = kept ? dp[n][x] * drop.inv_keep : 0.f;
+        dst[doff + col] = __float2bfloat16(p * (dpm - dl) * scale);
+        pdt[poff + col] = __float2bfloat16(kept ? p * drop.inv_keep : 0.f);
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (EXACT) {
+#pragma unroll
+    for (int it = 0; it < 64 * 8 / NT; ++it) {
+      const int idx = threadIdx.x + it * NT, r = idx >> 3, c = idx & 7;
+      const int off = (r * BSTR + c * 8) * 2;
+      *reinterpret_cast<uint4*>(dbias + tile0 + (i64)r * L + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + S::DS + off);
+      *reinterpret_cast<uint4*>(pd + tile0 + (i64)r * L + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + S::PD + off);
+    }
+  } else {
+    store_window_tile<64>(dbias + tile0, L, smem + S::DS, qrows, kcols);
+    store_window_tile<64>(pd + tile0, L, smem + S::PD, qrows, kcols);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide backward, products: out (B, H, L, Dp) = A x, or with TRANS A^T x, for
+// A (B, H, L, L) (dbias or pd) and x (B, H, L, Dp) of strides xs: dqu = dbias
+// k, dk = dbias^T qu, dv = pd^T g. Grid (ceil(L/64) * Dp/DC, B*H) as pass 2 of
+// the forward; the block walks the other side of A in tiles of 64 (TRANS: A's
+// rows, whose A^T fragments come by ldmatrix.trans).
+// smem: 2 x (A tile 64 x 64 (TAIL: a padded window tile), x chunk 64 x DC)
+// ---------------------------------------------------------------------------
+template <int DC, bool EXACT>
+struct WideProdSmem {
+  static constexpr int A = EXACT ? 64 * 64 * 2 : 64 * BSTR * 2;
+  static constexpr int XT = 64 * DC * 2;
+  static constexpr int STAGE = A + XT;
+  static constexpr int BYTES = 2 * STAGE;
+  static_assert(A % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
+};
+
+template <int DC, bool EXACT, bool TRANS>
+__global__ void __launch_bounds__(NT)
+attn_prod_wide(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __restrict__ out,
+               int H, int L, int Dp, Strides xs) {
+  typedef WideProdSmem<DC, EXACT> S;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int nch = Dp / DC, bh = blockIdx.y;
+  const int o0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int ntiles = (L + BK - 1) / BK, orows = L - o0;
+  const bf16* am = a + (i64)bh * L * L;
+  const bf16* xp = x + (bh / H) * xs.b + (bh % H) * xs.h + c0;
+
+  auto load = [&](int tt) {
+    const uint32_t st = sb + (tt & 1) * S::STAGE;
+    const int j1 = tt * BK;
+    const bf16* src = TRANS ? am + (i64)j1 * L + o0 : am + (i64)o0 * L + j1;
+    if constexpr (EXACT) {
+      load_tile<64, 64>(st, src, L);
+      load_tile<64, DC>(st + S::A, xp + (i64)j1 * xs.l, xs.l);
+    } else {
+      load_window_tile<64>(st, src, L, TRANS ? L - j1 : orows,
+                           TRANS ? min(orows, BK) : min(L - j1, BK));
+      load_tile<64, DC, true>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // TAIL, A x: the thread's A rows r0 + g and r0 + g + 8, whose window shifts
+  // are the same in every tile (tiles step by 64 values)
+  const int a_off =
+      (r0 + g) * BSTR + 2 * t + (EXACT ? 0 : window_shift(am + (i64)(o0 + r0 + g) * L));
+  const int b_off =
+      (r0 + g + 8) * BSTR + 2 * t + (EXACT ? 0 : window_shift(am + (i64)(o0 + r0 + g + 8) * L));
+  // TAIL, A^T x: the shift of A's row j is (a_sh + j * L) & 7
+  const uint32_t a_sh = (uint32_t)(reinterpret_cast<uintptr_t>(am + o0) >> 1);
+
+  for (int tt = 0; tt < ntiles; ++tt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (tt + 1 < ntiles) {
+      load(tt + 1);
+      cp_async_commit();
+    }
+    const int stage = (tt & 1) * S::STAGE;
+    const uint32_t at = sb + stage;
+    uint32_t af[4][4];
+    if constexpr (EXACT) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if constexpr (TRANS)
+          ldsm_x4_t(af[kc], (lane_base_b<64>(at, lane) ^ (warp << 5)) + kc * 16 * 64 * 2);
+        else
+          ldsm_x4(af[kc], lane_base_a<64>(at, r0, lane) ^ (kc << 5));
+      }
+    } else {
+      const bf16* ap = reinterpret_cast<const bf16*>(smem + stage);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if constexpr (TRANS) {
+          // A^T[m][k] = A[k][m]: rows k of the tile, column m = r0 + g (+ 8)
+          const int k0 = 16 * kc + 2 * t, j1 = tt * BK;
+          const bf16* rk[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int kk = k0 + (q & 1) + 8 * (q >> 1);
+            rk[q] = ap + kk * BSTR + (int)((a_sh + (uint32_t)(j1 + kk) * (uint32_t)L) & 7) + r0 + g;
+          }
+          af[kc][0] = ld_two(rk[0], rk[1]);
+          af[kc][1] = ld_two(rk[0] + 8, rk[1] + 8);
+          af[kc][2] = ld_two(rk[2], rk[3]);
+          af[kc][3] = ld_two(rk[2] + 8, rk[3] + 8);
+        } else {
+          af[kc][0] = ld_pair(ap + a_off + 16 * kc);
+          af[kc][1] = ld_pair(ap + b_off + 16 * kc);
+          af[kc][2] = ld_pair(ap + a_off + 16 * kc + 8);
+          af[kc][3] = ld_pair(ap + b_off + 16 * kc + 8);
+        }
+      }
+    }
+    mma_a_regs_b_rows<DC, 4, DC / 8>(acc, af, lane_base_a<DC>(at + S::A, 0, lane));
+  }
+  __syncthreads();  // every warp is done with the stages: stage 0's x tile stages the rows
+  store_rows<DC, !EXACT>(smem, S::A, acc, r0, out + ((i64)bh * L + o0 + r0) * Dp + c0, Dp, lane,
+                         orows - r0);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -985,6 +1555,64 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
                             DquSmem<D, EXACT>::BYTES, stream>>>(
       (const bf16*)dbias, (const bf16*)k, (bf16*)dqu, L);
   return cudaGetLastError();
+}
+
+template <int DC, bool EXACT>
+cudaError_t fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
+                     float* lse, float* scores, int BH, int H, int L, int Dp, float scale,
+                     Dropout drop, Strides os, cudaStream_t stream) {
+  cudaError_t err = set_smem(attn_fwd_scores_wide<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  err = set_smem(attn_fwd_pv_wide<DC, EXACT>, WidePvSmem<DC>::BYTES);
+  if (err != cudaSuccess) return err;
+  const int nt = ceil_div(L, 64);
+  attn_fwd_scores_wide<WKC, EXACT><<<dim3(nt, BH), NT, WideScoresSmem<WKC>::BYTES, stream>>>(
+      (const bf16*)qu, (const bf16*)k, (const bf16*)bias, scores, lse, L, Dp, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_fwd_pv_wide<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES, stream>>>(
+      scores, lse, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
+  return cudaGetLastError();
+}
+
+template <int DC, bool EXACT, bool TRANS>
+cudaError_t prod_wide(const void* a, const void* x, Strides xs, void* out, int BH, int H, int L,
+                      int Dp, cudaStream_t stream) {
+  typedef WideProdSmem<DC, EXACT> S;
+  cudaError_t err = set_smem(attn_prod_wide<DC, EXACT, TRANS>, S::BYTES);
+  if (err != cudaSuccess) return err;
+  attn_prod_wide<DC, EXACT, TRANS><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT, S::BYTES,
+                                      stream>>>((const bf16*)a, (const bf16*)x, (bf16*)out, H, L,
+                                                Dp, xs);
+  return cudaGetLastError();
+}
+
+template <int DC, bool EXACT>
+cudaError_t bwd_wide(const void* qu, const void* k, const void* v, const void* bias, const void* g,
+                     const void* out, const float* lse, float* delta, void* dqu, void* dk,
+                     void* dv, void* dbias, void* pd, int BH, int H, int L, int Dp, float scale,
+                     Dropout drop, Strides gs, Strides os, cudaStream_t stream) {
+  cudaError_t err = set_smem(attn_bwd_ds_wide<WKC, EXACT>, WideDsSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  const int nt = ceil_div(L, 64);
+  attn_delta_wide<DC, EXACT><<<ceil_div(BH * L, 256 / (DC / 8)), 256, 0, stream>>>(
+      (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, Dp, gs, os);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_ds_wide<WKC, EXACT><<<dim3(nt, nt, BH), NT, WideDsSmem<WKC>::BYTES, stream>>>(
+      (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
+      delta, (bf16*)dbias, (bf16*)pd, H, L, Dp, scale, drop, gs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  Strides cs;  // qu and k: contiguous (B, H, L, Dp)
+  cs.b = (i64)H * L * Dp;
+  cs.h = (i64)L * Dp;
+  cs.l = Dp;
+  err = prod_wide<DC, EXACT, true>(pd, g, gs, dv, BH, H, L, Dp, stream);
+  if (err != cudaSuccess) return err;
+  err = prod_wide<DC, EXACT, true>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
+  if (err != cudaSuccess) return err;
+  return prod_wide<DC, EXACT, false>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
@@ -1088,10 +1716,70 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
+// The wide instance, as attn_mma_fwd, at a padded head dim Dp (a multiple of
+// WDC, 256 or more). scores: (B, H, Lp, Lp) float32
+// scratch, Lp = 64 ceil(L / 64), written then read.
+int attn_mma_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
+                      void* lse, void* scores, const long long* out_strides, int B, int H, int L,
+                      int head_dim, float scale, float rate, unsigned int seed,
+                      unsigned int thresh, float inv_keep, int h_total, int h_offset,
+                      void* stream) {
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
+      !aligned16(scores))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
+  const Strides os = make_strides(out_strides);
+#define ATTN_FWD_WIDE(DC, E)                                                                    \
+  fwd_wide<DC, E>(qu, k, v, bias, out, (float*)lse, (float*)scores, B * H, H, L, head_dim, scale, \
+                  drop, os, (cudaStream_t)stream)
+  const bool exact = exact_tiles(L, bias);
+  if (head_dim % (2 * WDC) == 0)
+    return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
+  return (int)(exact ? ATTN_FWD_WIDE(WDC, true) : ATTN_FWD_WIDE(WDC, false));
+#undef ATTN_FWD_WIDE
+}
+
+// The wide instance, as attn_mma_bwd. pd: (B, H, L, L) bf16 scratch (the
+// dropped probabilities), written then read; 16-byte aligned like dbias.
+int attn_mma_bwd_wide(const void* qu, const void* k, const void* v, const void* bias,
+                      const void* g, const void* out, const void* lse, void* delta, void* dqu,
+                      void* dk, void* dv, void* dbias, void* pd, const long long* g_strides,
+                      const long long* out_strides, int B, int H, int L, int head_dim,
+                      float scale, float rate, unsigned int seed, unsigned int thresh,
+                      float inv_keep, int h_total, int h_offset, void* stream) {
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || !aligned16(dbias) || !aligned16(pd) ||
+      head_dim < 256 || head_dim % WDC != 0)
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
+  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
+#define ATTN_BWD_WIDE(DC, E)                                                                    \
+  bwd_wide<DC, E>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv, dbias,   \
+                  pd, B * H, H, L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
+  const bool exact = exact_tiles(L, bias);
+  if (head_dim % (2 * WDC) == 0)
+    return (int)(exact ? ATTN_BWD_WIDE(2 * WDC, true) : ATTN_BWD_WIDE(2 * WDC, false));
+  return (int)(exact ? ATTN_BWD_WIDE(WDC, true) : ATTN_BWD_WIDE(WDC, false));
+#undef ATTN_BWD_WIDE
+}
+
 // Dynamic shared memory per block: which = 0 forward, 1 backward main pass,
 // 2 backward dqu pass; exact = 1 for the instance of whole tiles (L a
-// multiple of 64), 0 for the general one.
+// multiple of 64), 0 for the general one. The wide instance's kernels: which
+// = 3 forward scores, 4 forward p v, 5 backward scores, 6 backward products
+// (head_dim the padded one, or the column width of 4 / 6).
 int attn_mma_smem_bytes(int head_dim, int which, int exact) {
+  switch (which) {
+    case 3:
+      return WideScoresSmem<WKC>::BYTES;
+    case 4:
+      return head_dim % (2 * WDC) ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
+    case 5:
+      return WideDsSmem<WKC>::BYTES;
+    case 6:
+      if (head_dim % (2 * WDC))
+        return exact ? WideProdSmem<WDC, true>::BYTES : WideProdSmem<WDC, false>::BYTES;
+      return exact ? WideProdSmem<2 * WDC, true>::BYTES : WideProdSmem<2 * WDC, false>::BYTES;
+  }
   switch (head_dim) {
     case 16:
       return which == 0 ? FwdSmem<16>::BYTES : which == 1 ? BwdSmem<16>::BYTES

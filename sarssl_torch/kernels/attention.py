@@ -18,7 +18,8 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
 Two sets of kernels, chosen by dtype (:func:`attention_route`), each with
-instances at head dims 16, 32, 64, 128 and 256 and any sequence length:
+instances at head dims 16, 32, 64, 128 and 256 and a wide instance for every
+head dim above 256, at any sequence length:
 
 * ``"tc"``, ``csrc/attention_mma.cu``: bfloat16. Tensor cores (``mma.sync``),
   ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
@@ -32,13 +33,24 @@ instances at head dims 16, 32, 64, 128 and 256 and any sequence length:
   operand split into a TF32 high and low part), which hold the float32
   tolerance of 1e-4 that one TF32 product misses.
 
-Every other head dim up to 256 (the JAX kernel takes any) runs the instance of
-the next of those widths (:func:`padded_head_dim`): qu, k, v and, in the
-backward, g are zero-padded on their last dim, and out, dqu, dk and dv sliced
-back (:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns
-add exactly 0 to qu k^T and give exactly 0 in the padded columns of every
-product, so this is the same function; the bias, the scale and the dropout
-index (b, h, i, j) do not depend on D. A head dim above 256 raises.
+The wide instance (``attn_*_wide`` in both sources) takes a head dim Dp
+that is any multiple of :data:`WIDE_CHUNK` (64) from 256 on, as a runtime
+argument: it streams qu, k, g and v through shared memory in column chunks,
+so neither its tiles nor its registers depend on Dp. Its forward writes the
+scaled scores of every (query, key) once to an f32 scratch (with the rows'
+log-sum-exp), then takes out = p v in blocks of DC output columns; its
+backward writes dbias and the dropped probabilities pd once, then takes dv =
+pd^T g, dk = dbias^T qu and dqu = dbias k in blocks of DC output columns
+(128 where Dp is a multiple of 128, else 64).
+
+Every head dim that is no instance's (the JAX kernel takes any) runs the next
+instance up (:func:`padded_head_dim`: the next of 16 .. 256, past 256 the next
+multiple of 64 on the wide instance): qu, k, v and, in the backward, g are
+zero-padded on their last dim, and out, dqu, dk and dv sliced back
+(:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns add
+exactly 0 to qu k^T and give exactly 0 in the padded columns of every product,
+so this is the same function; the bias, the scale and the dropout index (b,
+h, i, j) do not depend on D.
 
 ``csrc/attention.cu`` holds the first design, scalar f32 FMAs with whole score
 rows in shared memory (:func:`fma_row_block`: 64 query rows a block, 32 where
@@ -61,6 +73,7 @@ from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the tensor-core kernels' instances (both sets)
+WIDE_CHUNK = 64  # the wide instance's head dims: the multiples of this past 256 (WDC in csrc)
 FMA_HEAD_DIMS = (16, 32, 64, 128)  # the FMA kernels' instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
@@ -140,6 +153,10 @@ def _library_mma():
     lib.attn_mma_fwd.restype = _I
     lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_bwd.restype = _I
+    lib.attn_mma_fwd_wide.argtypes = [_P] * 8 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_mma_fwd_wide.restype = _I
+    lib.attn_mma_bwd_wide.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_mma_bwd_wide.restype = _I
     lib.attn_mma_smem_bytes.argtypes = [_I, _I, _I]
     lib.attn_mma_smem_bytes.restype = _I
     lib.error_string.argtypes = [_I]
@@ -147,10 +164,16 @@ def _library_mma():
     return lib
 
 
+# the wide instance's kernels, as the C entries' shared-memory query numbers them
+_WIDE_SMEM = {"fwd_scores": 3, "fwd_pv": 4, "bwd_ds": 5, "prod": 6, "delta": None}
+
+
 def mma_smem_bytes(kernel: str, D: int, exact: bool = True) -> int:
     """Dynamic shared memory a block of a tensor-core kernel takes, in its
-    instance for whole tiles (``exact``) or for any L."""
-    which = {"attn_fwd_mma": 0, "attn_bwd_mma": 1, "attn_dqu_mma": 2, "attn_delta": None}[kernel]
+    instance for whole tiles (``exact``) or for any L (the wide instance's
+    kernels, ``attn_*_wide``, at every D)."""
+    which = ({"attn_fwd_mma": 0, "attn_bwd_mma": 1, "attn_dqu_mma": 2, "attn_delta": None}
+             | {f"attn_{k}_wide": w for k, w in _WIDE_SMEM.items()})[kernel]
     return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which, int(exact))
 
 
@@ -161,6 +184,10 @@ def _library_tf32():
     lib.attn_tf32_fwd.restype = _I
     lib.attn_tf32_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_tf32_bwd.restype = _I
+    lib.attn_tf32_fwd_wide.argtypes = [_P] * 8 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_tf32_fwd_wide.restype = _I
+    lib.attn_tf32_bwd_wide.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_tf32_bwd_wide.restype = _I
     lib.attn_tf32_smem_bytes.argtypes = [_I, _I]
     lib.attn_tf32_smem_bytes.restype = _I
     lib.error_string.argtypes = [_I]
@@ -170,9 +197,10 @@ def _library_tf32():
 
 def tf32_smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory a block of a 3xTF32 kernel takes (either
-    instance)."""
-    which = {"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2, "attn_dk_tf32": 2,
-             "attn_delta_f32": None}[kernel]
+    instance; the wide instance's kernels at every D)."""
+    which = ({"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2, "attn_dk_tf32": 2,
+              "attn_delta_f32": None, "attn_delta_wide_f32": None}
+             | {f"attn_{k}_wide_tf32": w for k, w in _WIDE_SMEM.items() if w})[kernel]
     return 0 if which is None else _library_tf32().attn_tf32_smem_bytes(D, which)
 
 
@@ -180,19 +208,22 @@ def attention_route(dtype: torch.dtype, L: int, D: int) -> str:
     """The set of kernels ``fused_attention`` runs for CUDA tensors of this
     dtype, sequence length and head dim (module note): ``"tc"``
     (``attention_mma.cu``, bfloat16) or ``"tf32x3"`` (``attention_f32_mma.cu``,
-    float32), at every D up to 256 (other than 16 / 32 / 64 / 128 / 256
-    through the padding) and every L. Raises ``ValueError`` past D = 256."""
+    float32), at every head dim D >= 1 (those that are no instance's through
+    the padding, past 256 on the wide instance) and every L."""
     padded_head_dim(D)
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def padded_head_dim(D: int) -> int:
     """The head dim of the instance that runs D: the smallest of
-    ``HEAD_DIMS`` at or above it."""
+    ``HEAD_DIMS`` at or above it, past 256 the next multiple of
+    :data:`WIDE_CHUNK` (the wide instance)."""
+    if D < 1:
+        raise ValueError(f"fused attention takes head dims of 1 or more, got {D}")
     for Dp in HEAD_DIMS:
-        if 1 <= D <= Dp:
+        if D <= Dp:
             return Dp
-    raise ValueError(f"fused attention takes head dims 1..{HEAD_DIMS[-1]}, got {D}")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def _pad_last(t, Dp: int):
@@ -247,8 +278,13 @@ def _check(qu, k, v, bias, heads_total=None):
         raise ValueError("B * H must fit the launch grid's second dimension")
 
 
-def _check_instance(D: int, what: str, dims=HEAD_DIMS) -> None:
-    if D not in dims:
+def _check_instance(D: int, what: str, dims=HEAD_DIMS, wide=False) -> None:
+    if wide:
+        if D < HEAD_DIMS[-1] or D % WIDE_CHUNK:
+            raise ValueError(f"the {what} kernels' wide instance takes the multiples of "
+                             f"{WIDE_CHUNK} from {HEAD_DIMS[-1]} on, got {D} (fused_attention "
+                             f"pads other head dims)")
+    elif D not in dims:
         raise ValueError(f"the {what} kernels have instances at head dims {dims}, got "
                          f"{D} (fused_attention pads other head dims)")
 
@@ -334,54 +370,75 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
 # tensor-core kernels (csrc/attention_mma.cu: bf16; csrc/attention_f32_mma.cu:
 # f32 as 3xTF32), one calling convention
 # ---------------------------------------------------------------------------
-def _check_mma(qu, k, v, bias, heads_total, route):
+def _check_mma(qu, k, v, bias, heads_total, route, wide):
     _check(qu, k, v, bias, heads_total)
     B, H, L, D = qu.shape
     if attention_route(qu.dtype, L, D) != route:
         want = "bfloat16" if route == "tc" else "float32"
         raise ValueError(f"the {route} kernels take {want}, got {qu.dtype}")
-    _check_instance(D, route)
+    _check_instance(D, route, wide=wide)
     if any(t.data_ptr() % 16 for t in (qu, k, v)):
         raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
                          "data must start 16-byte aligned")
 
 
-def _launch_fwd(route, entry, lib, qu, k, v, bias, seed, scale, rate, heads_total,
-                head_offset):
-    _check_mma(qu, k, v, bias, heads_total, route)
+def _count(kind, route, D, wide):
+    """One launch: ``attention_{kind}_d{D}`` and its route's count the
+    instance that ``fused_attention`` runs at D (the wide one past 256), and
+    ``attention_{kind}_{route}_wide_d{D}`` the wide instance alone, so the
+    wide instance launched at 256 raises no D = 256 count."""
+    if not (wide and D in HEAD_DIMS):
+        launches[f"attention_{kind}_d{D}"] += 1
+        launches[f"attention_{kind}_{route}_d{D}"] += 1
+    if wide:
+        launches[f"attention_{kind}_{route}_wide_d{D}"] += 1
+
+
+def _launch_fwd(route, entry, lib, qu, k, v, bias, seed, scale, rate, heads_total=None,
+                head_offset=0, wide=False):
     B, H, L, D = qu.shape
+    wide = wide or D > HEAD_DIMS[-1]
+    _check_mma(qu, k, v, bias, heads_total, route, wide)
     out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
+    scratch = ()
+    if wide:  # the scaled scores, (B, H, Lp, Lp) f32, Lp = L padded to whole 64-row tiles
+        Lp = -(-L // 64) * 64
+        scores = torch.empty((B, H, Lp, Lp), dtype=torch.float32, device=qu.device)
+        scratch, entry = (scores.data_ptr(),), entry + "_wide"
     code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                               out.data_ptr(), lse.data_ptr(), _row_strides(out), B, H, L, D,
-                               scale, *_drop_args(seed, rate, H, heads_total, head_offset),
+                               out.data_ptr(), lse.data_ptr(), *scratch, _row_strides(out), B, H,
+                               L, D, scale, *_drop_args(seed, rate, H, heads_total, head_offset),
                                _stream(qu))
     check_cuda_status(lib, code, entry)
-    launches[f"attention_fwd_d{D}"] += 1
-    launches[f"attention_fwd_{route}_d{D}"] += 1
+    _count("fwd", route, D, wide)
     return out, lse
 
 
 def _launch_bwd(route, entry, lib, qu, k, v, bias, g, out, lse, seed, scale, rate,
-                heads_total, head_offset):
-    _check_mma(qu, k, v, bias, heads_total, route)
+                heads_total=None, head_offset=0, wide=False):
+    B, H, L, D = qu.shape
+    wide = wide or D > HEAD_DIMS[-1]
+    _check_mma(qu, k, v, bias, heads_total, route, wide)
     _check_like_qu(g, qu, "g")
     _check_like_qu(out, qu, "out")
-    B, H, L, D = qu.shape
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous (B, H, L) float32")
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
     delta = torch.empty_like(lse)
+    scratch = ()
+    if wide:  # the dropped probabilities, (B, H, L, L) in the inputs' dtype
+        pd = torch.empty_like(bias)
+        scratch, entry = (pd.data_ptr(),), entry + "_wide"
     code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                                g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                                dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                               _row_strides(g), _row_strides(out), B, H, L, D, scale,
+                               *scratch, _row_strides(g), _row_strides(out), B, H, L, D, scale,
                                *_drop_args(seed, rate, H, heads_total, head_offset),
                                _stream(qu))
     check_cuda_status(lib, code, entry)
-    launches[f"attention_bwd_d{D}"] += 1
-    launches[f"attention_bwd_{route}_d{D}"] += 1
+    _count("bwd", route, D, wide)
     return dqu, dk, dv, dbias
 
 
@@ -390,7 +447,8 @@ def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: floa
     """bf16 (``attention_mma.cu``). Returns ``(out, lse)``: ``out`` is a (B, H,
     L, D) view of a (B, L, H, D) buffer, so that ``out.transpose(1,
     2).reshape(B, L, H * D)`` copies nothing; ``lse`` is the rows'
-    log-sum-exp, (B, H, L) float32."""
+    log-sum-exp, (B, H, L) float32. D is an instance's head dim: 16 .. 256,
+    or past 256 a multiple of :data:`WIDE_CHUNK` on the wide instance."""
     return _launch_fwd("tc", "attn_mma_fwd", _library_mma(), qu, k, v, bias, seed, scale,
                        rate, heads_total, head_offset)
 
@@ -423,6 +481,18 @@ _TC_LAUNCHES = {"tc": (launch_attention_fwd_mma, launch_attention_bwd_mma),
                 "tf32x3": (launch_attention_fwd_tf32, launch_attention_bwd_tf32)}
 
 
+def _wide_launches(route):
+    """(forward, backward) launchers of ``route``'s wide instance at every
+    multiple of :data:`WIDE_CHUNK` from 256 on, 256 included, where the
+    launchers above run the D = 256 instance: no model path takes it there,
+    it is launched so to hold the two instances against each other."""
+    (fwd_entry, bwd_entry), lib = {"tc": (("attn_mma_fwd", "attn_mma_bwd"), _library_mma),
+                                   "tf32x3": (("attn_tf32_fwd", "attn_tf32_bwd"),
+                                              _library_tf32)}[route]
+    return (functools.partial(_launch_fwd, route, fwd_entry, lib(), wide=True),
+            functools.partial(_launch_bwd, route, bwd_entry, lib(), wide=True))
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
@@ -450,8 +520,9 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
     CUDA tensors run the hand-written tensor-core kernels, forward and
     backward, on the set :func:`attention_route` names: bfloat16 on
     ``attention_mma.cu``, float32 on ``attention_f32_mma.cu``, at any L and
-    any head dim up to 256 (16, 32, 64, 128 and 256 are instances; other head
-    dims run the next one up on zero-padded inputs, module note). The output is a
+    any head dim (16, 32, 64, 128 and 256 are instances, past 256 the
+    multiples of 64 run the wide instance; other head dims run the next one
+    up on zero-padded inputs, module note). The output is a
     (B, H, L, D) view of a (B, L, H, D') buffer, D' that instance's head dim.
     CPU tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
     rate 0. A tensor-parallel rank's H heads are ``head_offset ..`` of

@@ -6,13 +6,18 @@ dropout 0.1) that the flagship and the model's options give them, timed
 beside the FMA kernels, the plain version, SDPA and the bound.
 
     python3 scripts/check_attention_kernels.py [--small-only] [--dtype bf16|f32|both]
-        [--head-dims D ...]
+        [--head-dims D ...] [--small-head-dims D ...]
 
 The short first check of an edited ``csrc/attention_mma.cu`` (bf16) or
 ``csrc/attention_f32_mma.cu`` (f32, 3xTF32); ``chip_smoke.py`` is the whole run
 (its functions do the full-shape part here). Small shapes run head dims 16,
-32, 64, 128 and 256 and, through the padding, 8, 48 and 200; ``--head-dims``
-keeps the full-shape part to the shapes at those head dims.
+32, 64, 128 and 256, through the padding 8, 48 and 200, and on the wide
+instance 512 and 320 (blocks of 128 and of 64 output columns) and, padded to
+the next multiple of its chunk width (``attention.WIDE_CHUNK``), 300 and 1000;
+then the wide instance launched at
+D = 256. ``--small-head-dims`` keeps the small shapes to those head dims (the
+wide instance at 256 runs when 256 is among them), ``--head-dims`` the
+full-shape part.
 """
 import argparse
 import subprocess
@@ -28,12 +33,14 @@ from sarssl_torch.kernels import attention, attention_plain, fused_attention, la
 from sarssl_torch.kernels._build import build_all  # noqa: E402
 
 SMALL_L = (1, 17, 33, 64, 65, 100, 128, 257)
-SMALL_D = (16, 32, 64, 128, 256, 8, 48, 200)  # the instances, then three head dims padded
+# the instances, three head dims padded, the wide instance at two multiples
+# of its chunk and at two that are not
+SMALL_D = (16, 32, 64, 128, 256, 8, 48, 200, 512, 320, 300, 1000)
 DTYPES = {"bf16": (torch.bfloat16,), "f32": (torch.float32,),
           "both": (torch.bfloat16, torch.float32)}
 
 
-def check_small(gen, dtype):
+def check_small(gen, dtype, dims=SMALL_D):
     """fused_attention (forward and backward) against the plain version at B
     = 2, H = 3, rate 0.3, every small L (f32, D = 16 and D = 256: and L =
     768, past the FMA kernels' reach) and head dim of the tensor-core
@@ -43,7 +50,7 @@ def check_small(gen, dtype):
     bad = 0
     tag = "tc" if dtype == torch.bfloat16 else "tf32x3"
     tol = cs.TOL_BF16 if dtype == torch.bfloat16 else cs.TOL_F32
-    for D in SMALL_D:
+    for D in dims:
         Dp = attention.padded_head_dim(D)
         for L in SMALL_L + ((768,) if dtype == torch.float32 or D in (16, 256) else ()):
             for offset in ((0, 1, 3) if L in (64, 257) else (0,)):
@@ -76,6 +83,39 @@ def check_small(gen, dtype):
     return bad
 
 
+def check_wide_at_256(gen, dtype):
+    """The wide instance launched at D = 256 (``_wide_launches``), forward
+    and backward, against the plain version at B = 2, H = 3, rate 0.3, ragged
+    and whole L; returns the number of failures."""
+    route = attention.attention_route(dtype, 64, 256)
+    fwd, bwd = attention._wide_launches(route)
+    tol = cs.TOL_BF16 if dtype == torch.bfloat16 else cs.TOL_F32
+    bad = 0
+    for L in (1, 33, 64, 257):
+        qu, k, v, g = (torch.randn((2, 3, L, 256), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        bias = torch.randn((2, 3, L, L), generator=gen, device="cuda").to(dtype)
+        args = (0x9E3779B9, 256 ** -0.5, 0.3)
+        names = [f"attention_{kind}_{route}_wide_d256" for kind in ("fwd", "bwd")]
+        before = [launches[n] for n in names]
+        out, lse = fwd(qu, k, v, bias, *args)
+        grads = bwd(qu, k, v, bias, g, out, lse, *args)
+        rose = tuple(launches[n] - b for n, b in zip(names, before))
+        ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
+        ref = attention_plain(*ys, *args)
+        ref_grads = torch.autograd.grad(ref, ys, g.float())
+        torch.cuda.synchronize()
+        errs = [cs.rel_err(a, b) for a, b in zip((out, *grads), (ref, *ref_grads))]
+        if L == 1:
+            errs[1:5] = cs._vanishing_errors(qu, k, v, g, args, grads, ref_grads)
+        ok = rose == (1, 1) and max(errs) <= tol
+        bad += not ok
+        print(f"{str(dtype)[6:]} L={L} D=256 on the wide instance: out/dqu/dk/dv/dbias rel "
+              + " ".join(f"{e:.2e}" for e in errs) + f" wide launches {rose} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    return bad
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small-only", action="store_true",
@@ -84,6 +124,8 @@ def main():
                     help="which tensor-core route to check (default both)")
     ap.add_argument("--head-dims", type=int, nargs="+", default=None,
                     help="only the full shapes at these head dims (default all)")
+    ap.add_argument("--small-head-dims", type=int, nargs="+", default=SMALL_D,
+                    help=f"only the small shapes at these head dims (default {SMALL_D})")
     args = ap.parse_args()
     dtypes = DTYPES[args.dtype]
     if not torch.cuda.is_available():
@@ -103,7 +145,9 @@ def main():
                     print("  " + line.strip()[:160], flush=True)
             bad += 1
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad += sum(check_small(gen, dtype) for dtype in dtypes)
+    bad += sum(check_small(gen, dtype, args.small_head_dims) for dtype in dtypes)
+    if 256 in args.small_head_dims:
+        bad += sum(check_wide_at_256(gen, dtype) for dtype in dtypes)
     if bad:
         print(f"FAILED: {bad} small case(s) or kernel report(s)")
     if not args.small_only:

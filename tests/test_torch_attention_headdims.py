@@ -1,4 +1,5 @@
-"""Every head dim up to 256 on the tensor-core attention, on the CPU.
+"""Every head dim up to 256 on the tensor-core attention, on the CPU (past
+256: tests/test_torch_attention_wide.py).
 
 ``fused_attention`` runs head dims 16, 32, 64, 128 and 256 on instances of the
 tensor-core kernels and every other D up to 256 on the instance of the next
@@ -46,12 +47,17 @@ def test_route_names_the_tensor_cores_at_head_dims_129_to_256(D, Dp, dtype, rout
 
 @pytest.mark.parametrize("D", [257, 512])
 def test_head_dims_past_128_raise(D):
-    """Past the largest instance, 256, both raise and name it (the test's
-    name keeps the limit of its first version)."""
-    with pytest.raises(ValueError, match="256"):
-        att.attention_route(torch.bfloat16, 64, D)
-    with pytest.raises(ValueError, match="256"):
-        att.padded_head_dim(D)
+    """Past the largest instance, 256, both name the wide instance at the
+    next multiple of its chunk, and only a head dim below 1 raises (the
+    test's name keeps the limit of its first version, when head dims past it
+    raised; tests/test_torch_attention_wide.py holds the wide route)."""
+    assert att.attention_route(torch.bfloat16, 64, D) == "tc"
+    assert att.padded_head_dim(D) == -(-D // att.WIDE_CHUNK) * att.WIDE_CHUNK
+    for bad in (0, -D):
+        with pytest.raises(ValueError, match="1 or more"):
+            att.attention_route(torch.bfloat16, 64, bad)
+        with pytest.raises(ValueError, match="1 or more"):
+            att.padded_head_dim(bad)
 
 
 def _plain_fwd(qu, k, v, bias, *args):

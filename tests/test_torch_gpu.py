@@ -19,7 +19,7 @@ from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # n
                                             launch_attention_bwd_tf32,
                                             launch_attention_fwd_fma,
                                             launch_attention_fwd_mma,
-                                            launch_attention_fwd_tf32)
+                                            launch_attention_fwd_tf32, padded_head_dim)
 from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
 from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
@@ -204,6 +204,67 @@ def test_head_dim_256_dropped_positions_equal_plain(cuda, dtype):
     pd = fused_attention(qu, k, v, bias, seed, D ** -0.5, rate)
     keep = hash_keep_mask(B * H * L * L, seed, rate, "cuda").reshape(B, H, L, L)
     assert torch.equal(pd != 0, keep[..., :D])
+
+
+@pytest.mark.parametrize("L", [1, 33, 256, 257])
+@pytest.mark.parametrize("D", [300, 320, 512, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_wide_head_dims_match_plain(cuda, L, D, dtype, rate):
+    """Past 256 the wide instance (D = 300 and 320 at 320, on blocks of 64
+    columns; 512 and 1000 at 512 and 1024, on blocks of 128) at tails of 1
+    and 33 rows, whole tiles and the CLS token's 257, with dropout's
+    positions (held through the gradients) those of the plain version."""
+    names = [f"attention_{kind}_{tag}wide_d{padded_head_dim(D)}" for kind in ("fwd", "bwd")
+             for tag in ("tc_", "tf32x3_")]
+    before = [launches[n] for n in names]
+    _attention_case(cuda, (1, 2, L, D), dtype, rate)
+    tc = int(dtype == torch.bfloat16)
+    after = [launches[n] for n in names]
+    assert [a - b for a, b in zip(after, before)] == [tc, 1 - tc, tc, 1 - tc]
+
+
+@pytest.mark.parametrize("L", [1, 33, 64, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_instance_at_256_matches_plain(cuda, L, dtype):
+    """The wide instance launched at D = 256 (``_wide_launches``), which no
+    route takes there, forward and backward against the plain version, rate
+    0.3."""
+    from sarssl_torch.kernels.attention import _wide_launches
+
+    fwd, bwd = _wide_launches(attention_route(dtype, L, 256))
+    qu, k, v, g = (torch.randn((2, 2, L, 256), generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    bias = torch.randn((2, 2, L, L), generator=cuda, device="cuda").to(dtype)
+    args = (0xFEEDBEEF, 256 ** -0.5, 0.3)
+    out, lse = fwd(qu, k, v, bias, *args)
+    grads = bwd(qu, k, v, bias, g, out, lse, *args)
+    ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
+    ref = attention_plain(*ys, *args)
+    ref_grads = torch.autograd.grad(ref, ys, g.float())
+    names = ("out", "dqu", "dk", "dv", "dbias")
+    for i, (name, a, b) in enumerate(zip(names, (out, *grads), (ref, *ref_grads))):
+        if L == 1 and i in (1, 2, 4):  # they vanish at L = 1 (_attention_case)
+            continue
+        assert _rel(a, b) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_dropped_positions_equal_plain(cuda, dtype):
+    """On the wide instance (D = L = 512) with v the identity, out is the
+    dropped and rescaled probabilities: the kernel's zeros are the plain
+    mask's."""
+    from sarssl_torch.kernels import hash_keep_mask
+
+    B, H, L, D = 1, 2, 512, 512
+    qu, k = (torch.randn((B, H, L, D), generator=cuda, device="cuda").to(dtype)
+             for _ in range(2))
+    bias = torch.randn((B, H, L, L), generator=cuda, device="cuda").to(dtype)
+    v = torch.eye(L, device="cuda", dtype=dtype).expand(B, H, L, D).contiguous()
+    seed, rate = 0xFEEDBEEF, 0.3
+    pd = fused_attention(qu, k, v, bias, seed, D ** -0.5, rate)
+    keep = hash_keep_mask(B * H * L * L, seed, rate, "cuda").reshape(B, H, L, L)
+    assert torch.equal(pd != 0, keep)
 
 
 @pytest.mark.parametrize("L,D", [(1, 32), (33, 32), (257, 32), (512, 32), (257, 64),
@@ -512,9 +573,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, bias, 0, 0.1)
     with pytest.raises(ValueError):
         fused_attention(x.half(), x.half(), x.half(), bias.half(), 0, 0.1)
+    # past 256 fused_attention pads to the wide instance, whose launcher takes
+    # only the multiples of its chunk; no head dim below 1 runs
     wide = torch.randn(2, 2, 64, 257, device="cuda")
     with pytest.raises(ValueError):
-        fused_attention(wide, wide, wide, bias, 0, 0.1)
+        launch_attention_fwd_tf32(wide, wide, wide, bias, 0, 0.1, 0.0)
+    empty = torch.randn(2, 2, 64, 0, device="cuda")
+    with pytest.raises(ValueError):
+        fused_attention(empty, empty, empty, bias, 0, 0.1)
     with pytest.raises(ValueError):
         launch_dropout(torch.randn(4, 4, device="cuda").t(), 0, 0.1)
 
