@@ -29,22 +29,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
               plain version at L = 1, 33, 257, 768 and 1000, and at the
               flagship's (128, 4, 256) at rates 0 and 0.1, timed there beside
               the FMA kernels launched directly (1.5x floor), SDPA and the
-              bound. Head dim 256 in both dtypes on the tensor cores: held
-              against the plain version at L = 1, 33, 256, 257 and 768, and
-              at (128, 4, 256) at rates 0 and 0.1, timed there beside SDPA
-              and the bound (the FMA kernels have no D = 256 instance). Head
+              bound. Head dim 256 in both dtypes on the tensor cores (the
+              bf16 forward on its D = 256 instance, the other three passes
+              on the wide instance): held against the plain version at L = 1,
+              33, 256, 257 and 768, and at (128, 4, 256) at rates 0 and 0.1,
+              timed there beside SDPA and the bound (the FMA kernels have no
+              D = 256 instance). Head
               dims 8, 48 and 200, which run the next instance on zero-padded
               inputs, held against the plain version, and D = 8 timed
               through the padding beside the bare launch. The wide instance
               (every head dim past 256) in both dtypes: D = 512 at (128, 4,
               256) at rates 0 and 0.1 and at L = 257, timed at 256 beside
               SDPA and the bound; D = 300 (padded to 320: blocks of 64
-              columns) and 1000 (to 1024: of 128) at batch 8, L = 33, 257
-              and 256, timed at 256; the wide
-              instance launched at D = 256 held against the plain version
-              and timed beside the D = 256 instance (instance, wide, wide,
-              instance); a torch.profiler split of the D = 512 launches by
-              kernel. Then the attention module of the conformer in bf16 at
+              columns) and 1000 (to 1024: of 128) at batch 8, L = 1, 33, 257
+              and 256, timed at 256, where the forward's scores pass splits
+              its key tiles over blocks: that forward also launched at the
+              padded head dim at the chosen splits and at one (chosen, 1, 1,
+              chosen); the bf16 wide forward launched at D = 256 held
+              against the plain version and timed beside the D = 256
+              instance (instance, wide, wide, instance); a torch.profiler
+              split of the D = 512 launches by kernel. Then the attention module of the conformer in bf16 at
               both flagship widths, at d_model 64 (D = 16), 32 (D = 8,
               padded) and 2048 (D = 512, wide), fused against unfused, on the
               card.
@@ -190,9 +194,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               step in f32 with fused attention (the 3xTF32 kernels: 1 / 3
               launches a step, forward and backward, at D = 128 / 64; none on
               the FMA kernels) beside the same f32 step unfused, (m)
-              ``spec_dembed=1024`` (the spec encoder at head dim 256 on the
-              D = 256 kernels) in bf16 and f32, each beside the same step
-              unfused, their losses held together (bf16 2e-2, f32 1e-3), (n)
+              ``spec_dembed=1024`` (the spec encoder at head dim 256: the bf16
+              forward on the D = 256 instance, the bf16 backward and both f32
+              passes on the wide instance, counted) in bf16 and f32, each
+              beside the same step unfused, their losses held together (bf16
+              2e-2, f32 1e-3), (n)
               ``spec_dembed=2048`` (head dim 512 on the wide instance) the
               same way.
  14. ablations: the CRNN ablation encoders, ``EmbedEncoder(model=(m,))`` for
@@ -628,7 +634,7 @@ def _tensor_core_kernel(source, line):
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
                    "attn_delta": 256, "attn_fwd_tf32": 128, "attn_bwd_tf32": 128,
-                   "attn_dqu_tf32": 128, "attn_dk_tf32": 128, "attn_delta_f32": 256,
+                   "attn_dqu_tf32": 128, "attn_delta_f32": 256,
                    "attn_delta_wide": 256, "attn_delta_wide_f32": 256}
         # each kernel's instance for whole tiles (exact = 1) and for any L; the
         # wide instance's kernels are templated on their column width (the
@@ -750,16 +756,28 @@ def _attention_inputs(D, dtype, gen, L=SEQ, B=BATCH):
 ROUTE_TAGS = {"tc": "tc_", "tf32x3": "tf32x3_", "fma": "fma_"}
 ROUTE_WORDS = {"tc": "bf16 tensor-core", "tf32x3": "3xTF32 tensor-core"}
 ROUTE_SOURCES = {"tc": "attention_mma.cu", "tf32x3": "attention_f32_mma.cu"}
+ROUTE_DTYPES = {"tc": torch.bfloat16, "tf32x3": torch.float32}
+
+
+def _runs_wide(route, kind, Dp):
+    """Whether pass ``kind`` of ``route`` runs the wide instance at the
+    padded head dim Dp (``attention_instance``: from 256 on, but for the
+    bf16 forward's D = 256 instance)."""
+    if Dp < 256:  # (FLAGSHIP_ATTENTION asks at import, before the package is needed)
+        return False
+    from sarssl_torch.kernels.attention import attention_instance
+
+    return attention_instance(ROUTE_DTYPES[route], kind, Dp) == "wide"
 
 
 def _route_launches(D, route):
     """(names, want): the attention launch counts one forward and backward on
     ``route`` raises by one (at the instance's head dim: D padded to the next
     of 16 / 32 / 64 / 128 / 256, past 256 to the wide instance's next multiple
-    of its chunk, which also counts as ``..._wide_d{Dp}``), and the other
-    routes' counts, which stay (the FMA kernels' among them:
-    ``fused_attention`` never launches those)."""
-    from sarssl_torch.kernels.attention import HEAD_DIMS, padded_head_dim
+    of its chunk; a pass on the wide instance also counts as
+    ``..._wide_d{Dp}``), and the other routes' counts, which stay (the FMA
+    kernels' among them: ``fused_attention`` never launches those)."""
+    from sarssl_torch.kernels.attention import padded_head_dim
 
     names, want = [], []
     Dp = padded_head_dim(D)
@@ -768,7 +786,7 @@ def _route_launches(D, route):
         want += [int(r in ("", route))] * 2
         if r in ("tc", "tf32x3"):
             names += [f"attention_{kind}_{tag}wide_d{Dp}" for kind in ("fwd", "bwd")]
-            want += [int(r == route and Dp > HEAD_DIMS[-1])] * 2
+            want += [int(r == route and _runs_wide(r, kind, Dp)) for kind in ("fwd", "bwd")]
     return names, want
 
 
@@ -957,10 +975,11 @@ D256_CHECK_LENGTHS = (1, 33, 256, 257, 768)
 # also at the CLS token's tail L = 257 (not timed); at a batch of WIDE_B a head
 # dim that is no multiple of its chunk (300, padded to 320, which runs blocks of
 # 64 columns) and one past 1000 (padded to 1024, blocks of 128), held at L =
-# 33, 257 and 256 and timed at 256, both dtypes
+# 1, 33, 257 and 256 and timed at 256, both dtypes; at that batch the forward's
+# scores pass splits its key tiles over blocks, timed also at one split
 WIDE_B = 8
 WIDE_SMALL_HEAD_DIMS = (300, 1000)
-WIDE_CHECK_LENGTHS = (33, 257, SEQ)
+WIDE_CHECK_LENGTHS = (1, 33, 257, SEQ)
 
 
 def time_attention_route(L, D, dtype, seed, gen, B=BATCH):
@@ -1020,62 +1039,45 @@ def time_padded_attention(D, dtype, seed, gen):
     return res
 
 
-def check_wide_at_256(dtype, seed, gen):
-    """The wide instance launched at D = 256 (``_wide_launches``: two chunks
-    of 128) on the flagship batch and L, rate 0.1, held against the plain
+def check_wide_at_256(seed, gen):
+    """The bf16 wide forward launched at D = 256 (``_wide_launches``; the
+    route runs the D = 256 instance there, the one pass at 256 with two
+    instances) on the flagship batch and L, rate 0.1, held against the plain
     version (errors against the largest value, dropped positions those of the
     plain mask with v = the identity), then timed beside the D = 256 instance
     on the same inputs: instance, wide, wide, instance. Returns the errors and
     the four readings."""
     from sarssl_torch.kernels import attention_plain, hash_keep_mask, launches
-    from sarssl_torch.kernels.attention import _TC_LAUNCHES, _wide_launches, attention_route
+    from sarssl_torch.kernels.attention import _wide_launches, launch_attention_fwd_mma
 
-    D = 256
+    D, dtype = 256, torch.bfloat16
     scale = 1.0 / np.sqrt(HEADS * D)
-    qu, k, v, bias, g = _attention_inputs(D, dtype, gen)
-    route = attention_route(dtype, SEQ, D)
-    (fwd, bwd), (wide_fwd, wide_bwd) = _TC_LAUNCHES[route], _wide_launches(route)
-    args = (seed, scale, RATE)
-    tag = ROUTE_TAGS[route]
-    # the wide counts rise, the D = 256 instance's stay
-    names = [f"attention_{kind}_{t}d256" for kind in ("fwd", "bwd")
-             for t in (f"{tag}wide_", tag, "")]
+    qu, k, v, bias, _ = _attention_inputs(D, dtype, gen)
+    wide_fwd, args = _wide_launches("tc"), (seed, scale, RATE)
+    # the wide count rises, the D = 256 instance's stay
+    names = [f"attention_fwd_{t}d256" for t in ("tc_wide_", "tc_", "")]
     before = [launches[n] for n in names]
-    out, lse = wide_fwd(qu, k, v, bias, *args)
-    grads = wide_bwd(qu, k, v, bias, g, out, lse, *args)
+    out, _ = wide_fwd(qu, k, v, bias, *args)
     rose = [launches[n] - b for n, b in zip(names, before)]
-    assert rose == [1, 0, 0] * 2, f"the wide instance at D=256 {dtype}: {names} rose {rose}"
-    ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
-    ref = attention_plain(*ys, *args)
-    ref_grads = torch.autograd.grad(ref, ys, g.float())
-    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-    errs = {n: (rel_err(a, b), max_abs(a, b)) for n, a, b in
-            zip(("out", "dqu", "dk", "dv", "dbias"), (out, *grads), (ref, *ref_grads))}
-    for n, (rel, _) in errs.items():
-        assert rel <= tol, f"the wide instance at D=256 {dtype}: {n} rel err {rel} > {tol}"
+    assert rose == [1, 0, 0], f"the wide forward at D=256: {names} rose {rose}"
+    ref = attention_plain(*(t.float() for t in (qu, k, v, bias)), *args)
+    err = (rel_err(out, ref), max_abs(out, ref))
+    assert err[0] <= TOL_BF16, f"the wide forward at D=256: out rel err {err[0]} > {TOL_BF16}"
     eye = torch.eye(SEQ, device="cuda", dtype=dtype).expand(BATCH, HEADS, SEQ, D).contiguous()
     pd = wide_fwd(qu, k, eye, bias, *args)[0]
     keep = hash_keep_mask(BATCH * HEADS * SEQ * SEQ, seed, RATE, "cuda").reshape(pd.shape)
-    assert torch.equal(pd != 0, keep), f"the wide instance at D=256 {dtype}: dropped positions"
-    del ref, ref_grads, grads, pd, eye, keep
-    res = {"max_abs_err": max(a for _, a in errs.values()), "out_err": errs["out"][1]}
-    for kind in ("fwd", "bwd"):
-        call = ((lambda w: (wide_fwd if w else fwd)(qu, k, v, bias, *args)) if kind == "fwd"
-                else (lambda w: (wide_bwd if w else bwd)(qu, k, v, bias, g, out, lse, *args)))
-        inst1 = cuda_ms_queued(lambda: call(False))
-        wide1 = cuda_ms_queued(lambda: call(True))
-        wide2 = cuda_ms_queued(lambda: call(True))
-        inst2 = cuda_ms_queued(lambda: call(False))
-        res.update({f"{kind}_ms": (wide1 + wide2) / 2, f"{kind}_readings": (wide1, wide2),
-                    f"inst_{kind}_readings": (inst1, inst2)})
-    log(f"[kernels] attention L={SEQ} D=256 {str(dtype)[6:]} rate={RATE} on the wide instance "
-        f"(_wide_launches): " + ", ".join(f"{n} rel {r:.2e} abs {a:.2e}" for n, (r, a) in errs.items())
-        + f" (tol {tol}); dropped positions identical; fwd {res['fwd_readings'][0]:.4f} / "
-        f"{res['fwd_readings'][1]:.4f} ms beside the D=256 instance's "
-        f"{res['inst_fwd_readings'][0]:.4f} / {res['inst_fwd_readings'][1]:.4f}, bwd "
-        f"{res['bwd_readings'][0]:.4f} / {res['bwd_readings'][1]:.4f} beside "
-        f"{res['inst_bwd_readings'][0]:.4f} / {res['inst_bwd_readings'][1]:.4f} "
-        f"(instance, wide, wide, instance)")
+    assert torch.equal(pd != 0, keep), "the wide forward at D=256: dropped positions"
+    del ref, pd, eye, keep, out
+    inst1 = cuda_ms_queued(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+    wide1 = cuda_ms_queued(lambda: wide_fwd(qu, k, v, bias, *args))
+    wide2 = cuda_ms_queued(lambda: wide_fwd(qu, k, v, bias, *args))
+    inst2 = cuda_ms_queued(lambda: launch_attention_fwd_mma(qu, k, v, bias, *args))
+    res = {"max_abs_err": err[1], "out_err": err[1], "fwd_ms": (wide1 + wide2) / 2,
+           "fwd_readings": (wide1, wide2), "inst_fwd_readings": (inst1, inst2)}
+    log(f"[kernels] attention L={SEQ} D=256 bfloat16 rate={RATE}, the forward on the wide "
+        f"instance (_wide_launches): out rel {err[0]:.2e} abs {err[1]:.2e} (tol {TOL_BF16}); "
+        f"dropped positions identical; {wide1:.4f} / {wide2:.4f} ms beside the D=256 "
+        f"instance's {inst1:.4f} / {inst2:.4f} (instance, wide, wide, instance)")
     return res
 
 
@@ -1111,11 +1113,47 @@ def profile_wide(dtype, seed, gen, D=512, launches=3):
             f"{n} {ms / launches:.4f}" for n, ms in per.items()))
 
 
+def time_wide_splits(D, dtype, seed, gen):
+    """The wide forward at a batch of WIDE_B, L = 256, rate 0.1, launched at
+    D's padded head dim on inputs padded beforehand: at the key splits S the
+    launcher chooses (its split launch counted) and at S = 1, each held
+    against the plain version, then timed queued: chosen, 1, 1, chosen.
+    Returns S and the readings."""
+    from sarssl_torch.kernels import attention_plain, launches
+    from sarssl_torch.kernels.attention import (_launch_fwd, _sm_count, _wide_blocks,
+                                                attention_route, padded_head_dim,
+                                                wide_key_splits)
+
+    Dp = padded_head_dim(D)
+    qu, k, v, bias, _ = _attention_inputs(Dp, dtype, gen, SEQ, WIDE_B)
+    route = attention_route(dtype, SEQ, Dp)
+    args = (seed, 1.0 / np.sqrt(HEADS * D), RATE)
+    S = wide_key_splits(SEQ, WIDE_B * HEADS, _sm_count(torch.cuda.current_device()),
+                        _wide_blocks(route, True))
+    ref = attention_plain(*(t.float() for t in (qu, k, v, bias)), *args)
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    name = f"attention_fwd_{ROUTE_TAGS[route]}wide_split_d{Dp}"
+    for splits in (None, 1):
+        before = launches[name]
+        out = _launch_fwd(route, qu, k, v, bias, *args, splits=splits)[0]
+        err = rel_err(out, ref)
+        assert err <= tol, f"wide forward B={WIDE_B} D={D} {dtype} splits {splits}: rel {err}"
+        assert launches[name] - before == int(splits is None and S > 1), (name, splits, S)
+    del out, ref
+    call = {c: (lambda c=c: _launch_fwd(route, qu, k, v, bias, *args, splits=c))
+            for c in (None, 1)}
+    readings = [cuda_ms_queued(call[c]) for c in (None, 1, 1, None)]
+    return {"splits": S, "launch_ms": (readings[0] + readings[3]) / 2,
+            "launch_splits_1_ms": (readings[1] + readings[2]) / 2,
+            "launch_readings_ms": readings}
+
+
 def check_wide(seed, gen):
     """The wide instance at the shapes phase kernels' option loop does not
     give it (module note): D = 512 at L = 257, D = 300 and 1000 at a batch of
-    WIDE_B (held, timed at L = 256), and the launch at D = 256 beside the
-    D = 256 instance. Returns the rows for the kernels line."""
+    WIDE_B (held, timed at L = 256; the forward also at one key split), and
+    the bf16 forward at D = 256 beside the D = 256 instance. Returns the rows
+    for the kernels line."""
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         check_attention(512, dtype, RATE, seed, gen, 257)
@@ -1124,15 +1162,19 @@ def check_wide(seed, gen):
             for L in WIDE_CHECK_LENGTHS:
                 err, out_err = check_attention(D, dtype, RATE, seed, gen, L, WIDE_B)
             t = time_attention_route(SEQ, D, dtype, seed, gen, WIDE_B)
-            t.update(max_abs_err=err, out_err=out_err)
+            t.update(max_abs_err=err, out_err=out_err, **time_wide_splits(D, dtype, seed, gen))
             rows[(D, dtype)] = t
             log(f"[kernels] attention L={SEQ} D={D} (padded to {t['Dp']}) B={WIDE_B} "
                 f"{str(dtype)[6:]} rate={RATE} ({ROUTE_WORDS[t['route']]}, wide instance): fwd "
                 f"{t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
                 f"bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms "
                 f"(plain {t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
-                f"{t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
-        rows[(256, dtype)] = check_wide_at_256(dtype, seed, gen)
+                f"{t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]}); the forward launched at "
+                f"{t['Dp']}: {t['splits']} key splits (chosen) {t['launch_ms']:.4f} ms, 1 split "
+                f"{t['launch_splits_1_ms']:.4f} ms (queued readings chosen, 1, 1, chosen: "
+                + ", ".join(f"{x:.4f}" for x in t["launch_readings_ms"]) + ")")
+        if dtype == torch.bfloat16:
+            rows[(256, dtype)] = check_wide_at_256(seed, gen)
         profile_wide(dtype, seed, gen)
         torch.cuda.empty_cache()
     return rows
@@ -1541,7 +1583,7 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                 "name": f"attention_{kind}_d{D}_L{L}_{str(dtype)[6:]}", "route": "cuda",
                 "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[r["route"]],
                 "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[r["route"]]
-                + ("_wide" if D > 256 else ""),
+                + ("_wide" if _runs_wide(r["route"], kind, r["Dp"]) else ""),
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 # the model_options phase's launches at this shape: those of
                 # variant (d) (L=257), (c) (L=512, bf16), (l) (L=256, f32) and
@@ -1558,8 +1600,9 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                          "CLI path" if D == 16 else
                          "no CLI configuration has head dim 256: phase model_options' variant "
                          "(m), the flagship step with spec_dembed=1024 "
-                         "(launches_model_options), and phase ref's SARSSLConfig.tiny("
-                         "spec_dembed=1024) in f32 (launches_tiny_model)" if D == 256 else
+                         "(launches_model_options; launches_wide_model_options on the wide "
+                         "instance), and phase ref's SARSSLConfig.tiny(spec_dembed=1024) in f32 "
+                         "(launches_tiny_model)" if D == 256 else
                          "no CLI configuration has head dim 512: phase model_options' variant "
                          "(n), the flagship step with spec_dembed=2048 on the wide instance "
                          "(launches_model_options)" if D == 512 else
@@ -1576,13 +1619,16 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                     "padded_d8_launch_ms": r["padded"][f"launch_{kind}_ms"]}
                    if D == 16 else {}),
                 **({"launches_tiny_model": d256_counts.get(
-                    f"attention_{kind}_{ROUTE_TAGS[r['route']]}d256", 0)} if D == 256 else {}),
+                    f"attention_{kind}_{ROUTE_TAGS[r['route']]}d256", 0),
+                    "launches_wide_model_options": mo_shapes.get(
+                        (L, D, str(dtype)[6:], kind, "wide"), 0)} if D == 256 else {}),
             })
     # the wide instance beside the option shapes: D = 300 and 1000 at a batch
-    # of WIDE_B (padded to 320 and 1024), and its launch at D = 256 (plain,
-    # SDPA and the bound: the D = 256 row's, the same shape in this run).
-    # Launches: the sum over every model phase's counts of that padded head
-    # dim on the wide instance
+    # of WIDE_B (padded to 320 and 1024; the forward also launched at its key
+    # splits and at one), and the bf16 forward at D = 256 (plain, SDPA and the
+    # bound: the D = 256 row's, the same shape in this run). Launches: the sum
+    # over every model phase's counts of that padded head dim on the wide
+    # instance (the forward's split launches beside)
     model_phases = (tiny_counts, d256_counts, d320_counts, counts, cli_counts, opt_counts,
                     ds_counts, dscli_counts, grid_counts, data_counts, real_counts, mo_counts,
                     abl_counts, mesh_counts)
@@ -1590,11 +1636,13 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
         at256 = D == 256
         yard = opt_rows[(SEQ, 256, dtype)] if at256 else r
         route = "tc" if dtype == torch.bfloat16 else "tf32x3"
-        for kind, line in (("fwd", 100), ("bwd", 128)):
-            name = f"attention_{kind}_{ROUTE_TAGS[route]}wide_d{256 if at256 else r['Dp']}"
+        Dp = 256 if at256 else r["Dp"]
+        for kind, line in (("fwd", 100),) if at256 else (("fwd", 100), ("bwd", 128)):
+            name = f"attention_{kind}_{ROUTE_TAGS[route]}wide_d{Dp}"
             n = sum(c.get(name, 0) for c in model_phases)
+            split = f"attention_fwd_{ROUTE_TAGS[route]}wide_split_d{Dp}"
             out.append({
-                "name": (f"attention_{kind}_d256_wide_L{SEQ}_{str(dtype)[6:]}" if at256 else
+                "name": (f"attention_fwd_d256_wide_L{SEQ}_{str(dtype)[6:]}" if at256 else
                          f"attention_{kind}_d{D}_L{SEQ}_B{WIDE_B}_{str(dtype)[6:]}"),
                 "route": "cuda", "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[route],
                 "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[route] + "_wide",
@@ -1604,8 +1652,9 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                 "ms": r[f"{kind}_ms"], "plain_ms": yard[f"plain_{kind}_ms"],
                 "bound_ms": yard[f"{kind}_bound"][0], "bound_by": yard[f"{kind}_bound"][1],
                 "library_ms": yard[f"lib_{kind}_ms"], "fma_ms": None,
-                "path": ("no model path runs the wide instance at D = 256 (the D = 256 instance "
-                         "takes it); launched through _wide_launches beside that instance "
+                "path": ("no model path runs the bf16 wide forward at D = 256 (the D = 256 "
+                         "instance takes it; the backward runs the wide one, the D = 256 rows); "
+                         "launched through _wide_launches beside that instance "
                          "(instance_readings_ms), the same kernels as the D = 512 rows"
                          if at256 else
                          "the kernels at 320: phase ref's SARSSLConfig.tiny(spec_dembed=1280) "
@@ -1613,10 +1662,18 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                          if r["Dp"] == 320 else
                          "no model path has head dim 1000 (padded to 1024): the same kernels as "
                          "the D = 512 rows"),
-                **({"readings_ms": r[f"{kind}_readings"],
-                    "instance_readings_ms": r[f"inst_{kind}_readings"]} if at256 else
+                **({"readings_ms": r["fwd_readings"],
+                    "instance_readings_ms": r["inst_fwd_readings"]} if at256 else
                    {"padded_to": r["Dp"], "batch": WIDE_B}),
                 **({"launches_tiny_model": d320_counts.get(name, 0)} if D == 300 else {}),
+                # the forward at the key splits chosen at this batch and at one,
+                # launched at the padded head dim (queued readings: chosen, 1,
+                # 1, chosen); its split launches over the model phases
+                **({"splits": r["splits"], "launch_ms": r["launch_ms"],
+                    "launch_splits_1_ms": r["launch_splits_1_ms"],
+                    "launch_readings_ms": r["launch_readings_ms"],
+                    "launches_split": sum(c.get(split, 0) for c in model_phases)}
+                   if kind == "fwd" and not at256 else {}),
             })
     out.append({
         "name": "hash_dropout", "route": "triton",
@@ -2753,14 +2810,15 @@ TOL_REMAT_GRAD = 2 ** -8
 def _attention_want(spec, spat):
     """Attention launches of one pretext train step: ``spec`` / ``spat`` are
     (instance head dim, layers, route) of each encoder's conformer
-    (``ROUTE_TAGS``); past 256 the wide instance also counts as
-    ``..._wide_d{D}``."""
+    (``ROUTE_TAGS``); a pass on the wide instance (past 256, and at 256 but
+    for the bf16 forward) also counts as ``..._wide_d{D}``."""
     want = {}
     for D, layers, route in (spec, spat):
         for kind in ("fwd", "bwd"):
             tag = ROUTE_TAGS[route]
             names = [f"attention_{kind}_d{D}", f"attention_{kind}_{tag}d{D}"]
-            for name in names + ([f"attention_{kind}_{tag}wide_d{D}"] if D > 256 else []):
+            for name in names + ([f"attention_{kind}_{tag}wide_d{D}"]
+                                 if _runs_wide(route, kind, D) else []):
                 want[name] = want.get(name, 0) + layers
     return want
 
@@ -3092,10 +3150,12 @@ def phase_model_options(card):
         f"{u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} utt/s, peak {r['peak_gib']:.2f} / "
         f"{u['peak_gib']:.2f} GiB (bf16 plain step {res['plain']['ms']:.1f} ms) ({card})")
     # (m) spec_dembed=1024: the spec encoder's 4 heads run head dim 256 (L =
-    # 256) on the D = 256 kernels; (n) spec_dembed=2048: head dim 512 on the
-    # wide instance. Each in bf16 and f32, beside the same step unfused from
-    # the same weights, masks and dropout seeds (the unfused attention drops
-    # the same positions), so their losses agree to the dtype's tolerance
+    # 256): the bf16 forward on the D = 256 instance, the bf16 backward and
+    # both f32 passes on the wide instance (the counts assert it); (n)
+    # spec_dembed=2048: head dim 512 on the wide instance. Each in bf16 and
+    # f32, beside the same step unfused from the same weights, masks and
+    # dropout seeds (the unfused attention drops the same positions), so
+    # their losses agree to the dtype's tolerance
     for tag, dembed in (("m", 1024), ("n", 2048)):
         D = dembed // HEADS
         for dtype, route, tol in (("bfloat16", "tc", TOL_BF16), ("float32", "tf32x3", TOL_REF)):
@@ -3105,12 +3165,17 @@ def phase_model_options(card):
             for kind in ("fwd", "bwd"):
                 shapes[(256, D, dtype, kind)] = r["counts"].get(
                     f"attention_{kind}_{ROUTE_TAGS[route]}d{D}", 0)
+                shapes[(256, D, dtype, kind, "wide")] = r["counts"].get(
+                    f"attention_{kind}_{ROUTE_TAGS[route]}wide_d{D}", 0)
             u = run(f"({tag}) spec_dembed={dembed} {dtype}, unfused attention",
                     {"hash_dropout": OPTION_DROPOUT["encoders_unfused"]}, dtype=dtype,
                     spec_dembed=dembed, fused_attention=False)
             err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], u["losses"]))
+            on = " / ".join(f"{kind} on the " + ("wide instance" if _runs_wide(route, kind, D)
+                                                 else f"D = {D} instance")
+                            for kind in ("fwd", "bwd"))
             log(f"[model_options] ({tag}) spec_dembed={dembed} {dtype} step, fused "
-                f"({ROUTE_WORDS[route]}, D = {D}{', wide instance' if D > 256 else ''}) against "
+                f"({ROUTE_WORDS[route]}, D = {D}: {on}) against "
                 f"unfused: {r['ms']:.1f} / {u['ms']:.1f} ms, {r['utt_s']:.1f} / {u['utt_s']:.1f} "
                 f"utt/s, peak {r['peak_gib']:.2f} / {u['peak_gib']:.2f} GiB, losses max rel err "
                 f"{err:.2e} (tol {tol}) ({card})")

@@ -1,9 +1,9 @@
 // Fused rel-pos attention on the H100's tensor cores in float32, forward and
-// backward, at head dims 16, 32, 64, 128 and 256, and every multiple of WDC =
-// 64 past 256 (the wide instance), at any sequence length L >= 1, as
+// backward, at head dims 16, 32, 64 and 128, and every multiple of WDC = 64
+// from 256 on (the wide instance), at any sequence length L >= 1, as
 // split-precision TF32 products (3xTF32). (bfloat16 runs attention_mma.cu; the
 // wrapper runs every other head dim on the next of these instances, on
-// zero-padded inputs.)
+// zero-padded inputs: 129 .. 256 on the wide instance at 256.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_tf32
@@ -69,7 +69,7 @@
 //    between, only the order of the sums differs. lse = m + log(sum) per row
 //    is written, (B,H,L) f32. At D <= 64 each warp keeps its qu fragments, hi
 //    and lo, in registers (the qu tile shares its shared memory with the
-//    second bias stage); at D >= 128 that would be 128 registers, so the
+//    second bias stage); at D = 128 that would be 128 registers, so the
 //    fragments are loaded and split again from shared memory every tile.
 //  * Backward: attn_delta_f32 writes delta_i = sum_d g_id out_id (equal to
 //    sum_j dp_ij p_ij up to rounding). attn_bwd_tf32 runs per (b, h, tile of
@@ -80,19 +80,6 @@
 //    registers; the dbias tile goes through shared memory to 16-byte stores.
 //    attn_dqu_tf32 then takes dqu = dbias k per (b, h, 64 query rows). No
 //    atomics: results are bit-identical from run to run.
-//  * Head dim 256: a warp's 16 x 256 accumulator is 128 registers a thread.
-//    The forward is the D = 128 design (qu fragments loaded and split again
-//    every tile, one bias stage) with tiles of 16 keys, 139,264 bytes of
-//    shared memory: with 32 keys the scores' registers beside the accumulator
-//    spill the instance for any L. The main backward pass keeps dv alone
-//    (dv and dk for 16 keys x 256 would be 256 registers) and writes dbias as
-//    before; attn_dk_tf32 then takes dk = dbias^T qu per (b, h, 64 keys),
-//    reading dbias's columns as attn_dqu_tf32 reads its rows, so no score is
-//    computed twice. Both of those passes compute one half of their output's
-//    columns a block (grid z = 2): 16 x 256 beside the dbias fragments
-//    spills. The main kernels (212,992 bytes backward) run one block of 4
-//    warps an SM. (Splitting the main pass's dv and dk columns across blocks
-//    instead repeats its score products, and spilled at halves: PERF.md.)
 //  * Dropout, the tensor-parallel head map (h_total, h_offset) and the launch
 //    grids are attention_mma.cu's: the counter hash of the flat (b, h, i, j)
 //    index of the whole (B, h_total, L, L) tensor, from each element's own
@@ -105,13 +92,16 @@
 //    always starts 4-byte aligned, so this instance copies bias and dbias
 //    tiles value by value (4-byte cp.async and stores) and reads lse and
 //    delta the same way. Tiles do not depend on L: every L runs.
-//  * Head dims past 256, the wide instance: attention_mma.cu's design (the
-//    scores once to an f32 scratch, then out = p v in DC-column blocks; the
+//  * Head dims from 256 on, the wide instance: attention_mma.cu's design (the
+//    scores once to an f32 scratch, the key tiles of a query tile split over
+//    blocks where the batch is small, then out = p v in DC-column blocks; the
 //    backward's dbias and pd once, then three products), with every product
 //    3xTF32 as above. The streamed chunks are WKC = 32 columns (rows of 36
 //    floats), so the backward's four chunk tiles, double-buffered, leave room
 //    for two blocks an SM; pd is f32, and dbias and pd are stored straight
-//    from the accumulators.
+//    from the accumulators. At D = 256 it runs in place of an instance of its
+//    own, which it beat by 27-29% forward and backward on an H100 80GB HBM3
+//    at 700 W (PERF.md §5).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -239,16 +229,10 @@ __device__ __forceinline__ void split4(const uint32_t (&x)[4], uint32_t (&hi)[4]
   for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(x[e]), hi[e], lo[e]);
 }
 
-// k-steps of mma_rows_rows unrolled together at D = 256 (all of them below).
-// Unrolled whole, the 32 steps let the scheduler hoist fragment loads and
-// splits until the main backward pass spills beside its 16 x 256 dv; of 1, 2,
-// 3, 4, 8, 16 and 32, only 3 left both of its instances unspilled (PERF.md)
-constexpr int KSTEP_UNROLL_256 = 3;
-
 // acc (16 x 8*NTILES) += A (16 rows of a tile from a_addr) * B^T (rows
 // 0..8*NTILES of a tile from b_addr), both of pitch D + 4 with rows along k;
 // UNROLL k-steps unrolled together
-template <int D, int NTILES, int UNROLL = (D <= 128 ? D / 8 : KSTEP_UNROLL_256)>
+template <int D, int NTILES, int UNROLL = D / 8>
 __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t a_addr,
                                               uint32_t b_addr) {
 #pragma unroll (UNROLL)
@@ -314,20 +298,18 @@ __device__ __forceinline__ void store_acc(const float (&acc)[N / 8][4], float* d
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(L/64), B*H); blockIdx.x is the query tile.
+// forward (D <= 128): grid (ceil(L/64), B*H); blockIdx.x is the query tile.
 // smem: 2 x K tile, 2 x V tile, the bias tiles and the Q tile. At D <= 64:
 // tiles of 64 keys, 2 bias stages, the Q tile in the second one (it is read
-// into registers before that is filled). At D = 128 and 256: tiles of 32 keys
-// and one bias stage (refilled once every warp has read it), which bring a
-// block to 111,616 bytes at D = 128, so two blocks share an SM (209,920 bytes,
-// one block, at D = 256).
+// into registers before that is filled). At D = 128: tiles of 32 keys and
+// one bias stage (refilled once every warp has read it), which bring a block
+// to 111,616 bytes, so two blocks share an SM.
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdSmem {
+  static_assert(D <= 128, "the wide instance takes head dims past 128");
   static constexpr bool QREG = D <= 64;  // qu fragments kept in registers
-  // keys a tile: 16 at D = 256, where the scores of 32 keys beside the
-  // 16 x 256 accumulator spill the instance for any L
-  static constexpr int BKF = QREG ? 64 : D == 128 ? 32 : 16;
+  static constexpr int BKF = QREG ? 64 : 32;  // keys a tile
   static constexpr int PB = BKF + 8;  // bias tile pitch: float2 reads free of conflicts
   static constexpr int BSTAGES = QREG ? 2 : 1;
   static constexpr int TILE = BKF * (D + 4) * 4;  // a K or V tile
@@ -349,11 +331,11 @@ struct FwdSmem {
 // five or six the forward spills, and both passes run slower.
 template <int D>
 __host__ __device__ constexpr int fwd_blocks() {
-  return D == 16 ? 4 : D == 32 ? 3 : D <= 128 ? 2 : 1;
+  return D == 16 ? 4 : D == 32 ? 3 : 2;
 }
 template <int D>
 __host__ __device__ constexpr int bwd_blocks() {
-  return D == 16 ? 4 : D == 32 ? 3 : D <= 128 ? 2 : 1;
+  return D == 16 ? 4 : D == 32 ? 3 : 2;
 }
 
 template <int D, bool EXACT>
@@ -559,17 +541,17 @@ attn_delta_f32(const float* __restrict__ g, const float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// backward, main pass: grid (ceil(L/64), B*H); blockIdx.x is the key tile.
-// Each warp owns 16 keys and keeps their dv and dk in registers over the
-// query loop (at D = 256 dv alone: attn_dk_tf32 takes dk, module note).
+// backward, main pass (D <= 128): grid (ceil(L/64), B*H); blockIdx.x is the
+// key tile. Each warp owns 16 keys and keeps their dv and dk in registers
+// over the query loop.
 // smem: K tile, V tile, 2 x (Q, G, bias tiles of BQ queries, lse, delta),
 // dbias staging tile. BQ is 32, and 16 at D = 128 (where that brings a block
-// to 114,688 bytes, so two blocks share an SM) and 256.
+// to 114,688 bytes, so two blocks share an SM).
 // ---------------------------------------------------------------------------
 template <int D>
 struct BwdSmem {
-  static constexpr bool DK = D <= 128;  // dk in this pass
-  static constexpr int BQ = D >= 128 ? 16 : 32;  // queries a step of the loop
+  static_assert(D <= 128, "the wide instance takes head dims past 128");
+  static constexpr int BQ = D == 128 ? 16 : 32;  // queries a step of the loop
   static constexpr int KV = 64 * (D + 4) * 4;
   static constexpr int QG = BQ * (D + 4) * 4;
   static constexpr int BIAS = BQ * SBT * 4;
@@ -634,11 +616,12 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   load_stage(0, 0);
   cp_async_commit();
 
-  float dva[D / 8][4], dka[S::DK ? D / 8 : 1][4];
+  float dva[D / 8][4], dka[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < (S::DK ? D / 8 : 1); ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) {
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+  }
   const uint32_t key_a = (uint32_t)(j0 + r0 + g), key_b = key_a + 8u;
   const float sl2 = scale * LOG2E;
   const uint32_t ka = sb + S::K + lane_a<P>(r0, lane), va = sb + S::V + lane_a<P>(r0, lane);
@@ -703,7 +686,7 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
       }
     }
     // dk[key] += dbias^T qu
-    if constexpr (S::DK) mma_acc_rows<D, QT>(dka, dpt, qf);
+    mma_acc_rows<D, QT>(dka, dpt, qf);
 
     // the dbias tile, BQ rows of 64 keys (rows and keys inside L)
     __syncthreads();
@@ -726,63 +709,46 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   }
 
   const i64 orow = ((i64)bh * L + j0 + r0) * D;
-  if constexpr (S::DK) store_acc<D, !EXACT>(dka, dk + orow, D, kcols - r0);
+  store_acc<D, !EXACT>(dka, dk + orow, D, kcols - r0);
   store_acc<D, !EXACT>(dva, dv + orow, D, kcols - r0);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dqu = dbias k (attn_dqu_tf32) and, at D = 256, dk = dbias^T qu
-// (attn_dk_tf32): grid (ceil(L/64), B*H, D/DH); blockIdx.x is the tile of 64
-// output rows (queries of dqu, keys of dk), blockIdx.z the DH columns of the
-// output the block computes (all D of them up to D = 128; one half at
-// D = 256, where a 16 x 256 accumulator beside the dbias fragments spills).
-// The block walks the other side of dbias in tiles of 64: dqu its 64 rows of
-// dbias, dk its 64 columns, whose A fragments it reads transposed.
-// smem: 2 x (dbias tile 64 x 64 at pitch SBF, k or qu tile 64 x DH)
+// backward, dqu = dbias k (D <= 128): grid (ceil(L/64), B*H); blockIdx.x is
+// the tile of 64 query rows, which walks its 64 rows of dbias in tiles of 64.
+// smem: 2 x (dbias tile 64 x 64 at pitch SBF, k tile 64 x D)
 // ---------------------------------------------------------------------------
 template <int D>
 struct DquSmem {
-  static constexpr int DH = D <= 128 ? D : 128;  // output columns a block
-  static constexpr int SPLITS = D / DH;
   static constexpr int A = 64 * SBF * 4;
-  static constexpr int KT = 64 * (DH + 4) * 4;
+  static constexpr int KT = 64 * (D + 4) * 4;
   static constexpr int STAGE = A + KT;
   static constexpr int BYTES = 2 * STAGE;
   static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-// out (B, H, L, D) = dbias x (TRANS: dbias^T x), x (B, H, L, D)
-template <int D, bool EXACT, bool TRANS>
-__device__ __forceinline__ void dbias_product(const float* __restrict__ dbias,
-                                              const float* __restrict__ x,
-                                              float* __restrict__ out, int L) {
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT)
+attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
+              float* __restrict__ dqu, int L) {
   typedef DquSmem<D> S;
-  constexpr int DH = S::DH;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int bh = blockIdx.y, o0 = blockIdx.x * 64, c0 = blockIdx.z * DH;
+  const int bh = blockIdx.y, o0 = blockIdx.x * 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const float* xp = x + (i64)bh * L * D + c0;  // the block's DH columns of x
+  const float* kp = k + (i64)bh * L * D;
+  const float* ap = dbias + ((i64)bh * L + o0) * L;
   const int ntiles = (L + BK - 1) / BK;
   const int orows = L - o0;  // the output tile's rows inside L
-  // dbias tile j1 / 64: rows o0.., columns j1.. (dqu); rows j1.., columns o0.. (dk)
-  auto load_a = [&](uint32_t dst, int j1) {
-    if constexpr (TRANS)
-      load_scores<64, SBF, EXACT>(dst, dbias + ((i64)bh * L + j1) * L + o0, L, L - j1,
-                                  min(orows, BK));
-    else
-      load_scores<64, SBF, EXACT>(dst, dbias + ((i64)bh * L + o0) * L + j1, L, orows,
-                                  min(L - j1, BK));
-  };
 
-  load_a(sb, 0);
-  load_rows<64, DH, !EXACT>(sb + S::A, xp, D, L);
+  load_scores<64, SBF, EXACT>(sb, ap, L, orows, min(L, BK));
+  load_rows<64, D, !EXACT>(sb + S::A, kp, D, L);
   cp_async_commit();
 
-  float acc[DH / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int tt = 0; tt < ntiles; ++tt) {
     cp_async_wait_all();
@@ -791,50 +757,26 @@ __device__ __forceinline__ void dbias_product(const float* __restrict__ dbias,
     if (tt + 1 < ntiles) {
       const uint32_t nx = sb + (st ^ 1) * S::STAGE;
       const int j1 = (tt + 1) * BK;
-      load_a(nx, j1);
-      load_rows<64, DH, !EXACT>(nx + S::A, xp + (i64)j1 * D, D, L - j1);
+      load_scores<64, SBF, EXACT>(nx, ap + j1, L, orows, min(L - j1, BK));
+      load_rows<64, D, !EXACT>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
       cp_async_commit();
     }
-    // the warp's 16 output rows of dbias (TRANS: of its transpose) as
-    // accumulator-layout pairs: columns 8kc + 2t, 8kc + 2t + 1 of rows g and
-    // g + 8 (dqu: float2 reads along a row; dk: down a column)
+    // the warp's 16 rows of dbias as accumulator-layout pairs: columns 8kc +
+    // 2t, 8kc + 2t + 1 of rows g and g + 8, by float2 reads along a row
     const float* a = reinterpret_cast<const float*>(smem + st * S::STAGE);
     float af[8][4];
 #pragma unroll
     for (int kc = 0; kc < 8; ++kc) {
-      if constexpr (TRANS) {
-        const float* col = a + (8 * kc + 2 * t) * SBF + r0 + g;
-        af[kc][0] = col[0];
-        af[kc][1] = col[SBF];
-        af[kc][2] = col[8];
-        af[kc][3] = col[SBF + 8];
-      } else {
-        const float2 u = *reinterpret_cast<const float2*>(a + (r0 + g) * SBF + 8 * kc + 2 * t);
-        const float2 w =
-            *reinterpret_cast<const float2*>(a + (r0 + g + 8) * SBF + 8 * kc + 2 * t);
-        af[kc][0] = u.x;
-        af[kc][1] = u.y;
-        af[kc][2] = w.x;
-        af[kc][3] = w.y;
-      }
+      const float2 u = *reinterpret_cast<const float2*>(a + (r0 + g) * SBF + 8 * kc + 2 * t);
+      const float2 w = *reinterpret_cast<const float2*>(a + (r0 + g + 8) * SBF + 8 * kc + 2 * t);
+      af[kc][0] = u.x;
+      af[kc][1] = u.y;
+      af[kc][2] = w.x;
+      af[kc][3] = w.y;
     }
-    mma_acc_rows<DH, 8>(acc, af, reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
+    mma_acc_rows<D, 8>(acc, af, reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
   }
-  store_acc<DH, !EXACT>(acc, out + ((i64)bh * L + o0 + r0) * D + c0, D, orows - r0);
-}
-
-template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT)
-attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
-              float* __restrict__ dqu, int L) {
-  dbias_product<D, EXACT, false>(dbias, k, dqu, L);
-}
-
-template <int D, bool EXACT>
-__global__ void __launch_bounds__(NT)
-attn_dk_tf32(const float* __restrict__ dbias, const float* __restrict__ qu,
-             float* __restrict__ dk, int L) {
-  dbias_product<D, EXACT, true>(dbias, qu, dk, L);
+  store_acc<D, !EXACT>(acc, dqu + ((i64)bh * L + o0 + r0) * D, D, orows - r0);
 }
 
 // ===========================================================================
@@ -850,12 +792,14 @@ constexpr int WKC = 32;   // columns of a streamed qu / k / g / v chunk (pitch W
 static_assert(WDC % WKC == 0 && WDC % 64 == 0, "Dp is whole chunks and whole delta steps");
 
 // ---------------------------------------------------------------------------
-// wide forward, pass 1: grid (ceil(L/64), B*H). The block's 64 query rows
-// against every key tile: s = sum over the Dp / KC chunks of qu_c k_c^T
-// (chunks streamed through a cp.async double buffer in (key tile, chunk)
-// order), (s + bias) * scale in log2 units, keys >= L at -inf, written to the
-// f32 score scratch (B*H, Lp, Lp), Lp = 64 ceil(L / 64), with the running row
-// max and sum; lse per row at the end.
+// wide forward, pass 1: grid (ceil(L/64), B*H, S). The block's 64 query rows
+// against its split's key tiles (attention_mma.cu's partition): s = sum over
+// the Dp / KC chunks of qu_c k_c^T (chunks streamed through a cp.async double
+// buffer in (key tile, chunk) order), (s + bias) * scale in log2 units, keys
+// >= L at -inf, written to the f32 score scratch (B*H, Lp, Lp), Lp = 64
+// ceil(L / 64), with the running row max and sum; at S = 1 lse per row at the
+// end, else the rows' partial max and sum (log2 units) to part (2, B*H, S,
+// Lp), which the p v pass merges.
 // smem: 2 x (qu chunk, k chunk), 2 x bias tile
 // ---------------------------------------------------------------------------
 template <int KC>
@@ -872,24 +816,27 @@ template <int KC, bool EXACT>
 __global__ void __launch_bounds__(NT, 2)
 attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
                           const float* __restrict__ bias, float* __restrict__ scores,
-                          float* __restrict__ lse, int L, int Dp, float scale) {
+                          float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                          float scale) {
   typedef WideScoresSmem<KC> S;
   constexpr int P = KC + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int bh = blockIdx.y, i0 = blockIdx.x * 64;
+  const int bh = blockIdx.y, i0 = blockIdx.x * 64, nsplit = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, nsteps = ntiles * nkc;
+  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
+  const int per = (ntiles + nsplit - 1) / nsplit, tt0 = blockIdx.z * per;
+  const int nsteps = max(min(per, ntiles - tt0), 0) * nkc;
   const int qrows = L - i0;
   const float* qp = qu + ((i64)bh * L + i0) * Dp;
   const float* kp = k + (i64)bh * L * Dp;
   const float* bp = bias + ((i64)bh * L + i0) * L;
 
-  // step s: chunk s % nkc of key tile s / nkc; a tile's first chunk also
-  // brings its bias, into the stage the tile before last has left
+  // step s: chunk s % nkc of key tile tt0 + s / nkc; a tile's first chunk
+  // also brings its bias, into the stage the tile before last has left
   auto load_step = [&](int s) {
-    const int tt = s / nkc, c = s % nkc, j = tt * BK;
+    const int tt = tt0 + s / nkc, c = s % nkc, j = tt * BK;
     const uint32_t st = sb + (s & 1) * S::STAGE;
     load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
     load_rows<64, KC, !EXACT>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j);
@@ -897,7 +844,7 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
       load_scores<64, SBF, EXACT>(sb + S::B + (tt & 1) * S::BIAS, bp + j, L, qrows,
                                   min(L - j, BK));
   };
-  load_step(0);
+  if (nsteps > 0) load_step(0);
   cp_async_commit();
 
   float s[8][4];
@@ -920,7 +867,7 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
     if (step % nkc != nkc - 1) continue;
 
     // the key tile's scores are whole: bias, scale, running max and sum, out
-    const int tt = step / nkc, kleft = L - tt * BK;
+    const int tt = tt0 + step / nkc, kleft = L - tt * BK;
     const float* bt = reinterpret_cast<const float*>(smem + S::B + (tt & 1) * S::BIAS);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
@@ -958,16 +905,53 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
   if (t == 0) {
-    float* lp = lse + (i64)bh * L + i0 + r0;
-    if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
-    if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+    if (nsplit == 1) {
+      float* lp = lse + (i64)bh * L + i0 + r0;
+      if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
+      if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+    } else {  // every row of the tile: part holds Lp rows
+      float* pm = part + ((i64)bh * nsplit + blockIdx.z) * Lp + i0 + r0 + g;
+      float* pl = pm + (i64)gridDim.y * nsplit * Lp;
+      pm[0] = m_a;
+      pm[8] = m_b;
+      pl[0] = l_a;
+      pl[8] = l_b;
+    }
   }
+}
+
+// lse (log2 units) of rows r and r + 8 from the S partials of part (2, B*H,
+// S, Lp) at row_off = bh * S * Lp + r: m + log2(sum_z l_z 2^(m_z - m)), m =
+// max_z m_z, folded split by split. Split 0 always holds a key tile, so the
+// running max is finite from it on and a split with no key, (-inf, 0), adds
+// 0. The loop is unrolled so that the loads of several splits are in flight
+// together (a block merges while its first tile is on the way). Merged here,
+// in the p v pass's prologue, the forward ran 0-9% faster than with a merge
+// kernel of its own ahead of the pass, on an H100 80GB HBM3 at 700 W (PERF.md
+// §5).
+__device__ __forceinline__ void merge_lse2(const float* part, i64 plane, i64 row_off, int nsplit,
+                                           int Lp, float& l2a, float& l2b) {
+  float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f;
+#pragma unroll 4
+  for (int z = 0; z < nsplit; ++z) {
+    const float* p = part + row_off + (i64)z * Lp;
+    const float mza = p[0], mzb = p[8], lza = p[plane], lzb = p[plane + 8];
+    const float na = fmaxf(ma, mza), nb = fmaxf(mb, mzb);
+    sa = sa * fast_exp2(ma - na) + lza * fast_exp2(mza - na);
+    sb = sb * fast_exp2(mb - nb) + lzb * fast_exp2(mzb - nb);
+    ma = na;
+    mb = nb;
+  }
+  l2a = ma + log2f(sa);
+  l2b = mb + log2f(sb);
 }
 
 // ---------------------------------------------------------------------------
 // wide forward, pass 2: grid (ceil(L/64) * Dp/DC, B*H); blockIdx.x is query
 // tile * (Dp / DC) + the block's DC output columns, so the blocks of one query
-// tile run side by side and share its score tiles in L2. Walks the key tiles:
+// tile run side by side and share its score tiles in L2. With S > 1 key
+// splits in pass 1, each block first merges its rows' partials into lse (the
+// block of columns 0 writes it, for the backward). Walks the key tiles:
 // p = exp2(s - lse) (the scratch's scores, exact softmax), dropped or scaled
 // by 1/(1-rate), into out += p v.
 // smem: 2 x (score tile, v chunk)
@@ -983,9 +967,9 @@ struct WidePvSmem {
 
 template <int DC, bool EXACT>
 __global__ void __launch_bounds__(NT, 2)
-attn_fwd_pv_wide_tf32(const float* __restrict__ scores, const float* __restrict__ lse,
-                      const float* __restrict__ v, float* __restrict__ out, int H, int L, int Dp,
-                      Dropout drop, Strides os) {
+attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
+                      const float* __restrict__ part, int nsplit, const float* __restrict__ v,
+                      float* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
   typedef WidePvSmem<DC> S;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
@@ -1006,9 +990,20 @@ attn_fwd_pv_wide_tf32(const float* __restrict__ scores, const float* __restrict_
   load(0);
   cp_async_commit();
 
-  const float* lr = lse + (i64)bh * L + i0 + r0 + g;
-  const float l2a = EXACT || r0 + g < qrows ? lr[0] * LOG2E : 0.f;
-  const float l2b = EXACT || r0 + g + 8 < qrows ? lr[8] * LOG2E : 0.f;
+  float* lr = lse + (i64)bh * L + i0 + r0 + g;
+  const bool in_a = EXACT || r0 + g < qrows, in_b = EXACT || r0 + g + 8 < qrows;
+  float l2a, l2b;
+  if (nsplit == 1) {
+    l2a = in_a ? lr[0] * LOG2E : 0.f;
+    l2b = in_b ? lr[8] * LOG2E : 0.f;
+  } else {
+    merge_lse2(part, (i64)gridDim.y * nsplit * Lp, (i64)bh * nsplit * Lp + i0 + r0 + g, nsplit,
+               Lp, l2a, l2b);
+    if (c0 == 0 && t == 0) {
+      if (in_a) lr[0] = l2a / LOG2E;
+      if (in_b) lr[8] = l2b / LOG2E;
+    }
+  }
   const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
   float o[DC / 8][4];
 #pragma unroll
@@ -1214,7 +1209,8 @@ attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
 // A (B, H, L, L) (dbias or pd) and x (B, H, L, Dp) of strides xs: dqu = dbias
 // k, dk = dbias^T qu, dv = pd^T g. Grid (ceil(L/64) * Dp/DC, B*H) as pass 2 of
 // the forward; the block walks the other side of A in tiles of 64 and reads
-// its A fragments as attn_dqu_tf32 / attn_dk_tf32 do.
+// its A fragments along A's rows (A x, as attn_dqu_tf32 does) or down its
+// columns (A^T x).
 // smem: 2 x (A tile 64 x 64 at pitch SBF, x chunk 64 x DC)
 // ---------------------------------------------------------------------------
 template <int DC>
@@ -1325,34 +1321,36 @@ cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bi
       qu, k, v, bias, g, lse, delta, dk, dv, dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 split(grid.x, grid.y, DquSmem<D>::SPLITS);
-  attn_dqu_tf32<D, EXACT><<<split, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
-  if constexpr (!BwdSmem<D>::DK) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = set_smem(attn_dk_tf32<D, EXACT>, DquSmem<D>::BYTES);
-    if (err != cudaSuccess) return err;
-    attn_dk_tf32<D, EXACT><<<split, NT, DquSmem<D>::BYTES, stream>>>(dbias, qu, dk, L);
-  }
+  attn_dqu_tf32<D, EXACT><<<grid, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
   return cudaGetLastError();
 }
 
 template <int DC, bool EXACT>
 cudaError_t fwd_wide(const float* qu, const float* k, const float* v, const float* bias,
-                     float* out, float* lse, float* scores, int BH, int H, int L, int Dp,
-                     float scale, Dropout drop, Strides os, cudaStream_t stream) {
+                     float* out, float* lse, float* scores, float* part, int nsplit, int BH, int H,
+                     int L, int Dp, float scale, Dropout drop, Strides os, cudaStream_t stream) {
   cudaError_t err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
   if (err != cudaSuccess) return err;
   err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT>, WidePvSmem<DC>::BYTES);
   if (err != cudaSuccess) return err;
   const int nt = ceil_div(L, 64);
-  attn_fwd_scores_wide_tf32<WKC, EXACT><<<dim3(nt, BH), NT, WideScoresSmem<WKC>::BYTES, stream>>>(
-      qu, k, bias, scores, lse, L, Dp, scale);
+  attn_fwd_scores_wide_tf32<WKC, EXACT><<<dim3(nt, BH, nsplit), NT, WideScoresSmem<WKC>::BYTES,
+                                          stream>>>(qu, k, bias, scores, lse, part, L, Dp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_fwd_pv_wide_tf32<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES,
-                                      stream>>>(scores, lse, v, out, H, L, Dp, drop, os);
+                                      stream>>>(scores, lse, part, nsplit, v, out, H, L, Dp, drop,
+                                                os);
   return cudaGetLastError();
+}
+
+// blocks of the wide scores pass an SM holds (the occupancy calculator's)
+template <bool EXACT>
+cudaError_t wide_scores_blocks(int* n) {
+  cudaError_t err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, attn_fwd_scores_wide_tf32<WKC, EXACT>,
+                                                       NT, WideScoresSmem<WKC>::BYTES);
 }
 
 template <int DC, bool EXACT, bool TRANS>
@@ -1432,7 +1430,8 @@ bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* 
 
 extern "C" {
 
-// float32 only; head_dim in {16, 32, 64, 128, 256}; any L >= 1. out_strides: element
+// float32 only; head_dim in {16, 32, 64, 128} (256 and past it run the wide
+// instance); any L >= 1. out_strides: element
 // strides of out over (b, h, l) (multiples of 4: rows 16-byte aligned). lse:
 // (B, H, L) float32, written. The H heads are h_offset .. h_offset + H of
 // h_total for the dropout index (H, 0 for all). Returns cudaGetLastError()
@@ -1457,16 +1456,14 @@ int attn_tf32_fwd(const void* qu, const void* k, const void* v, const void* bias
       return (int)(exact ? ATTN_FWD(64, true) : ATTN_FWD(64, false));
     case 128:
       return (int)(exact ? ATTN_FWD(128, true) : ATTN_FWD(128, false));
-    case 256:
-      return (int)(exact ? ATTN_FWD(256, true) : ATTN_FWD(256, false));
   }
 #undef ATTN_FWD
   return (int)cudaErrorInvalidValue;
 }
 
-// g_strides, out_strides: element strides of g and out over (b, h, l).
-// lse: the forward's; delta: (B, H, L) float32 scratch, written then read.
-// h_total, h_offset as in attn_tf32_fwd.
+// head_dim as in attn_tf32_fwd. g_strides, out_strides: element strides of
+// g and out over (b, h, l). lse: the forward's; delta: (B, H, L) float32
+// scratch, written then read. h_total, h_offset as in attn_tf32_fwd.
 int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias, const void* g,
                   const void* out, const void* lse, void* delta, void* dqu, void* dk, void* dv,
                   void* dbias, const long long* g_strides, const long long* out_strides, int B,
@@ -1491,30 +1488,29 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
       return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
     case 128:
       return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
-    case 256:
-      return (int)(exact ? ATTN_BWD(256, true) : ATTN_BWD(256, false));
   }
 #undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 // The wide instance, as attn_tf32_fwd, at a padded head dim Dp (a multiple
-// of WDC, 256 or more). scores: (B, H, Lp, Lp) float32
-// scratch, Lp = 64 ceil(L / 64), written then read.
+// of WDC, 256 or more). scores: (B, H, Lp, Lp) float32 scratch, Lp = 64
+// ceil(L / 64), written then read. splits: the scores pass's key splits S, 1
+// .. ceil(L / 64); part: (2, B*H, S, Lp) float32 scratch (unused at S = 1).
 int attn_tf32_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
-                       void* lse, void* scores, const long long* out_strides, int B, int H,
-                       int L, int head_dim, float scale, float rate, unsigned int seed,
-                       unsigned int thresh, float inv_keep, int h_total, int h_offset,
-                       void* stream) {
+                       void* lse, void* scores, void* part, const long long* out_strides, int B,
+                       int H, int L, int head_dim, int splits, float scale, float rate,
+                       unsigned int seed, unsigned int thresh, float inv_keep, int h_total,
+                       int h_offset, void* stream) {
   if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
-      !aligned16(scores))
+      !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) || (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
 #define ATTN_FWD_WIDE(DC, E)                                                                    \
   fwd_wide<DC, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,        \
-                  (float*)out, (float*)lse, (float*)scores, B * H, H, L, head_dim, scale, drop,   \
-                  os, (cudaStream_t)stream)
+                  (float*)out, (float*)lse, (float*)scores, (float*)part, splits, B * H, H, L,    \
+                  head_dim, scale, drop, os, (cudaStream_t)stream)
   const bool exact = exact_tiles(L, bias);
   if (head_dim % (2 * WDC) == 0)
     return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
@@ -1575,11 +1571,17 @@ int attn_tf32_smem_bytes(int head_dim, int which) {
     case 128:
       return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES
                                                            : DquSmem<128>::BYTES;
-    case 256:
-      return which == 0 ? FwdSmem<256>::BYTES : which == 1 ? BwdSmem<256>::BYTES
-                                                           : DquSmem<256>::BYTES;
   }
   return -1;
+}
+
+// Blocks an SM holds of the wide forward's scores pass, in its instance for
+// whole tiles (exact = 1) or for any L: the wrapper chooses the key splits
+// from it. A CUDA error comes back negated.
+int attn_tf32_fwd_wide_blocks(int exact) {
+  int n = 0;
+  const cudaError_t err = exact ? wide_scores_blocks<true>(&n) : wide_scores_blocks<false>(&n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,8 +1,9 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
-// for bfloat16 at head dims 16, 32, 64, 128 and 256, and every multiple of
-// WDC = 64 past 256 (the wide instance), at any sequence length L >= 1.
-// (float32 runs attention_f32_mma.cu; the wrapper runs every other head dim
-// on the next of these instances, on zero-padded inputs.)
+// for bfloat16 at head dims 16, 32, 64 and 128 (the forward also at 256), and
+// every multiple of WDC = 64 from 256 on (the wide instance), at any sequence
+// length L >= 1. (float32 runs attention_f32_mma.cu; the wrapper runs every
+// other head dim on the next of these instances, on zero-padded inputs: 129 ..
+// 256 forward on the D = 256 instance, backward on the wide one at 256.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
@@ -79,21 +80,15 @@
 //    plain version's and forward and backward agree. A tensor-parallel shard
 //    of heads (h_offset .. h_offset + H of h_total) hashes the index of the
 //    whole (B, h_total, L, L) tensor: each block maps its (b, h) once.
-//  * Head dim 256: a warp's 16 x 256 f32 output accumulator is 128 registers
-//    a thread, so the forward keeps no qu fragments beside it (another 64),
-//    reads them from shared memory again for every key tile, and takes a
-//    tile's 64 keys in steps of 32 (16 in the instance for any L, which holds
-//    more addresses): with all 64 the scores' registers spill. And the
-//    backward's dv and dk for 16 keys x 256 (256 registers) cannot both stay.
-//    So the backward's main pass runs twice per key tile (grid z = 2), each
-//    block holding dv and dk for one half of the head dim's columns: both
-//    compute the full-D scores s^T = k qu^T and dp^T = v g^T, and only the
-//    first writes dbias. That repeats two of the pass's four products and its
-//    reads of qu, g and the bias (bytes bound it, so about 1.5x its time).
-//    The dqu pass likewise computes one half of dqu's columns a block (grid
-//    z = 2; the dbias tiles are read twice). Shared memory (182,272 B forward,
-//    145,920 B backward) and registers leave one block of 4 warps an SM in the
-//    two main kernels.
+//  * Head dim 256, forward only: a warp's 16 x 256 f32 output accumulator is
+//    128 registers a thread, so the forward keeps no qu fragments beside it
+//    (another 64), reads them from shared memory again for every key tile,
+//    and takes a tile's 64 keys in steps of 32 (16 in the instance for any L,
+//    which holds more addresses): with all 64 the scores' registers spill.
+//    Shared memory (182,272 B) and registers leave one block of 4 warps an
+//    SM. The backward at 256 runs the wide instance, which beat an instance
+//    of its own by 25% on an H100 80GB HBM3 at 700 W (PERF.md §5); this
+//    forward beat the wide one by 12-14% there.
 //  * Any L: each kernel has two instances, chosen at launch. EXACT (L a
 //    multiple of 64, bias 16-byte aligned: the flagship) is the code above
 //    with no predicate. The other takes ceil(L / 64) tiles and
@@ -112,11 +107,11 @@
 //        (ldmatrix needs 16-byte aligned rows). dbias goes out in 16-byte
 //        stores where a chunk lies inside the row and 2-byte stores at its
 //        two ends; lse and delta come in by 4-byte cp.async.
-//  * Head dims past 256, the wide instance: a warp's 16-row output at full
-//    width would need more than the 255 registers a thread has (16 x 512 f32
-//    is 256), and no whole-D tile of qu, k, v or g fits beside the others in
-//    shared memory. So the head dim Dp (a multiple of WDC) is a runtime
-//    argument, and
+//  * Head dims past 256 (and the backward at 256), the wide instance: a
+//    warp's 16-row output at full width would need more than the 255
+//    registers a thread has (16 x 512 f32 is 256), and no whole-D tile of qu,
+//    k, v or g fits beside the others in shared memory. So the head dim Dp (a multiple of WDC, 256 or more) is a
+//    runtime argument, and
 //      - every score product is streamed: sum over the Dp / WKC column chunks
 //        of qu_c k_c^T (g_c v_c^T), the chunks through a cp.async double
 //        buffer, with mma_rows_rows and the swizzle at W = WKC = 64;
@@ -127,6 +122,15 @@
 //        T(dropout(exp2(s - lse))) v for DC output columns a block (the exact
 //        softmax: no rescaling), the blocks of one query tile side by side in
 //        the grid so they share its score tiles in L2;
+//      - a small batch leaves the scores pass's ceil(L / 64) * B * H blocks
+//        too few for the card (128 at B = 8, H = 4, L = 256, each walking
+//        every key tile in series), so the wrapper splits each query tile's
+//        key tiles over S blocks (grid z; S from the SM count and the pass's
+//        blocks an SM, 1 where the blocks already fill the card): each
+//        writes its tiles' scores as before and its rows' partial max and
+//        sum, and the p v pass merges the S partials into lse, lse = m +
+//        log2 sum_z l_z 2^(m_z - m), before it walks the keys. The scores,
+//        their chunk order and the dropout index do not depend on S;
 //      - the backward computes each score once too: attn_bwd_ds_wide, one
 //        block a (64 queries, 64 keys) tile with no D-sized accumulator,
 //        writes dbias and the dropped, rescaled probabilities pd (B, H, L, L,
@@ -416,7 +420,7 @@ __host__ __device__ constexpr int fwd_blocks() {
 }
 template <int D>
 __host__ __device__ constexpr int bwd_blocks() {
-  return D == 16 ? 6 : D == 32 ? 4 : D == 64 ? 3 : D == 128 ? 2 : 1;
+  return D == 16 ? 6 : D == 32 ? 4 : D == 64 ? 3 : 2;
 }
 
 // ---------------------------------------------------------------------------
@@ -665,24 +669,22 @@ attn_delta(const bf16* __restrict__ g, const bf16* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// backward, main pass: grid (ceil(L/64), B*H, D/DH); blockIdx.x is the key
-// tile, blockIdx.z the DH columns of dv and dk the block holds (all D of them
-// up to D = 128; one half at D = 256, module note). Each warp owns 16 keys and
-// keeps their dv and dk in registers over the query loop.
+// backward, main pass (D <= 128): grid (ceil(L/64), B*H); blockIdx.x is the
+// key tile. Each warp owns 16 keys and keeps their dv and dk in registers
+// over the query loop.
 // smem: K tile, V tile, 2 x (Q, G, bias tiles of BQ queries, lse, delta),
 // dbias staging tile
 // ---------------------------------------------------------------------------
 template <int D>
 struct BwdSmem {
-  static constexpr int DH = D <= 128 ? D : 128;  // dv and dk columns a block
-  static constexpr int SPLITS = D / DH;
+  static_assert(D <= 128, "the wide instance takes the backward past 128");
   static constexpr int KV = 64 * D * 2;
   static constexpr int QG = BQ * D * 2;
   static constexpr int BIAS = BQ * BSTR * 2;
   static constexpr int STAT = 2 * BQ * 4;                 // lse then delta
-  // a stage's Q and G tiles start at multiples of their row pitch, as the
-  // ldmatrix addressing's XOR of chunk offsets needs (512 bytes at D = 256)
-  static constexpr int PITCH = D * 2 < 256 ? 256 : D * 2;
+  // a stage's Q and G tiles start at multiples of 256 bytes, as the ldmatrix
+  // addressing's XOR of chunk offsets needs
+  static constexpr int PITCH = 256;
   static constexpr int STAGE = (2 * QG + BIAS + STAT + PITCH - 1) / PITCH * PITCH;
   static constexpr int K = 0;
   static constexpr int V = KV;
@@ -703,14 +705,9 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   constexpr int QT = BQ / 8;  // 8-query accumulator tiles per step
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  constexpr int DH = S::DH;
-  const int bh = blockIdx.y, j0 = blockIdx.x * BK, c0 = blockIdx.z * DH;
+  const int bh = blockIdx.y, j0 = blockIdx.x * BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // the warp's keys within the tile
-  // ldmatrix bases of the g and qu tiles' B fragments from column c0 on: the
-  // column's chunk index (a multiple of DH / 8, above the swizzle's 3 bits)
-  // XORs into the address as the fragment loops' own chunk offsets do
-  const uint32_t col_xor = (uint32_t)(c0 / 16) << 5;
   const bf16* qp = qu + (i64)bh * L * D;
   const bf16* gp = gr + (bh / H) * gs.b + (bh % H) * gs.h;
   const bf16* bp = bias + (i64)bh * L * L + j0;
@@ -764,9 +761,9 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   load_stage(0, 0);
   cp_async_commit();
 
-  float dva[DH / 8][4], dka[DH / 8][4];
+  float dva[D / 8][4], dka[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
     dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
   }
@@ -822,8 +819,8 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
         af[kc][3] = pack2(pd[2 * kc + 1][2], pd[2 * kc + 1][3]);
       }
     }
-    // dv[key] += T(pd)^T g, the block's DH columns
-    mma_a_regs_b_rows<D, BQ / 16, DH / 8>(dva, af, lane_base_a<D>(gt, 0, lane) ^ col_xor);
+    // dv[key] += T(pd)^T g
+    mma_a_regs_b_rows<D, BQ / 16, D / 8>(dva, af, lane_base_a<D>(gt, 0, lane));
 
     // dp^T = v g^T through the same mask; ds = p (dp - delta); dbias = T(ds * scale)
     float dpt[QT][4];
@@ -854,46 +851,40 @@ attn_bwd_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       af[kc][2] = pack2(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]);
       af[kc][3] = pack2(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3]);
     }
-    // dk[key] += dbias^T qu, the block's DH columns
-    mma_a_regs_b_rows<D, BQ / 16, DH / 8>(dka, af, lane_base_a<D>(qt, 0, lane) ^ col_xor);
+    // dk[key] += dbias^T qu
+    mma_a_regs_b_rows<D, BQ / 16, D / 8>(dka, af, lane_base_a<D>(qt, 0, lane));
 
     // the dbias tile, BQ rows of 64 keys, out in 16-byte stores (TAIL: as
-    // windows, rows and keys inside L only), by the first block of a key tile
+    // windows, rows and keys inside L only)
     __syncthreads();
     bf16* db = dbp + (i64)q0 * L;
-    if (S::SPLITS == 1 || blockIdx.z == 0) {
-      if constexpr (EXACT) {
+    if constexpr (EXACT) {
 #pragma unroll
-        for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
-          const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
-          *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
-              *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
-        }
-      } else {
-        store_window_tile<BQ>(db, L, smem + S::DS, L - q0, kcols);
+      for (int i2 = 0; i2 < BQ * 8 / NT; ++i2) {
+        const int idx = threadIdx.x + i2 * NT, r = idx >> 3, c = idx & 7;
+        *reinterpret_cast<uint4*>(db + (i64)r * L + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + S::DS + (r * BSTR + c * 8) * 2);
       }
+    } else {
+      store_window_tile<BQ>(db, L, smem + S::DS, L - q0, kcols);
     }
   }
 
   // K and V rows r0.. were read by this warp alone: reuse them as staging
-  const i64 orow = ((i64)bh * L + j0 + r0) * D + c0;
-  store_rows<D, !EXACT, DH>(smem, S::K, dka, r0, dk + orow, D, lane, kcols - r0);
-  store_rows<D, !EXACT, DH>(smem, S::V, dva, r0, dv + orow, D, lane, kcols - r0);
+  const i64 orow = ((i64)bh * L + j0 + r0) * D;
+  store_rows<D, !EXACT>(smem, S::K, dka, r0, dk + orow, D, lane, kcols - r0);
+  store_rows<D, !EXACT>(smem, S::V, dva, r0, dv + orow, D, lane, kcols - r0);
 }
 
 // ---------------------------------------------------------------------------
-// backward, dqu = dbias k: grid (ceil(L/64), B*H, D/DH); blockIdx.x is the
-// query tile, blockIdx.z the DH columns of dqu the block computes (all D of
-// them up to D = 128; one half at D = 256, where a 16 x 256 accumulator beside
-// the dbias fragments spills). smem: 2 x (dbias tile 64 x 64, K tile 64 x DH);
-// TAIL: the dbias tile is a padded window tile (64 x BSTR)
+// backward, dqu = dbias k (D <= 128): grid (ceil(L/64), B*H); blockIdx.x is
+// the query tile. smem: 2 x (dbias tile 64 x 64, K tile 64 x D); TAIL: the
+// dbias tile is a padded window tile (64 x BSTR)
 // ---------------------------------------------------------------------------
 template <int D, bool EXACT>
 struct DquSmem {
-  static constexpr int DH = D <= 128 ? D : 128;  // dqu columns a block
-  static constexpr int SPLITS = D / DH;
   static constexpr int A = EXACT ? 64 * 64 * 2 : 64 * BSTR * 2;
-  static constexpr int KT = 64 * DH * 2;
+  static constexpr int KT = 64 * D * 2;
   static constexpr int STAGE = A + KT;
   static constexpr int BYTES = 2 * STAGE;
   static_assert(A % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
@@ -904,30 +895,28 @@ __global__ void __launch_bounds__(NT)
 attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
              bf16* __restrict__ dqu, int L) {
   typedef DquSmem<D, EXACT> S;
-  constexpr int DH = S::DH;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
   const int bh = blockIdx.y, i0 = blockIdx.x * 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = 16 * warp;
   const bf16* ap = dbias + ((i64)bh * L + i0) * L;
-  const int c0 = blockIdx.z * DH;
-  const bf16* kp = k + (i64)bh * L * D + c0;  // the block's DH columns of k
+  const bf16* kp = k + (i64)bh * L * D;
   const int ntiles = EXACT ? L / BK : (L + BK - 1) / BK;
   const int qrows = L - i0;
 
   if constexpr (EXACT) {
     load_tile<64, 64>(sb, ap, L);
-    load_tile<64, DH>(sb + S::A, kp, D);
+    load_tile<64, D>(sb + S::A, kp, D);
   } else {
     load_window_tile<64>(sb, ap, L, qrows, min(L, BK));
-    load_tile<64, DH, true>(sb + S::A, kp, D, L);
+    load_tile<64, D, true>(sb + S::A, kp, D, L);
   }
   cp_async_commit();
 
-  float acc[DH / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   // TAIL: the thread's A rows r0 + g and r0 + g + 8 in the window tiles
   const int g = lane >> 2, t = lane & 3;
   const int a_off = (r0 + g) * BSTR + 2 * t + (EXACT ? 0 : window_shift(ap + (i64)(r0 + g) * L));
@@ -943,10 +932,10 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
       const int j1 = (tt + 1) * BK;
       if constexpr (EXACT) {
         load_tile<64, 64>(nx, ap + j1, L);
-        load_tile<64, DH>(nx + S::A, kp + (i64)j1 * D, D);
+        load_tile<64, D>(nx + S::A, kp + (i64)j1 * D, D);
       } else {
         load_window_tile<64>(nx, ap + j1, L, qrows, min(L - j1, BK));
-        load_tile<64, DH, true>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
+        load_tile<64, D, true>(nx + S::A, kp + (i64)j1 * D, D, L - j1);
       }
       cp_async_commit();
     }
@@ -966,10 +955,10 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
         af[kc][3] = ld_pair(a + b_off + 16 * kc + 8);
       }
     }
-    mma_a_regs_b_rows<DH, 4, DH / 8>(acc, af, lane_base_a<DH>(at + S::A, 0, lane));
+    mma_a_regs_b_rows<D, 4, D / 8>(acc, af, lane_base_a<D>(at + S::A, 0, lane));
   }
   __syncthreads();  // every warp is done with the stages: reuse stage 0's K tile
-  store_rows<DH, !EXACT>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D + c0, D, lane,
+  store_rows<D, !EXACT>(smem, S::A, acc, r0, dqu + ((i64)bh * L + i0 + r0) * D, D, lane,
                          qrows - r0);
 }
 
@@ -1002,12 +991,16 @@ __device__ __forceinline__ uint32_t ld_two(const bf16* lo, const bf16* hi) {
 }
 
 // ---------------------------------------------------------------------------
-// wide forward, pass 1: grid (ceil(L/64), B*H). The block's 64 query rows
-// against every key tile: s = sum over the Dp / KC chunks of qu_c k_c^T
-// (chunks streamed through a cp.async double buffer in (key tile, chunk)
-// order), then (s + bias) * scale in log2 units, keys >= L at -inf, written to
-// the f32 score scratch (B*H, Lp, Lp), Lp = 64 ceil(L / 64), with the running
-// row max and sum; lse per row at the end.
+// wide forward, pass 1: grid (ceil(L/64), B*H, S). The block's 64 query rows
+// against its split's key tiles (split z of S takes the tiles from z *
+// ceil(nt / S) on, ceil(nt / S) of them or the rest, none past the last):
+// s = sum over the Dp / KC chunks of qu_c k_c^T (chunks streamed through a
+// cp.async double buffer in (key tile, chunk) order), then (s + bias) * scale
+// in log2 units, keys >= L at -inf, written to the f32 score scratch (B*H, Lp,
+// Lp), Lp = 64 ceil(L / 64), with the running row max and sum. At S = 1 the
+// block writes lse per row at the end; else its rows' partial max m_z and sum
+// l_z (log2 units) to part (2, B*H, S, Lp), which the p v pass merges. A split
+// with no key tile writes (-inf, 0), which adds nothing to the merge.
 // smem: 2 x (qu chunk, k chunk), 2 x bias tile
 // ---------------------------------------------------------------------------
 template <int KC>
@@ -1024,23 +1017,26 @@ template <int KC, bool EXACT>
 __global__ void __launch_bounds__(NT, 3)
 attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
                      const bf16* __restrict__ bias, float* __restrict__ scores,
-                     float* __restrict__ lse, int L, int Dp, float scale) {
+                     float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                     float scale) {
   typedef WideScoresSmem<KC> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int bh = blockIdx.y, i0 = blockIdx.x * 64;
+  const int bh = blockIdx.y, i0 = blockIdx.x * 64, nsplit = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK, nsteps = ntiles * nkc;
+  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
+  const int per = (ntiles + nsplit - 1) / nsplit, tt0 = blockIdx.z * per;
+  const int nsteps = max(min(per, ntiles - tt0), 0) * nkc;
   const int qrows = L - i0;
   const bf16* qp = qu + ((i64)bh * L + i0) * Dp;
   const bf16* kp = k + (i64)bh * L * Dp;
   const bf16* bp = bias + ((i64)bh * L + i0) * L;
 
-  // step s: chunk s % nkc of key tile s / nkc; a tile's first chunk also
-  // brings its bias, into the stage the tile before last has left
+  // step s: chunk s % nkc of key tile tt0 + s / nkc; a tile's first chunk
+  // also brings its bias, into the stage the tile before last has left
   auto load_step = [&](int s) {
-    const int tt = s / nkc, c = s % nkc, j = tt * BK;
+    const int tt = tt0 + s / nkc, c = s % nkc, j = tt * BK;
     const uint32_t st = sb + (s & 1) * S::STAGE;
     if constexpr (EXACT) {
       load_tile<64, KC>(st, qp + c * KC, Dp);
@@ -1055,7 +1051,7 @@ attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       else load_window_tile<64>(bt, bp + j, L, qrows, min(L - j, BK));
     }
   };
-  load_step(0);
+  if (nsteps > 0) load_step(0);
   cp_async_commit();
 
   float s[8][4];
@@ -1080,7 +1076,7 @@ attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
     if (step % nkc != nkc - 1) continue;
 
     // the key tile's scores are whole: bias, scale, running max and sum, out
-    const int tt = step / nkc, kleft = L - tt * BK;
+    const int tt = tt0 + step / nkc, kleft = L - tt * BK;
     const bf16* bt = reinterpret_cast<const bf16*>(smem + S::B + (tt & 1) * S::BIAS);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
@@ -1126,16 +1122,53 @@ attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
   if (t == 0) {
-    float* lp = lse + (i64)bh * L + i0 + r0;
-    if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
-    if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+    if (nsplit == 1) {
+      float* lp = lse + (i64)bh * L + i0 + r0;
+      if (EXACT || r0 + g < qrows) lp[g] = (m_a + log2f(l_a)) / LOG2E;
+      if (EXACT || r0 + g + 8 < qrows) lp[g + 8] = (m_b + log2f(l_b)) / LOG2E;
+    } else {  // every row of the tile: part holds Lp rows
+      float* pm = part + ((i64)bh * nsplit + blockIdx.z) * Lp + i0 + r0 + g;
+      float* pl = pm + (i64)gridDim.y * nsplit * Lp;
+      pm[0] = m_a;
+      pm[8] = m_b;
+      pl[0] = l_a;
+      pl[8] = l_b;
+    }
   }
+}
+
+// lse (log2 units) of rows r and r + 8 from the S partials of part (2, B*H,
+// S, Lp) at row_off = bh * S * Lp + r: m + log2(sum_z l_z 2^(m_z - m)), m =
+// max_z m_z, folded split by split. Split 0 always holds a key tile, so the
+// running max is finite from it on and a split with no key, (-inf, 0), adds
+// 0. The loop is unrolled so that the loads of several splits are in flight
+// together (a block merges while its first tile is on the way). Merged here,
+// in the p v pass's prologue, the forward ran 0-9% faster than with a merge
+// kernel of its own ahead of the pass, on an H100 80GB HBM3 at 700 W (PERF.md
+// §5).
+__device__ __forceinline__ void merge_lse2(const float* part, i64 plane, i64 row_off, int nsplit,
+                                           int Lp, float& l2a, float& l2b) {
+  float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f;
+#pragma unroll 4
+  for (int z = 0; z < nsplit; ++z) {
+    const float* p = part + row_off + (i64)z * Lp;
+    const float mza = p[0], mzb = p[8], lza = p[plane], lzb = p[plane + 8];
+    const float na = fmaxf(ma, mza), nb = fmaxf(mb, mzb);
+    sa = sa * fast_exp2(ma - na) + lza * fast_exp2(mza - na);
+    sb = sb * fast_exp2(mb - nb) + lzb * fast_exp2(mzb - nb);
+    ma = na;
+    mb = nb;
+  }
+  l2a = ma + log2f(sa);
+  l2b = mb + log2f(sb);
 }
 
 // ---------------------------------------------------------------------------
 // wide forward, pass 2: grid (ceil(L/64) * Dp/DC, B*H); blockIdx.x is query
 // tile * (Dp / DC) + the block's DC output columns, so the blocks of one query
-// tile run side by side and share its score tiles in L2. Walks the key tiles:
+// tile run side by side and share its score tiles in L2. With S > 1 key
+// splits in pass 1, each block first merges its rows' partials into lse (the
+// block of columns 0 writes it, for the backward). Walks the key tiles:
 // p = exp2(s - lse) (the scratch's scores, exact softmax), dropped or scaled
 // by 1/(1-rate), rounded to bf16 as the A operand of out += p v.
 // smem: 2 x (score tile, v chunk)
@@ -1151,9 +1184,9 @@ struct WidePvSmem {
 
 template <int DC, bool EXACT>
 __global__ void __launch_bounds__(NT, 3)
-attn_fwd_pv_wide(const float* __restrict__ scores, const float* __restrict__ lse,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int H, int L, int Dp,
-                 Dropout drop, Strides os) {
+attn_fwd_pv_wide(const float* __restrict__ scores, float* __restrict__ lse,
+                 const float* __restrict__ part, int nsplit, const bf16* __restrict__ v,
+                 bf16* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
   typedef WidePvSmem<DC> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
@@ -1175,9 +1208,20 @@ attn_fwd_pv_wide(const float* __restrict__ scores, const float* __restrict__ lse
   load(0);
   cp_async_commit();
 
-  const float* lr = lse + (i64)bh * L + i0 + r0 + g;
-  const float l2a = EXACT || r0 + g < qrows ? lr[0] * LOG2E : 0.f;
-  const float l2b = EXACT || r0 + g + 8 < qrows ? lr[8] * LOG2E : 0.f;
+  float* lr = lse + (i64)bh * L + i0 + r0 + g;
+  const bool in_a = EXACT || r0 + g < qrows, in_b = EXACT || r0 + g + 8 < qrows;
+  float l2a, l2b;
+  if (nsplit == 1) {
+    l2a = in_a ? lr[0] * LOG2E : 0.f;
+    l2b = in_b ? lr[8] * LOG2E : 0.f;
+  } else {
+    merge_lse2(part, (i64)gridDim.y * nsplit * Lp, (i64)bh * nsplit * Lp + i0 + r0 + g, nsplit,
+               Lp, l2a, l2b);
+    if (c0 == 0 && t == 0) {
+      if (in_a) lr[0] = l2a / LOG2E;
+      if (in_b) lr[8] = l2b / LOG2E;
+    }
+  }
   const uint32_t row_a = (drop_bh(drop, bh) * L + i0 + r0 + g) * L, row_b = row_a + 8u * L;
   float o[DC / 8][4];
 #pragma unroll
@@ -1545,34 +1589,42 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
       (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, gs, os);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_mma<D, EXACT><<<dim3(grid.x, grid.y, BwdSmem<D>::SPLITS), NT, BwdSmem<D>::BYTES,
-                            stream>>>(
+  attn_bwd_mma<D, EXACT><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
       (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
       delta, (bf16*)dk, (bf16*)dv, (bf16*)dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dqu_mma<D, EXACT><<<dim3(grid.x, grid.y, DquSmem<D, EXACT>::SPLITS), NT,
-                            DquSmem<D, EXACT>::BYTES, stream>>>(
+  attn_dqu_mma<D, EXACT><<<grid, NT, DquSmem<D, EXACT>::BYTES, stream>>>(
       (const bf16*)dbias, (const bf16*)k, (bf16*)dqu, L);
   return cudaGetLastError();
 }
 
 template <int DC, bool EXACT>
 cudaError_t fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
-                     float* lse, float* scores, int BH, int H, int L, int Dp, float scale,
-                     Dropout drop, Strides os, cudaStream_t stream) {
+                     float* lse, float* scores, float* part, int nsplit, int BH, int H, int L,
+                     int Dp, float scale, Dropout drop, Strides os, cudaStream_t stream) {
   cudaError_t err = set_smem(attn_fwd_scores_wide<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
   if (err != cudaSuccess) return err;
   err = set_smem(attn_fwd_pv_wide<DC, EXACT>, WidePvSmem<DC>::BYTES);
   if (err != cudaSuccess) return err;
   const int nt = ceil_div(L, 64);
-  attn_fwd_scores_wide<WKC, EXACT><<<dim3(nt, BH), NT, WideScoresSmem<WKC>::BYTES, stream>>>(
-      (const bf16*)qu, (const bf16*)k, (const bf16*)bias, scores, lse, L, Dp, scale);
+  attn_fwd_scores_wide<WKC, EXACT><<<dim3(nt, BH, nsplit), NT, WideScoresSmem<WKC>::BYTES,
+                                     stream>>>((const bf16*)qu, (const bf16*)k, (const bf16*)bias,
+                                               scores, lse, part, L, Dp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_fwd_pv_wide<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES, stream>>>(
-      scores, lse, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
+      scores, lse, part, nsplit, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
   return cudaGetLastError();
+}
+
+// blocks of the wide scores pass an SM holds (the occupancy calculator's)
+template <bool EXACT>
+cudaError_t wide_scores_blocks(int* n) {
+  cudaError_t err = set_smem(attn_fwd_scores_wide<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, attn_fwd_scores_wide<WKC, EXACT>, NT,
+                                                       WideScoresSmem<WKC>::BYTES);
 }
 
 template <int DC, bool EXACT, bool TRANS>
@@ -1684,6 +1736,7 @@ int attn_mma_fwd(const void* qu, const void* k, const void* v, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
+// head_dim in {16, 32, 64, 128} (256 runs the wide instance's backward).
 // g_strides, out_strides: element strides of g and out over (b, h, l).
 // lse: the forward's; delta: (B, H, L) float32 scratch, written then read.
 // h_total, h_offset as in attn_mma_fwd.
@@ -1709,29 +1762,28 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
       return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
     case 128:
       return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
-    case 256:
-      return (int)(exact ? ATTN_BWD(256, true) : ATTN_BWD(256, false));
   }
 #undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 // The wide instance, as attn_mma_fwd, at a padded head dim Dp (a multiple of
-// WDC, 256 or more). scores: (B, H, Lp, Lp) float32
-// scratch, Lp = 64 ceil(L / 64), written then read.
+// WDC, 256 or more). scores: (B, H, Lp, Lp) float32 scratch, Lp = 64 ceil(L /
+// 64), written then read. splits: the scores pass's key splits S, 1 ..
+// ceil(L / 64); part: (2, B*H, S, Lp) float32 scratch (unused at S = 1).
 int attn_mma_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
-                      void* lse, void* scores, const long long* out_strides, int B, int H, int L,
-                      int head_dim, float scale, float rate, unsigned int seed,
-                      unsigned int thresh, float inv_keep, int h_total, int h_offset,
-                      void* stream) {
+                      void* lse, void* scores, void* part, const long long* out_strides, int B,
+                      int H, int L, int head_dim, int splits, float scale, float rate,
+                      unsigned int seed, unsigned int thresh, float inv_keep, int h_total,
+                      int h_offset, void* stream) {
   if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
-      !aligned16(scores))
+      !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) || (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
-#define ATTN_FWD_WIDE(DC, E)                                                                    \
-  fwd_wide<DC, E>(qu, k, v, bias, out, (float*)lse, (float*)scores, B * H, H, L, head_dim, scale, \
-                  drop, os, (cudaStream_t)stream)
+#define ATTN_FWD_WIDE(DC, E)                                                                   \
+  fwd_wide<DC, E>(qu, k, v, bias, out, (float*)lse, (float*)scores, (float*)part, splits, B * H, \
+                  H, L, head_dim, scale, drop, os, (cudaStream_t)stream)
   const bool exact = exact_tiles(L, bias);
   if (head_dim % (2 * WDC) == 0)
     return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
@@ -1794,10 +1846,18 @@ int attn_mma_smem_bytes(int head_dim, int which, int exact) {
       return which == 0 ? FwdSmem<128>::BYTES : which == 1 ? BwdSmem<128>::BYTES
              : exact    ? DquSmem<128, true>::BYTES : DquSmem<128, false>::BYTES;
     case 256:
-      return which == 0 ? FwdSmem<256>::BYTES : which == 1 ? BwdSmem<256>::BYTES
-             : exact    ? DquSmem<256, true>::BYTES : DquSmem<256, false>::BYTES;
+      return which == 0 ? FwdSmem<256>::BYTES : -1;  // the backward: the wide instance
   }
   return -1;
+}
+
+// Blocks an SM holds of the wide forward's scores pass, in its instance for
+// whole tiles (exact = 1) or for any L: the wrapper chooses the key splits
+// from it. A CUDA error comes back negated.
+int attn_mma_fwd_wide_blocks(int exact) {
+  int n = 0;
+  const cudaError_t err = exact ? wide_scores_blocks<true>(&n) : wide_scores_blocks<false>(&n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

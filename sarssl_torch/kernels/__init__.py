@@ -2,10 +2,11 @@
 
   attention.py : fused rel-pos attention, CUDA C++: ``csrc/attention_mma.cu``
                  (tensor cores; bfloat16) and ``csrc/attention_f32_mma.cu``
-                 (tensor cores as 3xTF32; float32), head dim 16/32/64/128 and
-                 any L; every other head dim up to 128 on zero-padded inputs;
-                 ``csrc/attention.cu`` (f32 FMAs) only launched directly, as
-                 the yardstick
+                 (tensor cores as 3xTF32; float32), head dim 16/32/64/128
+                 (the bf16 forward also 256) and a wide instance at every
+                 multiple of 64 from 256 on, any L; every other head dim on
+                 zero-padded inputs; ``csrc/attention.cu`` (f32 FMAs) only
+                 launched directly, as the yardstick
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
                  torch.func.vmap one seed a lane)
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``

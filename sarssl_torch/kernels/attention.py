@@ -18,8 +18,9 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 + i) * L + j``, so its mask is the head slice of the unsharded one.
 
 Two sets of kernels, chosen by dtype (:func:`attention_route`), each with
-instances at head dims 16, 32, 64, 128 and 256 and a wide instance for every
-head dim above 256, at any sequence length:
+instances at head dims 16, 32, 64 and 128 (the bf16 forward also at 256) and
+a wide instance at every multiple of 64 from 256 on, at any sequence length;
+:func:`attention_instance` names the instance each pass runs:
 
 * ``"tc"``, ``csrc/attention_mma.cu``: bfloat16. Tensor cores (``mma.sync``),
   ``cp.async`` pipelines; the forward also returns the rows' log-sum-exp,
@@ -41,16 +42,23 @@ scaled scores of every (query, key) once to an f32 scratch (with the rows'
 log-sum-exp), then takes out = p v in blocks of DC output columns; its
 backward writes dbias and the dropped probabilities pd once, then takes dv =
 pd^T g, dk = dbias^T qu and dqu = dbias k in blocks of DC output columns
-(128 where Dp is a multiple of 128, else 64).
+(128 where Dp is a multiple of 128, else 64). Where ceil(L/64) * B * H blocks
+do not fill the card, the forward's scores pass splits each query tile's key
+tiles over S blocks (:func:`wide_key_splits`), each writing its rows' partial
+max and sum, which the p v pass merges into the log-sum-exp
+(:func:`attention_split_plain` is the same algorithm on plain tensors).
+At D = 256 the bf16 forward runs its D = 256 instance and the other three
+passes the wide one, the faster in each (PERF.md §5).
 
 Every head dim that is no instance's (the JAX kernel takes any) runs the next
-instance up (:func:`padded_head_dim`: the next of 16 .. 256, past 256 the next
+one up (:func:`padded_head_dim`: the next of 16 .. 256, past 256 the next
 multiple of 64 on the wide instance): qu, k, v and, in the backward, g are
 zero-padded on their last dim, and out, dqu, dk and dv sliced back
 (:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns add
 exactly 0 to qu k^T and give exactly 0 in the padded columns of every product,
 so this is the same function; the bias, the scale and the dropout index (b,
-h, i, j) do not depend on D.
+h, i, j) do not depend on D. Either pass's instance at the padded head dim
+takes the other's saved tensors.
 
 ``csrc/attention.cu`` holds the first design, scalar f32 FMAs with whole score
 rows in shared memory (:func:`fma_row_block`: 64 query rows a block, 32 where
@@ -72,8 +80,13 @@ import torch
 from ._build import check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the tensor-core kernels' instances (both sets)
-WIDE_CHUNK = 64  # the wide instance's head dims: the multiples of this past 256 (WDC in csrc)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims up to 256 that others pad to
+WIDE_CHUNK = 64  # the wide instance's head dims: the multiples of this from 256 on (WDC in csrc)
+# the head-dim instances of each set's forward and backward; every other
+# padded head dim runs the set's wide instance (at 256 the faster of the two
+# in each pass, PERF.md §5)
+INSTANCE_HEAD_DIMS = {("tc", "fwd"): (16, 32, 64, 128, 256), ("tc", "bwd"): (16, 32, 64, 128),
+                      ("tf32x3", "fwd"): (16, 32, 64, 128), ("tf32x3", "bwd"): (16, 32, 64, 128)}
 FMA_HEAD_DIMS = (16, 32, 64, 128)  # the FMA kernels' instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
@@ -104,6 +117,47 @@ def attention_plain(qu, k, v, bias, seed: int, scale: float, rate: float,
     p = torch.softmax(s, dim=-1).to(qu.dtype)
     p = dropout_plain(p, seed, rate, (H * L * L, heads_total * L * L, head_offset * L * L))
     return torch.matmul(p.float(), v.float()).to(qu.dtype)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def attention_split_plain(qu, k, v, bias, seed: int, scale: float, rate: float, splits: int,
+                          heads_total=None, head_offset: int = 0):
+    """The wide forward with its keys split ``splits`` ways, as plain tensor
+    operations (no path on the card calls it): the scaled scores in log2
+    units, keys past L at -inf, by tiles of 64 keys; split z of S takes the
+    tiles from z * ceil(nt / S) on, ceil(nt / S) of them or the rest (none
+    past the last tile: such a split's partial is (-inf, 0)), and folds its
+    tiles' max and sum into a running (m_z, l_z); the merge lse2 = m + log2
+    sum_z l_z 2^(m_z - m), m = max_z m_z; then p = 2^(s - lse2) rounded to
+    the inputs' dtype, hash dropout, f32-accumulated p v. Returns ``(out,
+    lse)``, lse in natural units as the kernels write it."""
+    B, H, L, _ = qu.shape
+    heads_total, head_offset = _heads(H, heads_total, head_offset)
+    nt = -(-L // 64)
+    s2 = (torch.matmul(qu.float(), k.float().transpose(-1, -2)) + bias.float()) * scale * _LOG2E
+    s2 = torch.nn.functional.pad(s2, (0, 64 * nt - L), value=-torch.inf)
+    tiles = s2.unflatten(-1, (nt, 64))
+    tile_m = tiles.amax(-1)                                           # (B, H, L, nt)
+    tile_l = torch.exp2(tiles - tile_m[..., None]).sum(-1)
+    per = -(-nt // splits)
+    parts_m, parts_l = [], []
+    for z in range(splits):
+        m = torch.full_like(tile_m[..., 0], -torch.inf)
+        l = torch.zeros_like(m)
+        for t in range(z * per, min((z + 1) * per, nt)):              # the running max and sum
+            mn = torch.maximum(m, tile_m[..., t])
+            l = l * torch.exp2(m - mn) + tile_l[..., t] * torch.exp2(tile_m[..., t] - mn)
+            m = mn
+        parts_m.append(m)
+        parts_l.append(l)
+    part_m, part_l = torch.stack(parts_m), torch.stack(parts_l)       # (S, B, H, L)
+    m = part_m.amax(0)
+    lse2 = m + torch.log2((part_l * torch.exp2(part_m - m)).sum(0))
+    p = torch.exp2(s2[..., :L] - lse2[..., None]).to(qu.dtype)
+    p = dropout_plain(p, seed, rate, (H * L * L, heads_total * L * L, head_offset * L * L))
+    return torch.matmul(p.float(), v.float()).to(qu.dtype), lse2 / _LOG2E
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,8 +207,10 @@ def _library_mma():
     lib.attn_mma_fwd.restype = _I
     lib.attn_mma_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_bwd.restype = _I
-    lib.attn_mma_fwd_wide.argtypes = [_P] * 8 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_mma_fwd_wide.argtypes = [_P] * 9 + [_I] * 5 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_fwd_wide.restype = _I
+    lib.attn_mma_fwd_wide_blocks.argtypes = [_I]
+    lib.attn_mma_fwd_wide_blocks.restype = _I
     lib.attn_mma_bwd_wide.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_mma_bwd_wide.restype = _I
     lib.attn_mma_smem_bytes.argtypes = [_I, _I, _I]
@@ -184,8 +240,10 @@ def _library_tf32():
     lib.attn_tf32_fwd.restype = _I
     lib.attn_tf32_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_tf32_bwd.restype = _I
-    lib.attn_tf32_fwd_wide.argtypes = [_P] * 8 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
+    lib.attn_tf32_fwd_wide.argtypes = [_P] * 9 + [_I] * 5 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_tf32_fwd_wide.restype = _I
+    lib.attn_tf32_fwd_wide_blocks.argtypes = [_I]
+    lib.attn_tf32_fwd_wide_blocks.restype = _I
     lib.attn_tf32_bwd_wide.argtypes = [_P] * 15 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_tf32_bwd_wide.restype = _I
     lib.attn_tf32_smem_bytes.argtypes = [_I, _I]
@@ -198,7 +256,7 @@ def _library_tf32():
 def tf32_smem_bytes(kernel: str, D: int) -> int:
     """Dynamic shared memory a block of a 3xTF32 kernel takes (either
     instance; the wide instance's kernels at every D)."""
-    which = ({"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2, "attn_dk_tf32": 2,
+    which = ({"attn_fwd_tf32": 0, "attn_bwd_tf32": 1, "attn_dqu_tf32": 2,
               "attn_delta_f32": None, "attn_delta_wide_f32": None}
              | {f"attn_{k}_wide_tf32": w for k, w in _WIDE_SMEM.items() if w})[kernel]
     return 0 if which is None else _library_tf32().attn_tf32_smem_bytes(D, which)
@@ -209,9 +267,37 @@ def attention_route(dtype: torch.dtype, L: int, D: int) -> str:
     dtype, sequence length and head dim (module note): ``"tc"``
     (``attention_mma.cu``, bfloat16) or ``"tf32x3"`` (``attention_f32_mma.cu``,
     float32), at every head dim D >= 1 (those that are no instance's through
-    the padding, past 256 on the wide instance) and every L."""
+    the padding, from 256 on the wide instance) and every L."""
     padded_head_dim(D)
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def attention_instance(dtype: torch.dtype, kind: str, Dp: int) -> str:
+    """The instance that pass ``kind`` (``"fwd"`` or ``"bwd"``) of the set
+    for ``dtype`` runs at the padded head dim ``Dp`` (:func:`padded_head_dim`):
+    ``f"d{Dp}"``, the instance at that head dim, or ``"wide"``. At 256 the
+    bf16 forward keeps its instance and the bf16 backward and both f32 passes
+    take the wide one (module note)."""
+    if padded_head_dim(Dp) != Dp:
+        raise ValueError(f"{Dp} is no padded head dim (padded_head_dim gives "
+                         f"{padded_head_dim(Dp)})")
+    dims = INSTANCE_HEAD_DIMS[(attention_route(dtype, 1, Dp), kind)]
+    return f"d{Dp}" if Dp in dims else "wide"
+
+
+def wide_key_splits(L: int, bh: int, sms: int, blocks_per_sm: int) -> int:
+    """Key splits S of the wide forward's scores pass at sequence length L
+    over ``bh`` = B * H (batch, head) pairs, on a card of ``sms`` SMs that
+    each hold ``blocks_per_sm`` of its blocks: 1 where the nt * bh blocks of
+    one split (nt = ceil(L/64) query tiles) fill those slots, else the fewest
+    splits whose nt * bh * S blocks fill them, at most nt, and then as few as
+    give each split the same ceil(nt / S) key tiles (4 tiles: 1, 2 or 4)."""
+    nt = -(-L // 64)
+    slots = sms * blocks_per_sm
+    if nt * bh >= slots:
+        return 1
+    per = -(-nt // min(nt, -(-slots // (nt * bh))))  # key tiles a split
+    return -(-nt // per)
 
 
 def padded_head_dim(D: int) -> int:
@@ -278,7 +364,7 @@ def _check(qu, k, v, bias, heads_total=None):
         raise ValueError("B * H must fit the launch grid's second dimension")
 
 
-def _check_instance(D: int, what: str, dims=HEAD_DIMS, wide=False) -> None:
+def _check_instance(D: int, what: str, dims, wide=False) -> None:
     if wide:
         if D < HEAD_DIMS[-1] or D % WIDE_CHUNK:
             raise ValueError(f"the {what} kernels' wide instance takes the multiples of "
@@ -370,75 +456,143 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
 # tensor-core kernels (csrc/attention_mma.cu: bf16; csrc/attention_f32_mma.cu:
 # f32 as 3xTF32), one calling convention
 # ---------------------------------------------------------------------------
-def _check_mma(qu, k, v, bias, heads_total, route, wide):
+def _check_mma(qu, k, v, bias, heads_total, route, kind, wide):
+    """Checks a launch of pass ``kind`` of ``route``'s kernels; returns
+    ``(wide, routed)``: whether the wide instance runs (``wide``, or where
+    None the instance :func:`attention_instance` names) and whether the route
+    takes the wide instance at this head dim."""
     _check(qu, k, v, bias, heads_total)
     B, H, L, D = qu.shape
     if attention_route(qu.dtype, L, D) != route:
         want = "bfloat16" if route == "tc" else "float32"
         raise ValueError(f"the {route} kernels take {want}, got {qu.dtype}")
-    _check_instance(D, route, wide=wide)
+    dims = INSTANCE_HEAD_DIMS[(route, kind)]
+    routed = D not in dims
+    wide = routed if wide is None else wide
+    _check_instance(D, f"{route} {kind}", dims, wide)
     if any(t.data_ptr() % 16 for t in (qu, k, v)):
         raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
                          "data must start 16-byte aligned")
+    return wide, routed
 
 
-def _count(kind, route, D, wide):
+def _count(kind, route, D, wide, routed):
     """One launch: ``attention_{kind}_d{D}`` and its route's count the
-    instance that ``fused_attention`` runs at D (the wide one past 256), and
-    ``attention_{kind}_{route}_wide_d{D}`` the wide instance alone, so the
-    wide instance launched at 256 raises no D = 256 count."""
-    if not (wide and D in HEAD_DIMS):
+    instance that ``fused_attention`` runs at D (the wide one past 256 and in
+    three of the four passes at 256), and ``attention_{kind}_{route}_wide_d{D}``
+    the wide instance alone, so the wide instance launched where the route
+    takes the D = 256 instance raises no D = 256 count."""
+    if wide == routed:
         launches[f"attention_{kind}_d{D}"] += 1
         launches[f"attention_{kind}_{route}_d{D}"] += 1
     if wide:
         launches[f"attention_{kind}_{route}_wide_d{D}"] += 1
 
 
-def _launch_fwd(route, entry, lib, qu, k, v, bias, seed, scale, rate, heads_total=None,
-                head_offset=0, wide=False):
+# each set's C entries (``{prefix}_fwd``, ``{prefix}_bwd``, ``_wide`` after
+# either for the wide instance) and its library
+_ENTRIES = {"tc": ("attn_mma", lambda: _library_mma()),
+            "tf32x3": ("attn_tf32", lambda: _library_tf32())}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_blocks(route: str, exact: bool) -> int:
+    prefix, lib = _ENTRIES[route]
+    n = getattr(lib(), f"{prefix}_fwd_wide_blocks")(int(exact))
+    if n < 0:
+        raise RuntimeError(f"{prefix}_fwd_wide_blocks: CUDA error {-n} "
+                           f"({lib().error_string(-n).decode()})")
+    return n
+
+
+def _run_fwd(route, wide, qu, k, v, bias, out, lse, scale, drop, splits):
+    """The C entry of ``route``'s forward (``wide``: its wide instance, with
+    ``splits`` key splits, None: :func:`wide_key_splits` on this card) on
+    these tensors; ``drop`` is :func:`_drop_args`. Returns the key splits (1
+    off the wide instance)."""
+    prefix, lib = _ENTRIES[route]
+    lib = lib()
     B, H, L, D = qu.shape
-    wide = wide or D > HEAD_DIMS[-1]
-    _check_mma(qu, k, v, bias, heads_total, route, wide)
-    out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
-    lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
-    scratch = ()
-    if wide:  # the scaled scores, (B, H, Lp, Lp) f32, Lp = L padded to whole 64-row tiles
-        Lp = -(-L // 64) * 64
-        scores = torch.empty((B, H, Lp, Lp), dtype=torch.float32, device=qu.device)
-        scratch, entry = (scores.data_ptr(),), entry + "_wide"
+    entry, scratch = f"{prefix}_fwd", ()
+    if wide:
+        nt = -(-L // 64)
+        if splits is None:
+            exact = L % 64 == 0 and bias.data_ptr() % 16 == 0  # the C entry's instance
+            splits = wide_key_splits(L, B * H, _sm_count(qu.device.index or 0),
+                                     _wide_blocks(route, exact))
+        if not 1 <= splits <= nt:
+            raise ValueError(f"the wide forward splits its {nt} key tiles 1 .. {nt} ways, "
+                             f"got {splits}")
+        # the scaled scores, (B, H, Lp, Lp) f32, Lp = L padded to whole 64-row
+        # tiles; at S > 1 the splits' partial row max and sum, (2, B*H, S, Lp)
+        scores = torch.empty((B, H, 64 * nt, 64 * nt), dtype=torch.float32, device=qu.device)
+        part = (torch.empty((2, B * H, splits, 64 * nt), dtype=torch.float32, device=qu.device)
+                if splits > 1 else None)
+        entry += "_wide"
+        scratch = (scores.data_ptr(), None if part is None else part.data_ptr())
     code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                                out.data_ptr(), lse.data_ptr(), *scratch, _row_strides(out), B, H,
-                               L, D, scale, *_drop_args(seed, rate, H, heads_total, head_offset),
-                               _stream(qu))
+                               L, D, *((splits,) if wide else ()), scale, *drop, _stream(qu))
     check_cuda_status(lib, code, entry)
-    _count("fwd", route, D, wide)
+    return splits if wide else 1
+
+
+def _run_bwd(route, wide, qu, k, v, bias, g, out, lse, dqu, dk, dv, dbias, scale, drop):
+    """The C entry of ``route``'s backward (``wide``: its wide instance) on
+    these tensors."""
+    prefix, lib = _ENTRIES[route]
+    lib = lib()
+    B, H, L, D = qu.shape
+    delta = torch.empty_like(lse)
+    entry, scratch = f"{prefix}_bwd", ()
+    if wide:  # the dropped probabilities, (B, H, L, L) in the inputs' dtype
+        pd = torch.empty_like(bias)
+        entry, scratch = entry + "_wide", (pd.data_ptr(),)
+    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                               g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                               dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+                               *scratch, _row_strides(g), _row_strides(out), B, H, L, D, scale,
+                               *drop, _stream(qu))
+    check_cuda_status(lib, code, entry)
+
+
+def _launch_fwd(route, qu, k, v, bias, seed, scale, rate, heads_total=None, head_offset=0,
+                wide=None, splits=None):
+    """``route``'s forward on the instance :func:`attention_instance` names
+    (``wide`` forces the wide instance where it is not the route's, the bf16
+    forward at 256; ``splits`` the wide forward's key splits). A wide launch
+    with more than one split also counts as
+    ``attention_fwd_{route}_wide_split_d{D}``."""
+    B, H, L, D = qu.shape
+    wide, routed = _check_mma(qu, k, v, bias, heads_total, route, "fwd", wide)
+    out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
+    splits = _run_fwd(route, wide, qu, k, v, bias, out, lse, scale,
+                      _drop_args(seed, rate, H, heads_total, head_offset), splits)
+    _count("fwd", route, D, wide, routed)
+    if splits > 1:
+        launches[f"attention_fwd_{route}_wide_split_d{D}"] += 1
     return out, lse
 
 
-def _launch_bwd(route, entry, lib, qu, k, v, bias, g, out, lse, seed, scale, rate,
-                heads_total=None, head_offset=0, wide=False):
+def _launch_bwd(route, qu, k, v, bias, g, out, lse, seed, scale, rate, heads_total=None,
+                head_offset=0):
     B, H, L, D = qu.shape
-    wide = wide or D > HEAD_DIMS[-1]
-    _check_mma(qu, k, v, bias, heads_total, route, wide)
+    wide, routed = _check_mma(qu, k, v, bias, heads_total, route, "bwd", None)
     _check_like_qu(g, qu, "g")
     _check_like_qu(out, qu, "out")
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous (B, H, L) float32")
     dqu, dk, dv = (torch.empty_like(qu) for _ in range(3))
     dbias = torch.empty_like(bias)
-    delta = torch.empty_like(lse)
-    scratch = ()
-    if wide:  # the dropped probabilities, (B, H, L, L) in the inputs' dtype
-        pd = torch.empty_like(bias)
-        scratch, entry = (pd.data_ptr(),), entry + "_wide"
-    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                               g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                               dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                               *scratch, _row_strides(g), _row_strides(out), B, H, L, D, scale,
-                               *_drop_args(seed, rate, H, heads_total, head_offset),
-                               _stream(qu))
-    check_cuda_status(lib, code, entry)
-    _count("bwd", route, D, wide)
+    _run_bwd(route, wide, qu, k, v, bias, g, out, lse, dqu, dk, dv, dbias, scale,
+             _drop_args(seed, rate, H, heads_total, head_offset))
+    _count("bwd", route, D, wide, routed)
     return dqu, dk, dv, dbias
 
 
@@ -449,32 +603,31 @@ def launch_attention_fwd_mma(qu, k, v, bias, seed: int, scale: float, rate: floa
     2).reshape(B, L, H * D)`` copies nothing; ``lse`` is the rows'
     log-sum-exp, (B, H, L) float32. D is an instance's head dim: 16 .. 256,
     or past 256 a multiple of :data:`WIDE_CHUNK` on the wide instance."""
-    return _launch_fwd("tc", "attn_mma_fwd", _library_mma(), qu, k, v, bias, seed, scale,
-                       rate, heads_total, head_offset)
+    return _launch_fwd("tc", qu, k, v, bias, seed, scale, rate, heads_total, head_offset)
 
 
 def launch_attention_bwd_mma(qu, k, v, bias, g, out, lse, seed: int, scale: float,
                              rate: float, heads_total=None, head_offset: int = 0):
     """bf16 (``attention_mma.cu``). ``g`` and ``out`` may be strided over (b,
-    h, l); their rows must be contiguous and 16-byte aligned."""
-    return _launch_bwd("tc", "attn_mma_bwd", _library_mma(), qu, k, v, bias, g, out, lse,
-                       seed, scale, rate, heads_total, head_offset)
+    h, l); their rows must be contiguous and 16-byte aligned. D as in
+    :func:`launch_attention_fwd_mma` (from 256 on the wide instance)."""
+    return _launch_bwd("tc", qu, k, v, bias, g, out, lse, seed, scale, rate, heads_total,
+                       head_offset)
 
 
 def launch_attention_fwd_tf32(qu, k, v, bias, seed: int, scale: float, rate: float,
                               heads_total=None, head_offset: int = 0):
     """f32 as 3xTF32 (``attention_f32_mma.cu``); returns ``(out, lse)`` as
-    :func:`launch_attention_fwd_mma` does."""
-    return _launch_fwd("tf32x3", "attn_tf32_fwd", _library_tf32(), qu, k, v, bias, seed,
-                       scale, rate, heads_total, head_offset)
+    :func:`launch_attention_fwd_mma` does (from 256 on the wide instance)."""
+    return _launch_fwd("tf32x3", qu, k, v, bias, seed, scale, rate, heads_total, head_offset)
 
 
 def launch_attention_bwd_tf32(qu, k, v, bias, g, out, lse, seed: int, scale: float,
                               rate: float, heads_total=None, head_offset: int = 0):
     """f32 as 3xTF32 (``attention_f32_mma.cu``); ``g`` and ``out`` as in
     :func:`launch_attention_bwd_mma`."""
-    return _launch_bwd("tf32x3", "attn_tf32_bwd", _library_tf32(), qu, k, v, bias, g, out,
-                       lse, seed, scale, rate, heads_total, head_offset)
+    return _launch_bwd("tf32x3", qu, k, v, bias, g, out, lse, seed, scale, rate, heads_total,
+                       head_offset)
 
 
 _TC_LAUNCHES = {"tc": (launch_attention_fwd_mma, launch_attention_bwd_mma),
@@ -482,15 +635,12 @@ _TC_LAUNCHES = {"tc": (launch_attention_fwd_mma, launch_attention_bwd_mma),
 
 
 def _wide_launches(route):
-    """(forward, backward) launchers of ``route``'s wide instance at every
-    multiple of :data:`WIDE_CHUNK` from 256 on, 256 included, where the
-    launchers above run the D = 256 instance: no model path takes it there,
-    it is launched so to hold the two instances against each other."""
-    (fwd_entry, bwd_entry), lib = {"tc": (("attn_mma_fwd", "attn_mma_bwd"), _library_mma),
-                                   "tf32x3": (("attn_tf32_fwd", "attn_tf32_bwd"),
-                                              _library_tf32)}[route]
-    return (functools.partial(_launch_fwd, route, fwd_entry, lib(), wide=True),
-            functools.partial(_launch_bwd, route, bwd_entry, lib(), wide=True))
+    """The forward launcher of ``route``'s wide instance at every multiple of
+    :data:`WIDE_CHUNK` from 256 on, 256 included, where the bf16 route runs
+    the D = 256 instance: no model path takes it there, it is launched so to
+    hold the two forwards against each other (the other passes at 256 have
+    the wide instance alone)."""
+    return functools.partial(_launch_fwd, route, wide=True)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -520,10 +670,11 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
     CUDA tensors run the hand-written tensor-core kernels, forward and
     backward, on the set :func:`attention_route` names: bfloat16 on
     ``attention_mma.cu``, float32 on ``attention_f32_mma.cu``, at any L and
-    any head dim (16, 32, 64, 128 and 256 are instances, past 256 the
-    multiples of 64 run the wide instance; other head dims run the next one
-    up on zero-padded inputs, module note). The output is a
-    (B, H, L, D) view of a (B, L, H, D') buffer, D' that instance's head dim.
+    any head dim (16, 32, 64 and 128 are instances, the multiples of 64 from
+    256 on run the wide instance, but for the bf16 forward's D = 256 instance,
+    :func:`attention_instance`; other head dims run the next one up on
+    zero-padded inputs, module note). The output is a (B, H, L, D) view of a
+    (B, L, H, D') buffer, D' the padded head dim.
     CPU tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
     rate 0. A tensor-parallel rank's H heads are ``head_offset ..`` of
     ``heads_total`` (None: H), which places its dropout mask (module note).

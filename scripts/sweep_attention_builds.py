@@ -2,18 +2,18 @@
 """Build variants of one attention source on a CUDA card, print ptxas'
 registers and spills for its kernels at the head dims asked for, and
 (``--time``) hold each variant against the plain version and time it at
-(128, 4, 256, D) for each D.
+(B, 4, 256, D) for each D (B = ``--batch``, 128 by default).
 
     python3 scripts/sweep_attention_builds.py SOURCE PATTERN TEMPLATE VALUE ...
-        [--head-dim 256 ...] [--time]
+        [--head-dim 256 ...] [--batch 128] [--time]
 
 Each VALUE builds ``csrc/SOURCE.cu`` with the text PATTERN replaced by
 TEMPLATE.format(VALUE), all with nvcc at once, into a temporary directory;
-the tree's own sources are not touched. E.g. the unroll count of the 3xTF32
-kernels' score products at D = 256:
+the tree's own sources are not touched. E.g. the column chunk the 3xTF32
+wide instance streams its score products in:
 
     python3 scripts/sweep_attention_builds.py attention_f32_mma \\
-        'KSTEP_UNROLL_256 = 3' 'KSTEP_UNROLL_256 = {}' 1 2 3 4 8 16 32 --time
+        'WKC = 32;' 'WKC = {};' 32 64 --head-dim 512 --time
 
 A head dim past 256 reports the wide instance's kernels (every template
 value) and times it; the wrapper then pads to the chunk width ``WDC`` of the
@@ -21,6 +21,9 @@ source each variant was built from, so the chunk itself can be swept:
 
     python3 scripts/sweep_attention_builds.py attention_f32_mma \\
         'WDC = 64' 'WDC = {}' 64 128 --head-dim 512 320 --time
+
+``--batch 8`` times at the small batch where the wide forward splits its
+keys over blocks.
 """
 import argparse
 import ctypes
@@ -96,6 +99,7 @@ def main():
     ap.add_argument("template")
     ap.add_argument("values", nargs="+")
     ap.add_argument("--head-dim", type=int, nargs="+", default=[256])
+    ap.add_argument("--batch", type=int, default=cs.BATCH)
     ap.add_argument("--time", action="store_true",
                     help="check each variant against the plain version and time it")
     args = ap.parse_args()
@@ -128,8 +132,8 @@ def main():
             for D in args.head_dim:
                 for L in (257, 33):
                     cs.check_attention(D, dtype, cs.RATE, seed, gen, L)
-                t = cs.time_attention_route(cs.SEQ, D, dtype, seed, gen)
-                print(f"  (128, 4, 256, {D}) {str(dtype)[6:]} padded to {t['Dp']}: fwd "
+                t = cs.time_attention_route(cs.SEQ, D, dtype, seed, gen, args.batch)
+                print(f"  ({args.batch}, 4, 256, {D}) {str(dtype)[6:]} padded to {t['Dp']}: fwd "
                       f"{t['fwd_ms']:.4f} ms, bwd {t['bwd_ms']:.4f} ms (sdpa {t['lib_fwd_ms']:.4f} "
                       f"/ {t['lib_bwd_ms']:.4f})", flush=True)
                 torch.cuda.empty_cache()

@@ -182,10 +182,10 @@ def test_padded_head_dims_match_plain(cuda, L, D, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_head_dim_256_matches_plain(cuda, L, dtype, rate):
-    """Head dim 256 on the tensor-core kernels (the backward's main pass in
-    two halves of the columns) at tails of 1 and 33 rows, whole tiles, the CLS
-    token's 257 and a long 768, with dropout's positions (held through the
-    gradients) those of the plain version."""
+    """Head dim 256 on the tensor-core kernels (the bf16 forward on its D =
+    256 instance, the other passes on the wide instance) at tails of 1 and 33
+    rows, whole tiles, the CLS token's 257 and a long 768, with dropout's
+    positions (held through the gradients) those of the plain version."""
     _attention_case(cuda, (1, 2, L, 256), dtype, rate)
 
 
@@ -227,18 +227,27 @@ def test_wide_head_dims_match_plain(cuda, L, D, dtype, rate):
 @pytest.mark.parametrize("L", [1, 33, 64, 257])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_instance_at_256_matches_plain(cuda, L, dtype):
-    """The wide instance launched at D = 256 (``_wide_launches``), which no
-    route takes there, forward and backward against the plain version, rate
-    0.3."""
+    """The wide instance at D = 256, forward and backward, against the plain
+    version, rate 0.3: the route's launchers run it in every pass but the
+    bf16 forward, which ``_wide_launches`` launches on it beside the route's
+    D = 256 instance (no model path takes it there). The counts say which
+    instance ran."""
     from sarssl_torch.kernels.attention import _wide_launches
 
-    fwd, bwd = _wide_launches(attention_route(dtype, L, 256))
+    route = attention_route(dtype, L, 256)
+    tc = route == "tc"
+    fwd = _wide_launches(route) if tc else launch_attention_fwd_tf32
+    bwd = launch_attention_bwd_mma if tc else launch_attention_bwd_tf32
     qu, k, v, g = (torch.randn((2, 2, L, 256), generator=cuda, device="cuda").to(dtype)
                    for _ in range(4))
     bias = torch.randn((2, 2, L, L), generator=cuda, device="cuda").to(dtype)
     args = (0xFEEDBEEF, 256 ** -0.5, 0.3)
+    names = [f"attention_{kind}_{route}_{w}d256" for kind in ("fwd", "bwd") for w in ("", "wide_")]
+    before = [launches[n] for n in names]
     out, lse = fwd(qu, k, v, bias, *args)
     grads = bwd(qu, k, v, bias, g, out, lse, *args)
+    # the bf16 wide forward, off the route, raises its wide count alone
+    assert [launches[n] - b for n, b in zip(names, before)] == [int(not tc), 1, 1, 1]
     ys = [t.float().requires_grad_() for t in (qu, k, v, bias)]
     ref = attention_plain(*ys, *args)
     ref_grads = torch.autograd.grad(ref, ys, g.float())
@@ -247,6 +256,67 @@ def test_wide_instance_at_256_matches_plain(cuda, L, dtype):
         if L == 1 and i in (1, 2, 4):  # they vanish at L = 1 (_attention_case)
             continue
         assert _rel(a, b) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_routes_count_their_instances(cuda, dtype):
+    """``fused_attention`` at D = 200 and 256 (both at 256): the bf16 forward
+    on the D = 256 instance, the bf16 backward and both f32 passes on the wide
+    instance, as ``attention_instance`` names them."""
+    from sarssl_torch.kernels.attention import attention_instance
+
+    route = attention_route(dtype, 64, 256)
+    for D in (200, 256):
+        names = [f"attention_{kind}_{route}_{w}d256" for kind in ("fwd", "bwd")
+                 for w in ("", "wide_")]
+        before = [launches[n] for n in names]
+        xs = [torch.randn(s, generator=cuda, device="cuda").to(dtype).requires_grad_()
+              for s in [(2, 2, 64, D)] * 3 + [(2, 2, 64, 64)]]
+        out = fused_attention(*xs, 0xFEEDBEEF, D ** -0.5, 0.3)
+        torch.autograd.grad(out, xs, torch.ones_like(out))
+        wide = [attention_instance(dtype, kind, 256) == "wide" for kind in ("fwd", "bwd")]
+        assert wide == [route == "tf32x3", True]
+        assert [launches[n] - b for n, b in zip(names, before)] == [1, int(wide[0]), 1, 1]
+
+
+@pytest.mark.parametrize("L", [1, 33, 256, 257])
+@pytest.mark.parametrize("D", [300, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_forward_key_splits_match_plain(cuda, L, D, dtype):
+    """The wide forward at batch 8 (launched at D's padded head dim) with
+    every number of key splits from 1 to ceil(L / 64) forced, and the one the
+    launcher chooses, rate 0.3: out against the plain version, lse against
+    the scores' log-sum-exp; at L = 257, where 4 splits leave the last one no
+    key tile, the dropped positions (v the identity) those of the plain mask;
+    a launch of more than one split counted as such."""
+    from sarssl_torch.kernels import hash_keep_mask
+    from sarssl_torch.kernels.attention import _launch_fwd
+
+    B, H, Dp = 8, 4, padded_head_dim(D)
+    route = attention_route(dtype, L, Dp)
+    qu, k, v = (torch.randn((B, H, L, Dp), generator=cuda, device="cuda").to(dtype)
+                for _ in range(3))
+    bias = torch.randn((B, H, L, L), generator=cuda, device="cuda").to(dtype)
+    seed, rate = 0xFEEDBEEF, 0.3
+    args = (seed, (H * D) ** -0.5, rate)
+    x = [t.float() for t in (qu, k, v, bias)]
+    ref = attention_plain(*x, *args)
+    ref_lse = torch.logsumexp((x[0] @ x[1].transpose(-1, -2) + x[3]) * args[1], -1)
+    keep = hash_keep_mask(B * H * L * L, seed, rate, "cuda").reshape(B, H, L, L)
+    eye = torch.eye(L, Dp, device="cuda", dtype=dtype).expand(B, H, L, Dp).contiguous()
+    name = f"attention_fwd_{route}_wide_split_d{Dp}"
+    nt = -(-L // 64)
+    for splits in (*range(1, nt + 1), None):
+        before = launches[name]
+        out, lse = _launch_fwd(route, qu, k, v, bias, *args, splits=splits)
+        if splits is not None:
+            assert launches[name] - before == int(splits > 1)
+        assert _rel(out, ref) <= TOL[dtype] and _rel(lse, ref_lse) <= TOL[dtype], splits
+        if L == 257:
+            pd = _launch_fwd(route, qu, k, eye, bias, *args, splits=splits)[0]
+            assert torch.equal(pd[..., :L] != 0, keep), splits
+    with pytest.raises(ValueError):
+        _launch_fwd(route, qu, k, v, bias, *args, splits=nt + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
