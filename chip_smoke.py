@@ -66,6 +66,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (8 lanes, f32; timed, queued behind a sleeping kernel, beside
               its bound and ``F.dropout``) and on 8 bf16 lanes past 2**31
               elements.
+  3b. edges: the inputs the hand-written kernels take past one launch's
+              grid or 32-bit offsets, as the Pallas kernels take any: each
+              driven once through its public entry point with the launch
+              counts read around it and asserted exactly, held against its
+              plain version, then timed beside its bound and its library
+              call. Attention (fused_attention forward and backward) at
+              B * H = 65792, two launches a pass, at D = 16 and 320 (wide),
+              rates 0 and 0.1, in bf16 and f32 (the batches at both ends and
+              at the launch boundary against the plain version); at B * H *
+              L * L past 2**32, rate 0, in bf16 at (1, 1, 65600, 16), (2, 4,
+              23200, 64) and (1, 1, 65600, 320) (wide), in f32 at (1, 256,
+              4100, 16), (2, 128, 4100, 64) and (1, 256, 4100, 320) (every
+              row against the plain version in blocks of 2048 query rows);
+              the f32 forward's error against float64 at L = 4096, 16384
+              and 65600, held to TOL_F32 at 4096 only (past L ~ 10**4 the
+              3xTF32 sums miss it: logged, ROADMAP.md §3); the refusal at
+              rate 0.1 past 2**32. hash_dropout at 2**31 + 2**24 elements in
+              both dtypes, forward and gradient, and the lane-seeded launch
+              under vmap at (2, 2**31 + 4096) bf16 and (65600, 64) f32 (one
+              launch over two runs of lanes), every element against the
+              plain version, bit for bit. conv3x3 forward and
+              backward at (C, Cout) = (3, 64), (64, 48), (96, 160) and (256,
+              256) (the kernel that takes the channel counts at run time)
+              and conv3x3_s2d at C = 256, in both dtypes at (16, 64, 64), and
+              at N = 65600 with (H, W) = (4, 8), C = 64 and 3.
   4. ref    : small pretext models on the card (kernels) against the same
               models on the CPU (plain versions), f32, dropout on, same seeds:
               one at head dims 32 and 16, SARSSLConfig.tiny(
@@ -281,6 +306,7 @@ TF32_SPLIT = 3
 TOL_BF16 = 2e-2
 # f32 kernel against f32 plain: only the summation order differs.
 TOL_F32 = 1e-4
+
 # small model on the card against the CPU, f32, TF32 off
 TOL_REF = 1e-3
 # conv kernels in bf16 against the f32 plain version: the f32 sums over
@@ -1541,10 +1567,589 @@ def phase_kernels():
     return rows, opt_rows, wide, drop, lanes, conv
 
 
+# ---------------------------------------------------------------------------
+# phase edges: the inputs the kernels take past one launch's grid or 32-bit
+# offsets (the Pallas kernels take them all). Each edge is driven once
+# through its public entry point with the launch counts read around it
+# (asserted exactly), held against its plain version (selected batches, or
+# the whole in blocks of rows or slices where the plain version at that size
+# does not fit in one piece), then timed beside its bound and its library
+# call. Memory: at most ~64 GiB at once (the f32 wide backward at B * H * L *
+# L = 4.3e9).
+# ---------------------------------------------------------------------------
+EDGE_SEED = 0x9E3779B9
+# attention with B * H = 65792 (two launches a pass), at rates 0 and 0.1
+EDGE_BH_SHAPES = ((16448, 4, 64, 16), (16448, 4, 64, 320))
+# attention with B * H * L * L past 2**32, rate 0 (forward and backward). bf16
+# at long rows: L = 65600 is 1025 whole tiles, 23200 leaves a tail. f32 at L =
+# 4100 (a tail), where its 3xTF32 sums hold TOL_F32; past L ~ 10**4 they do
+# not (_f32_sums_by_length, ROADMAP.md §3)
+EDGE_BIG_SHAPES = {torch.bfloat16: ((1, 1, 65600, 16), (2, 4, 23200, 64), (1, 1, 65600, 320)),
+                   torch.float32: ((1, 256, 4100, 16), (2, 128, 4100, 64), (1, 256, 4100, 320))}
+EDGE_ROWS = 2048  # query rows a block of the blocked plain version
+EDGE_DROP_N = 2 ** 31 + 2 ** 24
+EDGE_DROP_SLICE = 2 ** 27  # elements a slice of the sliced plain version
+EDGE_LANES = (((2, 2 ** 31 + 4096), torch.bfloat16), ((65600, 64), torch.float32))
+EDGE_CONV_CHANNELS = ((3, 64), (64, 48), (96, 160), (256, 256))
+EDGE_CONV_SHAPE = (16, 64, 64)  # (N, H, W) of the channel edges
+EDGE_CONV_BATCH = ((65600, 4, 8, 64, 64), (65600, 4, 8, 3, 64))  # N past the grid
+EDGE_ITERS = 3
+
+
+def _maybe_ms(what, fn, iters=EDGE_ITERS):
+    """cuda_ms of a library yardstick, or None (logged) where the library
+    refuses the shape or runs out of memory."""
+    try:
+        return cuda_ms(fn, iters=iters, warmup=1)
+    except (RuntimeError, ValueError) as e:
+        log(f"  [edges] {what}: not timed ({str(e).splitlines()[0][:160]})")
+        torch.cuda.empty_cache()
+        return None
+
+
+def _counted(fn):
+    """Runs fn; returns (its result, the launch counts that rose, by name)."""
+    from sarssl_torch.kernels import launches
+
+    before = dict(launches)
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {n: c - before.get(n, 0) for n, c in launches.items() if c != before.get(n, 0)}
+
+
+def _attention_edge_drive(qu, k, v, bias, g, scale, rate):
+    """fused_attention forward and backward (the public path); returns (out,
+    grads) detached."""
+    from sarssl_torch.kernels import fused_attention
+
+    xs = [t.detach().requires_grad_() for t in (qu, k, v, bias)]
+    out = fused_attention(*xs, EDGE_SEED, scale, rate)
+    grads = torch.autograd.grad(out, xs, g)
+    return out.detach(), grads
+
+
+def _edge_attention_want(route, D, chunked):
+    from sarssl_torch.kernels.attention import attention_instance, padded_head_dim
+
+    Dp = padded_head_dim(D)
+    tag = ROUTE_TAGS[route]
+    want = {}
+    for kind in ("fwd", "bwd"):
+        want[f"attention_{kind}_d{Dp}"] = 1
+        want[f"attention_{kind}_{tag}d{Dp}"] = 1
+        if attention_instance(ROUTE_DTYPES[route], kind, Dp) == "wide":
+            want[f"attention_{kind}_{tag}wide_d{Dp}"] = 1
+        if chunked:
+            want[f"attention_{kind}_{tag}chunked_d{Dp}"] = 1
+    return want
+
+
+def _plain_batches(qu, k, v, bias, g, b0, b1, scale, rate):
+    """The plain version's function (attention_plain's, in f32) on batches
+    b0 .. b1 of a larger attention, its dropout index placed at batch b0 of
+    the whole tensor by dropout_plain's index map; (out, dqu, dk, dv,
+    dbias)."""
+    from sarssl_torch.kernels import dropout_plain
+
+    ys = [t[b0:b1].float().requires_grad_() for t in (qu, k, v, bias)]
+    p = torch.softmax((ys[0] @ ys[1].transpose(-1, -2) + ys[3]) * scale, dim=-1)
+    n, off = p.numel(), b0 * p[0].numel()
+    out = dropout_plain(p, EDGE_SEED, rate, (n, off + n, off)) @ ys[2]
+    return (out.detach(), *torch.autograd.grad(out, ys, g[b0:b1].float()))
+
+
+class _Err:
+    """max |a - b| and max |b| of each named result, over the pieces it is
+    compared in; rel = max |a - b| / max |b| of the whole."""
+
+    def __init__(self):
+        self.diff, self.peak = {}, {}
+
+    def add(self, name, a, b):
+        a, b = a.detach().float(), b.detach().float()
+        self.diff[name] = max(self.diff.get(name, 0.0), float((a - b).abs().max()))
+        self.peak[name] = max(self.peak.get(name, 0.0), float(b.abs().max()))
+
+    def rel(self, name):
+        return self.diff[name] / max(self.peak[name], 1e-30)
+
+
+def _plain_blocked(qu, k, v, bias, g, out, grads, scale, err):
+    """Holds a rate-0 attention too large for the plain version in one piece
+    against it per (b, h) and blocks of EDGE_ROWS query rows (a row's softmax
+    is its own, so the blocks are the same function: attention_plain's at
+    rate 0, f32); dk and dv sum over the blocks. Returns the plain version's
+    forward and backward ms over the blocks."""
+    B, H, L, D = qu.shape
+    dqu, dk, dv, dbias = grads
+    spent = [0.0, 0.0]
+    for b in range(B):
+        for h in range(H):
+            kf, vf = (t[b, h].float().requires_grad_() for t in (k, v))
+            dk_sum, dv_sum = torch.zeros_like(kf), torch.zeros_like(vf)
+            for r0 in range(0, L, EDGE_ROWS):
+                r1 = min(L, r0 + EDGE_ROWS)
+                qb, bb = (t[b, h, r0:r1].float().requires_grad_() for t in (qu, bias))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ob = torch.softmax((qb @ kf.T + bb) * scale, dim=-1) @ vf
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                gq, gk, gv, gb = torch.autograd.grad(ob, (qb, kf, vf, bb), g[b, h, r0:r1].float())
+                torch.cuda.synchronize()
+                spent[0] += 1e3 * (t1 - t0)
+                spent[1] += 1e3 * (time.perf_counter() - t1)
+                err.add("out", out[b, h, r0:r1], ob)
+                err.add("dqu", dqu[b, h, r0:r1], gq)
+                err.add("dbias", dbias[b, h, r0:r1], gb)
+                dk_sum += gk
+                dv_sum += gv
+                del ob, gq, gk, gv, gb
+            err.add("dk", dk[b, h], dk_sum)
+            err.add("dv", dv[b, h], dv_sum)
+    return tuple(spent)
+
+
+def _attention_edge_times(qu, k, v, bias, g, scale, rate, plain_ms):
+    """Forward and backward launches (queued back to back, EDGE_ITERS each),
+    SDPA with the bias as a float mask at rate 0 (None where it refuses or
+    runs out of memory), and the bounds, as _attention_yardsticks counts
+    them."""
+    from sarssl_torch.kernels.attention import (_TC_LAUNCHES, attention_bwd_padded,
+                                                attention_fwd_padded, attention_route)
+
+    B, H, L, D = qu.shape
+    fwd, bwd = _TC_LAUNCHES[attention_route(qu.dtype, L, D)]
+    args = (EDGE_SEED, scale, rate)
+    res = {"plain_fwd_ms": plain_ms[0], "plain_bwd_ms": plain_ms[1]}
+    _, lse, padded = attention_fwd_padded(fwd, qu, k, v, bias, *args)
+    res["fwd_ms"] = cuda_ms(lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args),
+                            iters=EDGE_ITERS, warmup=1)
+    res["bwd_ms"] = cuda_ms(lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args),
+                            iters=EDGE_ITERS, warmup=1)
+    del padded, lse
+    torch.cuda.empty_cache()
+    mask = bias * scale
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        res["lib_fwd_ms"] = _maybe_ms(f"SDPA fwd {tuple(qu.shape)}",
+                                      lambda: sdpa(qu, k, v, attn_mask=mask, scale=scale))
+    res["lib_bwd_ms"] = None
+    try:
+        ys = [t.detach().requires_grad_() for t in (qu, k, v, mask)]
+        out = sdpa(*ys[:3], attn_mask=ys[3], scale=scale)
+        res["lib_bwd_ms"] = _maybe_ms(f"SDPA bwd {tuple(qu.shape)}", lambda: torch.autograd.grad(
+            out, ys, g, retain_graph=True))
+        del out, ys
+    except (RuntimeError, ValueError) as e:
+        log(f"  [edges] SDPA bwd {tuple(qu.shape)}: not timed ({str(e).splitlines()[0][:160]})")
+    del mask
+    torch.cuda.empty_cache()
+    es = qu.element_size()
+    rate_ops, split = (BF16_FLOPS, 1) if qu.dtype == torch.bfloat16 else (TF32_FLOPS, TF32_SPLIT)
+    n_qkv, n_s = B * H * L * D, B * H * L * L
+    res["fwd_bound"] = bound_ms((4 * n_qkv + n_s) * es, split * 4 * n_s * D, rate_ops)
+    res["bwd_bound"] = bound_ms((8 * n_qkv + 2 * n_s) * es, split * 10 * n_s * D, rate_ops)
+    return res
+
+
+def _attention_edge(shape, dtype, rates, gen, what):
+    """One attention edge in one dtype: driven at each rate (counted), held
+    against the plain version, timed at the last rate. Returns its rows."""
+    from sarssl_torch.kernels.attention import attention_chunks, attention_route
+
+    B, H, L, D = shape
+    scale = D ** -0.5
+    route = attention_route(dtype, L, D)
+    chunked = len(attention_chunks(B, H, L)) > 1
+    name = str(dtype)[6:]
+    qu, k, v, bias, g = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                         for s in (shape, shape, shape, (B, H, L, L), shape))
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    for rate in rates:
+        (out, grads), counts = _counted(lambda: _attention_edge_drive(qu, k, v, bias, g, scale,
+                                                                      rate))
+        want = _edge_attention_want(route, D, chunked)
+        assert {n: counts.get(n, 0) for n in want} == want and not _fma_launches(counts), (
+            f"attention {what} {shape} {name} rate={rate}: launches {counts}, want {want}")
+        err = _Err()
+        if chunked:
+            # the batches at both ends and on both sides of each launch
+            # boundary, whole (plain version in one piece)
+            starts = [b0 for b0, *_ in attention_chunks(B, H, L)][1:]
+            picks = sorted({0, B - 1} | set(starts) | {s - 1 for s in starts})
+            for b in picks:
+                ref = _plain_batches(qu, k, v, bias, g, b, b + 1, scale, rate)
+                for n, a, r in zip(("out", "dqu", "dk", "dv", "dbias"),
+                                   (out, *grads), ref):
+                    err.add(n, a[b:b + 1], r)
+                del ref
+            compared = f"batches {picks} against the plain version"
+        else:
+            plain_ms = _plain_blocked(qu, k, v, bias, g, out, grads, scale, err)
+            compared = (f"every row against the plain version in blocks of {EDGE_ROWS} rows "
+                        f"a (b, h)")
+        del out, grads
+        torch.cuda.empty_cache()
+        rels = {n: err.rel(n) for n in err.diff}
+        log(f"[edges] attention {what} {shape} {name} rate={rate} ({ROUTE_WORDS[route]}"
+            f"{', ' + str(len(attention_chunks(B, H, L))) + ' launches a pass' if chunked else ''}"
+            f"): launches {dict(sorted((n, counts[n]) for n in want))}; {compared}: "
+            + ", ".join(f"{n} rel {e:.2e}" for n, e in rels.items()) + f" (tol {tol})")
+        for n, e in rels.items():
+            assert e <= tol, f"attention {what} {shape} {name} rate={rate}: {n} rel {e} > {tol}"
+    if chunked:  # the plain version whole, once each way (None where it does not fit)
+        from sarssl_torch.kernels import attention_plain
+
+        with torch.no_grad():
+            plain_fwd = _maybe_ms(f"plain fwd {shape}", lambda: attention_plain(
+                qu, k, v, bias, EDGE_SEED, scale, rate), iters=1)
+        plain_bwd = None
+        try:
+            xs = [t.detach().requires_grad_() for t in (qu, k, v, bias)]
+            ref = attention_plain(*xs, EDGE_SEED, scale, rate)
+            plain_bwd = _maybe_ms(f"plain bwd {shape}", lambda: torch.autograd.grad(
+                ref, xs, g, retain_graph=True), iters=1)
+            del ref, xs
+        except RuntimeError as e:  # out of memory building the graph
+            log(f"  [edges] plain bwd {shape}: not timed ({str(e).splitlines()[0][:160]})")
+        torch.cuda.empty_cache()
+        plain_ms = (plain_fwd, plain_bwd)
+    t = _attention_edge_times(qu, k, v, bias, g, scale, rate, plain_ms)
+    del qu, k, v, bias, g
+    torch.cuda.empty_cache()
+    log(f"[edges] attention {what} {shape} {name} rate={rate}: fwd {t['fwd_ms']:.4f} ms (plain "
+        f"{t['plain_fwd_ms']}, SDPA {t['lib_fwd_ms']}, bound {t['fwd_bound'][0]:.4f} by "
+        f"{t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms (plain {t['plain_bwd_ms']}, SDPA "
+        f"{t['lib_bwd_ms']}, bound {t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]})")
+    rows = []
+    for kind, line in (("fwd", 100), ("bwd", 128)):
+        tagged = {n: c for n, c in counts.items() if n.startswith(f"attention_{kind}_")}
+        rows.append({
+            "name": f"attention_{kind}_d{D}_B{B}H{H}L{L}_{name}", "route": "cuda",
+            "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[route],
+            "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
+            "launches": tagged.get(f"attention_{kind}_{ROUTE_TAGS[route]}d{D}", 0),
+            "counters": tagged, "edge": what, "rate": rate,
+            "max_abs_err": (max(err.diff[n] for n in ("dqu", "dk", "dv", "dbias"))
+                            if kind == "bwd" else err.diff["out"]),
+            "ms": t[f"{kind}_ms"],
+            "plain_ms": t[f"plain_{kind}_ms"],
+            "bound_ms": t[f"{kind}_bound"][0], "bound_by": t[f"{kind}_bound"][1],
+            "library_ms": t[f"lib_{kind}_ms"],
+            "path": "phase edges: fused_attention forward and backward once (launches)"})
+    return rows
+
+
+EDGE_F32_LENGTHS = (4096, 16384, 65600)
+EDGE_F32_HELD = 4100  # the longest L the f32 route is held to TOL_F32 at
+
+
+def _f32_sums_by_length(gen):
+    """How far the 3xTF32 forward's sums over L keys lie from float64, beside
+    the plain version's (f32, TF32 off): the first EDGE_ROWS query rows of (1,
+    1, L, 16) at rate 0, the error relative to max |float64|. Asserts the
+    plain version within TOL_F32 at every L and the kernel within TOL_F32 up
+    to EDGE_F32_HELD; past it the kernel misses TOL_F32 (an open fault,
+    ROADMAP.md §3), so its error there is logged, not held."""
+    from sarssl_torch.kernels import fused_attention
+
+    res = {}
+    for L in EDGE_F32_LENGTHS:
+        qu, k, v = (torch.randn((1, 1, L, 16), generator=gen, device="cuda") for _ in range(3))
+        bias = torch.randn((1, 1, L, L), generator=gen, device="cuda")
+        with torch.no_grad():
+            out = fused_attention(qu, k, v, bias, 0, 0.25, 0.0)[0, 0, :EDGE_ROWS]
+        q, kk, vv, b = qu[0, 0, :EDGE_ROWS], k[0, 0], v[0, 0], bias[0, 0, :EDGE_ROWS]
+        ref = torch.softmax((q.double() @ kk.double().T + b.double()) * 0.25, -1) @ vv.double()
+        plain = torch.softmax((q @ kk.T + b) * 0.25, -1) @ vv
+        peak = float(ref.abs().max())
+        res[L] = (float((out.double() - ref).abs().max()) / peak,
+                  float((plain.double() - ref).abs().max()) / peak)
+        del qu, k, v, bias, out, ref, plain
+        torch.cuda.empty_cache()
+        log(f"[edges] f32 attention (1, 1, {L}, 16) rate=0, the first {EDGE_ROWS} rows' out "
+            f"against float64: 3xTF32 kernel rel {res[L][0]:.2e} "
+            f"({'tol ' + str(TOL_F32) if L <= EDGE_F32_HELD else 'not held: open fault'}), "
+            f"plain f32 rel {res[L][1]:.2e} (tol {TOL_F32})")
+        assert res[L][1] <= TOL_F32 and (L > EDGE_F32_HELD or res[L][0] <= TOL_F32), (L, res[L])
+    return res
+
+
+def _refuses_past_uint32():
+    """At a rate above 0 the uint32 dropout index still bounds the shape (the
+    shape is refused before anything is read: the bias need not exist)."""
+    from sarssl_torch.kernels import fused_attention
+
+    qu = torch.zeros((1, 1, 65536, 16), device="cuda", dtype=torch.bfloat16)
+    bias = torch.empty((1, 1, 65536, 65536), device="meta", dtype=torch.bfloat16)
+    try:
+        fused_attention(qu, qu, qu, bias, EDGE_SEED, 0.25, 0.1)
+    except ValueError as e:
+        assert "uint32" in str(e), e
+        log(f"[edges] attention (1, 1, 65536, 16) rate=0.1 refused: {str(e)[:120]}...")
+        return
+    raise AssertionError("attention past 2**32 at rate 0.1 was not refused")
+
+
+def _dropout_slices(x, out, seed, rate, lane=None):
+    """Holds a dropout launch past 2**31 elements against the plain version
+    in slices of EDGE_DROP_SLICE elements, each with its place in the whole
+    (lane) tensor given by dropout_plain's index map; returns (max |diff|,
+    the plain version's seconds)."""
+    from sarssl_torch.kernels import dropout_plain
+
+    x, out = x.reshape(-1), out.reshape(-1)
+    diff, spent = 0.0, 0.0
+    for a in range(0, x.numel(), EDGE_DROP_SLICE):
+        b = min(x.numel(), a + EDGE_DROP_SLICE)
+        m = b - a
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = dropout_plain(x[a:b], seed, rate, (m, a + m, a))
+        torch.cuda.synchronize()
+        spent += time.perf_counter() - t0
+        assert torch.equal(out[a:b], ref), (
+            f"dropout{'' if lane is None else f' lane {lane}'}: elements {a}..{b} differ from "
+            f"the plain version")
+        diff = max(diff, max_abs(out[a:b], ref))
+        del ref
+    return diff, spent
+
+
+def _dropout_edge(dtype, gen):
+    """hash_dropout past 2**31 elements: forward and gradient
+    through the public path (counted), every element against the plain
+    version in slices, bit for bit; then timed beside F.dropout."""
+    from sarssl_torch.kernels import hash_dropout
+    from sarssl_torch.kernels.dropout import launch_dropout
+
+    n, name = EDGE_DROP_N, str(dtype)[6:]
+    x = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+    g = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+
+    def drive():
+        xr = x.detach().requires_grad_()
+        out = hash_dropout(xr, EDGE_SEED, RATE)
+        return out.detach(), torch.autograd.grad(out, xr, g)[0]
+
+    (out, grad), counts = _counted(drive)
+    assert counts == {"hash_dropout": 2}, f"dropout {n}: {counts}"
+    err, plain_s = _dropout_slices(x, out, EDGE_SEED, RATE)
+    gerr, _ = _dropout_slices(g, grad, EDGE_SEED, RATE)
+    del out, grad
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: launch_dropout(x, EDGE_SEED, RATE), iters=EDGE_ITERS, warmup=1)
+    lib = _maybe_ms(f"F.dropout {n}", lambda: torch.nn.functional.dropout(x, RATE, True))
+    bound = bound_ms(2 * n * x.element_size(), 10 * n, F32_FLOPS)
+    log(f"[edges] hash_dropout ({n},) {name} rate={RATE}: launches {counts}; "
+        f"output, mask and gradient identical to the plain version in slices of "
+        f"{EDGE_DROP_SLICE} (tol: exact); {ms:.4f} ms (plain in slices {1e3 * plain_s:.3f}, "
+        f"F.dropout {lib}, bound {bound[0]:.4f} by {bound[1]})")
+    del x, g
+    torch.cuda.empty_cache()
+    return {"name": f"hash_dropout_n{n}_{name}", "route": "triton",
+            "source": "sarssl_torch/kernels/dropout.py",
+            "replaces": "sarssl_tpu/kernels/dropout.py:40", "launches": counts["hash_dropout"],
+            "counters": counts, "edge": "n past 2**31",
+            "max_abs_err": max(err, gerr), "ms": ms, "plain_ms": 1e3 * plain_s,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+            "path": "phase edges: hash_dropout forward and backward once (launches)"}
+
+
+def _lanes_edge(shape, dtype, gen):
+    """The lane-seeded launch past 2**31 elements a lane or past 65535
+    lanes: hash_dropout under torch.func.vmap, forward and gradient
+    (counted), and the bare launch, against the plain version (vmapped where
+    it fits, else a lane at a time in slices), bit for bit; timed beside
+    F.dropout."""
+    from torch.func import vmap
+
+    from sarssl_torch.kernels import dropout_plain, hash_dropout
+    from sarssl_torch.kernels.dropout import launch_dropout_lanes
+
+    nl, m = shape
+    sliced = m >= 2 ** 31  # the vmapped plain version whole does not fit
+    name = str(dtype)[6:]
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    g = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    seeds = torch.randint(0, 2 ** 32, (nl,), dtype=torch.int64, device="cuda", generator=gen)
+    seeds[0] = EDGE_SEED
+
+    def drive():
+        xr = x.detach().requires_grad_()
+        out = vmap(hash_dropout, in_dims=(0, 0, None))(xr, seeds, RATE)
+        return out.detach(), torch.autograd.grad(out, xr, g)[0]
+
+    (out, grad), counts = _counted(drive)
+    want = {"hash_dropout_lanes": 2}
+    assert counts == want, f"dropout lanes {shape}: launches {counts}, want {want}"
+    bare = launch_dropout_lanes(x, seeds, RATE)
+    assert torch.equal(bare, out), f"dropout lanes {shape}: the bare launch differs"
+    del bare
+    plain_s, err = 0.0, 0.0
+    if sliced:
+        for lane in range(nl):
+            s = int(seeds[lane])
+            e1, t1 = _dropout_slices(x[lane], out[lane], s, RATE, lane)
+            e2, _ = _dropout_slices(g[lane], grad[lane], s, RATE, lane)
+            err, plain_s = max(err, e1, e2), plain_s + t1
+        compared = f"each lane in slices of {EDGE_DROP_SLICE}"
+    else:
+        plain = vmap(dropout_plain, in_dims=(0, 0, None))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain(x, seeds, RATE)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        assert torch.equal(out, ref) and torch.equal(grad, plain(g, seeds, RATE)), (
+            f"dropout lanes {shape}: differs from vmapped dropout_plain")
+        err = max_abs(out, ref)
+        compared = "vmapped dropout_plain whole"
+    assert not torch.equal(out[0] != 0, out[1] != 0), f"dropout lanes {shape}: lanes share a mask"
+    del out, grad
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: launch_dropout_lanes(x, seeds, RATE), iters=EDGE_ITERS, warmup=1)
+    lib = _maybe_ms(f"F.dropout {shape}", lambda: torch.nn.functional.dropout(x, RATE, True))
+    n = x.numel()
+    bound = bound_ms(2 * n * x.element_size() + 8 * nl, 10 * n, F32_FLOPS)
+    log(f"[edges] hash_dropout_lanes {shape} {name} rate={RATE}: launches {counts}; output, "
+        f"mask and gradient under vmap and the bare launch identical to {compared} (tol: "
+        f"exact); {ms:.4f} ms (plain {1e3 * plain_s:.3f}, F.dropout {lib}, bound "
+        f"{bound[0]:.4f} by {bound[1]})")
+    del x, g
+    torch.cuda.empty_cache()
+    return {"name": f"hash_dropout_lanes_{nl}x{m}_{name}", "route": "triton",
+            "source": "sarssl_torch/kernels/dropout.py",
+            "replaces": "sarssl_tpu/kernels/dropout.py:40",
+            "launches": counts["hash_dropout_lanes"], "counters": counts,
+            "edge": ("a lane past 2**31 elements" if sliced else
+                     "lanes past 65535 (one launch over runs of 65535 lanes)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib,
+            "path": "phase edges: hash_dropout under torch.func.vmap, forward and backward "
+                    "once (launches)"}
+
+
+def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
+    """conv3x3 (or conv3x3_s2d, C == Cout) forward and backward through the
+    public path (counted: dx on the kernel, dW the library's), output and dx
+    against the plain version; the forward and dx launches timed beside
+    cuDNN at the same channels and the bound."""
+    from sarssl_torch.kernels import conv3x3, conv3x3_plain, conv3x3_s2d, conv3x3_s2d_plain
+    from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_batch_chunks,
+                                              conv_kernel, rot180_io)
+    from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd
+
+    name = str(dtype)[6:]
+    prefix = "conv3x3_s2d" if s2d else "conv3x3"
+    fn, plain = (conv3x3_s2d, conv3x3_s2d_plain) if s2d else (conv3x3, conv3x3_plain)
+    fwd, dx = (conv3x3_s2d_fwd, conv3x3_s2d_dx) if s2d else (conv3x3_fwd, conv3x3_dx)
+    kernel = conv_kernel(dtype, 2 * C, 2 * Cout) if s2d else conv_kernel(dtype, C, Cout)
+    x = torch.randn((N, H, W, C), generator=gen, device="cuda", dtype=dtype)
+    dy = torch.randn((N, H, W, Cout), generator=gen, device="cuda", dtype=dtype)
+    w = (torch.randn((3, 3, C, Cout), generator=gen, device="cuda") / np.sqrt(9 * C)).to(dtype)
+
+    def drive():
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = fn(xr, wr)
+        return y.detach(), torch.autograd.grad(y, (xr, wr), dy)[0]
+
+    (y, gx), counts = _counted(drive)
+    tag = {"tc": "_tc", "fma": "", "any": "_any"}[kernel]
+    want = {}
+    for kind in ("fwd", "dx"):
+        want[f"{prefix}_{kind}"] = 1
+        if tag:
+            want[f"{prefix}_{kind}{tag}"] = 1
+        if kernel != "tc" and len(conv_batch_chunks(N)) > 1:
+            want[f"{prefix}_{kind}_chunked"] = 1
+    assert {n: c for n, c in counts.items() if n.startswith(prefix)} == want, (
+        f"{prefix} {(N, H, W, C, Cout)} {name}: launches {counts}, want {want}")
+    tol = TOL_CONV_BF16 if dtype == torch.bfloat16 else TOL_F32
+    ref = plain(x.float(), w.float())
+    rel, err = rel_err(y, ref), max_abs(y, ref)
+    del ref
+    ref = plain(dy.float(), rot180_io(w).float())
+    rel_dx, err_dx = rel_err(gx, ref), max_abs(gx, ref)
+    del ref, y, gx
+    assert rel <= tol and rel_dx <= tol, (
+        f"{prefix} {(N, H, W, C, Cout)} {name}: rel err {rel}, dx {rel_dx} > {tol}")
+    nbytes = (N * H * W * (C + Cout) + 9 * C * Cout) * x.element_size()
+    flops = 2 * N * H * W * C * Cout * 9
+    rate_ops, split = (BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, TF32_SPLIT)
+    bound = bound_ms(nbytes, split * flops, rate_ops)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    rows = []
+    for kind, launch, inp, lib in (
+            ("fwd", fwd, x, lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)),
+            ("dx", dx, dy, lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
+                                                              padding=1))):
+        ms = cuda_ms(lambda: launch(inp, w), iters=EDGE_ITERS, warmup=1)
+        plain_ms = cuda_ms(lambda: plain(inp.float(), (rot180_io(w) if kind == "dx" else w)
+                                         .float()), iters=1, warmup=1)
+        lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib)
+        rows.append({
+            "name": f"{prefix}_{kind}_N{N}H{H}W{W}_C{C}_Cout{Cout}_{name}", "route": "cuda",
+            "source": ("sarssl_torch/csrc/conv3x3_mma.cu" if kernel == "tc" else
+                       "sarssl_torch/csrc/conv3x3.cu"),
+            "variant": {"tc": "wgmma", "fma": "fma", "any": "fma_any_channels"}[kernel],
+            "replaces": CONV_REPLACES[prefix],
+            "launches": counts[f"{prefix}_{kind}"],
+            "counters": {n: c for n, c in counts.items() if n.startswith(f"{prefix}_{kind}")},
+            "edge": (f"N = {N} past the grid" if N > 65535 else f"(C, Cout) = {(C, Cout)}"),
+            "max_abs_err": err if kind == "fwd" else err_dx, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+            "path": f"phase edges: {prefix} forward and backward once (launches)"})
+    log(f"[edges] {prefix} {(N, H, W, C)} -> {Cout} {name} ({kernel} kernel): launches "
+        f"{dict(sorted(counts.items()))}; rel err fwd {rel:.2e}, dx {rel_dx:.2e} (tol {tol}); "
+        + ", ".join(f"{r['name'].split('_N')[0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+                    f"cuDNN {r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
+                    for r in rows))
+    del x, dy, w, w_oihw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_edges():
+    """The inputs past one launch's grid or 32-bit offsets (module note,
+    phase 3b); returns the kernels line's rows of the edges."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = []
+    _f32_sums_by_length(gen)
+    for shape in EDGE_BH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows += _attention_edge(shape, dtype, (0.0, RATE), gen, "B * H past 65535")
+    for dtype, shapes in EDGE_BIG_SHAPES.items():
+        for shape in shapes:
+            rows += _attention_edge(shape, dtype, (0.0,), gen, "B * H * L * L past 2**32")
+    _refuses_past_uint32()
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(_dropout_edge(dtype, gen))
+    for shape, dtype in EDGE_LANES:
+        rows.append(_lanes_edge(shape, dtype, gen))
+    N, H, W = EDGE_CONV_SHAPE
+    for C, Cout in EDGE_CONV_CHANNELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows += _conv_edge(N, H, W, C, Cout, dtype, gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += _conv_edge(N, H, W, 256, 256, dtype, gen, s2d=True)
+    for N, H, W, C, Cout in EDGE_CONV_BATCH:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows += _conv_edge(N, H, W, C, Cout, dtype, gen)
+    torch.cuda.empty_cache()
+    log(f"[edges] {len(rows)} rows in {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return rows
+
+
 def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli_counts,
                  opt_counts, dscli_counts, data_counts, real_counts, mo_counts, mo_shapes,
                  grid_counts, abl_counts, mesh_counts, mesh, tiny_counts, d256_counts,
-                 d320_counts):
+                 d320_counts, edges):
     out = []
     for D in HEAD_DIMS:
         r = rows[D]
@@ -1730,6 +2335,8 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
             "launches_model_options": mo_counts.get(name, 0),
             "launches_grid_vmap": grid_counts.get(name, 0),
         })
+    # phase edges: each input past one launch's grid or 32-bit offsets
+    out += edges
     for row in out:  # phase ablations asserts that every count read 0
         row["launches_ablations"] = abl_counts.get(row["name"], 0)
     # phase mesh: the launches of its sharded step and meshed CLI runs, and
@@ -4536,24 +5143,39 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     import sarssl_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    card = phase_card()
-    phase_build()
-    rows, opt_rows, wide, drop, lanes, conv = phase_kernels()
-    tiny_counts, d256_counts, d320_counts = phase_reference()
-    counts, pretrained, step_utt_s = phase_train(card)
-    cli_counts, synthetic_utt_s = phase_pretrain_cli(card, step_utt_s)
-    opt_counts = phase_pretrain_options(card, 1e3 * BATCH / step_utt_s)
-    phase_trained(card)
-    ds_counts = phase_downstream(card, pretrained)
-    phase_downstream_reference()
-    dscli_counts = phase_downstream_cli(card)
-    grid_counts = phase_grid_vmap(card)
-    data_counts = phase_data_path(card, synthetic_utt_s)
-    real_counts = phase_real_data(card, step_utt_s)
-    phase_model_options_reference()
-    mo_counts, mo_shapes = phase_model_options(card)
-    abl_counts = phase_ablations(card)
-    mesh_counts, mesh = phase_mesh(card, 1e3 * BATCH / step_utt_s)
+    spent = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        res = fn(*args)
+        spent[name] = time.perf_counter() - t0
+        return res
+
+    card = timed("card", phase_card)
+    timed("build", phase_build)
+    rows, opt_rows, wide, drop, lanes, conv = timed("kernels", phase_kernels)
+    edges = timed("edges", phase_edges)
+    tiny_counts, d256_counts, d320_counts = timed("ref", phase_reference)
+    counts, pretrained, step_utt_s = timed("train", phase_train, card)
+    cli_counts, synthetic_utt_s = timed("pretrain_cli", phase_pretrain_cli, card, step_utt_s)
+    opt_counts = timed("pretrain_options", phase_pretrain_options, card,
+                       1e3 * BATCH / step_utt_s)
+    timed("trained", phase_trained, card)
+    ds_counts = timed("downstream", phase_downstream, card, pretrained)
+    timed("downstream_ref", phase_downstream_reference)
+    dscli_counts = timed("downstream_cli", phase_downstream_cli, card)
+    grid_counts = timed("grid_vmap", phase_grid_vmap, card)
+    data_counts = timed("data_path", phase_data_path, card, synthetic_utt_s)
+    real_counts = timed("real_data", phase_real_data, card, step_utt_s)
+    timed("model_options_ref", phase_model_options_reference)
+    mo_counts, mo_shapes = timed("model_options", phase_model_options, card)
+    abl_counts = timed("ablations", phase_ablations, card)
+    mesh_counts, mesh = timed("mesh", phase_mesh, card, 1e3 * BATCH / step_utt_s)
+    # where the run's wall time went, for cutting a phase's depth as the
+    # script grows inside its time limit
+    log("[timing] wall s by phase: " + ", ".join(f"{n} {t:.1f}" for n, t in spent.items())
+        + f"; total {sum(spent.values()):.1f}")
     # fused_attention never reaches the FMA kernels: only phase kernels'
     # yardsticks launch them, directly
     for phase, c in (("ref", tiny_counts), ("ref", d256_counts), ("ref", d320_counts),
@@ -4569,7 +5191,7 @@ def main():
     print(json.dumps(kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts,
                                   cli_counts, opt_counts, dscli_counts, data_counts, real_counts,
                                   mo_counts, mo_shapes, grid_counts, abl_counts, mesh_counts,
-                                  mesh, tiny_counts, d256_counts, d320_counts)),
+                                  mesh, tiny_counts, d256_counts, d320_counts, edges)),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,14 @@
 // and a contiguous last dim (the wrapper hands the forward a (B, L, H, D)
 // buffer for out, so the model's transpose back is a view).
 //
+// Any B and H: a grid's y / z dimension holds 65535 blocks, so the wrapper
+// (kernels/attention.py::attention_chunks) covers B * H (b, h) pairs in
+// launches of at most that many, each entry call given its pairs' pointers,
+// its heads' place (h_offset) and a seed shifted past the batches before it;
+// the kernels are the same. Offsets into bias, dbias, pd and the score
+// scratch are 64-bit (i64), so B * H * L * L may pass 2^32 at rate 0; at a
+// rate above 0 the wrapper keeps the uint32 dropout index below it.
+//
 // What bounds it on an H100: operations. f32 attention that keeps f32
 // accuracy needs three TF32 products per product; at B=128, H=4, L=256,
 // D=128 the forward's 17.2 GFLOP are 51.5 GFLOP of TF32 products (104 us at
@@ -1418,8 +1426,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // rows are 16-byte aligned, the general one elsewhere.
 bool exact_tiles(int L, const void* bias) { return L % 64 == 0 && aligned16(bias); }
 
-// qu, k, v (and dqu, dk, dv, dbias, which the wrapper allocates) are read in
-// 16-byte chunks of their rows: their bases must be 16-byte aligned
+// qu, k, v (and dqu, dk, dv, which the wrapper allocates) are read in
+// 16-byte chunks of their rows: their bases must be 16-byte aligned. So must
+// dbias and pd in the EXACT instance; the other stores them value by value
+// or as windows, at any alignment (the wrapper's launches over a run of
+// (b, h) pairs start them at any (b, h))
 bool valid(int L, int H, int h_total, int h_offset, const void* qu, const void* k,
            const void* v) {
   return L >= 1 && h_offset >= 0 && h_offset + H <= h_total && aligned16(qu) && aligned16(k) &&
@@ -1469,11 +1480,11 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
                   void* dbias, const long long* g_strides, const long long* out_strides, int B,
                   int H, int L, int head_dim, float scale, float rate, unsigned int seed,
                   unsigned int thresh, float inv_keep, int h_total, int h_offset, void* stream) {
-  if (!valid(L, H, h_total, h_offset, qu, k, v) || !aligned16(dbias))
+  const bool exact = exact_tiles(L, bias);
+  if (!valid(L, H, h_total, h_offset, qu, k, v) || (exact && !aligned16(dbias)))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
-  const bool exact = exact_tiles(L, bias);
 #define ATTN_BWD(D, E)                                                                      \
   bwd<D, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,          \
             (const float*)g, (const float*)out, (const float*)lse, (float*)delta, (float*)dqu, \
@@ -1526,8 +1537,9 @@ int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void*
                        const long long* out_strides, int B, int H, int L, int head_dim,
                        float scale, float rate, unsigned int seed, unsigned int thresh,
                        float inv_keep, int h_total, int h_offset, void* stream) {
-  if (!valid(L, H, h_total, h_offset, qu, k, v) || !aligned16(dbias) || !aligned16(pd) ||
-      head_dim < 256 || head_dim % WDC != 0)
+  const bool exact = exact_tiles(L, bias);
+  if (!valid(L, H, h_total, h_offset, qu, k, v) ||
+      (exact && !(aligned16(dbias) && aligned16(pd))) || head_dim < 256 || head_dim % WDC != 0)
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
@@ -1536,7 +1548,6 @@ int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void*
                   (const float*)g, (const float*)out, (const float*)lse, (float*)delta,          \
                   (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H, H, L,    \
                   head_dim, scale, drop, gs, os, (cudaStream_t)stream)
-  const bool exact = exact_tiles(L, bias);
   if (head_dim % (2 * WDC) == 0)
     return (int)(exact ? ATTN_BWD_WIDE(2 * WDC, true) : ATTN_BWD_WIDE(2 * WDC, false));
   return (int)(exact ? ATTN_BWD_WIDE(WDC, true) : ATTN_BWD_WIDE(WDC, false));

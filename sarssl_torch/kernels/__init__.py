@@ -4,14 +4,16 @@
                  (tensor cores; bfloat16) and ``csrc/attention_f32_mma.cu``
                  (tensor cores as 3xTF32; float32), head dim 16/32/64/128
                  (the bf16 forward also 256) and a wide instance at every
-                 multiple of 64 from 256 on, any L; every other head dim on
-                 zero-padded inputs; ``csrc/attention.cu`` (f32 FMAs) only
-                 launched directly, as the yardstick
+                 multiple of 64 from 256 on, any L, any B and H; every other
+                 head dim on zero-padded inputs; ``csrc/attention.cu`` (f32
+                 FMAs) only launched directly, as the yardstick
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
-                 torch.func.vmap one seed a lane)
+                 torch.func.vmap one seed a lane), up to 2^32 - 1 elements
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``
                  (tensor cores, ``wgmma``; bfloat16 at (C, Cout) in {64, 128}^2)
-                 and ``csrc/conv3x3.cu`` (f32 FMAs; float32 at the same pairs)
+                 and ``csrc/conv3x3.cu`` (f32 FMAs; float32 at the same pairs,
+                 and every other (C, Cout) in either dtype on a kernel that
+                 takes the channel counts at run time); any N
   conv_s2d.py  : the same conv over the W-space-to-depth view: bfloat16 at
                  C = 64 on the tensor-core kernel, which multiplies only the
                  blocks of the expanded weight that exist (it walks the view's

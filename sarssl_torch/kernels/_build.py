@@ -35,6 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches: collections.Counter = collections.Counter()
 
+# the blocks a launch grid's y or z dimension holds (x: 2**31 - 1); the
+# wrappers cover more (b, h) pairs or images in several launches, and more
+# lanes on both dimensions
+GRID_YZ = 65535
+
 
 def reset_launches() -> None:
     launches.clear()

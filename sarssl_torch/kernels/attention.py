@@ -68,6 +68,23 @@ launches it: :func:`launch_attention_fwd_fma` and
 :func:`launch_attention_bwd_fma` are called directly, as the yardstick the
 tensor-core kernels are timed against.
 
+Every shape the Pallas kernel takes runs (its grid is (B, H), any B and H;
+it hashes no index at rate 0). A grid's y and z dimensions hold at most
+65535 blocks, and B * H is one of them, so the wrapper covers the (b, h)
+pairs in launches of at most that many (:func:`attention_chunks`: whole
+batches of all heads, or where H alone passes it, one batch's heads in
+runs), each with its pointers offset on the host. The kernels need nothing
+else: a run of batches from ``b0`` on hashes the index its probabilities
+have in the whole tensor when its seed is ``seed + b0 * heads_total * L * L``
+(mod 2**32, :func:`_chunk_drop`; the hash reads ``index + seed``), and a run
+of heads from ``h0`` is the index map of a tensor-parallel rank's heads,
+``head_offset + h0``. Offsets into the (B, H, L, L) bias, dbias and pd, and
+into the wide forward's score scratch, are 64-bit in the kernels; in-tile
+offsets stay 32-bit. At a dropout rate above 0 the flat (b, h, i, j) index
+of (B, heads_total, L, L) must fit in uint32, as the JAX unfused path's
+hash takes it from a uint32 iota (``sarssl_tpu/kernels/dropout.py:117``),
+whose mask the kernels reproduce: :func:`attention_refusal` says so.
+
 For a CUDA tensor the wrapper launches the set it names here or raises.
 """
 from __future__ import annotations
@@ -77,7 +94,7 @@ import functools
 
 import torch
 
-from ._build import check_cuda_status, launches, load_library
+from ._build import GRID_YZ, check_cuda_status, launches, load_library
 from .dropout import dropout_plain, keep_threshold
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims up to 256 that others pad to
@@ -90,6 +107,8 @@ INSTANCE_HEAD_DIMS = {("tc", "fwd"): (16, 32, 64, 128, 256), ("tc", "bwd"): (16,
 FMA_HEAD_DIMS = (16, 32, 64, 128)  # the FMA kernels' instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # dynamic shared memory one H100 block may use
+# (b, h, i) rows a launch: the delta kernels index them with int (well under 2**31)
+_ROWS_MAX = 2 ** 30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -104,6 +123,33 @@ def _heads(H: int, heads_total, head_offset: int):
         raise ValueError(f"heads {head_offset}..{head_offset + H} do not lie in "
                          f"{heads_total} heads")
     return heads_total, head_offset
+
+
+def attention_chunks(B: int, H: int, L: int) -> list:
+    """The launches that cover the B * H (batch, head) pairs of a (B, H, L, D)
+    attention, as ``(b0, nb, h0, nh)``: batches ``b0 .. b0 + nb``, heads ``h0
+    .. h0 + nh``. Each holds at most :data:`GRID_YZ` pairs and, so that the
+    delta kernels' int row index holds, at most ``_ROWS_MAX`` rows of L:
+    whole batches of every head where H fits, else one batch's heads in runs.
+    One launch, ``(0, B, 0, H)``, wherever B * H fits (every model path)."""
+    most = max(1, min(GRID_YZ, _ROWS_MAX // max(L, 1)))
+    if H <= most:
+        per = most // H
+        return [(b0, min(per, B - b0), 0, H) for b0 in range(0, B, per)]
+    return [(b, 1, h0, min(most, H - h0)) for b in range(B) for h0 in range(0, H, most)]
+
+
+def attention_refusal(B: int, heads_total: int, L: int, rate: float):
+    """Why the kernels refuse a (B, heads_total, L, L) attention at this
+    dropout rate, or None where they take it: at a rate above 0 the flat (b,
+    h, i, j) index must fit in uint32 (module note); at rate 0 nothing is
+    hashed and every shape runs."""
+    if rate > 0 and B * heads_total * L * L >= 2 ** 32:
+        return (f"at dropout rate {rate} the flat (b, h, i, j) index of (B, heads_total, L, L) "
+                f"= {(B, heads_total, L, L)} must fit in uint32: the mask reproduces JAX's "
+                f"hash over a uint32 iota (sarssl_tpu/kernels/dropout.py:117); rate 0 takes "
+                f"any shape")
+    return None
 
 
 def attention_plain(qu, k, v, bias, seed: int, scale: float, rate: float,
@@ -342,26 +388,38 @@ def attention_bwd_padded(launch, padded, bias, g, lse, *args):
     return dqu, dk, dv, dbias
 
 
-def _check(qu, k, v, bias, heads_total=None):
-    ts = (qu, k, v, bias)
-    if not all(t.is_cuda and t.device == qu.device for t in ts):
-        raise ValueError("fused attention takes CUDA tensors on one device")
-    if qu.dtype not in _DTYPES or any(t.dtype != qu.dtype for t in ts):
-        raise ValueError(f"fused attention takes float32 or bfloat16 tensors of one "
-                         f"dtype, got {[t.dtype for t in ts]}")
+def _check(qu, k, v, bias, heads_total=None, rate=0.0):
+    """Shapes first (on any device: the refusals are a shape's), then the
+    devices, dtypes and layout the kernels take."""
     if qu.ndim != 4 or k.shape != qu.shape or v.shape != qu.shape:
         raise ValueError("qu, k, v must be (B, H, L, D) of one shape")
     B, H, L, D = qu.shape
     if bias.shape != (B, H, L, L):
         raise ValueError(f"bias must be {(B, H, L, L)}, got {tuple(bias.shape)}")
     padded_head_dim(D)
+    heads_total, _ = _heads(H, heads_total, 0)
+    refusal = attention_refusal(B, heads_total, L, rate)
+    if refusal:
+        raise ValueError(refusal)
+    ts = (qu, k, v, bias)
+    if not all(t.is_cuda and t.device == qu.device for t in ts):
+        raise ValueError("fused attention takes CUDA tensors on one device")
+    if qu.dtype not in _DTYPES or any(t.dtype != qu.dtype for t in ts):
+        raise ValueError(f"fused attention takes float32 or bfloat16 tensors of one "
+                         f"dtype, got {[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("fused attention takes contiguous tensors")
+
+
+def _check_fma_grid(qu, heads_total) -> None:
+    """The FMA kernels' own limits: one launch over B * H (a grid dimension)
+    and 32-bit indices of (B, heads_total, L, L) at every rate."""
+    B, H, L, _ = qu.shape
     heads_total, _ = _heads(H, heads_total, 0)
+    if B * H > GRID_YZ:
+        raise ValueError(f"the FMA attention kernels take B * H up to {GRID_YZ}, got {B * H}")
     if B * heads_total * L * L >= 2 ** 32:
-        raise ValueError("the dropout index of (B, heads_total, L, L) must fit in uint32")
-    if B * H > 65535:
-        raise ValueError("B * H must fit the launch grid's second dimension")
+        raise ValueError("the FMA attention kernels index (B, heads_total, L, L) in uint32")
 
 
 def _check_instance(D: int, what: str, dims, wide=False) -> None:
@@ -394,6 +452,21 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _at(t, elems: int) -> int:
+    """The address of element ``elems`` (flat, in t's storage order) of t."""
+    return t.data_ptr() + elems * t.element_size()
+
+
+def _chunk_drop(drop, b0: int, h0: int, L: int):
+    """:func:`_drop_args` of the launch over batches ``b0 ..`` and heads
+    ``h0 ..`` (module note): the heads placed ``h0`` further in
+    ``heads_total``, and the seed shifted past the batches before it, whose
+    indices the hash's ``index + seed`` (mod 2**32) no longer counts."""
+    rate, seed, thresh, inv_keep, heads_total, head_offset = drop
+    return (rate, (seed + b0 * heads_total * L * L) % 2 ** 32, thresh, inv_keep, heads_total,
+            head_offset + h0)
+
+
 def _rows_addressable(t) -> bool:
     """Whether the tensor-core kernels can address a (B, H, L, D) tensor's
     rows through its strides: contiguous, 16-byte aligned rows."""
@@ -413,7 +486,8 @@ def _row_strides(t):
 # ---------------------------------------------------------------------------
 def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: float,
                              heads_total=None, head_offset: int = 0):
-    _check(qu, k, v, bias, heads_total)
+    _check(qu, k, v, bias, heads_total, rate)
+    _check_fma_grid(qu, heads_total)
     lib = _library()
     B, H, L, D = qu.shape
     _check_instance(D, "FMA", FMA_HEAD_DIMS)
@@ -430,7 +504,8 @@ def launch_attention_fwd_fma(qu, k, v, bias, seed: int, scale: float, rate: floa
 
 def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: float,
                              heads_total=None, head_offset: int = 0):
-    _check(qu, k, v, bias, heads_total)
+    _check(qu, k, v, bias, heads_total, rate)
+    _check_fma_grid(qu, heads_total)
     _check_like_qu(g, qu, "g")
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
@@ -456,12 +531,12 @@ def launch_attention_bwd_fma(qu, k, v, bias, g, seed: int, scale: float, rate: f
 # tensor-core kernels (csrc/attention_mma.cu: bf16; csrc/attention_f32_mma.cu:
 # f32 as 3xTF32), one calling convention
 # ---------------------------------------------------------------------------
-def _check_mma(qu, k, v, bias, heads_total, route, kind, wide):
+def _check_mma(qu, k, v, bias, heads_total, rate, route, kind, wide):
     """Checks a launch of pass ``kind`` of ``route``'s kernels; returns
     ``(wide, routed)``: whether the wide instance runs (``wide``, or where
     None the instance :func:`attention_instance` names) and whether the route
     takes the wide instance at this head dim."""
-    _check(qu, k, v, bias, heads_total)
+    _check(qu, k, v, bias, heads_total, rate)
     B, H, L, D = qu.shape
     if attention_route(qu.dtype, L, D) != route:
         want = "bfloat16" if route == "tc" else "float32"
@@ -513,14 +588,17 @@ def _wide_blocks(route: str, exact: bool) -> int:
 def _run_fwd(route, wide, qu, k, v, bias, out, lse, scale, drop, splits):
     """The C entry of ``route``'s forward (``wide``: its wide instance, with
     ``splits`` key splits, None: :func:`wide_key_splits` on this card) on
-    these tensors; ``drop`` is :func:`_drop_args`. Returns the key splits (1
-    off the wide instance)."""
+    these tensors, once for each launch of :func:`attention_chunks`; ``drop``
+    is :func:`_drop_args`. A pass over more than one launch counts as
+    ``attention_fwd_{route}_chunked_d{D}``. Returns the key splits (1 off the
+    wide instance)."""
     prefix, lib = _ENTRIES[route]
     lib = lib()
     B, H, L, D = qu.shape
-    entry, scratch = f"{prefix}_fwd", ()
+    entry, Lp = f"{prefix}_fwd", 0
     if wide:
         nt = -(-L // 64)
+        Lp = 64 * nt
         if splits is None:
             exact = L % 64 == 0 and bias.data_ptr() % 16 == 0  # the C entry's instance
             splits = wide_key_splits(L, B * H, _sm_count(qu.device.index or 0),
@@ -529,36 +607,55 @@ def _run_fwd(route, wide, qu, k, v, bias, out, lse, scale, drop, splits):
             raise ValueError(f"the wide forward splits its {nt} key tiles 1 .. {nt} ways, "
                              f"got {splits}")
         # the scaled scores, (B, H, Lp, Lp) f32, Lp = L padded to whole 64-row
-        # tiles; at S > 1 the splits' partial row max and sum, (2, B*H, S, Lp)
-        scores = torch.empty((B, H, 64 * nt, 64 * nt), dtype=torch.float32, device=qu.device)
-        part = (torch.empty((2, B * H, splits, 64 * nt), dtype=torch.float32, device=qu.device)
-                if splits > 1 else None)
+        # tiles; at S > 1 a launch's splits' partial row max and sum, (2,
+        # B*H, S, Lp) over the launch's pairs
+        scores = torch.empty((B, H, Lp, Lp), dtype=torch.float32, device=qu.device)
         entry += "_wide"
-        scratch = (scores.data_ptr(), None if part is None else part.data_ptr())
-    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                               out.data_ptr(), lse.data_ptr(), *scratch, _row_strides(out), B, H,
-                               L, D, *((splits,) if wide else ()), scale, *drop, _stream(qu))
-    check_cuda_status(lib, code, entry)
+    chunks = attention_chunks(B, H, L)
+    for b0, nb, h0, nh in chunks:
+        bh0 = b0 * H + h0
+        scratch = ()
+        if wide:
+            part = (torch.empty((2, nb * nh, splits, Lp), dtype=torch.float32,
+                                device=qu.device) if splits > 1 else None)
+            scratch = (_at(scores, bh0 * Lp * Lp), None if part is None else part.data_ptr())
+        code = getattr(lib, entry)(
+            _at(qu, bh0 * L * D), _at(k, bh0 * L * D), _at(v, bh0 * L * D),
+            _at(bias, bh0 * L * L), _at(out, b0 * out.stride(0) + h0 * out.stride(1)),
+            _at(lse, bh0 * L), *scratch, _row_strides(out), nb, nh, L, D,
+            *((splits,) if wide else ()), scale, *_chunk_drop(drop, b0, h0, L), _stream(qu))
+        check_cuda_status(lib, code, entry)
+    if len(chunks) > 1:
+        launches[f"attention_fwd_{route}_chunked_d{D}"] += 1
     return splits if wide else 1
 
 
 def _run_bwd(route, wide, qu, k, v, bias, g, out, lse, dqu, dk, dv, dbias, scale, drop):
     """The C entry of ``route``'s backward (``wide``: its wide instance) on
-    these tensors."""
+    these tensors, once for each launch of :func:`attention_chunks` (counted
+    as in :func:`_run_fwd`)."""
     prefix, lib = _ENTRIES[route]
     lib = lib()
     B, H, L, D = qu.shape
     delta = torch.empty_like(lse)
-    entry, scratch = f"{prefix}_bwd", ()
+    entry = f"{prefix}_bwd"
     if wide:  # the dropped probabilities, (B, H, L, L) in the inputs' dtype
         pd = torch.empty_like(bias)
-        entry, scratch = entry + "_wide", (pd.data_ptr(),)
-    code = getattr(lib, entry)(qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                               g.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                               dqu.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-                               *scratch, _row_strides(g), _row_strides(out), B, H, L, D, scale,
-                               *drop, _stream(qu))
-    check_cuda_status(lib, code, entry)
+        entry += "_wide"
+    chunks = attention_chunks(B, H, L)
+    for b0, nb, h0, nh in chunks:
+        bh0 = b0 * H + h0
+        rows, sq = bh0 * L * D, bh0 * L * L
+        code = getattr(lib, entry)(
+            _at(qu, rows), _at(k, rows), _at(v, rows), _at(bias, sq),
+            _at(g, b0 * g.stride(0) + h0 * g.stride(1)),
+            _at(out, b0 * out.stride(0) + h0 * out.stride(1)), _at(lse, bh0 * L),
+            _at(delta, bh0 * L), _at(dqu, rows), _at(dk, rows), _at(dv, rows), _at(dbias, sq),
+            *((_at(pd, sq),) if wide else ()), _row_strides(g), _row_strides(out), nb, nh, L, D,
+            scale, *_chunk_drop(drop, b0, h0, L), _stream(qu))
+        check_cuda_status(lib, code, entry)
+    if len(chunks) > 1:
+        launches[f"attention_bwd_{route}_chunked_d{D}"] += 1
 
 
 def _launch_fwd(route, qu, k, v, bias, seed, scale, rate, heads_total=None, head_offset=0,
@@ -569,7 +666,7 @@ def _launch_fwd(route, qu, k, v, bias, seed, scale, rate, heads_total=None, head
     with more than one split also counts as
     ``attention_fwd_{route}_wide_split_d{D}``."""
     B, H, L, D = qu.shape
-    wide, routed = _check_mma(qu, k, v, bias, heads_total, route, "fwd", wide)
+    wide, routed = _check_mma(qu, k, v, bias, heads_total, rate, route, "fwd", wide)
     out = torch.empty((B, L, H, D), dtype=qu.dtype, device=qu.device).permute(0, 2, 1, 3)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=qu.device)
     splits = _run_fwd(route, wide, qu, k, v, bias, out, lse, scale,
@@ -583,7 +680,7 @@ def _launch_fwd(route, qu, k, v, bias, seed, scale, rate, heads_total=None, head
 def _launch_bwd(route, qu, k, v, bias, g, out, lse, seed, scale, rate, heads_total=None,
                 head_offset=0):
     B, H, L, D = qu.shape
-    wide, routed = _check_mma(qu, k, v, bias, heads_total, route, "bwd", None)
+    wide, routed = _check_mma(qu, k, v, bias, heads_total, rate, route, "bwd", None)
     _check_like_qu(g, qu, "g")
     _check_like_qu(out, qu, "out")
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -647,7 +744,7 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
         ctx.args = (seed, scale, rate, heads_total, head_offset)
-        _check(qu, k, v, bias, heads_total)
+        _check(qu, k, v, bias, heads_total, rate)
         ctx.launch = _TC_LAUNCHES[attention_route(qu.dtype, qu.shape[2], qu.shape[3])]
         out, lse, padded = attention_fwd_padded(ctx.launch[0], qu, k, v, bias, *ctx.args)
         ctx.save_for_backward(*padded, bias, lse)

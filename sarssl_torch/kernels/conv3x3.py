@@ -10,7 +10,7 @@ Replaces ``sarssl_tpu/kernels/conv3x3.py::conv3x3`` (the Pallas kernel
   * dW: a library filter gradient (``torch.nn.grad.conv2d_weight``), as the
     JAX package leaves dW to XLA outside Pallas.
 
-Two kernels, chosen by dtype and channels (:func:`takes_tensor_cores`):
+Three kernels, chosen by dtype and channels (:func:`conv_kernel`):
 
 * ``csrc/conv3x3_mma.cu``: bfloat16 at the channel pairs of ``CHANNELS``. An
   implicit GEMM on the tensor cores (``wgmma``). It multiplies blocks of
@@ -20,6 +20,14 @@ Two kernels, chosen by dtype and channels (:func:`takes_tensor_cores`):
   any table of blocks (the s2d form's is in ``conv_s2d.py``).
 * ``csrc/conv3x3.cu``: float32 at the same pairs, as f32 FMAs. A float32
   product on the tensor cores would be TF32 and miss the 1e-4 tolerance.
+* ``csrc/conv3x3.cu``'s ``conv3x3_any_kernel``: every other (C, Cout), in
+  either dtype, as the Pallas kernel takes any: the same f32 FMA design with
+  the channel counts as runtime arguments.
+
+Any H and W: the FMA kernels' pixel tiles lie on the grid's x dimension.
+Any N: their grid holds 65535 images in its y dimension, so they
+launch runs of at most that many (:func:`conv_batch_chunks`); the
+tensor-core kernel walks its tiles in a loop and takes any N in one launch.
 
 For a CUDA tensor the wrapper launches the kernel it names here or raises.
 The kernels are on no model path: the port's ``CNNFrontEnd`` keeps
@@ -33,7 +41,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import check_cuda_status, launches, load_library
+from ._build import GRID_YZ, check_cuda_status, launches, load_library
 
 # (C, Cout) pairs both kernels are instantiated for
 CHANNELS = ((64, 64), (128, 128), (64, 128), (128, 64))
@@ -74,8 +82,27 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Ten
 def takes_tensor_cores(dtype: torch.dtype, C: int, Cout: int) -> bool:
     """Whether the conv wrappers run ``conv3x3_mma.cu`` for CUDA tensors of
     this dtype and these channels. float32 at the same pairs runs
-    ``conv3x3.cu``; the wrappers raise on anything else."""
+    ``conv3x3.cu``'s instances, everything else its runtime-channel kernel
+    (:func:`conv_kernel`)."""
     return dtype == torch.bfloat16 and (C, Cout) in CHANNELS
+
+
+def conv_kernel(dtype: torch.dtype, C: int, Cout: int) -> str:
+    """The kernel the conv wrappers run for CUDA tensors of this dtype and
+    these channels: ``"tc"`` (``conv3x3_mma.cu``), ``"fma"`` (``conv3x3.cu``'s
+    instances, float32 at ``CHANNELS``) or ``"any"`` (its runtime-channel
+    kernel)."""
+    if takes_tensor_cores(dtype, C, Cout):
+        return "tc"
+    if (C, Cout) in CHANNELS:
+        return "fma"
+    return "any"
+
+
+def conv_batch_chunks(N: int) -> list:
+    """``(n0, nn)`` launches of an FMA conv kernel that cover N images: at
+    most :data:`GRID_YZ` a launch (the grid's y dimension)."""
+    return [(n0, min(GRID_YZ, N - n0)) for n0 in range(0, N, GRID_YZ)]
 
 
 def dense_slots(kh: int) -> list:
@@ -130,6 +157,8 @@ def _library():
     lib = load_library("conv3x3")
     lib.conv3x3.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.conv3x3.restype = _I
+    lib.conv3x3_any.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.conv3x3_any.restype = _I
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
@@ -161,30 +190,56 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
     if x.ndim != 4 or w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
         raise ValueError(f"{name}: x must be (N, H, W, C) and w (3, 3, C, Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if (x.shape[3], w.shape[3]) not in CHANNELS:
-        raise ValueError(f"{name}: (C, Cout) = {(x.shape[3], w.shape[3])} has no kernel "
-                         f"instance; the kernels take {CHANNELS}")
+    if min(x.shape) == 0 or w.shape[3] == 0:
+        raise ValueError(f"{name}: N, H, W, C and Cout must be positive, got "
+                         f"{tuple(x.shape)} -> {w.shape[3]}")
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous x")
-    if not 0 < x.shape[0] <= 65535 or x.shape[1] == 0 or x.shape[2] == 0:
-        raise ValueError(f"{name}: N must be in 1..65535 and H, W positive")
 
 
-def launch_conv3x3_fma(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
-    """Run the FMA kernel (``conv3x3.cu``) on CUDA tensors, ``x`` (N, H, W, C)
-    contiguous and ``w`` (3, 3, C, Cout), cast to ``x``'s dtype; count one
-    launch of ``name``. It takes bfloat16 too: the tensor-core kernel is timed
-    against it."""
-    _check(x, w, name)
+def _launch_fma(entry: str, x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """The C entry ``entry`` of ``conv3x3.cu`` on ``x`` (N, H, W, C) and ``w``
+    (3, 3, C, Cout) cast to ``x``'s dtype, once for each run of
+    :func:`conv_batch_chunks`; counts a pass over more than one launch as
+    ``name + "_chunked"``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
     lib = _library()
     wk = w.to(x.dtype).contiguous()
     y = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
-    code = lib.conv3x3(_DTYPES[x.dtype], x.data_ptr(), wk.data_ptr(), y.data_ptr(), N, H, W,
-                       C, Cout, torch.cuda.current_stream(x.device).cuda_stream)
-    check_cuda_status(lib, code, name)
+    chunks = conv_batch_chunks(N)
+    for n0, nn in chunks:
+        code = getattr(lib, entry)(_DTYPES[x.dtype], x[n0].data_ptr(), wk.data_ptr(),
+                                   y[n0].data_ptr(), nn, H, W, C, Cout,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+        check_cuda_status(lib, code, name)
+    if len(chunks) > 1:
+        launches[name + "_chunked"] += 1
+    return y
+
+
+def launch_conv3x3_fma(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """Run the FMA kernel (``conv3x3.cu``'s instances, (C, Cout) in
+    ``CHANNELS``) on CUDA tensors, ``x`` (N, H, W, C) contiguous and ``w``
+    (3, 3, C, Cout), cast to ``x``'s dtype; count one launch of ``name``. It
+    takes bfloat16 too: the tensor-core kernel is timed against it."""
+    _check(x, w, name)
+    if (x.shape[3], w.shape[3]) not in CHANNELS:
+        raise ValueError(f"{name}: the FMA kernel's instances take (C, Cout) in {CHANNELS}, "
+                         f"got {(x.shape[3], w.shape[3])}")
+    y = _launch_fma("conv3x3", x, w, name)
     launches[name] += 1
+    return y
+
+
+def launch_conv3x3_any(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """Run ``conv3x3.cu``'s runtime-channel kernel on CUDA tensors, ``x`` (N,
+    H, W, C) contiguous and ``w`` (3, 3, C, Cout) at any C, Cout, cast to
+    ``x``'s dtype; count one launch of ``name`` and one of ``name + "_any"``."""
+    _check(x, w, name)
+    y = _launch_fma("conv3x3_any", x, w, name)
+    launches[name] += 1
+    launches[name + "_any"] += 1
     return y
 
 
@@ -216,13 +271,16 @@ def launch_conv3x3_mma(x: torch.Tensor, packed: torch.Tensor, name: str) -> torc
 
 
 def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
-    """Run the kernel that :func:`takes_tensor_cores` names on CUDA tensors,
-    ``x`` (N, H, W, C) contiguous and ``w`` (3, 3, C, Cout), cast to ``x``'s
+    """Run the kernel that :func:`conv_kernel` names on CUDA tensors, ``x``
+    (N, H, W, C) contiguous and ``w`` (3, 3, C, Cout), cast to ``x``'s
     dtype."""
     _check(x, w, name)
-    if takes_tensor_cores(x.dtype, x.shape[3], w.shape[3]):
+    kernel = conv_kernel(x.dtype, x.shape[3], w.shape[3])
+    if kernel == "tc":
         return launch_conv3x3_mma(x, pack_weights(w.to(x.dtype)), name)
-    return launch_conv3x3_fma(x, w, name)
+    if kernel == "fma":
+        return launch_conv3x3_fma(x, w, name)
+    return launch_conv3x3_any(x, w, name)
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ are the three blocks ``w[dh, dw]``, each used by both output parities.
     2p + q - 1 .. 2p + q + 1 of the view's row, whatever q. Chunk for chunk
     that is the 64-channel conv over the same memory, so the launch is the
     kernel's C = 64 instance walking the view's chunks;
-  * anything else the conv kernels take (float32; bfloat16 at C = 32): the
-    dense kernel on the view with the expanded weights;
+  * anything else (float32; bfloat16 at C != 64): ``conv3x3``'s routing on
+    the view at 2C channels with the expanded weights (C = 32: the 64-channel
+    instances; any other C the runtime-channel kernel, ``conv3x3.conv_kernel``);
   * dx: the same on dy's view with ``rot180_io(w)``;
   * dW: the library filter gradient on the original layout, as in JAX.
 

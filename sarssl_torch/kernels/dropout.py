@@ -17,11 +17,22 @@ which is all a bandwidth-bound pass needs.
 Under ``torch.func.vmap`` (the vmapped downstream grid, ``train/grid.py``)
 every lane has its own seed: ``launch_dropout_lanes`` hashes each lane's
 flat index with that lane's seed, as ``jax.vmap`` of ``fused_dropout`` does.
-Its grid is (blocks of a lane, lanes), so the seed is one load a program and
-no element divides by the lane size; the lanes' base offsets are int64.
+Its grid is (blocks of a lane, lanes of a run, runs of lanes): a grid's
+second and third dimensions hold 65535 blocks each, so one launch takes up
+to 65535**2 lanes, in runs of equal length; the seed is one load a program
+and no element divides by the lane size.
+
 ``_HashDropout`` (one int seed) carries a ``vmap`` rule that hands the lanes
 to ``_HashDropoutLanes``, whose backward is the same lane-seeded kernel.
 Launches count as ``hash_dropout`` and ``hash_dropout_lanes``.
+
+Any tensor the JAX hash takes runs: fewer than 2**32 elements (a lane of
+fewer than 2**32 under vmap), since JAX indexes with a uint32 iota
+(``sarssl_tpu/kernels/dropout.py:117``) and the hash reads the index's 32
+bits. Each program forms its block's first offset in int64 for the
+addresses and in uint32 for the hash, and its elements' offsets from it in
+32 bits, so all hash and index arithmetic stays 32-bit.
+:func:`dropout_refusal` says what is refused.
 
 A shard of a tensor (``parallel/``: a tensor-parallel rank's heads or
 feed-forward units) hashes the flat index its elements have in the whole
@@ -40,7 +51,7 @@ import functools
 
 import torch
 
-from ._build import import_triton, launches
+from ._build import GRID_YZ, import_triton, launches
 
 _M32 = 0xFFFFFFFF
 _C1 = 0x7FEB352D
@@ -56,6 +67,28 @@ def keep_threshold(rate: float) -> int:
 def keep_scale(rate: float, dtype: torch.dtype) -> float:
     """``1/(1-rate)`` rounded to ``dtype``, as ``jnp.asarray(.., x.dtype)``."""
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+
+
+def dropout_refusal(n: int):
+    """Why the kernels refuse ``n`` elements (a tensor, or a lane), or None:
+    the hash takes a uint32 index, as JAX's uint32 iota gives it."""
+    if n >= 2 ** 32:
+        return (f"{n} elements: the dropout hash indexes elements with a uint32, as JAX's "
+                f"fused_dropout does (a uint32 iota, sarssl_tpu/kernels/dropout.py:117)")
+    return None
+
+
+def lanes_grid(lane_numel: int, nlane: int) -> tuple:
+    """The lane-seeded kernel's grid over ``nlane`` lanes of ``lane_numel``
+    elements: (blocks of a lane, lanes of a run, runs of lanes), the program
+    at ``(i, y, z)`` taking block i of lane ``z * grid[1] + y`` (none past
+    the last lane). A grid's second and third dimensions hold ``GRID_YZ``
+    blocks each; the runs are of equal length, so fewer than one run of
+    programs go idle."""
+    if nlane > GRID_YZ ** 2:
+        raise ValueError(f"the lane-seeded dropout takes up to {GRID_YZ}**2 lanes, got {nlane}")
+    runs = -(-nlane // GRID_YZ)
+    return -(-lane_numel // _BLOCK), -(-nlane // runs), runs
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -109,28 +142,41 @@ def dropout_plain(x: torch.Tensor, seed, rate: float, index_map=None) -> torch.T
 def _triton_kernel():
     triton, tl = import_triton()
 
-    @triton.jit
+    # row_local never a constant (Triton makes an int argument of 1 one),
+    # so that it casts to uint32
+    @triton.jit(do_not_specialize=["row_local"])
     def hash_dropout_kernel(x_ptr, out_ptr, n, seed_bits, thresh_bits, scale, row_local,
                             row_total_bits, col_offset_bits, BLOCK: tl.constexpr,
                             MAPPED: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        inb = offs < n
-        x = tl.load(x_ptr + offs, mask=inb, other=0.0)
+        # the block's first element in int64 for the addresses (n may pass
+        # 2**31) and in uint32 for the hash (n < 2**32), its elements'
+        # offsets k from it in int32
+        base = tl.program_id(0).to(tl.int64) * BLOCK
+        b32 = base.to(tl.uint32)
+        k = tl.arange(0, BLOCK)
+        inb = k < tl.minimum(n - base, BLOCK).to(tl.int32)
+        x = tl.load(x_ptr + base + k, mask=inb, other=0.0)
         seed = seed_bits.to(tl.uint32, bitcast=True)
         thresh = thresh_bits.to(tl.uint32, bitcast=True)
         if MAPPED:
-            # a shard's element: its flat index in the whole tensor, mod 2**32
-            row = offs // row_local
-            h = (row.to(tl.uint32) * row_total_bits.to(tl.uint32, bitcast=True)
-                 + col_offset_bits.to(tl.uint32, bitcast=True)
-                 + (offs - row * row_local).to(tl.uint32) + seed)
+            # a shard's element: its flat index in the whole tensor, mod
+            # 2**32, all in uint32: the block's first row and column, then
+            # each element's. The column plus k stays below 2**32, as a row
+            # of more than 2**32 - BLOCK elements is the whole tensor, whose
+            # offsets are below n
+            rl = row_local.to(tl.uint32)
+            row0 = b32 // rl
+            t = (b32 - row0 * rl) + k.to(tl.uint32)
+            dr = t // rl
+            h = ((row0 + dr) * row_total_bits.to(tl.uint32, bitcast=True)
+                 + col_offset_bits.to(tl.uint32, bitcast=True) + (t - dr * rl) + seed)
         else:
-            h = offs.to(tl.uint32) + seed
+            h = b32 + k.to(tl.uint32) + seed
         h = (h ^ (h >> 16)) * tl.full((BLOCK,), 0x7FEB352D, tl.uint32)
         h = (h ^ (h >> 15)) * tl.full((BLOCK,), 0x846CA68B, tl.uint32)
         h = h ^ (h >> 16)
         y = tl.where(h >= thresh, x.to(tl.float32) * scale, 0.0)
-        tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=inb)
+        tl.store(out_ptr + base + k, y.to(out_ptr.dtype.element_ty), mask=inb)
 
     return triton, hash_dropout_kernel
 
@@ -140,26 +186,27 @@ def _triton_lanes_kernel():
     triton, tl = import_triton()
 
     @triton.jit
-    def hash_dropout_lanes_kernel(x_ptr, out_ptr, seed_ptr, lane_numel, thresh_bits, scale,
-                                  BLOCK: tl.constexpr):
-        # grid (blocks of a lane, lanes): lane = flat // lane_numel is the
-        # program's second index and flat % lane_numel its offset j, so no
-        # element divides; the lane's base offset is int64, as N * lane_numel
-        # may pass 2**31
-        lane = tl.program_id(1)
-        j = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        inb = j < lane_numel
-        base = lane.to(tl.int64) * lane_numel
-        x = tl.load(x_ptr + base + j, mask=inb, other=0.0)
+    def hash_dropout_lanes_kernel(x_ptr, out_ptr, seed_ptr, nlane, lanes_y, lane_numel,
+                                  thresh_bits, scale, BLOCK: tl.constexpr):
+        # grid (blocks of a lane, lanes_y lanes of a run, runs): the lane is
+        # the program's second and third index, so no element divides; the
+        # block's first offset j0 in its lane, and the lane's base, in int64
+        # (N * lane_numel and lane_numel may pass 2**31), k from it in int32
+        lane = tl.program_id(2).to(tl.int64) * lanes_y + tl.program_id(1)
+        j0 = tl.program_id(0).to(tl.int64) * BLOCK
+        k = tl.arange(0, BLOCK)
+        inb = (k < tl.minimum(lane_numel - j0, BLOCK).to(tl.int32)) & (lane < nlane)
+        base = lane * lane_numel + j0
+        x = tl.load(x_ptr + base + k, mask=inb, other=0.0)
         # the lane's seed: the low 32 bits of its int64 entry, on the device
-        seed = tl.load(seed_ptr + lane).to(tl.uint32)
+        seed = tl.load(seed_ptr + tl.minimum(lane, nlane - 1)).to(tl.uint32)
         thresh = thresh_bits.to(tl.uint32, bitcast=True)
-        h = j.to(tl.uint32) + seed
+        h = j0.to(tl.uint32) + k.to(tl.uint32) + seed
         h = (h ^ (h >> 16)) * tl.full((BLOCK,), 0x7FEB352D, tl.uint32)
         h = (h ^ (h >> 15)) * tl.full((BLOCK,), 0x846CA68B, tl.uint32)
         h = h ^ (h >> 16)
         y = tl.where(h >= thresh, x.to(tl.float32) * scale, 0.0)
-        tl.store(out_ptr + base + j, y.to(out_ptr.dtype.element_ty), mask=inb)
+        tl.store(out_ptr + base + k, y.to(out_ptr.dtype.element_ty), mask=inb)
 
     return triton, hash_dropout_lanes_kernel
 
@@ -181,10 +228,11 @@ def _check_input(x: torch.Tensor, what: str) -> None:
 def launch_dropout(x: torch.Tensor, seed: int, rate: float, index_map=None) -> torch.Tensor:
     """Launch the Triton kernel on a contiguous CUDA tensor; ``index_map`` as
     in :func:`hash_keep_mask`."""
-    _check_input(x, "launch_dropout")
     n = x.numel()
-    if n >= 2 ** 31:
-        raise ValueError("launch_dropout indexes elements with int32")
+    refusal = dropout_refusal(n)
+    if refusal:
+        raise ValueError(f"launch_dropout: {refusal}")
+    _check_input(x, "launch_dropout")
     if not 0 <= seed < 2 ** 32:
         raise ValueError("seed must be a uint32")
     if index_map is not None:
@@ -212,7 +260,6 @@ def launch_dropout_lanes(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> t
     computes it. ``seeds``: ``(N,)`` integers whose low 32 bits are the
     lanes' uint32 seeds (int64 in ``[0, 2**32)``, or their int32 / uint32
     bits), read on the device."""
-    _check_input(x, "launch_dropout_lanes")
     if x.ndim < 1 or seeds.shape != (x.shape[0],):
         raise ValueError(f"seeds {tuple(seeds.shape)} must hold one seed a lane of "
                          f"{tuple(x.shape)}")
@@ -220,18 +267,18 @@ def launch_dropout_lanes(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> t
         raise ValueError(f"seeds must be integers, not {seeds.dtype}")
     nlane = x.shape[0]
     lane_numel = x[0].numel() if nlane else 0
-    if lane_numel >= 2 ** 31:
-        raise ValueError("launch_dropout_lanes indexes a lane's elements with int32")
-    if nlane >= 2 ** 16:
-        raise ValueError("launch_dropout_lanes takes fewer than 65536 lanes")
+    refusal = dropout_refusal(lane_numel)
+    if refusal:
+        raise ValueError(f"launch_dropout_lanes: a lane of {refusal}")
+    _check_input(x, "launch_dropout_lanes")
     out = torch.empty_like(x)
     if nlane == 0 or lane_numel == 0:
         return out
     seeds = seeds.to(device=x.device, dtype=torch.int64).contiguous()
-    triton, kernel = _triton_lanes_kernel()
-    grid = (triton.cdiv(lane_numel, _BLOCK), nlane)
+    _, kernel = _triton_lanes_kernel()
+    grid = lanes_grid(lane_numel, nlane)
     with torch.cuda.device(x.device):
-        kernel[grid](x, out, seeds, lane_numel, _as_int32(keep_threshold(rate)),
+        kernel[grid](x, out, seeds, nlane, grid[1], lane_numel, _as_int32(keep_threshold(rate)),
                      keep_scale(rate, x.dtype), BLOCK=_BLOCK, num_warps=8)
     launches["hash_dropout_lanes"] += 1
     return out

@@ -554,19 +554,176 @@ def test_conv_tensor_core_kernel_at_front_end_shape_is_bit_identical_from_run_to
 
 
 def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    """What no kernel takes still raises. Channel pairs without an instance
+    (once refused) run the runtime-channel kernel: held here against the
+    plain version with their launches counted."""
     x = torch.randn(2, 8, 16, 64, device="cuda")
     w = torch.randn(3, 3, 64, 64, device="cuda")
     with pytest.raises(ValueError, match="even width"):
         conv3x3_s2d(torch.randn(2, 8, 15, 64, device="cuda"), w)
-    with pytest.raises(ValueError, match="no kernel instance"):
-        conv3x3(torch.randn(2, 8, 16, 32, device="cuda"), torch.randn(3, 3, 32, 32, device="cuda"))
-    with pytest.raises(ValueError, match="no kernel instance"):
-        conv3x3_s2d(torch.randn(2, 8, 16, 128, device="cuda"),
-                    torch.randn(3, 3, 128, 128, device="cuda"))
+    for fn, plain, C, name in ((conv3x3, conv3x3_plain, 32, "conv3x3_fwd"),
+                               (conv3x3_s2d, conv3x3_s2d_plain, 128, "conv3x3_s2d_fwd")):
+        xc = torch.randn(2, 8, 16, C, device="cuda", dtype=torch.bfloat16)
+        wc = (0.1 * torch.randn(3, 3, C, C, device="cuda")).to(torch.bfloat16)
+        before = launches[name + "_any"]
+        assert _rel(fn(xc, wc), plain(xc.float(), wc.float())) <= TOL[torch.bfloat16], name
+        assert launches[name + "_any"] == before + 1, name
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         conv3x3(x.half(), w.half())
+
+
+# --- the inputs past one launch's grid or 32-bit offsets (chip_smoke.py
+# phase edges holds them at larger shapes and times them) ---
+
+@pytest.mark.parametrize("D", [16, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_past_65535_pairs_matches_plain(cuda, D, dtype, rate):
+    """B * H = 65600: two launches a pass (counted as chunked), at L = 17,
+    whose second launch starts dbias at no 16-byte boundary (the instance
+    for any L stores it value by value or as windows)."""
+    route = attention_route(dtype, 17, D)
+    names = [f"attention_{kind}_{route}_chunked_d{D}" for kind in ("fwd", "bwd")]
+    before = [launches[n] for n in names]
+    _attention_case(cuda, (16400, 4, 17, D), dtype, rate)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1]
+
+
+def _blocked_rows(qu, k, v, bias, g, out, grads, scale, rows=4096):
+    """The plain version at rate 0 per (b, h) and block of query rows of an
+    attention too large for it in one piece; the largest error of out, dqu,
+    dk, dv, dbias relative to max |plain|."""
+    B, H, L, _ = qu.shape
+    diff, peak = [0.0] * 5, [0.0] * 5
+
+    def add(i, a, b):
+        a, b = a.detach().float(), b.detach()
+        diff[i] = max(diff[i], float((a - b).abs().max()))
+        peak[i] = max(peak[i], float(b.abs().max()))
+
+    for b in range(B):
+        for h in range(H):
+            kf, vf = (t[b, h].float().requires_grad_() for t in (k, v))
+            dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+            for r0 in range(0, L, rows):
+                sl = (b, h, slice(r0, r0 + rows))
+                qb, bb = (t[sl].float().requires_grad_() for t in (qu, bias))
+                ob = torch.softmax((qb @ kf.T + bb) * scale, dim=-1) @ vf
+                gq, gk, gv, gb = torch.autograd.grad(ob, (qb, kf, vf, bb), g[sl].float())
+                add(0, out[sl], ob)
+                add(1, grads[0][sl], gq)
+                add(4, grads[3][sl], gb)
+                dk += gk
+                dv += gv
+            add(2, grads[1][b, h], dk)
+            add(3, grads[2][b, h], dv)
+    return [d / p for d, p in zip(diff, peak)]
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((1, 1, 65600, 16), torch.bfloat16),
+    ((1, 256, 4100, 16), torch.float32),
+    # fails on the card: past L ~ 10**4 the 3xTF32 sums miss the f32
+    # tolerance (5.3e-4 against float64 at L = 65600; ROADMAP.md §3)
+    ((1, 1, 65600, 16), torch.float32)])
+def test_attention_past_2_32_scores_at_rate_0_matches_plain(cuda, shape, dtype):
+    """B * H * L * L past 2**32 (bias, dbias offsets past 32 bits), forward
+    and backward at rate 0 against the plain version in blocks of rows; at
+    rate 0.1 the shape is refused (uint32 dropout index)."""
+    B, H, L, _ = shape
+    qu, k, v, g = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(4))
+    bias = torch.randn((B, H, L, L), generator=cuda, device="cuda", dtype=dtype)
+    xs = [t.requires_grad_() for t in (qu, k, v, bias)]
+    out = fused_attention(*xs, 0, 0.25, 0.0)
+    grads = torch.autograd.grad(out, xs, g)
+    errs = _blocked_rows(qu.detach(), k.detach(), v.detach(), bias.detach(), g, out.detach(),
+                         grads, 0.25)
+    for name, e in zip(("out", "dqu", "dk", "dv", "dbias"), errs):
+        assert e <= TOL[dtype], name
+    with pytest.raises(ValueError, match="uint32"):
+        fused_attention(qu.detach(), k.detach(), v.detach(), bias.detach(), 0, 0.25, 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_past_2_31_elements_equals_plain(cuda, dtype):
+    """n = 2**31 + 2**20: one launch (counted), every element against the
+    plain version in slices placed by its index map, bit for bit."""
+    n, step = 2 ** 31 + 2 ** 20, 2 ** 27
+    x = torch.randn((n,), generator=cuda, device="cuda", dtype=dtype)
+    before = launches["hash_dropout"]
+    out = launch_dropout(x, 0x9E3779B9, 0.1)
+    assert launches["hash_dropout"] == before + 1
+    for a in range(0, n, step):
+        m = min(step, n - a)
+        assert torch.equal(out[a:a + m], dropout_plain(x[a:a + m], 0x9E3779B9, 0.1,
+                                                       (m, a + m, a))), a
+
+
+@pytest.mark.parametrize("shape, dtype", [((65600, 64), torch.float32),
+                                          ((2, 2 ** 31 + 64), torch.bfloat16)])
+def test_lane_seeded_dropout_past_its_grid_equals_plain(cuda, shape, dtype):
+    """65600 lanes (two runs of lanes on the grid) and lanes past 2**31
+    elements, each in one launch: each lane's elements against the plain
+    version with its seed, bit for bit."""
+    from torch.func import vmap
+
+    x = torch.randn(shape, generator=cuda, device="cuda", dtype=dtype)
+    seeds = torch.randint(0, 2 ** 32, (shape[0],), generator=cuda, device="cuda")
+    before = launches["hash_dropout_lanes"]
+    out = launch_dropout_lanes(x, seeds, 0.1)
+    assert launches["hash_dropout_lanes"] == before + 1
+    if shape[0] > 65535:
+        assert torch.equal(out, vmap(dropout_plain, in_dims=(0, 0, None))(x, seeds, 0.1))
+        return
+    step = 2 ** 27
+    for lane in range(shape[0]):
+        for a in range(0, shape[1], step):
+            m = min(step, shape[1] - a)
+            ref = dropout_plain(x[lane, a:a + m], int(seeds[lane]), 0.1, (m, a + m, a))
+            assert torch.equal(out[lane, a:a + m], ref), (lane, a)
+
+
+@pytest.mark.parametrize("channels", [(3, 64), (64, 48), (96, 160), (256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
+    """The runtime-channel kernel, forward and dx (counted as ``_any``),
+    through autograd against the plain version; at C == Cout the s2d form
+    too, on the 2C-channel view."""
+    C, Cout = channels
+    x = torch.randn((2, 19, 38, C), generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
+    dy = torch.randn((2, 19, 38, Cout), generator=cuda, device="cuda").to(dtype)
+    forms = [(conv3x3, conv3x3_plain, "conv3x3")]
+    if C == Cout:
+        forms.append((conv3x3_s2d, conv3x3_s2d_plain, "conv3x3_s2d"))
+    for fn, plain, name in forms:
+        names = (f"{name}_fwd_any", f"{name}_dx_any")
+        before = [launches[n] for n in names]
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xr, wr)
+        gx, gw = torch.autograd.grad(y, (xr, wr), dy)
+        assert [launches[n] - b for n, b in zip(names, before)] == [1, 1], name
+        xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+        ref = plain(xf, wf)
+        gx_ref, gw_ref = torch.autograd.grad(ref, (xf, wf), dy.float())
+        assert _rel(y, ref) <= TOL[dtype] and _rel(gx, gx_ref) <= TOL[dtype], name
+        assert _rel(gw, gw_ref) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("C", [64, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_past_65535_images_matches_plain(cuda, C, dtype):
+    """N = 65600: the FMA kernels launch two runs of images (counted as
+    chunked); the tensor-core kernel (bf16, C = 64) walks them in one."""
+    x = torch.randn((65600, 2, 4, C), generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
+    before = launches["conv3x3_fwd_chunked"]
+    y = conv3x3_fwd(x, w)
+    tc = dtype == torch.bfloat16 and C == 64
+    assert launches["conv3x3_fwd_chunked"] == before + (0 if tc else 1)
+    assert _rel(y, conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
 
 
 def test_downstream_step_on_card_matches_cpu(cuda):
