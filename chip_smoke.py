@@ -79,18 +79,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
               23200, 64) and (1, 1, 65600, 320) (wide), in f32 at (1, 256,
               4100, 16), (2, 128, 4100, 64) and (1, 256, 4100, 320) (every
               row against the plain version in blocks of 2048 query rows);
-              the f32 forward's error against float64 at L = 4096, 16384
-              and 65600, held to TOL_F32 at 4096 only (past L ~ 10**4 the
-              3xTF32 sums miss it: logged, ROADMAP.md §3); the refusal at
-              rate 0.1 past 2**32. hash_dropout at 2**31 + 2**24 elements in
-              both dtypes, forward and gradient, and the lane-seeded launch
-              under vmap at (2, 2**31 + 4096) bf16 and (65600, 64) f32 (one
-              launch over two runs of lanes), every element against the
-              plain version, bit for bit. conv3x3 forward and
-              backward at (C, Cout) = (3, 64), (64, 48), (96, 160) and (256,
-              256) (the kernel that takes the channel counts at run time)
-              and conv3x3_s2d at C = 256, in both dtypes at (16, 64, 64), and
-              at N = 65600 with (H, W) = (4, 8), C = 64 and 3.
+              the f32 route's out, dqu, dk and dv against float64 at (1,
+              1, L, 16), L = 4096, 16384 and 65600, each held to TOL_F32
+              (past L = 1024 the kernels take partial sums over L); the
+              refusal at rate 0.1 past 2**32. hash_dropout at 2**31 + 2**24
+              elements in both dtypes, forward and gradient, and the
+              lane-seeded launch under vmap at (2, 2**31 + 4096) bf16 and
+              (65600, 64) f32 (lanes shorter than a block: the short-lane
+              kernel over the flat tensor), every element against the plain
+              version, bit for bit. conv3x3 forward and backward at (C,
+              Cout) = (3, 64), (64, 48), (96, 160) and (256, 256) (the
+              kernels that take the channel counts at run time: bf16 on the
+              tensor cores, conv3x3_any_mma.cu, timed beside the f32-FMA
+              runtime-channel kernel launched directly; f32 on that one) and
+              conv3x3_s2d at C = 256, in both dtypes at (16, 64, 64), bf16
+              also at (2, 19, 38), and at N = 65600 with (H, W) = (4, 8), C =
+              64 and 3.
   4. ref    : small pretext models on the card (kernels) against the same
               models on the CPU (plain versions), f32, dropout on, same seeds:
               one at head dims 32 and 16, SARSSLConfig.tiny(
@@ -622,7 +626,8 @@ def phase_card():
     return smi.splitlines()[0]
 
 
-TENSOR_CORE_SOURCES = ("attention_mma", "attention_f32_mma", "conv3x3_mma")
+TENSOR_CORE_SOURCES = ("attention_mma", "attention_f32_mma", "attention_f32_mma_psum",
+                       "conv3x3_mma", "conv3x3_any_mma")
 
 
 def phase_build():
@@ -655,7 +660,7 @@ def phase_build():
 def _tensor_core_kernel(source, line):
     """(label, threads a block, dynamic shared memory) of the kernel that a
     ptxas 'Compiling entry function' line names, or None."""
-    if source in ("attention_mma", "attention_f32_mma"):
+    if source in ("attention_mma", "attention_f32_mma", "attention_f32_mma_psum"):
         from sarssl_torch.kernels.attention import mma_smem_bytes, tf32_smem_bytes
 
         threads = {"attn_fwd_mma": 128, "attn_bwd_mma": 128, "attn_dqu_mma": 128,
@@ -664,16 +669,29 @@ def _tensor_core_kernel(source, line):
                    "attn_delta_wide": 256, "attn_delta_wide_f32": 256}
         # each kernel's instance for whole tiles (exact = 1) and for any L; the
         # wide instance's kernels are templated on their column width (the
-        # streamed chunk's or the output's) and the products on A x / A^T x
-        entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)ELb([01])E"
-                          r"(?:Lb([01])E)?", line)
+        # streamed chunk's or the output's) and the products on A x / A^T x;
+        # the f32 ones that sum over L also on partial sums past a length
+        entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)E"
+                          r"((?:Lb[01]E)+)", line)
         if entry:
-            name, D, exact = entry.group(1), int(entry.group(2)), entry.group(3) == "1"
+            name, D = entry.group(1), int(entry.group(2))
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", entry.group(3))]
+            exact = flags[0]
             smem = (mma_smem_bytes(name, D, exact) if source == "attention_mma"
                     else tf32_smem_bytes(name, D))
-            trans = {None: "", "0": ", A x", "1": ", A^T x"}[entry.group(4)]
-            return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}>",
+            trans = (", A^T x" if flags[1] else ", A x") if "prod" in name else ""
+            psum = ", partial sums" if source.startswith("attention_f32") and flags[-1] and len(
+                flags) == (3 if "prod" in name else 2) else ""
+            return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}{psum}>",
                     threads.get(name, 128), smem)
+    elif source == "conv3x3_any_mma":
+        from sarssl_torch.kernels.conv3x3 import any_mma_smem_bytes
+
+        entry = re.search(r"Compiling entry function '.*?conv3x3_any_mma_kernel"
+                          r"ILi(\d+)ELi(\d+)E", line)
+        if entry:
+            nb, kt = (int(g) for g in entry.groups())
+            return f"conv3x3_any_mma_kernel<{nb}, {kt}>", 256, any_mma_smem_bytes(nb)
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -1592,8 +1610,10 @@ EDGE_DROP_SLICE = 2 ** 27  # elements a slice of the sliced plain version
 EDGE_LANES = (((2, 2 ** 31 + 4096), torch.bfloat16), ((65600, 64), torch.float32))
 EDGE_CONV_CHANNELS = ((3, 64), (64, 48), (96, 160), (256, 256))
 EDGE_CONV_SHAPE = (16, 64, 64)  # (N, H, W) of the channel edges
+EDGE_CONV_SMALL = (2, 19, 38)  # the GPU tests' shape, bf16 at the same channels
 EDGE_CONV_BATCH = ((65600, 4, 8, 64, 64), (65600, 4, 8, 3, 64))  # N past the grid
 EDGE_ITERS = 3
+EDGE_CONV_ITERS = 20  # the convs at (16, 64, 64) and smaller
 
 
 def _maybe_ms(what, fn, iters=EDGE_ITERS):
@@ -1842,37 +1862,63 @@ def _attention_edge(shape, dtype, rates, gen, what):
 
 
 EDGE_F32_LENGTHS = (4096, 16384, 65600)
-EDGE_F32_HELD = 4100  # the longest L the f32 route is held to TOL_F32 at
+
+
+def _f64_blocked(qu, k, v, bias, g, rows, scale):
+    """Float64 out of the first ``rows`` query rows and dqu, dk, dv of a (1,
+    1, L, D) attention at rate 0, in blocks of EDGE_ROWS query rows."""
+    q, kk, vv, gg = (t[0, 0].double() for t in (qu, k, v, g))
+    L = q.shape[0]
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(kk), torch.zeros_like(vv)
+    out = None
+    for r0 in range(0, L, EDGE_ROWS):
+        r1 = min(L, r0 + EDGE_ROWS)
+        p = torch.softmax((q[r0:r1] @ kk.T + bias[0, 0, r0:r1].double()) * scale, -1)
+        if r0 == 0:
+            out = (p @ vv)[:rows]
+        dp = gg[r0:r1] @ vv.T
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+        dq[r0:r1] = ds @ kk
+        dk += ds.T @ q[r0:r1]
+        dv += p.T @ gg[r0:r1]
+        del p, dp, ds
+    return out, dq, dk, dv
 
 
 def _f32_sums_by_length(gen):
-    """How far the 3xTF32 forward's sums over L keys lie from float64, beside
-    the plain version's (f32, TF32 off): the first EDGE_ROWS query rows of (1,
-    1, L, 16) at rate 0, the error relative to max |float64|. Asserts the
-    plain version within TOL_F32 at every L and the kernel within TOL_F32 up
-    to EDGE_F32_HELD; past it the kernel misses TOL_F32 (an open fault,
-    ROADMAP.md §3), so its error there is logged, not held."""
+    """How far the 3xTF32 route's sums over L lie from float64, beside the
+    plain version's (f32, TF32 off): (1, 1, L, 16) at rate 0, the first
+    EDGE_ROWS query rows' out and every row of dqu, dk and dv, each error
+    relative to its max |float64|. Asserts the kernel and the plain out
+    within TOL_F32 at every L (past L = 1024 the kernels sum each tile's
+    products apart from the running sums: attention_f32_mma.cu's
+    mma_acc_rows)."""
     from sarssl_torch.kernels import fused_attention
 
     res = {}
     for L in EDGE_F32_LENGTHS:
-        qu, k, v = (torch.randn((1, 1, L, 16), generator=gen, device="cuda") for _ in range(3))
+        qu, k, v, g = (torch.randn((1, 1, L, 16), generator=gen, device="cuda")
+                       for _ in range(4))
         bias = torch.randn((1, 1, L, L), generator=gen, device="cuda")
-        with torch.no_grad():
-            out = fused_attention(qu, k, v, bias, 0, 0.25, 0.0)[0, 0, :EDGE_ROWS]
-        q, kk, vv, b = qu[0, 0, :EDGE_ROWS], k[0, 0], v[0, 0], bias[0, 0, :EDGE_ROWS]
-        ref = torch.softmax((q.double() @ kk.double().T + b.double()) * 0.25, -1) @ vv.double()
-        plain = torch.softmax((q @ kk.T + b) * 0.25, -1) @ vv
-        peak = float(ref.abs().max())
-        res[L] = (float((out.double() - ref).abs().max()) / peak,
-                  float((plain.double() - ref).abs().max()) / peak)
-        del qu, k, v, bias, out, ref, plain
+        xs = [t.requires_grad_() for t in (qu, k, v)]
+        out = fused_attention(*xs, bias, 0, 0.25, 0.0)
+        grads = torch.autograd.grad(out, xs, g)
+        out, qu, k, v = (t.detach() for t in (out, qu, k, v))
+        ref = _f64_blocked(qu, k, v, bias, g, EDGE_ROWS, 0.25)
+        plain = torch.softmax((qu[0, 0, :EDGE_ROWS] @ k[0, 0].T + bias[0, 0, :EDGE_ROWS]) * 0.25,
+                              -1) @ v[0, 0]
+        errs = {n: float((a.double() - r).abs().max() / r.abs().max())
+                for n, a, r in zip(("out", "dqu", "dk", "dv"),
+                                   (out[0, 0, :EDGE_ROWS], *(t[0, 0] for t in grads)), ref)}
+        errs["plain_out"] = float((plain.double() - ref[0]).abs().max() / ref[0].abs().max())
+        res[L] = errs
+        del qu, k, v, g, bias, out, grads, ref, plain, xs
         torch.cuda.empty_cache()
-        log(f"[edges] f32 attention (1, 1, {L}, 16) rate=0, the first {EDGE_ROWS} rows' out "
-            f"against float64: 3xTF32 kernel rel {res[L][0]:.2e} "
-            f"({'tol ' + str(TOL_F32) if L <= EDGE_F32_HELD else 'not held: open fault'}), "
-            f"plain f32 rel {res[L][1]:.2e} (tol {TOL_F32})")
-        assert res[L][1] <= TOL_F32 and (L > EDGE_F32_HELD or res[L][0] <= TOL_F32), (L, res[L])
+        log(f"[edges] f32 attention (1, 1, {L}, 16) rate=0 against float64 (out: the first "
+            f"{EDGE_ROWS} rows): 3xTF32 kernel " + ", ".join(
+                f"{n} rel {e:.2e}" for n, e in errs.items() if n != "plain_out")
+            + f"; plain f32 out rel {errs['plain_out']:.2e} (tol {TOL_F32})")
+        assert all(e <= TOL_F32 for e in errs.values()), (L, errs)
     return res
 
 
@@ -1966,6 +2012,7 @@ def _lanes_edge(shape, dtype, gen):
     from torch.func import vmap
 
     from sarssl_torch.kernels import dropout_plain, hash_dropout
+    from sarssl_torch.kernels.dropout import BLOCK as DROP_BLOCK
     from sarssl_torch.kernels.dropout import launch_dropout_lanes
 
     nl, m = shape
@@ -1983,6 +2030,8 @@ def _lanes_edge(shape, dtype, gen):
 
     (out, grad), counts = _counted(drive)
     want = {"hash_dropout_lanes": 2}
+    if m < DROP_BLOCK:  # a lane shorter than a block: the short-lane kernel
+        want["hash_dropout_lanes_short"] = 2
     assert counts == want, f"dropout lanes {shape}: launches {counts}, want {want}"
     bare = launch_dropout_lanes(x, seeds, RATE)
     assert torch.equal(bare, out), f"dropout lanes {shape}: the bare launch differs"
@@ -2009,14 +2058,17 @@ def _lanes_edge(shape, dtype, gen):
     assert not torch.equal(out[0] != 0, out[1] != 0), f"dropout lanes {shape}: lanes share a mask"
     del out, grad
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: launch_dropout_lanes(x, seeds, RATE), iters=EDGE_ITERS, warmup=1)
-    lib = _maybe_ms(f"F.dropout {shape}", lambda: torch.nn.functional.dropout(x, RATE, True))
+    # queued behind a sleeping kernel (the short lanes' launch lasts about as
+    # long as the host takes to issue it), and back to back
+    ms = cuda_ms_queued(lambda: launch_dropout_lanes(x, seeds, RATE))
+    launch_ms = cuda_ms(lambda: launch_dropout_lanes(x, seeds, RATE), iters=EDGE_ITERS, warmup=1)
+    lib = cuda_ms_queued(lambda: torch.nn.functional.dropout(x, RATE, True))
     n = x.numel()
     bound = bound_ms(2 * n * x.element_size() + 8 * nl, 10 * n, F32_FLOPS)
     log(f"[edges] hash_dropout_lanes {shape} {name} rate={RATE}: launches {counts}; output, "
         f"mask and gradient under vmap and the bare launch identical to {compared} (tol: "
-        f"exact); {ms:.4f} ms (plain {1e3 * plain_s:.3f}, F.dropout {lib}, bound "
-        f"{bound[0]:.4f} by {bound[1]})")
+        f"exact); {ms:.4f} ms queued, {launch_ms:.4f} back to back (plain {1e3 * plain_s:.3f}, "
+        f"F.dropout {lib:.4f} queued, bound {bound[0]:.4f} by {bound[1]})")
     del x, g
     torch.cuda.empty_cache()
     return {"name": f"hash_dropout_lanes_{nl}x{m}_{name}", "route": "triton",
@@ -2024,9 +2076,10 @@ def _lanes_edge(shape, dtype, gen):
             "replaces": "sarssl_tpu/kernels/dropout.py:40",
             "launches": counts["hash_dropout_lanes"], "counters": counts,
             "edge": ("a lane past 2**31 elements" if sliced else
-                     "lanes past 65535 (one launch over runs of 65535 lanes)"),
-            "max_abs_err": err, "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib,
+                     "lanes past 65535 of fewer elements than a block (the short-lane "
+                     "kernel, one launch over the flat tensor)"),
+            "max_abs_err": err, "ms": ms, "launch_ms": launch_ms, "plain_ms": 1e3 * plain_s,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
             "path": "phase edges: hash_dropout under torch.func.vmap, forward and backward "
                     "once (launches)"}
 
@@ -2035,11 +2088,13 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     """conv3x3 (or conv3x3_s2d, C == Cout) forward and backward through the
     public path (counted: dx on the kernel, dW the library's), output and dx
     against the plain version; the forward and dx launches timed beside
-    cuDNN at the same channels and the bound."""
+    cuDNN at the same channels and the bound, and the runtime-channel
+    tensor-core kernel's also beside the f32-FMA runtime-channel kernel
+    launched directly on the same inputs (``fma_ms``)."""
     from sarssl_torch.kernels import conv3x3, conv3x3_plain, conv3x3_s2d, conv3x3_s2d_plain
     from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_batch_chunks,
-                                              conv_kernel, rot180_io)
-    from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd
+                                              conv_kernel, launch_conv3x3_any, rot180_io)
+    from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd, expand_weights_s2d2
 
     name = str(dtype)[6:]
     prefix = "conv3x3_s2d" if s2d else "conv3x3"
@@ -2056,13 +2111,13 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
         return y.detach(), torch.autograd.grad(y, (xr, wr), dy)[0]
 
     (y, gx), counts = _counted(drive)
-    tag = {"tc": "_tc", "fma": "", "any": "_any"}[kernel]
+    tag = {"tc": "_tc", "tc_any": "_tc_any", "fma": "", "any": "_any"}[kernel]
     want = {}
     for kind in ("fwd", "dx"):
         want[f"{prefix}_{kind}"] = 1
         if tag:
             want[f"{prefix}_{kind}{tag}"] = 1
-        if kernel != "tc" and len(conv_batch_chunks(N)) > 1:
+        if kernel in ("fma", "any") and len(conv_batch_chunks(N)) > 1:
             want[f"{prefix}_{kind}_chunked"] = 1
     assert {n: c for n, c in counts.items() if n.startswith(prefix)} == want, (
         f"{prefix} {(N, H, W, C, Cout)} {name}: launches {counts}, want {want}")
@@ -2082,19 +2137,35 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
     rows = []
+    def yardstick(inp, wk):  # the f32-FMA runtime-channel kernel, launched directly
+        if s2d:
+            B_, H_, W_, C_ = inp.shape
+            return launch_conv3x3_any(inp.view(B_, H_, W_ // 2, 2 * C_), expand_weights_s2d2(wk),
+                                      "fma_any")
+        return launch_conv3x3_any(inp, wk, "fma_any")
+
+    # the small shapes last tens of microseconds, their host calls included:
+    # more launches a reading
+    iters = EDGE_CONV_ITERS if N * H * W <= 2 ** 18 else EDGE_ITERS
     for kind, launch, inp, lib in (
             ("fwd", fwd, x, lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)),
             ("dx", dx, dy, lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
                                                               padding=1))):
-        ms = cuda_ms(lambda: launch(inp, w), iters=EDGE_ITERS, warmup=1)
+        ms = cuda_ms(lambda: launch(inp, w), iters=iters, warmup=1)
+        wk = rot180_io(w) if kind == "dx" else w
+        fma_ms = (cuda_ms(lambda: yardstick(inp, wk), iters=iters, warmup=1)
+                  if kernel == "tc_any" else None)
         plain_ms = cuda_ms(lambda: plain(inp.float(), (rot180_io(w) if kind == "dx" else w)
                                          .float()), iters=1, warmup=1)
-        lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib)
+        lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib, iters=iters)
         rows.append({
             "name": f"{prefix}_{kind}_N{N}H{H}W{W}_C{C}_Cout{Cout}_{name}", "route": "cuda",
-            "source": ("sarssl_torch/csrc/conv3x3_mma.cu" if kernel == "tc" else
-                       "sarssl_torch/csrc/conv3x3.cu"),
-            "variant": {"tc": "wgmma", "fma": "fma", "any": "fma_any_channels"}[kernel],
+            "source": {"tc": "sarssl_torch/csrc/conv3x3_mma.cu",
+                       "tc_any": "sarssl_torch/csrc/conv3x3_any_mma.cu"}.get(
+                           kernel, "sarssl_torch/csrc/conv3x3.cu"),
+            "variant": {"tc": "wgmma", "tc_any": "wgmma_any_channels", "fma": "fma",
+                        "any": "fma_any_channels"}[kernel],
+            "fma_ms": fma_ms,
             "replaces": CONV_REPLACES[prefix],
             "launches": counts[f"{prefix}_{kind}"],
             "counters": {n: c for n, c in counts.items() if n.startswith(f"{prefix}_{kind}")},
@@ -2105,8 +2176,9 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     log(f"[edges] {prefix} {(N, H, W, C)} -> {Cout} {name} ({kernel} kernel): launches "
         f"{dict(sorted(counts.items()))}; rel err fwd {rel:.2e}, dx {rel_dx:.2e} (tol {tol}); "
         + ", ".join(f"{r['name'].split('_N')[0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
-                    f"cuDNN {r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']})"
-                    for r in rows))
+                    f"cuDNN {r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']}"
+                    + (f", f32-FMA any-channel kernel {r['fma_ms']:.4f}" if r["fma_ms"] else "")
+                    + ")" for r in rows))
     del x, dy, w, w_oihw
     torch.cuda.empty_cache()
     return rows
@@ -2135,6 +2207,7 @@ def phase_edges():
     for C, Cout in EDGE_CONV_CHANNELS:
         for dtype in (torch.bfloat16, torch.float32):
             rows += _conv_edge(N, H, W, C, Cout, dtype, gen)
+        rows += _conv_edge(*EDGE_CONV_SMALL, C, Cout, torch.bfloat16, gen)
     for dtype in (torch.bfloat16, torch.float32):
         rows += _conv_edge(N, H, W, 256, 256, dtype, gen, s2d=True)
     for N, H, W, C, Cout in EDGE_CONV_BATCH:

@@ -44,6 +44,16 @@
 //    and then hi*hi into the f32 accumulator (mma_common.cuh): each product
 //    exact to about 2^-22 of itself. A fragment is split once, where it is
 //    loaded, for every product it feeds.
+//  * Past L = 1024 every sum over L (out = p v, dv, dk, dqu; the wide p v and
+//    products) takes each tile's products into a zeroed fragment and adds
+//    that to the running sum in f32 (mma_acc_rows' PSUM instances): the
+//    tensor core's adder cuts its sum toward zero, so a running sum held in
+//    its C operand drifts with the number of products (5.2e-4 from float64
+//    at L = 65600 without; PERF.md §5). This file built as it is holds the
+//    instances without PSUM; attention_f32_mma_psum.cu builds it with
+//    ATTN_F32_PSUM = 1, the instances with PSUM, as a library of its own
+//    (the two compile in parallel), and kernels/attention.py takes that
+//    library past F32_PSUM_MIN_L = 1024.
 //  * Tiles of qu, k, v and g sit in shared memory as f32 rows padded to D + 4
 //    floats (a row pitch of 4 banks mod 32; 20 floats, 80 bytes, at D = 16,
 //    which keeps every row 16-byte aligned), copied 16 bytes a thread with
@@ -259,31 +269,82 @@ __device__ __forceinline__ void mma_rows_rows(float (&acc)[NTILES][4], uint32_t 
   }
 }
 
+// f32 -> tf32 as tf32_rna, as an instruction the compiler neither merges with
+// an equal one nor hoists: mma_acc_rows with PSUM splits P again for each
+// chunk of output tiles rather than keeping every chunk's split live
+__device__ __forceinline__ uint32_t tf32_rna_again(float x) {
+  uint32_t r;
+  asm volatile("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Whether this library's instances take partial sums over L (mma_acc_rows'
+// PSUM; module note): they cost registers and time (PERF.md §5), so the
+// wrapper takes them only past L = 1024, below which the running sums drift
+// less than at L = 4096, where they read 4.3e-5 from float64.
+#ifndef ATTN_F32_PSUM
+#define ATTN_F32_PSUM 0
+#endif
+constexpr bool LIB_PSUM = ATTN_F32_PSUM != 0;
+
 // acc (16 x D) += P (16 x 8*KSTEPS, in the accumulator layout of a product:
 // p[n] holds columns 8n + 2t, 8n + 2t + 1 of rows g, g + 8) * X (8*KSTEPS rows
 // of a tile of pitch D + 4, the product's n along a row). Each 8-wide k-step
 // takes its columns in the order 0, 2, 4, 6, 1, 3, 5, 7 (module note). With
 // KEPT, P is max(p, 0) * scale: the backward's p^T carries a dropped
 // position as -p, so this is the dropped and rescaled pd^T without a copy.
-template <int D, int KSTEPS, bool KEPT = false>
+//
+// Every caller sums over L, one tile a call (keys in the forward's p v and
+// dqu = dbias k, queries in dv and dk). The tensor core's adder cuts the sum
+// of an mma's products and its C operand toward zero, so a product added
+// straight into a running sum shortens it by up to an ulp of that whole sum:
+// over L = 65600 keys the forward's out drifted 5.2e-4 from float64
+// (scripts/emulate_tf32_sums.py, PERF.md §5). With PSUM the call's products
+// go into a zeroed fragment, CT = 4 n8 output tiles at a time (2 at D = 16),
+// which joins acc by f32 adds (rounded to nearest), so a partial sum covers
+// one tile: P is split again for each chunk, 4 CT more registers a thread and
+// no second accumulator. (The wide p v and products take 64 output columns a
+// block with PSUM: at 128 the products spill.)
+template <int D, int KSTEPS, bool PSUM, bool KEPT = false>
 __device__ __forceinline__ void mma_acc_rows(float (&acc)[D / 8][4], const float (&p)[KSTEPS][4],
                                              const float* x, float scale = 1.f) {
+  constexpr int CT = !PSUM ? D / 8 : D / 8 < 4 ? D / 8 : 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   auto a_of = [&](float e) { return KEPT ? fmaxf(e, 0.f) * scale : e; };
+  auto split_a = [&](float e, uint32_t& hi, uint32_t& lo) {
+    const float v = a_of(e);
+    hi = CT == D / 8 ? tf32_rna(v) : tf32_rna_again(v);
+    lo = CT == D / 8 ? tf32_rna(v - __uint_as_float(hi))
+                     : tf32_rna_again(v - __uint_as_float(hi));
+  };
 #pragma unroll
-  for (int kc = 0; kc < KSTEPS; ++kc) {
-    uint32_t ah[4], al[4];
-    split_tf32(a_of(p[kc][0]), ah[0], al[0]);
-    split_tf32(a_of(p[kc][2]), ah[1], al[1]);
-    split_tf32(a_of(p[kc][1]), ah[2], al[2]);
-    split_tf32(a_of(p[kc][3]), ah[3], al[3]);
-    const float* r0 = x + (8 * kc + 2 * t) * (D + 4) + g;
+  for (int c0 = 0; c0 < D / 8; c0 += CT) {
+    float part[PSUM ? CT : 1][4];
+    if constexpr (PSUM) {
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(r0[8 * nd], bh0, bl0);
-      split_tf32(r0[D + 4 + 8 * nd], bh1, bl1);
-      mma1688_3x(acc[nd], ah, al, bh0, bh1, bl0, bl1);
+      for (int nd = 0; nd < CT; ++nd) part[nd][0] = part[nd][1] = part[nd][2] = part[nd][3] = 0.f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < KSTEPS; ++kc) {
+      uint32_t ah[4], al[4];
+      split_a(p[kc][0], ah[0], al[0]);
+      split_a(p[kc][2], ah[1], al[1]);
+      split_a(p[kc][1], ah[2], al[2]);
+      split_a(p[kc][3], ah[3], al[3]);
+      const float* r0 = x + (8 * kc + 2 * t) * (D + 4) + g + 8 * c0;
+#pragma unroll
+      for (int nd = 0; nd < CT; ++nd) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(r0[8 * nd], bh0, bl0);
+        split_tf32(r0[D + 4 + 8 * nd], bh1, bl1);
+        mma1688_3x(PSUM ? part[nd] : acc[c0 + nd], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+    if constexpr (PSUM) {
+#pragma unroll
+      for (int nd = 0; nd < CT; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c0 + nd][e] += part[nd][e];
     }
   }
 }
@@ -346,7 +407,7 @@ __host__ __device__ constexpr int bwd_blocks() {
   return D == 16 ? 4 : D == 32 ? 3 : 2;
 }
 
-template <int D, bool EXACT>
+template <int D, bool EXACT, bool PSUM>
 __global__ void __launch_bounds__(NT, fwd_blocks<D>())
 attn_fwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
@@ -487,7 +548,8 @@ attn_fwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
       o[n][2] *= corr_b;
       o[n][3] *= corr_b;
     }
-    mma_acc_rows<D, BKF / 8>(o, s, reinterpret_cast<const float*>(smem + S::V + st * S::TILE));
+    mma_acc_rows<D, BKF / 8, PSUM>(o, s,
+                                   reinterpret_cast<const float*>(smem + S::V + st * S::TILE));
   }
 
   l_a = quad_sum(l_a);
@@ -573,7 +635,7 @@ struct BwdSmem {
   static_assert(QG % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int D, bool EXACT>
+template <int D, bool EXACT, bool PSUM>
 __global__ void __launch_bounds__(NT, bwd_blocks<D>())
 attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
@@ -671,7 +733,7 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
       }
     }
     // dv[key] += pd^T g, pd = p / (1 - rate) where kept, else 0
-    mma_acc_rows<D, QT, true>(dva, p, gf, drop.inv_keep);
+    mma_acc_rows<D, QT, PSUM, true>(dva, p, gf, drop.inv_keep);
 
     // dp^T = v g^T through the same mask; ds = p (dp - delta); dbias = ds * scale
     float dpt[QT][4];
@@ -694,7 +756,7 @@ attn_bwd_tf32(const float* __restrict__ qu, const float* __restrict__ k,
       }
     }
     // dk[key] += dbias^T qu
-    mma_acc_rows<D, QT>(dka, dpt, qf);
+    mma_acc_rows<D, QT, PSUM>(dka, dpt, qf);
 
     // the dbias tile, BQ rows of 64 keys (rows and keys inside L)
     __syncthreads();
@@ -735,7 +797,7 @@ struct DquSmem {
   static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int D, bool EXACT>
+template <int D, bool EXACT, bool PSUM>
 __global__ void __launch_bounds__(NT)
 attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
               float* __restrict__ dqu, int L) {
@@ -782,7 +844,8 @@ attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
       af[kc][2] = w.x;
       af[kc][3] = w.y;
     }
-    mma_acc_rows<D, 8>(acc, af, reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
+    mma_acc_rows<D, 8, PSUM>(acc, af,
+                             reinterpret_cast<const float*>(smem + st * S::STAGE + S::A));
   }
   store_acc<D, !EXACT>(acc, dqu + ((i64)bh * L + o0 + r0) * D, D, orows - r0);
 }
@@ -794,7 +857,8 @@ attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
 // ===========================================================================
 // The wide head dims are the multiples of WDC (WIDE_CHUNK in kernels/attention.py,
 // which pads to them). The p v and product passes take 2 WDC output columns a
-// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5).
+// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5); with
+// PSUM always WDC (their partial sums spill at 2 WDC).
 constexpr int WDC = 64;
 constexpr int WKC = 32;   // columns of a streamed qu / k / g / v chunk (pitch WKC + 4)
 static_assert(WDC % WKC == 0 && WDC % 64 == 0, "Dp is whole chunks and whole delta steps");
@@ -973,7 +1037,7 @@ struct WidePvSmem {
   static_assert(SC % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int DC, bool EXACT>
+template <int DC, bool EXACT, bool PSUM>
 __global__ void __launch_bounds__(NT, 2)
 attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
                       const float* __restrict__ part, int nsplit, const float* __restrict__ v,
@@ -1045,7 +1109,7 @@ attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
         p[n][e] = pd;
       }
     }
-    mma_acc_rows<DC, 8>(o, p, reinterpret_cast<const float*>(smem + stage + S::SC));
+    mma_acc_rows<DC, 8, PSUM>(o, p, reinterpret_cast<const float*>(smem + stage + S::SC));
   }
   float* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l + c0;
   store_acc<DC, !EXACT>(o, op, os.l, qrows - r0);
@@ -1230,7 +1294,7 @@ struct WideProdSmem {
   static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int DC, bool EXACT, bool TRANS>
+template <int DC, bool EXACT, bool TRANS, bool PSUM>
 __global__ void __launch_bounds__(NT, 2)
 attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
                     float* __restrict__ out, int H, int L, int Dp, Strides xs) {
@@ -1288,7 +1352,7 @@ attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
         af[kc][3] = w.y;
       }
     }
-    mma_acc_rows<DC, 8>(acc, af, reinterpret_cast<const float*>(smem + stage + S::A));
+    mma_acc_rows<DC, 8, PSUM>(acc, af, reinterpret_cast<const float*>(smem + stage + S::A));
   }
   store_acc<DC, !EXACT>(acc, out + ((i64)bh * L + o0 + r0) * Dp + c0, Dp, orows - r0);
 }
@@ -1300,55 +1364,55 @@ cudaError_t set_smem(K kernel, int bytes) {
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-template <int D, bool EXACT>
+template <int D, bool EXACT, bool PSUM>
 cudaError_t fwd(const float* qu, const float* k, const float* v, const float* bias, float* out,
                 float* lse, int BH, int H, int L, float scale, Dropout drop, Strides os,
                 cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_fwd_tf32<D, EXACT>, FwdSmem<D>::BYTES);
+  cudaError_t err = set_smem(attn_fwd_tf32<D, EXACT, PSUM>, FwdSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  attn_fwd_tf32<D, EXACT><<<dim3(ceil_div(L, 64), BH), NT, FwdSmem<D>::BYTES, stream>>>(
-      qu, k, v, bias, out, lse, H, L, scale, drop, os);
+  attn_fwd_tf32<D, EXACT, PSUM><<<dim3(ceil_div(L, 64), BH), NT, FwdSmem<D>::BYTES,
+                                  stream>>>(qu, k, v, bias, out, lse, H, L, scale, drop, os);
   return cudaGetLastError();
 }
 
-template <int D, bool EXACT>
+template <int D, bool EXACT, bool PSUM>
 cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bias,
                 const float* g, const float* out, const float* lse, float* delta, float* dqu,
                 float* dk, float* dv, float* dbias, int BH, int H, int L, float scale,
                 Dropout drop, Strides gs, Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_bwd_tf32<D, EXACT>, BwdSmem<D>::BYTES);
+  cudaError_t err = set_smem(attn_bwd_tf32<D, EXACT, PSUM>, BwdSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  err = set_smem(attn_dqu_tf32<D, EXACT>, DquSmem<D>::BYTES);
+  err = set_smem(attn_dqu_tf32<D, EXACT, PSUM>, DquSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(L, 64), BH);
   attn_delta_f32<D, EXACT><<<ceil_div(BH * L, 256 / delta_lanes<D>()), 256, 0, stream>>>(
       g, out, delta, H, L, BH * L, gs, os);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_tf32<D, EXACT><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
+  attn_bwd_tf32<D, EXACT, PSUM><<<grid, NT, BwdSmem<D>::BYTES, stream>>>(
       qu, k, v, bias, g, lse, delta, dk, dv, dbias, H, L, scale, drop, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dqu_tf32<D, EXACT><<<grid, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
+  attn_dqu_tf32<D, EXACT, PSUM><<<grid, NT, DquSmem<D>::BYTES, stream>>>(dbias, k, dqu, L);
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT>
+template <int DC, bool EXACT, bool PSUM>
 cudaError_t fwd_wide(const float* qu, const float* k, const float* v, const float* bias,
                      float* out, float* lse, float* scores, float* part, int nsplit, int BH, int H,
                      int L, int Dp, float scale, Dropout drop, Strides os, cudaStream_t stream) {
   cudaError_t err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
   if (err != cudaSuccess) return err;
-  err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT>, WidePvSmem<DC>::BYTES);
+  err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT, PSUM>, WidePvSmem<DC>::BYTES);
   if (err != cudaSuccess) return err;
   const int nt = ceil_div(L, 64);
   attn_fwd_scores_wide_tf32<WKC, EXACT><<<dim3(nt, BH, nsplit), NT, WideScoresSmem<WKC>::BYTES,
                                           stream>>>(qu, k, bias, scores, lse, part, L, Dp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_fwd_pv_wide_tf32<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES,
-                                      stream>>>(scores, lse, part, nsplit, v, out, H, L, Dp, drop,
-                                                os);
+  attn_fwd_pv_wide_tf32<DC, EXACT, PSUM><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES,
+                                            stream>>>(scores, lse, part, nsplit, v, out, H, L, Dp,
+                                                      drop, os);
   return cudaGetLastError();
 }
 
@@ -1361,18 +1425,18 @@ cudaError_t wide_scores_blocks(int* n) {
                                                        NT, WideScoresSmem<WKC>::BYTES);
 }
 
-template <int DC, bool EXACT, bool TRANS>
+template <int DC, bool EXACT, bool TRANS, bool PSUM>
 cudaError_t prod_wide(const float* a, const float* x, Strides xs, float* out, int BH, int H,
                       int L, int Dp, cudaStream_t stream) {
   typedef WideProdSmem<DC> S;
-  cudaError_t err = set_smem(attn_prod_wide_tf32<DC, EXACT, TRANS>, S::BYTES);
+  cudaError_t err = set_smem(attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM>, S::BYTES);
   if (err != cudaSuccess) return err;
-  attn_prod_wide_tf32<DC, EXACT, TRANS><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT, S::BYTES,
-                                           stream>>>(a, x, out, H, L, Dp, xs);
+  attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT,
+                                                 S::BYTES, stream>>>(a, x, out, H, L, Dp, xs);
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT>
+template <int DC, bool EXACT, bool PSUM>
 cudaError_t bwd_wide(const float* qu, const float* k, const float* v, const float* bias,
                      const float* g, const float* out, const float* lse, float* delta, float* dqu,
                      float* dk, float* dv, float* dbias, float* pd, int BH, int H, int L, int Dp,
@@ -1392,11 +1456,11 @@ cudaError_t bwd_wide(const float* qu, const float* k, const float* v, const floa
   cs.b = (i64)H * L * Dp;
   cs.h = (i64)L * Dp;
   cs.l = Dp;
-  err = prod_wide<DC, EXACT, true>(pd, g, gs, dv, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, PSUM>(pd, g, gs, dv, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  err = prod_wide<DC, EXACT, true>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, PSUM>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  return prod_wide<DC, EXACT, false>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
+  return prod_wide<DC, EXACT, false, PSUM>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
@@ -1425,6 +1489,10 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // The instance a launch takes: EXACT where every tile is whole and the bias
 // rows are 16-byte aligned, the general one elsewhere.
 bool exact_tiles(int L, const void* bias) { return L % 64 == 0 && aligned16(bias); }
+
+// The instance of a launch: EXACT as exact_tiles says, PSUM this library's.
+// F is a host template's call with its template arguments left to the macro.
+#define BY_INSTANCE(F, exact) ((exact) ? F(true, LIB_PSUM) : F(false, LIB_PSUM))
 
 // qu, k, v (and dqu, dk, dv, which the wrapper allocates) are read in
 // 16-byte chunks of their rows: their bases must be 16-byte aligned. So must
@@ -1455,19 +1523,27 @@ int attn_tf32_fwd(const void* qu, const void* k, const void* v, const void* bias
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
   const bool exact = exact_tiles(L, bias);
-#define ATTN_FWD(D, E)                                                                      \
-  fwd<D, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,          \
-            (float*)out, (float*)lse, B * H, H, L, scale, drop, os, (cudaStream_t)stream)
+#define ATTN_FWD(D, E, P)                                                                   \
+  fwd<D, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,       \
+               (float*)out, (float*)lse, B * H, H, L, scale, drop, os, (cudaStream_t)stream)
+#define F16(E, P) ATTN_FWD(16, E, P)
+#define F32(E, P) ATTN_FWD(32, E, P)
+#define F64(E, P) ATTN_FWD(64, E, P)
+#define F128(E, P) ATTN_FWD(128, E, P)
   switch (head_dim) {
     case 16:
-      return (int)(exact ? ATTN_FWD(16, true) : ATTN_FWD(16, false));
+      return (int)BY_INSTANCE(F16, exact);
     case 32:
-      return (int)(exact ? ATTN_FWD(32, true) : ATTN_FWD(32, false));
+      return (int)BY_INSTANCE(F32, exact);
     case 64:
-      return (int)(exact ? ATTN_FWD(64, true) : ATTN_FWD(64, false));
+      return (int)BY_INSTANCE(F64, exact);
     case 128:
-      return (int)(exact ? ATTN_FWD(128, true) : ATTN_FWD(128, false));
+      return (int)BY_INSTANCE(F128, exact);
   }
+#undef F16
+#undef F32
+#undef F64
+#undef F128
 #undef ATTN_FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1485,21 +1561,29 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
-#define ATTN_BWD(D, E)                                                                      \
-  bwd<D, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,          \
-            (const float*)g, (const float*)out, (const float*)lse, (float*)delta, (float*)dqu, \
-            (float*)dk, (float*)dv, (float*)dbias, B * H, H, L, scale, drop, gs, os,          \
-            (cudaStream_t)stream)
+#define ATTN_BWD(D, E, P)                                                                   \
+  bwd<D, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,       \
+               (const float*)g, (const float*)out, (const float*)lse, (float*)delta,         \
+               (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, B * H, H, L, scale, drop, \
+               gs, os, (cudaStream_t)stream)
+#define B16(E, P) ATTN_BWD(16, E, P)
+#define B32(E, P) ATTN_BWD(32, E, P)
+#define B64(E, P) ATTN_BWD(64, E, P)
+#define B128(E, P) ATTN_BWD(128, E, P)
   switch (head_dim) {
     case 16:
-      return (int)(exact ? ATTN_BWD(16, true) : ATTN_BWD(16, false));
+      return (int)BY_INSTANCE(B16, exact);
     case 32:
-      return (int)(exact ? ATTN_BWD(32, true) : ATTN_BWD(32, false));
+      return (int)BY_INSTANCE(B32, exact);
     case 64:
-      return (int)(exact ? ATTN_BWD(64, true) : ATTN_BWD(64, false));
+      return (int)BY_INSTANCE(B64, exact);
     case 128:
-      return (int)(exact ? ATTN_BWD(128, true) : ATTN_BWD(128, false));
+      return (int)BY_INSTANCE(B128, exact);
   }
+#undef B16
+#undef B32
+#undef B64
+#undef B128
 #undef ATTN_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1518,14 +1602,19 @@ int attn_tf32_fwd_wide(const void* qu, const void* k, const void* v, const void*
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides os = make_strides(out_strides);
-#define ATTN_FWD_WIDE(DC, E)                                                                    \
-  fwd_wide<DC, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,        \
-                  (float*)out, (float*)lse, (float*)scores, (float*)part, splits, B * H, H, L,    \
-                  head_dim, scale, drop, os, (cudaStream_t)stream)
+#define ATTN_FWD_WIDE(DC, E, P)                                                                 \
+  fwd_wide<DC, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,     \
+                     (float*)out, (float*)lse, (float*)scores, (float*)part, splits, B * H, H,   \
+                     L, head_dim, scale, drop, os, (cudaStream_t)stream)
+#define FW2(E, P) ATTN_FWD_WIDE(2 * WDC, E, P)
+#define FW1(E, P) ATTN_FWD_WIDE(WDC, E, P)
   const bool exact = exact_tiles(L, bias);
-  if (head_dim % (2 * WDC) == 0)
-    return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
-  return (int)(exact ? ATTN_FWD_WIDE(WDC, true) : ATTN_FWD_WIDE(WDC, false));
+  if constexpr (!LIB_PSUM) {
+    if (head_dim % (2 * WDC) == 0) return (int)BY_INSTANCE(FW2, exact);
+  }
+  return (int)BY_INSTANCE(FW1, exact);
+#undef FW2
+#undef FW1
 #undef ATTN_FWD_WIDE
 }
 
@@ -1543,14 +1632,19 @@ int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void*
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
   const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
-#define ATTN_BWD_WIDE(DC, E)                                                                    \
-  bwd_wide<DC, E>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,        \
-                  (const float*)g, (const float*)out, (const float*)lse, (float*)delta,          \
-                  (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H, H, L,    \
-                  head_dim, scale, drop, gs, os, (cudaStream_t)stream)
-  if (head_dim % (2 * WDC) == 0)
-    return (int)(exact ? ATTN_BWD_WIDE(2 * WDC, true) : ATTN_BWD_WIDE(2 * WDC, false));
-  return (int)(exact ? ATTN_BWD_WIDE(WDC, true) : ATTN_BWD_WIDE(WDC, false));
+#define ATTN_BWD_WIDE(DC, E, P)                                                                 \
+  bwd_wide<DC, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,     \
+                     (const float*)g, (const float*)out, (const float*)lse, (float*)delta,       \
+                     (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H, H,   \
+                     L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
+#define BW2(E, P) ATTN_BWD_WIDE(2 * WDC, E, P)
+#define BW1(E, P) ATTN_BWD_WIDE(WDC, E, P)
+  if constexpr (!LIB_PSUM) {
+    if (head_dim % (2 * WDC) == 0) return (int)BY_INSTANCE(BW2, exact);
+  }
+  return (int)BY_INSTANCE(BW1, exact);
+#undef BW2
+#undef BW1
 #undef ATTN_BWD_WIDE
 }
 

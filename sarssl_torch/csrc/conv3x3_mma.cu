@@ -98,16 +98,6 @@ struct Geo {
   static_assert(BYTES <= 232448, "over the shared memory a block may use");
 };
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
 // Descriptor of a 16 (k) x 64 (n) slab of a weight block: rows of 128 bytes
 // with n contiguous (the transposed, "MN-major" form), eight rows a 1024-byte
 // period of the 128-byte swizzle, which is chunk_off<0>'s XOR; the next eight

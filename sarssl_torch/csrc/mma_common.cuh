@@ -4,7 +4,8 @@
 // bf16 matrices (or, read as 32-bit words, four 8x4 f32 ones), the m16n8k16
 // bf16 -> f32 product and the f32 -> packed bf16 conversion, and the m16n8k8
 // TF32 product with the split that makes three of them about as exact as an
-// f32 product (3xTF32).
+// f32 product (3xTF32); the wgmma fence, commit and wait of the sources
+// that multiply with wgmma (conv3x3_mma.cu, conv3x3_any_mma.cu).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,4 +83,14 @@ __device__ __forceinline__ void mma1688_3x(float (&c)[4], const uint32_t (&ah)[4
   mma1688(c, al, bh0, bh1);
   mma1688(c, ah, bl0, bl1);
   mma1688(c, ah, bh0, bh1);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
 }

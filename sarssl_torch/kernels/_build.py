@@ -3,7 +3,8 @@
 CUDA sources in ``sarssl_torch/csrc/`` are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``sarssl_torch/_build/`` (git-ignored), keyed by a hash of the source,
-the headers beside it (``csrc/*.cuh``) and the flags, and loaded with
+the sources it includes, the headers beside it (``csrc/*.cuh``) and the
+flags, and loaded with
 ``ctypes``. Triton keeps its cache in the same
 directory. Nothing is built when a module is imported.
 
@@ -23,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -68,10 +70,14 @@ def hashed_target(stem: str, key: bytes) -> Path:
 
 
 def _target(src: Path) -> Path:
-    # every header counts for every source: an edited header never loads a
-    # library built from the old one
+    # every header counts for every source, and a source a source includes
+    # (attention_f32_mma_psum.cu builds attention_f32_mma.cu) for that one: an
+    # edited file never loads a library built from the old one
+    text = src.read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    return hashed_target(src.stem, src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    included = b"".join((CSRC_DIR / m).read_bytes()
+                        for m in re.findall(r'#include "([^"]+\.cu)"', text.decode()))
+    return hashed_target(src.stem, text + included + headers + " ".join(NVCC_FLAGS).encode())
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -279,9 +279,18 @@ def mma_smem_bytes(kernel: str, D: int, exact: bool = True) -> int:
     return 0 if which is None else _library_mma().attn_mma_smem_bytes(D, which, int(exact))
 
 
+# Past this L the f32 route takes the kernels' instances that sum each tile's
+# products apart from the running sums over L (csrc/attention_f32_mma_psum.cu):
+# the tensor core's adder cuts its sums toward zero, so a sum held in its
+# accumulator drifts with L (5.2e-4 from float64 at L = 65600, PERF.md §5).
+# They cost up to 8% (PERF.md §5), and up to this L the drift stays below
+# L = 4096's 4.3e-5.
+F32_PSUM_MIN_L = 1024
+
+
 @functools.lru_cache(maxsize=None)
-def _library_tf32():
-    lib = load_library("attention_f32_mma")
+def _library_tf32(psum: bool = False):
+    lib = load_library("attention_f32_mma_psum" if psum else "attention_f32_mma")
     lib.attn_tf32_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
     lib.attn_tf32_fwd.restype = _I
     lib.attn_tf32_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_F, _F, _U, _U, _F, _I, _I, _P]
@@ -565,9 +574,9 @@ def _count(kind, route, D, wide, routed):
 
 
 # each set's C entries (``{prefix}_fwd``, ``{prefix}_bwd``, ``_wide`` after
-# either for the wide instance) and its library
-_ENTRIES = {"tc": ("attn_mma", lambda: _library_mma()),
-            "tf32x3": ("attn_tf32", lambda: _library_tf32())}
+# either for the wide instance) and its library at a sequence length L
+_ENTRIES = {"tc": ("attn_mma", lambda L: _library_mma()),
+            "tf32x3": ("attn_tf32", lambda L: _library_tf32(L > F32_PSUM_MIN_L))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -578,10 +587,11 @@ def _sm_count(index: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _wide_blocks(route: str, exact: bool) -> int:
     prefix, lib = _ENTRIES[route]
-    n = getattr(lib(), f"{prefix}_fwd_wide_blocks")(int(exact))
+    lib = lib(0)  # the scores pass: the same kernel in either f32 library
+    n = getattr(lib, f"{prefix}_fwd_wide_blocks")(int(exact))
     if n < 0:
         raise RuntimeError(f"{prefix}_fwd_wide_blocks: CUDA error {-n} "
-                           f"({lib().error_string(-n).decode()})")
+                           f"({lib.error_string(-n).decode()})")
     return n
 
 
@@ -593,8 +603,8 @@ def _run_fwd(route, wide, qu, k, v, bias, out, lse, scale, drop, splits):
     ``attention_fwd_{route}_chunked_d{D}``. Returns the key splits (1 off the
     wide instance)."""
     prefix, lib = _ENTRIES[route]
-    lib = lib()
     B, H, L, D = qu.shape
+    lib = lib(L)
     entry, Lp = f"{prefix}_fwd", 0
     if wide:
         nt = -(-L // 64)
@@ -635,8 +645,8 @@ def _run_bwd(route, wide, qu, k, v, bias, g, out, lse, dqu, dk, dv, dbias, scale
     these tensors, once for each launch of :func:`attention_chunks` (counted
     as in :func:`_run_fwd`)."""
     prefix, lib = _ENTRIES[route]
-    lib = lib()
     B, H, L, D = qu.shape
+    lib = lib(L)
     delta = torch.empty_like(lse)
     entry = f"{prefix}_bwd"
     if wide:  # the dropped probabilities, (B, H, L, L) in the inputs' dtype

@@ -10,7 +10,7 @@ Replaces ``sarssl_tpu/kernels/conv3x3.py::conv3x3`` (the Pallas kernel
   * dW: a library filter gradient (``torch.nn.grad.conv2d_weight``), as the
     JAX package leaves dW to XLA outside Pallas.
 
-Three kernels, chosen by dtype and channels (:func:`conv_kernel`):
+Four kernels, chosen by dtype and channels (:func:`conv_kernel`):
 
 * ``csrc/conv3x3_mma.cu``: bfloat16 at the channel pairs of ``CHANNELS``. An
   implicit GEMM on the tensor cores (``wgmma``). It multiplies blocks of
@@ -20,14 +20,23 @@ Three kernels, chosen by dtype and channels (:func:`conv_kernel`):
   any table of blocks (the s2d form's is in ``conv_s2d.py``).
 * ``csrc/conv3x3.cu``: float32 at the same pairs, as f32 FMAs. A float32
   product on the tensor cores would be TF32 and miss the 1e-4 tolerance.
-* ``csrc/conv3x3.cu``'s ``conv3x3_any_kernel``: every other (C, Cout), in
-  either dtype, as the Pallas kernel takes any: the same f32 FMA design with
-  the channel counts as runtime arguments.
+* ``csrc/conv3x3_any_mma.cu``: bfloat16 at every other (C, Cout), as the
+  Pallas kernel takes any: the tensor-core design with C and Cout at run
+  time, in K chunks of 64 input channels and passes of NB output channels
+  (:func:`any_mma_passes`); a kernel of its own packs the weight into those
+  blocks, zero-padded, in the same call (:func:`pack_weights_any` is its
+  plain version; for dx it rotates the weight as it packs it), and
+  :func:`conv3x3_from_padded_blocks` repeats the conv's arithmetic in plain
+  PyTorch.
+* ``csrc/conv3x3.cu``'s ``conv3x3_any_kernel``: float32 at every other (C,
+  Cout): the f32 FMA design with the channel counts as runtime arguments.
+  In bfloat16 it is launched only directly (:func:`launch_conv3x3_any`), as
+  the yardstick of ``conv3x3_any_mma.cu``.
 
 Any H and W: the FMA kernels' pixel tiles lie on the grid's x dimension.
 Any N: their grid holds 65535 images in its y dimension, so they
 launch runs of at most that many (:func:`conv_batch_chunks`); the
-tensor-core kernel walks its tiles in a loop and takes any N in one launch.
+tensor-core kernels walk their tiles in a loop and take any N in one launch.
 
 For a CUDA tensor the wrapper launches the kernel it names here or raises.
 The kernels are on no model path: the port's ``CNNFrontEnd`` keeps
@@ -89,11 +98,14 @@ def takes_tensor_cores(dtype: torch.dtype, C: int, Cout: int) -> bool:
 
 def conv_kernel(dtype: torch.dtype, C: int, Cout: int) -> str:
     """The kernel the conv wrappers run for CUDA tensors of this dtype and
-    these channels: ``"tc"`` (``conv3x3_mma.cu``), ``"fma"`` (``conv3x3.cu``'s
-    instances, float32 at ``CHANNELS``) or ``"any"`` (its runtime-channel
-    kernel)."""
+    these channels: ``"tc"`` (``conv3x3_mma.cu``), ``"tc_any"``
+    (``conv3x3_any_mma.cu``, bfloat16 at every other pair), ``"fma"``
+    (``conv3x3.cu``'s instances, float32 at ``CHANNELS``) or ``"any"`` (its
+    runtime-channel kernel, float32 at every other pair)."""
     if takes_tensor_cores(dtype, C, Cout):
         return "tc"
+    if dtype == torch.bfloat16:
+        return "tc_any"
     if (C, Cout) in CHANNELS:
         return "fma"
     return "any"
@@ -152,6 +164,50 @@ def conv3x3_from_blocks(x: torch.Tensor, packed: torch.Tensor, slots,
     return out.reshape(N, H, W, nh * blk).to(x.dtype)
 
 
+def any_mma_passes(Cout: int) -> tuple:
+    """``(passes, NB)`` of ``conv3x3_any_mma.cu`` for Cout output channels:
+    ``ceil(Cout / 64)`` passes of NB channels, NB the least multiple of 8
+    that covers Cout in that many (wgmma's N; the launch passes NB to the
+    kernel, which takes ``ceil(Cout / NB)`` passes)."""
+    passes = -(-Cout // BLOCK)
+    per_pass = -(-Cout // passes)
+    return passes, -(-per_pass // 8) * 8
+
+
+def pack_weights_any(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, Cout) -> (passes, ceil(C / 64), 9, NB, 64) contiguous, zero
+    past C and Cout: for each pass of NB output channels and each K chunk of
+    64 input channels the nine taps' blocks, each ``[co][ci]`` (the kernel's
+    K-major B operand). The plain version of ``conv3x3_any_mma.cu``'s
+    ``pack_weights_kernel``."""
+    _, _, C, Cout = w.shape
+    passes, nb = any_mma_passes(Cout)
+    kc = -(-C // BLOCK)
+    wp = torch.zeros((3, 3, kc * BLOCK, passes * nb), dtype=w.dtype, device=w.device)
+    wp[:, :, :C, :Cout] = w
+    return (wp.reshape(9, kc, BLOCK, passes, nb).permute(3, 1, 0, 4, 2)
+            .contiguous())
+
+
+def conv3x3_from_padded_blocks(x: torch.Tensor, packed: torch.Tensor,
+                               Cout: int) -> torch.Tensor:
+    """``conv3x3_any_mma.cu``'s arithmetic in plain PyTorch: ``x`` (N, H, W,
+    C) zero-padded to the K chunks, one ``64 x NB`` product a (pass, chunk,
+    tap) block of ``packed`` (as :func:`pack_weights_any` lays it out), f32
+    sums, the first Cout channels in ``x``'s dtype."""
+    N, H, W, C = x.shape
+    passes, kc, _, nb, blk = packed.shape
+    xp = F.pad(x.float(), (0, kc * blk - C, 1, 1, 1, 1))
+    out = torch.zeros((N * H * W, passes, nb), dtype=torch.float32, device=x.device)
+    for p in range(passes):
+        for k in range(kc):
+            for tap in range(9):
+                dh, dw = divmod(tap, 3)
+                a = xp[:, dh:dh + H, dw:dw + W, k * blk:(k + 1) * blk]
+                out[:, p].addmm_(a.reshape(N * H * W, blk), packed[p, k, tap].float().T)
+    return out.reshape(N, H, W, passes * nb)[..., :Cout].to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("conv3x3")
@@ -174,6 +230,24 @@ def _library_mma():
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_any_mma():
+    lib = load_library("conv3x3_any_mma")
+    lib.conv3x3_any_mma.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.conv3x3_any_mma.restype = _I
+    lib.conv3x3_any_mma_smem_bytes.argtypes = [_I]
+    lib.conv3x3_any_mma_smem_bytes.restype = _I
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def any_mma_smem_bytes(nb: int) -> int:
+    """Dynamic shared memory a block of ``conv3x3_any_mma_kernel<nb, *>``
+    takes."""
+    return _library_any_mma().conv3x3_any_mma_smem_bytes(nb)
 
 
 def mma_smem_bytes(kh: int, mt: int, stages: int) -> int:
@@ -235,7 +309,9 @@ def launch_conv3x3_fma(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Ten
 def launch_conv3x3_any(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     """Run ``conv3x3.cu``'s runtime-channel kernel on CUDA tensors, ``x`` (N,
     H, W, C) contiguous and ``w`` (3, 3, C, Cout) at any C, Cout, cast to
-    ``x``'s dtype; count one launch of ``name`` and one of ``name + "_any"``."""
+    ``x``'s dtype; count one launch of ``name`` and one of ``name + "_any"``.
+    The conv wrappers take it for float32; in bfloat16 it is the yardstick
+    of ``conv3x3_any_mma.cu``, launched directly."""
     _check(x, w, name)
     y = _launch_fma("conv3x3_any", x, w, name)
     launches[name] += 1
@@ -270,12 +346,51 @@ def launch_conv3x3_mma(x: torch.Tensor, packed: torch.Tensor, name: str) -> torc
     return y
 
 
-def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+def launch_conv3x3_any_mma(x: torch.Tensor, w: torch.Tensor, name: str,
+                           rot: bool = False) -> torch.Tensor:
+    """Run the runtime-channel tensor-core kernel (``conv3x3_any_mma.cu``) on
+    ``x`` (N, H, W, C) bfloat16 contiguous with ``w`` (3, 3, C, Cout), or
+    with ``rot`` ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to bfloat16:
+    one call that packs the weight (as :func:`pack_weights_any` does) and
+    runs the conv; count one launch of ``name`` and one of ``name +
+    "_tc_any"``."""
+    wk = w.to(torch.bfloat16).contiguous()
+    if not (x.is_cuda and wk.device == x.device and x.dtype == torch.bfloat16
+            and x.is_contiguous()):
+        raise ValueError(f"{name}: the tensor-core kernel takes contiguous bfloat16 CUDA "
+                         f"tensors on one device")
+    N, H, W, C = x.shape
+    if wk.ndim != 4 or tuple(wk.shape[:2]) != (3, 3) or wk.shape[3 if rot else 2] != C:
+        raise ValueError(f"{name}: {tuple(w.shape)} is not the weight of C = {C}")
+    cout = wk.shape[2] if rot else wk.shape[3]
+    if C % 8 == 0 and x.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor-core kernel takes x 16-byte aligned where "
+                         f"C % 8 == 0")
+    passes, nb = any_mma_passes(cout)
+    lib = _library_any_mma()
+    packed = torch.empty((passes, -(-C // BLOCK), 9, nb, BLOCK), dtype=x.dtype, device=x.device)
+    y = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
+    code = lib.conv3x3_any_mma(x.data_ptr(), wk.data_ptr(), packed.data_ptr(), y.data_ptr(), N,
+                               H, W, C, cout, nb, int(rot),
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    check_cuda_status(lib, code, name)
+    launches[name] += 1
+    launches[name + "_tc_any"] += 1
+    return y
+
+
+def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
+                   rot: bool = False) -> torch.Tensor:
     """Run the kernel that :func:`conv_kernel` names on CUDA tensors, ``x``
-    (N, H, W, C) contiguous and ``w`` (3, 3, C, Cout), cast to ``x``'s
-    dtype."""
-    _check(x, w, name)
-    kernel = conv_kernel(x.dtype, x.shape[3], w.shape[3])
+    (N, H, W, C) contiguous and ``w`` (3, 3, C, Cout), or with ``rot``
+    ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to ``x``'s dtype (the
+    runtime-channel tensor-core kernel rotates ``w`` as it packs it)."""
+    _check(x, w.transpose(2, 3) if rot else w, name)  # rot180_io(w)'s shape, no copy
+    kernel = conv_kernel(x.dtype, x.shape[3], w.shape[2] if rot else w.shape[3])
+    if kernel == "tc_any":
+        return launch_conv3x3_any_mma(x, w, name, rot=rot)
+    if rot:
+        w = rot180_io(w)
     if kernel == "tc":
         return launch_conv3x3_mma(x, pack_weights(w.to(x.dtype)), name)
     if kernel == "fma":
@@ -289,7 +404,7 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of ``conv3x3(x, w)``: the kernel on ``dy`` with ``rot180_io(w)``."""
-    return launch_conv3x3(dy, rot180_io(w), "conv3x3_dx")
+    return launch_conv3x3(dy, w, "conv3x3_dx", rot=True)
 
 
 class Conv3x3Function(torch.autograd.Function):

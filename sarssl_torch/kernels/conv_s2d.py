@@ -19,7 +19,9 @@ are the three blocks ``w[dh, dw]``, each used by both output parities.
     kernel's C = 64 instance walking the view's chunks;
   * anything else (float32; bfloat16 at C != 64): ``conv3x3``'s routing on
     the view at 2C channels with the expanded weights (C = 32: the 64-channel
-    instances; any other C the runtime-channel kernel, ``conv3x3.conv_kernel``);
+    instances; any other C the runtime-channel kernels, ``conv3x3.conv_kernel``:
+    in bfloat16 ``csrc/conv3x3_any_mma.cu`` on the tensor cores, which
+    multiplies the expanded weight's zero blocks too);
   * dx: the same on dy's view with ``rot180_io(w)``;
   * dW: the library filter gradient on the original layout, as in JAX.
 

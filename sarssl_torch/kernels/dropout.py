@@ -20,11 +20,18 @@ flat index with that lane's seed, as ``jax.vmap`` of ``fused_dropout`` does.
 Its grid is (blocks of a lane, lanes of a run, runs of lanes): a grid's
 second and third dimensions hold 65535 blocks each, so one launch takes up
 to 65535**2 lanes, in runs of equal length; the seed is one load a program
-and no element divides by the lane size.
+and no element divides by the lane size. A lane shorter than a block would
+leave most of each program idle, so those lanes go to
+``hash_dropout_short_lanes_kernel``: a
+program takes a block of the flat ``(N * lane_numel)`` tensor, finds each
+element's lane and its index in the lane (one 32-bit division an element,
+:func:`short_lane_index`), gathers the lanes' seeds and hashes ``j +
+seeds[lane]`` as the lanes kernel does, so the mask is the same bit for bit.
 
 ``_HashDropout`` (one int seed) carries a ``vmap`` rule that hands the lanes
 to ``_HashDropoutLanes``, whose backward is the same lane-seeded kernel.
-Launches count as ``hash_dropout`` and ``hash_dropout_lanes``.
+Launches count as ``hash_dropout`` and ``hash_dropout_lanes`` (a
+short-lane launch also as ``hash_dropout_lanes_short``).
 
 Any tensor the JAX hash takes runs: fewer than 2**32 elements (a lane of
 fewer than 2**32 under vmap), since JAX indexes with a uint32 iota
@@ -56,7 +63,7 @@ from ._build import GRID_YZ, import_triton, launches
 _M32 = 0xFFFFFFFF
 _C1 = 0x7FEB352D
 _C2 = 0x846CA68B
-_BLOCK = 4096
+BLOCK = 4096  # elements a program of the Triton kernels
 
 
 def keep_threshold(rate: float) -> int:
@@ -88,7 +95,25 @@ def lanes_grid(lane_numel: int, nlane: int) -> tuple:
     if nlane > GRID_YZ ** 2:
         raise ValueError(f"the lane-seeded dropout takes up to {GRID_YZ}**2 lanes, got {nlane}")
     runs = -(-nlane // GRID_YZ)
-    return -(-lane_numel // _BLOCK), -(-nlane // runs), runs
+    return -(-lane_numel // BLOCK), -(-nlane // runs), runs
+
+
+def short_lane_index(nlane: int, lane_numel: int, block: int = BLOCK) -> tuple:
+    """``(lane, j)`` of every element of the flat ``(nlane * lane_numel)``
+    tensor, int64, in flat order, as the short-lane kernel's programs find
+    them: program ``i`` takes elements ``i * block .. + block``; its first
+    element's lane ``lane0 = base // lane_numel`` and the remainder ``r0`` in
+    int64, then for each element ``t = r0 + k`` (below ``lane_numel +
+    block``, 32 bits) ``lane = lane0 + t // lane_numel`` and ``j = t %
+    lane_numel``."""
+    n = nlane * lane_numel
+    base = torch.arange(0, n, block, dtype=torch.int64)
+    lane0 = base // lane_numel
+    r0 = base - lane0 * lane_numel
+    t = r0[:, None] + torch.arange(block, dtype=torch.int64)[None]
+    dl = t // lane_numel
+    inb = (base[:, None] + torch.arange(block, dtype=torch.int64)[None]) < n
+    return (lane0[:, None] + dl)[inb], (t - dl * lane_numel)[inb]
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -107,6 +132,24 @@ def _check_index_map(n: int, index_map) -> None:
         raise ValueError(f"index map {index_map}: {n} elements are not whole rows")
 
 
+def _hash_keep(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """keep for the hash inputs ``x`` (int64 holding ``index + seed``)."""
+    x = x & _M32
+    x = _mul32(x ^ (x >> 16), _C1)
+    x = _mul32(x ^ (x >> 15), _C2)
+    x = x ^ (x >> 16)
+    return x >= keep_threshold(rate)
+
+
+def short_lanes_keep_mask(seeds: torch.Tensor, lane_numel: int, rate: float) -> torch.Tensor:
+    """Plain version of the short-lane kernel's mask, ``(N, lane_numel)``
+    bool: ``hash(j + seeds[lane])`` over :func:`short_lane_index`'s map;
+    ``seeds`` (N,) integers whose low 32 bits are the lanes' seeds."""
+    lane, j = short_lane_index(seeds.shape[0], lane_numel)
+    s = seeds.to(torch.int64).cpu() & _M32
+    return _hash_keep(j + s[lane], rate).reshape(seeds.shape[0], lane_numel)
+
+
 def hash_keep_mask(n: int, seed, rate: float, device=None, index_map=None) -> torch.Tensor:
     """Plain version of the mask: ``(n,)`` bool, int64 arithmetic masked to
     32 bits. ``seed`` is a uint32 int, or a 0-d int64 tensor: under
@@ -119,11 +162,7 @@ def hash_keep_mask(n: int, seed, rate: float, device=None, index_map=None) -> to
         _check_index_map(n, index_map)
         row_local, row_total, col_offset = index_map
         i = (i // row_local) * row_total + col_offset + i % row_local
-    x = (i + seed) & _M32
-    x = _mul32(x ^ (x >> 16), _C1)
-    x = _mul32(x ^ (x >> 15), _C2)
-    x = x ^ (x >> 16)
-    return x >= keep_threshold(rate)
+    return _hash_keep(i + seed, rate)
 
 
 def dropout_plain(x: torch.Tensor, seed, rate: float, index_map=None) -> torch.Tensor:
@@ -211,6 +250,41 @@ def _triton_lanes_kernel():
     return triton, hash_dropout_lanes_kernel
 
 
+@functools.lru_cache(maxsize=None)
+def _triton_short_lanes_kernel():
+    triton, tl = import_triton()
+
+    # lane_numel never a constant (Triton makes an int argument of 1 one)
+    @triton.jit(do_not_specialize=["lane_numel"])
+    def hash_dropout_short_lanes_kernel(x_ptr, out_ptr, seed_ptr, n, lane_numel, thresh_bits,
+                                        scale, BLOCK: tl.constexpr):
+        # lanes shorter than BLOCK: a block of the flat (nlane * lane_numel)
+        # tensor a program. Its first element's offset, lane and place in
+        # that lane in int64 (n may pass 2**31); each element's t = r0 + k
+        # below lane_numel + BLOCK, so its lane step and index in 32 bits
+        base = tl.program_id(0).to(tl.int64) * BLOCK
+        k = tl.arange(0, BLOCK)
+        inb = k < tl.minimum(n - base, BLOCK).to(tl.int32)
+        ln = lane_numel.to(tl.int64)
+        lane0 = base // ln
+        t = (base - lane0 * ln).to(tl.int32) + k
+        ln32 = lane_numel.to(tl.int32)
+        dl = t // ln32
+        j = t - dl * ln32
+        x = tl.load(x_ptr + base + k, mask=inb, other=0.0)
+        # each element's lane seed: the low 32 bits of its int64 entry
+        seed = tl.load(seed_ptr + (lane0 + dl), mask=inb, other=0).to(tl.uint32)
+        thresh = thresh_bits.to(tl.uint32, bitcast=True)
+        h = j.to(tl.uint32) + seed
+        h = (h ^ (h >> 16)) * tl.full((BLOCK,), 0x7FEB352D, tl.uint32)
+        h = (h ^ (h >> 15)) * tl.full((BLOCK,), 0x846CA68B, tl.uint32)
+        h = h ^ (h >> 16)
+        y = tl.where(h >= thresh, x.to(tl.float32) * scale, 0.0)
+        tl.store(out_ptr + base + k, y.to(out_ptr.dtype.element_ty), mask=inb)
+
+    return triton, hash_dropout_short_lanes_kernel
+
+
 def _as_int32(u: int) -> int:
     """uint32 bits as a signed int32 value (Triton types int args by range)."""
     return u - (1 << 32) if u >= (1 << 31) else u
@@ -244,11 +318,11 @@ def launch_dropout(x: torch.Tensor, seed: int, rate: float, index_map=None) -> t
         raise ValueError("the index map's row_total must be a uint32")
     triton, kernel = _triton_kernel()
     out = torch.empty_like(x)
-    grid = (triton.cdiv(n, _BLOCK),)
+    grid = (triton.cdiv(n, BLOCK),)
     with torch.cuda.device(x.device):
         kernel[grid](x, out, n, _as_int32(seed), _as_int32(keep_threshold(rate)),
                      keep_scale(rate, x.dtype), row_local, _as_int32(row_total),
-                     _as_int32(col_offset), BLOCK=_BLOCK, MAPPED=mapped, num_warps=8)
+                     _as_int32(col_offset), BLOCK=BLOCK, MAPPED=mapped, num_warps=8)
     launches["hash_dropout"] += 1
     return out
 
@@ -275,11 +349,20 @@ def launch_dropout_lanes(x: torch.Tensor, seeds: torch.Tensor, rate: float) -> t
     if nlane == 0 or lane_numel == 0:
         return out
     seeds = seeds.to(device=x.device, dtype=torch.int64).contiguous()
-    _, kernel = _triton_lanes_kernel()
-    grid = lanes_grid(lane_numel, nlane)
-    with torch.cuda.device(x.device):
-        kernel[grid](x, out, seeds, nlane, grid[1], lane_numel, _as_int32(keep_threshold(rate)),
-                     keep_scale(rate, x.dtype), BLOCK=_BLOCK, num_warps=8)
+    grid = lanes_grid(lane_numel, nlane)  # also refuses past GRID_YZ**2 lanes
+    thresh, scale = _as_int32(keep_threshold(rate)), keep_scale(rate, x.dtype)
+    if lane_numel < BLOCK:
+        triton, kernel = _triton_short_lanes_kernel()
+        n = nlane * lane_numel
+        with torch.cuda.device(x.device):
+            kernel[(triton.cdiv(n, BLOCK),)](x, out, seeds, n, lane_numel, thresh, scale,
+                                              BLOCK=BLOCK, num_warps=8)
+        launches["hash_dropout_lanes_short"] += 1
+    else:
+        _, kernel = _triton_lanes_kernel()
+        with torch.cuda.device(x.device):
+            kernel[grid](x, out, seeds, nlane, grid[1], lane_numel, thresh, scale,
+                         BLOCK=BLOCK, num_warps=8)
     launches["hash_dropout_lanes"] += 1
     return out
 

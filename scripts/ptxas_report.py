@@ -46,8 +46,12 @@ def _demangle(mangled: str) -> str:
 
 def _label(name: str, targs: str) -> str:
     """``name<dtype, template ints>`` from a kernel's name and its mangled
-    template arguments (``Li64E`` an int, ``Lb1E`` a bool, printed b1)."""
-    targs = re.match(r"I(.*?)Ev", targs).group(1)  # up to the function type
+    template arguments (``Li64E`` an int, ``Lb1E`` a bool, printed b1);
+    ``name`` alone for a kernel that is no template."""
+    targs = re.match(r"I(.*?)Ev", targs)  # up to the function type
+    if targs is None:
+        return name
+    targs = targs.group(1)
     parts = ["bf16"] if "nv_bfloat16" in targs else ["f32"] if targs.startswith("f") else []
     parts += [("b" if t == "b" else "") + v for t, v in re.findall(r"L([ib])(\d+)E", targs)]
     return f"{name}<{','.join(parts)}>"

@@ -21,10 +21,12 @@ from sarssl_tpu.kernels.conv3x3 import conv3x3 as jax_conv3x3  # noqa: E402
 from sarssl_tpu.kernels.dropout import _hash_mask  # noqa: E402
 from sarssl_torch.kernels import attention as att  # noqa: E402
 from sarssl_torch.kernels import conv3x3_plain, dropout_plain, hash_keep_mask  # noqa: E402
-from sarssl_torch.kernels.conv3x3 import (conv_batch_chunks, conv_kernel,  # noqa: E402
-                                          launch_conv3x3)
+from sarssl_torch.kernels.conv3x3 import (any_mma_passes, conv3x3_from_padded_blocks,  # noqa: E402
+                                          conv_batch_chunks, conv_kernel, launch_conv3x3,
+                                          pack_weights, pack_weights_any)
 from sarssl_torch.kernels.dropout import (dropout_refusal, keep_threshold,  # noqa: E402
-                                          lanes_grid, launch_dropout, launch_dropout_lanes)
+                                          lanes_grid, launch_dropout, launch_dropout_lanes,
+                                          short_lane_index, short_lanes_keep_mask)
 
 META = torch.device("meta")
 
@@ -187,13 +189,16 @@ def test_plain_slice_by_index_map_and_by_seed_shift_equal_the_whole():
 @pytest.mark.parametrize("dtype, C, Cout, kernel", [
     (torch.bfloat16, 64, 64, "tc"), (torch.bfloat16, 128, 64, "tc"),
     (torch.float32, 64, 128, "fma"), (torch.float32, 3, 64, "any"),
-    (torch.bfloat16, 3, 64, "any"), (torch.bfloat16, 64, 48, "any"),
-    (torch.float32, 96, 160, "any"), (torch.bfloat16, 256, 256, "any"),
+    (torch.bfloat16, 3, 64, "tc_any"), (torch.bfloat16, 64, 48, "tc_any"),
+    (torch.float32, 96, 160, "any"), (torch.bfloat16, 256, 256, "tc_any"),
     (torch.float32, 64, 64, "fma"), (torch.float32, 128, 128, "fma"),
-    (torch.float32, 128, 64, "fma"), (torch.bfloat16, 32, 32, "any")])
+    (torch.float32, 128, 64, "fma"), (torch.bfloat16, 32, 32, "tc_any"),
+    (torch.bfloat16, 13, 3, "tc_any"), (torch.float32, 5, 24, "any")])
 def test_conv_kernel_routing(dtype, C, Cout, kernel):
     """By dtype and channels alone: the FMA kernels' pixel tiles lie on the
-    grid's x dimension, so no H or W changes the kernel."""
+    grid's x dimension, so no H or W changes the kernel; bfloat16 outside
+    the tensor-core instances' pairs runs the runtime-channel tensor-core
+    kernel, float32 there the runtime-channel FMA kernel."""
     assert conv_kernel(dtype, C, Cout) == kernel
 
 
@@ -234,3 +239,71 @@ def test_plain_conv_at_other_channels_matches_pallas_interpret(C, Cout):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **tol)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx_ref), **tol)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw_ref), **tol)
+
+
+# --- the runtime-channel tensor-core conv's blocks, the short-lane dropout ---
+
+@pytest.mark.parametrize("C, Cout, passes, nb", [
+    (3, 3, 1, 8), (13, 24, 1, 24), (48, 160, 3, 56), (64, 48, 1, 48), (96, 64, 1, 64),
+    (256, 256, 4, 64), (512, 512, 8, 64), (1, 65, 2, 40)])
+def test_any_mma_blocks_cover_the_channels(C, Cout, passes, nb):
+    """ceil(Cout / 64) passes of NB channels (a multiple of 8 up to 64, at
+    most 7 past Cout a pass) and ceil(C / 64) K chunks, the packed weight
+    zero past C and Cout."""
+    assert any_mma_passes(Cout) == (passes, nb)
+    assert nb % 8 == 0 and nb <= 64 and 0 <= passes * nb - Cout < 8 * passes
+    w = torch.randn((3, 3, C, Cout))
+    packed = pack_weights_any(w)
+    assert tuple(packed.shape) == (passes, -(-C // 64), 9, nb, 64)
+    flat = packed.permute(2, 1, 4, 0, 3).reshape(9, -(-C // 64) * 64, passes * nb)
+    assert torch.equal(flat[:, :C, :Cout], w.reshape(9, C, Cout))
+    assert not flat[:, C:].any() and not flat[:, :, Cout:].any()
+
+
+@pytest.mark.parametrize("C, Cout", [(64, 64), (128, 64), (64, 128), (128, 128), (192, 256)])
+def test_pack_weights_any_holds_pack_weights_blocks(C, Cout):
+    """Where C and Cout are multiples of 64 the runtime-channel packing
+    holds the dense packing's blocks, transposed to [co][ci]: pass p, chunk
+    k, tap t is block (t, k) of output chunk p."""
+    w = torch.randn((3, 3, C, Cout))
+    dense, packed = pack_weights(w), pack_weights_any(w)
+    kh = C // 64
+    for p in range(Cout // 64):
+        for k in range(kh):
+            for tap in range(9):
+                assert torch.equal(packed[p, k, tap], dense[p, tap * kh + k].T)
+
+
+@pytest.mark.parametrize("C, Cout", [(3, 3), (13, 24), (48, 160), (3, 160), (13, 3),
+                                     (48, 24)])
+def test_padded_block_conv_matches_pallas_interpret(C, Cout):
+    """``conv3x3_any_mma.cu``'s arithmetic (zero-padded K chunks and output
+    passes) in plain PyTorch against ``sarssl_tpu``'s Pallas conv in
+    interpret mode, f32 on both sides (rtol 1e-4 / atol 1e-5)."""
+    rng = np.random.default_rng(C * 1000 + Cout)
+    x = rng.standard_normal((1, 8, 5, C)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, Cout)) / np.sqrt(9 * C)).astype(np.float32)
+    ref = np.asarray(jax_conv3x3(jnp.asarray(x), jnp.asarray(w), 8, True))
+    out = conv3x3_from_padded_blocks(torch.from_numpy(x), pack_weights_any(torch.from_numpy(w)),
+                                     Cout)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("nlane, lane_numel", [(3, 1), (4097, 1), (70, 63), (5, 4095),
+                                               (3, 4096), (1, 1)])
+def test_short_lane_index_covers_every_element_once(nlane, lane_numel):
+    """The short-lane kernel's flat map gives each element of (N,
+    lane_numel) its lane and its index in the lane, once, in flat order."""
+    lane, j = short_lane_index(nlane, lane_numel)
+    assert torch.equal(lane * lane_numel + j, torch.arange(nlane * lane_numel))
+    assert int(j.min()) >= 0 and int(j.max()) < lane_numel and int(lane.max()) == nlane - 1
+
+
+@pytest.mark.parametrize("lane_numel", [1, 63, 4095])
+def test_short_lanes_mask_equals_each_lanes_hash(lane_numel):
+    """The short-lane kernel's plain mask is each lane's ``hash_keep_mask``
+    with its own seed (seeds above 2**31 among them), lane by lane."""
+    seeds = torch.tensor([0, 7, 0x9E3779B9, 2 ** 32 - 1, 123456789], dtype=torch.int64)
+    mask = short_lanes_keep_mask(seeds, lane_numel, 0.3)
+    for lane, seed in enumerate(seeds.tolist()):
+        assert torch.equal(mask[lane], hash_keep_mask(lane_numel, seed, 0.3))

@@ -555,8 +555,9 @@ def test_conv_tensor_core_kernel_at_front_end_shape_is_bit_identical_from_run_to
 
 def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
     """What no kernel takes still raises. Channel pairs without an instance
-    (once refused) run the runtime-channel kernel: held here against the
-    plain version with their launches counted."""
+    (once refused) run the runtime-channel kernels (bf16: on the tensor
+    cores, counted as ``_tc_any``): held here against the plain version with
+    their launches counted."""
     x = torch.randn(2, 8, 16, 64, device="cuda")
     w = torch.randn(3, 3, 64, 64, device="cuda")
     with pytest.raises(ValueError, match="even width"):
@@ -565,9 +566,9 @@ def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
                                (conv3x3_s2d, conv3x3_s2d_plain, 128, "conv3x3_s2d_fwd")):
         xc = torch.randn(2, 8, 16, C, device="cuda", dtype=torch.bfloat16)
         wc = (0.1 * torch.randn(3, 3, C, C, device="cuda")).to(torch.bfloat16)
-        before = launches[name + "_any"]
+        before = launches[name + "_tc_any"]
         assert _rel(fn(xc, wc), plain(xc.float(), wc.float())) <= TOL[torch.bfloat16], name
-        assert launches[name + "_any"] == before + 1, name
+        assert launches[name + "_tc_any"] == before + 1, name
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -625,8 +626,6 @@ def _blocked_rows(qu, k, v, bias, g, out, grads, scale, rows=4096):
 @pytest.mark.parametrize("shape, dtype", [
     ((1, 1, 65600, 16), torch.bfloat16),
     ((1, 256, 4100, 16), torch.float32),
-    # fails on the card: past L ~ 10**4 the 3xTF32 sums miss the f32
-    # tolerance (5.3e-4 against float64 at L = 65600; ROADMAP.md §3)
     ((1, 1, 65600, 16), torch.float32)])
 def test_attention_past_2_32_scores_at_rate_0_matches_plain(cuda, shape, dtype):
     """B * H * L * L past 2**32 (bias, dbias offsets past 32 bits), forward
@@ -644,6 +643,28 @@ def test_attention_past_2_32_scores_at_rate_0_matches_plain(cuda, shape, dtype):
         assert e <= TOL[dtype], name
     with pytest.raises(ValueError, match="uint32"):
         fused_attention(qu.detach(), k.detach(), v.detach(), bias.detach(), 0, 0.25, 0.1)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_attention_f32_at_long_l_matches_plain(cuda, D):
+    """f32 at L = 16384, forward and backward at rate 0 against the plain
+    version in blocks of rows, within 1e-4: each tile's 3xTF32 products are
+    summed apart from the running sums over L (attention_f32_mma.cu's
+    mma_acc_rows), which the tensor core's truncating adder would otherwise
+    drift past the tolerance."""
+    shape = (1, 1, 16384, D)
+    qu, k, v, g = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    bias = torch.randn((1, 1, 16384, 16384), generator=cuda, device="cuda")
+    xs = [t.requires_grad_() for t in (qu, k, v, bias)]
+    before = [launches[f"attention_{kind}_tf32x3_d{D}"] for kind in ("fwd", "bwd")]
+    out = fused_attention(*xs, 0, D ** -0.5, 0.0)
+    grads = torch.autograd.grad(out, xs, g)
+    assert [launches[f"attention_{kind}_tf32x3_d{D}"] - b
+            for kind, b in zip(("fwd", "bwd"), before)] == [1, 1]
+    errs = _blocked_rows(qu.detach(), k.detach(), v.detach(), bias.detach(), g, out.detach(),
+                         grads, D ** -0.5)
+    for name, e in zip(("out", "dqu", "dk", "dv", "dbias"), errs):
+        assert e <= TOL[torch.float32], (name, e)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -685,12 +706,35 @@ def test_lane_seeded_dropout_past_its_grid_equals_plain(cuda, shape, dtype):
             assert torch.equal(out[lane, a:a + m], ref), (lane, a)
 
 
-@pytest.mark.parametrize("channels", [(3, 64), (64, 48), (96, 160), (256, 256)])
+@pytest.mark.parametrize("lane_numel", [1, 63, 4095])
+def test_short_lanes_dropout_equals_plain(cuda, lane_numel):
+    """Lanes shorter than a block (one launch of the short-lane kernel,
+    counted as ``hash_dropout_lanes_short``), forward and gradient under
+    vmap: each lane against the plain version with its seed, bit for bit."""
+    from torch.func import vmap
+
+    x = torch.randn((7000, lane_numel), generator=cuda, device="cuda")
+    g = torch.randn_like(x)
+    seeds = torch.randint(0, 2 ** 32, (7000,), generator=cuda, device="cuda")
+    before = [launches[n] for n in ("hash_dropout_lanes", "hash_dropout_lanes_short")]
+    xr = x.clone().requires_grad_()
+    out = vmap(hash_dropout, in_dims=(0, 0, None))(xr, seeds, 0.1)
+    (grad,) = torch.autograd.grad(out, xr, g)
+    assert [launches[n] - b for n, b in zip(("hash_dropout_lanes", "hash_dropout_lanes_short"),
+                                            before)] == [2, 2]
+    plain = vmap(dropout_plain, in_dims=(0, 0, None))
+    assert torch.equal(out, plain(x, seeds, 0.1))
+    assert torch.equal(grad, plain(g, seeds, 0.1))
+
+
+@pytest.mark.parametrize("channels", [(3, 64), (64, 48), (96, 160), (256, 256), (5, 24),
+                                      (13, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
-    """The runtime-channel kernel, forward and dx (counted as ``_any``),
-    through autograd against the plain version; at C == Cout the s2d form
-    too, on the 2C-channel view."""
+    """The runtime-channel kernels, forward and dx (counted as ``_any`` in
+    f32, ``_tc_any`` in bf16: conv3x3_any_mma.cu on the tensor cores, C % 8
+    and Cout % 8 nonzero among them), through autograd against the plain
+    version; at C == Cout the s2d form too, on the 2C-channel view."""
     C, Cout = channels
     x = torch.randn((2, 19, 38, C), generator=cuda, device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
@@ -698,8 +742,9 @@ def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
     forms = [(conv3x3, conv3x3_plain, "conv3x3")]
     if C == Cout:
         forms.append((conv3x3_s2d, conv3x3_s2d_plain, "conv3x3_s2d"))
+    tag = "_tc_any" if dtype == torch.bfloat16 else "_any"
     for fn, plain, name in forms:
-        names = (f"{name}_fwd_any", f"{name}_dx_any")
+        names = (f"{name}_fwd{tag}", f"{name}_dx{tag}")
         before = [launches[n] for n in names]
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
         y = fn(xr, wr)
@@ -716,12 +761,13 @@ def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_past_65535_images_matches_plain(cuda, C, dtype):
     """N = 65600: the FMA kernels launch two runs of images (counted as
-    chunked); the tensor-core kernel (bf16, C = 64) walks them in one."""
+    chunked); the tensor-core kernels (bf16, C = 64 and the runtime-channel
+    one at C = 3) walk them in one."""
     x = torch.randn((65600, 2, 4, C), generator=cuda, device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
     before = launches["conv3x3_fwd_chunked"]
     y = conv3x3_fwd(x, w)
-    tc = dtype == torch.bfloat16 and C == 64
+    tc = dtype == torch.bfloat16
     assert launches["conv3x3_fwd_chunked"] == before + (0 if tc else 1)
     assert _rel(y, conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
 
