@@ -92,9 +92,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               kernels that take the channel counts at run time: bf16 on the
               tensor cores, conv3x3_any_mma.cu, timed beside the f32-FMA
               runtime-channel kernel launched directly; f32 on that one) and
-              conv3x3_s2d at C = 256, in both dtypes at (16, 64, 64), bf16
-              also at (2, 19, 38), and at N = 65600 with (H, W) = (4, 8), C =
-              64 and 3.
+              conv3x3_s2d at C = 256 (the conv of x itself on 256 channels),
+              in both dtypes at (16, 64, 64), bf16 also at (2, 19, 38), and at
+              N = 65600 with (H, W) = (4, 8), C = 64 and 3 (bf16 in image
+              groups, conv3x3_any_mma.cu, timed beside the row-tile kernel
+              launched directly on the same inputs), and (4099, 3, 5) 13 ->
+              24 bf16 (ragged image groups).
   4. ref    : small pretext models on the card (kernels) against the same
               models on the CPU (plain versions), f32, dropout on, same seeds:
               one at head dims 32 and 16, SARSSLConfig.tiny(
@@ -627,7 +630,7 @@ def phase_card():
 
 
 TENSOR_CORE_SOURCES = ("attention_mma", "attention_f32_mma", "attention_f32_mma_psum",
-                       "conv3x3_mma", "conv3x3_any_mma")
+                       "conv3x3_mma", "conv3x3_any_mma", "conv3x3_any_mma_groups")
 
 
 def phase_build():
@@ -684,14 +687,15 @@ def _tensor_core_kernel(source, line):
                 flags) == (3 if "prod" in name else 2) else ""
             return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}{psum}>",
                     threads.get(name, 128), smem)
-    elif source == "conv3x3_any_mma":
+    elif source in ("conv3x3_any_mma", "conv3x3_any_mma_groups"):
         from sarssl_torch.kernels.conv3x3 import any_mma_smem_bytes
 
-        entry = re.search(r"Compiling entry function '.*?conv3x3_any_mma_kernel"
+        entry = re.search(r"Compiling entry function '.*?conv3x3_any_mma_(groups_)?kernel"
                           r"ILi(\d+)ELi(\d+)E", line)
         if entry:
-            nb, kt = (int(g) for g in entry.groups())
-            return f"conv3x3_any_mma_kernel<{nb}, {kt}>", 256, any_mma_smem_bytes(nb)
+            groups, nb, kt = bool(entry.group(1)), int(entry.group(2)), int(entry.group(3))
+            return (f"conv3x3_any_mma_{'groups_' if groups else ''}kernel<{nb}, {kt}>", 256,
+                    any_mma_smem_bytes(nb, groups))
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -1612,6 +1616,7 @@ EDGE_CONV_CHANNELS = ((3, 64), (64, 48), (96, 160), (256, 256))
 EDGE_CONV_SHAPE = (16, 64, 64)  # (N, H, W) of the channel edges
 EDGE_CONV_SMALL = (2, 19, 38)  # the GPU tests' shape, bf16 at the same channels
 EDGE_CONV_BATCH = ((65600, 4, 8, 64, 64), (65600, 4, 8, 3, 64))  # N past the grid
+EDGE_CONV_RAGGED = (4099, 3, 5, 13, 24)  # bf16 image groups of 17, the last one ragged
 EDGE_ITERS = 3
 EDGE_CONV_ITERS = 20  # the convs at (16, 64, 64) and smaller
 
@@ -2088,19 +2093,25 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     """conv3x3 (or conv3x3_s2d, C == Cout) forward and backward through the
     public path (counted: dx on the kernel, dW the library's), output and dx
     against the plain version; the forward and dx launches timed beside
-    cuDNN at the same channels and the bound, and the runtime-channel
+    cuDNN at the same channels and the bound, the runtime-channel
     tensor-core kernel's also beside the f32-FMA runtime-channel kernel
-    launched directly on the same inputs (``fma_ms``)."""
+    launched directly on the same inputs (``fma_ms``), and the image
+    groups' beside the row-tile kernel of the same pair launched directly
+    (``rows_ms``)."""
     from sarssl_torch.kernels import conv3x3, conv3x3_plain, conv3x3_s2d, conv3x3_s2d_plain
     from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_batch_chunks,
-                                              conv_kernel, launch_conv3x3_any, rot180_io)
+                                              conv_kernel, launch_conv3x3_any,
+                                              launch_conv3x3_any_mma, launch_conv3x3_mma,
+                                              pack_weights, rot180_io)
     from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd, expand_weights_s2d2
 
     name = str(dtype)[6:]
     prefix = "conv3x3_s2d" if s2d else "conv3x3"
     fn, plain = (conv3x3_s2d, conv3x3_s2d_plain) if s2d else (conv3x3, conv3x3_plain)
     fwd, dx = (conv3x3_s2d_fwd, conv3x3_s2d_dx) if s2d else (conv3x3_fwd, conv3x3_dx)
-    kernel = conv_kernel(dtype, 2 * C, 2 * Cout) if s2d else conv_kernel(dtype, C, Cout)
+    # the s2d form is the conv of x itself (kernels/conv_s2d.py): conv3x3's
+    # route; dx is the conv of dy, Cout -> C, by its own route
+    kernels = {"fwd": conv_kernel(dtype, C, Cout, H, W), "dx": conv_kernel(dtype, Cout, C, H, W)}
     x = torch.randn((N, H, W, C), generator=gen, device="cuda", dtype=dtype)
     dy = torch.randn((N, H, W, Cout), generator=gen, device="cuda", dtype=dtype)
     w = (torch.randn((3, 3, C, Cout), generator=gen, device="cuda") / np.sqrt(9 * C)).to(dtype)
@@ -2111,9 +2122,10 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
         return y.detach(), torch.autograd.grad(y, (xr, wr), dy)[0]
 
     (y, gx), counts = _counted(drive)
-    tag = {"tc": "_tc", "tc_any": "_tc_any", "fma": "", "any": "_any"}[kernel]
     want = {}
-    for kind in ("fwd", "dx"):
+    for kind, kernel in kernels.items():
+        tag = {"tc": "_tc", "tc_any": "_tc_any", "tc_groups": "_tc_groups", "fma": "",
+               "any": "_any"}[kernel]
         want[f"{prefix}_{kind}"] = 1
         if tag:
             want[f"{prefix}_{kind}{tag}"] = 1
@@ -2144,6 +2156,12 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
                                       "fma_any")
         return launch_conv3x3_any(inp, wk, "fma_any")
 
+    def row_tiles(inp, kind):  # the row-tile kernel of the pass's pair, launched directly
+        if conv_kernel(dtype, *((C, Cout) if kind == "fwd" else (Cout, C))) == "tc":
+            return launch_conv3x3_mma(inp, pack_weights(rot180_io(w) if kind == "dx" else w),
+                                      "rows")
+        return launch_conv3x3_any_mma(inp, w, "rows", rot=kind == "dx")
+
     # the small shapes last tens of microseconds, their host calls included:
     # more launches a reading
     iters = EDGE_CONV_ITERS if N * H * W <= 2 ** 18 else EDGE_ITERS
@@ -2151,33 +2169,42 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
             ("fwd", fwd, x, lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)),
             ("dx", dx, dy, lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
                                                               padding=1))):
+        kernel = kernels[kind]
         ms = cuda_ms(lambda: launch(inp, w), iters=iters, warmup=1)
         wk = rot180_io(w) if kind == "dx" else w
         fma_ms = (cuda_ms(lambda: yardstick(inp, wk), iters=iters, warmup=1)
                   if kernel == "tc_any" else None)
+        rows_ms = (cuda_ms(lambda: row_tiles(inp, kind), iters=iters, warmup=1)
+                   if kernel == "tc_groups" else None)
         plain_ms = cuda_ms(lambda: plain(inp.float(), (rot180_io(w) if kind == "dx" else w)
                                          .float()), iters=1, warmup=1)
         lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib, iters=iters)
         rows.append({
             "name": f"{prefix}_{kind}_N{N}H{H}W{W}_C{C}_Cout{Cout}_{name}", "route": "cuda",
             "source": {"tc": "sarssl_torch/csrc/conv3x3_mma.cu",
-                       "tc_any": "sarssl_torch/csrc/conv3x3_any_mma.cu"}.get(
+                       "tc_any": "sarssl_torch/csrc/conv3x3_any_mma.cu",
+                       "tc_groups": "sarssl_torch/csrc/conv3x3_any_mma.cu"}.get(
                            kernel, "sarssl_torch/csrc/conv3x3.cu"),
-            "variant": {"tc": "wgmma", "tc_any": "wgmma_any_channels", "fma": "fma",
+            "variant": {"tc": "wgmma", "tc_any": "wgmma_any_channels",
+                        "tc_groups": "wgmma_image_groups", "fma": "fma",
                         "any": "fma_any_channels"}[kernel],
-            "fma_ms": fma_ms,
+            "fma_ms": fma_ms, "rows_ms": rows_ms,
             "replaces": CONV_REPLACES[prefix],
             "launches": counts[f"{prefix}_{kind}"],
             "counters": {n: c for n, c in counts.items() if n.startswith(f"{prefix}_{kind}")},
-            "edge": (f"N = {N} past the grid" if N > 65535 else f"(C, Cout) = {(C, Cout)}"),
+            "edge": (f"N = {N} past the grid" if N > 65535 else
+                     f"(C, Cout) = {(C, Cout)}" + (", image groups" if kernel == "tc_groups"
+                                                   else "")),
             "max_abs_err": err if kind == "fwd" else err_dx, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
             "path": f"phase edges: {prefix} forward and backward once (launches)"})
-    log(f"[edges] {prefix} {(N, H, W, C)} -> {Cout} {name} ({kernel} kernel): launches "
+    log(f"[edges] {prefix} {(N, H, W, C)} -> {Cout} {name} ({kernels['fwd']} / "
+        f"{kernels['dx']} kernel): launches "
         f"{dict(sorted(counts.items()))}; rel err fwd {rel:.2e}, dx {rel_dx:.2e} (tol {tol}); "
         + ", ".join(f"{r['name'].split('_N')[0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
                     f"cuDNN {r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']}"
                     + (f", f32-FMA any-channel kernel {r['fma_ms']:.4f}" if r["fma_ms"] else "")
+                    + (f", row tiles {r['rows_ms']:.4f}" if r["rows_ms"] else "")
                     + ")" for r in rows))
     del x, dy, w, w_oihw
     torch.cuda.empty_cache()
@@ -2213,6 +2240,7 @@ def phase_edges():
     for N, H, W, C, Cout in EDGE_CONV_BATCH:
         for dtype in (torch.bfloat16, torch.float32):
             rows += _conv_edge(N, H, W, C, Cout, dtype, gen)
+    rows += _conv_edge(*EDGE_CONV_RAGGED, torch.bfloat16, gen)
     torch.cuda.empty_cache()
     log(f"[edges] {len(rows)} rows in {time.perf_counter() - t0:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")

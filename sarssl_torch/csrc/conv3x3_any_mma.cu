@@ -5,9 +5,11 @@
 // Replaces, for bfloat16 at every (C, Cout) outside {64, 128}^2 (which
 // conv3x3_mma.cu's instances take), the Pallas TPU kernels
 //   sarssl_tpu/kernels/conv3x3.py::_pallas_conv3x3
-//   sarssl_tpu/kernels/conv_s2d.py::_conv_s2d  (the conv over the (B, H, W/2,
-//       2C) view with the expanded (3, 3, 2C, 2C) weight, at C not in {32, 64};
-//       the zero blocks of that weight are multiplied)
+//   sarssl_tpu/kernels/conv_s2d.py::_conv_s2d  (the s2d form is the conv of x
+//       itself with w: kernels/conv_s2d.py launches this conv on x's C
+//       channels, so no block of the expanded weight is multiplied)
+// and, at every (C, Cout) in bfloat16, both where the images are smaller than
+// a row tile (below: the image groups).
 //
 //   y[n, h, w, co] = sum_{dh, dw, ci} x[n, h+dh-1, w+dw-1, ci] * wt[dh, dw, ci, co]
 //
@@ -59,13 +61,49 @@
 //    (rot180_io) in the same pass. One entry call launches both, so a small
 //    conv costs one host call. No atomics: results are bit-identical from run
 //    to run.
+//
+// Image groups (conv3x3_any_mma_groups_kernel). A row tile of 16 x 16 output
+// pixels holds one image of 4 x 8 with 1/8 of its products, copies and
+// epilogue inside the image. Where images are that small (the wrapper's rule,
+// kernels/conv3x3.py::conv_tiling) a tile is instead G consecutive whole
+// images, G = floor(256 / (H W)), so that its 256 output rows (two
+// warpgroups x m64, MT = 2 m16 tiles a warp) are nearly all inside an image:
+//  * Staging: the group's pixels are G H W consecutive rows of x, so a stage
+//    is their chunk rows in order, one linear read (16-byte cp.async where C
+//    % 8 == 0; else one value a thread, consecutive threads on consecutive
+//    values of the span, zeros written past C), swizzled as above, and no
+//    halo: row 0 of a stage is a chunk row of zeros that every tap outside an
+//    image reads.
+//  * Products: ldmatrix takes one row address per lane, so each lane points
+//    at its own pixel's row shifted by the tap, dh (W) + dw, or at the zero
+//    row; the 18 addresses (MT tiles x 9 taps) are fixed for the kernel's
+//    life and computed once. A fragment serves one tap of one m16 tile (no
+//    reuse across rows as above: 2 x 9 x KS ldmatrix a warp a K chunk, 4 x 3
+//    x KS in the row tile), and each tap's two m16 tiles are one wgmma group.
+//  * Weights: with one K chunk (C <= 64) a block's weights never change, so
+//    they are copied once and the stages carry the pixels alone; with more,
+//    every stage carries its chunk's nine blocks, as above.
+//  * Epilogue: staged past the zero row of the input buffer just consumed,
+//    then each real pixel's NB channels written; the missing images of a
+//    ragged last group are zeros in shared memory and masked here.
+//
+// Two libraries: this file builds the row-tile kernels and
+// conv3x3_any_mma_groups.cu, which includes it with CONV_ANY_MMA_GROUPS = 1,
+// the image-group kernels, so that the two halves compile in parallel. Both
+// export the same C entries; each takes its own mode (G == 0 here, G > 0 there).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mma_common.cuh"
 
+#ifndef CONV_ANY_MMA_GROUPS
+#define CONV_ANY_MMA_GROUPS 0
+#endif
+
 namespace {
+
+constexpr bool LIB_GROUPS = CONV_ANY_MMA_GROUPS != 0;  // this library's tile mode
 
 typedef __nv_bfloat16 bf16;
 typedef long long i64;
@@ -389,6 +427,210 @@ conv3x3_any_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   }
 }
 
+// ---- image groups ----
+
+constexpr int GM = NWARP * MT * 16;  // output pixels (rows of A) of a group tile
+
+template <int NB>
+struct GeoG {
+  static constexpr int TAP = Geo<NB>::TAP;
+  static constexpr int WS = Geo<NB>::WS;
+  static constexpr int PS = Geo<NB>::PS;
+  // an input stage: the zero chunk row, then GM chunk rows, or the staged
+  // output (GM rows of PS values) that the epilogue writes past the zero row
+  static constexpr int XG = ROWB + (GM * ROWB > GM * PS * 2 ? GM * ROWB : GM * PS * 2);
+  static constexpr int X_OFF = 2 * WS;
+  static constexpr int BYTES = X_OFF + 2 * XG;
+  static_assert(XG % 128 == 0, "input stages start 128-byte aligned");
+  static_assert(BYTES <= 232448, "over the shared memory a block may use");
+};
+
+// 16 zero bytes at shared address `addr`
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(0), "r"(0), "r"(0),
+               "r"(0));
+}
+
+struct GShape {
+  int N, H, W, C, CO, KC, G, HW, ntiles;
+};
+
+// stage of (group t, K chunk kc): the chunk rows of the group's pixels in
+// order (row p + 1 for pixel p; zeros past C and past the last image), and,
+// with `weights`, the nine taps' NB x 64 blocks of pass blockIdx.y
+template <int NB>
+__device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const bf16* x,
+                                           const bf16* wp, const GShape& s, int t, int kc,
+                                           bool weights) {
+  if (weights) {
+    const bf16* wsrc = wp + ((i64)blockIdx.y * s.KC + kc) * 9 * NB * BLK;
+    for (int idx = threadIdx.x; idx < 9 * NB * 8; idx += NT) {
+      const int row = idx >> 3, piece = idx & 7;
+      cp_async16(ws + swz(row, piece), wsrc + (i64)row * BLK + piece * 8);
+    }
+  }
+  const i64 n0 = (i64)t * s.G;
+  const int npix = (int)(s.N - n0 < s.G ? s.N - n0 : s.G) * s.HW;
+  const bf16* xg = x + n0 * s.HW * s.C + kc * BLK;
+  if (s.C % 8 == 0) {  // every 16-byte piece is aligned: inside C whole, or past it
+    for (int idx = threadIdx.x; idx < GM * 8; idx += NT) {
+      const int p = idx >> 3, piece = idx & 7;
+      const bool ok = p < npix && kc * BLK + piece * 8 < s.C;
+      cp_async16_zfill(xs + swz(p + 1, piece), ok ? xg + (i64)p * s.C + piece * 8 : x,
+                       ok ? 16 : 0);
+    }
+  } else {
+    // the chunk's cc channels of each pixel, value by value in the order they
+    // lie in device memory (one span where C < 64); zeros past them
+    const int cc = min(BLK, s.C - kc * BLK), cc8 = (cc + 7) & ~7;
+    for (int idx = threadIdx.x; idx < GM * 8; idx += NT) {
+      const int p = idx >> 3, piece = idx & 7;
+      if (p >= npix || piece * 8 >= cc8) st_shared_zero16(xs + swz(p + 1, piece));
+    }
+    if (cc8 > cc)
+      for (int idx = threadIdx.x; idx < npix * (cc8 - cc); idx += NT) {
+        const int p = idx / (cc8 - cc), c = cc + idx % (cc8 - cc);
+        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz(p + 1, c >> 3) + (c & 7) * 2),
+                     "h"((unsigned short)0));
+      }
+    for (int e = threadIdx.x; e < npix * cc; e += NT) {
+      const int p = e / cc, c = e % cc;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz(p + 1, c >> 3) + (c & 7) * 2),
+                   "h"(__bfloat16_as_ushort(xg[(i64)p * s.C + c])));
+    }
+  }
+}
+
+// acc += the stage's products over KS k16 steps of its K chunk: for each tap
+// the fragments of the warp's MT m16 tiles, each lane's row at a_off[m][tap]
+// of the stage, then the tap's block times each
+template <int NB, int KS>
+__device__ __forceinline__ void group_products(float (&acc)[MT][NB / 8][4], uint32_t ws,
+                                               uint32_t xs, const uint32_t (&a_off)[MT][9]) {
+  typedef GeoG<NB> G;
+  uint32_t a[2][MT][KS][4];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int set = tap & 1;
+    // the group that read a[set] two groups ago has completed
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(a[set][m][ks], (xs + a_off[m][tap]) ^ (ks << 5));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        wgmma_bk<NB>(acc[m], a[set][m][ks], desc_kmajor(ws + tap * G::TAP) + 2 * ks);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+}
+
+// grid (blocks, passes). x (N, H, W, C), y (N, H, W, CO), wp (passes, KC, 9,
+// NB, 64) zero-padded; a tile is images t G .. t G + G - 1; KT: the k16 steps
+// of the last K chunk
+template <int NB, int KT>
+__global__ void __launch_bounds__(NT, 1)
+conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                              bf16* __restrict__ y, GShape s) {
+  typedef GeoG<NB> G;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sb = smem_u32(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int t = blockIdx.x;
+  if (t >= s.ntiles) return;
+  // the lane's A row of each m16 tile and tap: its pixel's row shifted by the
+  // tap where the shifted pixel is in the same image, else the zero row
+  uint32_t a_off[MT][9];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int p = (warp * MT + m) * 16 + (lane & 15), q = p % s.HW;
+    const int h = q / s.W, w = q % s.W;
+    const bool in = p < s.G * s.HW;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int hh = h + tap / 3 - 1, ww = w + tap % 3 - 1;
+      const bool ok = in && hh >= 0 && hh < s.H && ww >= 0 && ww < s.W;
+      a_off[m][tap] = swz(ok ? 1 + p + (tap / 3 - 1) * s.W + (tap % 3 - 1) : 0, lane >> 4);
+    }
+  }
+  if (threadIdx.x < 16)  // the two stages' zero rows, which nothing overwrites
+    st_shared_zero16(sb + G::X_OFF + (threadIdx.x >> 3) * G::XG + (threadIdx.x & 7) * 16);
+  const bool stream_w = s.KC > 1;  // else the weights are copied once, into stage 0
+  load_group<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true);
+  cp_async_commit();
+
+  int it = 0;  // the block's step (group, chunk) count: stage it & 1
+  // wait for step it's stage, then start the copy of the step after it
+  auto begin_step = [&](int kc) {
+    cp_async_wait_all();
+    __syncthreads();  // stage it has landed; stage it + 1's last reader is done
+    int nt = t, nkc = kc + 1;
+    if (nkc == s.KC) {
+      nkc = 0;
+      nt += gridDim.x;
+    }
+    if (nt < s.ntiles) {
+      const int nx = (it + 1) & 1;
+      load_group<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * G::XG, x, wp, s, nt, nkc, stream_w);
+      cp_async_commit();
+    }
+  };
+
+  for (; t < s.ntiles; t += gridDim.x) {
+    float acc[MT][NB / 8][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n8 = 0; n8 < NB / 8; ++n8)
+        acc[m][n8][0] = acc[m][n8][1] = acc[m][n8][2] = acc[m][n8][3] = 0.f;
+    for (int kc = 0; kc + 1 < s.KC; ++kc, ++it) {
+      begin_step(kc);
+      group_products<NB, 4>(acc, sb + (it & 1) * G::WS, sb + G::X_OFF + (it & 1) * G::XG, a_off);
+    }
+    begin_step(s.KC - 1);
+    group_products<NB, KT>(acc, sb + (stream_w ? (it & 1) * G::WS : 0),
+                           sb + G::X_OFF + (it & 1) * G::XG, a_off);
+
+    // the epilogue, staged past the zero row of the input buffer just consumed
+    __syncthreads();  // every warp has read it
+    unsigned char* stg = smem + G::X_OFF + (it & 1) * G::XG + ROWB;
+    ++it;
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int p0 = (warp * MT + m) * 16;
+#pragma unroll
+      for (int n8 = 0; n8 < NB / 8; ++n8) {
+        *reinterpret_cast<uint32_t*>(stg + ((p0 + g) * G::PS + 8 * n8 + 2 * q) * 2) =
+            pack2(acc[m][n8][0], acc[m][n8][1]);
+        *reinterpret_cast<uint32_t*>(stg + ((p0 + g + 8) * G::PS + 8 * n8 + 2 * q) * 2) =
+            pack2(acc[m][n8][2], acc[m][n8][3]);
+      }
+    }
+    __syncthreads();
+    const i64 n0 = (i64)t * s.G;
+    const int npix = (int)(s.N - n0 < s.G ? s.N - n0 : s.G) * s.HW;
+    const int cb = blockIdx.y * NB, nvalid = min(NB, s.CO - cb);
+    bf16* yg = y + n0 * s.HW * s.CO + cb;
+    for (int idx = threadIdx.x; idx < npix * (NB / 8); idx += NT) {
+      const int pix = idx / (NB / 8), c0 = idx % (NB / 8) * 8;
+      if (c0 >= nvalid) continue;
+      const unsigned char* src = stg + (pix * G::PS + c0) * 2;
+      bf16* dst = yg + (i64)pix * s.CO + c0;
+      if (s.CO % 8 == 0) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && c0 + e < nvalid; ++e)
+          dst[e] = reinterpret_cast<const bf16*>(src)[e];
+      }
+    }
+  }
+}
+
 // wp[p][k][tap][n][c] = wt[tap][k * 64 + c][p * NB + n], zero past C and CO,
 // with wt = w (3, 3, C, CO) or, with rot, rot180_io of w (3, 3, CO, C):
 // wt[dh][dw][ci][co] = w[2 - dh][2 - dw][co][ci]
@@ -406,14 +648,11 @@ pack_weights_kernel(const bf16* __restrict__ w, bf16* __restrict__ wp, int C, in
   wp[i] = v;
 }
 
-template <int NB, int KT>
-cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int passes,
-                   cudaStream_t stream) {
-  typedef Geo<NB> G;
-  auto kernel = conv3x3_any_mma_kernel<NB, KT>;
-  // the blocks the card holds at once, found on the first launch of the
-  // instance on each device (the shared-memory attribute is set there too)
-  static int slots_of[16] = {};
+// the blocks the card holds at once of `kernel` with `bytes` of shared memory,
+// found on the first call for each device (the shared-memory attribute is set
+// there too); `slots_of` is the kernel's own table
+template <class K>
+cudaError_t card_slots(K kernel, int bytes, int (&slots_of)[16], int& slots) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -421,29 +660,64 @@ cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int p
   if (slots_of[dev] == 0) {
     int sms = 0, per_sm = 0;
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    G::BYTES)) != cudaSuccess ||
+                                    bytes)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
             cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, G::BYTES)) !=
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, bytes)) !=
             cudaSuccess)
       return err;
     slots_of[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int slots = slots_of[dev];
+  slots = slots_of[dev];
+  return cudaSuccess;
+}
+
+template <int NB, int KT>
+cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int passes,
+                   cudaStream_t stream) {
+  typedef Geo<NB> G;
+  auto kernel = conv3x3_any_mma_kernel<NB, KT>;
+  static int slots_of[16] = {};
+  int slots = 0;
+  const cudaError_t err = card_slots(kernel, G::BYTES, slots_of, slots);
+  if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
   kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
   return cudaGetLastError();
 }
 
+template <int NB, int KT>
+cudaError_t launch_groups(const bf16* x, const bf16* wp, bf16* y, const GShape& s, int passes,
+                          cudaStream_t stream) {
+  typedef GeoG<NB> G;
+  auto kernel = conv3x3_any_mma_groups_kernel<NB, KT>;
+  static int slots_of[16] = {};
+  int slots = 0;
+  const cudaError_t err = card_slots(kernel, G::BYTES, slots_of, slots);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
+  kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
+  return cudaGetLastError();
+}
+
+// the instance of KT in this library's mode: row tiles (shape s) or image
+// groups (shape g)
 template <int NB>
 cudaError_t launch_kt(int KT, const bf16* x, const bf16* wp, bf16* y, const Shape& s,
-                      int passes, cudaStream_t stream) {
+                      const GShape& g, int passes, cudaStream_t stream) {
+#define ANY_MMA_LAUNCH(kt)                                       \
+  case kt:                                                       \
+    if constexpr (LIB_GROUPS)                                    \
+      return launch_groups<NB, kt>(x, wp, y, g, passes, stream); \
+    else                                                         \
+      return launch<NB, kt>(x, wp, y, s, passes, stream);
   switch (KT) {
-    case 1: return launch<NB, 1>(x, wp, y, s, passes, stream);
-    case 2: return launch<NB, 2>(x, wp, y, s, passes, stream);
-    case 3: return launch<NB, 3>(x, wp, y, s, passes, stream);
-    case 4: return launch<NB, 4>(x, wp, y, s, passes, stream);
+    ANY_MMA_LAUNCH(1)
+    ANY_MMA_LAUNCH(2)
+    ANY_MMA_LAUNCH(3)
+    ANY_MMA_LAUNCH(4)
   }
+#undef ANY_MMA_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -455,22 +729,31 @@ extern "C" {
 // C % 8 == 0, y 16-byte aligned); w the contiguous bf16 weight, (3, 3, C, CO),
 // or with rot (3, 3, CO, C), taken rotated (rot180_io); NB the output channels
 // of a pass (a multiple of 8 up to 64; kernels/conv3x3.py::any_mma_passes),
-// ceil(CO / NB) passes; wp a bf16 scratch of passes * ceil(C / 64) * 9 * NB *
-// 64 elements, 16-byte aligned, which the first kernel fills as
+// ceil(CO / NB) passes; G 0 for tiles of 16 x 16 pixels (this file's library),
+// else the images of a tile (the image groups, conv3x3_any_mma_groups.cu's
+// library: G H W <= 256); wp a bf16 scratch of passes * ceil(C /
+// 64) * 9 * NB * 64 elements, 16-byte aligned, which the first kernel fills as
 // kernels/conv3x3.py::pack_weights_any lays it out. Returns
 // cudaGetLastError() after the launches (0 on success).
 int conv3x3_any_mma(const void* x, const void* w, void* wp, void* y, int N, int H, int W, int C,
-                    int CO, int NB, int rot, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || CO <= 0 || NB % 8 != 0 || NB < 8 || NB > 64)
+                    int CO, int NB, int rot, int G, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || CO <= 0 || NB % 8 != 0 || NB < 8 || NB > 64 ||
+      G < 0 || (G > 0) != LIB_GROUPS || (i64)G * H * W > GM)
     return (int)cudaErrorInvalidValue;
-  Shape s;
-  s.N = N, s.H = H, s.W = W, s.C = C, s.CO = CO;
-  s.KC = (C + BLK - 1) / BLK;
-  s.tiles_x = (W + TW - 1) / TW;
-  s.tiles_y = (H + TH - 1) / TH;
-  const i64 ntiles = (i64)N * s.tiles_y * s.tiles_x;
-  if (ntiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  s.ntiles = (int)ntiles;
+  Shape s = {};
+  GShape g = {};
+  s.N = g.N = N, s.H = g.H = H, s.W = g.W = W, s.C = g.C = C, s.CO = g.CO = CO;
+  s.KC = g.KC = (C + BLK - 1) / BLK;
+  if (G > 0) {
+    g.G = G, g.HW = H * W;
+    g.ntiles = (N + G - 1) / G;
+  } else {
+    s.tiles_x = (W + TW - 1) / TW;
+    s.tiles_y = (H + TH - 1) / TH;
+    const i64 ntiles = (i64)N * s.tiles_y * s.tiles_x;
+    if (ntiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    s.ntiles = (int)ntiles;
+  }
   const int passes = (CO + NB - 1) / NB;
   const int KT = (C - (s.KC - 1) * BLK + 15) / 16;
   const bf16 *xb = (const bf16*)x, *wb = (const bf16*)wp;
@@ -484,29 +767,33 @@ int conv3x3_any_mma(const void* x, const void* w, void* wp, void* y, int N, int 
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   switch (NB) {
-    case 8: return (int)launch_kt<8>(KT, xb, wb, yb, s, passes, st);
-    case 16: return (int)launch_kt<16>(KT, xb, wb, yb, s, passes, st);
-    case 24: return (int)launch_kt<24>(KT, xb, wb, yb, s, passes, st);
-    case 32: return (int)launch_kt<32>(KT, xb, wb, yb, s, passes, st);
-    case 40: return (int)launch_kt<40>(KT, xb, wb, yb, s, passes, st);
-    case 48: return (int)launch_kt<48>(KT, xb, wb, yb, s, passes, st);
-    case 56: return (int)launch_kt<56>(KT, xb, wb, yb, s, passes, st);
-    case 64: return (int)launch_kt<64>(KT, xb, wb, yb, s, passes, st);
+    case 8: return (int)launch_kt<8>(KT, xb, wb, yb, s, g, passes, st);
+    case 16: return (int)launch_kt<16>(KT, xb, wb, yb, s, g, passes, st);
+    case 24: return (int)launch_kt<24>(KT, xb, wb, yb, s, g, passes, st);
+    case 32: return (int)launch_kt<32>(KT, xb, wb, yb, s, g, passes, st);
+    case 40: return (int)launch_kt<40>(KT, xb, wb, yb, s, g, passes, st);
+    case 48: return (int)launch_kt<48>(KT, xb, wb, yb, s, g, passes, st);
+    case 56: return (int)launch_kt<56>(KT, xb, wb, yb, s, g, passes, st);
+    case 64: return (int)launch_kt<64>(KT, xb, wb, yb, s, g, passes, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory a block of an NB instance takes, 0 if none
-int conv3x3_any_mma_smem_bytes(int NB) {
+// dynamic shared memory a block of an NB instance takes (groups 0: row tiles,
+// 1: image groups), 0 if none
+int conv3x3_any_mma_smem_bytes(int NB, int groups) {
   switch (NB) {
-    case 8: return Geo<8>::BYTES;
-    case 16: return Geo<16>::BYTES;
-    case 24: return Geo<24>::BYTES;
-    case 32: return Geo<32>::BYTES;
-    case 40: return Geo<40>::BYTES;
-    case 48: return Geo<48>::BYTES;
-    case 56: return Geo<56>::BYTES;
-    case 64: return Geo<64>::BYTES;
+#define ANY_MMA_BYTES(nb) \
+  case nb: return groups ? GeoG<nb>::BYTES : Geo<nb>::BYTES;
+    ANY_MMA_BYTES(8)
+    ANY_MMA_BYTES(16)
+    ANY_MMA_BYTES(24)
+    ANY_MMA_BYTES(32)
+    ANY_MMA_BYTES(40)
+    ANY_MMA_BYTES(48)
+    ANY_MMA_BYTES(56)
+    ANY_MMA_BYTES(64)
+#undef ANY_MMA_BYTES
   }
   return 0;
 }

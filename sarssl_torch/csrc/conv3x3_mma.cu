@@ -6,11 +6,12 @@
 //   sarssl_tpu/kernels/conv3x3.py::_pallas_conv3x3  (C = Cout = 64)
 //   sarssl_tpu/kernels/conv_s2d.py::_conv_s2d       (the same conv over the free
 //       W-space-to-depth view (B, H, W/2, 2C), whose expanded (3, 3, 2C, 2C)
-//       weight is half zeros. With the zero blocks left out, output chunk q of
-//       view pixel p takes w[dh, 0..2] on the chunks 2p + q - 1 .. 2p + q + 1 of
-//       the row: chunk for chunk the 64-channel conv, in the same memory. So
-//       the s2d launch is the C = 64 instance below over the view's chunks;
-//       kernels/conv_s2d.py derives that from its table of existing blocks.)
+//       weight is half zeros. With the zero blocks left out, output block q of
+//       view pixel p takes w[dh, 0..2] on the C-channel blocks 2p + q - 1 ..
+//       2p + q + 1 of the row: block for block the C-channel conv of x, in the
+//       same memory. So the s2d launch is this conv of x itself, the C = 64
+//       instance below at C = 64; kernels/conv_s2d.py derives that from its
+//       table of existing blocks.)
 //
 //   y[n, h, w, co] = sum_{dh, dw, ci} x[n, h+dh-1, w+dw-1, ci] * wt[dh, dw, ci, co]
 //

@@ -10,15 +10,16 @@
   dropout.py   : counter-hash inverted dropout, Triton (one seed, or under
                  torch.func.vmap one seed a lane), up to 2^32 - 1 elements
   conv3x3.py   : SAME 3x3 conv, NHWC x HWIO, CUDA C++: ``csrc/conv3x3_mma.cu``
-                 (tensor cores, ``wgmma``; bfloat16 at (C, Cout) in {64, 128}^2)
-                 and ``csrc/conv3x3.cu`` (f32 FMAs; float32 at the same pairs,
-                 and every other (C, Cout) in either dtype on a kernel that
-                 takes the channel counts at run time); any N
-  conv_s2d.py  : the same conv over the W-space-to-depth view: bfloat16 at
-                 C = 64 on the tensor-core kernel, which multiplies only the
-                 blocks of the expanded weight that exist (it walks the view's
-                 64-channel chunks); anything else on the dense kernels at
-                 twice the channels
+                 (tensor cores, ``wgmma``; bfloat16 at (C, Cout) in {64, 128}^2),
+                 ``csrc/conv3x3_any_mma.cu`` (tensor cores; bfloat16 at every
+                 other (C, Cout), and at any pair where the images are smaller
+                 than a row tile in tiles of several whole images,
+                 ``csrc/conv3x3_any_mma_groups.cu``) and ``csrc/conv3x3.cu``
+                 (f32 FMAs; float32, with the channel counts at run time
+                 outside {64, 128}^2); any N
+  conv_s2d.py  : the same conv over the W-space-to-depth view, which is the
+                 conv of x itself: conv3x3's kernels on x's C channels, so no
+                 zero block of the expanded weight is multiplied
   csrc/mma_common.cuh : cp.async / ldmatrix / mma primitives the tensor-core
                  sources include
 

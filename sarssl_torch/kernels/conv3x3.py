@@ -33,6 +33,13 @@ Four kernels, chosen by dtype and channels (:func:`conv_kernel`):
   In bfloat16 it is launched only directly (:func:`launch_conv3x3_any`), as
   the yardstick of ``conv3x3_any_mma.cu``.
 
+Images smaller than a row tile (:func:`conv_tiling`): bfloat16 at any (C,
+Cout) runs ``conv3x3_any_mma.cu``'s image groups (built as a library of their
+own from ``csrc/conv3x3_any_mma_groups.cu``), a tile of G whole images,
+G = floor(256 / (H W)), staged without a halo; each pixel's taps are rows of
+the staged group or a zero row (:func:`group_tap_rows`), and
+:func:`conv3x3_from_image_groups` repeats that arithmetic in plain PyTorch.
+
 Any H and W: the FMA kernels' pixel tiles lie on the grid's x dimension.
 Any N: their grid holds 65535 images in its y dimension, so they
 launch runs of at most that many (:func:`conv_batch_chunks`); the
@@ -96,12 +103,42 @@ def takes_tensor_cores(dtype: torch.dtype, C: int, Cout: int) -> bool:
     return dtype == torch.bfloat16 and (C, Cout) in CHANNELS
 
 
-def conv_kernel(dtype: torch.dtype, C: int, Cout: int) -> str:
+GROUP_PIXELS = 256  # output pixels of an image-group tile (conv3x3_any_mma.cu's GM)
+
+
+def conv_tiling(dtype: torch.dtype, H: int, W: int, C: int, Cout: int) -> int:
+    """How many images a tile of the tensor-core kernels holds for CUDA
+    tensors of this dtype and shape: G = floor(256 / (H W)) whole images
+    (``conv3x3_any_mma.cu``'s image groups), or 0 for row tiles (of 16 x 32
+    pixels at ``conv3x3_mma.cu``'s C = 64 instance, else 16 x 16).
+
+    The rule: image groups wherever the share of a group tile's 256 outputs
+    inside an image, G H W / 256, exceeds the row tiles' share, H W over the
+    pixels of the tiles that cover one image; row tiles at a tie, where their
+    fragments serve three output rows each. So (4, 8) takes groups of 8
+    (1/8 of a 16 x 16 tile inside, 1/16 of a 16 x 32 one), (1, 1) groups of
+    256, and (16, 16) or anything past 256 pixels row tiles (at C = 64 (16,
+    16) fills half of a 16 x 32 tile: groups of one). float32 runs the FMA
+    kernels: 0."""
+    if dtype != torch.bfloat16 or H * W > GROUP_PIXELS:
+        return 0
+    th, tw = (16, 32) if takes_tensor_cores(dtype, C, Cout) and C == BLOCK else (16, 16)
+    rows_share = H * W / (-(-H // th) * th * -(-W // tw) * tw)
+    G = GROUP_PIXELS // (H * W)
+    return G if G * H * W / GROUP_PIXELS > rows_share else 0
+
+
+def conv_kernel(dtype: torch.dtype, C: int, Cout: int, H: int | None = None,
+                W: int | None = None) -> str:
     """The kernel the conv wrappers run for CUDA tensors of this dtype and
     these channels: ``"tc"`` (``conv3x3_mma.cu``), ``"tc_any"``
-    (``conv3x3_any_mma.cu``, bfloat16 at every other pair), ``"fma"``
-    (``conv3x3.cu``'s instances, float32 at ``CHANNELS``) or ``"any"`` (its
-    runtime-channel kernel, float32 at every other pair)."""
+    (``conv3x3_any_mma.cu``'s row tiles, bfloat16 at every other pair),
+    ``"fma"`` (``conv3x3.cu``'s instances, float32 at ``CHANNELS``) or
+    ``"any"`` (its runtime-channel kernel, float32 at every other pair). Given
+    H and W, ``"tc_groups"`` (``conv3x3_any_mma.cu``'s image groups, bfloat16
+    at any pair) where :func:`conv_tiling` names groups."""
+    if H is not None and conv_tiling(dtype, H, W, C, Cout):
+        return "tc_groups"
     if takes_tensor_cores(dtype, C, Cout):
         return "tc"
     if dtype == torch.bfloat16:
@@ -208,6 +245,63 @@ def conv3x3_from_padded_blocks(x: torch.Tensor, packed: torch.Tensor,
     return out.reshape(N, H, W, passes * nb)[..., :Cout].to(x.dtype)
 
 
+def group_tap_rows(H: int, W: int, G: int) -> torch.Tensor:
+    """(256, 9) int64: for each output row p of an image-group tile and tap
+    (dh, dw) the chunk row its A fragment reads in the staged group (row 1 +
+    q for the group's pixel q), or 0, the zero row, where the tap falls
+    outside p's image or p outside the group's G images. The plain version of
+    each lane's ``a_off`` in ``conv3x3_any_mma_groups_kernel``."""
+    p = torch.arange(GROUP_PIXELS)
+    h, w = (p % (H * W)) // W, p % W
+    rows = torch.zeros((GROUP_PIXELS, 9), dtype=torch.int64)
+    for tap in range(9):
+        dh, dw = divmod(tap, 3)
+        ok = ((p < G * H * W) & (h + dh - 1 >= 0) & (h + dh - 1 < H) & (w + dw - 1 >= 0)
+              & (w + dw - 1 < W))
+        rows[:, tap] = torch.where(ok, 1 + p + (dh - 1) * W + (dw - 1), 0)
+    return rows
+
+
+def image_group_pixels(N: int, H: int, W: int, G: int) -> torch.Tensor:
+    """(ceil(N / G), 256) int64: the flat output pixel (n H W + h W + w) that
+    row p of group tile t writes, -1 where the epilogue masks it (past the
+    group's images, or a missing image of a ragged last group)."""
+    t = torch.arange(-(-N // G))[:, None]
+    p = torch.arange(GROUP_PIXELS)[None, :]
+    pix = t * G * H * W + p
+    return torch.where((p < G * H * W) & (pix < N * H * W), pix, -1)
+
+
+def conv3x3_from_image_groups(x: torch.Tensor, packed: torch.Tensor, Cout: int,
+                              G: int) -> torch.Tensor:
+    """The image-group mode's arithmetic in plain PyTorch: ``x`` (N, H, W, C)
+    in tiles of G images, each staged as a zero row then its pixels' rows
+    (zero-padded to the K chunks, zeros past a ragged last group); row p of a
+    tile takes tap t's ``64 x NB`` blocks of ``packed`` (as
+    :func:`pack_weights_any` lays it out) on staged row
+    ``group_tap_rows(H, W, G)[p, t]``; f32 sums; the rows that
+    :func:`image_group_pixels` names written back, the first Cout channels in
+    ``x``'s dtype."""
+    N, H, W, C = x.shape
+    passes, kc, _, nb, blk = packed.shape
+    T = -(-N // G)
+    staged = torch.zeros((T, 1 + GROUP_PIXELS, kc * blk), dtype=torch.float32, device=x.device)
+    flat = x.reshape(N * H * W, C).float()
+    pixels = image_group_pixels(N, H, W, G).to(x.device)
+    real = pixels >= 0
+    staged[:, 1:][real] = F.pad(flat, (0, kc * blk - C))[pixels[real]]
+    rows = group_tap_rows(H, W, G).to(x.device)
+    out = torch.zeros((T, GROUP_PIXELS, passes * nb), dtype=torch.float32, device=x.device)
+    for p in range(passes):
+        for k in range(kc):
+            for tap in range(9):
+                a = staged[:, rows[:, tap], k * blk:(k + 1) * blk]
+                out[..., p * nb:(p + 1) * nb] += a @ packed[p, k, tap].float().T
+    y = torch.empty((N * H * W, Cout), dtype=torch.float32, device=x.device)
+    y[pixels[real]] = out[real][:, :Cout]
+    return y.reshape(N, H, W, Cout).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("conv3x3")
@@ -233,21 +327,23 @@ def _library_mma():
 
 
 @functools.lru_cache(maxsize=None)
-def _library_any_mma():
-    lib = load_library("conv3x3_any_mma")
-    lib.conv3x3_any_mma.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+def _library_any_mma(groups: bool = False):
+    """``conv3x3_any_mma.cu``'s row tiles, or with ``groups`` its image groups
+    (``conv3x3_any_mma_groups.cu``, a library of their own)."""
+    lib = load_library("conv3x3_any_mma_groups" if groups else "conv3x3_any_mma")
+    lib.conv3x3_any_mma.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.conv3x3_any_mma.restype = _I
-    lib.conv3x3_any_mma_smem_bytes.argtypes = [_I]
+    lib.conv3x3_any_mma_smem_bytes.argtypes = [_I, _I]
     lib.conv3x3_any_mma_smem_bytes.restype = _I
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
-def any_mma_smem_bytes(nb: int) -> int:
+def any_mma_smem_bytes(nb: int, groups: bool = False) -> int:
     """Dynamic shared memory a block of ``conv3x3_any_mma_kernel<nb, *>``
-    takes."""
-    return _library_any_mma().conv3x3_any_mma_smem_bytes(nb)
+    (with ``groups``: ``conv3x3_any_mma_groups_kernel<nb, *>``) takes."""
+    return _library_any_mma(groups).conv3x3_any_mma_smem_bytes(nb, int(groups))
 
 
 def mma_smem_bytes(kh: int, mt: int, stages: int) -> int:
@@ -347,13 +443,14 @@ def launch_conv3x3_mma(x: torch.Tensor, packed: torch.Tensor, name: str) -> torc
 
 
 def launch_conv3x3_any_mma(x: torch.Tensor, w: torch.Tensor, name: str,
-                           rot: bool = False) -> torch.Tensor:
+                           rot: bool = False, groups: int = 0) -> torch.Tensor:
     """Run the runtime-channel tensor-core kernel (``conv3x3_any_mma.cu``) on
     ``x`` (N, H, W, C) bfloat16 contiguous with ``w`` (3, 3, C, Cout), or
     with ``rot`` ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to bfloat16:
     one call that packs the weight (as :func:`pack_weights_any` does) and
-    runs the conv; count one launch of ``name`` and one of ``name +
-    "_tc_any"``."""
+    runs the conv in row tiles, or with ``groups`` = G > 0 in tiles of G
+    whole images (G H W <= 256); count one launch of ``name`` and one of
+    ``name + "_tc_any"`` (row tiles) or ``name + "_tc_groups"``."""
     wk = w.to(torch.bfloat16).contiguous()
     if not (x.is_cuda and wk.device == x.device and x.dtype == torch.bfloat16
             and x.is_contiguous()):
@@ -362,20 +459,23 @@ def launch_conv3x3_any_mma(x: torch.Tensor, w: torch.Tensor, name: str,
     N, H, W, C = x.shape
     if wk.ndim != 4 or tuple(wk.shape[:2]) != (3, 3) or wk.shape[3 if rot else 2] != C:
         raise ValueError(f"{name}: {tuple(w.shape)} is not the weight of C = {C}")
+    if groups < 0 or groups * H * W > GROUP_PIXELS:
+        raise ValueError(f"{name}: a tile holds at most {GROUP_PIXELS} pixels, got {groups} "
+                         f"images of {H} x {W}")
     cout = wk.shape[2] if rot else wk.shape[3]
     if C % 8 == 0 and x.data_ptr() % 16:
         raise ValueError(f"{name}: the tensor-core kernel takes x 16-byte aligned where "
                          f"C % 8 == 0")
     passes, nb = any_mma_passes(cout)
-    lib = _library_any_mma()
+    lib = _library_any_mma(groups > 0)
     packed = torch.empty((passes, -(-C // BLOCK), 9, nb, BLOCK), dtype=x.dtype, device=x.device)
     y = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
     code = lib.conv3x3_any_mma(x.data_ptr(), wk.data_ptr(), packed.data_ptr(), y.data_ptr(), N,
-                               H, W, C, cout, nb, int(rot),
+                               H, W, C, cout, nb, int(rot), groups,
                                torch.cuda.current_stream(x.device).cuda_stream)
     check_cuda_status(lib, code, name)
     launches[name] += 1
-    launches[name + "_tc_any"] += 1
+    launches[name + ("_tc_groups" if groups else "_tc_any")] += 1
     return y
 
 
@@ -386,7 +486,12 @@ def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
     ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to ``x``'s dtype (the
     runtime-channel tensor-core kernel rotates ``w`` as it packs it)."""
     _check(x, w.transpose(2, 3) if rot else w, name)  # rot180_io(w)'s shape, no copy
-    kernel = conv_kernel(x.dtype, x.shape[3], w.shape[2] if rot else w.shape[3])
+    _, H, W, C = x.shape
+    cout = w.shape[2] if rot else w.shape[3]
+    kernel = conv_kernel(x.dtype, C, cout, H, W)
+    if kernel == "tc_groups":
+        return launch_conv3x3_any_mma(x, w, name, rot=rot,
+                                      groups=conv_tiling(x.dtype, H, W, C, cout))
     if kernel == "tc_any":
         return launch_conv3x3_any_mma(x, w, name, rot=rot)
     if rot:

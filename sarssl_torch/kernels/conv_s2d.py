@@ -10,20 +10,21 @@ padding is exactly the original's. Of the twelve C x C blocks of each kernel
 row of the expanded weight six are zero by construction, and the six others
 are the three blocks ``w[dh, dw]``, each used by both output parities.
 
-  * bfloat16 at C = 64: ``csrc/conv3x3_mma.cu`` multiplies only the blocks that
-    exist, the work of the plain conv and not twice it. :data:`S2D_SLOTS` is
-    the table of those blocks; :func:`s2d_chunk_taps` reads off it that output
-    chunk q of view pixel p takes ``w[dh, 0..2]`` on the 64-channel chunks
-    2p + q - 1 .. 2p + q + 1 of the view's row, whatever q. Chunk for chunk
-    that is the 64-channel conv over the same memory, so the launch is the
-    kernel's C = 64 instance walking the view's chunks;
-  * anything else (float32; bfloat16 at C != 64): ``conv3x3``'s routing on
-    the view at 2C channels with the expanded weights (C = 32: the 64-channel
-    instances; any other C the runtime-channel kernels, ``conv3x3.conv_kernel``:
-    in bfloat16 ``csrc/conv3x3_any_mma.cu`` on the tensor cores, which
-    multiplies the expanded weight's zero blocks too);
-  * dx: the same on dy's view with ``rot180_io(w)``;
+  * :data:`S2D_SLOTS` is the table of the blocks that exist;
+    :func:`s2d_chunk_taps` reads off it that output block q of view pixel p
+    takes ``w[dh, 0..2]`` on the C-channel blocks 2p + q - 1 .. 2p + q + 1 of
+    the view's row, whatever q and whatever C. Block for block that is the
+    C-channel conv of x over the same memory (held once, below). So the
+    launch is ``conv3x3``'s on x itself with w, at every C and dtype: it
+    takes every route ``conv3x3.conv_kernel`` names (the tensor-core
+    instances, the runtime-channel kernels, the FMA kernels, the image
+    groups) and multiplies no zero block;
+  * dx: the same on dy with ``rot180_io(w)``;
   * dW: the library filter gradient on the original layout, as in JAX.
+
+:func:`expand_weights_s2d2` and :func:`conv3x3_s2d_plain` (the conv of the
+view with the expanded weight) stay for the CPU and the tests; no launch on
+the card takes them.
 
 On no model path, like ``conv3x3``.
 """
@@ -31,8 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from .conv3x3 import (BLOCK, Conv3x3Function, conv3x3_plain, launch_conv3x3,
-                      launch_conv3x3_mma, pack_weights, rot180_io, takes_tensor_cores)
+from .conv3x3 import Conv3x3Function, conv3x3_plain, launch_conv3x3
 
 
 def s2d_slots() -> list:
@@ -53,34 +53,26 @@ S2D_SLOTS = s2d_slots()
 
 
 def s2d_chunk_taps(slots) -> list:
-    """What a table of the view's blocks means chunk by chunk: for each kernel
-    row ``dh`` the ``(shift, slot)`` pairs such that output chunk ``c = 2p +
-    q`` of a view row takes block ``slot`` on input chunk ``c + shift``.
-    Raises if the two output parities disagree, i.e. if the table is not that
-    of a conv over the chunks."""
+    """What a table of the view's C x C blocks means block by block: for each
+    kernel row ``dh`` the ``(shift, slot)`` pairs such that output block ``c
+    = 2p + q`` of a view row takes weight block ``slot`` on input block ``c +
+    shift``. Raises if the two output parities disagree, i.e. if the table is
+    not that of a conv over the blocks. Nothing here depends on C."""
     rows = []
     for dh in range(3):
         per_q = [sorted((2 * (j - 1) + r - q, slots[dh][j][r][q]) for j in range(3)
                         for r in range(2) if slots[dh][j][r][q] >= 0) for q in range(2)]
         if per_q[0] != per_q[1]:
-            raise ValueError("the block table is not a conv over 64-channel chunks")
+            raise ValueError("the block table is not a conv over the view's C-channel chunks")
         rows.append(per_q[0])
     return rows
 
 
-# The bfloat16 launch below walks the view's chunks as 64-channel pixels. That
-# is right only while the view's existing blocks are the taps of the chunks'
-# own 3x3 conv with w's nine blocks in their order: held here, once.
+# The launches below run the conv of x itself with w. That is right only while
+# the view's existing blocks are the taps of the C-channel blocks' own 3x3 conv
+# with w's nine blocks in their order, at any C: held here, once.
 if s2d_chunk_taps(S2D_SLOTS) != [[(dw - 1, dh * 3 + dw) for dw in range(3)] for dh in range(3)]:
-    raise RuntimeError("S2D_SLOTS is not the table of the chunks' 3x3 conv")
-
-
-def takes_s2d_instance(dtype: torch.dtype, C: int) -> bool:
-    """Whether ``conv3x3_s2d`` multiplies the existing blocks only (the
-    tensor-core kernel's C = 64 instance over the view's chunks) for CUDA
-    tensors of this dtype with ``C`` channels. Anything else goes to
-    ``conv3x3``'s routing at 2C channels with the expanded weights."""
-    return takes_tensor_cores(dtype, 2 * C, 2 * C) and C == BLOCK
+    raise RuntimeError("S2D_SLOTS is not the table of the C-channel blocks' 3x3 conv")
 
 
 def expand_weights_s2d2(w: torch.Tensor) -> torch.Tensor:
@@ -110,11 +102,6 @@ def _check_shape(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(w.shape)} for x {tuple(x.shape)}")
 
 
-def _view(x: torch.Tensor) -> torch.Tensor:
-    B, H, W, C = x.shape
-    return x.view(B, H, W // 2, 2 * C)
-
-
 def conv3x3_s2d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: :func:`conv3x3_plain` on the view with the expanded
     weights."""
@@ -124,14 +111,12 @@ def conv3x3_s2d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          expand_weights_s2d2(w)).reshape(x.shape)
 
 
-def _launch(x, w, name):
+def _launch(x, w, name, rot=False):
     _check_shape(x, w)
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous x")
-    if takes_s2d_instance(x.dtype, x.shape[3]):
-        # the view's chunks, walked as pixels: x's own memory and shape
-        return launch_conv3x3_mma(x, pack_weights(w.to(x.dtype)), name)
-    return launch_conv3x3(_view(x), expand_weights_s2d2(w), name).view(x.shape)
+    # the conv of x with w (module note): x's own memory and shape
+    return launch_conv3x3(x, w, name, rot=rot)
 
 
 def conv3x3_s2d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -141,7 +126,7 @@ def conv3x3_s2d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3x3_s2d_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of ``conv3x3_s2d(x, w)``: the forward launch on dy with
     ``rot180_io(w)``."""
-    return _launch(dy, rot180_io(w), "conv3x3_s2d_dx")
+    return _launch(dy, w, "conv3x3_s2d_dx", rot=True)
 
 
 def conv3x3_s2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ builds in its own ``_build``. The timing is this tree's ``chip_smoke``
 unsharded and with the index map (1024, 2048, 1024); the lane-seeded launch
 at (8, 8, 64, 2048) f32, queued and back to back, and at (65600, 64) f32
 (lanes shorter than a block); conv3x3 forward in f32 on the FMA instances at
-(16, 64, 64) with 64 -> 64 and 128 -> 128 channels; the f32 (3xTF32)
+(16, 64, 64) with 64 -> 64 and 128 -> 128 channels; conv3x3 forward and dx
+in bf16 at (128, 256, 256, 64) 64 -> 64 (``conv3x3_mma.cu``) and at (16, 64,
+64) 96 -> 160 and 256 -> 256 (``conv3x3_any_mma.cu``'s row tiles); the f32 (3xTF32)
 attention forward and backward at (128, 4, 256, D), D = 16, 64, 128, 256,
 512, and at (1, 16, 4096, D), D = 16, 64, 128, 512 (``long``: the
 partial-sum instances), rate 0.1. ``--rows`` keeps the rows whose names start with one of its
@@ -107,6 +109,14 @@ def rows_of(kernels, keep=None, gen_seed=0):
         xc = torch.randn((16, 64, 64, c), generator=gen, device="cuda")
         wc = torch.randn((3, 3, c, c), generator=gen, device="cuda") / (3 * c ** 0.5)
         convs[c] = (xc, wc)
+    bf16 = {}
+    for tag, shape, cout in (("64", (128, 256, 256, 64), 64), ("96_160", (16, 64, 64, 96), 160),
+                             ("256", (16, 64, 64, 256), 256)):
+        c = shape[-1]
+        bf16[tag] = (torch.randn(shape, generator=gen, device="cuda").bfloat16(),
+                     (torch.randn((3, 3, c, cout), generator=gen, device="cuda")
+                      / (3 * c ** 0.5)).bfloat16(),
+                     torch.randn(shape[:3] + (cout,), generator=gen, device="cuda").bfloat16())
     short = torch.randn((65600, 64), generator=gen, device="cuda")
     short_seeds = torch.randint(0, 2 ** 32, (65600,), generator=gen, device="cuda")
     rows = {
@@ -122,6 +132,9 @@ def rows_of(kernels, keep=None, gen_seed=0):
         "conv3x3_fwd_f32_64": ("queued", lambda: conv.conv3x3_fwd(*convs[64]), True),
         "conv3x3_fwd_f32_128": ("queued", lambda: conv.conv3x3_fwd(*convs[128]), True),
     }
+    for tag, (xb, wb, dyb) in bf16.items():
+        rows[f"conv3x3_bf16_fwd_{tag}"] = ("queued", lambda a=(xb, wb): conv.conv3x3_fwd(*a), True)
+        rows[f"conv3x3_bf16_dx_{tag}"] = ("queued", lambda a=(dyb, wb): conv.conv3x3_dx(*a), True)
     if keep is None or any(w.startswith("attention") for w in keep):
         rows.update(attention_rows(kernels))
     return {n: r for n, r in rows.items() if keep is None or any(n.startswith(w) for w in keep)}

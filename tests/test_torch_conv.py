@@ -22,11 +22,11 @@ from sarssl_tpu.kernels.conv_s2d import expand_weights_s2d2 as jax_expand  # noq
 from sarssl_torch.kernels import (conv3x3, conv3x3_plain, conv3x3_s2d,  # noqa: E402
                                   conv3x3_s2d_plain, expand_weights_s2d2)
 from sarssl_torch.kernels.conv3x3 import (CHANNELS, Conv3x3Function,  # noqa: E402
-                                          conv3x3_from_blocks, dense_slots,
+                                          conv3x3_from_blocks, conv_kernel, dense_slots,
                                           launch_conv3x3, pack_weights, rot180_io,
                                           takes_tensor_cores)
-from sarssl_torch.kernels.conv_s2d import (S2D_SLOTS, s2d_chunk_taps,  # noqa: E402
-                                           takes_s2d_instance)
+from sarssl_torch.kernels import conv_s2d  # noqa: E402
+from sarssl_torch.kernels.conv_s2d import S2D_SLOTS, s2d_chunk_taps  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -258,11 +258,29 @@ def test_routing_takes_no_other_channels(channels):
     assert not takes_tensor_cores(torch.bfloat16, *channels)
 
 
-def test_routing_of_the_s2d_form():
-    assert takes_s2d_instance(torch.bfloat16, 64)
-    assert not takes_s2d_instance(torch.float32, 64)
-    assert not takes_s2d_instance(torch.bfloat16, 32)  # dense kernel on the 64-channel view
-    assert not takes_s2d_instance(torch.bfloat16, 128)
+def test_routing_of_the_s2d_form(monkeypatch):
+    """The s2d form runs conv3x3's kernel on x's own C channels: at C = 64
+    bfloat16 the C = 64 tensor-core instance (as it walked the view's chunks
+    before), C = 32 and 128 too now take conv3x3's routes at C (no longer the
+    dense kernels on the 2C view); float32 the FMA kernels at C; small
+    images the image groups."""
+    def route(x, w, name, rot=False):  # the kernel conv3x3's launcher would run
+        routes.append(conv_kernel(x.dtype, x.shape[3], w.shape[2 if rot else 3], *x.shape[1:3]))
+        return x
+
+    monkeypatch.setattr(conv_s2d, "launch_conv3x3", route)
+    for dtype, C, hw, kernel in ((torch.bfloat16, 64, (64, 64), "tc"),
+                                 (torch.float32, 64, (64, 64), "fma"),
+                                 (torch.bfloat16, 32, (64, 64), "tc_any"),
+                                 (torch.bfloat16, 128, (64, 64), "tc"),
+                                 (torch.float32, 256, (64, 64), "any"),
+                                 (torch.bfloat16, 64, (4, 8), "tc_groups")):
+        routes = []
+        x = torch.empty((2, *hw, C), dtype=dtype, device="meta")
+        w = torch.empty((3, 3, C, C), dtype=dtype, device="meta")
+        conv_s2d.conv3x3_s2d_fwd(x, w)
+        conv_s2d.conv3x3_s2d_dx(x, w)
+        assert routes == [kernel, kernel], (dtype, C, hw)
 
 
 def test_launcher_raises_on_cpu_tensors():

@@ -195,10 +195,12 @@ def test_plain_slice_by_index_map_and_by_seed_shift_equal_the_whole():
     (torch.float32, 128, 64, "fma"), (torch.bfloat16, 32, 32, "tc_any"),
     (torch.bfloat16, 13, 3, "tc_any"), (torch.float32, 5, 24, "any")])
 def test_conv_kernel_routing(dtype, C, Cout, kernel):
-    """By dtype and channels alone: the FMA kernels' pixel tiles lie on the
-    grid's x dimension, so no H or W changes the kernel; bfloat16 outside
-    the tensor-core instances' pairs runs the runtime-channel tensor-core
-    kernel, float32 there the runtime-channel FMA kernel."""
+    """By dtype and channels, without H and W (the row tiles; images smaller
+    than a row tile take the image groups in bfloat16,
+    ``tests/test_torch_conv_groups.py``): the FMA kernels' pixel tiles lie on
+    the grid's x dimension, so no H or W changes a float32 kernel; bfloat16
+    outside the tensor-core instances' pairs runs the runtime-channel
+    tensor-core kernel, float32 there the runtime-channel FMA kernel."""
     assert conv_kernel(dtype, C, Cout) == kernel
 
 

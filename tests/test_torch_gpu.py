@@ -20,8 +20,9 @@ from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # n
                                             launch_attention_fwd_fma,
                                             launch_attention_fwd_mma,
                                             launch_attention_fwd_tf32, padded_head_dim)
-from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, rot180_io  # noqa: E402
-from sarssl_torch.kernels.conv3x3 import takes_tensor_cores as conv_takes_tc  # noqa: E402
+from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_kernel,  # noqa: E402
+                                          launch_conv3x3_any_mma, launch_conv3x3_mma,
+                                          pack_weights, rot180_io)
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
 from sarssl_torch.kernels.dropout import launch_dropout, launch_dropout_lanes  # noqa: E402
 
@@ -462,6 +463,20 @@ def test_lane_seeded_dropout_kernel_equals_vmapped_plain(cuda, dtype, shape):
 CONV_SHAPES = [  # (N, H, W, C, Cout): H not a multiple of the tile, W not of 8
     (2, 19, 37, 64, 64), (2, 16, 64, 64, 64), (2, 13, 30, 128, 128), (1, 9, 21, 64, 128),
     (1, 11, 18, 128, 64)]
+# the launch counter each conv kernel adds beside the launch's own name
+CONV_TAGS = {"tc": "_tc", "tc_any": "_tc_any", "tc_groups": "_tc_groups", "fma": "",
+             "any": "_any"}
+
+
+def _conv_route_names(prefix, dtype, H, W, C, Cout):
+    """The counters a forward and a dx launch of ``prefix`` add at this
+    shape: each pass by its own route (dx is the conv of dy, Cout -> C)."""
+    names = []
+    for kind, pair in (("fwd", (C, Cout)), ("dx", (Cout, C))):
+        kernel = conv_kernel(dtype, *pair, H, W)
+        assert kernel.startswith("tc") == (dtype == torch.bfloat16)
+        names += [f"{prefix}_{kind}", f"{prefix}_{kind}{CONV_TAGS[kernel]}"]
+    return names
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
@@ -474,14 +489,13 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     assert _rel(conv3x3_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
     assert _rel(conv3x3_dx(dy, w), conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
     # through autograd: forward and dx are kernel launches, dW the library;
-    # bfloat16 runs the tensor-core kernel (its count rises), float32 the FMA
-    names = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_fwd_tc", "conv3x3_dx_tc")
+    # bfloat16 runs a tensor-core kernel (row tiles, or image groups where the
+    # image is smaller than a row tile: its count rises), float32 the FMA
+    names = _conv_route_names("conv3x3", dtype, H, W, C, Cout)
     before = [launches[n] for n in names]
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     gx, gw = torch.autograd.grad(conv3x3(xr, wr), (xr, wr), dy)
-    tc = int(conv_takes_tc(dtype, C, Cout))
-    assert tc == (dtype == torch.bfloat16)
-    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, 1, 1], names
     xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
     gx_ref, gw_ref = torch.autograd.grad(conv3x3_plain(xf, wf), (xf, wf), dy.float())
     assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
@@ -497,14 +511,14 @@ def test_conv3x3_s2d_kernel_matches_plain(cuda, shape, dtype):
     assert _rel(conv3x3_s2d_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
     assert _rel(conv3x3_s2d_dx(dy, w),
                 conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
-    names = ("conv3x3_s2d_fwd", "conv3x3_s2d_dx", "conv3x3_s2d_fwd_tc", "conv3x3_s2d_dx_tc")
+    # the conv of x itself on C channels: conv3x3's route at this shape
+    # (bfloat16: C = 64 the C = 64 instance, C = 32 the runtime-channel
+    # kernel, (7, 10) images the image groups)
+    names = _conv_route_names("conv3x3_s2d", dtype, *shape[1:3], C, C)
     before = [launches[n] for n in names]
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     gx, gw = torch.autograd.grad(conv3x3_s2d(xr, wr), (xr, wr), dy)
-    # bfloat16: C = 64 the C = 64 instance over the view's chunks, C = 32 the
-    # same instance on the 64-channel view with the expanded weight
-    tc = int(dtype == torch.bfloat16)
-    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, tc, tc]
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, 1, 1], names
     xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
     gx_ref, gw_ref = torch.autograd.grad(conv3x3_s2d_plain(xf, wf), (xf, wf), dy.float())
     assert _rel(gx, gx_ref) <= TOL[dtype] and _rel(gw, gw_ref) <= TOL[dtype]
@@ -518,22 +532,29 @@ CONV_EDGES = [(1, 1, 2), (1, 2, 2), (1, 1, 64), (1, 33, 2), (1, 15, 30), (1, 17,
 @pytest.mark.parametrize("nhw", CONV_EDGES)
 def test_conv_tensor_core_kernel_at_tile_edges(cuda, nhw):
     """bfloat16, N = 1 included: conv3x3 at all four channel pairs and the
-    s2d form, forward and dx, against the plain version."""
+    s2d form, forward and dx, against the plain version, through the
+    wrappers (which take the image groups for the small images) and the row
+    tiles of ``conv3x3_mma.cu`` launched directly at every shape."""
     N, H, W = nhw
+    tol = TOL[torch.bfloat16]
     for C, Cout in ((64, 64), (128, 128), (64, 128), (128, 64)):
         x = torch.randn((N, H, W, C), generator=cuda, device="cuda").bfloat16()
         dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").bfloat16()
         w = (0.1 * torch.randn((3, 3, C, Cout), generator=cuda, device="cuda")).bfloat16()
-        tol = TOL[torch.bfloat16]
-        assert _rel(conv3x3_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= tol, (C, Cout)
-        assert _rel(conv3x3_dx(dy, w),
-                    conv3x3_plain(dy.float(), rot180_io(w).float())) <= tol, (C, Cout)
+        ref, ref_dx = (conv3x3_plain(x.float(), w.float()),
+                       conv3x3_plain(dy.float(), rot180_io(w).float()))
+        assert _rel(conv3x3_fwd(x, w), ref) <= tol, (C, Cout)
+        assert _rel(conv3x3_dx(dy, w), ref_dx) <= tol, (C, Cout)
+        assert _rel(launch_conv3x3_mma(x, pack_weights(w), "rows"), ref) <= tol, (C, Cout)
+        assert _rel(launch_conv3x3_mma(dy, pack_weights(rot180_io(w)), "rows"),
+                    ref_dx) <= tol, (C, Cout)
     x = torch.randn((N, H, W, 64), generator=cuda, device="cuda").bfloat16()
     w = (0.1 * torch.randn((3, 3, 64, 64), generator=cuda, device="cuda")).bfloat16()
-    before = launches["conv3x3_s2d_fwd_tc"]
+    name = "conv3x3_s2d_fwd" + CONV_TAGS[conv_kernel(torch.bfloat16, 64, 64, H, W)]
+    before = launches[name]
     assert _rel(conv3x3_s2d_fwd(x, w), conv3x3_plain(x.float(), w.float())) <= tol
     assert _rel(conv3x3_s2d_dx(x, w), conv3x3_plain(x.float(), rot180_io(w).float())) <= tol
-    assert launches["conv3x3_s2d_fwd_tc"] == before + 1
+    assert launches[name] == before + 1
 
 
 def test_conv_tensor_core_kernel_at_front_end_shape_is_bit_identical_from_run_to_run(cuda):
@@ -556,8 +577,9 @@ def test_conv_tensor_core_kernel_at_front_end_shape_is_bit_identical_from_run_to
 def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
     """What no kernel takes still raises. Channel pairs without an instance
     (once refused) run the runtime-channel kernels (bf16: on the tensor
-    cores, counted as ``_tc_any``): held here against the plain version with
-    their launches counted."""
+    cores, here, at 8 x 16 images, in image groups, counted as
+    ``_tc_groups``): held here against the plain version with their launches
+    counted."""
     x = torch.randn(2, 8, 16, 64, device="cuda")
     w = torch.randn(3, 3, 64, 64, device="cuda")
     with pytest.raises(ValueError, match="even width"):
@@ -566,9 +588,10 @@ def test_conv_wrappers_reject_what_the_kernel_does_not_take(cuda):
                                (conv3x3_s2d, conv3x3_s2d_plain, 128, "conv3x3_s2d_fwd")):
         xc = torch.randn(2, 8, 16, C, device="cuda", dtype=torch.bfloat16)
         wc = (0.1 * torch.randn(3, 3, C, C, device="cuda")).to(torch.bfloat16)
-        before = launches[name + "_tc_any"]
+        tag = CONV_TAGS[conv_kernel(torch.bfloat16, C, C, 8, 16)]
+        before = launches[name + tag]
         assert _rel(fn(xc, wc), plain(xc.float(), wc.float())) <= TOL[torch.bfloat16], name
-        assert launches[name + "_tc_any"] == before + 1, name
+        assert launches[name + tag] == before + 1, name
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -761,15 +784,82 @@ def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_past_65535_images_matches_plain(cuda, C, dtype):
     """N = 65600: the FMA kernels launch two runs of images (counted as
-    chunked); the tensor-core kernels (bf16, C = 64 and the runtime-channel
-    one at C = 3) walk them in one."""
+    chunked); the tensor-core kernels (bf16: at 2 x 4 images the image
+    groups, 32 images a tile, at C = 64 and 3) walk them in one."""
     x = torch.randn((65600, 2, 4, C), generator=cuda, device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
-    before = launches["conv3x3_fwd_chunked"]
-    y = conv3x3_fwd(x, w)
     tc = dtype == torch.bfloat16
-    assert launches["conv3x3_fwd_chunked"] == before + (0 if tc else 1)
+    route = "conv3x3_fwd" + CONV_TAGS[conv_kernel(dtype, C, 64, 2, 4)]
+    assert (route == "conv3x3_fwd_tc_groups") == tc
+    before = launches["conv3x3_fwd_chunked"], launches[route]
+    y = conv3x3_fwd(x, w)
+    assert launches["conv3x3_fwd_chunked"] == before[0] + (0 if tc else 1)
+    assert launches[route] == before[1] + 1
     assert _rel(y, conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
+
+
+GROUP_SHAPES = [(65600, 4, 8), (7, 1, 1), (33, 3, 5), (9, 5, 17)]
+
+
+@pytest.mark.parametrize("nhw", GROUP_SHAPES)
+@pytest.mark.parametrize("channels", [(64, 64), (3, 64), (128, 128), (13, 24)])
+def test_conv_image_groups_match_plain(cuda, nhw, channels):
+    """bfloat16 images smaller than a row tile: a tile of G whole images
+    (conv3x3_any_mma.cu's image groups; a ragged last group at (7, 1, 1),
+    (33, 3, 5) and (9, 5, 17)), forward and dx through autograd against the
+    plain version, each pass counted as ``_tc_groups``."""
+    N, H, W = nhw
+    C, Cout = channels
+    x = torch.randn((N, H, W, C), generator=cuda, device="cuda").bfloat16()
+    w = (torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)).bfloat16()
+    dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").bfloat16()
+    names = _conv_route_names("conv3x3", torch.bfloat16, H, W, C, Cout)
+    assert names[1::2] == ["conv3x3_fwd_tc_groups", "conv3x3_dx_tc_groups"]
+    before = [launches[n] for n in names]
+    xr = x.clone().requires_grad_()
+    y = conv3x3(xr, w)
+    (gx,) = torch.autograd.grad(y, xr, dy)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, 1, 1]
+    assert _rel(y, conv3x3_plain(x.float(), w.float())) <= TOL[torch.bfloat16]
+    assert _rel(gx, conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[torch.bfloat16]
+
+
+def test_conv_image_groups_are_bit_identical_from_run_to_run(cuda):
+    """(65600, 4, 8) 64 -> 64 and 3 -> 64 in image groups, forward and dx:
+    no atomics, so two runs agree bit for bit; the row tiles launched
+    directly agree with them within the tolerance."""
+    for C in (64, 3):
+        x = torch.randn((65600, 4, 8, C), generator=cuda, device="cuda").bfloat16()
+        w = (torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)).bfloat16()
+        dy = torch.randn((65600, 4, 8, 64), generator=cuda, device="cuda").bfloat16()
+        for fn, inp in ((conv3x3_fwd, x), (conv3x3_dx, dy)):
+            assert torch.equal(fn(inp, w), fn(inp, w)), (C, fn.__name__)
+        rows = launch_conv3x3_any_mma(x, w, "rows")
+        assert _rel(rows, conv3x3_fwd(x, w)) <= TOL[torch.bfloat16], C
+
+
+@pytest.mark.parametrize("C", [32, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_s2d_runs_on_x_channels(cuda, C, dtype):
+    """conv3x3_s2d at C off the old C = 64 instance: the conv of x itself on
+    C channels (no block of the expanded weight multiplied), forward and dx
+    through autograd, counted by conv3x3's route at C, against
+    ``conv3x3_s2d_plain`` (the 2C view with the expanded weight)."""
+    shape = (2, 19, 38, C)
+    x = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn((3, 3, C, C), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
+    dy = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    names = _conv_route_names("conv3x3_s2d", dtype, 19, 38, C, C)
+    before = [launches[n] for n in names]
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = conv3x3_s2d(xr, wr)
+    gx, gw = torch.autograd.grad(y, (xr, wr), dy)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, 1, 1], names
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    ref = conv3x3_s2d_plain(xf, wf)
+    gx_ref, gw_ref = torch.autograd.grad(ref, (xf, wf), dy.float())
+    assert _rel(y, ref) <= TOL[dtype] and _rel(gx, gx_ref) <= TOL[dtype]
+    assert _rel(gw, gw_ref) <= TOL[dtype]
 
 
 def test_downstream_step_on_card_matches_cpu(cuda):
