@@ -55,13 +55,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
               The conv part holds the four 3x3 conv launches (conv3x3 and
               its s2d form, forward and dx) at the CNN front end's shape
               (128, 256, 256, 64) bf16 on the tensor-core kernel, timed beside
-              the FMA kernel it replaced there (5x floor) and cuDNN, plus a
-              ragged bf16 case, the dense 128-channel instance and a small f32
-              case (FMA kernel), then drives ``conv3x3`` / ``conv3x3_s2d``
-              forward and backward once with the launch counts zeroed before
-              and read after: the convs are on no model path, so that is
-              their path. The lane-seeded dropout (one seed a lane, under
-              ``torch.func.vmap``) against vmapped ``dropout_plain``, output,
+              the FMA kernel it replaced there (5x floor) and cuDNN, and in
+              f32 on the 3xTF32 tensor-core kernel (conv3x3_tf32.cu), timed
+              beside the f32 FMA kernel launched directly, cuDNN in f32 and
+              the plain version, plus a ragged bf16 and f32 case and the
+              dense 128-channel instance, then drives ``conv3x3`` /
+              ``conv3x3_s2d`` forward and backward once in each dtype with
+              the launch counts zeroed before and read after: the convs are
+              on no model path, so that is their path. The lane-seeded
+              dropout (one seed a lane, under ``torch.func.vmap``) against
+              vmapped ``dropout_plain``, output,
               mask and gradient exactly, at the grid's largest dropout shape
               (8 lanes, f32; timed, queued behind a sleeping kernel, beside
               its bound and ``F.dropout``) and on 8 bf16 lanes past 2**31
@@ -90,14 +93,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
               version, bit for bit. conv3x3 forward and backward at (C,
               Cout) = (3, 64), (64, 48), (96, 160) and (256, 256) (the
               kernels that take the channel counts at run time: bf16 on the
-              tensor cores, conv3x3_any_mma.cu, timed beside the f32-FMA
-              runtime-channel kernel launched directly; f32 on that one) and
-              conv3x3_s2d at C = 256 (the conv of x itself on 256 channels),
-              in both dtypes at (16, 64, 64), bf16 also at (2, 19, 38), and at
-              N = 65600 with (H, W) = (4, 8), C = 64 and 3 (bf16 in image
-              groups, conv3x3_any_mma.cu, timed beside the row-tile kernel
-              launched directly on the same inputs), and (4099, 3, 5) 13 ->
-              24 bf16 (ragged image groups).
+              tensor cores, conv3x3_any_mma.cu, f32 on the 3xTF32 tensor-core
+              kernel, conv3x3_tf32.cu, each timed beside the f32-FMA
+              runtime-channel kernel launched directly) and conv3x3_s2d at C
+              = 256 (the conv of x itself on 256 channels), in both dtypes at
+              (16, 64, 64), bf16 also at (2, 19, 38), and at N = 65600 with
+              (H, W) = (4, 8), C = 64 and 3 (in image groups in both dtypes,
+              timed beside the row-tile kernel of the same source launched
+              directly on the same inputs), and (4099, 3, 5) 13 -> 24 in both
+              dtypes (ragged image groups); the f32 conv against float64 at
+              K = 9 C up to 18432 (C = Cout = 256, 1024, 2048), forward and
+              dx, in row tiles and image groups.
   4. ref    : small pretext models on the card (kernels) against the same
               models on the CPU (plain versions), f32, dropout on, same seeds:
               one at head dims 32 and 16, SARSSLConfig.tiny(
@@ -630,7 +636,8 @@ def phase_card():
 
 
 TENSOR_CORE_SOURCES = ("attention_mma", "attention_f32_mma", "attention_f32_mma_psum",
-                       "conv3x3_mma", "conv3x3_any_mma", "conv3x3_any_mma_groups")
+                       "conv3x3_mma", "conv3x3_any_mma", "conv3x3_any_mma_groups",
+                       "conv3x3_tf32", "conv3x3_tf32_groups")
 
 
 def phase_build():
@@ -696,6 +703,15 @@ def _tensor_core_kernel(source, line):
             groups, nb, kt = bool(entry.group(1)), int(entry.group(2)), int(entry.group(3))
             return (f"conv3x3_any_mma_{'groups_' if groups else ''}kernel<{nb}, {kt}>", 256,
                     any_mma_smem_bytes(nb, groups))
+    elif source in ("conv3x3_tf32", "conv3x3_tf32_groups"):
+        from sarssl_torch.kernels.conv3x3 import tf32_smem_bytes
+
+        entry = re.search(r"Compiling entry function '.*?conv3x3_tf32_(groups_)?kernel"
+                          r"ILi(\d+)ELi(\d+)E", line)
+        if entry:
+            groups, nb, kt = bool(entry.group(1)), int(entry.group(2)), int(entry.group(3))
+            return (f"conv3x3_tf32_{'groups_' if groups else ''}kernel<{nb}, {kt}>", 256,
+                    tf32_smem_bytes(nb, groups))
     else:
         from sarssl_torch.kernels.conv3x3 import mma_smem_bytes
 
@@ -1361,9 +1377,10 @@ def _conv_cases():
     }
 
 
-def _conv_small_case(name, kernel, plain, shape, cout, dtype, gen, tensor_cores):
+def _conv_small_case(name, kernel, plain, shape, cout, dtype, gen, tag):
     """One launch at a small shape against the plain version in f32; asserts
-    from the launch counts which kernel ran."""
+    from the launch counts which kernel ran (``name + tag``: ``"_tc"``, the
+    bf16 tensor-core kernel, or ``"_tf32"``, the 3xTF32 one)."""
     from sarssl_torch.kernels import launches
 
     tol = TOL_CONV_BF16 if dtype == torch.bfloat16 else TOL_F32
@@ -1371,33 +1388,35 @@ def _conv_small_case(name, kernel, plain, shape, cout, dtype, gen, tensor_cores)
     x = torch.randn(shape[:3] + (cout if name.endswith("_dx") else C,), generator=gen,
                     device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, cout), generator=gen, device="cuda") / np.sqrt(9 * C)).to(dtype)
-    before = launches[name], launches[name + "_tc"]
+    before = launches[name], launches[name + tag]
     out = kernel(x, w)
-    rose = launches[name] - before[0], launches[name + "_tc"] - before[1]
-    assert rose == (1, int(tensor_cores)), f"{name} {shape} {dtype}: launches {rose}"
+    rose = launches[name] - before[0], launches[name + tag] - before[1]
+    assert rose == (1, 1), f"{name} {shape} {dtype}: launches {rose} of {name}, {name}{tag}"
     rel = rel_err(out, plain(x.float(), w.float()))
     assert rel <= tol, f"{name} {str(dtype)[6:]} {shape}: rel err {rel} > {tol}"
     log(f"[kernels] {name} {shape} -> {cout} {str(dtype)[6:]}: rel err {rel:.2e} (tol {tol}; "
-        f"{'tensor-core' if tensor_cores else 'FMA'} kernel)")
+        f"counted as {name}{tag})")
 
 
 def check_conv(gen):
     """The four conv launches against their plain versions: f32 at a small
-    ragged shape (FMA kernel), bf16 at the same shape, at the dense 128 ->
+    ragged shape (3xTF32 kernel), bf16 at the same shape, at the dense 128 ->
     128 instance and at the front end's shape (tensor-core kernel), there
     timed beside their bound, cuDNN and the FMA kernel; then the public
-    functions' forward and backward once, counted."""
+    functions' forward and backward once, counted; then the same in f32 at
+    the front end's shape (``_conv_f32_rows``). Returns the kernels line's
+    conv rows by launch name, the f32 ones as ``<name>_float32``."""
     from sarssl_torch.kernels import conv3x3, conv3x3_s2d, launches, reset_launches
 
     cases = _conv_cases()
     C = CONV_SHAPE[-1]
     for name, (kernel, plain, *_) in cases.items():
-        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.float32, gen, False)
-        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.bfloat16, gen, True)
+        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.float32, gen, "_tf32")
+        _conv_small_case(name, kernel, plain, CONV_SMALL, C, torch.bfloat16, gen, "_tc")
     for name in ("conv3x3_fwd", "conv3x3_dx"):
         kernel, plain, *_ = cases[name]
         _conv_small_case(name, kernel, plain, CONV_DENSE, CONV_DENSE[-1], torch.bfloat16, gen,
-                         True)
+                         "_tc")
 
     x, dy = (torch.randn(CONV_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
              for _ in range(2))
@@ -1467,6 +1486,74 @@ def check_conv(gen):
         assert counts[n] == counts_tc[n] == 1, (
             f"{n}: {counts[n]} launches, {counts_tc[n]} tensor-core, on the conv path, want 1")
         rows[n]["launches"], rows[n]["launches_tc"] = counts[n], counts_tc[n]
+    del x, dy, w, w_oihw, x_nchw, dy_nchw
+    torch.cuda.empty_cache()
+    rows.update({f"{n}_float32": r for n, r in _conv_f32_rows(gen, cases).items()})
+    return rows
+
+
+def _conv_f32_rows(gen, cases):
+    """The four conv launches in float32 at the front end's shape on the
+    3xTF32 tensor-core kernel (conv3x3_tf32.cu): each against the plain
+    version (TOL_F32), timed (new, FMA, new) beside the f32 FMA kernel it
+    replaced, launched directly, cuDNN in f32 (TF32 off) and the plain
+    version; the bound the larger of the bytes and three TF32 products a
+    product at the TF32 rate. Then the public functions' forward and
+    backward once in f32, counted."""
+    from sarssl_torch.kernels import conv3x3, conv3x3_s2d, launches, reset_launches
+
+    C = CONV_SHAPE[-1]
+    x, dy = (torch.randn(CONV_SHAPE, generator=gen, device="cuda") for _ in range(2))
+    w = torch.randn((3, 3, C, C), generator=gen, device="cuda") / np.sqrt(9 * C)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    lib = {
+        "fwd": cuda_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1),
+                       iters=3, warmup=1),
+        "dx": cuda_ms(lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
+                                                         padding=1), iters=3, warmup=1),
+    }
+    B, H, W, _ = CONV_SHAPE
+    nbytes, flops = 2 * x.numel() * 4 + w.numel() * 4, 2 * B * H * W * C * C * 9
+    bound = bound_ms(nbytes, TF32_SPLIT * flops, TF32_FLOPS)
+    rows = {}
+    for name, (kernel, plain, _, _, fma) in cases.items():
+        inp = dy if name.endswith("_dx") else x
+        before = launches[name + "_tf32"]
+        out = kernel(inp, w)
+        assert launches[name + "_tf32"] == before + 1, f"{name} f32: not the 3xTF32 kernel"
+        ref = plain(inp, w)
+        rel, err = rel_err(out, ref), max_abs(out, ref)
+        del out, ref
+        assert rel <= TOL_F32, f"{name} f32: rel err {rel} > {TOL_F32}"
+        r = rows[name] = {"max_abs_err": err,
+                          "ms": cuda_ms(lambda: kernel(inp, w), iters=5, warmup=1),
+                          "fma_ms": cuda_ms(lambda: fma(inp, w), iters=2, warmup=1)}
+        r["ms_again"] = cuda_ms(lambda: kernel(inp, w), iters=5, warmup=1)
+        r.update(plain_ms=cuda_ms(lambda: plain(inp, w), iters=2, warmup=1),
+                 library_ms=lib["dx" if name.endswith("_dx") else "fwd"], bound=bound)
+        r["tflops"] = TF32_SPLIT * flops / r["ms"] * 1e-9
+        log(f"[kernels] {name} {CONV_SHAPE} f32: rel err {rel:.2e} abs {err:.2e} (tol {TOL_F32}); "
+            f"{r['ms']:.3f} / {r['ms_again']:.3f} ms (3xTF32 kernel; FMA kernel "
+            f"{r['fma_ms']:.3f}, plain {r['plain_ms']:.3f}, cuDNN f32 {r['library_ms']:.3f}, bound "
+            f"{bound[0]:.4f} by {bound[1]}); {r['tflops']:.1f} TFLOP/s of TF32 products, "
+            f"{bound[0] / r['ms']:.0%} of the bound")
+    reset_launches()
+    for fn in (conv3x3, conv3x3_s2d):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        torch.autograd.grad(fn(xr, wr), (xr, wr), dy)
+        del xr, wr
+    torch.cuda.synchronize()
+    counts = {n: launches.get(n, 0) for n in CONV_LAUNCHES}
+    counts_tf32 = {n: launches.get(n + "_tf32", 0) for n in CONV_LAUNCHES}
+    log(f"[kernels] conv path in f32 (conv3x3 and conv3x3_s2d, forward + backward): launches "
+        f"{counts}, of the 3xTF32 kernel {counts_tf32}")
+    for n in CONV_LAUNCHES:
+        assert counts[n] == counts_tf32[n] == 1, (
+            f"{n} f32: {counts[n]} launches, {counts_tf32[n]} 3xTF32, on the conv path, want 1")
+        rows[n]["launches"], rows[n]["launches_tf32"] = counts[n], counts_tf32[n]
+    del x, dy, w, w_oihw, x_nchw, dy_nchw
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1616,7 +1703,11 @@ EDGE_CONV_CHANNELS = ((3, 64), (64, 48), (96, 160), (256, 256))
 EDGE_CONV_SHAPE = (16, 64, 64)  # (N, H, W) of the channel edges
 EDGE_CONV_SMALL = (2, 19, 38)  # the GPU tests' shape, bf16 at the same channels
 EDGE_CONV_BATCH = ((65600, 4, 8, 64, 64), (65600, 4, 8, 3, 64))  # N past the grid
-EDGE_CONV_RAGGED = (4099, 3, 5, 13, 24)  # bf16 image groups of 17, the last one ragged
+EDGE_CONV_RAGGED = (4099, 3, 5, 13, 24)  # image groups of 17, the last one ragged
+# the f32 conv against float64 at K = 9 C (C = Cout): (N, H, W) in row tiles
+# and in image groups, on data of either sign and on positive data
+EDGE_CONV_F64_C = (256, 1024, 2048)
+EDGE_CONV_F64_SHAPES = ((1, 17, 19), (6, 4, 8))
 EDGE_ITERS = 3
 EDGE_CONV_ITERS = 20  # the convs at (16, 64, 64) and smaller
 
@@ -2094,14 +2185,14 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     public path (counted: dx on the kernel, dW the library's), output and dx
     against the plain version; the forward and dx launches timed beside
     cuDNN at the same channels and the bound, the runtime-channel
-    tensor-core kernel's also beside the f32-FMA runtime-channel kernel
-    launched directly on the same inputs (``fma_ms``), and the image
-    groups' beside the row-tile kernel of the same pair launched directly
-    (``rows_ms``)."""
+    tensor-core kernels' (bf16 row tiles, f32 row tiles and groups) also
+    beside the f32-FMA runtime-channel kernel launched directly on the same
+    inputs (``fma_ms``), and the image groups' beside the row-tile kernel of
+    the same source and pair launched directly (``rows_ms``)."""
     from sarssl_torch.kernels import conv3x3, conv3x3_plain, conv3x3_s2d, conv3x3_s2d_plain
-    from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_batch_chunks,
-                                              conv_kernel, launch_conv3x3_any,
-                                              launch_conv3x3_any_mma, launch_conv3x3_mma,
+    from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_kernel,
+                                              launch_conv3x3_any, launch_conv3x3_any_mma,
+                                              launch_conv3x3_mma, launch_conv3x3_tf32,
                                               pack_weights, rot180_io)
     from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd, expand_weights_s2d2
 
@@ -2124,13 +2215,7 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     (y, gx), counts = _counted(drive)
     want = {}
     for kind, kernel in kernels.items():
-        tag = {"tc": "_tc", "tc_any": "_tc_any", "tc_groups": "_tc_groups", "fma": "",
-               "any": "_any"}[kernel]
-        want[f"{prefix}_{kind}"] = 1
-        if tag:
-            want[f"{prefix}_{kind}{tag}"] = 1
-        if kernel in ("fma", "any") and len(conv_batch_chunks(N)) > 1:
-            want[f"{prefix}_{kind}_chunked"] = 1
+        want[f"{prefix}_{kind}"] = want[f"{prefix}_{kind}_{kernel}"] = 1
     assert {n: c for n, c in counts.items() if n.startswith(prefix)} == want, (
         f"{prefix} {(N, H, W, C, Cout)} {name}: launches {counts}, want {want}")
     tol = TOL_CONV_BF16 if dtype == torch.bfloat16 else TOL_F32
@@ -2157,6 +2242,8 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
         return launch_conv3x3_any(inp, wk, "fma_any")
 
     def row_tiles(inp, kind):  # the row-tile kernel of the pass's pair, launched directly
+        if dtype == torch.float32:
+            return launch_conv3x3_tf32(inp, w, "rows", rot=kind == "dx")
         if conv_kernel(dtype, *((C, Cout) if kind == "fwd" else (Cout, C))) == "tc":
             return launch_conv3x3_mma(inp, pack_weights(rot180_io(w) if kind == "dx" else w),
                                       "rows")
@@ -2173,9 +2260,9 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
         ms = cuda_ms(lambda: launch(inp, w), iters=iters, warmup=1)
         wk = rot180_io(w) if kind == "dx" else w
         fma_ms = (cuda_ms(lambda: yardstick(inp, wk), iters=iters, warmup=1)
-                  if kernel == "tc_any" else None)
+                  if kernel in ("tc_any", "tf32", "tf32_groups") else None)
         rows_ms = (cuda_ms(lambda: row_tiles(inp, kind), iters=iters, warmup=1)
-                   if kernel == "tc_groups" else None)
+                   if kernel.endswith("_groups") else None)
         plain_ms = cuda_ms(lambda: plain(inp.float(), (rot180_io(w) if kind == "dx" else w)
                                          .float()), iters=1, warmup=1)
         lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib, iters=iters)
@@ -2183,17 +2270,18 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
             "name": f"{prefix}_{kind}_N{N}H{H}W{W}_C{C}_Cout{Cout}_{name}", "route": "cuda",
             "source": {"tc": "sarssl_torch/csrc/conv3x3_mma.cu",
                        "tc_any": "sarssl_torch/csrc/conv3x3_any_mma.cu",
-                       "tc_groups": "sarssl_torch/csrc/conv3x3_any_mma.cu"}.get(
-                           kernel, "sarssl_torch/csrc/conv3x3.cu"),
+                       "tc_groups": "sarssl_torch/csrc/conv3x3_any_mma.cu",
+                       "tf32": "sarssl_torch/csrc/conv3x3_tf32.cu",
+                       "tf32_groups": "sarssl_torch/csrc/conv3x3_tf32.cu"}[kernel],
             "variant": {"tc": "wgmma", "tc_any": "wgmma_any_channels",
-                        "tc_groups": "wgmma_image_groups", "fma": "fma",
-                        "any": "fma_any_channels"}[kernel],
+                        "tc_groups": "wgmma_image_groups", "tf32": "wgmma_tf32x3",
+                        "tf32_groups": "wgmma_tf32x3_image_groups"}[kernel],
             "fma_ms": fma_ms, "rows_ms": rows_ms,
             "replaces": CONV_REPLACES[prefix],
             "launches": counts[f"{prefix}_{kind}"],
             "counters": {n: c for n, c in counts.items() if n.startswith(f"{prefix}_{kind}")},
             "edge": (f"N = {N} past the grid" if N > 65535 else
-                     f"(C, Cout) = {(C, Cout)}" + (", image groups" if kernel == "tc_groups"
+                     f"(C, Cout) = {(C, Cout)}" + (", image groups" if kernel.endswith("_groups")
                                                    else "")),
             "max_abs_err": err if kind == "fwd" else err_dx, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
@@ -2209,6 +2297,43 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
     del x, dy, w, w_oihw
     torch.cuda.empty_cache()
     return rows
+
+
+def _conv_f32_against_float64(gen):
+    """conv3x3 forward and dx in f32 (the 3xTF32 kernel, each K chunk summed
+    apart) against the float64 conv (cuDNN) at K = 9 C up to 18432,
+    which the Pallas kernel takes, in row tiles and image groups, on normal
+    and on positive data (where the tensor core's cut toward zero drifts the
+    most): each within TOL_F32 of the largest value."""
+    from sarssl_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_fwd, conv_kernel, rot180_io
+
+    def conv64(a, k):
+        return torch.nn.functional.conv2d(a.double().permute(0, 3, 1, 2),
+                                          k.double().permute(3, 2, 0, 1), padding=1
+                                          ).permute(0, 2, 3, 1)
+
+    for C in EDGE_CONV_F64_C:
+        for N, H, W in EDGE_CONV_F64_SHAPES:
+            for positive in (False, True):
+                if positive:
+                    x, dy = (torch.rand((N, H, W, C), generator=gen, device="cuda")
+                             for _ in range(2))
+                    w = torch.rand((3, 3, C, C), generator=gen, device="cuda") / (9 * C)
+                else:
+                    x, dy = (torch.randn((N, H, W, C), generator=gen, device="cuda")
+                             for _ in range(2))
+                    w = torch.randn((3, 3, C, C), generator=gen, device="cuda") / np.sqrt(9 * C)
+                (y, gx), counts = _counted(lambda: (conv3x3_fwd(x, w), conv3x3_dx(dy, w)))
+                kernel = conv_kernel(torch.float32, C, C, H, W)
+                assert counts == {"conv3x3_fwd": 1, f"conv3x3_fwd_{kernel}": 1, "conv3x3_dx": 1,
+                                  f"conv3x3_dx_{kernel}": 1}, counts
+                rel, rel_dx = rel_err(y, conv64(x, w)), rel_err(gx, conv64(dy, rot180_io(w)))
+                assert rel <= TOL_F32 and rel_dx <= TOL_F32, (
+                    f"conv3x3 f32 {(N, H, W)} C = {C} against float64: {rel}, dx {rel_dx}")
+                log(f"[edges] conv3x3 f32 {(N, H, W, C)} -> {C} ({kernel}, K = {9 * C}, "
+                    f"{'positive' if positive else 'normal'} data) against float64: rel err fwd "
+                    f"{rel:.2e}, dx {rel_dx:.2e} (tol {TOL_F32})")
+    torch.cuda.empty_cache()
 
 
 def phase_edges():
@@ -2240,7 +2365,9 @@ def phase_edges():
     for N, H, W, C, Cout in EDGE_CONV_BATCH:
         for dtype in (torch.bfloat16, torch.float32):
             rows += _conv_edge(N, H, W, C, Cout, dtype, gen)
-    rows += _conv_edge(*EDGE_CONV_RAGGED, torch.bfloat16, gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += _conv_edge(*EDGE_CONV_RAGGED, dtype, gen)
+    _conv_f32_against_float64(gen)
     torch.cuda.empty_cache()
     log(f"[edges] {len(rows)} rows in {time.perf_counter() - t0:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -2435,6 +2562,26 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
             "launches_real_data": real_counts.get(name, 0),
             "launches_model_options": mo_counts.get(name, 0),
             "launches_grid_vmap": grid_counts.get(name, 0),
+        })
+    for name in CONV_LAUNCHES:  # the same launches in f32, on the 3xTF32 kernel
+        r, tf32 = conv[f"{name}_float32"], f"{name}_tf32"
+        out.append({
+            "name": f"{name}_float32", "route": "cuda",
+            "source": "sarssl_torch/csrc/conv3x3_tf32.cu", "variant": "wgmma_tf32x3",
+            "replaces": CONV_REPLACES[name.rsplit("_", 1)[0]],
+            "launches": r["launches"], "launches_tf32": r["launches_tf32"],
+            "fma_ms": r["fma_ms"], "ms_again": r["ms_again"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+            "path": "no model path launches it; launches counted over the f32 conv path run "
+                    "of the kernels phase",
+            "launches_pretrain_options": opt_counts.get(tf32, 0),
+            "launches_downstream_cli": dscli_counts.get(tf32, 0),
+            "launches_data_path": data_counts.get(tf32, 0),
+            "launches_real_data": real_counts.get(tf32, 0),
+            "launches_model_options": mo_counts.get(tf32, 0),
+            "launches_grid_vmap": grid_counts.get(tf32, 0),
         })
     # phase edges: each input past one launch's grid or 32-bit offsets
     out += edges

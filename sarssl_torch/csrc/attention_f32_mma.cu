@@ -176,12 +176,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// copies `bytes` (0 or 4) from src and fills the rest of the 4 with zeros
-__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
 // ROWS x D floats from device memory (row stride ld) -> tile of row pitch
 // D + 4; with TAIL, rows >= nrows are zero-filled
 template <int ROWS, int D, bool TAIL>

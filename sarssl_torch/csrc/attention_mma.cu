@@ -204,12 +204,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// copies `bytes` (0 or 4) from src and fills the rest of the 4 with zeros
-__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
 // The XOR that a row of a swizzled tile of width W applies to its chunk
 // index: 8 rows of 16-byte chunks at one chunk index land in 8 bank groups.
 // Rows of 64 bytes (W = 32, two rows a 128-byte line) take bits 1-2 of the row,

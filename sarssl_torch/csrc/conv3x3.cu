@@ -29,8 +29,10 @@
 //     reads hit 32 banks (pixel stride C+1 words) and its weight reads are
 //     one broadcast float4 each.
 // This first version multiplies with f32 FMAs on the CUDA cores (67 TFLOP/s
-// at most), so it runs well above its bound; the tensor cores (mma/wgmma)
-// and TMA are left for a later version.
+// at most), so it runs well above its bound. It serves no route any more:
+// bfloat16 runs conv3x3_mma.cu / conv3x3_any_mma.cu and float32
+// conv3x3_tf32.cu (the tensor cores as 3xTF32), and these kernels are
+// launched only directly, as the yardstick those are timed against.
 //
 // Every other channel count (the Pallas kernel takes any C and Cout) runs
 // conv3x3_any_kernel, the same design with C and Cout as runtime arguments:

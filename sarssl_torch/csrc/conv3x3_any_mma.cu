@@ -14,7 +14,8 @@
 //   y[n, h, w, co] = sum_{dh, dw, ci} x[n, h+dh-1, w+dw-1, ci] * wt[dh, dw, ci, co]
 //
 // with zeros outside the image, f32 sums, y in bf16. Any N, H, W, C, Cout.
-// (float32 runs conv3x3.cu, whose conv3x3_any_kernel, f32 FMAs, stays as the
+// (float32 runs conv3x3_tf32.cu, this design with each product as three TF32
+// products; conv3x3.cu's conv3x3_any_kernel, f32 FMAs, stays as the
 // yardstick this kernel is timed against.)
 //
 // What bounds it on an H100: at (16, 64, 64) 256 -> 256 the conv moves 67 MB
@@ -117,6 +118,7 @@ constexpr int ROWB = BLK * 2;       // bytes of a chunk row
 constexpr int XS = XR * XC * ROWB;  // bytes of an input stage
 static_assert(NWARP * MT == TH, "the warps' m16 tiles cover the tile's rows");
 static_assert(XS % 128 == 0, "input stages start 128-byte aligned");
+static_assert(ROWB == 128, "chunk rows in the 128-byte swizzle (swz128, desc_kmajor)");
 
 template <int NB>
 struct Geo {
@@ -246,21 +248,6 @@ __device__ __forceinline__ void wgmma_bk<64>(float (&d)[8][4], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Descriptor of an NB x 64 weight block: rows of 128 bytes (64 k values,
-// K-major) in the 128-byte swizzle, eight rows a 1024-byte period (the
-// stride field); `addr` a multiple of 1024. A k16 step adds 32 bytes to the
-// start address (2 in the field's 16-byte units).
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// byte offset of 16-byte piece `piece` of row `idx` (a pixel's chunk, or a
-// weight block's output channel) in the 128-byte swizzle
-__device__ __forceinline__ uint32_t swz(int idx, int piece) {
-  return (uint32_t)(idx * ROWB + ((piece ^ (idx & 7)) << 4));
-}
-
 struct Shape {
   int N, H, W, C, CO, KC, tiles_x, tiles_y, ntiles;
 };
@@ -274,7 +261,7 @@ __device__ __forceinline__ void load_stage(uint32_t ws, uint32_t xs, const bf16*
   const bf16* wsrc = wp + ((i64)blockIdx.y * s.KC + kc) * 9 * NB * BLK;
   for (int idx = threadIdx.x; idx < 9 * NB * 8; idx += NT) {
     const int row = idx >> 3, piece = idx & 7;
-    cp_async16(ws + swz(row, piece), wsrc + (i64)row * BLK + piece * 8);
+    cp_async16(ws + swz128(row, piece), wsrc + (i64)row * BLK + piece * 8);
   }
   const int tx = t % s.tiles_x, ty = (t / s.tiles_x) % s.tiles_y, n = t / (s.tiles_x * s.tiles_y);
   const int h0 = ty * TH - 1, w0 = tx * TW - 1;
@@ -284,7 +271,7 @@ __device__ __forceinline__ void load_stage(uint32_t ws, uint32_t xs, const bf16*
       const int rc = idx >> 3, piece = idx & 7, h = h0 + rc / XC, w = w0 + rc % XC;
       const int ch = kc * BLK + piece * 8;
       const bool ok = h >= 0 && h < s.H && w >= 0 && w < s.W && ch < s.C;
-      cp_async16_zfill(xs + swz(rc, piece), ok ? xn + ((i64)h * s.W + w) * s.C + ch : x,
+      cp_async16_zfill(xs + swz128(rc, piece), ok ? xn + ((i64)h * s.W + w) * s.C + ch : x,
                        ok ? 16 : 0);
     }
   } else {  // value by value, zeros past C
@@ -302,7 +289,7 @@ __device__ __forceinline__ void load_stage(uint32_t ws, uint32_t xs, const bf16*
             in && ch + 2 * e + 1 < s.C ? __bfloat16_as_ushort(src[2 * e + 1]) : (unsigned short)0;
         v[e] = (uint32_t)lo | ((uint32_t)hi << 16);
       }
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(xs + swz(rc, piece)),
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(xs + swz128(rc, piece)),
                    "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
     }
   }
@@ -321,7 +308,7 @@ __device__ __forceinline__ void stage_products(float (&acc)[MT][NB / 8][4], uint
 #pragma unroll
     for (int dw = 0; dw < 3; ++dw) {
       const int set = (rr * 3 + dw) & 1;
-      const uint32_t a_addr = xs + swz(a_row + rr * XC + dw, hi);
+      const uint32_t a_addr = xs + swz128(a_row + rr * XC + dw, hi);
       // the group that read a[set] two groups ago has completed
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) ldsm_x4(a[set][ks], a_addr ^ (ks << 5));
@@ -445,12 +432,6 @@ struct GeoG {
   static_assert(BYTES <= 232448, "over the shared memory a block may use");
 };
 
-// 16 zero bytes at shared address `addr`
-__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(0), "r"(0), "r"(0),
-               "r"(0));
-}
-
 struct GShape {
   int N, H, W, C, CO, KC, G, HW, ntiles;
 };
@@ -466,7 +447,7 @@ __device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const bf16*
     const bf16* wsrc = wp + ((i64)blockIdx.y * s.KC + kc) * 9 * NB * BLK;
     for (int idx = threadIdx.x; idx < 9 * NB * 8; idx += NT) {
       const int row = idx >> 3, piece = idx & 7;
-      cp_async16(ws + swz(row, piece), wsrc + (i64)row * BLK + piece * 8);
+      cp_async16(ws + swz128(row, piece), wsrc + (i64)row * BLK + piece * 8);
     }
   }
   const i64 n0 = (i64)t * s.G;
@@ -476,7 +457,7 @@ __device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const bf16*
     for (int idx = threadIdx.x; idx < GM * 8; idx += NT) {
       const int p = idx >> 3, piece = idx & 7;
       const bool ok = p < npix && kc * BLK + piece * 8 < s.C;
-      cp_async16_zfill(xs + swz(p + 1, piece), ok ? xg + (i64)p * s.C + piece * 8 : x,
+      cp_async16_zfill(xs + swz128(p + 1, piece), ok ? xg + (i64)p * s.C + piece * 8 : x,
                        ok ? 16 : 0);
     }
   } else {
@@ -485,17 +466,17 @@ __device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const bf16*
     const int cc = min(BLK, s.C - kc * BLK), cc8 = (cc + 7) & ~7;
     for (int idx = threadIdx.x; idx < GM * 8; idx += NT) {
       const int p = idx >> 3, piece = idx & 7;
-      if (p >= npix || piece * 8 >= cc8) st_shared_zero16(xs + swz(p + 1, piece));
+      if (p >= npix || piece * 8 >= cc8) st_shared_zero16(xs + swz128(p + 1, piece));
     }
     if (cc8 > cc)
       for (int idx = threadIdx.x; idx < npix * (cc8 - cc); idx += NT) {
         const int p = idx / (cc8 - cc), c = cc + idx % (cc8 - cc);
-        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz(p + 1, c >> 3) + (c & 7) * 2),
+        asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz128(p + 1, c >> 3) + (c & 7) * 2),
                      "h"((unsigned short)0));
       }
     for (int e = threadIdx.x; e < npix * cc; e += NT) {
       const int p = e / cc, c = e % cc;
-      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz(p + 1, c >> 3) + (c & 7) * 2),
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz128(p + 1, c >> 3) + (c & 7) * 2),
                    "h"(__bfloat16_as_ushort(xg[(i64)p * s.C + c])));
     }
   }
@@ -554,7 +535,7 @@ conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict
     for (int tap = 0; tap < 9; ++tap) {
       const int hh = h + tap / 3 - 1, ww = w + tap % 3 - 1;
       const bool ok = in && hh >= 0 && hh < s.H && ww >= 0 && ww < s.W;
-      a_off[m][tap] = swz(ok ? 1 + p + (tap / 3 - 1) * s.W + (tap % 3 - 1) : 0, lane >> 4);
+      a_off[m][tap] = swz128(ok ? 1 + p + (tap / 3 - 1) * s.W + (tap % 3 - 1) : 0, lane >> 4);
     }
   }
   if (threadIdx.x < 16)  // the two stages' zero rows, which nothing overwrites
@@ -648,30 +629,6 @@ pack_weights_kernel(const bf16* __restrict__ w, bf16* __restrict__ wp, int C, in
   wp[i] = v;
 }
 
-// the blocks the card holds at once of `kernel` with `bytes` of shared memory,
-// found on the first call for each device (the shared-memory attribute is set
-// there too); `slots_of` is the kernel's own table
-template <class K>
-cudaError_t card_slots(K kernel, int bytes, int (&slots_of)[16], int& slots) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 16) return cudaErrorInvalidDevice;
-  if (slots_of[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    bytes)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, bytes)) !=
-            cudaSuccess)
-      return err;
-    slots_of[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  slots = slots_of[dev];
-  return cudaSuccess;
-}
-
 template <int NB, int KT>
 cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int passes,
                    cudaStream_t stream) {
@@ -679,7 +636,7 @@ cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int p
   auto kernel = conv3x3_any_mma_kernel<NB, KT>;
   static int slots_of[16] = {};
   int slots = 0;
-  const cudaError_t err = card_slots(kernel, G::BYTES, slots_of, slots);
+  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
   kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
@@ -693,7 +650,7 @@ cudaError_t launch_groups(const bf16* x, const bf16* wp, bf16* y, const GShape& 
   auto kernel = conv3x3_any_mma_groups_kernel<NB, KT>;
   static int slots_of[16] = {};
   int slots = 0;
-  const cudaError_t err = card_slots(kernel, G::BYTES, slots_of, slots);
+  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
   kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);

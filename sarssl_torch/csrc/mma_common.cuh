@@ -1,11 +1,13 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that
 // multiply with mma.sync (attention_mma.cu, attention_f32_mma.cu,
-// conv3x3_mma.cu): cp.async copies of 16 bytes, ldmatrix loads of four 8x8
-// bf16 matrices (or, read as 32-bit words, four 8x4 f32 ones), the m16n8k16
-// bf16 -> f32 product and the f32 -> packed bf16 conversion, and the m16n8k8
-// TF32 product with the split that makes three of them about as exact as an
-// f32 product (3xTF32); the wgmma fence, commit and wait of the sources
-// that multiply with wgmma (conv3x3_mma.cu, conv3x3_any_mma.cu).
+// conv3x3_mma.cu): cp.async copies of 16 and 4 bytes, ldmatrix loads of four
+// 8x8 bf16 matrices (or, read as 32-bit words, four 8x4 f32 ones), the
+// m16n8k16 bf16 -> f32 product and the f32 -> packed bf16 conversion, and the
+// m16n8k8 TF32 product with the split that makes three of them about as
+// exact as an f32 product (3xTF32); the wgmma fence, commit and wait of the
+// sources that multiply with wgmma (conv3x3_mma.cu, conv3x3_any_mma.cu,
+// conv3x3_tf32.cu), and the 128-byte swizzle, its shared-memory descriptor
+// and the launch helper that the last two share.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -21,6 +23,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
+}
+// copies `bytes` (0 or 4) from src and fills the rest of the 4 with zeros
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+// 16 zero bytes at shared address `addr`
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(0), "r"(0), "r"(0),
+               "r"(0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -93,4 +105,43 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int PENDING>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// byte offset of 16-byte piece `piece` of row `idx` of 128-byte rows (a
+// pixel's K chunk, or a weight block's output channel) in the 128-byte swizzle
+__device__ __forceinline__ uint32_t swz128(int idx, int piece) {
+  return (uint32_t)(idx * 128 + ((piece ^ (idx & 7)) << 4));
+}
+// wgmma descriptor of a K-major operand of 128-byte rows in the 128-byte
+// swizzle, eight rows a 1024-byte period (the stride field); `addr` a
+// multiple of 1024. A step of 32 bytes along K (a bf16 k16 or a tf32 k8) adds
+// 2 to it (the start address in 16-byte units).
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the blocks the card holds at once of `kernel` at `threads` a block and
+// `bytes` of shared memory, found on the first call for each device (the
+// shared-memory attribute is set there too); `slots_of` is the kernel's own
+// table
+template <class K>
+cudaError_t card_slots(K kernel, int threads, int bytes, int (&slots_of)[16], int& slots) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 16) return cudaErrorInvalidDevice;
+  if (slots_of[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    bytes)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
+            cudaSuccess)
+      return err;
+    slots_of[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  slots = slots_of[dev];
+  return cudaSuccess;
 }

@@ -14,9 +14,11 @@
                  ``csrc/conv3x3_any_mma.cu`` (tensor cores; bfloat16 at every
                  other (C, Cout), and at any pair where the images are smaller
                  than a row tile in tiles of several whole images,
-                 ``csrc/conv3x3_any_mma_groups.cu``) and ``csrc/conv3x3.cu``
-                 (f32 FMAs; float32, with the channel counts at run time
-                 outside {64, 128}^2); any N
+                 ``csrc/conv3x3_any_mma_groups.cu``) and ``csrc/conv3x3_tf32.cu``
+                 (tensor cores as 3xTF32; float32 at every (C, Cout), its image
+                 groups ``csrc/conv3x3_tf32_groups.cu``); any N.
+                 ``csrc/conv3x3.cu`` (f32 FMAs) only launched directly, as the
+                 yardstick
   conv_s2d.py  : the same conv over the W-space-to-depth view, which is the
                  conv of x itself: conv3x3's kernels on x's C channels, so no
                  zero block of the expanded weight is multiplied

@@ -10,7 +10,7 @@ Replaces ``sarssl_tpu/kernels/conv3x3.py::conv3x3`` (the Pallas kernel
   * dW: a library filter gradient (``torch.nn.grad.conv2d_weight``), as the
     JAX package leaves dW to XLA outside Pallas.
 
-Four kernels, chosen by dtype and channels (:func:`conv_kernel`):
+The kernels, chosen by dtype, channels and image size (:func:`conv_kernel`):
 
 * ``csrc/conv3x3_mma.cu``: bfloat16 at the channel pairs of ``CHANNELS``. An
   implicit GEMM on the tensor cores (``wgmma``). It multiplies blocks of
@@ -18,8 +18,6 @@ Four kernels, chosen by dtype and channels (:func:`conv_kernel`):
   (:func:`pack_weights`), in the order :func:`dense_slots` names.
   :func:`conv3x3_from_blocks` repeats that arithmetic in plain PyTorch, for
   any table of blocks (the s2d form's is in ``conv_s2d.py``).
-* ``csrc/conv3x3.cu``: float32 at the same pairs, as f32 FMAs. A float32
-  product on the tensor cores would be TF32 and miss the 1e-4 tolerance.
 * ``csrc/conv3x3_any_mma.cu``: bfloat16 at every other (C, Cout), as the
   Pallas kernel takes any: the tensor-core design with C and Cout at run
   time, in K chunks of 64 input channels and passes of NB output channels
@@ -28,22 +26,33 @@ Four kernels, chosen by dtype and channels (:func:`conv_kernel`):
   plain version; for dx it rotates the weight as it packs it), and
   :func:`conv3x3_from_padded_blocks` repeats the conv's arithmetic in plain
   PyTorch.
-* ``csrc/conv3x3.cu``'s ``conv3x3_any_kernel``: float32 at every other (C,
-  Cout): the f32 FMA design with the channel counts as runtime arguments.
-  In bfloat16 it is launched only directly (:func:`launch_conv3x3_any`), as
-  the yardstick of ``conv3x3_any_mma.cu``.
+* ``csrc/conv3x3_tf32.cu``: float32 at every (C, Cout). The same design with
+  each product taken as three TF32 products on the tensor cores (3xTF32:
+  operands split by :func:`split_tf32` into hi + lo, lo hi + hi lo + hi hi),
+  which holds the f32 tolerance of 1e-4; K chunks of 32 f32 channels and
+  passes of at most 32 output channels, 64 where C <= 32
+  (:func:`tf32_passes`), the weight's hi and lo blocks packed in the same
+  call (:func:`pack_weights_tf32`);
+  :func:`conv3x3_tf32x3` repeats its arithmetic in plain PyTorch. Each K
+  chunk's products are summed apart and added to the sum in f32 (the tensor
+  core's adder cuts each sum toward zero, so a long running sum in it
+  drifts).
+* ``csrc/conv3x3.cu``: the f32 FMA kernels of the first version, at
+  ``CHANNELS`` and (``conv3x3_any_kernel``) at any pair. No route takes
+  them: they are launched only directly (:func:`launch_conv3x3_fma`,
+  :func:`launch_conv3x3_any`), as the yardstick of the tensor-core kernels.
 
-Images smaller than a row tile (:func:`conv_tiling`): bfloat16 at any (C,
-Cout) runs ``conv3x3_any_mma.cu``'s image groups (built as a library of their
-own from ``csrc/conv3x3_any_mma_groups.cu``), a tile of G whole images,
-G = floor(256 / (H W)), staged without a halo; each pixel's taps are rows of
-the staged group or a zero row (:func:`group_tap_rows`), and
+Images smaller than a row tile (:func:`conv_tiling`): both dtypes, at any
+(C, Cout), run the image groups of their tensor-core kernel (built as
+libraries of their own from ``csrc/conv3x3_any_mma_groups.cu`` and
+``csrc/conv3x3_tf32_groups.cu``), a tile of G whole images, G = floor(256 /
+(H W)), staged without a halo; each pixel's taps are rows of the staged group
+or a zero row (:func:`group_tap_rows`), and
 :func:`conv3x3_from_image_groups` repeats that arithmetic in plain PyTorch.
 
-Any H and W: the FMA kernels' pixel tiles lie on the grid's x dimension.
-Any N: their grid holds 65535 images in its y dimension, so they
-launch runs of at most that many (:func:`conv_batch_chunks`); the
-tensor-core kernels walk their tiles in a loop and take any N in one launch.
+Any H, W and N: the tensor-core kernels walk their tiles in a loop and take
+any N in one launch; the FMA kernels put their pixel tiles on the grid's x
+dimension and launch runs of at most 65535 images (:func:`conv_batch_chunks`).
 
 For a CUDA tensor the wrapper launches the kernel it names here or raises.
 The kernels are on no model path: the port's ``CNNFrontEnd`` keeps
@@ -97,8 +106,8 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Ten
 
 def takes_tensor_cores(dtype: torch.dtype, C: int, Cout: int) -> bool:
     """Whether the conv wrappers run ``conv3x3_mma.cu`` for CUDA tensors of
-    this dtype and these channels. float32 at the same pairs runs
-    ``conv3x3.cu``'s instances, everything else its runtime-channel kernel
+    this dtype and these channels (bfloat16 at ``CHANNELS``). Every other
+    pair and dtype runs a runtime-channel tensor-core kernel
     (:func:`conv_kernel`)."""
     return dtype == torch.bfloat16 and (C, Cout) in CHANNELS
 
@@ -109,8 +118,9 @@ GROUP_PIXELS = 256  # output pixels of an image-group tile (conv3x3_any_mma.cu's
 def conv_tiling(dtype: torch.dtype, H: int, W: int, C: int, Cout: int) -> int:
     """How many images a tile of the tensor-core kernels holds for CUDA
     tensors of this dtype and shape: G = floor(256 / (H W)) whole images
-    (``conv3x3_any_mma.cu``'s image groups), or 0 for row tiles (of 16 x 32
-    pixels at ``conv3x3_mma.cu``'s C = 64 instance, else 16 x 16).
+    (the image groups of ``conv3x3_any_mma.cu`` in bfloat16, of
+    ``conv3x3_tf32.cu`` in float32), or 0 for row tiles (of 16 x 32 pixels
+    at ``conv3x3_mma.cu``'s C = 64 instance, else 16 x 16).
 
     The rule: image groups wherever the share of a group tile's 256 outputs
     inside an image, G H W / 256, exceeds the row tiles' share, H W over the
@@ -118,9 +128,9 @@ def conv_tiling(dtype: torch.dtype, H: int, W: int, C: int, Cout: int) -> int:
     fragments serve three output rows each. So (4, 8) takes groups of 8
     (1/8 of a 16 x 16 tile inside, 1/16 of a 16 x 32 one), (1, 1) groups of
     256, and (16, 16) or anything past 256 pixels row tiles (at C = 64 (16,
-    16) fills half of a 16 x 32 tile: groups of one). float32 runs the FMA
-    kernels: 0."""
-    if dtype != torch.bfloat16 or H * W > GROUP_PIXELS:
+    16) fills half of a 16 x 32 tile: groups of one). The same rule in
+    float32, whose row tiles are 16 x 16."""
+    if dtype not in _DTYPES or H * W > GROUP_PIXELS:
         return 0
     th, tw = (16, 32) if takes_tensor_cores(dtype, C, Cout) and C == BLOCK else (16, 16)
     rows_share = H * W / (-(-H // th) * th * -(-W // tw) * tw)
@@ -131,26 +141,22 @@ def conv_tiling(dtype: torch.dtype, H: int, W: int, C: int, Cout: int) -> int:
 def conv_kernel(dtype: torch.dtype, C: int, Cout: int, H: int | None = None,
                 W: int | None = None) -> str:
     """The kernel the conv wrappers run for CUDA tensors of this dtype and
-    these channels: ``"tc"`` (``conv3x3_mma.cu``), ``"tc_any"``
-    (``conv3x3_any_mma.cu``'s row tiles, bfloat16 at every other pair),
-    ``"fma"`` (``conv3x3.cu``'s instances, float32 at ``CHANNELS``) or
-    ``"any"`` (its runtime-channel kernel, float32 at every other pair). Given
-    H and W, ``"tc_groups"`` (``conv3x3_any_mma.cu``'s image groups, bfloat16
-    at any pair) where :func:`conv_tiling` names groups."""
-    if H is not None and conv_tiling(dtype, H, W, C, Cout):
+    these channels: ``"tc"`` (``conv3x3_mma.cu``, bfloat16 at ``CHANNELS``),
+    ``"tc_any"`` (``conv3x3_any_mma.cu``'s row tiles, bfloat16 at every other
+    pair) or ``"tf32"`` (``conv3x3_tf32.cu``'s row tiles, float32 at every
+    pair). Given H and W, ``"tc_groups"`` / ``"tf32_groups"`` (the image
+    groups of the same two sources) where :func:`conv_tiling` names groups."""
+    groups = H is not None and conv_tiling(dtype, H, W, C, Cout)
+    if dtype == torch.float32:
+        return "tf32_groups" if groups else "tf32"
+    if groups:
         return "tc_groups"
-    if takes_tensor_cores(dtype, C, Cout):
-        return "tc"
-    if dtype == torch.bfloat16:
-        return "tc_any"
-    if (C, Cout) in CHANNELS:
-        return "fma"
-    return "any"
+    return "tc" if takes_tensor_cores(dtype, C, Cout) else "tc_any"
 
 
 def conv_batch_chunks(N: int) -> list:
-    """``(n0, nn)`` launches of an FMA conv kernel that cover N images: at
-    most :data:`GRID_YZ` a launch (the grid's y dimension)."""
+    """``(n0, nn)`` launches of an FMA conv kernel (the yardstick) that cover
+    N images: at most :data:`GRID_YZ` a launch (the grid's y dimension)."""
     return [(n0, min(GRID_YZ, N - n0)) for n0 in range(0, N, GRID_YZ)]
 
 
@@ -292,14 +298,82 @@ def conv3x3_from_image_groups(x: torch.Tensor, packed: torch.Tensor, Cout: int,
     staged[:, 1:][real] = F.pad(flat, (0, kc * blk - C))[pixels[real]]
     rows = group_tap_rows(H, W, G).to(x.device)
     out = torch.zeros((T, GROUP_PIXELS, passes * nb), dtype=torch.float32, device=x.device)
-    for p in range(passes):
-        for k in range(kc):
-            for tap in range(9):
-                a = staged[:, rows[:, tap], k * blk:(k + 1) * blk]
-                out[..., p * nb:(p + 1) * nb] += a @ packed[p, k, tap].float().T
+    for tap in range(9):  # the tap's rows once, times its blocks of every pass and chunk
+        blocks = packed[:, :, tap].float().permute(1, 3, 0, 2).reshape(kc * blk, passes * nb)
+        out += staged[:, rows[:, tap]] @ blocks
     y = torch.empty((N * H * W, Cout), dtype=torch.float32, device=x.device)
     y[pixels[real]] = out[real][:, :Cout]
     return y.reshape(N, H, W, Cout).to(x.dtype)
+
+
+TF32_BLOCK = 32  # f32 channels of a K chunk of conv3x3_tf32.cu (128-byte rows)
+# output channels of a pass of conv3x3_tf32.cu at most (wgmma's N): 32, or 64
+# where C <= 32 (one K chunk, whose weights a block copies once)
+TF32_NB, TF32_NB_ONE_CHUNK = 32, 64
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: ``cvt.rna.tf32.f32`` on the int32 view (add half of the 13 dropped
+    bits' unit to the magnitude, then clear them)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple:
+    """x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x -
+    hi is exact in f32), as ``mma_common.cuh::split_tf32`` and
+    ``conv3x3_tf32.cu::split_tf32_bits`` split it."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def tf32_passes(Cout: int, C: int) -> tuple:
+    """``(passes, NB)`` of ``conv3x3_tf32.cu`` for C input and Cout output
+    channels: ``ceil(Cout / 32)`` passes of NB channels, NB the least
+    multiple of 8 that covers Cout in that many (wgmma's N, at most 32: a
+    stage's hi and lo weight blocks and its input tile fit twice in shared
+    memory); where C <= 32 ``ceil(Cout / 64)`` passes (one K chunk: a block
+    copies its weights once, and one stage of them fits at NB = 64)."""
+    passes = -(-Cout // (TF32_NB_ONE_CHUNK if C <= TF32_BLOCK else TF32_NB))
+    per_pass = -(-Cout // passes)
+    return passes, -(-per_pass // 8) * 8
+
+
+def pack_weights_tf32(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, Cout) -> (passes, ceil(C / 32), 2, 9, NB, 32) float32
+    contiguous, zero past C and Cout: for each pass of NB output channels
+    and each K chunk of 32 input channels the nine taps' TF32 hi blocks
+    ([.., 0, ..]) then their lo blocks ([.., 1, ..]), each ``[co][ci]`` (the
+    kernel's K-major B operand). The plain version of ``conv3x3_tf32.cu``'s
+    ``pack_weights_kernel``."""
+    _, _, C, Cout = w.shape
+    passes, nb = tf32_passes(Cout, C)
+    kc = -(-C // TF32_BLOCK)
+    wp = torch.zeros((3, 3, kc * TF32_BLOCK, passes * nb), dtype=torch.float32, device=w.device)
+    wp[:, :, :C, :Cout] = w
+    blocks = wp.reshape(9, kc, TF32_BLOCK, passes, nb).permute(3, 1, 0, 4, 2)
+    return torch.stack(split_tf32(blocks), dim=2).contiguous()
+
+
+def conv3x3_tf32x3(x: torch.Tensor, w: torch.Tensor, groups: int = 0) -> torch.Tensor:
+    """``conv3x3_tf32.cu``'s arithmetic in plain PyTorch: ``x`` (N, H, W, C)
+    split into TF32 hi + lo, the weight packed by :func:`pack_weights_tf32`,
+    and the conv as the three split products lo hi + hi lo + hi hi summed in
+    f32, in row tiles (:func:`conv3x3_from_padded_blocks`) or, with
+    ``groups`` = G > 0, in tiles of G whole images
+    (:func:`conv3x3_from_image_groups`); float32 out."""
+    Cout = w.shape[3]
+    packed = pack_weights_tf32(w)
+    w_hi, w_lo = packed[:, :, 0], packed[:, :, 1]
+    hi, lo = split_tf32(x)
+
+    def conv(a, b):
+        if groups:
+            return conv3x3_from_image_groups(a, b, Cout, groups)
+        return conv3x3_from_padded_blocks(a, b, Cout)
+
+    return conv(lo, w_hi) + conv(hi, w_lo) + conv(hi, w_hi)
 
 
 @functools.lru_cache(maxsize=None)
@@ -338,6 +412,26 @@ def _library_any_mma(groups: bool = False):
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_tf32(groups: bool = False):
+    """``conv3x3_tf32.cu``'s row tiles, or with ``groups`` its image groups
+    (``conv3x3_tf32_groups.cu``, a library of their own)."""
+    lib = load_library("conv3x3_tf32_groups" if groups else "conv3x3_tf32")
+    lib.conv3x3_tf32.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+    lib.conv3x3_tf32.restype = _I
+    lib.conv3x3_tf32_smem_bytes.argtypes = [_I, _I]
+    lib.conv3x3_tf32_smem_bytes.restype = _I
+    lib.error_string.argtypes = [_I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tf32_smem_bytes(nb: int, groups: bool = False) -> int:
+    """Dynamic shared memory a block of ``conv3x3_tf32_kernel<nb, *>`` (with
+    ``groups``: ``conv3x3_tf32_groups_kernel<nb, *>``) takes."""
+    return _library_tf32(groups).conv3x3_tf32_smem_bytes(nb, int(groups))
 
 
 def any_mma_smem_bytes(nb: int, groups: bool = False) -> int:
@@ -391,8 +485,9 @@ def _launch_fma(entry: str, x: torch.Tensor, w: torch.Tensor, name: str) -> torc
 def launch_conv3x3_fma(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     """Run the FMA kernel (``conv3x3.cu``'s instances, (C, Cout) in
     ``CHANNELS``) on CUDA tensors, ``x`` (N, H, W, C) contiguous and ``w``
-    (3, 3, C, Cout), cast to ``x``'s dtype; count one launch of ``name``. It
-    takes bfloat16 too: the tensor-core kernel is timed against it."""
+    (3, 3, C, Cout), cast to ``x``'s dtype; count one launch of ``name``. No
+    route takes it: in both dtypes it is the yardstick the tensor-core
+    kernels are timed against, launched directly."""
     _check(x, w, name)
     if (x.shape[3], w.shape[3]) not in CHANNELS:
         raise ValueError(f"{name}: the FMA kernel's instances take (C, Cout) in {CHANNELS}, "
@@ -406,8 +501,8 @@ def launch_conv3x3_any(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Ten
     """Run ``conv3x3.cu``'s runtime-channel kernel on CUDA tensors, ``x`` (N,
     H, W, C) contiguous and ``w`` (3, 3, C, Cout) at any C, Cout, cast to
     ``x``'s dtype; count one launch of ``name`` and one of ``name + "_any"``.
-    The conv wrappers take it for float32; in bfloat16 it is the yardstick
-    of ``conv3x3_any_mma.cu``, launched directly."""
+    No route takes it: in both dtypes it is the yardstick of the
+    runtime-channel tensor-core kernels, launched directly."""
     _check(x, w, name)
     y = _launch_fma("conv3x3_any", x, w, name)
     launches[name] += 1
@@ -479,6 +574,44 @@ def launch_conv3x3_any_mma(x: torch.Tensor, w: torch.Tensor, name: str,
     return y
 
 
+def launch_conv3x3_tf32(x: torch.Tensor, w: torch.Tensor, name: str, rot: bool = False,
+                        groups: int = 0) -> torch.Tensor:
+    """Run the 3xTF32 tensor-core kernel (``conv3x3_tf32.cu``) on ``x`` (N, H,
+    W, C) float32 contiguous with ``w`` (3, 3, C, Cout), or with ``rot``
+    ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to float32: one call that
+    packs the weight (as :func:`pack_weights_tf32` does) and runs the conv
+    in row tiles, or with ``groups`` = G > 0 in tiles of G whole images (G H
+    W <= 256), each K chunk's products summed apart. Counts one launch of
+    ``name`` and one of ``name + "_tf32"`` (row tiles) or ``name +
+    "_tf32_groups"``."""
+    wk = w.to(torch.float32).contiguous()
+    if not (x.is_cuda and wk.device == x.device and x.dtype == torch.float32
+            and x.is_contiguous()):
+        raise ValueError(f"{name}: the 3xTF32 kernel takes contiguous float32 CUDA tensors on "
+                         f"one device")
+    N, H, W, C = x.shape
+    if wk.ndim != 4 or tuple(wk.shape[:2]) != (3, 3) or wk.shape[3 if rot else 2] != C:
+        raise ValueError(f"{name}: {tuple(w.shape)} is not the weight of C = {C}")
+    if groups < 0 or groups * H * W > GROUP_PIXELS:
+        raise ValueError(f"{name}: a tile holds at most {GROUP_PIXELS} pixels, got {groups} "
+                         f"images of {H} x {W}")
+    if C % 4 == 0 and x.data_ptr() % 16:
+        raise ValueError(f"{name}: the 3xTF32 kernel takes x 16-byte aligned where C % 4 == 0")
+    cout = wk.shape[2] if rot else wk.shape[3]
+    passes, nb = tf32_passes(cout, C)
+    lib = _library_tf32(groups > 0)
+    packed = torch.empty((passes, -(-C // TF32_BLOCK), 2, 9, nb, TF32_BLOCK),
+                         dtype=torch.float32, device=x.device)
+    y = torch.empty((N, H, W, cout), dtype=torch.float32, device=x.device)
+    code = lib.conv3x3_tf32(x.data_ptr(), wk.data_ptr(), packed.data_ptr(), y.data_ptr(), N, H,
+                            W, C, cout, nb, int(rot), groups,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    check_cuda_status(lib, code, name)
+    launches[name] += 1
+    launches[name + ("_tf32_groups" if groups else "_tf32")] += 1
+    return y
+
+
 def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
                    rot: bool = False) -> torch.Tensor:
     """Run the kernel that :func:`conv_kernel` names on CUDA tensors, ``x``
@@ -489,18 +622,12 @@ def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
     _, H, W, C = x.shape
     cout = w.shape[2] if rot else w.shape[3]
     kernel = conv_kernel(x.dtype, C, cout, H, W)
-    if kernel == "tc_groups":
-        return launch_conv3x3_any_mma(x, w, name, rot=rot,
-                                      groups=conv_tiling(x.dtype, H, W, C, cout))
-    if kernel == "tc_any":
-        return launch_conv3x3_any_mma(x, w, name, rot=rot)
-    if rot:
-        w = rot180_io(w)
-    if kernel == "tc":
-        return launch_conv3x3_mma(x, pack_weights(w.to(x.dtype)), name)
-    if kernel == "fma":
-        return launch_conv3x3_fma(x, w, name)
-    return launch_conv3x3_any(x, w, name)
+    G = conv_tiling(x.dtype, H, W, C, cout)
+    if kernel in ("tf32", "tf32_groups"):
+        return launch_conv3x3_tf32(x, w, name, rot=rot, groups=G)
+    if kernel in ("tc_any", "tc_groups"):
+        return launch_conv3x3_any_mma(x, w, name, rot=rot, groups=G)
+    return launch_conv3x3_mma(x, pack_weights((rot180_io(w) if rot else w).to(x.dtype)), name)
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,8 @@ are the three blocks ``w[dh, dw]``, each used by both output parities.
     C-channel conv of x over the same memory (held once, below). So the
     launch is ``conv3x3``'s on x itself with w, at every C and dtype: it
     takes every route ``conv3x3.conv_kernel`` names (the tensor-core
-    instances, the runtime-channel kernels, the FMA kernels, the image
-    groups) and multiplies no zero block;
+    instances, the runtime-channel kernels, the 3xTF32 kernel in float32, the
+    image groups) and multiplies no zero block;
   * dx: the same on dy with ``rot180_io(w)``;
   * dW: the library filter gradient on the original layout, as in JAX.
 

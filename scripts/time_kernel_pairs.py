@@ -129,8 +129,12 @@ def rows_of(kernels, keep=None, gen_seed=0):
                                                                                 rate), True),
         "hash_dropout_lanes_65600x64": (
             "queued", lambda: drop.launch_dropout_lanes(short, short_seeds, rate), True),
-        "conv3x3_fwd_f32_64": ("queued", lambda: conv.conv3x3_fwd(*convs[64]), True),
-        "conv3x3_fwd_f32_128": ("queued", lambda: conv.conv3x3_fwd(*convs[128]), True),
+        # the FMA instances launched directly: f32 routes to the 3xTF32 kernel
+        # since that kernel came, and the FMA kernels stay as its yardstick
+        "conv3x3_fwd_f32_64": ("queued", lambda: conv.launch_conv3x3_fma(*convs[64], "fma"),
+                               True),
+        "conv3x3_fwd_f32_128": ("queued", lambda: conv.launch_conv3x3_fma(*convs[128], "fma"),
+                                True),
     }
     for tag, (xb, wb, dyb) in bf16.items():
         rows[f"conv3x3_bf16_fwd_{tag}"] = ("queued", lambda a=(xb, wb): conv.conv3x3_fwd(*a), True)

@@ -248,9 +248,14 @@ def test_pack_weights_of_one_block_is_a_view():
 
 @pytest.mark.parametrize("channels", CHANNELS)
 def test_routing_bf16_to_tensor_cores_f32_to_fma(channels):
+    # bfloat16 at these pairs runs conv3x3_mma.cu; float32 no longer the FMA
+    # kernels but conv3x3_tf32.cu, the 3xTF32 tensor-core kernel (the test
+    # keeps the name it had when float32 went to the FMA kernels)
     assert takes_tensor_cores(torch.bfloat16, *channels)
     assert not takes_tensor_cores(torch.float32, *channels)
     assert not takes_tensor_cores(torch.float16, *channels)
+    assert conv_kernel(torch.float32, *channels) == "tf32"
+    assert conv_kernel(torch.bfloat16, *channels) == "tc"
 
 
 @pytest.mark.parametrize("channels", [(32, 32), (64, 32), (256, 256), (64, 96)])
@@ -262,18 +267,18 @@ def test_routing_of_the_s2d_form(monkeypatch):
     """The s2d form runs conv3x3's kernel on x's own C channels: at C = 64
     bfloat16 the C = 64 tensor-core instance (as it walked the view's chunks
     before), C = 32 and 128 too now take conv3x3's routes at C (no longer the
-    dense kernels on the 2C view); float32 the FMA kernels at C; small
-    images the image groups."""
+    dense kernels on the 2C view); float32 the 3xTF32 tensor-core kernel at
+    C; small images the image groups, in either dtype."""
     def route(x, w, name, rot=False):  # the kernel conv3x3's launcher would run
         routes.append(conv_kernel(x.dtype, x.shape[3], w.shape[2 if rot else 3], *x.shape[1:3]))
         return x
 
     monkeypatch.setattr(conv_s2d, "launch_conv3x3", route)
     for dtype, C, hw, kernel in ((torch.bfloat16, 64, (64, 64), "tc"),
-                                 (torch.float32, 64, (64, 64), "fma"),
+                                 (torch.float32, 64, (64, 64), "tf32"),
                                  (torch.bfloat16, 32, (64, 64), "tc_any"),
                                  (torch.bfloat16, 128, (64, 64), "tc"),
-                                 (torch.float32, 256, (64, 64), "any"),
+                                 (torch.float32, 256, (64, 64), "tf32"),
                                  (torch.bfloat16, 64, (4, 8), "tc_groups")):
         routes = []
         x = torch.empty((2, *hw, C), dtype=dtype, device="meta")

@@ -69,12 +69,13 @@ def test_image_groups_cover_every_output_pixel_once(N, H, W):
 def test_conv_tiling_groups_small_images_only(H, W, G):
     """Image groups where a group tile holds more in-image outputs than the
     row tiles (3 -> 64 and 128 -> 128: 16 x 16 row tiles), row tiles from 16
-    x 16 pixels on; float32 never (the FMA kernels)."""
+    x 16 pixels on; float32 by the same rule (conv3x3_tf32.cu's image groups;
+    its row tiles are 16 x 16 at every pair)."""
     for C, Cout in ((3, 64), (128, 128), (13, 24)):
         assert conv_tiling(torch.bfloat16, H, W, C, Cout) == G
         assert conv_kernel(torch.bfloat16, C, Cout, H, W) == ("tc_groups" if G else
                                                               conv_kernel(torch.bfloat16, C, Cout))
-        assert conv_tiling(torch.float32, H, W, C, Cout) == 0
+        assert conv_tiling(torch.float32, H, W, C, Cout) == G
     # C = 64 runs conv3x3_mma.cu's 16 x 32 row tiles: (16, 16) fills half of one
     assert conv_tiling(torch.bfloat16, 16, 16, 64, 64) == 1
     assert conv_tiling(torch.bfloat16, 16, 32, 64, 64) == 0

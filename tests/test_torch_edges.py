@@ -188,19 +188,18 @@ def test_plain_slice_by_index_map_and_by_seed_shift_equal_the_whole():
 
 @pytest.mark.parametrize("dtype, C, Cout, kernel", [
     (torch.bfloat16, 64, 64, "tc"), (torch.bfloat16, 128, 64, "tc"),
-    (torch.float32, 64, 128, "fma"), (torch.float32, 3, 64, "any"),
+    (torch.float32, 64, 128, "tf32"), (torch.float32, 3, 64, "tf32"),
     (torch.bfloat16, 3, 64, "tc_any"), (torch.bfloat16, 64, 48, "tc_any"),
-    (torch.float32, 96, 160, "any"), (torch.bfloat16, 256, 256, "tc_any"),
-    (torch.float32, 64, 64, "fma"), (torch.float32, 128, 128, "fma"),
-    (torch.float32, 128, 64, "fma"), (torch.bfloat16, 32, 32, "tc_any"),
-    (torch.bfloat16, 13, 3, "tc_any"), (torch.float32, 5, 24, "any")])
+    (torch.float32, 96, 160, "tf32"), (torch.bfloat16, 256, 256, "tc_any"),
+    (torch.float32, 64, 64, "tf32"), (torch.float32, 128, 128, "tf32"),
+    (torch.float32, 128, 64, "tf32"), (torch.bfloat16, 32, 32, "tc_any"),
+    (torch.bfloat16, 13, 3, "tc_any"), (torch.float32, 5, 24, "tf32")])
 def test_conv_kernel_routing(dtype, C, Cout, kernel):
     """By dtype and channels, without H and W (the row tiles; images smaller
-    than a row tile take the image groups in bfloat16,
-    ``tests/test_torch_conv_groups.py``): the FMA kernels' pixel tiles lie on
-    the grid's x dimension, so no H or W changes a float32 kernel; bfloat16
-    outside the tensor-core instances' pairs runs the runtime-channel
-    tensor-core kernel, float32 there the runtime-channel FMA kernel."""
+    than a row tile take the image groups, ``tests/test_torch_conv_groups.py``
+    and ``tests/test_torch_conv_tf32.py``): bfloat16 outside the tensor-core
+    instances' pairs runs the runtime-channel tensor-core kernel, float32 at
+    every pair the 3xTF32 tensor-core kernel (once the FMA kernels)."""
     assert conv_kernel(dtype, C, Cout) == kernel
 
 

@@ -20,8 +20,10 @@ from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # n
                                             launch_attention_fwd_fma,
                                             launch_attention_fwd_mma,
                                             launch_attention_fwd_tf32, padded_head_dim)
-from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd, conv_kernel,  # noqa: E402
-                                          launch_conv3x3_any_mma, launch_conv3x3_mma,
+from sarssl_torch.kernels.conv3x3 import (conv3x3_dx, conv3x3_fwd,  # noqa: E402
+                                          conv3x3_tf32x3, conv_kernel, conv_tiling,
+                                          launch_conv3x3_any, launch_conv3x3_any_mma,
+                                          launch_conv3x3_mma, launch_conv3x3_tf32,
                                           pack_weights, rot180_io)
 from sarssl_torch.kernels.conv_s2d import conv3x3_s2d_dx, conv3x3_s2d_fwd  # noqa: E402
 from sarssl_torch.kernels.dropout import launch_dropout, launch_dropout_lanes  # noqa: E402
@@ -464,8 +466,8 @@ CONV_SHAPES = [  # (N, H, W, C, Cout): H not a multiple of the tile, W not of 8
     (2, 19, 37, 64, 64), (2, 16, 64, 64, 64), (2, 13, 30, 128, 128), (1, 9, 21, 64, 128),
     (1, 11, 18, 128, 64)]
 # the launch counter each conv kernel adds beside the launch's own name
-CONV_TAGS = {"tc": "_tc", "tc_any": "_tc_any", "tc_groups": "_tc_groups", "fma": "",
-             "any": "_any"}
+CONV_TAGS = {"tc": "_tc", "tc_any": "_tc_any", "tc_groups": "_tc_groups", "tf32": "_tf32",
+             "tf32_groups": "_tf32_groups"}
 
 
 def _conv_route_names(prefix, dtype, H, W, C, Cout):
@@ -490,7 +492,7 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     assert _rel(conv3x3_dx(dy, w), conv3x3_plain(dy.float(), rot180_io(w).float())) <= TOL[dtype]
     # through autograd: forward and dx are kernel launches, dW the library;
     # bfloat16 runs a tensor-core kernel (row tiles, or image groups where the
-    # image is smaller than a row tile: its count rises), float32 the FMA
+    # image is smaller than a row tile: its count rises), float32 the 3xTF32 one
     names = _conv_route_names("conv3x3", dtype, H, W, C, Cout)
     before = [launches[n] for n in names]
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -754,10 +756,11 @@ def test_short_lanes_dropout_equals_plain(cuda, lane_numel):
                                       (13, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
-    """The runtime-channel kernels, forward and dx (counted as ``_any`` in
-    f32, ``_tc_any`` in bf16: conv3x3_any_mma.cu on the tensor cores, C % 8
-    and Cout % 8 nonzero among them), through autograd against the plain
-    version; at C == Cout the s2d form too, on the 2C-channel view."""
+    """The runtime-channel kernels, forward and dx (counted as ``_tf32`` in
+    f32: conv3x3_tf32.cu, C % 4 and Cout % 4 nonzero among them; ``_tc_any``
+    in bf16: conv3x3_any_mma.cu, C % 8 and Cout % 8 nonzero among them), through
+    autograd against the plain version; at C == Cout the s2d form too, on the
+    2C-channel view."""
     C, Cout = channels
     x = torch.randn((2, 19, 38, C), generator=cuda, device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
@@ -765,7 +768,7 @@ def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
     forms = [(conv3x3, conv3x3_plain, "conv3x3")]
     if C == Cout:
         forms.append((conv3x3_s2d, conv3x3_s2d_plain, "conv3x3_s2d"))
-    tag = "_tc_any" if dtype == torch.bfloat16 else "_any"
+    tag = "_tc_any" if dtype == torch.bfloat16 else "_tf32"
     for fn, plain, name in forms:
         names = (f"{name}_fwd{tag}", f"{name}_dx{tag}")
         before = [launches[n] for n in names]
@@ -783,19 +786,27 @@ def test_conv_at_any_channel_count_matches_plain(cuda, channels, dtype):
 @pytest.mark.parametrize("C", [64, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_past_65535_images_matches_plain(cuda, C, dtype):
-    """N = 65600: the FMA kernels launch two runs of images (counted as
-    chunked); the tensor-core kernels (bf16: at 2 x 4 images the image
-    groups, 32 images a tile, at C = 64 and 3) walk them in one."""
+    """N = 65600: the tensor-core kernels (at 2 x 4 images the image groups,
+    32 images a tile, at C = 64 and 3; float32 also in row tiles launched
+    directly, 65600 tiles) walk them in one launch; the f32 FMA kernel, the
+    yardstick launched directly, in two runs of images (counted as
+    chunked)."""
     x = torch.randn((65600, 2, 4, C), generator=cuda, device="cuda").to(dtype)
     w = (torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
-    tc = dtype == torch.bfloat16
     route = "conv3x3_fwd" + CONV_TAGS[conv_kernel(dtype, C, 64, 2, 4)]
-    assert (route == "conv3x3_fwd_tc_groups") == tc
+    assert route == ("conv3x3_fwd_tc_groups" if dtype == torch.bfloat16 else
+                     "conv3x3_fwd_tf32_groups")
     before = launches["conv3x3_fwd_chunked"], launches[route]
     y = conv3x3_fwd(x, w)
-    assert launches["conv3x3_fwd_chunked"] == before[0] + (0 if tc else 1)
+    assert launches["conv3x3_fwd_chunked"] == before[0]
     assert launches[route] == before[1] + 1
-    assert _rel(y, conv3x3_plain(x.float(), w.float())) <= TOL[dtype]
+    ref = conv3x3_plain(x.float(), w.float())
+    assert _rel(y, ref) <= TOL[dtype]
+    if dtype == torch.float32:
+        assert _rel(launch_conv3x3_tf32(x, w, "rows"), ref) <= TOL[dtype]
+        before = launches["fma_chunked"]
+        assert _rel(launch_conv3x3_any(x, w, "fma"), ref) <= TOL[dtype]
+        assert launches["fma_chunked"] == before + 1
 
 
 GROUP_SHAPES = [(65600, 4, 8), (7, 1, 1), (33, 3, 5), (9, 5, 17)]
@@ -1196,3 +1207,97 @@ def test_dropout_column_shards_are_slices_of_the_full_launch(cuda):
         assert torch.equal(grad, full_g[..., c0:c0 + w])
         assert torch.equal(out, dropout_plain(xs.detach(), seed, rate, imap))
         assert torch.equal(launch_dropout(xs.detach(), seed, rate, imap), out)
+
+
+# --- the float32 conv on the tensor cores as 3xTF32 (conv3x3_tf32.cu) ---
+
+# (N, H, W): H and W of 1, 2 and the 16 x 16 row tile's +- 1, and image groups
+# with a ragged last group ((7, 1, 1), (33, 3, 5), (9, 5, 17))
+TF32_EDGES = [(1, 1, 2), (1, 2, 2), (1, 1, 64), (1, 33, 2), (1, 15, 30), (1, 17, 34),
+              (2, 16, 32), (1, 31, 66), (7, 1, 1), (33, 3, 5), (9, 5, 17)]
+
+
+@pytest.mark.parametrize("nhw", TF32_EDGES)
+@pytest.mark.parametrize("channels", [(64, 64), (3, 64), (13, 24), (33, 7), (96, 160)])
+def test_conv_tf32_kernel_matches_plain(cuda, nhw, channels):
+    """float32 forward and dx on conv3x3_tf32.cu, counted by its route (row
+    tiles or image groups), within 1e-4 of the plain f32 version and of the
+    kernel's own arithmetic (``conv3x3_tf32x3``), at tile edges, C % 4 and
+    Cout % 4 nonzero, ragged last groups; the row tiles launched directly at
+    every shape too."""
+    N, H, W = nhw
+    C, Cout = channels
+    x = torch.randn((N, H, W, C), generator=cuda, device="cuda")
+    w = torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)
+    dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda")
+    names = _conv_route_names("conv3x3", torch.float32, H, W, C, Cout)
+    before = [launches[n] for n in names]
+    y, gx = conv3x3_fwd(x, w), conv3x3_dx(dy, w)
+    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, 1, 1], names
+    G = conv_tiling(torch.float32, H, W, C, Cout), conv_tiling(torch.float32, H, W, Cout, C)
+    tol = TOL[torch.float32]
+    for out, inp, wk, g in ((y, x, w, G[0]), (gx, dy, rot180_io(w), G[1])):
+        assert _rel(out, conv3x3_plain(inp, wk)) <= tol
+        assert _rel(out, conv3x3_tf32x3(inp, wk, g)) <= tol
+    assert _rel(launch_conv3x3_tf32(x, w, "rows"), conv3x3_plain(x, w)) <= tol
+    assert _rel(launch_conv3x3_tf32(dy, w, "rows", rot=True),
+                conv3x3_plain(dy, rot180_io(w))) <= tol
+
+
+def test_conv_tf32_kernel_is_bit_identical_from_run_to_run(cuda):
+    """float32 at the front end's shape (128, 256, 256, 64), the four
+    launches (row tiles), and at (65600, 4, 8) 64 -> 64 and 3 -> 64 (image
+    groups), forward and dx: no atomics, so two runs agree bit for bit, and
+    each is within 1e-4 of the plain version."""
+    x = torch.randn((128, 256, 256, 64), generator=cuda, device="cuda")
+    w = torch.randn((3, 3, 64, 64), generator=cuda, device="cuda") / 24
+    for name, fn in (("conv3x3_fwd", conv3x3_fwd), ("conv3x3_dx", conv3x3_dx),
+                     ("conv3x3_s2d_fwd", conv3x3_s2d_fwd), ("conv3x3_s2d_dx", conv3x3_s2d_dx)):
+        before = launches[name + "_tf32"]
+        first, second = fn(x, w), fn(x, w)
+        assert launches[name + "_tf32"] == before + 2, name
+        assert torch.equal(first, second), name
+        ref = conv3x3_plain(x, rot180_io(w) if name.endswith("_dx") else w)
+        assert _rel(first, ref) <= TOL[torch.float32], name
+        del first, second, ref
+    del x
+    for C in (64, 3):
+        x = torch.randn((65600, 4, 8, C), generator=cuda, device="cuda")
+        w = torch.randn((3, 3, C, 64), generator=cuda, device="cuda") / (3 * C ** 0.5)
+        dy = torch.randn((65600, 4, 8, 64), generator=cuda, device="cuda")
+        for fn, inp, ref in ((conv3x3_fwd, x, lambda: conv3x3_plain(x, w)),
+                             (conv3x3_dx, dy, lambda: conv3x3_plain(dy, rot180_io(w)))):
+            before = launches[fn.__name__ + "_tf32_groups"]
+            first = fn(inp, w)
+            assert torch.equal(first, fn(inp, w)), (C, fn.__name__)
+            assert launches[fn.__name__ + "_tf32_groups"] == before + 2
+            assert _rel(first, ref()) <= TOL[torch.float32], (C, fn.__name__)
+
+
+def _conv64(x, w):
+    """The conv in float64 (cuDNN), NHWC x HWIO."""
+    return torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                      w.double().permute(3, 2, 0, 1), padding=1
+                                      ).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("C", [256, 1024, 2048])
+@pytest.mark.parametrize("positive", [False, True])
+@pytest.mark.parametrize("nhw", [(1, 17, 19), (6, 4, 8)])
+def test_conv_tf32_holds_float64_at_large_k(cuda, C, positive, nhw):
+    """K = 9 C up to 18432 (C = Cout = 2048, which the Pallas kernel takes),
+    forward and dx, in row tiles (17 x 19) and image groups (4 x 8), within
+    1e-4 of the largest value of the float64 conv, on data of either sign and
+    on positive data (where the tensor core's cut toward zero drifts the
+    most): each K chunk is summed apart."""
+    N, H, W = nhw
+    if positive:
+        x = torch.rand((N, H, W, C), generator=cuda, device="cuda")
+        dy = torch.rand((N, H, W, C), generator=cuda, device="cuda")
+        w = torch.rand((3, 3, C, C), generator=cuda, device="cuda") / (9 * C)
+    else:
+        x = torch.randn((N, H, W, C), generator=cuda, device="cuda")
+        dy = torch.randn((N, H, W, C), generator=cuda, device="cuda")
+        w = torch.randn((3, 3, C, C), generator=cuda, device="cuda") / (3 * C ** 0.5)
+    assert _rel(conv3x3_fwd(x, w), _conv64(x, w)) <= TOL[torch.float32]
+    assert _rel(conv3x3_dx(dy, w), _conv64(dy, rot180_io(w))) <= TOL[torch.float32]
