@@ -680,20 +680,23 @@ def _tensor_core_kernel(source, line):
         # each kernel's instance for whole tiles (exact = 1) and for any L; the
         # wide instance's kernels are templated on their column width (the
         # streamed chunk's or the output's) and the products on A x / A^T x;
-        # the f32 ones that sum over L also on partial sums past a length
+        # the f32 ones that sum over L also on partial sums past a length;
+        # their column tails (_cols) on the bytes a row's piece takes
         entry = re.search(r"Compiling entry function '.*?(attn_[a-z0-9_]+?)ILi(\d+)E"
-                          r"((?:Lb[01]E)+)", line)
+                          r"((?:Lb[01]E)+)(?:Li(\d+)E)?", line)
         if entry:
             name, D = entry.group(1), int(entry.group(2))
+            base = name.replace("_cols", "")  # the tail's instances share their kernel's tiles
             flags = [f == "1" for f in re.findall(r"Lb([01])E", entry.group(3))]
             exact = flags[0]
-            smem = (mma_smem_bytes(name, D, exact) if source == "attention_mma"
-                    else tf32_smem_bytes(name, D))
+            smem = (mma_smem_bytes(base, D, exact) if source == "attention_mma"
+                    else tf32_smem_bytes(base, D))
             trans = (", A^T x" if flags[1] else ", A x") if "prod" in name else ""
             psum = ", partial sums" if source.startswith("attention_f32") and flags[-1] and len(
                 flags) == (3 if "prod" in name else 2) else ""
-            return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}{psum}>",
-                    threads.get(name, 128), smem)
+            tail = f", column tail in {entry.group(4)}-byte pieces" if entry.group(4) else ""
+            return (f"{name}<{D}, {'exact' if exact else 'any L'}{trans}{psum}{tail}>",
+                    threads.get(base, 128), smem)
     elif source in ("conv3x3_any_mma", "conv3x3_any_mma_groups"):
         from sarssl_torch.kernels.conv3x3 import any_mma_smem_bytes
 
@@ -792,6 +795,96 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def call_readings(fn, iters=20, windows=5):
+    """A short call's three readings: ``ms``, the median of ``windows``
+    back-to-back windows of ``iters`` calls (:func:`cuda_ms`, the host's
+    issue time in it); ``queued_ms``, the device ms a call with the calls
+    queued behind a sleeping kernel (:func:`cuda_ms_queued`); ``host_us``,
+    the host's microseconds to issue a call, the median of ``windows``
+    windows timed while the card sleeps (so no call waits for the card)."""
+    fn()
+    ms = statistics.median(cuda_ms(fn, iters=iters, warmup=0) for _ in range(windows))
+    host = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter_ns()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter_ns() - t0) / iters / 1e3)
+        torch.cuda.synchronize()
+    return {"ms": ms, "queued_ms": cuda_ms_queued(fn, iters=iters),
+            "host_us": statistics.median(host)}
+
+
+def host_split(fn, lib, entry, iters=20, windows=5):
+    """Where the host's time of a conv wrapper call ``fn`` goes:
+    ``c_entry_us``, the ctypes call of ``lib``'s C entry ``entry`` (argument
+    conversion, the entry's checks and its launches), timed inside the call;
+    ``ctypes_us``, the same call made to return at its first check (N = 0:
+    conversion and return alone), so ``launch_us``, their difference, is the
+    entry's launches and set-up; each the median of ``windows`` windows of
+    ``iters`` calls; and ``launches``, the kernel launches a call makes
+    (:func:`launches_a_call`). The entry takes either (x, w, wp, y, N, H, W,
+    C, Cout, NB, rot, G, stream) or (x, w, wp, y, call, stream) with call
+    pointing at those eight ints."""
+    import ctypes
+
+    real = getattr(lib, entry)
+    zero_call = (ctypes.c_int * 8)()
+    spent, dry = [], []
+
+    def timed(*a):
+        t0 = time.perf_counter_ns()
+        code = real(*a)
+        t1 = time.perf_counter_ns()
+        a = list(a)
+        a[3 if len(a) == 9 else 4] = 0 if len(a) > 6 else ctypes.addressof(zero_call)
+        t2 = time.perf_counter_ns()
+        assert real(*a) != 0, "the entry took N = 0"
+        dry.append(time.perf_counter_ns() - t2)
+        spent.append(t1 - t0)
+        return code
+
+    setattr(lib, entry, timed)
+    try:
+        fn()
+        per_window = []
+        for _ in range(windows):
+            spent.clear()
+            dry.clear()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            for _ in range(iters):
+                fn()
+            per_window.append((sum(spent) / len(spent) / 1e3, sum(dry) / len(dry) / 1e3))
+            torch.cuda.synchronize()
+    finally:
+        setattr(lib, entry, real)
+    c_entry = statistics.median(w[0] for w in per_window)
+    ctypes_us = statistics.median(w[1] for w in per_window)
+    return {"c_entry_us": c_entry, "ctypes_us": ctypes_us, "launch_us": c_entry - ctypes_us,
+            "launches": launches_a_call(fn)}
+
+
+def launches_a_call(fn, calls=3):
+    """The kernel launches one call of ``fn`` makes, by torch.profiler: the
+    launch calls of the CUDA APIs (``cudaLaunch*``, ``cuLaunch*``) among its
+    CPU events, the most any of ``calls`` calls, each profiled
+    alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.name.startswith(("cudaLaunch", "cuLaunch")) for e in prof.events()))
+    return most
+
+
 def rel_err(a, b):
     a, b = a.detach().float(), b.detach().float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -836,21 +929,28 @@ def _runs_wide(route, kind, Dp):
 
 def _route_launches(D, route):
     """(names, want): the attention launch counts one forward and backward on
-    ``route`` raises by one (at the instance's head dim: D padded to the next
-    of 16 / 32 / 64 / 128 / 256, past 256 to the wide instance's next multiple
-    of its chunk; a pass on the wide instance also counts as
-    ``..._wide_d{Dp}``), and the other routes' counts, which stay (the FMA
-    kernels' among them: ``fused_attention`` never launches those)."""
-    from sarssl_torch.kernels.attention import padded_head_dim
+    ``route`` raises by one (each pass at the head dim it runs at,
+    ``attention_pass_head_dim``: D itself, or where the pass pads D padded to
+    the next of 16 / 32 / 64 / 128 / 256, past 256 to the next multiple of
+    64, which also counts as ``..._padded_d{Dp}``; a pass on the wide
+    instance also counts as ``..._wide_d{D}``), and the other routes' counts,
+    which stay (the FMA kernels' among them: ``fused_attention`` never
+    launches those)."""
+    from sarssl_torch.kernels.attention import (attention_instance_at, attention_pass_head_dim,
+                                                padded_head_dim)
 
     names, want = [], []
-    Dp = padded_head_dim(D)
-    for r, tag in (("", ""), *ROUTE_TAGS.items()):
-        names += [f"attention_{kind}_{tag}d{Dp}" for kind in ("fwd", "bwd")]
-        want += [int(r in ("", route))] * 2
-        if r in ("tc", "tf32x3"):
-            names += [f"attention_{kind}_{tag}wide_d{Dp}" for kind in ("fwd", "bwd")]
-            want += [int(r == route and _runs_wide(r, kind, Dp)) for kind in ("fwd", "bwd")]
+    for kind in ("fwd", "bwd"):
+        for r, tag in (("", ""), *ROUTE_TAGS.items()):
+            dtype = ROUTE_DTYPES.get(r, ROUTE_DTYPES[route])
+            Dk = attention_pass_head_dim(dtype, kind, D)
+            names.append(f"attention_{kind}_{tag}d{Dk}")
+            want.append(int(r in ("", route)))
+            if r in ("tc", "tf32x3"):
+                names += [f"attention_{kind}_{tag}wide_d{Dk}",
+                          f"attention_{kind}_{tag}padded_d{padded_head_dim(D)}"]
+                want += [int(r == route and attention_instance_at(dtype, kind, Dk) == "wide"),
+                         int(r == route and Dk != D)]
     return names, want
 
 
@@ -1050,30 +1150,46 @@ def time_attention_route(L, D, dtype, seed, gen, B=BATCH):
     """Times of fwd and bwd on the tensor-core route ``fused_attention`` takes
     at this shape (rate 0.1), beside the FMA kernels launched directly (new,
     old, old, new; None at D >= 256, which they have no instance of), the
-    plain version, SDPA and the bound. A D that is no instance's runs padded
-    (``attention_fwd_padded`` / ``attention_bwd_padded``, as the model's
-    calls do)."""
+    plain version, SDPA and the bound. Each pass runs as the model's calls
+    do: at ``attention_pass_head_dim``, through ``attention_fwd_padded`` /
+    ``attention_bwd_padded`` where it pads; where a pass runs unpadded on the
+    wide instance (its column tail) it is also timed through the padding
+    (``padded_fwd_ms`` / ``padded_bwd_ms``, the route before the column
+    tail)."""
     from sarssl_torch.kernels.attention import (_TC_LAUNCHES, FMA_HEAD_DIMS, attention_bwd_padded,
-                                                attention_fwd_padded, attention_route,
-                                                launch_attention_bwd_fma,
+                                                attention_fwd_padded, attention_pass_head_dim,
+                                                attention_route, launch_attention_bwd_fma,
                                                 launch_attention_fwd_fma)
 
     scale = 1.0 / np.sqrt(HEADS * D)
     qu, k, v, bias, g = _attention_inputs(D, dtype, gen, L, B)
     args = (seed, scale, RATE)
     route = attention_route(dtype, L, D)
-    res = {"route": route, "fma_fwd_ms": None, "fma_bwd_ms": None}
+    res = {"route": route, "fma_fwd_ms": None, "fma_bwd_ms": None, "padded_fwd_ms": None,
+           "padded_bwd_ms": None}
     fwd, bwd = _TC_LAUNCHES[route]
+    Df, Db = (attention_pass_head_dim(dtype, kind, D) for kind in ("fwd", "bwd"))
+    res["Dp"], res["Db"] = Df, Db
     _, lse, padded = attention_fwd_padded(fwd, qu, k, v, bias, *args)
-    res["Dp"] = padded[0].shape[-1]
-    res["fwd_ms"] = cuda_ms_queued(lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args))
+    out = fwd(qu, k, v, bias, *args)[0] if Df == D else padded[3][..., :D]
+    fwd_call = ((lambda: fwd(qu, k, v, bias, *args)) if Df == D else
+                (lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args)))
+    bwd_call = ((lambda: bwd(qu, k, v, bias, g, out, lse, *args)) if Db == D else
+                (lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args)))
+    res["fwd_ms"] = cuda_ms_queued(fwd_call)
     if D in FMA_HEAD_DIMS:
         res["fma_fwd_ms"] = cuda_ms_queued(
             lambda: launch_attention_fwd_fma(qu, k, v, bias, *args))
         res["fma_bwd_ms"] = cuda_ms_queued(
             lambda: launch_attention_bwd_fma(qu, k, v, bias, g, *args))
-    res["bwd_ms"] = cuda_ms_queued(lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args))
-    del padded, lse
+    res["bwd_ms"] = cuda_ms_queued(bwd_call)
+    if Df == D != padded[0].shape[-1]:
+        res["padded_fwd_ms"] = cuda_ms_queued(
+            lambda: attention_fwd_padded(fwd, qu, k, v, bias, *args))
+    if Db == D != padded[0].shape[-1]:
+        res["padded_bwd_ms"] = cuda_ms_queued(
+            lambda: attention_bwd_padded(bwd, padded, bias, g, lse, *args))
+    del padded, lse, out
     res.update(_attention_yardsticks(qu, k, v, bias, g, seed, scale))
     return res
 
@@ -1218,6 +1334,8 @@ def check_wide(seed, gen):
     WIDE_B (held, timed at L = 256; the forward also at one key split), and
     the bf16 forward at D = 256 beside the D = 256 instance. Returns the rows
     for the kernels line."""
+    from sarssl_torch.kernels.attention import padded_head_dim
+
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         check_attention(512, dtype, RATE, seed, gen, 257)
@@ -1228,13 +1346,16 @@ def check_wide(seed, gen):
             t = time_attention_route(SEQ, D, dtype, seed, gen, WIDE_B)
             t.update(max_abs_err=err, out_err=out_err, **time_wide_splits(D, dtype, seed, gen))
             rows[(D, dtype)] = t
-            log(f"[kernels] attention L={SEQ} D={D} (padded to {t['Dp']}) B={WIDE_B} "
-                f"{str(dtype)[6:]} rate={RATE} ({ROUTE_WORDS[t['route']]}, wide instance): fwd "
-                f"{t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.3f}, sdpa {t['lib_fwd_ms']:.4f}, "
-                f"bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), bwd {t['bwd_ms']:.4f} ms "
-                f"(plain {t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
-                f"{t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]}); the forward launched at "
-                f"{t['Dp']}: {t['splits']} key splits (chosen) {t['launch_ms']:.4f} ms, 1 split "
+            log(f"[kernels] attention L={SEQ} D={D} (fwd at {t['Dp']}, bwd at {t['Db']}) "
+                f"B={WIDE_B} {str(dtype)[6:]} rate={RATE} ({ROUTE_WORDS[t['route']]}, wide "
+                f"instance, unpadded): fwd {t['fwd_ms']:.4f} ms (through the padding "
+                f"{t['padded_fwd_ms']:.4f}; plain {t['plain_fwd_ms']:.3f}, sdpa "
+                f"{t['lib_fwd_ms']:.4f}, bound {t['fwd_bound'][0]:.4f} by {t['fwd_bound'][1]}), "
+                f"bwd {t['bwd_ms']:.4f} ms (through the padding {t['padded_bwd_ms']:.4f}; plain "
+                f"{t['plain_bwd_ms']:.3f}, sdpa {t['lib_bwd_ms']:.4f}, bound "
+                f"{t['bwd_bound'][0]:.4f} by {t['bwd_bound'][1]}); the kernels alone, the "
+                f"forward launched at {padded_head_dim(D)} on inputs padded beforehand: "
+                f"{t['splits']} key splits (chosen) {t['launch_ms']:.4f} ms, 1 split "
                 f"{t['launch_splits_1_ms']:.4f} ms (queued readings chosen, 1, 1, chosen: "
                 + ", ".join(f"{x:.4f}" for x in t["launch_readings_ms"]) + ")")
         if dtype == torch.bfloat16:
@@ -2250,14 +2371,32 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
         return launch_conv3x3_any_mma(inp, w, "rows", rot=kind == "dx")
 
     # the small shapes last tens of microseconds, their host calls included:
-    # more launches a reading
-    iters = EDGE_CONV_ITERS if N * H * W <= 2 ** 18 else EDGE_ITERS
+    # more launches a reading, the median of 5 windows, and beside it the
+    # device time queued behind a sleeping kernel and the host's microseconds
+    # a call (the port's split into the C entry, its ctypes share and its
+    # launches), the port's and cuDNN's (PERF.md section 5)
+    small = N * H * W <= 2 ** 18
+    iters = EDGE_CONV_ITERS if small else EDGE_ITERS
     for kind, launch, inp, lib in (
             ("fwd", fwd, x, lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)),
             ("dx", dx, dy, lambda: torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dy_nchw,
                                                               padding=1))):
         kernel = kernels[kind]
-        ms = cuda_ms(lambda: launch(inp, w), iters=iters, warmup=1)
+        call = (lambda: launch(inp, w))  # noqa: E731
+        calls = {}
+        if small:
+            port = call_readings(call)
+            ms = port.pop("ms")
+            libname, entry = ((_conv_library(kernel), "conv3x3_tf32" if dtype == torch.float32
+                               else "conv3x3_any_mma") if kernel != "tc" else (None, None))
+            if libname is not None:
+                port.update(host_split(call, libname, entry))
+            calls = {**port, **{f"library_{k}": v for k, v in call_readings(lib).items()},
+                     "library_launches": launches_a_call(lib)}
+            if "launches" in calls:
+                calls["launches_a_call"] = calls.pop("launches")
+        else:
+            ms = cuda_ms(call, iters=iters, warmup=1)
         wk = rot180_io(w) if kind == "dx" else w
         fma_ms = (cuda_ms(lambda: yardstick(inp, wk), iters=iters, warmup=1)
                   if kernel in ("tc_any", "tf32", "tf32_groups") else None)
@@ -2265,7 +2404,8 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
                    if kernel.endswith("_groups") else None)
         plain_ms = cuda_ms(lambda: plain(inp.float(), (rot180_io(w) if kind == "dx" else w)
                                          .float()), iters=1, warmup=1)
-        lib_ms = _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib, iters=iters)
+        lib_ms = (calls.pop("library_ms") if small else
+                  _maybe_ms(f"cuDNN {kind} {(N, H, W, C, Cout)}", lib, iters=iters))
         rows.append({
             "name": f"{prefix}_{kind}_N{N}H{H}W{W}_C{C}_Cout{Cout}_{name}", "route": "cuda",
             "source": {"tc": "sarssl_torch/csrc/conv3x3_mma.cu",
@@ -2285,18 +2425,33 @@ def _conv_edge(N, H, W, C, Cout, dtype, gen, s2d=False):
                                                    else "")),
             "max_abs_err": err if kind == "fwd" else err_dx, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
-            "path": f"phase edges: {prefix} forward and backward once (launches)"})
+            "path": f"phase edges: {prefix} forward and backward once (launches)",
+            **({"ms_is": "median of 5 back-to-back windows of 20 calls", **calls}
+               if small else {})})
     log(f"[edges] {prefix} {(N, H, W, C)} -> {Cout} {name} ({kernels['fwd']} / "
         f"{kernels['dx']} kernel): launches "
         f"{dict(sorted(counts.items()))}; rel err fwd {rel:.2e}, dx {rel_dx:.2e} (tol {tol}); "
         + ", ".join(f"{r['name'].split('_N')[0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
                     f"cuDNN {r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']}"
+                    + (f"; queued {r['queued_ms']:.4f} / cuDNN {r['library_queued_ms']:.4f}, "
+                       f"host us a call {r['host_us']:.1f} / cuDNN {r['library_host_us']:.1f}"
+                       + (f" (C entry {r['c_entry_us']:.1f}, its launches {r['launch_us']:.1f}, "
+                          f"{r['launches_a_call']} launch a call)" if "c_entry_us" in r else "")
+                       if "queued_ms" in r else "")
                     + (f", f32-FMA any-channel kernel {r['fma_ms']:.4f}" if r["fma_ms"] else "")
                     + (f", row tiles {r['rows_ms']:.4f}" if r["rows_ms"] else "")
                     + ")" for r in rows))
     del x, dy, w, w_oihw
     torch.cuda.empty_cache()
     return rows
+
+
+def _conv_library(kernel):
+    """The library of a runtime-channel conv kernel's C entry."""
+    from sarssl_torch.kernels.conv3x3 import _library_any_mma, _library_tf32
+
+    groups = kernel.endswith("_groups")
+    return _library_tf32(groups) if kernel.startswith("tf32") else _library_any_mma(groups)
 
 
 def _conv_f32_against_float64(gen):
@@ -2457,11 +2612,12 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                         (L, D, str(dtype)[6:], kind, "wide"), 0)} if D == 256 else {}),
             })
     # the wide instance beside the option shapes: D = 300 and 1000 at a batch
-    # of WIDE_B (padded to 320 and 1024; the forward also launched at its key
-    # splits and at one), and the bf16 forward at D = 256 (plain, SDPA and the
-    # bound: the D = 256 row's, the same shape in this run). Launches: the sum
-    # over every model phase's counts of that padded head dim on the wide
-    # instance (the forward's split launches beside)
+    # of WIDE_B, unpadded (its column tail; beside them the route through the
+    # padding to 320 and 1024, and the forward launched there at its key
+    # splits and at one: the kernels alone), and the bf16 forward at D = 256
+    # (plain, SDPA and the bound: the D = 256 row's, the same shape in this
+    # run). Launches: the sum over every model phase's counts of that head dim
+    # on the wide instance (the forward's split launches beside)
     model_phases = (tiny_counts, d256_counts, d320_counts, counts, cli_counts, opt_counts,
                     ds_counts, dscli_counts, grid_counts, data_counts, real_counts, mo_counts,
                     abl_counts, mesh_counts)
@@ -2478,7 +2634,8 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                 "name": (f"attention_fwd_d256_wide_L{SEQ}_{str(dtype)[6:]}" if at256 else
                          f"attention_{kind}_d{D}_L{SEQ}_B{WIDE_B}_{str(dtype)[6:]}"),
                 "route": "cuda", "source": "sarssl_torch/csrc/" + ROUTE_SOURCES[route],
-                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[route] + "_wide",
+                "variant": {"tc": "mma", "tf32x3": "mma_tf32x3"}[route] + "_wide"
+                + ("" if at256 else "_cols"),
                 "replaces": f"sarssl_tpu/kernels/attention.py:{line}",
                 "launches": n,
                 "max_abs_err": r["out_err"] if kind == "fwd" else r["max_abs_err"],
@@ -2490,15 +2647,15 @@ def kernels_line(rows, opt_rows, wide, drop, lanes, conv, counts, ds_counts, cli
                          "launched through _wide_launches beside that instance "
                          "(instance_readings_ms), the same kernels as the D = 512 rows"
                          if at256 else
-                         "the kernels at 320: phase ref's SARSSLConfig.tiny(spec_dembed=1280) "
-                         "in f32, head dim 320 (launches_tiny_model); no CLI configuration"
-                         if r["Dp"] == 320 else
-                         "no model path has head dim 1000 (padded to 1024): the same kernels as "
-                         "the D = 512 rows"),
+                         "no model path has head dim 300 or 1000: the wide instance's column "
+                         "tail (attn_*_wide_cols), unpadded, driven in phase kernels alone; "
+                         "padded_fwd_ms / padded_bwd_ms: the route through the padding to "
+                         "320 / 1024 it replaced, whose kernels phase ref's "
+                         "SARSSLConfig.tiny(spec_dembed=1280) runs at head dim 320"),
                 **({"readings_ms": r["fwd_readings"],
                     "instance_readings_ms": r["inst_fwd_readings"]} if at256 else
-                   {"padded_to": r["Dp"], "batch": WIDE_B}),
-                **({"launches_tiny_model": d320_counts.get(name, 0)} if D == 300 else {}),
+                   {"runs_at": [r["Dp"], r["Db"]], "batch": WIDE_B,
+                    "padded_ms": r[f"padded_{kind}_ms"]}),
                 # the forward at the key splits chosen at this batch and at one,
                 # launched at the padded head dim (queued readings: chosen, 1,
                 # 1, chosen); its split launches over the model phases
@@ -2667,15 +2824,16 @@ def phase_reference():
     feat = FeatureConfig(win_len=2 * nf, nfft=2 * nf)
     tiny_counts = _card_against_cpu("SARSSLConfig.tiny(fused_attention=True) (D = 8, 4)", tiny,
                                     feat, wave,
-                                    _attention_want((16, 1, "tf32x3"), (16, 1, "tf32x3")))
+                                    _attention_want((16, 1, "tf32x3", True),
+                                                    (16, 1, "tf32x3", True)))
     d256_counts = _card_against_cpu(
         "SARSSLConfig.tiny(spec_dembed=1024, fused_attention=True) (D = 256, 4)",
         SARSSLConfig().tiny(spec_dembed=1024, dropout=RATE, fused_attention=True), feat, wave,
-        _attention_want((256, 1, "tf32x3"), (16, 1, "tf32x3")))
+        _attention_want((256, 1, "tf32x3"), (16, 1, "tf32x3", True)))
     d320_counts = _card_against_cpu(
         "SARSSLConfig.tiny(spec_dembed=1280, fused_attention=True) (D = 320 wide, 4)",
         SARSSLConfig().tiny(spec_dembed=1280, dropout=RATE, fused_attention=True), feat, wave,
-        _attention_want((320, 1, "tf32x3"), (16, 1, "tf32x3")))
+        _attention_want((320, 1, "tf32x3"), (16, 1, "tf32x3", True)))
     return tiny_counts, d256_counts, d320_counts
 
 
@@ -3665,13 +3823,16 @@ TOL_REMAT_GRAD = 2 ** -8
 def _attention_want(spec, spat):
     """Attention launches of one pretext train step: ``spec`` / ``spat`` are
     (instance head dim, layers, route) of each encoder's conformer
-    (``ROUTE_TAGS``); a pass on the wide instance (past 256, and at 256 but
-    for the bf16 forward) also counts as ``..._wide_d{D}``."""
+    (``ROUTE_TAGS``), with a fourth item True where the head dim is padded to
+    it (``..._padded_d{D}`` too); a pass on the wide instance (past 256, and
+    at 256 but for the bf16 forward) also counts as ``..._wide_d{D}``."""
     want = {}
-    for D, layers, route in (spec, spat):
+    for D, layers, route, *padded in (spec, spat):
         for kind in ("fwd", "bwd"):
             tag = ROUTE_TAGS[route]
             names = [f"attention_{kind}_d{D}", f"attention_{kind}_{tag}d{D}"]
+            if padded and padded[0]:
+                names.append(f"attention_{kind}_{tag}padded_d{D}")
             for name in names + ([f"attention_{kind}_{tag}wide_d{D}"]
                                  if _runs_wide(route, kind, D) else []):
                 want[name] = want.get(name, 0) + layers

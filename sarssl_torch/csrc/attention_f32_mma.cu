@@ -1,9 +1,10 @@
 // Fused rel-pos attention on the H100's tensor cores in float32, forward and
-// backward, at head dims 16, 32, 64 and 128, and every multiple of WDC = 64
-// from 256 on (the wide instance), at any sequence length L >= 1, as
+// backward, at head dims 16, 32, 64 and 128, and past 128 on the wide
+// instance (a multiple of WDC = 64 as it is, any other head dim unpadded
+// through its column tail, attn_*_cols), at any sequence length L >= 1, as
 // split-precision TF32 products (3xTF32). (bfloat16 runs attention_mma.cu; the
-// wrapper runs every other head dim on the next of these instances, on
-// zero-padded inputs: 129 .. 256 on the wide instance at 256.)
+// wrapper runs every other head dim up to 128 on the next of these instances,
+// on zero-padded inputs.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_tf32
@@ -110,7 +111,7 @@
 //    always starts 4-byte aligned, so this instance copies bias and dbias
 //    tiles value by value (4-byte cp.async and stores) and reads lse and
 //    delta the same way. Tiles do not depend on L: every L runs.
-//  * Head dims from 256 on, the wide instance: attention_mma.cu's design (the
+//  * Head dims past 128, the wide instance: attention_mma.cu's design (the
 //    scores once to an f32 scratch, the key tiles of a query tile split over
 //    blocks where the batch is small, then out = p v in DC-column blocks; the
 //    backward's dbias and pd once, then three products), with every product
@@ -120,6 +121,8 @@
 //    from the accumulators. At D = 256 it runs in place of an instance of its
 //    own, which it beat by 27-29% forward and backward on an H100 80GB HBM3
 //    at 700 W (PERF.md §5).
+#include <initializer_list>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -357,6 +360,81 @@ __device__ __forceinline__ void store_acc(const float (&acc)[N / 8][4], float* d
         make_float2(acc[n][0], acc[n][1]);
     if (b) *reinterpret_cast<float2*>(dst + (i64)(g + 8) * ld + 8 * n + 2 * t) =
         make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// The wide instance's column tail (a head dim D no multiple of its chunks,
+// read unpadded): load_rows with zeros at the columns >= ncols as well. The
+// rows are AL-byte aligned (16, 8 or 4: the launch's least, of the bases and
+// the strides), so each is copied in pieces of AL bytes, each whole inside
+// ncols or past it (D is a multiple of AL / 4). A whole chunk of 16-byte
+// aligned rows takes load_rows' copies.
+template <int ROWS, int W, bool TAIL, int AL>
+__device__ __forceinline__ void load_rows_cols(uint32_t dst, const float* src, i64 ld, int nrows,
+                                               int ncols) {
+  constexpr int CH = W / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CH % NT == 0, "the tile's chunks divide among the threads");
+  if (AL == 16 && ncols >= W) {  // a whole chunk of 16-byte aligned rows: load_rows' copies
+    load_rows<ROWS, W, TAIL>(dst, src, ld, nrows);
+    return;
+  }
+  // the tail: a rolled loop, so its addresses hold no registers across the caller's
+#pragma unroll 1
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx / CH, c = idx % CH;
+    const uint32_t to = dst + (uint32_t)((r * (W + 4) + 4 * c) * 4);
+    const bool row_ok = !TAIL || r < nrows;
+    const float* from = src + (i64)r * ld + 4 * c;
+    if constexpr (AL == 16) {
+      const bool ok = row_ok && 4 * c < ncols;
+      cp_async16_zfill(to, ok ? from : src, ok ? 16 : 0);
+    } else if constexpr (AL == 8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = row_ok && 4 * c + 2 * e < ncols;
+        cp_async8_zfill(to + 8 * e, ok ? from + 2 * e : src, ok ? 8 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row_ok && 4 * c + e < ncols;
+        cp_async4_zfill(to + 4 * e, ok ? from + e : src, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// store_acc with the column tail: only the first ncols columns, a float2 a
+// lane where the rows are 8-byte aligned (D even), else value by value
+template <int N, bool TAIL, int AL>
+__device__ __forceinline__ void store_acc_cols(const float (&acc)[N / 8][4], float* dst, i64 ld,
+                                               int nrows, int ncols) {
+  if (AL >= 8 && ncols >= N) {  // every column, rows 8-byte aligned: store_acc
+    store_acc<N, TAIL>(acc, dst, ld, nrows);
+    return;
+  }
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool a = !TAIL || g < nrows, b = !TAIL || g + 8 < nrows;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col >= ncols) continue;
+    float* ra = dst + (i64)g * ld + col;
+    float* rb = dst + (i64)(g + 8) * ld + col;
+    if constexpr (AL >= 8) {
+      if (a) *reinterpret_cast<float2*>(ra) = make_float2(acc[n][0], acc[n][1]);
+      if (b) *reinterpret_cast<float2*>(rb) = make_float2(acc[n][2], acc[n][3]);
+    } else {
+      const bool two = col + 1 < ncols;
+      if (a) {
+        ra[0] = acc[n][0];
+        if (two) ra[1] = acc[n][1];
+      }
+      if (b) {
+        rb[0] = acc[n][2];
+        if (two) rb[1] = acc[n][3];
+      }
+    }
   }
 }
 
@@ -845,13 +923,17 @@ attn_dqu_tf32(const float* __restrict__ dbias, const float* __restrict__ k,
 }
 
 // ===========================================================================
-// The wide instance: every head dim above 256 (module note). Dp, the padded
-// head dim, is a runtime multiple of WDC; no tile and no register array
-// depends on it.
+// The wide instance: every head dim above 128 (module note). Dp, the head
+// dim, is a runtime argument; no tile and no register array depends on it.
 // ===========================================================================
-// The wide head dims are the multiples of WDC (WIDE_CHUNK in kernels/attention.py,
-// which pads to them). The p v and product passes take 2 WDC output columns a
-// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5); with
+// The wide instance takes a multiple of WDC (WIDE_CHUNK in kernels/attention.py)
+// as it is and any other head dim D through the column tail of the _cols
+// kernels (the same code, instances of their own): ceil(D / WKC) chunks, the
+// last one read with zeros past D and stored only up to it, each row copied
+// in pieces of its alignment (16, 8 or 4 bytes: D % 4, D even, D odd), so the
+// results are the padded ones' with no padding copy in device memory. The p
+// v and product passes take 2 WDC output columns a
+// block where ceil(Dp / WDC) is even, else WDC (measured, PERF.md §5); with
 // PSUM always WDC (their partial sums spill at 2 WDC).
 constexpr int WDC = 64;
 constexpr int WKC = 32;   // columns of a streamed qu / k / g / v chunk (pitch WKC + 4)
@@ -878,12 +960,11 @@ struct WideScoresSmem {
   static_assert(CH % 128 == 0 && BIAS % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int KC, bool EXACT>
-__global__ void __launch_bounds__(NT, 2)
-attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
-                          const float* __restrict__ bias, float* __restrict__ scores,
-                          float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
-                          float scale) {
+template <int KC, bool EXACT, int AL>
+__device__ __forceinline__ void wide_scores(const float* qu, const float* k, const float* bias,
+                                            float* scores, float* lse, float* part, int L, int Dp,
+                                            float scale) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideScoresSmem<KC> S;
   constexpr int P = KC + 4;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -891,7 +972,7 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
   const int bh = blockIdx.y, i0 = blockIdx.x * 64, nsplit = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
+  const int nkc = (CT ? Dp + KC - 1 : Dp) / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
   const int per = (ntiles + nsplit - 1) / nsplit, tt0 = blockIdx.z * per;
   const int nsteps = max(min(per, ntiles - tt0), 0) * nkc;
   const int qrows = L - i0;
@@ -904,8 +985,14 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
   auto load_step = [&](int s) {
     const int tt = tt0 + s / nkc, c = s % nkc, j = tt * BK;
     const uint32_t st = sb + (s & 1) * S::STAGE;
-    load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
-    load_rows<64, KC, !EXACT>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j);
+    if constexpr (CT) {
+      load_rows_cols<64, KC, !EXACT, AL>(st, qp + c * KC, Dp, qrows, Dp - c * KC);
+      load_rows_cols<64, KC, !EXACT, AL>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j,
+                                     Dp - c * KC);
+    } else {
+      load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
+      load_rows<64, KC, !EXACT>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j);
+    }
     if (c == 0)
       load_scores<64, SBF, EXACT>(sb + S::B + (tt & 1) * S::BIAS, bp + j, L, qrows,
                                   min(L - j, BK));
@@ -986,6 +1073,27 @@ attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict_
   }
 }
 
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_scores_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
+                          const float* __restrict__ bias, float* __restrict__ scores,
+                          float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                          float scale) {
+  wide_scores<KC, EXACT, 0>(qu, k, bias, scores, lse, part, L, Dp, scale);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int KC, bool EXACT, int AL>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_scores_wide_tf32_cols(const float* __restrict__ qu, const float* __restrict__ k,
+                               const float* __restrict__ bias, float* __restrict__ scores,
+                               float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                               float scale) {
+  wide_scores<KC, EXACT, AL>(qu, k, bias, scores, lse, part, L, Dp, scale);
+}
+
 // lse (log2 units) of rows r and r + 8 from the S partials of part (2, B*H,
 // S, Lp) at row_off = bh * S * Lp + r: m + log2(sum_z l_z 2^(m_z - m)), m =
 // max_z m_z, folded split by split. Split 0 always holds a key tile, so the
@@ -1031,15 +1139,15 @@ struct WidePvSmem {
   static_assert(SC % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int DC, bool EXACT, bool PSUM>
-__global__ void __launch_bounds__(NT, 2)
-attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
-                      const float* __restrict__ part, int nsplit, const float* __restrict__ v,
-                      float* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
+template <int DC, bool EXACT, bool PSUM, int AL>
+__device__ __forceinline__ void wide_pv(const float* scores, float* lse, const float* part,
+                                        int nsplit, const float* v, float* out, int H, int L,
+                                        int Dp, Dropout drop, Strides os) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WidePvSmem<DC> S;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int nch = Dp / DC, bh = blockIdx.y;
+  const int nch = (CT ? Dp + DC - 1 : Dp) / DC, bh = blockIdx.y;
   const int i0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
@@ -1051,7 +1159,10 @@ attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
     const uint32_t st = sb + (tt & 1) * S::STAGE;
     const int j = tt * BK;
     load_scores<64, SBF, true>(st, sp + j, Lp, 64, 64);
-    load_rows<64, DC, !EXACT>(st + S::SC, vp + (i64)j * Dp, Dp, L - j);
+    if constexpr (CT)
+      load_rows_cols<64, DC, !EXACT, AL>(st + S::SC, vp + (i64)j * Dp, Dp, L - j, Dp - c0);
+    else
+      load_rows<64, DC, !EXACT>(st + S::SC, vp + (i64)j * Dp, Dp, L - j);
   };
   load(0);
   cp_async_commit();
@@ -1106,18 +1217,40 @@ attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
     mma_acc_rows<DC, 8, PSUM>(o, p, reinterpret_cast<const float*>(smem + stage + S::SC));
   }
   float* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l + c0;
-  store_acc<DC, !EXACT>(o, op, os.l, qrows - r0);
+  if constexpr (CT)
+    store_acc_cols<DC, !EXACT, AL>(o, op, os.l, qrows - r0, Dp - c0);
+  else
+    store_acc<DC, !EXACT>(o, op, os.l, qrows - r0);
+}
+
+template <int DC, bool EXACT, bool PSUM>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_pv_wide_tf32(const float* __restrict__ scores, float* __restrict__ lse,
+                      const float* __restrict__ part, int nsplit, const float* __restrict__ v,
+                      float* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
+  wide_pv<DC, EXACT, PSUM, 0>(scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int DC, bool EXACT, bool PSUM, int AL>
+__global__ void __launch_bounds__(NT, 2)
+attn_fwd_pv_wide_tf32_cols(const float* __restrict__ scores, float* __restrict__ lse,
+                           const float* __restrict__ part, int nsplit, const float* __restrict__ v,
+                           float* __restrict__ out, int H, int L, int Dp, Dropout drop,
+                           Strides os) {
+  wide_pv<DC, EXACT, PSUM, AL>(scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
 }
 
 // ---------------------------------------------------------------------------
 // wide backward, delta = rowsum(g * out): 16 lanes a row, W = 64 columns a
 // step of the loop over Dp
 // ---------------------------------------------------------------------------
-template <int W, bool EXACT>
-__global__ void __launch_bounds__(256)
-attn_delta_wide_f32(const float* __restrict__ g, const float* __restrict__ out,
-                    float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs,
-                    Strides os) {
+template <int W, bool EXACT, int AL>
+__device__ __forceinline__ void wide_delta(const float* g, const float* out, float* delta, int H,
+                                           int L, int rows, int Dp, Strides gs, Strides os) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   constexpr int LPR = W / 4;
   const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
   const bool live = EXACT || row < rows;
@@ -1128,6 +1261,12 @@ attn_delta_wide_f32(const float* __restrict__ g, const float* __restrict__ out,
   const float* orow = out + b * os.b + h * os.h + i * os.l + 4 * c;
   float sum = 0.f;
   for (int d = 0; d < Dp; d += W) {
+    if constexpr (CT) {  // value by value at the tail, or where rows are not 16-byte aligned
+      if (AL != 16 || d + 4 * c + 4 > Dp) {
+        for (int e = 0; e < 4 && d + 4 * c + e < Dp; ++e) sum = fmaf(gr[d + e], orow[d + e], sum);
+        continue;
+      }
+    }
     const float4 gv = *reinterpret_cast<const float4*>(gr + d);
     const float4 ov = *reinterpret_cast<const float4*>(orow + d);
     sum = fmaf(gv.x, ov.x, sum);
@@ -1138,6 +1277,25 @@ attn_delta_wide_f32(const float* __restrict__ g, const float* __restrict__ out,
 #pragma unroll
   for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (c == 0 && live) delta[row] = sum;
+}
+
+template <int W, bool EXACT>
+__global__ void __launch_bounds__(256)
+attn_delta_wide_f32(const float* __restrict__ g, const float* __restrict__ out,
+                    float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs,
+                    Strides os) {
+  wide_delta<W, EXACT, 0>(g, out, delta, H, L, rows, Dp, gs, os);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int W, bool EXACT, int AL>
+__global__ void __launch_bounds__(256)
+attn_delta_wide_f32_cols(const float* __restrict__ g, const float* __restrict__ out,
+                         float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs,
+                         Strides os) {
+  wide_delta<W, EXACT, AL>(g, out, delta, H, L, rows, Dp, gs, os);
 }
 
 // ---------------------------------------------------------------------------
@@ -1160,14 +1318,12 @@ struct WideDsSmem {
   static_assert(CH % 128 == 0 && STAT % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int KC, bool EXACT>
-__global__ void __launch_bounds__(NT, 2)
-attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ bias,
-                      const float* __restrict__ gr, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dbias,
-                      float* __restrict__ pd, int H, int L, int Dp, float scale, Dropout drop,
-                      Strides gs) {
+template <int KC, bool EXACT, int AL>
+__device__ __forceinline__ void wide_ds(const float* qu, const float* k, const float* v,
+                                        const float* bias, const float* gr, const float* lse,
+                                        const float* delta, float* dbias, float* pd, int H, int L,
+                                        int Dp, float scale, Dropout drop, Strides gs) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideDsSmem<KC> S;
   constexpr int P = KC + 4;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1175,7 +1331,7 @@ attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   const int j0 = blockIdx.x * BK, i0 = blockIdx.y * 64, bh = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // the warp's queries within the tile
-  const int nkc = Dp / KC, qrows = L - i0, kcols = min(L - j0, BK);
+  const int nkc = (CT ? Dp + KC - 1 : Dp) / KC, qrows = L - i0, kcols = min(L - j0, BK);
   const float* qp = qu + ((i64)bh * L + i0) * Dp;
   const float* kp = k + ((i64)bh * L + j0) * Dp;
   const float* vp = v + ((i64)bh * L + j0) * Dp;
@@ -1184,10 +1340,18 @@ attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
 
   auto load_chunk = [&](int c) {
     const uint32_t st = sb + (c & 1) * S::STAGE;
-    load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
-    load_rows<64, KC, !EXACT>(st + S::CH, kp + c * KC, Dp, kcols);
-    load_rows<64, KC, !EXACT>(st + 2 * S::CH, gp + c * KC, gs.l, qrows);
-    load_rows<64, KC, !EXACT>(st + 3 * S::CH, vp + c * KC, Dp, kcols);
+    if constexpr (CT) {
+      const int nc = Dp - c * KC;
+      load_rows_cols<64, KC, !EXACT, AL>(st, qp + c * KC, Dp, qrows, nc);
+      load_rows_cols<64, KC, !EXACT, AL>(st + S::CH, kp + c * KC, Dp, kcols, nc);
+      load_rows_cols<64, KC, !EXACT, AL>(st + 2 * S::CH, gp + c * KC, gs.l, qrows, nc);
+      load_rows_cols<64, KC, !EXACT, AL>(st + 3 * S::CH, vp + c * KC, Dp, kcols, nc);
+    } else {
+      load_rows<64, KC, !EXACT>(st, qp + c * KC, Dp, qrows);
+      load_rows<64, KC, !EXACT>(st + S::CH, kp + c * KC, Dp, kcols);
+      load_rows<64, KC, !EXACT>(st + 2 * S::CH, gp + c * KC, gs.l, qrows);
+      load_rows<64, KC, !EXACT>(st + 3 * S::CH, vp + c * KC, Dp, kcols);
+    }
   };
   load_chunk(0);
   load_scores<64, SBF, EXACT>(sb + S::B, bias + tile0, L, qrows, kcols);
@@ -1270,6 +1434,31 @@ attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
   }
 }
 
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide_tf32(const float* __restrict__ qu, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const float* __restrict__ gr, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dbias,
+                      float* __restrict__ pd, int H, int L, int Dp, float scale, Dropout drop,
+                      Strides gs) {
+  wide_ds<KC, EXACT, 0>(qu, k, v, bias, gr, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int KC, bool EXACT, int AL>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide_tf32_cols(const float* __restrict__ qu, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ bias,
+                           const float* __restrict__ gr, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dbias,
+                           float* __restrict__ pd, int H, int L, int Dp, float scale, Dropout drop,
+                           Strides gs) {
+  wide_ds<KC, EXACT, AL>(qu, k, v, bias, gr, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+}
+
 // ---------------------------------------------------------------------------
 // wide backward, products: out (B, H, L, Dp) = A x, or with TRANS A^T x, for
 // A (B, H, L, L) (dbias or pd) and x (B, H, L, Dp) of strides xs: dqu = dbias
@@ -1288,14 +1477,14 @@ struct WideProdSmem {
   static_assert(A % 128 == 0 && STAGE % 128 == 0, "tiles start 128-byte aligned");
 };
 
-template <int DC, bool EXACT, bool TRANS, bool PSUM>
-__global__ void __launch_bounds__(NT, 2)
-attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
-                    float* __restrict__ out, int H, int L, int Dp, Strides xs) {
+template <int DC, bool EXACT, bool TRANS, bool PSUM, int AL>
+__device__ __forceinline__ void wide_prod(const float* a, const float* x, float* out, int H, int L,
+                                          int Dp, Strides xs) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideProdSmem<DC> S;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int nch = Dp / DC, bh = blockIdx.y;
+  const int nch = (CT ? Dp + DC - 1 : Dp) / DC, bh = blockIdx.y;
   const int o0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
@@ -1310,7 +1499,10 @@ attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
       load_scores<64, SBF, EXACT>(st, am + (i64)j1 * L + o0, L, L - j1, min(orows, BK));
     else
       load_scores<64, SBF, EXACT>(st, am + (i64)o0 * L + j1, L, orows, min(L - j1, BK));
-    load_rows<64, DC, !EXACT>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
+    if constexpr (CT)
+      load_rows_cols<64, DC, !EXACT, AL>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1, Dp - c0);
+    else
+      load_rows<64, DC, !EXACT>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
   };
   load(0);
   cp_async_commit();
@@ -1348,7 +1540,28 @@ attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
     }
     mma_acc_rows<DC, 8, PSUM>(acc, af, reinterpret_cast<const float*>(smem + stage + S::A));
   }
-  store_acc<DC, !EXACT>(acc, out + ((i64)bh * L + o0 + r0) * Dp + c0, Dp, orows - r0);
+  float* op = out + ((i64)bh * L + o0 + r0) * Dp + c0;
+  if constexpr (CT)
+    store_acc_cols<DC, !EXACT, AL>(acc, op, Dp, orows - r0, Dp - c0);
+  else
+    store_acc<DC, !EXACT>(acc, op, Dp, orows - r0);
+}
+
+template <int DC, bool EXACT, bool TRANS, bool PSUM>
+__global__ void __launch_bounds__(NT, 2)
+attn_prod_wide_tf32(const float* __restrict__ a, const float* __restrict__ x,
+                    float* __restrict__ out, int H, int L, int Dp, Strides xs) {
+  wide_prod<DC, EXACT, TRANS, PSUM, 0>(a, x, out, H, L, Dp, xs);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int DC, bool EXACT, bool TRANS, bool PSUM, int AL>
+__global__ void __launch_bounds__(NT, 2)
+attn_prod_wide_tf32_cols(const float* __restrict__ a, const float* __restrict__ x,
+                         float* __restrict__ out, int H, int L, int Dp, Strides xs) {
+  wide_prod<DC, EXACT, TRANS, PSUM, AL>(a, x, out, H, L, Dp, xs);
 }
 
 template <typename K>
@@ -1391,22 +1604,35 @@ cudaError_t bwd(const float* qu, const float* k, const float* v, const float* bi
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT, bool PSUM>
+// the wide forward; with AL > 0 (the column tail) Dp is the head dim D
+// itself, any D, its rows read in pieces of AL bytes
+template <int DC, bool EXACT, bool PSUM, int AL>
 cudaError_t fwd_wide(const float* qu, const float* k, const float* v, const float* bias,
                      float* out, float* lse, float* scores, float* part, int nsplit, int BH, int H,
                      int L, int Dp, float scale, Dropout drop, Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
-  if (err != cudaSuccess) return err;
-  err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT, PSUM>, WidePvSmem<DC>::BYTES);
-  if (err != cudaSuccess) return err;
-  const int nt = ceil_div(L, 64);
-  attn_fwd_scores_wide_tf32<WKC, EXACT><<<dim3(nt, BH, nsplit), NT, WideScoresSmem<WKC>::BYTES,
-                                          stream>>>(qu, k, bias, scores, lse, part, L, Dp, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_fwd_pv_wide_tf32<DC, EXACT, PSUM><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES,
-                                            stream>>>(scores, lse, part, nsplit, v, out, H, L, Dp,
-                                                      drop, os);
+  const int nt = ceil_div(L, 64), nch = ceil_div(Dp, DC);
+  const dim3 grid_scores(nt, BH, nsplit), grid_pv(nt * nch, BH);
+  constexpr int SS = WideScoresSmem<WKC>::BYTES, PS = WidePvSmem<DC>::BYTES;
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_fwd_scores_wide_tf32_cols<WKC, EXACT, AL>, SS)) != cudaSuccess ||
+        (err = set_smem(attn_fwd_pv_wide_tf32_cols<DC, EXACT, PSUM, AL>, PS)) != cudaSuccess)
+      return err;
+    attn_fwd_scores_wide_tf32_cols<WKC, EXACT, AL><<<grid_scores, NT, SS, stream>>>(
+        qu, k, bias, scores, lse, part, L, Dp, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_fwd_pv_wide_tf32_cols<DC, EXACT, PSUM, AL><<<grid_pv, NT, PS, stream>>>(
+        scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
+  } else {
+    if ((err = set_smem(attn_fwd_scores_wide_tf32<WKC, EXACT>, SS)) != cudaSuccess ||
+        (err = set_smem(attn_fwd_pv_wide_tf32<DC, EXACT, PSUM>, PS)) != cudaSuccess)
+      return err;
+    attn_fwd_scores_wide_tf32<WKC, EXACT><<<grid_scores, NT, SS, stream>>>(
+        qu, k, bias, scores, lse, part, L, Dp, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_fwd_pv_wide_tf32<DC, EXACT, PSUM><<<grid_pv, NT, PS, stream>>>(
+        scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
+  }
   return cudaGetLastError();
 }
 
@@ -1419,42 +1645,62 @@ cudaError_t wide_scores_blocks(int* n) {
                                                        NT, WideScoresSmem<WKC>::BYTES);
 }
 
-template <int DC, bool EXACT, bool TRANS, bool PSUM>
+template <int DC, bool EXACT, bool TRANS, bool PSUM, int AL>
 cudaError_t prod_wide(const float* a, const float* x, Strides xs, float* out, int BH, int H,
                       int L, int Dp, cudaStream_t stream) {
   typedef WideProdSmem<DC> S;
-  cudaError_t err = set_smem(attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM>, S::BYTES);
-  if (err != cudaSuccess) return err;
-  attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT,
-                                                 S::BYTES, stream>>>(a, x, out, H, L, Dp, xs);
+  const dim3 grid(ceil_div(L, 64) * ceil_div(Dp, DC), BH);
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_prod_wide_tf32_cols<DC, EXACT, TRANS, PSUM, AL>, S::BYTES)) !=
+        cudaSuccess)
+      return err;
+    attn_prod_wide_tf32_cols<DC, EXACT, TRANS, PSUM, AL><<<grid, NT, S::BYTES, stream>>>(
+        a, x, out, H, L, Dp, xs);
+  } else {
+    if ((err = set_smem(attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM>, S::BYTES)) != cudaSuccess)
+      return err;
+    attn_prod_wide_tf32<DC, EXACT, TRANS, PSUM><<<grid, NT, S::BYTES, stream>>>(a, x, out, H, L,
+                                                                                Dp, xs);
+  }
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT, bool PSUM>
+// the wide backward; with AL as fwd_wide
+template <int DC, bool EXACT, bool PSUM, int AL>
 cudaError_t bwd_wide(const float* qu, const float* k, const float* v, const float* bias,
                      const float* g, const float* out, const float* lse, float* delta, float* dqu,
                      float* dk, float* dv, float* dbias, float* pd, int BH, int H, int L, int Dp,
                      float scale, Dropout drop, Strides gs, Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_bwd_ds_wide_tf32<WKC, EXACT>, WideDsSmem<WKC>::BYTES);
-  if (err != cudaSuccess) return err;
   const int nt = ceil_div(L, 64);
-  attn_delta_wide_f32<64, EXACT><<<ceil_div(BH * L, 16), 256, 0, stream>>>(
-      g, out, delta, H, L, BH * L, Dp, gs, os);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_ds_wide_tf32<WKC, EXACT><<<dim3(nt, nt, BH), NT, WideDsSmem<WKC>::BYTES, stream>>>(
-      qu, k, v, bias, g, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const dim3 grid_delta(ceil_div(BH * L, 16)), grid_ds(nt, nt, BH);
+  constexpr int DS = WideDsSmem<WKC>::BYTES;
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_bwd_ds_wide_tf32_cols<WKC, EXACT, AL>, DS)) != cudaSuccess) return err;
+    attn_delta_wide_f32_cols<64, EXACT, AL><<<grid_delta, 256, 0, stream>>>(g, out, delta, H, L,
+                                                                        BH * L, Dp, gs, os);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_bwd_ds_wide_tf32_cols<WKC, EXACT, AL><<<grid_ds, NT, DS, stream>>>(
+        qu, k, v, bias, g, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+  } else {
+    if ((err = set_smem(attn_bwd_ds_wide_tf32<WKC, EXACT>, DS)) != cudaSuccess) return err;
+    attn_delta_wide_f32<64, EXACT><<<grid_delta, 256, 0, stream>>>(g, out, delta, H, L, BH * L,
+                                                                   Dp, gs, os);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_bwd_ds_wide_tf32<WKC, EXACT><<<grid_ds, NT, DS, stream>>>(
+        qu, k, v, bias, g, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   Strides cs;  // qu and k: contiguous (B, H, L, Dp)
   cs.b = (i64)H * L * Dp;
   cs.h = (i64)L * Dp;
   cs.l = Dp;
-  err = prod_wide<DC, EXACT, true, PSUM>(pd, g, gs, dv, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, PSUM, AL>(pd, g, gs, dv, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  err = prod_wide<DC, EXACT, true, PSUM>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, PSUM, AL>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  return prod_wide<DC, EXACT, false, PSUM>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
+  return prod_wide<DC, EXACT, false, PSUM, AL>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
@@ -1479,6 +1725,18 @@ Strides make_strides(const i64* s) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The bytes (16, 8 or 4) to which every base address and byte stride of a
+// wide launch at an unpadded head dim is aligned: its column tail copies its
+// rows in pieces of that many
+int row_align(std::initializer_list<long long> bytes) {
+  int al = 16;
+  for (const long long b : bytes)
+    while (al > 1 && b % al) al >>= 1;
+  return al;
+}
+
+long long addr(const void* p) { return (long long)reinterpret_cast<uintptr_t>(p); }
 
 // The instance a launch takes: EXACT where every tile is whole and the bias
 // rows are 16-byte aligned, the general one elsewhere.
@@ -1582,38 +1840,51 @@ int attn_tf32_bwd(const void* qu, const void* k, const void* v, const void* bias
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide instance, as attn_tf32_fwd, at a padded head dim Dp (a multiple
-// of WDC, 256 or more). scores: (B, H, Lp, Lp) float32 scratch, Lp = 64
-// ceil(L / 64), written then read. splits: the scores pass's key splits S, 1
-// .. ceil(L / 64); part: (2, B*H, S, Lp) float32 scratch (unused at S = 1).
+// The wide instance, as attn_tf32_fwd, at any head dim: a multiple of WDC as
+// it is, any other unpadded with its column tail. scores: (B, H, Lp, Lp)
+// float32 scratch, Lp = 64 ceil(L / 64), written then read. splits: the
+// scores pass's key splits S, 1 .. ceil(L / 64); part: (2, B*H, S, Lp)
+// float32 scratch (unused at S = 1).
 int attn_tf32_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
                        void* lse, void* scores, void* part, const long long* out_strides, int B,
                        int H, int L, int head_dim, int splits, float scale, float rate,
                        unsigned int seed, unsigned int thresh, float inv_keep, int h_total,
                        int h_offset, void* stream) {
-  if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
-      !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) || (splits > 1 && !part))
+  const bool ct = head_dim % WDC != 0;
+  const Strides os = make_strides(out_strides);
+  const int al = ct ? row_align({addr(qu), addr(k), addr(v), addr(out), 4LL * head_dim,
+                                 4 * os.b, 4 * os.h, 4 * os.l})
+                    : 0;  // 0: no column tail
+  const bool ok = ct ? L >= 1 && h_offset >= 0 && h_offset + H <= h_total && al >= 4
+                     : valid(L, H, h_total, h_offset, qu, k, v);
+  if (!ok || head_dim < 1 || !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) ||
+      (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
-  const Strides os = make_strides(out_strides);
-#define ATTN_FWD_WIDE(DC, E, P)                                                                 \
-  fwd_wide<DC, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,     \
-                     (float*)out, (float*)lse, (float*)scores, (float*)part, splits, B * H, H,   \
-                     L, head_dim, scale, drop, os, (cudaStream_t)stream)
-#define FW2(E, P) ATTN_FWD_WIDE(2 * WDC, E, P)
-#define FW1(E, P) ATTN_FWD_WIDE(WDC, E, P)
+#define ATTN_FWD_WIDE(DC, E, P, C)                                                              \
+  fwd_wide<DC, E, P, C>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias, \
+                        (float*)out, (float*)lse, (float*)scores, (float*)part, splits, B * H,  \
+                        H, L, head_dim, scale, drop, os, (cudaStream_t)stream)
+#define FW_AL(DC, E, P)                                                                  \
+  (al == 16 ? ATTN_FWD_WIDE(DC, E, P, 16)                                                \
+            : al == 8 ? ATTN_FWD_WIDE(DC, E, P, 8)                                       \
+                      : al == 4 ? ATTN_FWD_WIDE(DC, E, P, 4) : ATTN_FWD_WIDE(DC, E, P, 0))
+#define FW2(E, P) FW_AL(2 * WDC, E, P)
+#define FW1(E, P) FW_AL(WDC, E, P)
   const bool exact = exact_tiles(L, bias);
   if constexpr (!LIB_PSUM) {
-    if (head_dim % (2 * WDC) == 0) return (int)BY_INSTANCE(FW2, exact);
+    if (ceil_div(head_dim, WDC) % 2 == 0) return (int)BY_INSTANCE(FW2, exact);
   }
   return (int)BY_INSTANCE(FW1, exact);
 #undef FW2
 #undef FW1
+#undef FW_AL
 #undef ATTN_FWD_WIDE
 }
 
-// The wide instance, as attn_tf32_bwd. pd: (B, H, L, L) float32 scratch (the
-// dropped probabilities), written then read; 16-byte aligned like dbias.
+// The wide instance, as attn_tf32_bwd, at any head dim as attn_tf32_fwd_wide
+// takes it. pd: (B, H, L, L) float32 scratch (the dropped probabilities),
+// written then read; 16-byte aligned like dbias.
 int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void* bias,
                        const void* g, const void* out, const void* lse, void* delta, void* dqu,
                        void* dk, void* dv, void* dbias, void* pd, const long long* g_strides,
@@ -1621,41 +1892,54 @@ int attn_tf32_bwd_wide(const void* qu, const void* k, const void* v, const void*
                        float scale, float rate, unsigned int seed, unsigned int thresh,
                        float inv_keep, int h_total, int h_offset, void* stream) {
   const bool exact = exact_tiles(L, bias);
-  if (!valid(L, H, h_total, h_offset, qu, k, v) ||
-      (exact && !(aligned16(dbias) && aligned16(pd))) || head_dim < 256 || head_dim % WDC != 0)
+  const bool ct = head_dim % WDC != 0;
+  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
+  const int al = ct ? row_align({addr(qu), addr(k), addr(v), addr(g), addr(out), addr(dqu),
+                                 addr(dk), addr(dv), 4LL * head_dim, 4 * gs.b, 4 * gs.h,
+                                 4 * gs.l, 4 * os.b, 4 * os.h, 4 * os.l})
+                    : 0;  // 0: no column tail
+  const bool ok = ct ? L >= 1 && h_offset >= 0 && h_offset + H <= h_total && al >= 4
+                     : valid(L, H, h_total, h_offset, qu, k, v);
+  if (!ok || (exact && !(aligned16(dbias) && aligned16(pd))) || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
-  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
-#define ATTN_BWD_WIDE(DC, E, P)                                                                 \
-  bwd_wide<DC, E, P>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias,     \
-                     (const float*)g, (const float*)out, (const float*)lse, (float*)delta,       \
-                     (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H, H,   \
-                     L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
-#define BW2(E, P) ATTN_BWD_WIDE(2 * WDC, E, P)
-#define BW1(E, P) ATTN_BWD_WIDE(WDC, E, P)
+#define ATTN_BWD_WIDE(DC, E, P, C)                                                              \
+  bwd_wide<DC, E, P, C>((const float*)qu, (const float*)k, (const float*)v, (const float*)bias, \
+                        (const float*)g, (const float*)out, (const float*)lse, (float*)delta,   \
+                        (float*)dqu, (float*)dk, (float*)dv, (float*)dbias, (float*)pd, B * H,  \
+                        H, L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
+#define BW_AL(DC, E, P)                                                                  \
+  (al == 16 ? ATTN_BWD_WIDE(DC, E, P, 16)                                                \
+            : al == 8 ? ATTN_BWD_WIDE(DC, E, P, 8)                                       \
+                      : al == 4 ? ATTN_BWD_WIDE(DC, E, P, 4) : ATTN_BWD_WIDE(DC, E, P, 0))
+#define BW2(E, P) BW_AL(2 * WDC, E, P)
+#define BW1(E, P) BW_AL(WDC, E, P)
   if constexpr (!LIB_PSUM) {
-    if (head_dim % (2 * WDC) == 0) return (int)BY_INSTANCE(BW2, exact);
+    if (ceil_div(head_dim, WDC) % 2 == 0) return (int)BY_INSTANCE(BW2, exact);
   }
   return (int)BY_INSTANCE(BW1, exact);
 #undef BW2
 #undef BW1
+#undef BW_AL
 #undef ATTN_BWD_WIDE
 }
 
 // Dynamic shared memory per block: which = 0 forward, 1 backward main pass,
 // 2 backward dqu pass (the same in both instances). The wide instance's
 // kernels: which = 3 forward scores, 4 forward p v, 5 backward scores, 6
-// backward products (head_dim the padded one, or the column width of 4 / 6).
+// backward products (at any head dim, or the column width of 4 / 6: the
+// columns a block of those takes follow ceil(head_dim / WDC)).
 int attn_tf32_smem_bytes(int head_dim, int which) {
+  const bool one_chunk = ceil_div(head_dim, WDC) % 2 != 0;  // p v and product blocks of WDC
   switch (which) {
     case 3:
       return WideScoresSmem<WKC>::BYTES;
     case 4:
-      return head_dim % (2 * WDC) ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
+      return one_chunk ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
     case 5:
       return WideDsSmem<WKC>::BYTES;
     case 6:
-      return head_dim % (2 * WDC) ? WideProdSmem<WDC>::BYTES : WideProdSmem<2 * WDC>::BYTES;
+      return one_chunk ? WideProdSmem<WDC>::BYTES : WideProdSmem<2 * WDC>::BYTES;
   }
   switch (head_dim) {
     case 16:

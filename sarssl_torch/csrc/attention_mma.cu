@@ -1,9 +1,10 @@
 // Fused rel-pos attention on the H100's tensor cores, forward and backward,
 // for bfloat16 at head dims 16, 32, 64 and 128 (the forward also at 256), and
-// every multiple of WDC = 64 from 256 on (the wide instance), at any sequence
-// length L >= 1. (float32 runs attention_f32_mma.cu; the wrapper runs every
-// other head dim on the next of these instances, on zero-padded inputs: 129 ..
-// 256 forward on the D = 256 instance, backward on the wide one at 256.)
+// past 128 on the wide instance, at any sequence length L >= 1: a multiple of
+// WDC = 64 as it is, any other even head dim unpadded through its column tail
+// (attn_*_wide_cols). (float32 runs attention_f32_mma.cu; the wrapper runs the
+// other head dims on the next of these instances, on zero-padded inputs: up
+// to 128, and an odd D past 128: kernels/attention.py::attention_pass_head_dim.)
 //
 // Replaces the Pallas TPU kernels of sarssl_tpu/kernels/attention.py:
 //   forward  _call_fwd (_fwd_kernel, _attend) -> attn_fwd_mma
@@ -115,11 +116,11 @@
 //        (ldmatrix needs 16-byte aligned rows). dbias goes out in 16-byte
 //        stores where a chunk lies inside the row and 2-byte stores at its
 //        two ends; lse and delta come in by 4-byte cp.async.
-//  * Head dims past 256 (and the backward at 256), the wide instance: a
+//  * Head dims past 128 (but the forward at 256), the wide instance: a
 //    warp's 16-row output at full width would need more than the 255
 //    registers a thread has (16 x 512 f32 is 256), and no whole-D tile of qu,
-//    k, v or g fits beside the others in shared memory. So the head dim Dp (a multiple of WDC, 256 or more) is a
-//    runtime argument, and
+//    k, v or g fits beside the others in shared memory. So the head dim Dp
+//    is a runtime argument, and
 //      - every score product is streamed: sum over the Dp / WKC column chunks
 //        of qu_c k_c^T (g_c v_c^T), the chunks through a cp.async double
 //        buffer, with mma_rows_rows and the swizzle at W = WKC = 64;
@@ -151,6 +152,8 @@
 //    block of output columns. DC is 128 where Dp is a multiple of 128, else
 //    64: at D = 512, 64 took 22% longer in the forward; at D = 320, padding
 //    to 384 for 128 took twice as long (PERF.md §5).
+#include <initializer_list>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -407,6 +410,88 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile_of
     if (TAIL && r >= nrows) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_off + swz<W>(row0 + r, c));
     *reinterpret_cast<uint4*>(dst + (i64)r * ld + c * 8) = val;
+  }
+}
+
+// The wide instance's column tail (a head dim D no multiple of its chunks,
+// read unpadded): ROWS x W values of rows of stride ld -> the swizzled tile
+// load_tile fills, zeros at the columns >= ncols and, with TAIL, the rows >=
+// nrows. The rows are AL-byte aligned (16, 8 or 4: the launch's least, of
+// the bases and the strides), so each is copied in pieces of AL bytes, each
+// whole inside ncols or past it (D is a multiple of AL / 2). A whole chunk of
+// 16-byte aligned rows takes load_tile's copies.
+template <int ROWS, int W, bool TAIL, int AL>
+__device__ __forceinline__ void load_tile_cols(uint32_t dst, const bf16* src, i64 ld, int nrows,
+                                               int ncols) {
+  constexpr int CH = W / 8, N = ROWS * CH;
+  static_assert(N % NT == 0, "the tile's chunks divide among the threads");
+  if (AL == 16 && ncols >= W) {  // a whole chunk of 16-byte aligned rows: load_tile's copies
+    load_tile<ROWS, W, TAIL>(dst, src, ld, nrows);
+    return;
+  }
+  // the tail: a rolled loop, so its addresses hold no registers across the caller's
+#pragma unroll 1
+  for (int it = 0; it < N / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx / CH, c = idx % CH;
+    const bool row_ok = !TAIL || r < nrows;
+    const uint32_t to = dst + swz<W>(r, c);
+    const bf16* from = src + (i64)r * ld + c * 8;
+    if constexpr (AL == 16) {
+      const bool ok = row_ok && c * 8 < ncols;
+      cp_async16_zfill(to, ok ? from : src, ok ? 16 : 0);
+    } else if constexpr (AL == 8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = row_ok && c * 8 + 4 * e < ncols;
+        cp_async8_zfill(to + 8 * e, ok ? from + 4 * e : src, ok ? 8 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row_ok && c * 8 + 2 * e < ncols;
+        cp_async4_zfill(to + 4 * e, ok ? from + 2 * e : src, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// store_rows with the column tail: only the first ncols columns, in pieces
+// of AL bytes (as load_tile_cols reads them)
+template <int W, bool TAIL, int AL>
+__device__ __forceinline__ void store_rows_cols(unsigned char* smem, uint32_t tile_off,
+                                                const float (&acc)[W / 8][4], int row0, bf16* dst,
+                                                i64 ld, int lane, int nrows, int ncols) {
+  if (AL == 16 && ncols >= W) {  // every column, rows 16-byte aligned: store_rows
+    store_rows<W, TAIL>(smem, tile_off, acc, row0, dst, ld, lane, nrows);
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<W>(row0 + g, n) + 4 * t) =
+        pack2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(smem + tile_off + swz<W>(row0 + g + 8, n) + 4 * t) =
+        pack2(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int CH = W / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int idx = lane + it * 32, r = idx / CH, c = idx % CH;
+    if ((TAIL && r >= nrows) || c * 8 >= ncols) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(smem + tile_off + swz<W>(row0 + r, c));
+    bf16* to = dst + (i64)r * ld + c * 8;
+    if constexpr (AL == 16) {
+      *reinterpret_cast<uint4*>(to) = val;
+    } else if constexpr (AL == 8) {
+      *reinterpret_cast<uint2*>(to) = make_uint2(val.x, val.y);
+      if (c * 8 + 4 < ncols) *reinterpret_cast<uint2*>(to + 4) = make_uint2(val.z, val.w);
+    } else {
+      const uint32_t v4[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c * 8 + 2 * e < ncols) *reinterpret_cast<uint32_t*>(to + 2 * e) = v4[e];
+    }
   }
 }
 
@@ -969,9 +1054,14 @@ attn_dqu_mma(const bf16* __restrict__ dbias, const bf16* __restrict__ k,
 // head dim, is a runtime multiple of WDC; no tile and no register array
 // depends on it.
 // ===========================================================================
-// The wide head dims are the multiples of WDC (WIDE_CHUNK in kernels/attention.py,
-// which pads to them). The p v and product passes take 2 WDC output columns a
-// block where Dp is a multiple of 2 WDC, else WDC (measured, PERF.md §5).
+// The wide instance takes a multiple of WDC (WIDE_CHUNK in kernels/attention.py)
+// as it is and any other head dim D through the column tail of the _cols
+// kernels (the same code, instances of their own): ceil(D / WDC) chunks, the
+// last one read with zeros past D and stored only up to it, each row copied
+// in pieces of its alignment (16, 8 or 4 bytes: D % 8, D % 4, D even), so the
+// results are the padded ones', bit for bit, with no padding copy in device
+// memory; the wrapper pads an odd D. The p v and product passes take 2 WDC output columns a
+// block where ceil(Dp / WDC) is even, else WDC (measured, PERF.md §5).
 constexpr int WDC = 64;
 constexpr int WKC = 64;   // columns of a streamed qu / k / g / v chunk
 static_assert(WDC % WKC == 0, "a wide head dim is a whole number of streamed chunks");
@@ -1015,19 +1105,18 @@ struct WideScoresSmem {
   static_assert(CH % 1024 == 0 && BIAS % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int KC, bool EXACT>
-__global__ void __launch_bounds__(NT, 3)
-attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
-                     const bf16* __restrict__ bias, float* __restrict__ scores,
-                     float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
-                     float scale) {
+template <int KC, bool EXACT, int AL>
+__device__ __forceinline__ void wide_scores(const bf16* qu, const bf16* k, const bf16* bias,
+                                            float* scores, float* lse, float* part, int L, int Dp,
+                                            float scale) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideScoresSmem<KC> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
   const int bh = blockIdx.y, i0 = blockIdx.x * 64, nsplit = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
-  const int nkc = Dp / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
+  const int nkc = (CT ? Dp + KC - 1 : Dp) / KC, ntiles = (L + BK - 1) / BK, Lp = ntiles * BK;
   const int per = (ntiles + nsplit - 1) / nsplit, tt0 = blockIdx.z * per;
   const int nsteps = max(min(per, ntiles - tt0), 0) * nkc;
   const int qrows = L - i0;
@@ -1040,7 +1129,11 @@ attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   auto load_step = [&](int s) {
     const int tt = tt0 + s / nkc, c = s % nkc, j = tt * BK;
     const uint32_t st = sb + (s & 1) * S::STAGE;
-    if constexpr (EXACT) {
+    if constexpr (CT) {
+      load_tile_cols<64, KC, !EXACT, AL>(st, qp + c * KC, Dp, qrows, Dp - c * KC);
+      load_tile_cols<64, KC, !EXACT, AL>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp, L - j,
+                                     Dp - c * KC);
+    } else if constexpr (EXACT) {
       load_tile<64, KC>(st, qp + c * KC, Dp);
       load_tile<64, KC>(st + S::CH, kp + (i64)j * Dp + c * KC, Dp);
     } else {
@@ -1139,6 +1232,27 @@ attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   }
 }
 
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_scores_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                     const bf16* __restrict__ bias, float* __restrict__ scores,
+                     float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                     float scale) {
+  wide_scores<KC, EXACT, 0>(qu, k, bias, scores, lse, part, L, Dp, scale);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int KC, bool EXACT, int AL>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_scores_wide_cols(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                          const bf16* __restrict__ bias, float* __restrict__ scores,
+                          float* __restrict__ lse, float* __restrict__ part, int L, int Dp,
+                          float scale) {
+  wide_scores<KC, EXACT, AL>(qu, k, bias, scores, lse, part, L, Dp, scale);
+}
+
 // lse (log2 units) of rows r and r + 8 from the S partials of part (2, B*H,
 // S, Lp) at row_off = bh * S * Lp + r: m + log2(sum_z l_z 2^(m_z - m)), m =
 // max_z m_z, folded split by split. Split 0 always holds a key tile, so the
@@ -1184,15 +1298,15 @@ struct WidePvSmem {
   static_assert(SC % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int DC, bool EXACT>
-__global__ void __launch_bounds__(NT, 3)
-attn_fwd_pv_wide(const float* __restrict__ scores, float* __restrict__ lse,
-                 const float* __restrict__ part, int nsplit, const bf16* __restrict__ v,
-                 bf16* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
+template <int DC, bool EXACT, int AL>
+__device__ __forceinline__ void wide_pv(const float* scores, float* lse, const float* part,
+                                        int nsplit, const bf16* v, bf16* out, int H, int L, int Dp,
+                                        Dropout drop, Strides os) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WidePvSmem<DC> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int nch = Dp / DC, bh = blockIdx.y;
+  const int nch = (CT ? Dp + DC - 1 : Dp) / DC, bh = blockIdx.y;
   const int i0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
@@ -1204,7 +1318,9 @@ attn_fwd_pv_wide(const float* __restrict__ scores, float* __restrict__ lse,
     const uint32_t st = sb + (tt & 1) * S::STAGE;
     const int j = tt * BK;
     load_f32_tile(st, sp + j, Lp);
-    if constexpr (EXACT) load_tile<64, DC>(st + S::SC, vp + (i64)j * Dp, Dp);
+    if constexpr (CT)
+      load_tile_cols<64, DC, !EXACT, AL>(st + S::SC, vp + (i64)j * Dp, Dp, L - j, Dp - c0);
+    else if constexpr (EXACT) load_tile<64, DC>(st + S::SC, vp + (i64)j * Dp, Dp);
     else load_tile<64, DC, true>(st + S::SC, vp + (i64)j * Dp, Dp, L - j);
   };
   load(0);
@@ -1269,17 +1385,41 @@ attn_fwd_pv_wide(const float* __restrict__ scores, float* __restrict__ lse,
   }
   __syncthreads();  // every warp is done with the tiles: stage 0's v tile stages the rows
   bf16* op = out + (bh / H) * os.b + (bh % H) * os.h + (i64)(i0 + r0) * os.l + c0;
-  store_rows<DC, !EXACT>(smem, S::SC, o, r0, op, os.l, lane, qrows - r0);
+  if constexpr (CT)
+    store_rows_cols<DC, !EXACT, AL>(smem, S::SC, o, r0, op, os.l, lane, qrows - r0, Dp - c0);
+  else
+    store_rows<DC, !EXACT>(smem, S::SC, o, r0, op, os.l, lane, qrows - r0);
+}
+
+template <int DC, bool EXACT>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_pv_wide(const float* __restrict__ scores, float* __restrict__ lse,
+                 const float* __restrict__ part, int nsplit, const bf16* __restrict__ v,
+                 bf16* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
+  wide_pv<DC, EXACT, 0>(scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+// (at 128 columns with rows in 8- or 4-byte pieces two blocks an SM: in the
+// registers of three the tail spilled)
+template <int DC, bool EXACT, int AL>
+__global__ void __launch_bounds__(NT, DC == 2 * WDC && AL != 16 ? 2 : 3)
+attn_fwd_pv_wide_cols(const float* __restrict__ scores, float* __restrict__ lse,
+                      const float* __restrict__ part, int nsplit, const bf16* __restrict__ v,
+                      bf16* __restrict__ out, int H, int L, int Dp, Dropout drop, Strides os) {
+  wide_pv<DC, EXACT, AL>(scores, lse, part, nsplit, v, out, H, L, Dp, drop, os);
 }
 
 // ---------------------------------------------------------------------------
 // wide backward, delta = rowsum(g * out): W / 8 lanes a row, W = DC columns
 // a step of the loop over Dp
 // ---------------------------------------------------------------------------
-template <int W, bool EXACT>
-__global__ void __launch_bounds__(256)
-attn_delta_wide(const bf16* __restrict__ g, const bf16* __restrict__ out,
-                float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs, Strides os) {
+template <int W, bool EXACT, int AL>
+__device__ __forceinline__ void wide_delta(const bf16* g, const bf16* out, float* delta, int H,
+                                           int L, int rows, int Dp, Strides gs, Strides os) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   constexpr int LPR = W / 8;
   const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR, c = threadIdx.x % LPR;
   const bool live = EXACT || row < rows;
@@ -1290,6 +1430,13 @@ attn_delta_wide(const bf16* __restrict__ g, const bf16* __restrict__ out,
   const bf16* orow = out + b * os.b + h * os.h + i * os.l + c * 8;
   float sum = 0.f;
   for (int d = 0; d < Dp; d += W) {
+    if constexpr (CT) {  // value by value at the tail, or where rows are not 16-byte aligned
+      if (AL != 16 || d + c * 8 + 8 > Dp) {
+        for (int e = 0; e < 8 && d + c * 8 + e < Dp; ++e)
+          sum = fmaf(__bfloat162float(gr[d + e]), __bfloat162float(orow[d + e]), sum);
+        continue;
+      }
+    }
     const uint4 gv = *reinterpret_cast<const uint4*>(gr + d);
     const uint4 ov = *reinterpret_cast<const uint4*>(orow + d);
     const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
@@ -1304,6 +1451,24 @@ attn_delta_wide(const bf16* __restrict__ g, const bf16* __restrict__ out,
 #pragma unroll
   for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (c == 0 && live) delta[row] = sum;
+}
+
+template <int W, bool EXACT>
+__global__ void __launch_bounds__(256)
+attn_delta_wide(const bf16* __restrict__ g, const bf16* __restrict__ out,
+                float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs, Strides os) {
+  wide_delta<W, EXACT, 0>(g, out, delta, H, L, rows, Dp, gs, os);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int W, bool EXACT, int AL>
+__global__ void __launch_bounds__(256)
+attn_delta_wide_cols(const bf16* __restrict__ g, const bf16* __restrict__ out,
+                     float* __restrict__ delta, int H, int L, int rows, int Dp, Strides gs,
+                     Strides os) {
+  wide_delta<W, EXACT, AL>(g, out, delta, H, L, rows, Dp, gs, os);
 }
 
 // ---------------------------------------------------------------------------
@@ -1329,20 +1494,19 @@ struct WideDsSmem {
   static_assert(CH % 1024 == 0 && DS % 16 == 0, "tiles start 16-byte aligned, chunks swizzled");
 };
 
-template <int KC, bool EXACT>
-__global__ void __launch_bounds__(NT, 2)
-attn_bwd_ds_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                 const bf16* __restrict__ gr, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dbias, bf16* __restrict__ pd,
-                 int H, int L, int Dp, float scale, Dropout drop, Strides gs) {
+template <int KC, bool EXACT, int AL>
+__device__ __forceinline__ void wide_ds(const bf16* qu, const bf16* k, const bf16* v,
+                                        const bf16* bias, const bf16* gr, const float* lse,
+                                        const float* delta, bf16* dbias, bf16* pd, int H, int L,
+                                        int Dp, float scale, Dropout drop, Strides gs) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideDsSmem<KC> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
   const int j0 = blockIdx.x * BK, i0 = blockIdx.y * 64, bh = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;  // the warp's queries within the tile
-  const int nkc = Dp / KC, qrows = L - i0, kcols = min(L - j0, BK);
+  const int nkc = (CT ? Dp + KC - 1 : Dp) / KC, qrows = L - i0, kcols = min(L - j0, BK);
   const bf16* qp = qu + ((i64)bh * L + i0) * Dp;
   const bf16* kp = k + ((i64)bh * L + j0) * Dp;
   const bf16* vp = v + ((i64)bh * L + j0) * Dp;
@@ -1351,7 +1515,13 @@ attn_bwd_ds_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
 
   auto load_chunk = [&](int c) {
     const uint32_t st = sb + (c & 1) * S::STAGE;
-    if constexpr (EXACT) {
+    if constexpr (CT) {
+      const int nc = Dp - c * KC;
+      load_tile_cols<64, KC, !EXACT, AL>(st, qp + c * KC, Dp, qrows, nc);
+      load_tile_cols<64, KC, !EXACT, AL>(st + S::CH, kp + c * KC, Dp, kcols, nc);
+      load_tile_cols<64, KC, !EXACT, AL>(st + 2 * S::CH, gp + c * KC, gs.l, qrows, nc);
+      load_tile_cols<64, KC, !EXACT, AL>(st + 3 * S::CH, vp + c * KC, Dp, kcols, nc);
+    } else if constexpr (EXACT) {
       load_tile<64, KC>(st, qp + c * KC, Dp);
       load_tile<64, KC>(st + S::CH, kp + c * KC, Dp);
       load_tile<64, KC>(st + 2 * S::CH, gp + c * KC, gs.l);
@@ -1448,6 +1618,30 @@ attn_bwd_ds_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   }
 }
 
+template <int KC, bool EXACT>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const bf16* __restrict__ gr, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dbias, bf16* __restrict__ pd,
+                 int H, int L, int Dp, float scale, Dropout drop, Strides gs) {
+  wide_ds<KC, EXACT, 0>(qu, k, v, bias, gr, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+template <int KC, bool EXACT, int AL>
+__global__ void __launch_bounds__(NT, 2)
+attn_bwd_ds_wide_cols(const bf16* __restrict__ qu, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                      const bf16* __restrict__ gr, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dbias,
+                      bf16* __restrict__ pd, int H, int L, int Dp, float scale, Dropout drop,
+                      Strides gs) {
+  wide_ds<KC, EXACT, AL>(qu, k, v, bias, gr, lse, delta, dbias, pd, H, L, Dp, scale, drop, gs);
+}
+
 // ---------------------------------------------------------------------------
 // wide backward, products: out (B, H, L, Dp) = A x, or with TRANS A^T x, for
 // A (B, H, L, L) (dbias or pd) and x (B, H, L, Dp) of strides xs: dqu = dbias
@@ -1465,14 +1659,14 @@ struct WideProdSmem {
   static_assert(A % 256 == 0 && STAGE % 256 == 0, "tiles start at multiples of 256 bytes");
 };
 
-template <int DC, bool EXACT, bool TRANS>
-__global__ void __launch_bounds__(NT)
-attn_prod_wide(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __restrict__ out,
-               int H, int L, int Dp, Strides xs) {
+template <int DC, bool EXACT, bool TRANS, int AL>
+__device__ __forceinline__ void wide_prod(const bf16* a, const bf16* x, bf16* out, int H, int L,
+                                          int Dp, Strides xs) {
+  constexpr bool CT = AL != 0;  // the column tail, rows in pieces of AL bytes
   typedef WideProdSmem<DC, EXACT> S;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sb = smem_u32(smem);
-  const int nch = Dp / DC, bh = blockIdx.y;
+  const int nch = (CT ? Dp + DC - 1 : Dp) / DC, bh = blockIdx.y;
   const int o0 = blockIdx.x / nch * 64, c0 = blockIdx.x % nch * DC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp;
@@ -1486,11 +1680,17 @@ attn_prod_wide(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __r
     const bf16* src = TRANS ? am + (i64)j1 * L + o0 : am + (i64)o0 * L + j1;
     if constexpr (EXACT) {
       load_tile<64, 64>(st, src, L);
-      load_tile<64, DC>(st + S::A, xp + (i64)j1 * xs.l, xs.l);
+      if constexpr (CT)
+        load_tile_cols<64, DC, false, AL>(st + S::A, xp + (i64)j1 * xs.l, xs.l, 64, Dp - c0);
+      else
+        load_tile<64, DC>(st + S::A, xp + (i64)j1 * xs.l, xs.l);
     } else {
       load_window_tile<64>(st, src, L, TRANS ? L - j1 : orows,
                            TRANS ? min(orows, BK) : min(L - j1, BK));
-      load_tile<64, DC, true>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
+      if constexpr (CT)
+        load_tile_cols<64, DC, true, AL>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1, Dp - c0);
+      else
+        load_tile<64, DC, true>(st + S::A, xp + (i64)j1 * xs.l, xs.l, L - j1);
     }
   };
   load(0);
@@ -1554,8 +1754,30 @@ attn_prod_wide(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __r
     mma_a_regs_b_rows<DC, 4, DC / 8>(acc, af, lane_base_a<DC>(at + S::A, 0, lane));
   }
   __syncthreads();  // every warp is done with the stages: stage 0's x tile stages the rows
-  store_rows<DC, !EXACT>(smem, S::A, acc, r0, out + ((i64)bh * L + o0 + r0) * Dp + c0, Dp, lane,
-                         orows - r0);
+  bf16* op = out + ((i64)bh * L + o0 + r0) * Dp + c0;
+  if constexpr (CT)
+    store_rows_cols<DC, !EXACT, AL>(smem, S::A, acc, r0, op, Dp, lane, orows - r0, Dp - c0);
+  else
+    store_rows<DC, !EXACT>(smem, S::A, acc, r0, op, Dp, lane, orows - r0);
+}
+
+template <int DC, bool EXACT, bool TRANS>
+__global__ void __launch_bounds__(NT)
+attn_prod_wide(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __restrict__ out,
+               int H, int L, int Dp, Strides xs) {
+  wide_prod<DC, EXACT, TRANS, 0>(a, x, out, H, L, Dp, xs);
+}
+
+// The same pass at a head dim D no multiple of its chunks, unpadded: D in place of
+// Dp (the rows' stride; ceil(D / chunk) chunks), the columns past D read as
+// zeros and not stored, the rows read in pieces of AL bytes
+// (one block an SM at least, so that ptxas does not trade registers for
+// occupancy: at 128 registers this kernel spilled)
+template <int DC, bool EXACT, bool TRANS, int AL>
+__global__ void __launch_bounds__(NT, 1)
+attn_prod_wide_cols(const bf16* __restrict__ a, const bf16* __restrict__ x, bf16* __restrict__ out,
+                    int H, int L, int Dp, Strides xs) {
+  wide_prod<DC, EXACT, TRANS, AL>(a, x, out, H, L, Dp, xs);
 }
 
 template <typename K>
@@ -1601,22 +1823,35 @@ cudaError_t bwd(const void* qu, const void* k, const void* v, const void* bias, 
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT>
+// the wide forward; with AL > 0 (the column tail) Dp is the head dim D
+// itself, any D, its rows read in pieces of AL bytes
+template <int DC, bool EXACT, int AL>
 cudaError_t fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
                      float* lse, float* scores, float* part, int nsplit, int BH, int H, int L,
                      int Dp, float scale, Dropout drop, Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_fwd_scores_wide<WKC, EXACT>, WideScoresSmem<WKC>::BYTES);
-  if (err != cudaSuccess) return err;
-  err = set_smem(attn_fwd_pv_wide<DC, EXACT>, WidePvSmem<DC>::BYTES);
-  if (err != cudaSuccess) return err;
-  const int nt = ceil_div(L, 64);
-  attn_fwd_scores_wide<WKC, EXACT><<<dim3(nt, BH, nsplit), NT, WideScoresSmem<WKC>::BYTES,
-                                     stream>>>((const bf16*)qu, (const bf16*)k, (const bf16*)bias,
-                                               scores, lse, part, L, Dp, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_fwd_pv_wide<DC, EXACT><<<dim3(nt * (Dp / DC), BH), NT, WidePvSmem<DC>::BYTES, stream>>>(
-      scores, lse, part, nsplit, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
+  const int nt = ceil_div(L, 64), nch = ceil_div(Dp, DC);
+  const dim3 grid_scores(nt, BH, nsplit), grid_pv(nt * nch, BH);
+  constexpr int SS = WideScoresSmem<WKC>::BYTES, PS = WidePvSmem<DC>::BYTES;
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_fwd_scores_wide_cols<WKC, EXACT, AL>, SS)) != cudaSuccess ||
+        (err = set_smem(attn_fwd_pv_wide_cols<DC, EXACT, AL>, PS)) != cudaSuccess)
+      return err;
+    attn_fwd_scores_wide_cols<WKC, EXACT, AL><<<grid_scores, NT, SS, stream>>>(
+        (const bf16*)qu, (const bf16*)k, (const bf16*)bias, scores, lse, part, L, Dp, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_fwd_pv_wide_cols<DC, EXACT, AL><<<grid_pv, NT, PS, stream>>>(
+        scores, lse, part, nsplit, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
+  } else {
+    if ((err = set_smem(attn_fwd_scores_wide<WKC, EXACT>, SS)) != cudaSuccess ||
+        (err = set_smem(attn_fwd_pv_wide<DC, EXACT>, PS)) != cudaSuccess)
+      return err;
+    attn_fwd_scores_wide<WKC, EXACT><<<grid_scores, NT, SS, stream>>>(
+        (const bf16*)qu, (const bf16*)k, (const bf16*)bias, scores, lse, part, L, Dp, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_fwd_pv_wide<DC, EXACT><<<grid_pv, NT, PS, stream>>>(
+        scores, lse, part, nsplit, (const bf16*)v, (bf16*)out, H, L, Dp, drop, os);
+  }
   return cudaGetLastError();
 }
 
@@ -1629,44 +1864,62 @@ cudaError_t wide_scores_blocks(int* n) {
                                                        WideScoresSmem<WKC>::BYTES);
 }
 
-template <int DC, bool EXACT, bool TRANS>
+template <int DC, bool EXACT, bool TRANS, int AL>
 cudaError_t prod_wide(const void* a, const void* x, Strides xs, void* out, int BH, int H, int L,
                       int Dp, cudaStream_t stream) {
   typedef WideProdSmem<DC, EXACT> S;
-  cudaError_t err = set_smem(attn_prod_wide<DC, EXACT, TRANS>, S::BYTES);
-  if (err != cudaSuccess) return err;
-  attn_prod_wide<DC, EXACT, TRANS><<<dim3(ceil_div(L, 64) * (Dp / DC), BH), NT, S::BYTES,
-                                      stream>>>((const bf16*)a, (const bf16*)x, (bf16*)out, H, L,
-                                                Dp, xs);
+  const dim3 grid(ceil_div(L, 64) * ceil_div(Dp, DC), BH);
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_prod_wide_cols<DC, EXACT, TRANS, AL>, S::BYTES)) != cudaSuccess)
+      return err;
+    attn_prod_wide_cols<DC, EXACT, TRANS, AL><<<grid, NT, S::BYTES, stream>>>(
+        (const bf16*)a, (const bf16*)x, (bf16*)out, H, L, Dp, xs);
+  } else {
+    if ((err = set_smem(attn_prod_wide<DC, EXACT, TRANS>, S::BYTES)) != cudaSuccess) return err;
+    attn_prod_wide<DC, EXACT, TRANS><<<grid, NT, S::BYTES, stream>>>(
+        (const bf16*)a, (const bf16*)x, (bf16*)out, H, L, Dp, xs);
+  }
   return cudaGetLastError();
 }
 
-template <int DC, bool EXACT>
+// the wide backward; with AL as fwd_wide
+template <int DC, bool EXACT, int AL>
 cudaError_t bwd_wide(const void* qu, const void* k, const void* v, const void* bias, const void* g,
                      const void* out, const float* lse, float* delta, void* dqu, void* dk,
                      void* dv, void* dbias, void* pd, int BH, int H, int L, int Dp, float scale,
                      Dropout drop, Strides gs, Strides os, cudaStream_t stream) {
-  cudaError_t err = set_smem(attn_bwd_ds_wide<WKC, EXACT>, WideDsSmem<WKC>::BYTES);
-  if (err != cudaSuccess) return err;
   const int nt = ceil_div(L, 64);
-  attn_delta_wide<DC, EXACT><<<ceil_div(BH * L, 256 / (DC / 8)), 256, 0, stream>>>(
-      (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, Dp, gs, os);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_ds_wide<WKC, EXACT><<<dim3(nt, nt, BH), NT, WideDsSmem<WKC>::BYTES, stream>>>(
-      (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
-      delta, (bf16*)dbias, (bf16*)pd, H, L, Dp, scale, drop, gs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const dim3 grid_delta(ceil_div(BH * L, 256 / (DC / 8))), grid_ds(nt, nt, BH);
+  constexpr int DS = WideDsSmem<WKC>::BYTES;
+  cudaError_t err;
+  if constexpr (AL != 0) {
+    if ((err = set_smem(attn_bwd_ds_wide_cols<WKC, EXACT, AL>, DS)) != cudaSuccess) return err;
+    attn_delta_wide_cols<DC, EXACT, AL><<<grid_delta, 256, 0, stream>>>(
+        (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, Dp, gs, os);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_bwd_ds_wide_cols<WKC, EXACT, AL><<<grid_ds, NT, DS, stream>>>(
+        (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
+        delta, (bf16*)dbias, (bf16*)pd, H, L, Dp, scale, drop, gs);
+  } else {
+    if ((err = set_smem(attn_bwd_ds_wide<WKC, EXACT>, DS)) != cudaSuccess) return err;
+    attn_delta_wide<DC, EXACT><<<grid_delta, 256, 0, stream>>>(
+        (const bf16*)g, (const bf16*)out, delta, H, L, BH * L, Dp, gs, os);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attn_bwd_ds_wide<WKC, EXACT><<<grid_ds, NT, DS, stream>>>(
+        (const bf16*)qu, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (const bf16*)g, lse,
+        delta, (bf16*)dbias, (bf16*)pd, H, L, Dp, scale, drop, gs);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   Strides cs;  // qu and k: contiguous (B, H, L, Dp)
   cs.b = (i64)H * L * Dp;
   cs.h = (i64)L * Dp;
   cs.l = Dp;
-  err = prod_wide<DC, EXACT, true>(pd, g, gs, dv, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, AL>(pd, g, gs, dv, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  err = prod_wide<DC, EXACT, true>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
+  err = prod_wide<DC, EXACT, true, AL>(dbias, qu, cs, dk, BH, H, L, Dp, stream);
   if (err != cudaSuccess) return err;
-  return prod_wide<DC, EXACT, false>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
+  return prod_wide<DC, EXACT, false, AL>(dbias, k, cs, dqu, BH, H, L, Dp, stream);
 }
 
 Dropout make_dropout(float rate, unsigned int seed, unsigned int thresh, float inv_keep,
@@ -1691,6 +1944,19 @@ Strides make_strides(const i64* s) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The bytes (16, 8, 4, or less) to which every base address and byte stride
+// of a wide launch at an unpadded head dim is aligned: its column tail copies
+// its rows in pieces of that many (4 at least: an odd bf16 head dim is
+// padded by the wrapper)
+int row_align(std::initializer_list<long long> bytes) {
+  int al = 16;
+  for (const long long b : bytes)
+    while (al > 1 && b % al) al >>= 1;
+  return al;
+}
+
+long long addr(const void* p) { return (long long)reinterpret_cast<uintptr_t>(p); }
 
 // The instance a launch takes: EXACT where every tile is whole and the bias
 // rows are 16-byte aligned (the flagship shapes), the general one elsewhere.
@@ -1772,32 +2038,45 @@ int attn_mma_bwd(const void* qu, const void* k, const void* v, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide instance, as attn_mma_fwd, at a padded head dim Dp (a multiple of
-// WDC, 256 or more). scores: (B, H, Lp, Lp) float32 scratch, Lp = 64 ceil(L /
-// 64), written then read. splits: the scores pass's key splits S, 1 ..
-// ceil(L / 64); part: (2, B*H, S, Lp) float32 scratch (unused at S = 1).
+// The wide instance, as attn_mma_fwd, at any head dim: a multiple of WDC as
+// it is, any other unpadded with its column tail (its rows 4-byte aligned at
+// least: head_dim even). scores: (B, H, Lp, Lp) float32 scratch, Lp = 64
+// ceil(L / 64), written then read. splits: the scores pass's key splits S, 1
+// .. ceil(L / 64); part: (2, B*H, S, Lp) float32 scratch (unused at S = 1).
 int attn_mma_fwd_wide(const void* qu, const void* k, const void* v, const void* bias, void* out,
                       void* lse, void* scores, void* part, const long long* out_strides, int B,
                       int H, int L, int head_dim, int splits, float scale, float rate,
                       unsigned int seed, unsigned int thresh, float inv_keep, int h_total,
                       int h_offset, void* stream) {
-  if (!valid(L, H, h_total, h_offset, qu, k, v) || head_dim < 256 || head_dim % WDC != 0 ||
-      !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) || (splits > 1 && !part))
+  const bool ct = head_dim % WDC != 0;
+  const Strides os = make_strides(out_strides);
+  const int al = ct ? row_align({addr(qu), addr(k), addr(v), addr(out), 2LL * head_dim,
+                                 2 * os.b, 2 * os.h, 2 * os.l})
+                    : 0;  // 0: no column tail
+  const bool ok = ct ? L >= 1 && h_offset >= 0 && h_offset + H <= h_total && al >= 4
+                     : valid(L, H, h_total, h_offset, qu, k, v);
+  if (!ok || head_dim < 1 || !aligned16(scores) || splits < 1 || splits > ceil_div(L, 64) ||
+      (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
-  const Strides os = make_strides(out_strides);
-#define ATTN_FWD_WIDE(DC, E)                                                                   \
-  fwd_wide<DC, E>(qu, k, v, bias, out, (float*)lse, (float*)scores, (float*)part, splits, B * H, \
-                  H, L, head_dim, scale, drop, os, (cudaStream_t)stream)
+#define ATTN_FWD_WIDE(DC, E, C)                                                                \
+  fwd_wide<DC, E, C>(qu, k, v, bias, out, (float*)lse, (float*)scores, (float*)part, splits,   \
+                     B * H, H, L, head_dim, scale, drop, os, (cudaStream_t)stream)
+#define ATTN_FWD_WIDE_DC(DC, E)                                                         \
+  (al == 16 ? ATTN_FWD_WIDE(DC, E, 16)                                                  \
+            : al == 8 ? ATTN_FWD_WIDE(DC, E, 8)                                         \
+                      : al == 4 ? ATTN_FWD_WIDE(DC, E, 4) : ATTN_FWD_WIDE(DC, E, 0))
   const bool exact = exact_tiles(L, bias);
-  if (head_dim % (2 * WDC) == 0)
-    return (int)(exact ? ATTN_FWD_WIDE(2 * WDC, true) : ATTN_FWD_WIDE(2 * WDC, false));
-  return (int)(exact ? ATTN_FWD_WIDE(WDC, true) : ATTN_FWD_WIDE(WDC, false));
+  if (ceil_div(head_dim, WDC) % 2 == 0)
+    return (int)(exact ? ATTN_FWD_WIDE_DC(2 * WDC, true) : ATTN_FWD_WIDE_DC(2 * WDC, false));
+  return (int)(exact ? ATTN_FWD_WIDE_DC(WDC, true) : ATTN_FWD_WIDE_DC(WDC, false));
+#undef ATTN_FWD_WIDE_DC
 #undef ATTN_FWD_WIDE
 }
 
-// The wide instance, as attn_mma_bwd. pd: (B, H, L, L) bf16 scratch (the
-// dropped probabilities), written then read; 16-byte aligned like dbias.
+// The wide instance, as attn_mma_bwd, at any head dim as attn_mma_fwd_wide
+// takes it. pd: (B, H, L, L) bf16 scratch (the dropped probabilities),
+// written then read; 16-byte aligned like dbias.
 int attn_mma_bwd_wide(const void* qu, const void* k, const void* v, const void* bias,
                       const void* g, const void* out, const void* lse, void* delta, void* dqu,
                       void* dk, void* dv, void* dbias, void* pd, const long long* g_strides,
@@ -1805,17 +2084,28 @@ int attn_mma_bwd_wide(const void* qu, const void* k, const void* v, const void* 
                       float scale, float rate, unsigned int seed, unsigned int thresh,
                       float inv_keep, int h_total, int h_offset, void* stream) {
   const bool exact = exact_tiles(L, bias);
-  if (!valid(L, H, h_total, h_offset, qu, k, v) ||
-      (exact && !(aligned16(dbias) && aligned16(pd))) || head_dim < 256 || head_dim % WDC != 0)
+  const bool ct = head_dim % WDC != 0;
+  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
+  const int al = ct ? row_align({addr(qu), addr(k), addr(v), addr(g), addr(out), addr(dqu),
+                                 addr(dk), addr(dv), 2LL * head_dim, 2 * gs.b, 2 * gs.h,
+                                 2 * gs.l, 2 * os.b, 2 * os.h, 2 * os.l})
+                    : 0;  // 0: no column tail
+  const bool ok = ct ? L >= 1 && h_offset >= 0 && h_offset + H <= h_total && al >= 4
+                     : valid(L, H, h_total, h_offset, qu, k, v);
+  if (!ok || (exact && !(aligned16(dbias) && aligned16(pd))) || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(rate, seed, thresh, inv_keep, H, h_total, h_offset);
-  const Strides gs = make_strides(g_strides), os = make_strides(out_strides);
-#define ATTN_BWD_WIDE(DC, E)                                                                    \
-  bwd_wide<DC, E>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv, dbias,   \
-                  pd, B * H, H, L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
-  if (head_dim % (2 * WDC) == 0)
-    return (int)(exact ? ATTN_BWD_WIDE(2 * WDC, true) : ATTN_BWD_WIDE(2 * WDC, false));
-  return (int)(exact ? ATTN_BWD_WIDE(WDC, true) : ATTN_BWD_WIDE(WDC, false));
+#define ATTN_BWD_WIDE(DC, E, C)                                                                 \
+  bwd_wide<DC, E, C>(qu, k, v, bias, g, out, (const float*)lse, (float*)delta, dqu, dk, dv,     \
+                     dbias, pd, B * H, H, L, head_dim, scale, drop, gs, os, (cudaStream_t)stream)
+#define ATTN_BWD_WIDE_DC(DC, E)                                                         \
+  (al == 16 ? ATTN_BWD_WIDE(DC, E, 16)                                                  \
+            : al == 8 ? ATTN_BWD_WIDE(DC, E, 8)                                         \
+                      : al == 4 ? ATTN_BWD_WIDE(DC, E, 4) : ATTN_BWD_WIDE(DC, E, 0))
+  if (ceil_div(head_dim, WDC) % 2 == 0)
+    return (int)(exact ? ATTN_BWD_WIDE_DC(2 * WDC, true) : ATTN_BWD_WIDE_DC(2 * WDC, false));
+  return (int)(exact ? ATTN_BWD_WIDE_DC(WDC, true) : ATTN_BWD_WIDE_DC(WDC, false));
+#undef ATTN_BWD_WIDE_DC
 #undef ATTN_BWD_WIDE
 }
 
@@ -1823,17 +2113,19 @@ int attn_mma_bwd_wide(const void* qu, const void* k, const void* v, const void* 
 // 2 backward dqu pass; exact = 1 for the instance of whole tiles (L a
 // multiple of 64), 0 for the general one. The wide instance's kernels: which
 // = 3 forward scores, 4 forward p v, 5 backward scores, 6 backward products
-// (head_dim the padded one, or the column width of 4 / 6).
+// (at any head dim, or the column width of 4 / 6: the columns a block of
+// those takes follow ceil(head_dim / WDC)).
 int attn_mma_smem_bytes(int head_dim, int which, int exact) {
+  const bool one_chunk = ceil_div(head_dim, WDC) % 2 != 0;  // p v and product blocks of WDC
   switch (which) {
     case 3:
       return WideScoresSmem<WKC>::BYTES;
     case 4:
-      return head_dim % (2 * WDC) ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
+      return one_chunk ? WidePvSmem<WDC>::BYTES : WidePvSmem<2 * WDC>::BYTES;
     case 5:
       return WideDsSmem<WKC>::BYTES;
     case 6:
-      if (head_dim % (2 * WDC))
+      if (one_chunk)
         return exact ? WideProdSmem<WDC, true>::BYTES : WideProdSmem<WDC, false>::BYTES;
       return exact ? WideProdSmem<2 * WDC, true>::BYTES : WideProdSmem<2 * WDC, false>::BYTES;
   }

@@ -40,7 +40,8 @@
 //    serialise the pipeline. Where C % 8 != 0 a pixel row is not 16-byte
 //    aligned in device memory, so the tile is copied value by value.
 //  * Cout at run time: a block computes one pass of NB output channels
-//    (blockIdx.y), NB a multiple of 8 up to 64: wgmma's N. The wrapper takes
+//    (blockIdx.y of the launch's passes), NB a multiple of 8 up to 64:
+//    wgmma's N. The wrapper takes
 //    ceil(Cout / 64) passes of NB = 8 ceil(Cout / passes / 8)
 //    (kernels/conv3x3.py::any_mma_passes), so 3 channels run N = 8 and 160
 //    run three passes of 56: the products past Cout are at most 7 columns a
@@ -55,13 +56,17 @@
 //    consumed and writes whole 16-byte pieces of each pixel's NB channels;
 //    where Cout % 8 != 0 (a pixel's output row is not 16-byte aligned) value
 //    by value, masked to Cout.
-//  * A first kernel packs the HWIO weight into (passes, chunks, 9, NB, 64)
-//    blocks, zero-padded, into a scratch the wrapper allocates
-//    (kernels/conv3x3.py::pack_weights_any is its plain version); for dx it
-//    reads the weight rotated 180 degrees with its channels swapped
-//    (rot180_io) in the same pass. One entry call launches both, so a small
-//    conv costs one host call. No atomics: results are bit-identical from run
-//    to run.
+//  * One launch a call. The kernel's blocks first pack the HWIO weight
+//    into (passes, chunks, 9, NB, 64) blocks, zero-padded, into a scratch the
+//    wrapper allocates, each block a share (kernels/conv3x3.py::
+//    pack_weights_any is its plain version; for dx it reads the weight
+//    rotated 180 degrees with its channels swapped, rot180_io, in the same
+//    pass), then meet at a grid barrier (a cooperative launch: every block
+//    resident, a pass's blocks slots / passes of the card's) and run the conv
+//    as above, its products' loop untouched: a packing kernel of its own
+//    would cost a small call a second launch and the gap between the two
+//    (PERF.md section 5). The weight changes every training step, so it is
+//    packed every call. No atomics: results are bit-identical from run to run.
 //
 // Image groups (conv3x3_any_mma_groups_kernel). A row tile of 16 x 16 output
 // pixels holds one image of 4 x 8 with 1/8 of its products, copies and
@@ -92,6 +97,7 @@
 // conv3x3_any_mma_groups.cu, which includes it with CONV_ANY_MMA_GROUPS = 1,
 // the image-group kernels, so that the two halves compile in parallel. Both
 // export the same C entries; each takes its own mode (G == 0 here, G > 0 there).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -248,17 +254,47 @@ __device__ __forceinline__ void wgmma_bk<64>(float (&d)[8][4], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// what a launch packs: the weight w (3, 3, C, CO), or with rot (3, 3, CO, C),
+// and passes p0 .. p0 + gridDim.y - 1 of its blocks, into the scratch wp
+struct Pack {
+  const bf16* w;
+  bf16* wp;
+  int rot, p0;
+};
+
 struct Shape {
   int N, H, W, C, CO, KC, tiles_x, tiles_y, ntiles;
 };
 
+// the block's share of the launch's passes of the packed weight, before the
+// grid barrier: wp[p][k][tap][n][c] = wt[tap][k * 64 + c][p * NB + n], zero
+// past C and CO, with wt = w (3, 3, C, CO) or, with rot, rot180_io of w (3,
+// 3, CO, C): wt[dh][dw][ci][co] = w[2 - dh][2 - dw][co][ci]
+// (kernels/conv3x3.py::pack_weights_any is its plain version)
+template <int NB>
+__device__ __forceinline__ void pack_share(const Pack& pk, int C, int CO, int KC) {
+  const int per_pass = KC * 9 * NB * BLK, total = gridDim.y * per_pass;
+  const int step = gridDim.x * gridDim.y * NT;
+  bf16* wp = pk.wp + (i64)pk.p0 * per_pass;
+  for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * NT + threadIdx.x; i < total; i += step) {
+    const int c = i % BLK, n = i / BLK % NB, tap = i / (BLK * NB) % 9;
+    const int k = i / (BLK * NB * 9) % KC, p = pk.p0 + i / per_pass;
+    const int ci = k * BLK + c, co = p * NB + n;
+    bf16 v = __float2bfloat16(0.f);
+    if (ci < C && co < CO)
+      v = pk.rot ? pk.w[((i64)(8 - tap) * CO + co) * C + ci] : pk.w[((i64)tap * C + ci) * CO + co];
+    wp[i] = v;
+  }
+}
+
 // stage of (tile t, K chunk kc): the input tile's chunk rows, halo included,
 // zeros outside the image and past C, and the nine taps' NB x 64 blocks of
-// pass blockIdx.y
+// pass `pass`
 template <int NB>
 __device__ __forceinline__ void load_stage(uint32_t ws, uint32_t xs, const bf16* x,
-                                           const bf16* wp, const Shape& s, int t, int kc) {
-  const bf16* wsrc = wp + ((i64)blockIdx.y * s.KC + kc) * 9 * NB * BLK;
+                                           const bf16* wp, const Shape& s, int t, int kc,
+                                           int pass) {
+  const bf16* wsrc = wp + ((i64)pass * s.KC + kc) * 9 * NB * BLK;
   for (int idx = threadIdx.x; idx < 9 * NB * 8; idx += NT) {
     const int row = idx >> 3, piece = idx & 7;
     cp_async16(ws + swz128(row, piece), wsrc + (i64)row * BLK + piece * 8);
@@ -328,14 +364,19 @@ __device__ __forceinline__ void stage_products(float (&acc)[MT][NB / 8][4], uint
   wgmma_wait<0>();
 }
 
-// grid (blocks, passes). x (N, H, W, C), y (N, H, W, CO), wp (passes, KC, 9,
-// NB, 64) zero-padded; KT: the k16 steps of the last K chunk
+// grid (blocks, passes of this launch), every block resident (a cooperative
+// launch). x (N, H, W, C), y (N, H, W, CO); the blocks first pack the
+// weight's passes into pk.wp, (passes, KC, 9, NB, 64) zero-padded, and meet
+// at a grid barrier; KT: the k16 steps of the last K chunk
 template <int NB, int KT>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_any_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
-                       bf16* __restrict__ y, Shape s) {
+conv3x3_any_mma_kernel(const bf16* __restrict__ x, Pack pk, bf16* __restrict__ y, Shape s) {
   typedef Geo<NB> G;
   extern __shared__ __align__(1024) unsigned char smem[];
+  pack_share<NB>(pk, s.C, s.CO, s.KC);
+  cooperative_groups::this_grid().sync();
+  const bf16* wp = pk.wp;
+  const int pass = pk.p0 + blockIdx.y;
   const uint32_t sb = smem_u32(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * MT;
@@ -343,7 +384,7 @@ conv3x3_any_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   const int a_row = row0 * XC + (lane & 15), hi = lane >> 4;
   int t = blockIdx.x;
   if (t >= s.ntiles) return;
-  load_stage<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0);
+  load_stage<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, pass);
   cp_async_commit();
 
   int it = 0;  // the block's step (tile, chunk) count: stage it & 1
@@ -358,7 +399,7 @@ conv3x3_any_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
     }
     if (nt < s.ntiles) {
       const int nx = (it + 1) & 1;
-      load_stage<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * XS, x, wp, s, nt, nkc);
+      load_stage<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * XS, x, wp, s, nt, nkc, pass);
       cp_async_commit();
     }
   };
@@ -397,7 +438,7 @@ conv3x3_any_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
     }
     __syncthreads();
     const int tx = t % s.tiles_x, ty = (t / s.tiles_x) % s.tiles_y, n = t / (s.tiles_x * s.tiles_y);
-    const int cb = blockIdx.y * NB, nvalid = min(NB, s.CO - cb);
+    const int cb = pass * NB, nvalid = min(NB, s.CO - cb);
     for (int idx = threadIdx.x; idx < TH * TW * (NB / 8); idx += NT) {
       const int pix = idx / (NB / 8), piece = idx % (NB / 8);
       const int h = ty * TH + pix / TW, w = tx * TW + pix % TW, c0 = piece * 8;
@@ -438,13 +479,13 @@ struct GShape {
 
 // stage of (group t, K chunk kc): the chunk rows of the group's pixels in
 // order (row p + 1 for pixel p; zeros past C and past the last image), and,
-// with `weights`, the nine taps' NB x 64 blocks of pass blockIdx.y
+// with `weights`, the nine taps' NB x 64 blocks of pass `pass`
 template <int NB>
 __device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const bf16* x,
                                            const bf16* wp, const GShape& s, int t, int kc,
-                                           bool weights) {
+                                           bool weights, int pass) {
   if (weights) {
-    const bf16* wsrc = wp + ((i64)blockIdx.y * s.KC + kc) * 9 * NB * BLK;
+    const bf16* wsrc = wp + ((i64)pass * s.KC + kc) * 9 * NB * BLK;
     for (int idx = threadIdx.x; idx < 9 * NB * 8; idx += NT) {
       const int row = idx >> 3, piece = idx & 7;
       cp_async16(ws + swz128(row, piece), wsrc + (i64)row * BLK + piece * 8);
@@ -510,15 +551,19 @@ __device__ __forceinline__ void group_products(float (&acc)[MT][NB / 8][4], uint
   wgmma_wait<0>();
 }
 
-// grid (blocks, passes). x (N, H, W, C), y (N, H, W, CO), wp (passes, KC, 9,
-// NB, 64) zero-padded; a tile is images t G .. t G + G - 1; KT: the k16 steps
-// of the last K chunk
+// grid (blocks, passes of this launch), every block resident, the weight
+// packed first as in conv3x3_any_mma_kernel. x (N, H, W, C), y (N, H, W, CO);
+// a tile is images t G .. t G + G - 1; KT: the k16 steps of the last K chunk
 template <int NB, int KT>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
-                              bf16* __restrict__ y, GShape s) {
+conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, Pack pk, bf16* __restrict__ y,
+                              GShape s) {
   typedef GeoG<NB> G;
   extern __shared__ __align__(1024) unsigned char smem[];
+  pack_share<NB>(pk, s.C, s.CO, s.KC);
+  cooperative_groups::this_grid().sync();
+  const bf16* wp = pk.wp;
+  const int pass = pk.p0 + blockIdx.y;
   const uint32_t sb = smem_u32(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int t = blockIdx.x;
@@ -541,7 +586,7 @@ conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict
   if (threadIdx.x < 16)  // the two stages' zero rows, which nothing overwrites
     st_shared_zero16(sb + G::X_OFF + (threadIdx.x >> 3) * G::XG + (threadIdx.x & 7) * 16);
   const bool stream_w = s.KC > 1;  // else the weights are copied once, into stage 0
-  load_group<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true);
+  load_group<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true, pass);
   cp_async_commit();
 
   int it = 0;  // the block's step (group, chunk) count: stage it & 1
@@ -556,7 +601,8 @@ conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict
     }
     if (nt < s.ntiles) {
       const int nx = (it + 1) & 1;
-      load_group<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * G::XG, x, wp, s, nt, nkc, stream_w);
+      load_group<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * G::XG, x, wp, s, nt, nkc, stream_w,
+                     pass);
       cp_async_commit();
     }
   };
@@ -595,7 +641,7 @@ conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict
     __syncthreads();
     const i64 n0 = (i64)t * s.G;
     const int npix = (int)(s.N - n0 < s.G ? s.N - n0 : s.G) * s.HW;
-    const int cb = blockIdx.y * NB, nvalid = min(NB, s.CO - cb);
+    const int cb = pass * NB, nvalid = min(NB, s.CO - cb);
     bf16* yg = y + n0 * s.HW * s.CO + cb;
     for (int idx = threadIdx.x; idx < npix * (NB / 8); idx += NT) {
       const int pix = idx / (NB / 8), c0 = idx % (NB / 8) * 8;
@@ -612,62 +658,54 @@ conv3x3_any_mma_groups_kernel(const bf16* __restrict__ x, const bf16* __restrict
   }
 }
 
-// wp[p][k][tap][n][c] = wt[tap][k * 64 + c][p * NB + n], zero past C and CO,
-// with wt = w (3, 3, C, CO) or, with rot, rot180_io of w (3, 3, CO, C):
-// wt[dh][dw][ci][co] = w[2 - dh][2 - dw][co][ci]
-__global__ void __launch_bounds__(256)
-pack_weights_kernel(const bf16* __restrict__ w, bf16* __restrict__ wp, int C, int CO, int KC,
-                    int NB, int rot, int total) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= total) return;
-  const int c = i % BLK, n = i / BLK % NB, tap = i / (BLK * NB) % 9;
-  const int k = i / (BLK * NB * 9) % KC, p = i / (BLK * NB * 9 * KC);
-  const int ci = k * BLK + c, co = p * NB + n;
-  bf16 v = __float2bfloat16(0.f);
-  if (ci < C && co < CO)
-    v = rot ? w[((i64)(8 - tap) * CO + co) * C + ci] : w[((i64)tap * C + ci) * CO + co];
-  wp[i] = v;
+// one cooperative launch of `kernel` (every block resident: the grid barrier
+// after the weight's packing needs them all) for each run of passes the card
+// holds at once: one launch unless the passes outnumber its slots. A pass's
+// slots / passes blocks walk its tiles; where the tiles are fewer, the blocks
+// past them pack their share of the weight and end at the barrier (a small
+// image's few tiles would pack a large weight slowly alone).
+template <class K, class S>
+cudaError_t launch_coop(K kernel, int bytes, int (&slots_of)[16], const bf16* x, Pack pk, bf16* y,
+                        const S& s, int passes, cudaStream_t stream) {
+  int slots = 0;
+  cudaError_t err = card_slots(kernel, NT, bytes, slots_of, slots);
+  for (int p0 = 0; err == cudaSuccess && p0 < passes; p0 += slots) {
+    const int py = min(passes - p0, slots), bx = max(1, slots / py);
+    pk.p0 = p0;
+    void* args[] = {(void*)&x, (void*)&pk, (void*)&y, (void*)const_cast<S*>(&s)};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(bx, py), dim3(NT), args,
+                                      (size_t)bytes, stream);
+  }
+  return err;
 }
 
 template <int NB, int KT>
-cudaError_t launch(const bf16* x, const bf16* wp, bf16* y, const Shape& s, int passes,
+cudaError_t launch(const bf16* x, const Pack& pk, bf16* y, const Shape& s, int passes,
                    cudaStream_t stream) {
-  typedef Geo<NB> G;
-  auto kernel = conv3x3_any_mma_kernel<NB, KT>;
   static int slots_of[16] = {};
-  int slots = 0;
-  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
-  kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
-  return cudaGetLastError();
+  return launch_coop(conv3x3_any_mma_kernel<NB, KT>, Geo<NB>::BYTES, slots_of, x, pk, y, s,
+                     passes, stream);
 }
 
 template <int NB, int KT>
-cudaError_t launch_groups(const bf16* x, const bf16* wp, bf16* y, const GShape& s, int passes,
+cudaError_t launch_groups(const bf16* x, const Pack& pk, bf16* y, const GShape& s, int passes,
                           cudaStream_t stream) {
-  typedef GeoG<NB> G;
-  auto kernel = conv3x3_any_mma_groups_kernel<NB, KT>;
   static int slots_of[16] = {};
-  int slots = 0;
-  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
-  kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
-  return cudaGetLastError();
+  return launch_coop(conv3x3_any_mma_groups_kernel<NB, KT>, GeoG<NB>::BYTES, slots_of, x, pk, y,
+                     s, passes, stream);
 }
 
 // the instance of KT in this library's mode: row tiles (shape s) or image
 // groups (shape g)
 template <int NB>
-cudaError_t launch_kt(int KT, const bf16* x, const bf16* wp, bf16* y, const Shape& s,
+cudaError_t launch_kt(int KT, const bf16* x, const Pack& pk, bf16* y, const Shape& s,
                       const GShape& g, int passes, cudaStream_t stream) {
 #define ANY_MMA_LAUNCH(kt)                                       \
   case kt:                                                       \
     if constexpr (LIB_GROUPS)                                    \
-      return launch_groups<NB, kt>(x, wp, y, g, passes, stream); \
+      return launch_groups<NB, kt>(x, pk, y, g, passes, stream); \
     else                                                         \
-      return launch<NB, kt>(x, wp, y, s, passes, stream);
+      return launch<NB, kt>(x, pk, y, s, passes, stream);
   switch (KT) {
     ANY_MMA_LAUNCH(1)
     ANY_MMA_LAUNCH(2)
@@ -684,16 +722,20 @@ extern "C" {
 
 // x (N, H, W, C) and y (N, H, W, CO) contiguous bf16 (x 16-byte aligned where
 // C % 8 == 0, y 16-byte aligned); w the contiguous bf16 weight, (3, 3, C, CO),
-// or with rot (3, 3, CO, C), taken rotated (rot180_io); NB the output channels
+// or with rot (3, 3, CO, C), taken rotated (rot180_io); wp a bf16 scratch of
+// passes * ceil(C / 64) * 9 * NB * 64 elements, 16-byte aligned, which the
+// kernel's blocks fill as kernels/conv3x3.py::pack_weights_any lays it out
+// before the conv. call = {N, H, W, C, CO, NB, rot, G}: NB the output channels
 // of a pass (a multiple of 8 up to 64; kernels/conv3x3.py::any_mma_passes),
 // ceil(CO / NB) passes; G 0 for tiles of 16 x 16 pixels (this file's library),
 // else the images of a tile (the image groups, conv3x3_any_mma_groups.cu's
-// library: G H W <= 256); wp a bf16 scratch of passes * ceil(C /
-// 64) * 9 * NB * 64 elements, 16-byte aligned, which the first kernel fills as
-// kernels/conv3x3.py::pack_weights_any lays it out. Returns
-// cudaGetLastError() after the launches (0 on success).
-int conv3x3_any_mma(const void* x, const void* w, void* wp, void* y, int N, int H, int W, int C,
-                    int CO, int NB, int rot, int G, void* stream) {
+// library: G H W <= 256). One kernel launch (more only where the passes
+// outnumber the blocks the card holds at once). Returns the launch's CUDA
+// error (0 on success).
+int conv3x3_any_mma(const void* x, const void* w, void* wp, void* y, const int* call,
+                    void* stream) {
+  const int N = call[0], H = call[1], W = call[2], C = call[3], CO = call[4], NB = call[5];
+  const int rot = call[6], G = call[7];
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || CO <= 0 || NB % 8 != 0 || NB < 8 || NB > 64 ||
       G < 0 || (G > 0) != LIB_GROUPS || (i64)G * H * W > GM)
     return (int)cudaErrorInvalidValue;
@@ -713,25 +755,20 @@ int conv3x3_any_mma(const void* x, const void* w, void* wp, void* y, int N, int 
   }
   const int passes = (CO + NB - 1) / NB;
   const int KT = (C - (s.KC - 1) * BLK + 15) / 16;
-  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)wp;
+  if ((i64)passes * s.KC * 9 * NB * BLK > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const Pack pk = {(const bf16*)w, (bf16*)wp, rot, 0};
+  const bf16* xb = (const bf16*)x;
   bf16* yb = (bf16*)y;
   cudaStream_t st = (cudaStream_t)stream;
-  const i64 total64 = (i64)passes * s.KC * 9 * NB * BLK;
-  if (total64 > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int total = (int)total64;
-  pack_weights_kernel<<<(total + 255) / 256, 256, 0, st>>>((const bf16*)w, (bf16*)wp, C, CO,
-                                                           s.KC, NB, rot, total);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   switch (NB) {
-    case 8: return (int)launch_kt<8>(KT, xb, wb, yb, s, g, passes, st);
-    case 16: return (int)launch_kt<16>(KT, xb, wb, yb, s, g, passes, st);
-    case 24: return (int)launch_kt<24>(KT, xb, wb, yb, s, g, passes, st);
-    case 32: return (int)launch_kt<32>(KT, xb, wb, yb, s, g, passes, st);
-    case 40: return (int)launch_kt<40>(KT, xb, wb, yb, s, g, passes, st);
-    case 48: return (int)launch_kt<48>(KT, xb, wb, yb, s, g, passes, st);
-    case 56: return (int)launch_kt<56>(KT, xb, wb, yb, s, g, passes, st);
-    case 64: return (int)launch_kt<64>(KT, xb, wb, yb, s, g, passes, st);
+    case 8: return (int)launch_kt<8>(KT, xb, pk, yb, s, g, passes, st);
+    case 16: return (int)launch_kt<16>(KT, xb, pk, yb, s, g, passes, st);
+    case 24: return (int)launch_kt<24>(KT, xb, pk, yb, s, g, passes, st);
+    case 32: return (int)launch_kt<32>(KT, xb, pk, yb, s, g, passes, st);
+    case 40: return (int)launch_kt<40>(KT, xb, pk, yb, s, g, passes, st);
+    case 48: return (int)launch_kt<48>(KT, xb, pk, yb, s, g, passes, st);
+    case 56: return (int)launch_kt<56>(KT, xb, pk, yb, s, g, passes, st);
+    case 64: return (int)launch_kt<64>(KT, xb, pk, yb, s, g, passes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

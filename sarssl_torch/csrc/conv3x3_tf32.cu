@@ -39,10 +39,15 @@
 //    TF32 A fragment wants them (a0 row g col t, a1 row g + 8, a2 col t + 4,
 //    a3 both), so the bf16 fragment code carries over; each fragment is split
 //    into hi and lo in registers after the load.
-//  * The weight's split is done once a call: the packing kernel writes each
-//    (pass, chunk) block as nine taps' hi then nine taps' lo, NB x 32 each,
-//    zero past C and Cout (kernels/conv3x3.py::pack_weights_tf32 is its plain
-//    version; for dx it reads the weight rotated, rot180_io).
+//  * The weight's split is done once a call, in the same launch as the
+//    conv: the kernel's blocks first write each (pass, chunk) block as nine
+//    taps' hi then nine taps' lo, NB x 32 each, zero past C and Cout, a share
+//    each (kernels/conv3x3.py::pack_weights_tf32 is its plain version; for dx
+//    it reads the weight rotated, rot180_io), then meet at a grid barrier (a
+//    cooperative launch, every block resident: a pass's blocks slots /
+//    passes of the card's) and run the conv; a packing kernel of its own
+//    would cost a small call a second launch (PERF.md section 5). The weight
+//    changes every training step: packed every call.
 //  * Shared memory is the constraint: f32 doubles the bytes of a chunk of
 //    channels and hi / lo double the weight's again. A stage of (input tile of
 //    18 x 18 chunk rows, 41.5 KB; nine taps' hi and lo blocks at NB = 32, 72
@@ -86,6 +91,7 @@
 // conv3x3_tf32_groups.cu, which includes it with CONV_TF32_GROUPS = 1, the
 // image-group kernels, so that the two halves compile in parallel. Both export
 // the same C entries; each takes its own mode (G == 0 here, G > 0 there).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -292,10 +298,44 @@ __device__ __forceinline__ void load_split(uint32_t (&ah)[4], uint32_t (&al)[4],
 // in a last chunk of cc < 32 channels
 __device__ __forceinline__ int pieces_read(int cc) { return 2 * ((cc + 7) / 8); }
 
+// what a launch packs: the weight w (3, 3, C, CO), or with rot (3, 3, CO, C),
+// and passes p0 .. p0 + gridDim.y - 1 of its blocks, into the scratch wp
+struct Pack {
+  const float* w;
+  float* wp;
+  int rot, p0;
+};
+
+// the block's share of the launch's passes of the packed weight, before the
+// grid barrier: wp[p][k][0][tap][n][c] = tf32 hi of wt[tap][k * 32 + c][p * NB
+// + n], [1] its lo, zero past C and CO, with wt = w (3, 3, C, CO) or, with
+// rot, rot180_io of w (3, 3, CO, C): wt[dh][dw][ci][co] = w[2 - dh][2 - dw][co][ci]
+// (kernels/conv3x3.py::pack_weights_tf32 is its plain version)
+template <int NB>
+__device__ __forceinline__ void pack_share(const Pack& pk, int C, int CO, int KC) {
+  const int per_pass = KC * 9 * NB * BLK, total = gridDim.y * per_pass;
+  const int step = gridDim.x * gridDim.y * NT;
+  float* wp = pk.wp + (i64)pk.p0 * 2 * per_pass;
+  for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * NT + threadIdx.x; i < total; i += step) {
+    const int c = i % BLK, n = i / BLK % NB, tap = i / (BLK * NB) % 9;
+    const int k = i / (BLK * NB * 9) % KC, pl = i / per_pass, p = pk.p0 + pl;
+    const int ci = k * BLK + c, co = p * NB + n;
+    float v = 0.f;
+    if (ci < C && co < CO)
+      v = pk.rot ? pk.w[((i64)(8 - tap) * CO + co) * C + ci] : pk.w[((i64)tap * C + ci) * CO + co];
+    uint32_t hi, lo;
+    split_tf32_bits(__float_as_uint(v), hi, lo);
+    const i64 at = ((i64)(pl * KC + k) * 2 * 9 + tap) * NB * BLK + n * BLK + c;
+    wp[at] = __uint_as_float(hi);
+    wp[at + 9 * NB * BLK] = __uint_as_float(lo);
+  }
+}
+
 // the (pass, chunk)'s hi and lo weight blocks, 2 x 9 x NB rows of 32 values
 template <int NB>
-__device__ __forceinline__ void load_weights(uint32_t ws, const float* wp, int KC, int kc) {
-  const float* wsrc = wp + ((i64)blockIdx.y * KC + kc) * 2 * 9 * NB * BLK;
+__device__ __forceinline__ void load_weights(uint32_t ws, const float* wp, int KC, int kc,
+                                             int pass) {
+  const float* wsrc = wp + ((i64)pass * KC + kc) * 2 * 9 * NB * BLK;
   for (int idx = threadIdx.x; idx < 2 * 9 * NB * 8; idx += NT) {
     const int row = idx >> 3, piece = idx & 7;
     cp_async16(ws + swz128(row, piece), wsrc + (i64)row * BLK + piece * 4);
@@ -362,12 +402,12 @@ struct Shape {
 
 // stage of (tile t, K chunk kc): the input tile's chunk rows, halo included,
 // zeros outside the image and past C, and, with `weights`, the nine taps' hi
-// and lo blocks of pass blockIdx.y
+// and lo blocks of pass `pass`
 template <int NB>
 __device__ __forceinline__ void load_stage(uint32_t ws, uint32_t xs, const float* x,
                                            const float* wp, const Shape& s, int t, int kc,
-                                           bool weights) {
-  if (weights) load_weights<NB>(ws, wp, s.KC, kc);
+                                           bool weights, int pass) {
+  if (weights) load_weights<NB>(ws, wp, s.KC, kc, pass);
   const int tx = t % s.tiles_x, ty = (t / s.tiles_x) % s.tiles_y, n = t / (s.tiles_x * s.tiles_y);
   const int h0 = ty * TH - 1, w0 = tx * TW - 1;
   const float* xn = x + (i64)n * s.H * s.W * s.C;
@@ -428,14 +468,19 @@ __device__ __forceinline__ void stage_products(float (&part)[MT][NB / 8][4], uin
   wgmma_wait<0>();
 }
 
-// grid (blocks, passes). x (N, H, W, C), y (N, H, W, CO), wp (passes, KC, 2,
-// 9, NB, 32) zero-padded; KT: the k8 steps of the last K chunk
+// grid (blocks, passes of this launch), every block resident (a cooperative
+// launch). x (N, H, W, C), y (N, H, W, CO); the blocks first pack the
+// weight's passes into pk.wp, (passes, KC, 2, 9, NB, 32) zero-padded, and
+// meet at a grid barrier; KT: the k8 steps of the last K chunk
 template <int NB, int KT>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                    float* __restrict__ y, Shape s) {
+conv3x3_tf32_kernel(const float* __restrict__ x, Pack pk, float* __restrict__ y, Shape s) {
   typedef Geo<NB> G;
   extern __shared__ __align__(1024) unsigned char smem[];
+  pack_share<NB>(pk, s.C, s.CO, s.KC);
+  cooperative_groups::this_grid().sync();
+  const float* wp = pk.wp;
+  const int pass = pk.p0 + blockIdx.y;
   const uint32_t sb = smem_u32(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * MT;
@@ -444,7 +489,7 @@ conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const bool stream_w = s.KC > 1;  // else the block's weights are copied once
   int t = blockIdx.x;
   if (t >= s.ntiles) return;
-  load_stage<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true);
+  load_stage<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true, pass);
   cp_async_commit();
 
   int it = 0;  // the block's step (tile, chunk) count: stage it & 1
@@ -459,7 +504,8 @@ conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     }
     if (nt < s.ntiles) {
       const int nx = (it + 1) & 1;
-      load_stage<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * XS, x, wp, s, nt, nkc, stream_w);
+      load_stage<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * XS, x, wp, s, nt, nkc, stream_w,
+                     pass);
       cp_async_commit();
     }
   };
@@ -484,7 +530,7 @@ conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
     // the epilogue, from the registers: the warp's m16 tile m is tile row row0 + m
     const int tx = t % s.tiles_x, ty = (t / s.tiles_x) % s.tiles_y, n = t / (s.tiles_x * s.tiles_y);
-    const int cb = blockIdx.y * NB;
+    const int cb = pass * NB;
     store_out<NB>(y, acc, s.CO, cb, min(NB, s.CO - cb), [&](int m, int r) -> i64 {
       const int h = ty * TH + row0 + m, w = tx * TW + r;
       return h < s.H && w < s.W ? ((i64)n * s.H + h) * s.W + w : -1;
@@ -500,12 +546,12 @@ struct GShape {
 
 // stage of (group t, K chunk kc): the chunk rows of the group's pixels in
 // order (row p + 1 for pixel p; zeros past C and past the last image), and,
-// with `weights`, the nine taps' hi and lo blocks of pass blockIdx.y
+// with `weights`, the nine taps' hi and lo blocks of pass `pass`
 template <int NB>
 __device__ __forceinline__ void load_group(uint32_t ws, uint32_t xs, const float* x,
                                            const float* wp, const GShape& s, int t, int kc,
-                                           bool weights) {
-  if (weights) load_weights<NB>(ws, wp, s.KC, kc);
+                                           bool weights, int pass) {
+  if (weights) load_weights<NB>(ws, wp, s.KC, kc, pass);
   const i64 n0 = (i64)t * s.G;
   const int npix = (int)(s.N - n0 < s.G ? s.N - n0 : s.G) * s.HW;
   const float* xg = x + n0 * s.HW * s.C + kc * BLK;
@@ -561,15 +607,19 @@ __device__ __forceinline__ void group_products(float (&part)[MT][NB / 8][4], uin
   wgmma_wait<0>();
 }
 
-// grid (blocks, passes). x (N, H, W, C), y (N, H, W, CO), wp (passes, KC, 2,
-// 9, NB, 32) zero-padded; a tile is images t G .. t G + G - 1; KT: the k8
-// steps of the last K chunk
+// grid (blocks, passes of this launch), every block resident, the weight
+// packed first as in conv3x3_tf32_kernel. x (N, H, W, C), y (N, H, W, CO); a
+// tile is images t G .. t G + G - 1; KT: the k8 steps of the last K chunk
 template <int NB, int KT>
 __global__ void __launch_bounds__(NT, 1)
-conv3x3_tf32_groups_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                           float* __restrict__ y, GShape s) {
+conv3x3_tf32_groups_kernel(const float* __restrict__ x, Pack pk, float* __restrict__ y,
+                           GShape s) {
   typedef GeoG<NB> G;
   extern __shared__ __align__(1024) unsigned char smem[];
+  pack_share<NB>(pk, s.C, s.CO, s.KC);
+  cooperative_groups::this_grid().sync();
+  const float* wp = pk.wp;
+  const int pass = pk.p0 + blockIdx.y;
   const uint32_t sb = smem_u32(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool stream_w = s.KC > 1;  // else the block's weights are copied once
@@ -592,7 +642,7 @@ conv3x3_tf32_groups_kernel(const float* __restrict__ x, const float* __restrict_
   }
   if (threadIdx.x < 16)  // the two stages' zero rows, which nothing overwrites
     st_shared_zero16(sb + G::X_OFF + (threadIdx.x >> 3) * G::XG + (threadIdx.x & 7) * 16);
-  load_group<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true);
+  load_group<NB>(sb, sb + G::X_OFF, x, wp, s, t, 0, true, pass);
   cp_async_commit();
 
   int it = 0;  // the block's step (group, chunk) count: stage it & 1
@@ -607,7 +657,8 @@ conv3x3_tf32_groups_kernel(const float* __restrict__ x, const float* __restrict_
     }
     if (nt < s.ntiles) {
       const int nx = (it + 1) & 1;
-      load_group<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * G::XG, x, wp, s, nt, nkc, stream_w);
+      load_group<NB>(sb + nx * G::WS, sb + G::X_OFF + nx * G::XG, x, wp, s, nt, nkc, stream_w,
+                     pass);
       cp_async_commit();
     }
   };
@@ -634,7 +685,7 @@ conv3x3_tf32_groups_kernel(const float* __restrict__ x, const float* __restrict_
     // group's pixel (warp MT + m) 16 + r
     const i64 n0 = (i64)t * s.G;
     const int npix = (int)(s.N - n0 < s.G ? s.N - n0 : s.G) * s.HW;
-    const int cb = blockIdx.y * NB;
+    const int cb = pass * NB;
     store_out<NB>(y, acc, s.CO, cb, min(NB, s.CO - cb), [&](int m, int r) -> i64 {
       const int p = (warp * MT + m) * 16 + r;
       return p < npix ? n0 * s.HW + p : -1;
@@ -642,66 +693,54 @@ conv3x3_tf32_groups_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-// wp[p][k][0][tap][n][c] = tf32 hi of wt[tap][k * 32 + c][p * NB + n], [1]
-// its lo, zero past C and CO, with wt = w (3, 3, C, CO) or, with rot,
-// rot180_io of w (3, 3, CO, C): wt[dh][dw][ci][co] = w[2 - dh][2 - dw][co][ci]
-__global__ void __launch_bounds__(256)
-pack_weights_kernel(const float* __restrict__ w, float* __restrict__ wp, int C, int CO, int KC,
-                    int NB, int rot, int total) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= total) return;
-  const int c = i % BLK, n = i / BLK % NB, tap = i / (BLK * NB) % 9;
-  const int k = i / (BLK * NB * 9) % KC, p = i / (BLK * NB * 9 * KC);
-  const int ci = k * BLK + c, co = p * NB + n;
-  float v = 0.f;
-  if (ci < C && co < CO)
-    v = rot ? w[((i64)(8 - tap) * CO + co) * C + ci] : w[((i64)tap * C + ci) * CO + co];
-  uint32_t hi, lo;
-  split_tf32_bits(__float_as_uint(v), hi, lo);
-  const i64 at = ((i64)(p * KC + k) * 2 * 9 + tap) * NB * BLK + n * BLK + c;
-  wp[at] = __uint_as_float(hi);
-  wp[at + 9 * NB * BLK] = __uint_as_float(lo);
+// one cooperative launch of `kernel` (every block resident: the grid barrier
+// after the weight's packing needs them all) for each run of passes the card
+// holds at once: one launch unless the passes outnumber its slots. A pass's
+// slots / passes blocks walk its tiles; where the tiles are fewer, the blocks
+// past them pack their share of the weight and end at the barrier (a small
+// image's few tiles would pack a large weight slowly alone).
+template <class K, class S>
+cudaError_t launch_coop(K kernel, int bytes, int (&slots_of)[16], const float* x, Pack pk,
+                        float* y, const S& s, int passes, cudaStream_t stream) {
+  int slots = 0;
+  cudaError_t err = card_slots(kernel, NT, bytes, slots_of, slots);
+  for (int p0 = 0; err == cudaSuccess && p0 < passes; p0 += slots) {
+    const int py = min(passes - p0, slots), bx = max(1, slots / py);
+    pk.p0 = p0;
+    void* args[] = {(void*)&x, (void*)&pk, (void*)&y, (void*)const_cast<S*>(&s)};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(bx, py), dim3(NT), args,
+                                      (size_t)bytes, stream);
+  }
+  return err;
 }
 
 template <int NB, int KT>
-cudaError_t launch(const float* x, const float* wp, float* y, const Shape& s, int passes,
+cudaError_t launch(const float* x, const Pack& pk, float* y, const Shape& s, int passes,
                    cudaStream_t stream) {
-  typedef Geo<NB> G;
-  auto kernel = conv3x3_tf32_kernel<NB, KT>;
   static int slots_of[16] = {};
-  int slots = 0;
-  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
-  kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
-  return cudaGetLastError();
+  return launch_coop(conv3x3_tf32_kernel<NB, KT>, Geo<NB>::BYTES, slots_of, x, pk, y, s,
+                     passes, stream);
 }
 
 template <int NB, int KT>
-cudaError_t launch_groups(const float* x, const float* wp, float* y, const GShape& s, int passes,
+cudaError_t launch_groups(const float* x, const Pack& pk, float* y, const GShape& s, int passes,
                           cudaStream_t stream) {
-  typedef GeoG<NB> G;
-  auto kernel = conv3x3_tf32_groups_kernel<NB, KT>;
   static int slots_of[16] = {};
-  int slots = 0;
-  const cudaError_t err = card_slots(kernel, NT, G::BYTES, slots_of, slots);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(s.ntiles < slots ? s.ntiles : slots), passes);
-  kernel<<<grid, NT, G::BYTES, stream>>>(x, wp, y, s);
-  return cudaGetLastError();
+  return launch_coop(conv3x3_tf32_groups_kernel<NB, KT>, GeoG<NB>::BYTES, slots_of, x, pk, y,
+                     s, passes, stream);
 }
 
 // the instance of KT in this library's mode: row tiles (shape s) or image
 // groups (shape g)
 template <int NB>
-cudaError_t launch_kt(int KT, const float* x, const float* wp, float* y, const Shape& s,
+cudaError_t launch_kt(int KT, const float* x, const Pack& pk, float* y, const Shape& s,
                       const GShape& g, int passes, cudaStream_t stream) {
 #define TF32_LAUNCH(kt)                                          \
   case kt:                                                       \
     if constexpr (LIB_GROUPS)                                    \
-      return launch_groups<NB, kt>(x, wp, y, g, passes, stream); \
+      return launch_groups<NB, kt>(x, pk, y, g, passes, stream); \
     else                                                         \
-      return launch<NB, kt>(x, wp, y, s, passes, stream);
+      return launch<NB, kt>(x, pk, y, s, passes, stream);
   switch (KT) {
     TF32_LAUNCH(1)
     TF32_LAUNCH(2)
@@ -718,17 +757,19 @@ extern "C" {
 
 // x (N, H, W, C) and y (N, H, W, CO) contiguous f32 (x 16-byte aligned where
 // C % 4 == 0, y 16-byte aligned); w the contiguous f32 weight, (3, 3, C, CO),
-// or with rot (3, 3, CO, C), taken rotated (rot180_io); NB the output channels
+// or with rot (3, 3, CO, C), taken rotated (rot180_io); wp an f32 scratch of
+// passes * ceil(C / 32) * 2 * 9 * NB * 32 elements, 16-byte aligned, which the
+// kernel's blocks fill as kernels/conv3x3.py::pack_weights_tf32 lays it out
+// before the conv. call = {N, H, W, C, CO, NB, rot, G}: NB the output channels
 // of a pass (a multiple of 8 up to 32, up to 64 where C <= 32;
-// kernels/conv3x3.py::tf32_passes),
-// ceil(CO / NB) passes; G 0 for tiles of 16 x 16 pixels (this file's library),
-// else the images of a tile (the image groups, conv3x3_tf32_groups.cu's
-// library: G H W <= 256); wp an f32 scratch of passes * ceil(C / 32) * 2 * 9 * NB * 32
-// elements, 16-byte aligned, which the first kernel fills as
-// kernels/conv3x3.py::pack_weights_tf32 lays it out. Returns
-// cudaGetLastError() after the launches (0 on success).
-int conv3x3_tf32(const void* x, const void* w, void* wp, void* y, int N, int H, int W, int C,
-                 int CO, int NB, int rot, int G, void* stream) {
+// kernels/conv3x3.py::tf32_passes), ceil(CO / NB) passes; G 0 for tiles of 16
+// x 16 pixels (this file's library), else the images of a tile (the image
+// groups, conv3x3_tf32_groups.cu's library: G H W <= 256). One kernel launch
+// (more only where the passes outnumber the blocks the card holds at once).
+// Returns the launch's CUDA error (0 on success).
+int conv3x3_tf32(const void* x, const void* w, void* wp, void* y, const int* call, void* stream) {
+  const int N = call[0], H = call[1], W = call[2], C = call[3], CO = call[4], NB = call[5];
+  const int rot = call[6], G = call[7];
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || CO <= 0 || NB % 8 != 0 || NB < 8 || NB > 64 ||
       (NB > 32 && C > BLK) || G < 0 || (G > 0) != LIB_GROUPS || (i64)G * H * W > GM)
     return (int)cudaErrorInvalidValue;
@@ -748,25 +789,20 @@ int conv3x3_tf32(const void* x, const void* w, void* wp, void* y, int N, int H, 
   }
   const int passes = (CO + NB - 1) / NB;
   const int KT = (C - (s.KC - 1) * BLK + 7) / 8;
-  const float *xf = (const float*)x, *wf = (const float*)wp;
+  if ((i64)passes * s.KC * 2 * 9 * NB * BLK > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const Pack pk = {(const float*)w, (float*)wp, rot, 0};
+  const float* xf = (const float*)x;
   float* yf = (float*)y;
   cudaStream_t st = (cudaStream_t)stream;
-  const i64 total64 = (i64)passes * s.KC * 9 * NB * BLK;
-  if (total64 > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int total = (int)total64;
-  pack_weights_kernel<<<(total + 255) / 256, 256, 0, st>>>((const float*)w, (float*)wp, C, CO,
-                                                           s.KC, NB, rot, total);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   switch (NB) {
-    case 8: return (int)launch_kt<8>(KT, xf, wf, yf, s, g, passes, st);
-    case 16: return (int)launch_kt<16>(KT, xf, wf, yf, s, g, passes, st);
-    case 24: return (int)launch_kt<24>(KT, xf, wf, yf, s, g, passes, st);
-    case 32: return (int)launch_kt<32>(KT, xf, wf, yf, s, g, passes, st);
-    case 40: return (int)launch_kt<40>(KT, xf, wf, yf, s, g, passes, st);
-    case 48: return (int)launch_kt<48>(KT, xf, wf, yf, s, g, passes, st);
-    case 56: return (int)launch_kt<56>(KT, xf, wf, yf, s, g, passes, st);
-    case 64: return (int)launch_kt<64>(KT, xf, wf, yf, s, g, passes, st);
+    case 8: return (int)launch_kt<8>(KT, xf, pk, yf, s, g, passes, st);
+    case 16: return (int)launch_kt<16>(KT, xf, pk, yf, s, g, passes, st);
+    case 24: return (int)launch_kt<24>(KT, xf, pk, yf, s, g, passes, st);
+    case 32: return (int)launch_kt<32>(KT, xf, pk, yf, s, g, passes, st);
+    case 40: return (int)launch_kt<40>(KT, xf, pk, yf, s, g, passes, st);
+    case 48: return (int)launch_kt<48>(KT, xf, pk, yf, s, g, passes, st);
+    case 56: return (int)launch_kt<56>(KT, xf, pk, yf, s, g, passes, st);
+    case 64: return (int)launch_kt<64>(KT, xf, pk, yf, s, g, passes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

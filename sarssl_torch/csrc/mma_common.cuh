@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that
 // multiply with mma.sync (attention_mma.cu, attention_f32_mma.cu,
-// conv3x3_mma.cu): cp.async copies of 16 and 4 bytes, ldmatrix loads of four
+// conv3x3_mma.cu): cp.async copies of 16, 8 and 4 bytes, ldmatrix loads of four
 // 8x8 bf16 matrices (or, read as 32-bit words, four 8x4 f32 ones), the
 // m16n8k16 bf16 -> f32 product and the f32 -> packed bf16 conversion, and the
 // m16n8k8 TF32 product with the split that makes three of them about as
@@ -27,6 +27,11 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, 
 // copies `bytes` (0 or 4) from src and fills the rest of the 4 with zeros
 __device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+// copies `bytes` (0 or 8) from src and fills the rest of the 8 with zeros
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
 }
 // 16 zero bytes at shared address `addr`

@@ -29,6 +29,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -130,6 +132,14 @@ def import_triton():
     import triton.language as tl
 
     return triton, tl
+
+
+def raw_stream(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device, as
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives it, without
+    making a ``Stream`` object each call (the handle Triton's launcher
+    takes)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda_status(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -19,7 +19,7 @@ tensor-parallel rank holds heads ``head_offset .. head_offset + H`` of
 
 Two sets of kernels, chosen by dtype (:func:`attention_route`), each with
 instances at head dims 16, 32, 64 and 128 (the bf16 forward also at 256) and
-a wide instance at every multiple of 64 from 256 on, at any sequence length;
+a wide instance at every head dim past 128, at any sequence length;
 :func:`attention_instance` names the instance each pass runs:
 
 * ``"tc"``, ``csrc/attention_mma.cu``: bfloat16. Tensor cores (``mma.sync``),
@@ -34,12 +34,14 @@ a wide instance at every multiple of 64 from 256 on, at any sequence length;
   operand split into a TF32 high and low part), which hold the float32
   tolerance of 1e-4 that one TF32 product misses.
 
-The wide instance (``attn_*_wide`` in both sources) takes a head dim Dp
-that is any multiple of :data:`WIDE_CHUNK` (64) from 256 on, as a runtime
-argument: it streams qu, k, g and v through shared memory in column chunks,
-so neither its tiles nor its registers depend on Dp. Its forward writes the
-scaled scores of every (query, key) once to an f32 scratch (with the rows'
-log-sum-exp), then takes out = p v in blocks of DC output columns; its
+The wide instance (``attn_*_wide`` in both sources) takes its head dim as
+a runtime argument, any multiple of :data:`WIDE_CHUNK` (64) and, with its
+column tail (``attn_*_wide_cols``, the same code with the last chunk's
+columns past D zero), any other D: it streams qu, k, g and v through shared
+memory in column chunks, so neither its tiles nor its registers depend on
+D. Its forward writes the scaled scores of every (query, key) once to an f32
+scratch (with the rows' log-sum-exp), then takes out = p v in blocks of DC
+output columns; its
 backward writes dbias and the dropped probabilities pd once, then takes dv =
 pd^T g, dk = dbias^T qu and dqu = dbias k in blocks of DC output columns
 (128 where Dp is a multiple of 128, else 64). Where ceil(L/64) * B * H blocks
@@ -50,15 +52,26 @@ max and sum, which the p v pass merges into the log-sum-exp
 At D = 256 the bf16 forward runs its D = 256 instance and the other three
 passes the wide one, the faster in each (PERF.md §5).
 
-Every head dim that is no instance's (the JAX kernel takes any) runs the next
-one up (:func:`padded_head_dim`: the next of 16 .. 256, past 256 the next
-multiple of 64 on the wide instance): qu, k, v and, in the backward, g are
+Every head dim that is no instance's (the JAX kernel takes any) runs as
+:func:`attention_pass_head_dim` says, pass by pass. Past 128 the wide
+instance takes it as it is: its last column chunk is read with zeros past D
+(the column tail, as the last row tile is read with zeros past L) and
+stored only up to D, so qu, k, v and g are read and out, dqu, dk and dv
+written at their own head dim, in pieces of the rows' alignment (16, 8 or 4
+bytes); at 129-255 the bf16 forward so too, which beat its D = 256 instance
+on padded inputs at batch 8 and 128 (PERF.md §5). An odd bf16 D (rows of no
+whole 4-byte pieces) takes the padding below; there, and at every D up to
+128 that is no instance's, the pass runs the next instance up
+(:func:`padded_head_dim`: the next of 16 .. 256, past 256 the next multiple
+of 64 on the wide instance): qu, k, v and, in the backward, g are
 zero-padded on their last dim, and out, dqu, dk and dv sliced back
 (:func:`attention_fwd_padded`, :func:`attention_bwd_padded`). Zero columns add
 exactly 0 to qu k^T and give exactly 0 in the padded columns of every product,
-so this is the same function; the bias, the scale and the dropout index (b,
-h, i, j) do not depend on D. Either pass's instance at the padded head dim
-takes the other's saved tensors.
+so either way this is the same function, and the wide instance's results at
+D are the padded ones bit for bit; the bias, the scale and the dropout index
+(b, h, i, j) do not depend on D. The two passes pad at the same head dims,
+so the forward saves for the backward the padded tensors where they pad,
+else qu, k, v and out at D.
 
 ``csrc/attention.cu`` holds the first design, scalar f32 FMAs with whole score
 rows in shared memory (:func:`fma_row_block`: 64 query rows a block, 32 where
@@ -206,6 +219,47 @@ def attention_split_plain(qu, k, v, bias, seed: int, scale: float, rate: float, 
     return torch.matmul(p.float(), v.float()).to(qu.dtype), lse2 / _LOG2E
 
 
+def attention_wide_plain(qu, k, v, bias, g, seed: int, scale: float, rate: float,
+                         heads_total=None, head_offset: int = 0):
+    """The wide instance's passes at an unpadded head dim D, as plain tensor
+    operations (no path on the card calls it): qu, k, v and g in column
+    chunks of :data:`WIDE_CHUNK`, the last one read with zeros past D (the
+    column tail); the scores qu k^T and dp = g v^T summed chunk by chunk in
+    f32; p = softmax((s + bias) * scale) rounded to the inputs' dtype, hash
+    dropout; out = p v, dv = pd^T g, dk = ds^T qu and dqu = ds k by blocks of
+    the chunk's columns, each cut back to D; delta = rowsum(g out). Returns
+    ``(out, lse, dqu, dk, dv, dbias)``, out and the gradients in qu's dtype,
+    lse in natural units."""
+    B, H, L, D = qu.shape
+    heads_total, head_offset = _heads(H, heads_total, head_offset)
+    nc = -(-D // WIDE_CHUNK)
+
+    def chunks(t):  # (B, H, L, nc, 64) f32, zeros past D
+        return torch.nn.functional.pad(t.float(), (0, nc * WIDE_CHUNK - D)).unflatten(
+            -1, (nc, WIDE_CHUNK))
+
+    def by_chunk(a, x):  # a (.., L, L) times x's chunks, then cut back to D
+        return torch.cat([a @ x[..., c, :] for c in range(nc)], -1)[..., :D]
+
+    qc, kc, vc, gc = (chunks(t) for t in (qu, k, v, g))
+    s = sum(qc[..., c, :] @ kc[..., c, :].transpose(-1, -2) for c in range(nc))
+    dp = sum(gc[..., c, :] @ vc[..., c, :].transpose(-1, -2) for c in range(nc))
+    z = (s + bias.float()) * scale
+    lse = torch.logsumexp(z, -1)
+    p = torch.exp(z - lse[..., None]).to(qu.dtype)
+    drop_map = (H * L * L, heads_total * L * L, head_offset * L * L)
+    pd = dropout_plain(p, seed, rate, drop_map).float()
+    out = by_chunk(pd, vc).to(qu.dtype)
+    delta = (g.float() * out.float()).sum(-1)
+    kept = dropout_plain(torch.ones_like(p), seed, rate, drop_map).float()  # 1/(1-rate) or 0
+    ds = p.float() * (dp * kept - delta[..., None]) * scale
+    dv = by_chunk(pd.transpose(-1, -2), gc)
+    dk = by_chunk(ds.to(qu.dtype).float().transpose(-1, -2), qc)
+    dqu = by_chunk(ds.to(qu.dtype).float(), kc)
+    return (out, lse, dqu.to(qu.dtype), dk.to(qu.dtype), dv.to(qu.dtype),
+            ds.to(bias.dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("attention")
@@ -332,12 +386,20 @@ def attention_instance(dtype: torch.dtype, kind: str, Dp: int) -> str:
     for ``dtype`` runs at the padded head dim ``Dp`` (:func:`padded_head_dim`):
     ``f"d{Dp}"``, the instance at that head dim, or ``"wide"``. At 256 the
     bf16 forward keeps its instance and the bf16 backward and both f32 passes
-    take the wide one (module note)."""
+    take the wide one (module note). :func:`attention_instance_at` names the
+    instance at the head dim a pass launches at, padded or not."""
     if padded_head_dim(Dp) != Dp:
         raise ValueError(f"{Dp} is no padded head dim (padded_head_dim gives "
                          f"{padded_head_dim(Dp)})")
-    dims = INSTANCE_HEAD_DIMS[(attention_route(dtype, 1, Dp), kind)]
-    return f"d{Dp}" if Dp in dims else "wide"
+    return attention_instance_at(dtype, kind, Dp)
+
+
+def attention_instance_at(dtype: torch.dtype, kind: str, D: int) -> str:
+    """The instance pass ``kind`` runs at head dim D as it launches
+    (:func:`attention_pass_head_dim`): ``f"d{D}"`` where D is an instance's,
+    else ``"wide"``."""
+    dims = INSTANCE_HEAD_DIMS[(attention_route(dtype, 1, D), kind)]
+    return f"d{D}" if D in dims else "wide"
 
 
 def wide_key_splits(L: int, bh: int, sms: int, blocks_per_sm: int) -> int:
@@ -356,7 +418,8 @@ def wide_key_splits(L: int, bh: int, sms: int, blocks_per_sm: int) -> int:
 
 
 def padded_head_dim(D: int) -> int:
-    """The head dim of the instance that runs D: the smallest of
+    """The head dim of the instance that runs D on zero-padded inputs where a
+    pass pads (:func:`attention_pass_head_dim`): the smallest of
     ``HEAD_DIMS`` at or above it, past 256 the next multiple of
     :data:`WIDE_CHUNK` (the wide instance)."""
     if D < 1:
@@ -365,6 +428,23 @@ def padded_head_dim(D: int) -> int:
         if D <= Dp:
             return Dp
     return -(-D // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def attention_pass_head_dim(dtype: torch.dtype, kind: str, D: int) -> int:
+    """The head dim pass ``kind`` (``"fwd"`` or ``"bwd"``) of the set for
+    ``dtype`` launches at for inputs of head dim D: D itself where an
+    instance takes it, and past 128 on the wide instance (its column tail
+    reads the last chunk's columns past D as zeros; the bf16 forward at
+    129-255 too, faster there than its D = 256 instance on padded inputs,
+    PERF.md §5), but for an odd bf16 D (its rows are no whole 4-byte
+    pieces); else :func:`padded_head_dim` (D), on inputs zero-padded to
+    it."""
+    route = attention_route(dtype, 1, D)
+    if D in INSTANCE_HEAD_DIMS[(route, kind)]:
+        return D
+    if D <= HEAD_DIMS[-2] or (route == "tc" and D % 2):
+        return padded_head_dim(D)
+    return D
 
 
 def _pad_last(t, Dp: int):
@@ -377,7 +457,10 @@ def attention_fwd_padded(launch, qu, k, v, bias, *args):
     lse)``) at ``padded_head_dim(D)``: qu, k, v zero-padded on their last dim
     (untouched where D is an instance's), bias and ``args`` (seed, scale, ...)
     as they are. Returns ``(out, lse, padded)``: ``out`` sliced back to D,
-    ``padded`` the launch's (qu, k, v, out) for :func:`attention_bwd_padded`."""
+    ``padded`` the launch's (qu, k, v, out) for :func:`attention_bwd_padded`.
+    ``fused_attention`` takes it where :func:`attention_pass_head_dim` pads
+    (D up to 128 off an instance, an odd bf16 D past 128); past 128 the other
+    head dims run the wide instance at D."""
     Dp = padded_head_dim(qu.shape[-1])
     qu_p, k_p, v_p = (_pad_last(t, Dp) for t in (qu, k, v))
     out_p, lse = launch(qu_p, k_p, v_p, bias, *args)
@@ -431,12 +514,12 @@ def _check_fma_grid(qu, heads_total) -> None:
         raise ValueError("the FMA attention kernels index (B, heads_total, L, L) in uint32")
 
 
-def _check_instance(D: int, what: str, dims, wide=False) -> None:
+def _check_instance(D: int, what: str, dims, wide=False, dtype=None) -> None:
     if wide:
-        if D < HEAD_DIMS[-1] or D % WIDE_CHUNK:
-            raise ValueError(f"the {what} kernels' wide instance takes the multiples of "
-                             f"{WIDE_CHUNK} from {HEAD_DIMS[-1]} on, got {D} (fused_attention "
-                             f"pads other head dims)")
+        if D <= HEAD_DIMS[-2] or (dtype == torch.bfloat16 and D % 2):
+            raise ValueError(f"the {what} kernels' wide instance takes the head dims past "
+                             f"{HEAD_DIMS[-2]} (bfloat16: the even ones), got {D} "
+                             f"(fused_attention pads other head dims)")
     elif D not in dims:
         raise ValueError(f"the {what} kernels have instances at head dims {dims}, got "
                          f"{D} (fused_attention pads other head dims)")
@@ -476,18 +559,27 @@ def _chunk_drop(drop, b0: int, h0: int, L: int):
             head_offset + h0)
 
 
-def _rows_addressable(t) -> bool:
+def _rows_addressable(t, align: int = 16) -> bool:
     """Whether the tensor-core kernels can address a (B, H, L, D) tensor's
-    rows through its strides: contiguous, 16-byte aligned rows."""
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and not any(s * t.element_size() % 16 for s in t.stride()[:3]))
+    rows through its strides: contiguous rows, ``align``-byte aligned (16;
+    4 for the wide instance's column tail, which reads and writes the rows
+    in pieces of their alignment)."""
+    return (t.stride(3) == 1 and t.data_ptr() % align == 0
+            and not any(s * t.element_size() % align for s in t.stride()[:3]))
 
 
-def _row_strides(t):
+def _row_strides(t, align: int = 16):
     """Element strides over (b, h, l), as the C entries take them."""
-    if not _rows_addressable(t):
-        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if not _rows_addressable(t, align):
+        raise ValueError(f"rows must be contiguous and {align}-byte aligned")
     return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def _row_align(wide: bool, D: int) -> int:
+    """The alignment a launch needs of its rows: 4 bytes on the wide
+    instance at a head dim no multiple of its chunk (the column tail), else
+    16."""
+    return 4 if wide and D % WIDE_CHUNK else 16
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +645,7 @@ def _check_mma(qu, k, v, bias, heads_total, rate, route, kind, wide):
     dims = INSTANCE_HEAD_DIMS[(route, kind)]
     routed = D not in dims
     wide = routed if wide is None else wide
-    _check_instance(D, f"{route} {kind}", dims, wide)
+    _check_instance(D, f"{route} {kind}", dims, wide, qu.dtype)
     if any(t.data_ptr() % 16 for t in (qu, k, v)):
         raise ValueError("the tensor-core kernels read qu, k and v in 16-byte chunks: their "
                          "data must start 16-byte aligned")
@@ -632,7 +724,7 @@ def _run_fwd(route, wide, qu, k, v, bias, out, lse, scale, drop, splits):
         code = getattr(lib, entry)(
             _at(qu, bh0 * L * D), _at(k, bh0 * L * D), _at(v, bh0 * L * D),
             _at(bias, bh0 * L * L), _at(out, b0 * out.stride(0) + h0 * out.stride(1)),
-            _at(lse, bh0 * L), *scratch, _row_strides(out), nb, nh, L, D,
+            _at(lse, bh0 * L), *scratch, _row_strides(out, _row_align(wide, D)), nb, nh, L, D,
             *((splits,) if wide else ()), scale, *_chunk_drop(drop, b0, h0, L), _stream(qu))
         check_cuda_status(lib, code, entry)
     if len(chunks) > 1:
@@ -661,7 +753,8 @@ def _run_bwd(route, wide, qu, k, v, bias, g, out, lse, dqu, dk, dv, dbias, scale
             _at(g, b0 * g.stride(0) + h0 * g.stride(1)),
             _at(out, b0 * out.stride(0) + h0 * out.stride(1)), _at(lse, bh0 * L),
             _at(delta, bh0 * L), _at(dqu, rows), _at(dk, rows), _at(dv, rows), _at(dbias, sq),
-            *((_at(pd, sq),) if wide else ()), _row_strides(g), _row_strides(out), nb, nh, L, D,
+            *((_at(pd, sq),) if wide else ()), _row_strides(g, _row_align(wide, D)),
+            _row_strides(out, _row_align(wide, D)), nb, nh, L, D,
             scale, *_chunk_drop(drop, b0, h0, L), _stream(qu))
         check_cuda_status(lib, code, entry)
     if len(chunks) > 1:
@@ -750,23 +843,47 @@ def _wide_launches(route):
     return functools.partial(_launch_fwd, route, wide=True)
 
 
+def _count_padding(kind: str, route: str, Dp: int) -> None:
+    """A pass run on inputs zero-padded to ``Dp`` (``F.pad`` copies) also
+    counts ``attention_{kind}_{route}_padded_d{Dp}``: a run shows where
+    ``fused_attention`` pads."""
+    launches[f"attention_{kind}_{route}_padded_d{Dp}"] += 1
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qu, k, v, bias, seed, scale, rate, heads_total, head_offset):
         ctx.args = (seed, scale, rate, heads_total, head_offset)
         _check(qu, k, v, bias, heads_total, rate)
-        ctx.launch = _TC_LAUNCHES[attention_route(qu.dtype, qu.shape[2], qu.shape[3])]
-        out, lse, padded = attention_fwd_padded(ctx.launch[0], qu, k, v, bias, *ctx.args)
-        ctx.save_for_backward(*padded, bias, lse)
+        B, H, L, D = qu.shape
+        ctx.route = attention_route(qu.dtype, L, D)
+        ctx.launch = _TC_LAUNCHES[ctx.route]
+        # the two passes pad at the same head dims (attention_pass_head_dim)
+        ctx.padded = attention_pass_head_dim(qu.dtype, "fwd", D) != D
+        if ctx.padded:
+            out, lse, saved = attention_fwd_padded(ctx.launch[0], qu, k, v, bias, *ctx.args)
+            _count_padding("fwd", ctx.route, saved[0].shape[-1])
+        else:
+            out, lse = ctx.launch[0](qu, k, v, bias, *ctx.args)
+            saved = (qu, k, v, out)
+        ctx.save_for_backward(*saved, bias, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qu_p, k_p, v_p, out_p, bias, lse = ctx.saved_tensors
-        if not _rows_addressable(g):
-            g = g.contiguous()
-        grads = attention_bwd_padded(ctx.launch[1], (qu_p, k_p, v_p, out_p), bias, g, lse,
-                                     *ctx.args)
+        qu, k, v, out, bias, lse = ctx.saved_tensors
+        if ctx.padded:
+            if not _rows_addressable(g):
+                g = g.contiguous()
+            grads = attention_bwd_padded(ctx.launch[1], (qu, k, v, out), bias, g, lse,
+                                         *ctx.args)
+            _count_padding("bwd", ctx.route, qu.shape[-1])
+        else:
+            align = _row_align(attention_instance_at(qu.dtype, "bwd", qu.shape[-1]) == "wide",
+                               qu.shape[-1])
+            if not _rows_addressable(g, align):
+                g = g.contiguous()
+            grads = ctx.launch[1](qu, k, v, bias, g, out, lse, *ctx.args)
         return (*grads, None, None, None, None, None)
 
 
@@ -777,11 +894,13 @@ def fused_attention(qu, k, v, bias, seed: int, scale: float, rate: float = 0.0,
     CUDA tensors run the hand-written tensor-core kernels, forward and
     backward, on the set :func:`attention_route` names: bfloat16 on
     ``attention_mma.cu``, float32 on ``attention_f32_mma.cu``, at any L and
-    any head dim (16, 32, 64 and 128 are instances, the multiples of 64 from
-    256 on run the wide instance, but for the bf16 forward's D = 256 instance,
-    :func:`attention_instance`; other head dims run the next one up on
-    zero-padded inputs, module note). The output is a (B, H, L, D) view of a
-    (B, L, H, D') buffer, D' the padded head dim.
+    any head dim, each pass at :func:`attention_pass_head_dim` (16, 32, 64 and
+    128 are instances, and the bf16 forward's 256; past 128 the wide
+    instance takes D unpadded, but for an odd bf16 D, which, like every D up
+    to 128 off an instance, runs the next instance up on zero-padded inputs,
+    counted as ``attention_{kind}_{route}_padded_d{Dp}``; module note). The
+    output is a (B, H, L, D) view of a (B, L, H, D') buffer, D' the head dim
+    the forward ran at.
     CPU tensors run :func:`attention_plain`. ``seed`` is a uint32, ignored at
     rate 0. A tensor-parallel rank's H heads are ``head_offset ..`` of
     ``heads_total`` (None: H), which places its dropout mask (module note).

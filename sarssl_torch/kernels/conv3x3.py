@@ -21,18 +21,19 @@ The kernels, chosen by dtype, channels and image size (:func:`conv_kernel`):
 * ``csrc/conv3x3_any_mma.cu``: bfloat16 at every other (C, Cout), as the
   Pallas kernel takes any: the tensor-core design with C and Cout at run
   time, in K chunks of 64 input channels and passes of NB output channels
-  (:func:`any_mma_passes`); a kernel of its own packs the weight into those
-  blocks, zero-padded, in the same call (:func:`pack_weights_any` is its
-  plain version; for dx it rotates the weight as it packs it), and
-  :func:`conv3x3_from_padded_blocks` repeats the conv's arithmetic in plain
-  PyTorch.
+  (:func:`any_mma_passes`). One launch a call: the kernel's blocks first
+  pack the weight into those blocks, zero-padded, into a scratch
+  (:func:`pack_weights_any` is its plain version; for dx they rotate the
+  weight as they pack it), meet at a grid barrier (a cooperative launch)
+  and run the conv; :func:`conv3x3_from_padded_blocks` repeats the conv's
+  arithmetic in plain PyTorch.
 * ``csrc/conv3x3_tf32.cu``: float32 at every (C, Cout). The same design with
   each product taken as three TF32 products on the tensor cores (3xTF32:
   operands split by :func:`split_tf32` into hi + lo, lo hi + hi lo + hi hi),
   which holds the f32 tolerance of 1e-4; K chunks of 32 f32 channels and
   passes of at most 32 output channels, 64 where C <= 32
-  (:func:`tf32_passes`), the weight's hi and lo blocks packed in the same
-  call (:func:`pack_weights_tf32`);
+  (:func:`tf32_passes`), the weight's hi and lo blocks packed by the same
+  launch's blocks before its grid barrier (:func:`pack_weights_tf32`);
   :func:`conv3x3_tf32x3` repeats its arithmetic in plain PyTorch. Each K
   chunk's products are summed apart and added to the sum in f32 (the tensor
   core's adder cuts each sum toward zero, so a long running sum in it
@@ -54,6 +55,11 @@ Any H, W and N: the tensor-core kernels walk their tiles in a loop and take
 any N in one launch; the FMA kernels put their pixel tiles on the grid's x
 dimension and launch runs of at most 65535 images (:func:`conv_batch_chunks`).
 
+A call of the runtime-channel kernels works out its route, G, passes and
+checks once a shape (:func:`_conv_plan`), allocates its output alone (the
+packed weight goes to a scratch kept for the stream, :func:`_workspace`,
+packed anew every call) and hands the C entry six arguments.
+
 For a CUDA tensor the wrapper launches the kernel it names here or raises.
 The kernels are on no model path: the port's ``CNNFrontEnd`` keeps
 ``F.conv2d``, as the JAX front end keeps the XLA conv.
@@ -62,11 +68,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
-from ._build import GRID_YZ, check_cuda_status, launches, load_library
+from ._build import GRID_YZ, check_cuda_status, launches, load_library, raw_stream
 
 # (C, Cout) pairs both kernels are instantiated for
 CHANNELS = ((64, 64), (128, 128), (64, 128), (128, 64))
@@ -222,7 +229,7 @@ def pack_weights_any(w: torch.Tensor) -> torch.Tensor:
     past C and Cout: for each pass of NB output channels and each K chunk of
     64 input channels the nine taps' blocks, each ``[co][ci]`` (the kernel's
     K-major B operand). The plain version of ``conv3x3_any_mma.cu``'s
-    ``pack_weights_kernel``."""
+    ``pack_share`` (the packing each launch's blocks do before its grid barrier)."""
     _, _, C, Cout = w.shape
     passes, nb = any_mma_passes(Cout)
     kc = -(-C // BLOCK)
@@ -346,7 +353,7 @@ def pack_weights_tf32(w: torch.Tensor) -> torch.Tensor:
     and each K chunk of 32 input channels the nine taps' TF32 hi blocks
     ([.., 0, ..]) then their lo blocks ([.., 1, ..]), each ``[co][ci]`` (the
     kernel's K-major B operand). The plain version of ``conv3x3_tf32.cu``'s
-    ``pack_weights_kernel``."""
+    ``pack_share`` (the packing each launch's blocks do before its grid barrier)."""
     _, _, C, Cout = w.shape
     passes, nb = tf32_passes(Cout, C)
     kc = -(-C // TF32_BLOCK)
@@ -405,7 +412,7 @@ def _library_any_mma(groups: bool = False):
     """``conv3x3_any_mma.cu``'s row tiles, or with ``groups`` its image groups
     (``conv3x3_any_mma_groups.cu``, a library of their own)."""
     lib = load_library("conv3x3_any_mma_groups" if groups else "conv3x3_any_mma")
-    lib.conv3x3_any_mma.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.conv3x3_any_mma.argtypes = [_P] * 6
     lib.conv3x3_any_mma.restype = _I
     lib.conv3x3_any_mma_smem_bytes.argtypes = [_I, _I]
     lib.conv3x3_any_mma_smem_bytes.restype = _I
@@ -419,7 +426,7 @@ def _library_tf32(groups: bool = False):
     """``conv3x3_tf32.cu``'s row tiles, or with ``groups`` its image groups
     (``conv3x3_tf32_groups.cu``, a library of their own)."""
     lib = load_library("conv3x3_tf32_groups" if groups else "conv3x3_tf32")
-    lib.conv3x3_tf32.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+    lib.conv3x3_tf32.argtypes = [_P] * 6
     lib.conv3x3_tf32.restype = _I
     lib.conv3x3_tf32_smem_bytes.argtypes = [_I, _I]
     lib.conv3x3_tf32_smem_bytes.restype = _I
@@ -537,79 +544,154 @@ def launch_conv3x3_mma(x: torch.Tensor, packed: torch.Tensor, name: str) -> torc
     return y
 
 
+_CALL = ctypes.c_int * 8  # the runtime-channel C entries' call: N, H, W, C, Cout, NB, rot, G
+
+
+class _Plan:
+    """What a conv call of one shape needs that depends on the shape alone,
+    checked once (:func:`_conv_plan`): the kernel (``conv_kernel``'s name),
+    G, Cout and, for the runtime-channel tensor-core kernels, the scratch's
+    shape, the C entry's ``call`` and the launch counter's suffix (the
+    library is loaded at the first launch, so that a plan is made without a
+    card)."""
+
+    __slots__ = ("kernel", "groups", "cout", "scratch", "scratch_bytes", "call", "call_ptr",
+                 "suffix", "aligned")
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_plan(dtype: torch.dtype, N: int, H: int, W: int, C: int, wshape: tuple, rot: bool,
+               groups) -> _Plan:
+    """The plan of a conv of ``x`` (N, H, W, C) of ``dtype`` with a weight of
+    shape ``wshape``, (3, 3, C, Cout) or with ``rot`` (3, 3, Cout, C); with
+    ``groups`` None the kernel and G that :func:`conv_kernel` and
+    :func:`conv_tiling` name, else the runtime-channel tensor-core kernel of
+    ``dtype`` with G = ``groups`` (0: row tiles). Raises on what the kernels
+    do not take; the device, layout and alignment are checked each call."""
+    plan = _Plan()
+    if dtype not in _DTYPES:
+        raise ValueError(f"the conv kernels take float32 or bfloat16, got {dtype}")
+    if len(wshape) != 4 or tuple(wshape[:2]) != (3, 3) or wshape[3 if rot else 2] != C:
+        raise ValueError(f"x must be (N, H, W, C) and w (3, 3, C, Cout), got "
+                         f"{(N, H, W, C)} and {tuple(wshape)}" + (" (rotated)" if rot else ""))
+    plan.cout = wshape[2] if rot else wshape[3]
+    if min(N, H, W, C, plan.cout) <= 0:
+        raise ValueError(f"N, H, W, C and Cout must be positive, got {(N, H, W, C)} -> "
+                         f"{plan.cout}")
+    if groups is None:
+        plan.kernel = conv_kernel(dtype, C, plan.cout, H, W)
+        groups = conv_tiling(dtype, H, W, C, plan.cout)
+    else:
+        plan.kernel = ("tf32" if dtype == torch.float32 else "tc_any") + ("_groups" if groups
+                                                                          else "")
+    if groups < 0 or groups * H * W > GROUP_PIXELS:
+        raise ValueError(f"a tile holds at most {GROUP_PIXELS} pixels, got {groups} images of "
+                         f"{H} x {W}")
+    plan.groups = groups
+    if plan.kernel == "tc":
+        return plan
+    if dtype == torch.float32:
+        passes, nb = tf32_passes(plan.cout, C)
+        plan.scratch = (passes, -(-C // TF32_BLOCK), 2, 9, nb, TF32_BLOCK)
+        plan.suffix = "_tf32_groups" if groups else "_tf32"
+        plan.aligned = C % 4 == 0  # x's rows are 16-byte pieces: x must start 16-byte aligned
+    else:
+        passes, nb = any_mma_passes(plan.cout)
+        plan.scratch = (passes, -(-C // BLOCK), 9, nb, BLOCK)
+        plan.suffix = "_tc_groups" if groups else "_tc_any"
+        plan.aligned = C % 8 == 0
+    plan.scratch_bytes = math.prod(plan.scratch) * (4 if dtype == torch.float32 else 2)
+    plan.call = _CALL(N, H, W, C, plan.cout, nb, int(rot), groups)
+    plan.call_ptr = ctypes.addressof(plan.call)
+    return plan
+
+
+# the scratch the runtime-channel kernels pack the weight into, one a (device,
+# stream): a call packs its weight anew and the next call on the stream runs
+# after it, so the bytes are reused, never the packed weight. Kept up to this
+# size (a small call's allocation is a share of its time); a larger scratch
+# (C = Cout = 2048 in f32 takes 302 MB) is a call's own.
+_WORKSPACES: dict = {}
+_WORKSPACE_KEPT = 1 << 24
+
+
+def _workspace(x: torch.Tensor, stream: int, nbytes: int) -> torch.Tensor:
+    """At least ``nbytes`` of scratch on ``x``'s device for a call on
+    ``stream``: the stream's kept scratch, grown as a call needs, up to
+    ``_WORKSPACE_KEPT`` bytes, else the call's own."""
+    if nbytes > _WORKSPACE_KEPT:
+        return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    key = (x.get_device(), stream)
+    buf = _WORKSPACES.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _WORKSPACES[key] = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    return buf
+
+
+def _launch_runtime_channels(x: torch.Tensor, w: torch.Tensor, name: str, plan: _Plan
+                             ) -> torch.Tensor:
+    """One call of ``plan``'s runtime-channel tensor-core kernel on CUDA
+    tensors (the shapes checked by the plan): the output allocated, the
+    weight's scratch the stream's (:func:`_workspace`), one C call, one
+    kernel launch that packs the weight and runs the conv; counts one launch
+    of ``name`` and one of ``name + plan.suffix``."""
+    if not (x.is_cuda and w.get_device() == x.get_device() and x.is_contiguous()):
+        raise ValueError(f"{name}: the tensor-core kernels take a contiguous x and w on one "
+                         f"CUDA device")
+    if w.dtype != x.dtype or not w.is_contiguous():
+        w = w.to(x.dtype).contiguous()
+    if plan.aligned and x.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor-core kernels read x in 16-byte pieces where its "
+                         f"rows are: x must start 16-byte aligned")
+    N, H, W, _ = x.shape
+    stream = raw_stream(x)
+    wp = _workspace(x, stream, plan.scratch_bytes)
+    y = x.new_empty((N, H, W, plan.cout))
+    if x.dtype == torch.float32:
+        lib = _library_tf32(plan.groups > 0)
+        entry = lib.conv3x3_tf32
+    else:
+        lib = _library_any_mma(plan.groups > 0)
+        entry = lib.conv3x3_any_mma
+    code = entry(x.data_ptr(), w.data_ptr(), wp.data_ptr(), y.data_ptr(), plan.call_ptr, stream)
+    if code:
+        check_cuda_status(lib, code, name)
+    launches[name] += 1
+    launches[name + plan.suffix] += 1
+    return y
+
+
 def launch_conv3x3_any_mma(x: torch.Tensor, w: torch.Tensor, name: str,
                            rot: bool = False, groups: int = 0) -> torch.Tensor:
     """Run the runtime-channel tensor-core kernel (``conv3x3_any_mma.cu``) on
     ``x`` (N, H, W, C) bfloat16 contiguous with ``w`` (3, 3, C, Cout), or
     with ``rot`` ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to bfloat16:
-    one call that packs the weight (as :func:`pack_weights_any` does) and
+    one launch that packs the weight (as :func:`pack_weights_any` does) and
     runs the conv in row tiles, or with ``groups`` = G > 0 in tiles of G
     whole images (G H W <= 256); count one launch of ``name`` and one of
     ``name + "_tc_any"`` (row tiles) or ``name + "_tc_groups"``."""
-    wk = w.to(torch.bfloat16).contiguous()
-    if not (x.is_cuda and wk.device == x.device and x.dtype == torch.bfloat16
-            and x.is_contiguous()):
+    if x.dtype != torch.bfloat16 or not x.is_cuda:
         raise ValueError(f"{name}: the tensor-core kernel takes contiguous bfloat16 CUDA "
                          f"tensors on one device")
-    N, H, W, C = x.shape
-    if wk.ndim != 4 or tuple(wk.shape[:2]) != (3, 3) or wk.shape[3 if rot else 2] != C:
-        raise ValueError(f"{name}: {tuple(w.shape)} is not the weight of C = {C}")
-    if groups < 0 or groups * H * W > GROUP_PIXELS:
-        raise ValueError(f"{name}: a tile holds at most {GROUP_PIXELS} pixels, got {groups} "
-                         f"images of {H} x {W}")
-    cout = wk.shape[2] if rot else wk.shape[3]
-    if C % 8 == 0 and x.data_ptr() % 16:
-        raise ValueError(f"{name}: the tensor-core kernel takes x 16-byte aligned where "
-                         f"C % 8 == 0")
-    passes, nb = any_mma_passes(cout)
-    lib = _library_any_mma(groups > 0)
-    packed = torch.empty((passes, -(-C // BLOCK), 9, nb, BLOCK), dtype=x.dtype, device=x.device)
-    y = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
-    code = lib.conv3x3_any_mma(x.data_ptr(), wk.data_ptr(), packed.data_ptr(), y.data_ptr(), N,
-                               H, W, C, cout, nb, int(rot), groups,
-                               torch.cuda.current_stream(x.device).cuda_stream)
-    check_cuda_status(lib, code, name)
-    launches[name] += 1
-    launches[name + ("_tc_groups" if groups else "_tc_any")] += 1
-    return y
+    return _launch_runtime_channels(
+        x, w, name, _conv_plan(x.dtype, *x.shape, w.shape, rot, groups))
 
 
 def launch_conv3x3_tf32(x: torch.Tensor, w: torch.Tensor, name: str, rot: bool = False,
                         groups: int = 0) -> torch.Tensor:
     """Run the 3xTF32 tensor-core kernel (``conv3x3_tf32.cu``) on ``x`` (N, H,
     W, C) float32 contiguous with ``w`` (3, 3, C, Cout), or with ``rot``
-    ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to float32: one call that
-    packs the weight (as :func:`pack_weights_tf32` does) and runs the conv
-    in row tiles, or with ``groups`` = G > 0 in tiles of G whole images (G H
-    W <= 256), each K chunk's products summed apart. Counts one launch of
+    ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to float32: one launch
+    that packs the weight (as :func:`pack_weights_tf32` does) and runs the
+    conv in row tiles, or with ``groups`` = G > 0 in tiles of G whole images
+    (G H W <= 256), each K chunk's products summed apart. Counts one launch of
     ``name`` and one of ``name + "_tf32"`` (row tiles) or ``name +
     "_tf32_groups"``."""
-    wk = w.to(torch.float32).contiguous()
-    if not (x.is_cuda and wk.device == x.device and x.dtype == torch.float32
-            and x.is_contiguous()):
+    if x.dtype != torch.float32 or not x.is_cuda:
         raise ValueError(f"{name}: the 3xTF32 kernel takes contiguous float32 CUDA tensors on "
                          f"one device")
-    N, H, W, C = x.shape
-    if wk.ndim != 4 or tuple(wk.shape[:2]) != (3, 3) or wk.shape[3 if rot else 2] != C:
-        raise ValueError(f"{name}: {tuple(w.shape)} is not the weight of C = {C}")
-    if groups < 0 or groups * H * W > GROUP_PIXELS:
-        raise ValueError(f"{name}: a tile holds at most {GROUP_PIXELS} pixels, got {groups} "
-                         f"images of {H} x {W}")
-    if C % 4 == 0 and x.data_ptr() % 16:
-        raise ValueError(f"{name}: the 3xTF32 kernel takes x 16-byte aligned where C % 4 == 0")
-    cout = wk.shape[2] if rot else wk.shape[3]
-    passes, nb = tf32_passes(cout, C)
-    lib = _library_tf32(groups > 0)
-    packed = torch.empty((passes, -(-C // TF32_BLOCK), 2, 9, nb, TF32_BLOCK),
-                         dtype=torch.float32, device=x.device)
-    y = torch.empty((N, H, W, cout), dtype=torch.float32, device=x.device)
-    code = lib.conv3x3_tf32(x.data_ptr(), wk.data_ptr(), packed.data_ptr(), y.data_ptr(), N, H,
-                            W, C, cout, nb, int(rot), groups,
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    check_cuda_status(lib, code, name)
-    launches[name] += 1
-    launches[name + ("_tf32_groups" if groups else "_tf32")] += 1
-    return y
+    return _launch_runtime_channels(
+        x, w, name, _conv_plan(x.dtype, *x.shape, w.shape, rot, groups))
 
 
 def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
@@ -617,16 +699,14 @@ def launch_conv3x3(x: torch.Tensor, w: torch.Tensor, name: str,
     """Run the kernel that :func:`conv_kernel` names on CUDA tensors, ``x``
     (N, H, W, C) contiguous and ``w`` (3, 3, C, Cout), or with ``rot``
     ``rot180_io(w)`` of ``w`` (3, 3, Cout, C), cast to ``x``'s dtype (the
-    runtime-channel tensor-core kernel rotates ``w`` as it packs it)."""
-    _check(x, w.transpose(2, 3) if rot else w, name)  # rot180_io(w)'s shape, no copy
-    _, H, W, C = x.shape
-    cout = w.shape[2] if rot else w.shape[3]
-    kernel = conv_kernel(x.dtype, C, cout, H, W)
-    G = conv_tiling(x.dtype, H, W, C, cout)
-    if kernel in ("tf32", "tf32_groups"):
-        return launch_conv3x3_tf32(x, w, name, rot=rot, groups=G)
-    if kernel in ("tc_any", "tc_groups"):
-        return launch_conv3x3_any_mma(x, w, name, rot=rot, groups=G)
+    runtime-channel tensor-core kernels rotate ``w`` as they pack it). The
+    route and the shape's checks come from :func:`_conv_plan`, once a shape."""
+    if x.ndim != 4:
+        raise ValueError(f"{name}: x must be (N, H, W, C), got {tuple(x.shape)}")
+    plan = _conv_plan(x.dtype, *x.shape, w.shape, rot, None)
+    if plan.kernel != "tc":
+        return _launch_runtime_channels(x, w, name, plan)
+    _check(x, w.transpose(2, 3) if rot else w, name)
     return launch_conv3x3_mma(x, pack_weights((rot180_io(w) if rot else w).to(x.dtype)), name)
 
 

@@ -32,7 +32,7 @@ f32 rows of PERF.md's kernel table, three runs each:
             ahead of the loads in place of one)
 
 The variants' results are wrong by design; only their times are read (the
-f32 kernel's weight packing runs in each). The copies are built under
+f32 kernel's weight packing, in the same launch, runs in each). The copies are built under
 ``sarssl_torch/_build/parts/``.
 """
 import argparse
@@ -149,7 +149,7 @@ def parts_tf32():
     src = (_build.CSRC_DIR / "conv3x3_tf32.cu").read_text()
     libs = build({f"{mode}_{name}": text for mode in SHAPES_TF32
                   for name, text in variants_tf32(src, mode == "groups").items()},
-                 "conv3x3_tf32", 4, 8)
+                 "conv3x3_tf32", 5, 0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for mode, shapes in SHAPES_TF32.items():
         for N, H, W, C, cout in shapes:
@@ -158,6 +158,7 @@ def parts_tf32():
             y = torch.empty((N, H, W, cout), device="cuda")
             G = max(conv_tiling(torch.float32, H, W, C, cout), 1) if mode == "groups" else 0
             passes, nb = tf32_passes(cout, C)
+            call = (ctypes.c_int * 8)(N, H, W, C, cout, nb, 0, G)
             wp = torch.empty((passes, -(-C // TF32_BLOCK), 2, 9, nb, TF32_BLOCK), device="cuda")
             for rep in range(3):
                 line = []
@@ -167,7 +168,7 @@ def parts_tf32():
 
                     def run(lib=lib):
                         code = lib.conv3x3_tf32(x.data_ptr(), w.data_ptr(), wp.data_ptr(),
-                                                y.data_ptr(), N, H, W, C, cout, nb, 0, G,
+                                                y.data_ptr(), ctypes.addressof(call),
                                                 torch.cuda.current_stream().cuda_stream)
                         assert code == 0, code
                     line.append(f"{name.split('_', 1)[1]} {cuda_ms(run, iters=10):.4f}")

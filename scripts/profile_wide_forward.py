@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of each kernel of the wide attention forward at a small batch.
+"""Device time of each kernel of the wide attention at a small batch, on
+padded and on unpadded inputs.
 
     python3 scripts/profile_wide_forward.py [--batch 8] [--head-dims 300 1000]
         [--splits S ...] [--launches 5]
 
-At (B, 4, 256, D), rate 0.1, in bf16 and f32, each D padded as
-``fused_attention`` pads it (300 -> 320, 1000 -> 1024): a ``torch.profiler``
-trace of ``--launches`` forward launches gives each kernel's device ms a
-launch, and CUDA events the forward's ms queued behind a sleeping kernel
-(``chip_smoke.py::cuda_ms_queued``), and back to back (``cuda_ms``).
+At (B, 4, 256, D), rate 0.1, in bf16 and f32, each D padded to the next
+multiple of 64 (300 -> 320, 1000 -> 1024; ``padded_head_dim``) and, where
+that is not D, at D itself (the wide instance's column tail, as
+``fused_attention`` runs it): a ``torch.profiler`` trace of ``--launches``
+forward launches gives each kernel's device ms a launch, and CUDA events the
+forward's ms queued behind a sleeping kernel
+(``chip_smoke.py::cuda_ms_queued``), and back to back (``cuda_ms``); then a
+trace of as many backward launches, on the forward's out and lse.
 ``--splits`` forces the number of key splits of the scores pass (the
 launcher's private ``splits``), each in turn; without it the launcher
 chooses. The trace's other device kernels, if any, are listed beside. Prints
@@ -64,20 +68,28 @@ def main():
     for dtype in (torch.bfloat16, torch.float32):
         for D in args.head_dims:
             Dp = attention.padded_head_dim(D)
-            qu, k, v, bias, _ = cs._attention_inputs(Dp, dtype, gen, cs.SEQ, args.batch)
-            route = attention.attention_route(dtype, cs.SEQ, Dp)
-            call = (seed, 1.0 / np.sqrt(cs.HEADS * D), cs.RATE)
-            for s in args.splits or [None]:
-                fwd = lambda: attention._launch_fwd(route, qu, k, v, bias, *call,  # noqa: E731
-                                                    splits=s)
-                per = profile(fwd, args.launches)
-                ms, back = cs.cuda_ms_queued(fwd), cs.cuda_ms(fwd)
-                print(f"({args.batch}, {cs.HEADS}, {cs.SEQ}, {D} -> {Dp}) {str(dtype)[6:]} "
-                      f"splits {'chosen' if s is None else s}: forward {ms:.4f} ms queued, "
-                      f"{back:.4f} back to back; device ms a launch: "
+            for Dk in sorted({Dp, D}, reverse=True):
+                qu, k, v, bias, g = cs._attention_inputs(Dk, dtype, gen, cs.SEQ, args.batch)
+                route = attention.attention_route(dtype, cs.SEQ, Dk)
+                call = (seed, 1.0 / np.sqrt(cs.HEADS * D), cs.RATE)
+                shape = f"({args.batch}, {cs.HEADS}, {cs.SEQ}, {D} -> {Dk}) {str(dtype)[6:]}"
+                for s in args.splits or [None]:
+                    fwd = lambda: attention._launch_fwd(  # noqa: E731
+                        route, qu, k, v, bias, *call, splits=s)
+                    per = profile(fwd, args.launches)
+                    ms, back = cs.cuda_ms_queued(fwd), cs.cuda_ms(fwd)
+                    print(f"{shape} splits {'chosen' if s is None else s}: forward {ms:.4f} "
+                          f"ms queued, {back:.4f} back to back; device ms a launch: "
+                          + (", ".join(f"{n} {t:.4f}" for n, t in per.items())
+                             or "none recorded"), flush=True)
+                out, lse = fwd()
+                per = profile(lambda: attention._launch_bwd(route, qu, k, v, bias, g, out, lse,
+                                                            *call), args.launches)
+                print(f"{shape}: backward device ms a launch: "
                       + (", ".join(f"{n} {t:.4f}" for n, t in per.items()) or "none recorded"),
                       flush=True)
-            torch.cuda.empty_cache()
+                del qu, k, v, bias, g, out, lse
+                torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -3,13 +3,16 @@
 registers and spills (ptxas -v) side by side, to show what an edit of a
 source did to them.
 
-    python3 scripts/ptxas_report.py [--before DIR] [--after DIR] [--out FILE]
+    python3 scripts/ptxas_report.py [--before DIR] [--after DIR] [--out FILE] [--sass]
 
 ``--after`` defaults to this tree, ``--before`` to none (the after tree's
 report alone); a tree is a checkout (e.g. a parent commit unpacked with
 ``git archive``), built in its own ``sarssl_torch/_build``. Exits non-zero if
 a kernel of the after tree spills more than it did before (without
-``--before``: if one spills at all).
+``--before``: if one spills at all). With ``--before`` and ``--sass`` it also
+compares the two trees' machine code (``cuobjdump -sass``) of every kernel
+both hold, line for line with the anonymous namespace's name masked, and
+names each kernel whose code differs.
 """
 import argparse
 import json
@@ -17,6 +20,8 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 BUILD = ("import json, sys\n"
          "from sarssl_torch.kernels._build import build_all\n"
@@ -77,6 +82,29 @@ def kernels(logs: dict) -> dict:
     return {k: tuple(v) for k, v in res.items()}
 
 
+def sass(root: Path) -> dict:
+    """(library, kernel<template args>) -> its SASS lines, from
+    ``cuobjdump -sass`` of each library ``root``'s build holds, the
+    anonymous namespace's name (a hash that differs from build to build)
+    masked."""
+    from sarssl_torch.kernels._build import cuda_tool
+
+    res = {}
+    for lib in sorted((root / "sarssl_torch" / "_build").glob("lib*.so")):
+        stem = re.sub(r"_[0-9a-f]{16}$", "", lib.stem[3:])
+        if not (root / "sarssl_torch" / "csrc" / f"{stem}.cu").exists():
+            continue  # a host library (csrc/ism.cpp)
+        text = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        for part in re.split(r"\n\s*Function : ", text)[1:]:
+            name, _, body = part.partition("\n")
+            if not name.startswith("_ZN"):
+                continue
+            res[(stem, _demangle(name.strip()))] = re.sub(r"_GLOBAL__N__\w+", "NS", body).split(
+                "\n")
+    return res
+
+
 def r_spill(report) -> int:
     """Bytes a kernel's report spills (stores and loads)."""
     return report[1] + report[2]
@@ -87,9 +115,14 @@ def main():
     ap.add_argument("--before", type=Path)
     ap.add_argument("--after", type=Path, default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--out", type=Path, help="also write the table here")
+    ap.add_argument("--sass", action="store_true",
+                    help="with --before, compare the kernels' machine code too")
     args = ap.parse_args()
     after = kernels(ptxas_logs(args.after.resolve()))
     before = kernels(ptxas_logs(args.before.resolve())) if args.before else {}
+    code = {}
+    if args.before and args.sass:
+        code = {t: sass(r.resolve()) for t, r in (("before", args.before), ("after", args.after))}
     lines = [f"{'source':18} {'kernel':44} {'before':>14} {'after':>14}"]
     for key in sorted(set(after) | set(before)):
         cell = {t: (f"{r[0]} regs" + (f" +{r[1]}/{r[2]}B spill" if r[1] or r[2] else ""))
@@ -102,6 +135,11 @@ def main():
     lines.append(f"{len(after)} kernels after, {len(before)} before; {same} unchanged; "
                  f"spilling after: {spills or 'none'}; spilling more than before: "
                  f"{gained or 'none'}")
+    if code:
+        both = sorted(set(code["before"]) & set(code["after"]))
+        differ = [k for k in both if code["before"][k] != code["after"][k]]
+        lines.append(f"SASS: {len(both)} kernels in both trees, {len(both) - len(differ)} "
+                     f"identical line for line; differing: {differ or 'none'}")
     text = "\n".join(lines)
     print(text)
     if args.out:

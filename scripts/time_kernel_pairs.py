@@ -12,10 +12,14 @@ builds in its own ``_build``. The timing is this tree's ``chip_smoke``
 ``cuda_ms`` (back to back). Rows: hash_dropout at (128, 256, 2048) bf16,
 unsharded and with the index map (1024, 2048, 1024); the lane-seeded launch
 at (8, 8, 64, 2048) f32, queued and back to back, and at (65600, 64) f32
-(lanes shorter than a block); conv3x3 forward in f32 on the FMA instances at
+(lanes shorter than a block); the bf16 attention forward and backward at
+(128, 4, 256, D), D = 128, 64 and 512, rate 0.1; conv3x3 forward in f32 on the FMA instances at
 (16, 64, 64) with 64 -> 64 and 128 -> 128 channels; conv3x3 forward and dx
 in bf16 at (128, 256, 256, 64) 64 -> 64 (``conv3x3_mma.cu``) and at (16, 64,
-64) 96 -> 160 and 256 -> 256 (``conv3x3_any_mma.cu``'s row tiles); the f32 (3xTF32)
+64) 96 -> 160 and 256 -> 256 (``conv3x3_any_mma.cu``'s row tiles), and in
+bf16 and f32 (``conv3x3_tf32``, 3xTF32) at (128, 256, 256, 64) 64 -> 64 (f32
+only: bf16 is the row above), (16, 64, 64) 256 -> 256 and (65600, 4, 8) 64
+-> 64 and 3 -> 64 (the image groups); the f32 (3xTF32)
 attention forward and backward at (128, 4, 256, D), D = 16, 64, 128, 256,
 512, and at (1, 16, 4096, D), D = 16, 64, 128, 512 (``long``: the
 partial-sum instances), rate 0.1. ``--rows`` keeps the rows whose names start with one of its
@@ -67,14 +71,27 @@ ATTENTION_F32_SHAPES = tuple((f"d{D}", (128, 4, 256, D)) for D in (16, 64, 128, 
 
 
 def attention_rows(kernels, gen_seed=1):
-    """The f32 attention rows: (how, callable, exact) by name, the backward
-    on the tree's own forward's out and lse; exact up to the tree's
-    ``F32_PSUM_MIN_L`` (every L in a tree without it)."""
+    """The attention rows: (how, callable, exact) by name, the backward on
+    the tree's own forward's out and lse; f32 exact up to the tree's
+    ``F32_PSUM_MIN_L`` (every L in a tree without it); bf16 at the flagship's
+    head dims 128 and 64 and the wide instance's 512, (128, 4, 256, D)."""
     from importlib import import_module
 
     att = import_module(kernels.__name__ + ".attention")
     gen = torch.Generator(device="cuda").manual_seed(gen_seed)
     rows = {}
+    for D in (128, 64, 512):
+        qu, k, v, g = (torch.randn((128, 4, 256, D), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        bias = torch.randn((128, 4, 256, 256), generator=gen, device="cuda").bfloat16()
+        args = (0x9E3779B9, D ** -0.5, 0.1)
+        out, lse = att.launch_attention_fwd_mma(qu, k, v, bias, *args)
+        rows[f"attention_bf16_fwd_d{D}"] = (
+            "queued", lambda a=(qu, k, v, bias), r=args: att.launch_attention_fwd_mma(*a, *r)[0],
+            True)
+        rows[f"attention_bf16_bwd_d{D}"] = (
+            "queued", lambda a=(qu, k, v, bias, g, out, lse), r=args:
+            att.launch_attention_bwd_mma(*a, *r)[0], True)
     for tag, shape in ATTENTION_F32_SHAPES:
         B, H, L, D = shape
         qu, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
@@ -109,14 +126,20 @@ def rows_of(kernels, keep=None, gen_seed=0):
         xc = torch.randn((16, 64, 64, c), generator=gen, device="cuda")
         wc = torch.randn((3, 3, c, c), generator=gen, device="cuda") / (3 * c ** 0.5)
         convs[c] = (xc, wc)
-    bf16 = {}
+    tc = {}
     for tag, shape, cout in (("64", (128, 256, 256, 64), 64), ("96_160", (16, 64, 64, 96), 160),
-                             ("256", (16, 64, 64, 256), 256)):
+                             ("256", (16, 64, 64, 256), 256),
+                             ("n65600_64", (65600, 4, 8, 64), 64),
+                             ("n65600_3", (65600, 4, 8, 3), 64)):
         c = shape[-1]
-        bf16[tag] = (torch.randn(shape, generator=gen, device="cuda").bfloat16(),
-                     (torch.randn((3, 3, c, cout), generator=gen, device="cuda")
-                      / (3 * c ** 0.5)).bfloat16(),
-                     torch.randn(shape[:3] + (cout,), generator=gen, device="cuda").bfloat16())
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and tag == "96_160":
+                continue
+            tc[(tag, dtype)] = (
+                torch.randn(shape, generator=gen, device="cuda").to(dtype),
+                (torch.randn((3, 3, c, cout), generator=gen, device="cuda")
+                 / (3 * c ** 0.5)).to(dtype),
+                torch.randn(shape[:3] + (cout,), generator=gen, device="cuda").to(dtype))
     short = torch.randn((65600, 64), generator=gen, device="cuda")
     short_seeds = torch.randint(0, 2 ** 32, (65600,), generator=gen, device="cuda")
     rows = {
@@ -136,9 +159,12 @@ def rows_of(kernels, keep=None, gen_seed=0):
         "conv3x3_fwd_f32_128": ("queued", lambda: conv.launch_conv3x3_fma(*convs[128], "fma"),
                                 True),
     }
-    for tag, (xb, wb, dyb) in bf16.items():
-        rows[f"conv3x3_bf16_fwd_{tag}"] = ("queued", lambda a=(xb, wb): conv.conv3x3_fwd(*a), True)
-        rows[f"conv3x3_bf16_dx_{tag}"] = ("queued", lambda a=(dyb, wb): conv.conv3x3_dx(*a), True)
+    for (tag, dtype), (xb, wb, dyb) in tc.items():
+        kind = "bf16" if dtype == torch.bfloat16 else "tf32"
+        rows[f"conv3x3_{kind}_fwd_{tag}"] = ("queued", lambda a=(xb, wb): conv.conv3x3_fwd(*a),
+                                             True)
+        rows[f"conv3x3_{kind}_dx_{tag}"] = ("queued", lambda a=(dyb, wb): conv.conv3x3_dx(*a),
+                                            True)
     if keep is None or any(w.startswith("attention") for w in keep):
         rows.update(attention_rows(kernels))
     return {n: r for n, r in rows.items() if keep is None or any(n.startswith(w) for w in keep)}

@@ -166,10 +166,11 @@ def _stand_in(seen):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "tf32x3")])
 def test_fused_function_takes_each_pass_instance_at_256(monkeypatch, D, dtype, route):
     """``_FusedAttention`` on CPU tensors with the plain version standing in
-    for the C entries: at D = 200 and 256 (both at the padded head dim 256)
-    the bf16 forward runs the D = 256 instance and the other passes the wide
-    one, the counts say so, and out and the gradients equal the plain
-    version's, with dropout."""
+    for the C entries: at D = 256 the bf16 forward runs the D = 256 instance
+    and the other passes the wide one; at D = 200 every pass runs the wide
+    one at D itself, unpadded (its column tail); the counts say so (no
+    padding counted), and out and the gradients equal the plain version's,
+    with dropout."""
     seen = []
     run_fwd, run_bwd = _stand_in(seen)
     monkeypatch.setattr(att, "_check", lambda *a: None)
@@ -180,15 +181,18 @@ def test_fused_function_takes_each_pass_instance_at_256(monkeypatch, D, dtype, r
                    .to(dtype) for _ in range(4))
     bias = torch.from_numpy(rng.standard_normal((2, 2, 33, 33)).astype(np.float32)).to(dtype)
     args = (0x9E3779B9, 1.0 / np.sqrt(2 * D), 0.3, None, 0)
-    names = [f"attention_{kind}_{tag}d256" for kind in ("fwd", "bwd")
-             for tag in ("", f"{route}_", f"{route}_wide_")]
+    bf16 = dtype == torch.bfloat16
+    wide_fwd = not bf16 or D != 256  # the bf16 forward's D = 256 instance at 256 alone
+    names = [f"attention_{kind}_{tag}d{D}" for kind in ("fwd", "bwd")
+             for tag in ("", f"{route}_", f"{route}_wide_")] + [
+        f"attention_{kind}_{route}_padded_d256" for kind in ("fwd", "bwd")]
     before = [launches[n] for n in names]
     xs = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
     out = att._FusedAttention.apply(*xs, *args)
     grads = torch.autograd.grad(out, xs, g)
-    bf16 = dtype == torch.bfloat16
-    assert seen == [(route, "fwd", not bf16, 256), (route, "bwd", True, 256)]
-    assert [launches[n] - b for n, b in zip(names, before)] == [1, 1, int(not bf16), 1, 1, 1]
+    assert seen == [(route, "fwd", wide_fwd, D), (route, "bwd", True, D)]
+    assert [launches[n] - b for n, b in zip(names, before)] == [
+        1, 1, int(wide_fwd), 1, 1, 1, 0, 0]
     ys = [t.clone().requires_grad_() for t in (qu, k, v, bias)]
     ref = attention_plain(*ys, *args)
     ref_grads = torch.autograd.grad(ref, ys, g)

@@ -170,21 +170,24 @@ def test_float32_routing_takes_the_tf32_kernel(H, W, G):
 @pytest.mark.parametrize("rot", [False, True])
 @pytest.mark.parametrize("hw", [(4, 8), (64, 64)])
 def test_launcher_hands_float32_to_the_tf32_kernel(monkeypatch, rot, hw):
-    """``launch_conv3x3`` passes float32 to ``launch_conv3x3_tf32`` with the
-    routed G and ``rot`` (the kernel rotates the weight as it packs it)."""
+    """``launch_conv3x3`` hands float32 to the 3xTF32 kernel's launch with the
+    routed G and ``rot`` (the kernel rotates the weight as it packs it): the
+    plan it launches names ``conv3x3_tf32.cu``'s row tiles or groups, and its
+    C call carries (N, H, W, C, Cout, NB, rot, G)."""
     seen = []
 
-    def tf32(x, w, name, rot=False, groups=0):
-        seen.append((name, rot, groups))
+    def tf32(x, w, name, plan):
+        seen.append((name, plan.kernel, tuple(plan.call), plan.suffix))
         return x
 
-    monkeypatch.setattr(conv_mod, "launch_conv3x3_tf32", tf32)
-    monkeypatch.setattr(conv_mod, "_check", lambda *a: None)
+    monkeypatch.setattr(conv_mod, "_launch_runtime_channels", tf32)
     x = torch.empty((3, *hw, 13), device=META)
     w = torch.empty((3, 3, 24, 13) if rot else (3, 3, 13, 24), device=META)
     launch_conv3x3(x, w, "conv3x3_dx" if rot else "conv3x3_fwd", rot=rot)
-    assert seen == [("conv3x3_dx" if rot else "conv3x3_fwd", rot,
-                     conv_tiling(torch.float32, *hw, 13, 24))]
+    G = conv_tiling(torch.float32, *hw, 13, 24)
+    assert seen == [("conv3x3_dx" if rot else "conv3x3_fwd", "tf32_groups" if G else "tf32",
+                     (3, *hw, 13, 24, tf32_passes(24, 13)[1], int(rot), G),
+                     "_tf32_groups" if G else "_tf32")]
 
 
 def test_tf32_launcher_refuses_what_the_kernel_does_not_take():

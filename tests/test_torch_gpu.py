@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 from sarssl_torch.kernels import (attention_plain, conv3x3, conv3x3_plain,  # noqa: E402
                                   conv3x3_s2d, conv3x3_s2d_plain, dropout_plain,
                                   fused_attention, hash_dropout, launches)
-from sarssl_torch.kernels.attention import (attention_route, fma_row_block,  # noqa: E402
+from sarssl_torch.kernels.attention import (attention_pass_head_dim,  # noqa: E402
+                                            attention_route, fma_row_block,
                                             fma_smem_bytes, launch_attention_bwd_fma,
                                             padded_head_dim,
                                             launch_attention_bwd_mma,
@@ -49,16 +50,17 @@ def _rel(a, b):
 
 def _attention_case(gen, shape, dtype, rate):
     """fused_attention, forward and backward, against the plain version in
-    f32; asserts which set of kernels ran from the launch counts (at the
-    instance's head dim, D padded to the next of 16 / 32 / 64 / 128 / 256;
-    never the FMA kernels)."""
+    f32; asserts which set of kernels ran from the launch counts (each pass
+    at the head dim it runs at, ``attention_pass_head_dim``: the instance's,
+    D padded to the next of 16 / 32 / 64 / 128 / 256, or D itself on the wide
+    instance; never the FMA kernels)."""
     B, H, L, D = shape
     shapes = [shape] * 3 + [(B, H, L, L)]
     xs = [torch.randn(s, generator=gen, device="cuda").to(dtype).requires_grad_()
           for s in shapes]
     g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     seed, scale = 0xFEEDBEEF, D ** -0.5
-    names = [f"attention_{kind}_{tag}d{padded_head_dim(D)}"
+    names = [f"attention_{kind}_{tag}d{attention_pass_head_dim(dtype, kind, D)}"
              for tag in ("", "tc_", "tf32x3_", "fma_") for kind in ("fwd", "bwd")]
     before = [launches[n] for n in names]
     out = fused_attention(*xs, seed, scale, rate)
@@ -214,11 +216,12 @@ def test_head_dim_256_dropped_positions_equal_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_wide_head_dims_match_plain(cuda, L, D, dtype, rate):
-    """Past 256 the wide instance (D = 300 and 320 at 320, on blocks of 64
-    columns; 512 and 1000 at 512 and 1024, on blocks of 128) at tails of 1
-    and 33 rows, whole tiles and the CLS token's 257, with dropout's
-    positions (held through the gradients) those of the plain version."""
-    names = [f"attention_{kind}_{tag}wide_d{padded_head_dim(D)}" for kind in ("fwd", "bwd")
+    """Past 256 the wide instance (D = 300 and 320 in five chunks of 64
+    columns, 300 unpadded, its column tail; 512 and 1000 in blocks of 128
+    columns, 1000 unpadded) at tails of 1 and 33 rows, whole tiles and the
+    CLS token's 257, with dropout's positions (held through the gradients)
+    those of the plain version; counted at D."""
+    names = [f"attention_{kind}_{tag}wide_d{D}" for kind in ("fwd", "bwd")
              for tag in ("tc_", "tf32x3_")]
     before = [launches[n] for n in names]
     _attention_case(cuda, (1, 2, L, D), dtype, rate)
@@ -263,22 +266,27 @@ def test_wide_instance_at_256_matches_plain(cuda, L, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_256_routes_count_their_instances(cuda, dtype):
-    """``fused_attention`` at D = 200 and 256 (both at 256): the bf16 forward
-    on the D = 256 instance, the bf16 backward and both f32 passes on the wide
-    instance, as ``attention_instance`` names them."""
-    from sarssl_torch.kernels.attention import attention_instance
+    """``fused_attention`` at D = 200 and 256: the bf16 forward at 256 on the
+    D = 256 instance, every other pass on the wide instance at D itself (at
+    200 unpadded, the bf16 forward too), as ``attention_instance`` and
+    ``attention_pass_head_dim`` name them."""
+    from sarssl_torch.kernels.attention import attention_instance, attention_instance_at
 
     route = attention_route(dtype, 64, 256)
     for D in (200, 256):
-        names = [f"attention_{kind}_{route}_{w}d256" for kind in ("fwd", "bwd")
+        runs = [attention_pass_head_dim(dtype, kind, D) for kind in ("fwd", "bwd")]
+        assert runs == [D, D]
+        names = [f"attention_{kind}_{route}_{w}d{D}" for kind in ("fwd", "bwd")
                  for w in ("", "wide_")]
         before = [launches[n] for n in names]
         xs = [torch.randn(s, generator=cuda, device="cuda").to(dtype).requires_grad_()
               for s in [(2, 2, 64, D)] * 3 + [(2, 2, 64, 64)]]
         out = fused_attention(*xs, 0xFEEDBEEF, D ** -0.5, 0.3)
         torch.autograd.grad(out, xs, torch.ones_like(out))
-        wide = [attention_instance(dtype, kind, 256) == "wide" for kind in ("fwd", "bwd")]
-        assert wide == [route == "tf32x3", True]
+        wide = [attention_instance_at(dtype, kind, D) == "wide" for kind in ("fwd", "bwd")]
+        assert wide == [route == "tf32x3" or D != 256, True]
+        assert wide == [attention_instance(dtype, kind, 256) == "wide" or D != 256
+                        for kind in ("fwd", "bwd")]
         assert [launches[n] - b for n, b in zip(names, before)] == [1, int(wide[0]), 1, 1]
 
 
@@ -947,11 +955,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(x.transpose(2, 3).contiguous().transpose(2, 3), x, x, bias, 0, 0.1)
     with pytest.raises(ValueError):
         fused_attention(x.half(), x.half(), x.half(), bias.half(), 0, 0.1)
-    # past 256 fused_attention pads to the wide instance, whose launcher takes
-    # only the multiples of its chunk; no head dim below 1 runs
-    wide = torch.randn(2, 2, 64, 257, device="cuda")
+    # the wide instance takes every head dim past 128 unpadded but an odd
+    # bf16 one (rows of no whole 4-byte pieces), which fused_attention pads;
+    # no head dim below 1 runs
+    wide = torch.randn(2, 2, 64, 257, device="cuda").bfloat16()
     with pytest.raises(ValueError):
-        launch_attention_fwd_tf32(wide, wide, wide, bias, 0, 0.1, 0.0)
+        launch_attention_fwd_mma(wide, wide, wide, bias.bfloat16(), 0, 0.1, 0.0)
     empty = torch.randn(2, 2, 64, 0, device="cuda")
     with pytest.raises(ValueError):
         fused_attention(empty, empty, empty, bias, 0, 0.1)
@@ -1301,3 +1310,59 @@ def test_conv_tf32_holds_float64_at_large_k(cuda, C, positive, nhw):
         w = torch.randn((3, 3, C, C), generator=cuda, device="cuda") / (3 * C ** 0.5)
     assert _rel(conv3x3_fwd(x, w), _conv64(x, w)) <= TOL[torch.float32]
     assert _rel(conv3x3_dx(dy, w), _conv64(dy, rot180_io(w))) <= TOL[torch.float32]
+
+
+# the runtime-channel convs' small shapes (chip_smoke.py's phase edges): one
+# a kernel's mode and tail, Cout % 8 != 0, ragged groups, N past 65535
+ONE_LAUNCH_CONVS = (((16, 64, 64), 64, 48), ((16, 64, 64), 3, 64), ((4099, 3, 5), 13, 24),
+                    ((2, 19, 38), 96, 160), ((2, 19, 38), 64, 61), ((65600, 4, 8), 3, 64))
+
+
+@pytest.mark.parametrize("case", ONE_LAUNCH_CONVS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_runtime_channel_call_is_one_launch(cuda, case, dtype):
+    """A runtime-channel tensor-core conv call, forward and dx, is one kernel
+    launch (the weight packed by the same kernel's blocks before a grid
+    barrier), as torch.profiler counts the launch calls; its result is
+    bit-identical from call to call and within its tolerance of the plain
+    version."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import launches_a_call
+
+    (N, H, W), C, Cout = case
+    x = torch.randn((N, H, W, C), generator=cuda, device="cuda").to(dtype)
+    dy = torch.randn((N, H, W, Cout), generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn((3, 3, C, Cout), generator=cuda, device="cuda") / (3 * C ** 0.5)).to(dtype)
+    tol = 1e-2 if dtype == torch.bfloat16 else TOL[dtype]
+    for call, inp, ref_w in ((lambda: conv3x3_fwd(x, w), x, w),
+                             (lambda: conv3x3_dx(dy, w), dy, rot180_io(w))):
+        assert launches_a_call(call) == 1
+        y = call()
+        assert torch.equal(y, call())
+        ref = conv3x3_plain(inp[:512].float(), ref_w.float())
+        assert _rel(y[:512], ref) <= tol
+
+
+@pytest.mark.parametrize("D,dtype", [(300, torch.bfloat16), (1000, torch.bfloat16),
+                                     (130, torch.bfloat16), (254, torch.bfloat16),
+                                     (255, torch.bfloat16), (301, torch.bfloat16),
+                                     (300, torch.float32), (1000, torch.float32),
+                                     (130, torch.float32), (255, torch.float32)])
+@pytest.mark.parametrize("L", [33, 256])
+def test_wide_column_tail_matches_plain(cuda, L, D, dtype):
+    """``fused_attention`` at head dims no multiple of 64 at batch 8 (the wide
+    forward's keys split), rate 0.3: each pass at ``attention_pass_head_dim``,
+    the wide instance's column tail reading qu, k, v and g at D (rows 16-,
+    8- or 4-byte aligned) where it runs unpadded; out and the gradients
+    within 2e-2 (bf16) / 1e-4 (f32) of the plain version; the padding
+    counted only where a pass pads (an odd bf16 D)."""
+    route = attention_route(dtype, L, D)
+    pads = [attention_pass_head_dim(dtype, kind, D) != D for kind in ("fwd", "bwd")]
+    names = [f"attention_{kind}_{route}_padded_d{padded_head_dim(D)}" for kind in ("fwd", "bwd")]
+    before = [launches[n] for n in names]
+    _attention_case(cuda, (8, 2, L, D), dtype, 0.3)
+    assert [launches[n] - b for n, b in zip(names, before)] == [int(p) for p in pads]
+    assert pads == [dtype == torch.bfloat16 and D % 2 == 1] * 2
